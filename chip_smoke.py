@@ -1,4 +1,5 @@
-"""Drive the PyTorch/CUDA port's serving path once on one NVIDIA GPU.
+"""Drive the PyTorch/CUDA port's serving and training paths once on one
+NVIDIA GPU.
 
     python3 chip_smoke.py
 
@@ -6,29 +7,54 @@ Phases, in order; any failure propagates and the exit code is not 0:
 
   1. device   card name, count and nvidia-smi's name and power limit;
               TF32 off for matmuls and cuDNN
-  2. build    nvcc builds euler_tpu_torch/csrc/fan_draw.cu and g++ the
-              native host core, both from this checkout, in parallel
+  2. build    nvcc builds euler_tpu_torch/csrc/fan_draw.cu and
+              gather_rows.cu, and g++ the native host core, all from this
+              checkout and all at once
   3. kernel   fan_draw against its plain PyTorch version at the two hop
               shapes of the path (B=1024, C=25) and (B=26,624, C=10) and a
               ragged B, on fan rows covering degree 0..42, reservoir rows,
               zero weight sums and node -1; ids and valid must be equal bit
               for bit. Timed with CUDA events, L2 flushed between launches
-  4. graph    random_graph(200_000, 25, feat_dim=128, n_classes=16, seed=0,
+  4. gather   gather_rows against its plain version, bit for bit (NaN rows
+              compared as integers), on ids that include -1 and >= N: the
+              deepest feature gather (M=292,864, D=128 from [200,000, 128])
+              in f32 and bf16, the label gather (1024, 16), ragged widths
+              D = 1, 3, 127 (f32) and 5 (bf16), and column offsets into
+              wider outputs on the 16-byte and the element path. At the two
+              292,864-row shapes also the kernel's, the plain version's and
+              torch.index_select's times (CUDA events, L2 flushed) and the
+              bytes bound
+  5. graph    random_graph(200_000, 25, feat_dim=128, n_classes=16, seed=0,
               packs=("fan",)) on the card
-  5. model    SuperviseModel(GNNNet("sage", SageDataFlow([25, 10], ...),
+  6. model    SuperviseModel(GNNNet("sage", SageDataFlow([25, 10], ...),
               dims=(128, 128)), "label", 16), weights from a seeded
               generator
-  6. infer    NodeEstimator.infer(arange(8192)), batch 1024: the main
-              path. fan_draw's launch count is set to 0 before and must be
-              16 (2 hops x 8 batches) after; embeddings finite [8192, 128].
-              Then the steady forward time per batch, and a torch.profiler
-              table of CUDA time by kernel over two more batches
-  7. parity   one batch through the port on the card and on the CPU with
+  7. infer    NodeEstimator.infer(arange(8192)), batch 1024: the serving
+              path. The launch counts are set to 0 before and must be 16
+              for fan_draw (2 hops x 8 batches) and 16 for gather_rows
+              (features and labels x 8 batches) after; embeddings finite
+              [8192, 128]. Then the steady forward time per batch, and a
+              torch.profiler table of CUDA time by kernel over two more
+              batches
+  8. parity   one batch through the port on the card and on the CPU with
               the same weights and uniforms: equal sampled ids, embeddings
               within rtol = atol = 1e-4 (f32, different summation order)
-  8. serve    serve_embeddings on 127.0.0.1: /healthz, /embedding, /knn by
+  9. serve    serve_embeddings on 127.0.0.1: /healthz, /embedding, /knn by
               id and by vector, each checked
-  9. report   one JSON line of kernels, then the last line
+ 10. train    NodeEstimator.train(8 steps) at full width with a reservoir
+              redraw every 3 steps: the training path. The counts are set
+              to 0 before and must be 2 per step for each kernel after; the
+              loss finite, the roots in [0, N), and the two redraws must
+              have rewritten only the kept and alias lanes of the reservoir
+              rows (fan_over_rows), with neighbors of each row's group.
+              Then a torch.profiler table over two more steps
+ 11. grads    one training step on the card and on the CPU from the same
+              weights, roots and uniforms (f32, TF32 off): loss and the
+              gradient of every parameter within rtol = atol = 1e-4
+ 12. bench    the port's bench (euler_tpu_torch/bench.py) at bench.py's
+              sage width, bf16 activations: warmup, single_loop and
+              pipelined JSON lines; each kernel 2 launches per step
+ 13. report   one JSON line of kernels, then the last line
               {"ok": true, "device": {...}}
 
 It exits non-zero, with no result line, where torch.cuda.is_available()
@@ -49,12 +75,14 @@ import urllib.request
 import numpy as np
 import torch
 
+from euler_tpu_torch import bench
 from euler_tpu_torch.dataflow import SageDataFlow
 from euler_tpu_torch.datasets import random_graph
 from euler_tpu_torch.estimator import NodeEstimator, RunConfig
 from euler_tpu_torch.models import GNNNet, ShallowEncoder, SuperviseModel
 from euler_tpu_torch.native import loader as native
 from euler_tpu_torch.ops import fan_draw as fd
+from euler_tpu_torch.ops import gather_rows as gr
 from euler_tpu_torch.ops import sampling
 from euler_tpu_torch.ops.alias import (FAN_ALIAS_OFF, FAN_D, FAN_KEPT_OFF,
                                        FAN_PROB_OFF)
@@ -69,6 +97,19 @@ HOP_SHAPES = [(BATCH, FANOUTS[0]), (BATCH * (1 + FANOUTS[0]), FANOUTS[1])]
 EDGES_PER_BATCH = (BATCH * FANOUTS[0] + BATCH * FANOUTS[0] * FANOUTS[1]
                    + BATCH + BATCH * FANOUTS[0])
 PARITY_TOL = dict(rtol=1e-4, atol=1e-4)
+# the deepest gathered set: roots plus both hops' draws
+GATHER_ROWS = BATCH * (1 + FANOUTS[0]) * (1 + FANOUTS[1])     # 292,864
+TRAIN_STEPS, TRAIN_REFRESH = 8, 3
+
+
+def reset_counts() -> None:
+    fd.fan_draw.launches = 0
+    gr.gather_rows.launches = 0
+
+
+def read_counts() -> dict:
+    return dict(fan_draw=fd.fan_draw.launches,
+                gather_rows=gr.gather_rows.launches)
 
 
 def log(msg: str) -> None:
@@ -188,7 +229,90 @@ def phase_kernel(dev):
     return shapes
 
 
-# ---------------------------------------------------------------- phase 6 --
+# ---------------------------------------------------------------- phase 4 --
+
+def int_view(x: torch.Tensor) -> torch.Tensor:
+    return x.view(torch.int32 if x.element_size() == 4 else torch.int16)
+
+
+def gather_ids(rng, M: int, N: int, dev) -> torch.Tensor:
+    """Uniform ids in [0, N) with about 1% of -1 and a few >= N."""
+    ids = rng.integers(0, N, M).astype(np.int32)
+    ids[rng.random(M) < 0.01] = -1
+    ids[rng.random(M) < 0.001] = N + rng.integers(0, 7)
+    ids[:3] = [-1, N, N - 1]
+    return torch.from_numpy(ids).to(dev)
+
+
+def gather_bytes(table, ids) -> int:
+    """Bytes the gather must move: each distinct in-range row read once,
+    the output written once, the ids read once."""
+    N, D = table.shape
+    ok = ids[(ids >= 0) & (ids < N)]
+    rows = int(torch.unique(ok).numel())
+    elt = table.element_size()
+    return rows * D * elt + ids.numel() * D * elt + 4 * ids.numel()
+
+
+def phase_gather(dev):
+    rng = np.random.default_rng(7)
+    gen = torch.Generator(device=dev).manual_seed(7)
+    flush = torch.empty(64 << 20, dtype=torch.uint8, device=dev)
+    cases = [  # (N, D, M, dtype, out width or None, col_offset, timed)
+        (N_NODES, FEAT_DIM, GATHER_ROWS, torch.float32, None, 0, True),
+        (N_NODES, FEAT_DIM, GATHER_ROWS, torch.bfloat16, None, 0, True),
+        (N_NODES, N_CLASSES, BATCH, torch.float32, None, 0, False),
+        (5000, 1, 10_007, torch.float32, None, 0, False),
+        (5000, 3, 10_007, torch.float32, None, 0, False),
+        (5000, 127, 10_007, torch.float32, None, 0, False),
+        (5000, 5, 10_007, torch.bfloat16, None, 0, False),
+        (5000, 128, 10_007, torch.float32, 256, 128, False),   # 16-byte path
+        (5000, 128, 10_007, torch.bfloat16, 264, 8, False),    # 16-byte path
+        (5000, 64, 10_007, torch.float32, 300, 37, False),     # element path
+    ]
+    rows = []
+    for N, D, M, dtype, W, off, timed in cases:
+        table = torch.randn((N, D), generator=gen, device=dev, dtype=dtype)
+        ids = gather_ids(rng, M, N, dev)
+        if W is None:
+            got = gr.gather_rows(table, ids)
+            want = gr.gather_rows_plain(table, ids)
+        else:
+            base = torch.full((M, W), 7.0, dtype=dtype, device=dev)
+            got = gr.gather_rows(table, ids, base.clone(), off)
+            want = gr.gather_rows_plain(table, ids, base.clone(), off)
+        torch.cuda.synchronize()
+        check(got.dtype == want.dtype and got.shape == want.shape
+              and torch.equal(int_view(got), int_view(want)),
+              f"gather_rows kernel != plain at N={N} D={D} M={M} {dtype} "
+              f"W={W} offset={off}")
+        err = float((got.float() - want.float()).abs().nan_to_num(0).max())
+        row = dict(N=N, D=D, M=M, dtype=str(dtype).replace("torch.", ""),
+                   out_width=W, col_offset=off, bit_exact=True,
+                   max_abs_err=err,
+                   nan_rows=int(torch.isnan(got).any(1).sum()),
+                   zero_rows=int((ids < 0).sum()))
+        check(row["nan_rows"] >= int((ids >= N).sum()) > 0,
+              "ids >= N gave NaN rows")
+        if timed:
+            out = torch.empty((M, D), dtype=dtype, device=dev)
+            clamped = ids.clamp(0, N - 1)
+            row["ms"] = time_launches(
+                lambda: gr.gather_rows(table, ids, out), 200, flush)
+            row["plain_ms"] = time_launches(
+                lambda: gr.gather_rows_plain(table, ids), 50, flush)
+            row["library_ms"] = time_launches(
+                lambda: torch.index_select(table, 0, clamped), 200, flush)
+            row["bytes"] = gather_bytes(table, ids)
+            row["bound_ms"] = row["bytes"] / HBM_BYTES_PER_S * 1e3
+            row["distinct_rows"] = int(torch.unique(
+                ids[(ids >= 0) & (ids < N)]).numel())
+        rows.append(row)
+        log(f"gather: {json.dumps(row)}")
+    return rows
+
+
+# ---------------------------------------------------------------- phase 7 --
 
 def phase_infer(model, graph, out_dir, dev):
     roots0 = torch.arange(BATCH, dtype=torch.int32, device=dev)
@@ -197,16 +321,15 @@ def phase_infer(model, graph, out_dir, dev):
               generator=torch.Generator(device=dev).manual_seed(9))
     torch.cuda.synchronize()
 
-    fd.fan_draw.launches = 0
+    reset_counts()
     t0 = time.perf_counter()
-    emb = NodeEstimator(model, graph, RunConfig(batch_size=BATCH, seed=0)
-                        ).infer(np.arange(N_INFER), out_dir=out_dir)
+    emb = NodeEstimator(model, graph, RunConfig(batch_size=BATCH, seed=0),
+                        device=dev).infer(np.arange(N_INFER), out_dir=out_dir)
     torch.cuda.synchronize()
     infer_s = time.perf_counter() - t0
-    launches = fd.fan_draw.launches
-    check(launches == 2 * N_INFER // BATCH,
-          f"fan_draw launched {launches} times in infer, want "
-          f"{2 * N_INFER // BATCH}")
+    launches = read_counts()
+    want = dict(fan_draw=2 * N_INFER // BATCH, gather_rows=2 * N_INFER // BATCH)
+    check(launches == want, f"launches in infer {launches}, want {want}")
     check(emb.shape == (N_INFER, DIMS[-1]), f"embedding shape {emb.shape}")
     check(bool(np.isfinite(emb).all()), "embeddings finite")
 
@@ -226,22 +349,52 @@ def phase_infer(model, graph, out_dir, dev):
         infer_edges_per_sec=EDGES_PER_BATCH / fwd_s)
 
 
+def profile(fn, what: str) -> dict:
+    """Log torch.profiler's table of CUDA time by kernel over ``fn()``,
+    then one JSON line: the host-clock time of the window, the device's
+    busy time (the sum of its kernels and copies; user annotations, which
+    are spans, left out), its idle share of the window, and the kernels
+    with the most device time."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile as torch_profile
+    torch.cuda.synchronize()
+    with torch_profile(activities=[ProfilerActivity.CPU,
+                                   ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        host_ms = (time.perf_counter() - t0) * 1e3
+    log(f"profile ({what}), by CUDA time:")
+    log(prof.key_averages().table(sort_by="cuda_time_total", row_limit=20))
+    by_name = {}
+    for e in prof.events():
+        if e.device_type == DeviceType.CUDA and not getattr(
+                e, "is_user_annotation", False):
+            us, n = by_name.get(e.name, (0.0, 0))
+            by_name[e.name] = (us + e.time_range.elapsed_us(), n + 1)
+    busy_ms = sum(us for us, _ in by_name.values()) / 1e3
+    check(busy_ms > 0, f"the profile of {what} saw no device time")
+    top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:12]
+    out = dict(what=what, host_ms=host_ms, device_busy_ms=busy_ms,
+               device_idle_share=1.0 - busy_ms / host_ms,
+               kernels=[dict(name=k[:90], us=us, calls=n)
+                        for k, (us, n) in top])
+    log(f"profile: {json.dumps(out)}")
+    return out
+
+
 def phase_profile(model, graph, dev):
-    from torch.profiler import ProfilerActivity, profile
     gen = torch.Generator(device=dev).manual_seed(4)
     roots = torch.arange(BATCH, dtype=torch.int32, device=dev)
-    with torch.no_grad():
-        torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
+
+    def two_batches():
+        with torch.no_grad():
             for _ in range(2):
                 model(graph.tensors, roots, generator=gen)
-            torch.cuda.synchronize()
-    log("profile (2 batches), by CUDA time:")
-    log(prof.key_averages().table(sort_by="cuda_time_total", row_limit=20))
+    return profile(two_batches, "2 inference batches")
 
 
-# ---------------------------------------------------------------- phase 7 --
+# ---------------------------------------------------------------- phase 8 --
 
 def phase_parity(model, graph, dev):
     roots = torch.arange(N_NODES // 2, N_NODES // 2 + BATCH,
@@ -273,7 +426,7 @@ def phase_parity(model, graph, dev):
                 n_id_sizes=[int(b.n_id.numel()) for b in blocks])
 
 
-# ---------------------------------------------------------------- phase 8 --
+# ---------------------------------------------------------------- phase 9 --
 
 def _request(port, path, obj=None):
     data = None if obj is None else json.dumps(obj).encode()
@@ -311,6 +464,123 @@ def phase_serve(out_dir):
         srv.server_close()
 
 
+# --------------------------------------------------------------- phase 10 --
+
+def check_redraw(before, g, rng) -> dict:
+    """The reservoir redraws rewrote only the kept and alias lanes of the
+    rows in fan_over_rows, with neighbors of each row's group."""
+    after = g.fan_pack
+    over = g.fan_over_rows.long()
+    keep = torch.ones(after.shape[0], dtype=torch.bool, device=after.device)
+    keep[over] = False
+    check(torch.equal(after[keep], before[keep]),
+          "redraw changed a row that is not a reservoir row")
+    check(torch.equal(after[over, :FAN_KEPT_OFF], before[over, :FAN_KEPT_OFF]),
+          "redraw changed a head or prob lane")
+    kept = after[over, FAN_KEPT_OFF:FAN_KEPT_OFF + FAN_D]
+    check(torch.equal(kept, after[over, FAN_ALIAS_OFF:FAN_ALIAS_OFF + FAN_D]),
+          "kept and alias lanes differ after the redraw")
+    changed = (kept != before[over, FAN_KEPT_OFF:FAN_KEPT_OFF + FAN_D])
+    check(bool(changed.any()), "the redraw changed nothing")
+    gp, dst = g.group_ptr.cpu().numpy(), g.adj_dst.cpu().numpy()
+    rows, kept_np = over.cpu().numpy(), kept.cpu().numpy()
+    for i in rng.choice(len(rows), min(500, len(rows)), replace=False):
+        r = rows[i]
+        check(set(kept_np[i]) <= set(dst[gp[r]:gp[r + 1]]),
+              f"redrawn row {r} holds a non-neighbor")
+    return dict(reservoir_rows=len(rows),
+                lanes_changed=float(changed.float().mean()))
+
+
+def phase_train(model, graph, dev):
+    cfg = RunConfig(batch_size=BATCH, total_steps=TRAIN_STEPS,
+                    optimizer="adam", learning_rate=1e-3,
+                    log_steps=TRAIN_STEPS, reservoir_refresh=TRAIN_REFRESH)
+    est = NodeEstimator(model, graph, cfg, device=dev)
+    roots = []
+    draw = est.train_batch
+    est.train_batch = lambda g, gen: roots.append(draw(g, gen)) or roots[-1]
+    before = graph.tensors.fan_pack.clone()
+
+    reset_counts()
+    t0 = time.perf_counter()
+    res = est.train(log_fn=log)
+    torch.cuda.synchronize()
+    train_s = time.perf_counter() - t0
+    launches = read_counts()
+    want = dict(fan_draw=2 * TRAIN_STEPS, gather_rows=2 * TRAIN_STEPS)
+    check(launches == want, f"launches in train {launches}, want {want}")
+    check(bool(np.isfinite(res["loss"])), f"train loss {res['loss']}")
+    r = torch.stack(roots)
+    check(r.shape == (TRAIN_STEPS, BATCH) and int(r.min()) >= 0
+          and int(r.max()) < N_NODES, "roots in [0, N)")
+    redraw = check_redraw(before, graph.tensors, np.random.default_rng(0))
+
+    opt = torch.optim.Adam(model.parameters(), 1e-3)
+    gen = torch.Generator(device=dev).manual_seed(6)
+    prof = profile(lambda: [est.step(opt, est.train_batch(graph.tensors, gen),
+                                     generator=gen) for _ in range(2)],
+                   "2 train steps")
+    return dict(launches=launches, profile_host_ms=prof["host_ms"],
+                profile_device_busy_ms=prof["device_busy_ms"], loss=res["loss"],
+                train_ms_per_step=train_s / TRAIN_STEPS * 1e3,
+                distinct_roots=int(torch.unique(r).numel()), **redraw)
+
+
+# --------------------------------------------------------------- phase 11 --
+
+def phase_grads(model, graph, dev):
+    gen = torch.Generator(device=dev).manual_seed(8)
+    roots = sampling.sample_node(graph.tensors, BATCH, -1, gen)
+    uniforms, n = [], BATCH
+    for c in FANOUTS:
+        uniforms.append(sampling.draw_fan_uniforms(gen, n, c, dev))
+        n *= 1 + c
+    cpu = torch.device("cpu")
+    runs = {}
+    for where, m, g, r, u in (
+            ("card", copy.deepcopy(model), graph.tensors, roots, uniforms),
+            ("cpu", copy.deepcopy(model).to(cpu), graph.tensors.to(cpu),
+             roots.cpu(), [(a.cpu(), b.cpu()) for a, b in uniforms])):
+        m.train()
+        m.zero_grad(set_to_none=True)
+        loss = m(g, r, uniforms=u)["loss"]
+        loss.backward()
+        runs[where] = (loss.detach().cpu(),
+                       {k: p.grad.cpu() for k, p in m.named_parameters()})
+    (loss_k, grads_k), (loss_c, grads_c) = runs["card"], runs["cpu"]
+    check(torch.allclose(loss_k, loss_c, **PARITY_TOL),
+          f"train loss card {float(loss_k)} vs CPU {float(loss_c)}")
+    diffs = {}
+    for k, gk in grads_k.items():
+        diffs[k] = float((gk - grads_c[k]).abs().max())
+        check(torch.allclose(gk, grads_c[k], **PARITY_TOL),
+              f"gradient of {k}: card vs CPU max abs diff {diffs[k]}")
+    return dict(loss_card=float(loss_k), loss_cpu=float(loss_c),
+                loss_abs_diff=float((loss_k - loss_c).abs()),
+                grad_max_abs_diff=max(diffs.values()), n_params=len(diffs))
+
+
+# --------------------------------------------------------------- phase 12 --
+
+def phase_bench(dev):
+    _, _, spl, outer = bench.SIZES["cuda"]
+    reset_counts()
+    records = bench.run(dev, log=log)
+    launches = read_counts()
+    steps = spl * (2 + outer)
+    want = dict(fan_draw=2 * steps, gather_rows=2 * steps)
+    check(launches == want, f"launches in bench {launches}, want {want}")
+    check(len(records) == 3 and all(r["platform"] == "cuda"
+                                    and r["vs_baseline"] is None
+                                    for r in records), "bench lines")
+    return dict(launches=launches,
+                **{f"{r['phase']}_ms_per_step": r["ms_per_step"]
+                   for r in records},
+                **{f"{r['phase']}_edges_per_sec": r["value"]
+                   for r in records})
+
+
 # ------------------------------------------------------------------- main --
 
 def main() -> int:
@@ -333,21 +603,21 @@ def main() -> int:
     log(f"device: {name} (count {count}); torch {torch.__version__}, "
         f"CUDA {torch.version.cuda}")
 
-    # 2. build: nvcc and g++ started together
+    # 2. build: both nvcc builds and g++ started together
     t0 = time.perf_counter()
-    with concurrent.futures.ThreadPoolExecutor(2) as ex:
-        kernel = ex.submit(fd.build)
-        core = ex.submit(native.get_lib)
-        kernel.result()
-        core.result()
+    with concurrent.futures.ThreadPoolExecutor(3) as ex:
+        builds = [ex.submit(f) for f in (fd.build, gr.build, native.get_lib)]
+        for b in builds:
+            b.result()
     build_s = time.perf_counter() - t0
-    log(f"build: {build_s:.1f} s (fan_draw.cu by nvcc, sm_90a); native "
-        f"host core loaded: {native.available()}")
+    log(f"build: {build_s:.1f} s (fan_draw.cu and gather_rows.cu by nvcc, "
+        f"sm_90a); native host core loaded: {native.available()}")
 
-    # 3. kernel vs plain
+    # 3. fan_draw vs plain; 4. gather_rows vs plain
     shapes = phase_kernel(dev)
+    gathers = phase_gather(dev)
 
-    # 4. graph
+    # 5. graph
     t0 = time.perf_counter()
     graph = random_graph(N_NODES, AVG_DEGREE, feat_dim=FEAT_DIM,
                          n_classes=N_CLASSES, seed=0, packs=("fan",))
@@ -357,7 +627,7 @@ def main() -> int:
         f"{int(graph.tensors.fan_over_rows.numel())} reservoir rows, "
         f"built in {graph_s:.1f} s")
 
-    # 5. model
+    # 6. model
     gen = torch.Generator().manual_seed(0)
     net = GNNNet("sage", SageDataFlow(FANOUTS, [(0,), (0,)]), DIMS,
                  ShallowEncoder(("feature",)), in_dim=FEAT_DIM,
@@ -366,26 +636,46 @@ def main() -> int:
     model.eval()
 
     with tempfile.TemporaryDirectory() as out_dir:
-        # 6. infer (the main path)
+        # 7. infer (the serving path)
         emb, infer = phase_infer(model, graph, out_dir, dev)
         log(f"infer: {json.dumps(infer)}")
-        phase_profile(model, graph, dev)
-        # 7. card vs CPU
+        infer_prof = phase_profile(model, graph, dev)
+        infer.update(profile_host_ms=infer_prof["host_ms"],
+                     profile_device_busy_ms=infer_prof["device_busy_ms"])
+        # 8. card vs CPU
         parity = phase_parity(model, graph, dev)
         log(f"parity: {json.dumps(parity)}")
-        # 8. serve
+        # 9. serve
         served = phase_serve(out_dir)
         log(f"serve: {json.dumps(served)}")
 
+    # 10. train (the training path)
+    train = phase_train(model, graph, dev)
+    log(f"train: {json.dumps(train)}")
+    # 11. one step's loss and gradients, card vs CPU
+    grads = phase_grads(model, graph, dev)
+    log(f"grads: {json.dumps(grads)}")
+    # 12. the port's bench
+    benched = phase_bench(dev)
+    log(f"bench: {json.dumps(benched)}")
+
+    def by_path(name):
+        return {"infer": infer["launches"][name],
+                "train": train["launches"][name],
+                "bench": benched["launches"][name]}
+
     hop = [s for s in shapes if "ms" in s]
+    timed = [g for g in gathers if "ms" in g]
+    main_gather = timed[0]                     # f32, as the train path runs
     kernels = [{
         "name": "fan_draw", "route": "cuda",
         "source": "euler_tpu_torch/csrc/fan_draw.cu",
         "replaces": "euler_tpu/ops/pallas_fan.py:96",
-        "launches": infer["launches"],
+        "launches": train["launches"]["fan_draw"],
+        "launches_by_path": by_path("fan_draw"),
         "bit_exact": True,
         "max_abs_err": max(s["max_abs_err"] for s in shapes),
-        # per inference batch: one launch at each hop shape
+        # per batch or step: one launch at each hop shape
         "ms": sum(s["ms"] for s in hop),
         "plain_ms": sum(s["plain_ms"] for s in hop),
         "bound_ms": sum(s["bound_ms"] for s in hop),
@@ -393,11 +683,31 @@ def main() -> int:
         "library_ms": None,
         "shapes": [{k: s[k] for k in ("B", "C", "ms", "plain_ms",
                                       "bound_ms", "bytes")} for s in hop],
+    }, {
+        "name": "gather_rows", "route": "cuda",
+        "source": "euler_tpu_torch/csrc/gather_rows.cu",
+        "replaces": "tools/micro/micro_pallas_gather.py:32",
+        "launches": train["launches"]["gather_rows"],
+        "launches_by_path": by_path("gather_rows"),
+        "bit_exact": True,
+        "max_abs_err": max(g["max_abs_err"] for g in gathers),
+        # the deepest feature gather in f32 (M=292,864, D=128); library_ms
+        # is torch.index_select on clamped ids, which skips the fills
+        "ms": main_gather["ms"],
+        "plain_ms": main_gather["plain_ms"],
+        "bound_ms": main_gather["bound_ms"],
+        "bound_by": "bytes",
+        "library_ms": main_gather["library_ms"],
+        "shapes": [{k: g[k] for k in ("N", "D", "M", "dtype", "ms",
+                                      "plain_ms", "library_ms", "bound_ms",
+                                      "bytes", "distinct_rows")}
+                   for g in timed],
     }]
-    log(json.dumps({"smoke": dict(build_s=build_s, graph_s=graph_s,
-                                  total_s=time.perf_counter() - t_start,
-                                  native_core=native.available(),
-                                  **infer, **parity)}))
+    log(json.dumps({"smoke": dict(
+        build_s=build_s, graph_s=graph_s,
+        total_s=time.perf_counter() - t_start,
+        native_core=native.available(), infer=infer, parity=parity,
+        train=train, grads=grads, bench=benched)}))
     log(smi)                # nvidia-smi's name and power limit, as given
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,

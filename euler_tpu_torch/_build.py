@@ -10,6 +10,7 @@ from __future__ import annotations
 
 import hashlib
 import os
+import shutil
 import subprocess
 import threading
 from typing import Sequence
@@ -17,6 +18,10 @@ from typing import Sequence
 PACKAGE_DIR = os.path.dirname(os.path.abspath(__file__))
 REPO_ROOT = os.path.dirname(PACKAGE_DIR)
 BUILD_DIR = os.path.join(REPO_ROOT, "build", "euler_tpu_torch")
+#: nvcc flags of every CUDA source of the port: Hopper's sm_90a, a plain
+#: C interface (no PyTorch headers), position-independent
+NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+              "-O3", "-shared", "-Xcompiler", "-fPIC"]
 
 
 def build_shared_library(src: str, stem: str, cmd: Sequence[str],
@@ -42,3 +47,18 @@ def build_shared_library(src: str, stem: str, cmd: Sequence[str],
         if os.path.exists(tmp):
             os.remove(tmp)
     return out
+
+
+def nvcc() -> str:
+    """The CUDA compiler: ``nvcc`` on the PATH, else under CUDA_HOME."""
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    home = os.environ.get("CUDA_HOME", "/usr/local/cuda")
+    return os.path.join(home, "bin", "nvcc")
+
+
+def build_cuda_library(name: str) -> str:
+    """Build ``csrc/<name>.cu`` of the package with nvcc; return the path."""
+    src = os.path.join(PACKAGE_DIR, "csrc", f"{name}.cu")
+    return build_shared_library(src, name, [nvcc()] + NVCC_FLAGS)

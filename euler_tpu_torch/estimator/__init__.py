@@ -1,5 +1,6 @@
-"""Run loops of the port (inference so far)."""
+"""Run loops of the port: train, evaluate and infer."""
 from euler_tpu_torch.estimator.estimator import (BaseEstimator,
-                                                 NodeEstimator, RunConfig)
+                                                 NodeEstimator, RunConfig,
+                                                 get_optimizer)
 
-__all__ = ["BaseEstimator", "NodeEstimator", "RunConfig"]
+__all__ = ["BaseEstimator", "NodeEstimator", "RunConfig", "get_optimizer"]

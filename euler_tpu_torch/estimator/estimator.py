@@ -1,31 +1,63 @@
-"""Inference loop over a model and a graph.
+"""Training, evaluation and inference loops over a model and a graph.
 
-Counterpart of euler_tpu/estimator/estimator.py ``RunConfig`` and the
-``_batched_apply``/``infer`` part of ``BaseEstimator`` (reference:
-euler_estimator/python/base_estimator.py:157-179). Training and
-evaluation wait for the next slice.
+Counterpart of euler_tpu/estimator/estimator.py (reference:
+euler_estimator/python/base_estimator.py:28-188, node_estimator.py:26):
+``RunConfig``, ``get_optimizer``, ``BaseEstimator.train``/``evaluate``/
+``infer`` and ``NodeEstimator``. The reference's jitted step with optax
+becomes an eager step with autograd and a torch.optim optimizer. Not
+ported yet: ``steps_per_loop``, checkpoints and the profiler hook.
 """
 from __future__ import annotations
 
 import dataclasses
 import os
-from typing import Callable, List, Optional, Sequence, Tuple
+import time
+from typing import Callable, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 
 from euler_tpu_torch._device import resolve_device
 from euler_tpu_torch.graph.store import Graph
+from euler_tpu_torch.ops import sampling
+from euler_tpu_torch.utils import metrics as metrics_lib
+
+
+def get_optimizer(name: str, lr: float, params) -> torch.optim.Optimizer:
+    """reference: tf_euler/python/utils/optimizers.py:23-31, as optax
+    builds them. Adagrad takes optax's accumulator start (0.1) and eps
+    (1e-7), where torch's defaults are 0 and 1e-10."""
+    params = list(params)
+    return {
+        "sgd": lambda: torch.optim.SGD(params, lr),
+        "momentum": lambda: torch.optim.SGD(params, lr, momentum=0.9),
+        "adagrad": lambda: torch.optim.Adagrad(
+            params, lr, initial_accumulator_value=0.1, eps=1e-7),
+        "adam": lambda: torch.optim.Adam(params, lr),
+    }[name]()
 
 
 @dataclasses.dataclass
 class RunConfig:
     batch_size: int = 512
+    total_steps: int = 1000
+    optimizer: str = "adam"
+    learning_rate: float = 0.01
+    log_steps: int = 100
     seed: int = 0
+    metric: str = "f1"
+    reservoir_refresh: int = 100  # redraw the fan_pack reservoir rows
+    # every N steps (0 = never): groups with degree > FAN_D hold
+    # pre-drawn neighbors, exact per draw but repeated until redrawn
+    # (ops/sampling.refresh_fan_pack)
 
 
 class BaseEstimator:
-    """Runs ``model(g, batch, generator=...)`` over padded id batches."""
+    """Generic run loops; subclasses provide the batch source.
+
+    The model is an ``nn.Module`` whose ``forward(g, batch, generator=,
+    uniforms=)`` returns a dict with at least ``loss``.
+    """
 
     def __init__(self, model: torch.nn.Module, graph: Graph,
                  config: RunConfig, device=None):
@@ -39,6 +71,55 @@ class BaseEstimator:
                 raise ValueError(f"the {what} is on {dev}, the estimator "
                                  f"on {self.device}")
 
+    # ---- batch source (subclass hook) -------------------------------------
+    def train_batch(self, g, generator: torch.Generator) -> torch.Tensor:
+        """Return the per-step model input."""
+        raise NotImplementedError
+
+    # ---- training ----------------------------------------------------------
+    def step(self, optimizer: torch.optim.Optimizer, batch: torch.Tensor,
+             generator: Optional[torch.Generator] = None,
+             uniforms: Optional[Sequence] = None) -> torch.Tensor:
+        """One optimizer step on ``batch``; returns the loss as a 0-d
+        tensor on the device (reading it waits for the card)."""
+        self.model.train()
+        optimizer.zero_grad(set_to_none=True)
+        out = self.model(self.graph.tensors, batch, generator=generator,
+                         uniforms=uniforms)
+        out["loss"].backward()
+        optimizer.step()
+        return out["loss"].detach()
+
+    def train(self, total_steps: Optional[int] = None,
+              log_fn: Callable = print) -> Dict[str, float]:
+        """``total_steps`` optimizer steps from a fresh optimizer state,
+        as the reference's ``train`` (base_estimator.py:160-254); the
+        reservoir redraws stay in ``graph.tensors`` afterwards."""
+        cfg = self.config
+        total = total_steps or cfg.total_steps
+        g = self.graph.tensors
+        opt = get_optimizer(cfg.optimizer, cfg.learning_rate,
+                            self.model.parameters())
+        gen = torch.Generator(device=self.device)
+        gen.manual_seed(cfg.seed + 1)
+        t0 = time.time()
+        loss = last_loss = None
+        next_refresh = cfg.reservoir_refresh or float("inf")
+        for i in range(1, total + 1):
+            if i - 1 >= next_refresh:
+                sampling.refresh_fan_pack(g, gen)
+                next_refresh += cfg.reservoir_refresh
+            loss = self.step(opt, self.train_batch(g, gen), generator=gen)
+            if cfg.log_steps and i % cfg.log_steps == 0:
+                last_loss = float(loss)
+                rate = i * cfg.batch_size / (time.time() - t0)
+                log_fn(f"[euler_tpu_torch] step {i}/{total} "
+                       f"loss={last_loss:.4f} ({rate:.0f} ex/s)")
+        if last_loss is None or last_loss != last_loss:
+            last_loss = float(loss)
+        return {"loss": last_loss, "steps": total}
+
+    # ---- evaluation and inference -----------------------------------------
     def _batched_apply(self, ids: np.ndarray, fn: Callable
                        ) -> Tuple[List, int]:
         """Pad ids with -1 to batch multiples, run fn per batch with one
@@ -57,6 +138,31 @@ class BaseEstimator:
             batch = torch.from_numpy(padded[i:i + B]).to(self.device)
             outs.append(fn(g, batch, gen))
         return outs, n
+
+    def evaluate(self, ids: Sequence[int]) -> Dict[str, float]:
+        """The config's metric and the mean batch loss over ``ids``
+        (reference: estimator.py:273-314, supervised branch)."""
+        name = self.config.metric
+        metric = metrics_lib.get(name)
+
+        def run(g, batch, gen):
+            return self.model(g, batch, generator=gen)
+
+        self.model.eval()
+        with torch.no_grad():
+            outs, n = self._batched_apply(np.asarray(ids, np.int32), run)
+            if "logit" not in outs[0]:
+                raise NotImplementedError(
+                    "evaluate is ported for supervised models (logit and "
+                    "label outputs) only")
+            logits = torch.cat([o["logit"] for o in outs])[:n]
+            labels = torch.cat([o["label"] for o in outs])[:n]
+            if name == "f1":
+                val = metric(labels, torch.sigmoid(logits))
+            else:
+                val = metric(labels, logits)
+            loss = float(np.mean([float(o["loss"]) for o in outs]))
+        return {name: float(val), "loss": loss}
 
     def infer(self, ids: Sequence[int], out_dir: Optional[str] = None,
               worker: int = 0) -> np.ndarray:
@@ -82,5 +188,14 @@ class BaseEstimator:
 
 
 class NodeEstimator(BaseEstimator):
-    """Estimator over node ids (reference: node_estimator.py:31-51); its
-    training source, sample_node, comes with the training slice."""
+    """Train source = sample_node(batch, node_type)
+    (reference: node_estimator.py:31-51)."""
+
+    def __init__(self, model: torch.nn.Module, graph: Graph,
+                 config: RunConfig, train_node_type=-1, device=None):
+        super().__init__(model, graph, config, device=device)
+        self.train_node_type = train_node_type
+
+    def train_batch(self, g, generator: torch.Generator) -> torch.Tensor:
+        return sampling.sample_node(g, self.config.batch_size,
+                                    self.train_node_type, generator)

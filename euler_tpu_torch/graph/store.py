@@ -4,7 +4,8 @@ Counterpart of euler_tpu/graph/store.py (``GraphTensors``, ``Graph``,
 ``load_graph``). It reads the same converted directories (``meta.json``
 plus ``part_*.npz``) and builds, with the same host code, the grouped CSR,
 the per-group alias tables and the ``fan`` pack that neighbor sampling
-reads. Only the fields the sampled-inference path needs live on the
+reads, and the per-node-type alias tables that the root draw reads. Only
+the fields the sampled training and inference paths need live on the
 device; external ids and binary features stay on the host.
 """
 from __future__ import annotations
@@ -21,11 +22,28 @@ from euler_tpu_torch._device import resolve_device
 from euler_tpu_torch.graph import convert as _convert
 from euler_tpu_torch.graph.meta import DENSE, GraphMeta
 from euler_tpu_torch.ops.alias import (FAN_D, build_fan_pack,
-                                       build_group_alias)
+                                       build_group_alias,
+                                       build_typed_alias_tables)
 
 #: packs the port builds; the reference's "group", "adj", "sample",
 #: "fanu" and "ell" packs wait for the slices whose verbs read them
 PACKS = ("fan",)
+
+
+@dataclasses.dataclass
+class AliasTables:
+    """Per-type alias tables over a typed population (ops/alias.py
+    ``build_typed_alias_tables``), on one device."""
+
+    ids: torch.Tensor       # int32 [n] population sorted by type
+    type_ptr: torch.Tensor  # int32 [T+1]
+    prob: torch.Tensor      # f32   [n]
+    alias: torch.Tensor     # int32 [n] (within-type slots)
+    w_sum: torch.Tensor     # f32   [T]
+
+    def to(self, device) -> "AliasTables":
+        return AliasTables(**{f.name: getattr(self, f.name).to(device)
+                              for f in dataclasses.fields(self)})
 
 
 @dataclasses.dataclass
@@ -39,6 +57,7 @@ class GraphTensors:
     adj_alias: torch.Tensor      # int32 [E] within-group alias slots
     group_w_sum: torch.Tensor    # f32   [N, ET]
     dense_nf: Dict[str, torch.Tensor]
+    node_alias: AliasTables      # population = nodes, typed by node type
     # per-(node, edge_type) fan rows (ops/alias.py FAN_* layout) and the
     # groups with degree > FAN_D whose rows are reservoirs
     fan_pack: Optional[torch.Tensor] = None       # int32 [N*ET, 128]
@@ -51,7 +70,7 @@ class GraphTensors:
     def to(self, device) -> "GraphTensors":
         """A copy with every tensor on ``device``."""
         def mv(v):
-            if isinstance(v, torch.Tensor):
+            if isinstance(v, (torch.Tensor, AliasTables)):
                 return v.to(device)
             if isinstance(v, dict):
                 return {k: mv(x) for k, x in v.items()}
@@ -93,6 +112,8 @@ class Graph:
         # nodes may arrive partition-interleaved: restore local-id order
         order = np.argsort(arrays["node_local"], kind="stable")
         self.ext_ids = arrays["ext_ids"][order]
+        node_type = arrays["node_type"][order]
+        node_w = arrays["node_w"][order]
         self._local_of = {int(e): i for i, e in enumerate(self.ext_ids)}
 
         (group_ptr, adj_dst, adj_w, _, _, _) = _convert.build_csr(
@@ -104,6 +125,8 @@ class Graph:
         np.add.at(gws, seg, adj_w.astype(np.float64))
         group_w_sum = gws.astype(np.float32).reshape(n, net)
         adj_prob, adj_alias = build_group_alias(group_ptr, adj_w)
+        na = build_typed_alias_tables(node_type, node_w,
+                                      meta.num_node_types)
 
         dense_nf = {spec.name: arrays[f"nf_d:{spec.name}"][order]
                     for spec in meta.node_features if spec.kind == DENSE}
@@ -127,6 +150,10 @@ class Graph:
             adj_alias=put(adj_alias),
             group_w_sum=put(group_w_sum),
             dense_nf={k: put(v) for k, v in dense_nf.items()},
+            node_alias=AliasTables(
+                ids=put(na["ids"]), type_ptr=put(na["type_ptr"].astype(
+                    np.int32)), prob=put(na["prob"]), alias=put(na["alias"]),
+                w_sum=put(na["w_sum"])),
             **fan)
 
     def local_id(self, ext_id: int) -> int:

@@ -12,11 +12,21 @@ import torch
 from torch import nn
 
 from euler_tpu_torch.graph.store import GraphTensors
-from euler_tpu_torch.ops import feature_ops
+from euler_tpu_torch.ops.gather_rows import gather_rows
 
 
 class ShallowEncoder(nn.Module):
-    """Concat of the named dense node features; rows of ids < 0 are 0."""
+    """Concat of the named dense node features; rows of ids < 0 are 0
+    (and rows of ids >= N NaN, as in the reference).
+
+    The reference gathers each feature, concatenates and zeroes the rows
+    of ids < 0 (encoders.py:49-67). Here, when the features share a
+    dtype, one ``[M, sum of dims]`` output is allocated and each feature
+    is gathered straight into its column range by ``gather_rows``, which
+    writes the zero rows itself: one pass over the output. Features of
+    mixed dtypes are gathered one by one and concatenated with the
+    reference's type promotion.
+    """
 
     def __init__(self, dense_names: Sequence[str] = ()):
         super().__init__()
@@ -25,6 +35,16 @@ class ShallowEncoder(nn.Module):
         self.dense_names = tuple(dense_names)
 
     def forward(self, g: GraphTensors, n_id: torch.Tensor) -> torch.Tensor:
-        parts = feature_ops.get_dense_feature(g, n_id, self.dense_names)
-        out = torch.cat(parts, dim=-1)
-        return torch.where((n_id >= 0)[..., None], out, 0.0)
+        tables = [g.dense_nf[n] for n in self.dense_names]
+        flat = n_id.reshape(-1).to(torch.int32).contiguous()
+        dtypes = {t.dtype for t in tables}
+        if len(dtypes) == 1:
+            out = torch.empty((flat.shape[0], sum(t.shape[1] for t in tables)),
+                              dtype=tables[0].dtype, device=flat.device)
+            off = 0
+            for t in tables:
+                gather_rows(t, flat, out, off)
+                off += t.shape[1]
+        else:
+            out = torch.cat([gather_rows(t, flat) for t in tables], dim=-1)
+        return out.reshape(tuple(n_id.shape) + (out.shape[1],))

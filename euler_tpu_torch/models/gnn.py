@@ -4,7 +4,9 @@ Counterpart of euler_tpu/models/gnn.py: the sampled branch of ``GNNNet``
 and ``SuperviseModel`` (reference: tf_euler/python/mp_utils/base_gnn.py:
 74-92 and mp_utils/base.py:24-48). The dataflow runs inside ``forward``;
 its randomness comes from the ``generator`` (or the replayed
-``uniforms``) the caller passes.
+``uniforms``) the caller passes. Training differentiates the loss with
+autograd: nothing on this path has a custom backward, and the features
+the encoder gathers are inputs, not parameters.
 """
 from __future__ import annotations
 

@@ -1,13 +1,20 @@
-"""Host-side alias-table builders and the fan-row layout.
+"""Alias tables: the host-side builders, the fan-row layout and the
+device-side draw.
 
-Copies of euler_tpu/ops/alias.py's numpy builders (Vose's alias method,
-reference: euler/common/alias_method.h:28), using the port's own native
-loader. Tables are built once on the host at graph-load time; the device
-only reads them.
+The builders are copies of euler_tpu/ops/alias.py's numpy builders
+(Vose's alias method, reference: euler/common/alias_method.h:28), using
+the port's own native loader. Tables are built once on the host at
+graph-load time; the device only reads them. The reference's
+``alias_draw`` (ops/alias.py:236-252) is split in two, as the port splits
+every random verb: ``draw_alias_uniforms`` draws (u1, u2) from a
+torch.Generator, and ``alias_select`` is the deterministic select.
 """
 from __future__ import annotations
 
+from typing import Optional, Tuple
+
 import numpy as np
+import torch
 
 from euler_tpu_torch.native import loader as _native
 
@@ -44,6 +51,38 @@ def build_alias_table(weights: np.ndarray):
         p[l] = (p[l] + p[s]) - 1.0
         (small if p[l] < 1.0 else large).append(l)
     return prob.astype(np.float32), alias
+
+
+def build_typed_alias_tables(type_of: np.ndarray, weights: np.ndarray,
+                             num_types: int):
+    """Per-type alias tables over a typed population, concatenated.
+
+    Mirrors the reference's per-node-type/per-edge-type global samplers
+    (euler/core/graph/graph.h:203-208 ``BuildGlobalSampler``).
+
+    Returns dict of numpy arrays:
+      ids      int32 [n]  — population sorted by type (values = member index)
+      type_ptr int64 [num_types+1]
+      prob     f32   [n]
+      alias    int32 [n]  — *within-type* alias slot
+      w_sum    f32   [num_types] — per-type total weight
+    """
+    n = len(type_of)
+    order = np.argsort(type_of, kind="stable").astype(np.int32)
+    sorted_types = type_of[order]
+    type_ptr = np.searchsorted(sorted_types, np.arange(num_types + 1)).astype(
+        np.int64)
+    prob = np.zeros(n, np.float32)
+    alias = np.zeros(n, np.int32)
+    w_sum = np.zeros(num_types, np.float32)
+    for t in range(num_types):
+        lo, hi = type_ptr[t], type_ptr[t + 1]
+        p, a = build_alias_table(weights[order[lo:hi]])
+        prob[lo:hi] = p
+        alias[lo:hi] = a
+        w_sum[t] = float(weights[order[lo:hi]].sum())
+    return dict(ids=order, type_ptr=type_ptr, prob=prob, alias=alias,
+                w_sum=w_sum)
 
 
 def build_group_alias(group_ptr: np.ndarray, weights: np.ndarray):
@@ -170,3 +209,39 @@ def _fan_reservoir_rows(gp, adj_dst, prob, alias_global, big, w_sum, rng):
     rows[:, FAN_KEPT_OFF:FAN_KEPT_OFF + FAN_D] = res
     rows[:, FAN_ALIAS_OFF:FAN_ALIAS_OFF + FAN_D] = res
     return rows
+
+
+# --------------------------------------------------------------------------
+# Device-side draw from a table segment
+# --------------------------------------------------------------------------
+
+def draw_alias_uniforms(generator: Optional[torch.Generator], shape,
+                        device=None) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(u1, u2), f32 uniforms in [0, 1) of ``shape``: the slot pick and the
+    keep-vs-alias test of an alias draw."""
+    u1 = torch.rand(shape, generator=generator, device=device)
+    u2 = torch.rand(shape, generator=generator, device=device)
+    return u1, u2
+
+
+def alias_select(prob: torch.Tensor, alias: torch.Tensor, lo, size,
+                 u1: torch.Tensor, u2: torch.Tensor) -> torch.Tensor:
+    """Alias draws from the table segment [lo, lo + size) given uniforms.
+
+    ``lo`` and ``size`` are int tensors broadcastable to ``u1`` (or
+    ints). Returns int32 positions into the table's population, -1 where
+    the segment is empty. The arithmetic is the reference's: one f32
+    multiply ``u1 * size`` truncated to int32. On an empty segment the
+    reference reads ``prob[lo]``, which may be one past the end, and XLA
+    clamps it; here every table index is clamped to the table.
+    """
+    n = prob.shape[0]
+    lo = torch.as_tensor(lo, dtype=torch.int32, device=u1.device)
+    size = torch.as_tensor(size, dtype=torch.int32, device=u1.device)
+    safe = size.clamp_min(1)
+    slot = torch.minimum((u1 * safe.to(torch.float32)).to(torch.int32),
+                         safe - 1)
+    idx = (lo + slot).long().clamp(0, n - 1)
+    keep = u2 < prob[idx]
+    picked = torch.where(keep, slot, alias[idx])
+    return torch.where(size > 0, lo + picked, -1).to(torch.int32)

@@ -15,30 +15,16 @@ no fallback from the kernel to the plain version.
 from __future__ import annotations
 
 import ctypes
-import os
-import shutil
 import threading
 
 import torch
 
-from euler_tpu_torch._build import PACKAGE_DIR, build_shared_library
+from euler_tpu_torch._build import build_cuda_library
 from euler_tpu_torch.ops.alias import (FAN_ALIAS_OFF, FAN_D, FAN_KEPT_OFF,
                                        FAN_LANES, FAN_PROB_OFF)
 
-SOURCE = os.path.join(PACKAGE_DIR, "csrc", "fan_draw.cu")
-_NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-               "-O3", "-shared", "-Xcompiler", "-fPIC"]
-
 _lock = threading.Lock()
 _lib = None
-
-
-def _nvcc() -> str:
-    found = shutil.which("nvcc")
-    if found:
-        return found
-    home = os.environ.get("CUDA_HOME", "/usr/local/cuda")
-    return os.path.join(home, "bin", "nvcc")
 
 
 def build():
@@ -47,9 +33,7 @@ def build():
     global _lib
     with _lock:
         if _lib is None:
-            path = build_shared_library(SOURCE, "fan_draw",
-                                        [_nvcc()] + _NVCC_FLAGS)
-            lib = ctypes.CDLL(path)
+            lib = ctypes.CDLL(build_cuda_library("fan_draw"))
             vp, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
             lib.etpu_fan_draw.argtypes = [vp, i64, vp, i64, i32, i32, i32,
                                           vp, vp, i32, vp, vp, vp]

@@ -1,4 +1,5 @@
-"""The PyTorch port imports neither jax nor the JAX package.
+"""The PyTorch port imports neither jax (nor flax, optax, orbax) nor the
+JAX package.
 
 A fresh interpreter imports every module of ``euler_tpu_torch`` (and the
 repository's ``chip_smoke.py``) and then checks ``sys.modules``. The name
@@ -26,8 +27,9 @@ for name in names:
     importlib.import_module(name)
 importlib.import_module("chip_smoke")
 bad = sorted(m for m in sys.modules
-             if m in ("jax", "flax", "euler_tpu")
-             or m.startswith(("jax.", "jaxlib", "flax.", "euler_tpu.")))
+             if m in ("jax", "flax", "optax", "orbax", "euler_tpu")
+             or m.startswith(("jax.", "jaxlib", "flax.", "optax.", "orbax.",
+                              "euler_tpu.")))
 assert not bad, bad
 print(len(names))
 """
@@ -37,6 +39,7 @@ def test_port_modules_import_without_jax():
     names = [m.name for m in pkgutil.walk_packages(
         euler_tpu_torch.__path__, "euler_tpu_torch.")]
     assert "euler_tpu_torch.serving" in names
+    assert "euler_tpu_torch.bench" in names
     env = dict(os.environ, PYTHONPATH=REPO)
     out = subprocess.run([sys.executable, "-c", _CHECK], cwd=REPO, env=env,
                          capture_output=True, text=True, timeout=300)
