@@ -1,7 +1,7 @@
 """Drive the PyTorch/CUDA port's serving and training paths once on one
 NVIDIA GPU.
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py [--parent DIR]
 
 Phases, in order; any failure propagates and the exit code is not 0:
 
@@ -9,21 +9,39 @@ Phases, in order; any failure propagates and the exit code is not 0:
               TF32 off for matmuls and cuDNN
   2. build    nvcc builds euler_tpu_torch/csrc/fan_draw.cu and
               gather_rows.cu, and g++ the native host core, all from this
-              checkout and all at once
+              checkout and all at once; beside them one more nvcc build of
+              each .cu with -Xptxas -v logs every kernel's registers,
+              shared memory and spills, by mangled name. With --parent DIR (a copy of the
+              parent commit's tree, e.g. from git archive), the parent's
+              two kernels are built from DIR too
   3. kernel   fan_draw against its plain PyTorch version at the two hop
-              shapes of the path (B=1024, C=25) and (B=26,624, C=10) and a
-              ragged B, on fan rows covering degree 0..42, reservoir rows,
-              zero weight sums and node -1; ids and valid must be equal bit
-              for bit. Timed with CUDA events, L2 flushed between launches
+              shapes of the path (B=1024, C=25) and (B=26,624, C=10), a
+              ragged B, one draw (1, 1), more draws than lanes (333, 50),
+              one row past a block's rows (4097, 10) and a 3-type pack
+              whose rows past the pack clamp, on fan rows covering degree
+              0..42, reservoir rows, zero weight sums and node -1; ids and
+              valid must be equal bit for bit, from the wrapper and from
+              each of the kernel's two paths (row, draw) at every shape.
+              Timed at the hop shapes with CUDA events, L2 flushed between
+              launches, and both paths (with --parent also the parent's
+              kernel) in turns: parent, row, draw, draw, row, parent. The
+              two paths again, bit-exact and in turns, at B = 1024, 2048,
+              4096, 8192, 12,800 and 26,624 with C = 10, 15, 20 and 25:
+              where one overtakes the other. Then an empty launch timed the same
+              way, the launch floor
   4. gather   gather_rows against its plain version, bit for bit (NaN rows
-              compared as integers), on ids that include -1 and >= N: the
+              compared as integers, and exactly where ids >= N): the
               deepest feature gather (M=292,864, D=128 from [200,000, 128])
-              in f32 and bf16, the label gather (1024, 16), ragged widths
-              D = 1, 3, 127 (f32) and 5 (bf16), and column offsets into
-              wider outputs on the 16-byte and the element path. At the two
-              292,864-row shapes also the kernel's, the plain version's and
-              torch.index_select's times (CUDA events, L2 flushed) and the
-              bytes bound
+              in f32 and bf16, the label gather (1024, 16) in both, ragged
+              widths D = 1, 3, 127 (f32) and 5 (bf16), column offsets into
+              wider outputs on the 16-byte and the element path, M = 1, 33
+              and 1000, and ids all -1, all >= N and heavily repeated. At
+              the two 292,864-row shapes also the kernel's, the plain
+              version's and torch.index_select's times (CUDA events, L2
+              flushed) and the bytes bound; the kernel's time on the same
+              ids sorted, and on M ids with no repeat from a table of 2N
+              rows (with its own bound), each bit-exact; and with --parent
+              the parent's kernel, bit-exact, and this one in turns
   5. graph    random_graph(200_000, 25, feat_dim=128, n_classes=16, seed=0,
               packs=("fan",)) on the card
   6. model    SuperviseModel(GNNNet("sage", SageDataFlow([25, 10], ...),
@@ -54,17 +72,23 @@ Phases, in order; any failure propagates and the exit code is not 0:
  12. bench    the port's bench (euler_tpu_torch/bench.py) at bench.py's
               sage width, bf16 activations: warmup, single_loop and
               pipelined JSON lines; each kernel 2 launches per step
- 13. report   one JSON line of kernels, then the last line
-              {"ok": true, "device": {...}}
+ 13. report   one JSON line of kernels (the gather's f32 and bf16 times,
+              fan_draw's launch floor and its paths' crossover, each
+              kernel's ptxas figures), then
+              the last line {"ok": true, "device": {...}}
 
 It exits non-zero, with no result line, where torch.cuda.is_available()
 is false or the euler_tpu_torch package is missing.
 """
 from __future__ import annotations
 
+import argparse
 import concurrent.futures
 import copy
+import ctypes
 import json
+import os
+import re
 import statistics
 import subprocess
 import sys
@@ -76,6 +100,8 @@ import numpy as np
 import torch
 
 from euler_tpu_torch import bench
+from euler_tpu_torch._build import (NVCC_FLAGS, PACKAGE_DIR,
+                                    build_shared_library, nvcc)
 from euler_tpu_torch.dataflow import SageDataFlow
 from euler_tpu_torch.datasets import random_graph
 from euler_tpu_torch.estimator import NodeEstimator, RunConfig
@@ -187,46 +213,146 @@ def time_launches(fn, iters: int, flush: torch.Tensor) -> float:
     return statistics.median(s.elapsed_time(e) for s, e in ev)
 
 
-def phase_kernel(dev):
+def time_in_turns(fns: dict, iters: int, flush: torch.Tensor) -> dict:
+    """Time each of ``fns`` (name -> launch) twice, in the order given and
+    then reversed (parent, change, change, parent): name -> [ms, ms]."""
+    out = {k: [] for k in fns}
+    for k in list(fns) + list(reversed(fns)):
+        out[k].append(time_launches(fns[k], iters, flush))
+    return out
+
+
+def checked(fn):
+    """A ctypes kernel call as a launch for time_launches: raises if the
+    launch returns a CUDA error."""
+    def launch():
+        rc = fn()
+        if rc != 0:
+            raise RuntimeError(f"kernel launch failed (CUDA error {rc})")
+    return launch
+
+
+def load_parent(parent_dir: str) -> dict:
+    """The parent commit's two kernel libraries, built by nvcc with this
+    checkout's flags from the sources under ``parent_dir`` (a copy of the
+    parent's tree): entry name -> ctypes function, typed as the current
+    ones."""
+    fns = {}
+    for name, mod in (("fan_draw", fd), ("gather_rows", gr)):
+        src = os.path.join(parent_dir, "euler_tpu_torch", "csrc",
+                           f"{name}.cu")
+        lib = ctypes.CDLL(build_shared_library(
+            src, f"parent_{name}", [nvcc()] + NVCC_FLAGS))
+        entry = f"etpu_{name}"
+        fn, ref = getattr(lib, entry), getattr(mod.build(), entry)
+        fn.argtypes, fn.restype = ref.argtypes, ref.restype
+        fns[entry] = fn
+    return fns
+
+
+def fan_call(fn, fan_pack, nodes, et, n_et, u1, u2, ids, valid, *path):
+    """A raw call of an ``etpu_fan_draw`` (this checkout's or the
+    parent's), or of ``etpu_fan_draw_path`` with its path, into
+    preallocated outputs."""
+    B, C = u1.shape
+    stream = torch.cuda.current_stream().cuda_stream
+    return checked(lambda: fn(
+        fan_pack.data_ptr(), fan_pack.shape[0], nodes.data_ptr(), B, C, et,
+        n_et, u1.data_ptr(), u2.data_ptr(), -1, ids.data_ptr(),
+        valid.data_ptr(), stream, *path))
+
+
+def phase_kernel(dev, parent=None):
     rng = np.random.default_rng(0)
     G = N_NODES
     fan_pack = torch.from_numpy(synthetic_fan_pack(rng, G)).to(dev)
     gen = torch.Generator(device=dev).manual_seed(1)
     flush = torch.empty(64 << 20, dtype=torch.uint8, device=dev)
+    one = int(np.float32(1).view(np.int32))
+    mine = fd.build().etpu_fan_draw_path
+    entries = {"row": (mine, (1,)), "draw": (mine, (2,))}
+    if parent is not None:
+        entries = {"parent": (parent["etpu_fan_draw"], ()), **entries}
     shapes = []
-    for B, C in HOP_SHAPES + [(1021, 25)]:
-        nodes_np = rng.integers(0, G, B).astype(np.int32)
+    # (B, C, n_et, et): the two hop shapes first (timed), then a ragged B,
+    # one draw, more draws than lanes, one row past a multiple of a block's
+    # rows, and nodes whose rows lie past the pack (clamped)
+    for B, C, n_et, et in [HOP_SHAPES[0] + (1, 0), HOP_SHAPES[1] + (1, 0),
+                           (1021, 25, 1, 0), (1, 1, 1, 0), (333, 50, 1, 0),
+                           (4097, 10, 1, 0), (1000, 10, 3, 1)]:
+        high = G if n_et == 1 else G + 1000
+        nodes_np = rng.integers(0, high, B).astype(np.int32)
         nodes_np[rng.random(B) < 0.03] = -1
         nodes = torch.from_numpy(nodes_np).to(dev)
         u1, u2 = sampling.draw_fan_uniforms(gen, B, C, dev)
-        ids, valid = fd.fan_draw(fan_pack, nodes, 0, 1, u1, u2, -1)
-        ref_ids, ref_valid = fd.fan_draw_plain(fan_pack, nodes, 0, 1, u1, u2,
-                                               -1)
+        ids, valid = fd.fan_draw(fan_pack, nodes, et, n_et, u1, u2, -1)
+        ref_ids, ref_valid = fd.fan_draw_plain(fan_pack, nodes, et, n_et,
+                                               u1, u2, -1)
+        # both paths of the kernel, whatever the size would choose (and the
+        # parent's kernel), each into outputs of its own
+        outs, launches = {}, {}
+        for name, (fn, path) in entries.items():
+            outs[name] = (torch.full_like(ids, 7), ~ref_valid)
+            launches[name] = fan_call(fn, fan_pack, nodes, et, n_et, u1, u2,
+                                      *outs[name], *path)
+            launches[name]()
         torch.cuda.synchronize()
-        check(torch.equal(ids, ref_ids) and torch.equal(valid, ref_valid),
-              f"fan_draw kernel != plain at B={B} C={C}")
+        for name, (got_ids, got_valid) in [("kernel", (ids, valid))] + list(
+                outs.items()):
+            check(torch.equal(got_ids, ref_ids)
+                  and torch.equal(got_valid, ref_valid),
+                  f"fan_draw {name} != plain at B={B} C={C} n_et={n_et}")
         err = int((ids.long() - ref_ids.long()).abs().max())
-        rows = fan_pack[nodes.clamp_min(0).long()]
-        one = int(np.float32(1).view(np.int32))
+        row_idx = nodes.clamp_min(0).long() * n_et + et
+        rows = fan_pack[row_idx.clamp_max(G - 1)]
         cover = dict(valid=int(valid.sum()),
                      node_minus1=int((nodes < 0).sum()),
+                     clamped=int((row_idx >= G).sum()),
                      deg0=int((rows[:, 0] == 0).sum()),
                      reservoir=int(((rows[:, 0] == FAN_D)
                                     & (rows[:, FAN_PROB_OFF] == one)).sum()))
-        row = dict(B=B, C=C, bit_exact=True, max_abs_err=err, cover=cover)
-        if (B, C) in HOP_SHAPES:
-            ms = time_launches(
+        row = dict(B=B, C=C, n_et=n_et, et=et, bit_exact=True,
+                   max_abs_err=err, cover=cover)
+        if (B, C) in HOP_SHAPES and n_et == 1:
+            row["ms"] = time_launches(
                 lambda: fd.fan_draw(fan_pack, nodes, 0, 1, u1, u2, -1), 200,
                 flush)
-            plain_ms = time_launches(
+            row["plain_ms"] = time_launches(
                 lambda: fd.fan_draw_plain(fan_pack, nodes, 0, 1, u1, u2, -1),
                 50, flush)
             nbytes = needed_bytes(fan_pack, nodes, u1, u2)
-            row.update(ms=ms, plain_ms=plain_ms, bytes=nbytes,
-                       bound_ms=nbytes / HBM_BYTES_PER_S * 1e3)
+            row.update(bytes=nbytes, bound_ms=nbytes / HBM_BYTES_PER_S * 1e3)
+            row["turns_ms"] = time_in_turns(launches, 200, flush)
         shapes.append(row)
         log(f"kernel: {json.dumps(row)}")
-    return shapes
+    # the crossover of the two paths: both, bit-exact, timed in turns
+    # (row, draw, draw, row) at sizes between and around the two hops
+    paths = {k: v for k, v in entries.items() if k != "parent"}
+    crossover = []
+    for B in (1024, 2048, 4096, 8192, 12_800, 26_624):
+        for C in (10, 15, 20, 25):
+            nodes = torch.randint(0, G, (B,), generator=gen,
+                                  dtype=torch.int32, device=dev)
+            u1, u2 = sampling.draw_fan_uniforms(gen, B, C, dev)
+            ref_ids, ref_valid = fd.fan_draw_plain(fan_pack, nodes, 0, 1,
+                                                   u1, u2, -1)
+            launches = {}
+            for name, (fn, path) in paths.items():
+                ids, valid = torch.full_like(ref_ids, 7), ~ref_valid
+                launches[name] = fan_call(fn, fan_pack, nodes, 0, 1, u1, u2,
+                                          ids, valid, *path)
+                launches[name]()
+                torch.cuda.synchronize()
+                check(torch.equal(ids, ref_ids)
+                      and torch.equal(valid, ref_valid),
+                      f"fan_draw {name} != plain at B={B} C={C}")
+            crossover.append(dict(B=B, C=C, **time_in_turns(launches, 200,
+                                                             flush)))
+            log(f"kernel: paths {json.dumps(crossover[-1])}")
+    # an empty launch timed the same way: the floor under hop 1
+    floor_ms = time_launches(lambda: torch.cuda._sleep(0), 200, flush)
+    log(f"kernel: launch_floor_ms {floor_ms}")
+    return shapes, crossover, floor_ms
 
 
 # ---------------------------------------------------------------- phase 4 --
@@ -235,12 +361,21 @@ def int_view(x: torch.Tensor) -> torch.Tensor:
     return x.view(torch.int32 if x.element_size() == 4 else torch.int16)
 
 
-def gather_ids(rng, M: int, N: int, dev) -> torch.Tensor:
-    """Uniform ids in [0, N) with about 1% of -1 and a few >= N."""
-    ids = rng.integers(0, N, M).astype(np.int32)
-    ids[rng.random(M) < 0.01] = -1
-    ids[rng.random(M) < 0.001] = N + rng.integers(0, 7)
-    ids[:3] = [-1, N, N - 1]
+def gather_ids(rng, M: int, N: int, dev, kind: str = "mixed"):
+    """int32 ids [M]. "mixed": uniform in [0, N) with about 1% of -1 and
+    a few >= N (one of each at the front); "minus1": all -1; "beyond": all
+    >= N; "repeat": eight rows, over and over."""
+    if kind == "minus1":
+        ids = np.full(M, -1, np.int32)
+    elif kind == "beyond":
+        ids = (N + rng.integers(0, 7, M)).astype(np.int32)
+    elif kind == "repeat":
+        ids = rng.integers(0, 8, M).astype(np.int32)
+    else:
+        ids = rng.integers(0, N, M).astype(np.int32)
+        ids[rng.random(M) < 0.01] = -1
+        ids[rng.random(M) < 0.001] = N + rng.integers(0, 7)
+        ids[:3] = [-1, N, N - 1][:M]
     return torch.from_numpy(ids).to(dev)
 
 
@@ -254,26 +389,46 @@ def gather_bytes(table, ids) -> int:
     return rows * D * elt + ids.numel() * D * elt + 4 * ids.numel()
 
 
-def phase_gather(dev):
+def gather_call(fn, table, ids, out):
+    """A raw call of an ``etpu_gather_rows`` (this checkout's or the
+    parent's) into ``out`` [M, D]."""
+    (N, D), M = table.shape, ids.shape[0]
+    stream = torch.cuda.current_stream().cuda_stream
+    return checked(lambda: fn(
+        table.data_ptr(), N, D, table.element_size(), ids.data_ptr(), M,
+        out.data_ptr(), D, 0, stream))
+
+
+def phase_gather(dev, parent=None):
     rng = np.random.default_rng(7)
     gen = torch.Generator(device=dev).manual_seed(7)
     flush = torch.empty(64 << 20, dtype=torch.uint8, device=dev)
-    cases = [  # (N, D, M, dtype, out width or None, col_offset, timed)
-        (N_NODES, FEAT_DIM, GATHER_ROWS, torch.float32, None, 0, True),
-        (N_NODES, FEAT_DIM, GATHER_ROWS, torch.bfloat16, None, 0, True),
-        (N_NODES, N_CLASSES, BATCH, torch.float32, None, 0, False),
-        (5000, 1, 10_007, torch.float32, None, 0, False),
-        (5000, 3, 10_007, torch.float32, None, 0, False),
-        (5000, 127, 10_007, torch.float32, None, 0, False),
-        (5000, 5, 10_007, torch.bfloat16, None, 0, False),
-        (5000, 128, 10_007, torch.float32, 256, 128, False),   # 16-byte path
-        (5000, 128, 10_007, torch.bfloat16, 264, 8, False),    # 16-byte path
-        (5000, 64, 10_007, torch.float32, 300, 37, False),     # element path
+    f32, bf16 = torch.float32, torch.bfloat16
+    cases = [  # (N, D, M, dtype, out width or None, col_offset, ids, timed)
+        (N_NODES, FEAT_DIM, GATHER_ROWS, f32, None, 0, "mixed", True),
+        (N_NODES, FEAT_DIM, GATHER_ROWS, bf16, None, 0, "mixed", True),
+        (N_NODES, N_CLASSES, BATCH, f32, None, 0, "mixed", False),
+        (N_NODES, N_CLASSES, BATCH, bf16, None, 0, "mixed", False),
+        (5000, 1, 10_007, f32, None, 0, "mixed", False),
+        (5000, 3, 10_007, f32, None, 0, "mixed", False),
+        (5000, 127, 10_007, f32, None, 0, "mixed", False),
+        (5000, 5, 10_007, bf16, None, 0, "mixed", False),
+        (5000, 128, 10_007, f32, 256, 128, "mixed", False),  # 16-byte path
+        (5000, 128, 10_007, bf16, 264, 8, "mixed", False),   # 16-byte path
+        (5000, 64, 10_007, f32, 300, 37, "mixed", False),    # element path
+        (5000, 128, 1, f32, None, 0, "mixed", False),
+        (5000, 128, 33, f32, None, 0, "mixed", False),       # past a tile
+        (5000, 128, 1000, f32, None, 0, "mixed", False),     # ragged stage
+        (5000, 128, 1000, bf16, 200, 64, "mixed", False),
+        (5000, 128, 4099, f32, None, 0, "minus1", False),
+        (5000, 128, 4099, bf16, None, 0, "beyond", False),
+        (5000, 128, 4099, f32, 256, 0, "beyond", False),
+        (5000, 128, 65_536, f32, None, 0, "repeat", False),
     ]
     rows = []
-    for N, D, M, dtype, W, off, timed in cases:
+    for N, D, M, dtype, W, off, kind, timed in cases:
         table = torch.randn((N, D), generator=gen, device=dev, dtype=dtype)
-        ids = gather_ids(rng, M, N, dev)
+        ids = gather_ids(rng, M, N, dev, kind)
         if W is None:
             got = gr.gather_rows(table, ids)
             want = gr.gather_rows_plain(table, ids)
@@ -282,18 +437,18 @@ def phase_gather(dev):
             got = gr.gather_rows(table, ids, base.clone(), off)
             want = gr.gather_rows_plain(table, ids, base.clone(), off)
         torch.cuda.synchronize()
+        what = f"N={N} D={D} M={M} {dtype} W={W} offset={off} ids={kind}"
         check(got.dtype == want.dtype and got.shape == want.shape
               and torch.equal(int_view(got), int_view(want)),
-              f"gather_rows kernel != plain at N={N} D={D} M={M} {dtype} "
-              f"W={W} offset={off}")
+              f"gather_rows kernel != plain at {what}")
         err = float((got.float() - want.float()).abs().nan_to_num(0).max())
         row = dict(N=N, D=D, M=M, dtype=str(dtype).replace("torch.", ""),
-                   out_width=W, col_offset=off, bit_exact=True,
+                   out_width=W, col_offset=off, ids=kind, bit_exact=True,
                    max_abs_err=err,
                    nan_rows=int(torch.isnan(got).any(1).sum()),
                    zero_rows=int((ids < 0).sum()))
-        check(row["nan_rows"] >= int((ids >= N).sum()) > 0,
-              "ids >= N gave NaN rows")
+        check(row["nan_rows"] == int((ids >= N).sum()),
+              f"NaN rows exactly where ids >= N at {what}")
         if timed:
             out = torch.empty((M, D), dtype=dtype, device=dev)
             clamped = ids.clamp(0, N - 1)
@@ -303,10 +458,46 @@ def phase_gather(dev):
                 lambda: gr.gather_rows_plain(table, ids), 50, flush)
             row["library_ms"] = time_launches(
                 lambda: torch.index_select(table, 0, clamped), 200, flush)
+            # a yardstick of the card's streaming rate: copying [M, D]
+            # reads and writes M * D elements once each, in order
+            dense = torch.empty_like(out)
+            row["copy_ms"] = time_launches(lambda: out.copy_(dense), 200,
+                                           flush)
             row["bytes"] = gather_bytes(table, ids)
             row["bound_ms"] = row["bytes"] / HBM_BYTES_PER_S * 1e3
             row["distinct_rows"] = int(torch.unique(
                 ids[(ids >= 0) & (ids < N)]).numel())
+            # what the ids' order and repeats cost: the same ids sorted
+            # (repeats adjacent, rows in order), and M ids with no repeat
+            # in random order from a table of 2N rows, each bit-exact
+            wide = torch.empty((2 * N, D), dtype=dtype, device=dev)
+            distinct = torch.randperm(2 * N, generator=gen,
+                                      device=dev)[:M].int()
+            for key, t, i in (("sorted", table, ids.sort().values),
+                              ("distinct", wide, distinct)):
+                check(torch.equal(int_view(gr.gather_rows(t, i, out)),
+                                  int_view(gr.gather_rows_plain(t, i))),
+                      f"gather_rows != plain on {key} ids at {what}")
+                row[f"{key}_ms"] = time_launches(
+                    lambda t=t, i=i: gr.gather_rows(t, i, out), 200, flush)
+            row["distinct_bound_ms"] = (gather_bytes(wide, distinct)
+                                        / HBM_BYTES_PER_S * 1e3)
+            del wide
+            if parent is not None:
+                # the parent's kernel, bit-exact, and this checkout's in
+                # turns
+                launches = {
+                    "parent": gather_call(parent["etpu_gather_rows"], table,
+                                          ids, out),
+                    "kernel": gather_call(gr.build().etpu_gather_rows, table,
+                                          ids, out)}
+                for name, launch in launches.items():
+                    out.fill_(7.0)
+                    launch()
+                    torch.cuda.synchronize()
+                    check(torch.equal(int_view(out), int_view(want)),
+                          f"gather_rows {name} != plain at {what}")
+                row["turns_ms"] = time_in_turns(launches, 200, flush)
         rows.append(row)
         log(f"gather: {json.dumps(row)}")
     return rows
@@ -583,7 +774,43 @@ def phase_bench(dev):
 
 # ------------------------------------------------------------------- main --
 
+def ptxas_report(name: str) -> dict:
+    """Build csrc/<name>.cu once more with ``-Xptxas -v`` into a scratch
+    directory: mangled kernel name -> registers, static shared memory and
+    spill bytes."""
+    src = os.path.join(PACKAGE_DIR, "csrc", f"{name}.cu")
+    with tempfile.TemporaryDirectory() as tmp:
+        err = subprocess.run(
+            [nvcc()] + NVCC_FLAGS + ["-Xptxas", "-v", src, "-o",
+                                     os.path.join(tmp, "lib.so")],
+            check=True, capture_output=True, text=True, timeout=600).stderr
+    report, fn = {}, None
+    for line in err.splitlines():
+        m = re.search(r"Compiling entry function '(\w+)'", line)
+        if m:
+            fn = m.group(1)
+            report[fn] = {}
+        elif fn is not None:
+            m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill "
+                          r"loads", line)
+            if m:
+                report[fn]["spill_bytes"] = int(m.group(1)) + int(m.group(2))
+            m = re.search(r"Used (\d+) registers", line)
+            if m:
+                smem = re.search(r"(\d+) bytes smem", line)
+                report[fn].update(registers=int(m.group(1)),
+                                  static_smem_bytes=int(smem.group(1))
+                                  if smem else 0)
+    return report
+
+
 def main() -> int:
+    parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    parser.add_argument(
+        "--parent", metavar="DIR",
+        help="a copy of the parent commit's tree: its two kernels are "
+             "built too and timed in turns with this checkout's")
+    args = parser.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false; this script "
               "needs an NVIDIA GPU", file=sys.stderr)
@@ -603,19 +830,25 @@ def main() -> int:
     log(f"device: {name} (count {count}); torch {torch.__version__}, "
         f"CUDA {torch.version.cuda}")
 
-    # 2. build: both nvcc builds and g++ started together
+    # 2. build: the nvcc builds, their -Xptxas -v twins and g++, all
+    # started together
     t0 = time.perf_counter()
-    with concurrent.futures.ThreadPoolExecutor(3) as ex:
+    with concurrent.futures.ThreadPoolExecutor(5) as ex:
         builds = [ex.submit(f) for f in (fd.build, gr.build, native.get_lib)]
+        reports = {n: ex.submit(ptxas_report, n)
+                   for n in ("fan_draw", "gather_rows")}
         for b in builds:
             b.result()
+        ptxas = {n: r.result() for n, r in reports.items()}
     build_s = time.perf_counter() - t0
     log(f"build: {build_s:.1f} s (fan_draw.cu and gather_rows.cu by nvcc, "
         f"sm_90a); native host core loaded: {native.available()}")
+    log(f"ptxas: {json.dumps(ptxas)}")
+    parent = load_parent(args.parent) if args.parent else None
 
     # 3. fan_draw vs plain; 4. gather_rows vs plain
-    shapes = phase_kernel(dev)
-    gathers = phase_gather(dev)
+    shapes, crossover, launch_floor_ms = phase_kernel(dev, parent)
+    gathers = phase_gather(dev, parent)
 
     # 5. graph
     t0 = time.perf_counter()
@@ -666,7 +899,8 @@ def main() -> int:
 
     hop = [s for s in shapes if "ms" in s]
     timed = [g for g in gathers if "ms" in g]
-    main_gather = timed[0]                     # f32, as the train path runs
+    # the f32 gather as the train path runs it, the bf16 one as the bench
+    f32_gather, bf16_gather = timed
     kernels = [{
         "name": "fan_draw", "route": "cuda",
         "source": "euler_tpu_torch/csrc/fan_draw.cu",
@@ -681,8 +915,12 @@ def main() -> int:
         "bound_ms": sum(s["bound_ms"] for s in hop),
         "bound_by": "bytes",
         "library_ms": None,
-        "shapes": [{k: s[k] for k in ("B", "C", "ms", "plain_ms",
-                                      "bound_ms", "bytes")} for s in hop],
+        "launch_floor_ms": launch_floor_ms,
+        "ptxas": ptxas["fan_draw"],
+        "shapes": [{k: s[k] for k in ("B", "C", "ms", "plain_ms", "bound_ms",
+                                      "bytes", "turns_ms") if k in s}
+                   for s in hop],
+        "paths_ms": crossover,
     }, {
         "name": "gather_rows", "route": "cuda",
         "source": "euler_tpu_torch/csrc/gather_rows.cu",
@@ -691,16 +929,20 @@ def main() -> int:
         "launches_by_path": by_path("gather_rows"),
         "bit_exact": True,
         "max_abs_err": max(g["max_abs_err"] for g in gathers),
-        # the deepest feature gather in f32 (M=292,864, D=128); library_ms
-        # is torch.index_select on clamped ids, which skips the fills
-        "ms": main_gather["ms"],
-        "plain_ms": main_gather["plain_ms"],
-        "bound_ms": main_gather["bound_ms"],
+        # the deepest feature gather (M=292,864, D=128) in f32, and beside
+        # it in bf16; library_ms is torch.index_select on clamped ids,
+        # which skips the fills
+        **{f"{k}{sfx}": g[k]
+           for g, sfx in ((f32_gather, ""), (bf16_gather, "_bf16"))
+           for k in ("ms", "plain_ms", "bound_ms", "library_ms")},
         "bound_by": "bytes",
-        "library_ms": main_gather["library_ms"],
+        "ptxas": ptxas["gather_rows"],
         "shapes": [{k: g[k] for k in ("N", "D", "M", "dtype", "ms",
-                                      "plain_ms", "library_ms", "bound_ms",
-                                      "bytes", "distinct_rows")}
+                                      "plain_ms", "library_ms", "copy_ms",
+                                      "sorted_ms", "distinct_ms",
+                                      "distinct_bound_ms", "bound_ms",
+                                      "bytes", "distinct_rows", "turns_ms")
+                    if k in g}
                    for g in timed],
     }]
     log(json.dumps({"smoke": dict(

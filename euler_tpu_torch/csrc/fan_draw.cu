@@ -24,11 +24,33 @@
 // B*C*(4+4+4+1) + B*4 bytes (u1, u2, ids, valid, nodes), plus from each
 // fan row its 8-byte head and at most C prob/id pairs; it does a handful
 // of integer and f32 operations per draw, far below the compute rate.
-// The TPU kernel's where-chain over all 42 lanes exists for the TPU's
-// vector lanes; here each thread reads only the lanes its draw needs.
-// This first version runs one thread per (b, c) over a 1-D grid, so the
-// C threads of one row read its head C times (mostly from L1/L2); one warp
-// per row with vectorised lane loads is the known next step.
+// That bound counts 4-byte lanes, but the memory moves 32-byte sectors.
+// Which costs more, the sectors or the dependent trips to memory, depends
+// on the size, so there are two paths:
+//
+// * Row path (few rows, or many draws a row; hop 1 at B=1,024, C=25).
+//   With few rows the card is not filled, so the time is the launch plus
+//   the chain of dependent trips. One warp per frontier node: lane 0
+//   loads the node id, then each lane loads one 16-byte word of the
+//   node's fan row, so the whole 512-byte row arrives in one warp
+//   transaction. The warp's uniforms load with it, since they do not
+//   depend on the node. The row is staged in shared memory and the lanes
+//   take the draws c = lane, lane + 32, ...: two dependent trips (node,
+//   row) where a thread per draw makes four (node, head, prob lane, id
+//   lane).
+// * Draw path (many rows of few draws; hop 2 at B=26,624, C=10). The
+//   card is full and the sectors bound it: a whole row is 16 sectors,
+//   while a row's 10 draws touch only the sectors of their head, prob
+//   lanes and kept-or-alias lanes. One thread per draw reads the 8-byte
+//   head, then its prob lane, then the one id lane it keeps, with 32-bit
+//   index arithmetic where B * C allows it.
+//
+// etpu_fan_draw takes the draw path where B > kRowPathMaxRows and
+// C <= kDrawPathMaxCount, and the row path elsewhere. chip_smoke.py times
+// both paths at B = 1,024 ... 26,624 and C = 10, 15, 20, 25 on an H100:
+// the row path was faster at every C up to 4,096 rows and at C = 25
+// everywhere; above 4,096 rows the draw path was faster at C = 10 and 15,
+// and at C = 20 each path won at some B by 1-3% (PERF.md).
 #include <cstdint>
 
 #include <cuda_runtime.h>
@@ -40,53 +62,167 @@ constexpr int kFanLanes = 128;
 constexpr int kProbOff = 2;
 constexpr int kKeptOff = kProbOff + kFanD;
 constexpr int kAliasOff = kKeptOff + kFanD;
-constexpr int kThreads = 256;
+constexpr int kRowWarps = 4;     // warps per block of the row path
+constexpr int kPre = 2;          // draws per lane whose uniforms load early
+constexpr int kDrawThreads = 256;
+constexpr int64_t kRowPathMaxRows = 4096;  // the row path up to this B,
+constexpr int kDrawPathMaxCount = 20;      // and above it for larger C
+constexpr unsigned kAll = 0xffffffffu;
 
-__global__ void fan_draw_kernel(const int32_t* __restrict__ fan_pack,
-                                int64_t n_rows,
-                                const int32_t* __restrict__ nodes,
-                                int64_t n_draws, int count, int et,
-                                int n_et, const float* __restrict__ u1,
-                                const float* __restrict__ u2, int default_id,
-                                int32_t* __restrict__ ids,
-                                bool* __restrict__ valid) {
-  const int64_t i =
-      static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
-  if (i >= n_draws) return;
-  const int32_t node = nodes[i / count];
-  // an out-of-range row is clamped, as XLA clamps a gather index
-  int64_t row = static_cast<int64_t>(max(node, 0)) * n_et + et;
-  row = min(row, n_rows - 1);
-  const int32_t* p = fan_pack + row * kFanLanes;
+__device__ __forceinline__ int32_t draw(const int32_t* p, int32_t node,
+                                        float x1, float x2, int default_id,
+                                        bool* ok_out) {
   const int32_t deg = p[0];
   const float wsum = __int_as_float(p[1]);
-  int slot = __float2int_rz(__fmul_rn(u1[i], static_cast<float>(deg)));
+  int slot = __float2int_rz(__fmul_rn(x1, static_cast<float>(deg)));
   slot = min(max(slot, 0), max(deg - 1, 0));
   slot = min(slot, kFanD - 1);  // stay inside the row whatever lane 0 says
   const float prob = __int_as_float(p[kProbOff + slot]);
-  const int32_t draw =
-      u2[i] < prob ? p[kKeptOff + slot] : p[kAliasOff + slot];
+  const int32_t pick = x2 < prob ? p[kKeptOff + slot] : p[kAliasOff + slot];
   const bool ok = node >= 0 && deg > 0 && wsum > 0.0f;
-  ids[i] = ok ? draw : default_id;
+  *ok_out = ok;
+  return ok ? pick : default_id;
+}
+
+// an out-of-range row is clamped, as XLA clamps a gather index
+__device__ __forceinline__ int64_t fan_row(int32_t node, int et, int n_et,
+                                           int64_t n_rows) {
+  const int64_t row = static_cast<int64_t>(max(node, 0)) * n_et + et;
+  return min(row, n_rows - 1);
+}
+
+// One warp per node b; the draws of b are c = lane, lane + 32, ...
+__global__ void __launch_bounds__(kRowWarps * 32)
+fan_draw_row_kernel(const int4* __restrict__ fan_pack, int64_t n_rows,
+                    const int32_t* __restrict__ nodes, int64_t n_nodes,
+                    int count, int et, int n_et, const float* __restrict__ u1,
+                    const float* __restrict__ u2, int default_id,
+                    int32_t* __restrict__ ids, bool* __restrict__ valid) {
+  __shared__ int4 stage[kRowWarps][kFanLanes / 4];
+  const int lane = threadIdx.x & 31;
+  const int w = threadIdx.x >> 5;
+  const int64_t b = static_cast<int64_t>(blockIdx.x) * kRowWarps + w;
+  if (b >= n_nodes) return;  // the whole warp leaves together
+  const int64_t first = b * count;
+
+  const int32_t node = __shfl_sync(kAll, lane == 0 ? nodes[b] : 0, 0);
+  float x1[kPre], x2[kPre];
+#pragma unroll
+  for (int k = 0; k < kPre; ++k) {
+    const int c = lane + 32 * k;
+    x1[k] = c < count ? u1[first + c] : 0.0f;
+    x2[k] = c < count ? u2[first + c] : 0.0f;
+  }
+  const int64_t row = fan_row(node, et, n_et, n_rows);
+  stage[w][lane] = __ldg(fan_pack + row * (kFanLanes / 4) + lane);
+  __syncwarp();
+
+  const int32_t* p = reinterpret_cast<const int32_t*>(stage[w]);
+  bool ok;
+#pragma unroll
+  for (int k = 0; k < kPre; ++k) {
+    const int c = lane + 32 * k;
+    if (c < count) {
+      ids[first + c] = draw(p, node, x1[k], x2[k], default_id, &ok);
+      valid[first + c] = ok;
+    }
+  }
+  for (int c = lane + 32 * kPre; c < count; c += 32) {
+    ids[first + c] = draw(p, node, u1[first + c], u2[first + c], default_id,
+                          &ok);
+    valid[first + c] = ok;
+  }
+}
+
+// One thread per draw i = b * count + c; I is the index type, uint32_t
+// where B * C < 2^32, else int64_t.
+template <typename I>
+__global__ void __launch_bounds__(kDrawThreads)
+fan_draw_each_kernel(const int32_t* __restrict__ fan_pack, int64_t n_rows,
+                     const int32_t* __restrict__ nodes, I n_draws, I count,
+                     int et, int n_et, const float* __restrict__ u1,
+                     const float* __restrict__ u2, int default_id,
+                     int32_t* __restrict__ ids, bool* __restrict__ valid) {
+  const I i = static_cast<I>(blockIdx.x) * kDrawThreads + threadIdx.x;
+  if (i >= n_draws) return;
+  const float x1 = __ldg(u1 + i);
+  const float x2 = __ldg(u2 + i);
+  const int32_t node = __ldg(nodes + i / count);
+  const int32_t* p = fan_pack + fan_row(node, et, n_et, n_rows) * kFanLanes;
+  const int32_t deg = __ldg(p);
+  const float wsum = __int_as_float(__ldg(p + 1));
+  int slot = __float2int_rz(__fmul_rn(x1, static_cast<float>(deg)));
+  slot = min(max(slot, 0), max(deg - 1, 0));
+  slot = min(slot, kFanD - 1);  // stay inside the row whatever lane 0 says
+  const float prob = __int_as_float(__ldg(p + kProbOff + slot));
+  const int32_t pick = __ldg(p + (x2 < prob ? kKeptOff : kAliasOff) + slot);
+  const bool ok = node >= 0 && deg > 0 && wsum > 0.0f;
+  ids[i] = ok ? pick : default_id;
   valid[i] = ok;
+}
+
+template <typename I>
+void launch_each(const void* fan_pack, int64_t n_rows, const void* nodes,
+                 int64_t n_draws, int count, int et, int n_et, const void* u1,
+                 const void* u2, int default_id, void* ids, void* valid,
+                 cudaStream_t stream) {
+  const int64_t blocks = (n_draws + kDrawThreads - 1) / kDrawThreads;
+  fan_draw_each_kernel<I><<<static_cast<unsigned>(blocks), kDrawThreads, 0,
+                            stream>>>(
+      static_cast<const int32_t*>(fan_pack), n_rows,
+      static_cast<const int32_t*>(nodes), static_cast<I>(n_draws),
+      static_cast<I>(count), et, n_et, static_cast<const float*>(u1),
+      static_cast<const float*>(u2), default_id, static_cast<int32_t*>(ids),
+      static_cast<bool*>(valid));
 }
 
 }  // namespace
 
-// Launches on `stream` and returns cudaGetLastError() (0 = launched).
+// The draw with its path named: 0 = by shape (above), 1 = the row path,
+// 2 = the draw path. The row path loads 16-byte words, so path 0 takes
+// the draw path for a fan_pack that is not 16-byte aligned, and path 1
+// returns cudaErrorMisalignedAddress for one. Launches on `stream` and
+// returns cudaGetLastError() (0 = launched).
+extern "C" int etpu_fan_draw_path(const void* fan_pack, int64_t n_rows,
+                                  const void* nodes, int64_t n_nodes,
+                                  int count, int et, int n_et,
+                                  const void* u1, const void* u2,
+                                  int default_id, void* ids, void* valid,
+                                  void* stream, int path) {
+  if (path < 0 || path > 2) return static_cast<int>(cudaErrorInvalidValue);
+  const int64_t n_draws = n_nodes * count;
+  if (n_draws == 0) return 0;
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const bool aligned = reinterpret_cast<uintptr_t>(fan_pack) % 16 == 0;
+  if (path == 1 && !aligned) {
+    return static_cast<int>(cudaErrorMisalignedAddress);
+  }
+  const bool rows_win =
+      n_nodes <= kRowPathMaxRows || count > kDrawPathMaxCount;
+  if (path == 1 || (path == 0 && aligned && rows_win)) {
+    const int64_t blocks = (n_nodes + kRowWarps - 1) / kRowWarps;
+    fan_draw_row_kernel<<<static_cast<unsigned>(blocks), kRowWarps * 32, 0,
+                          s>>>(
+        static_cast<const int4*>(fan_pack), n_rows,
+        static_cast<const int32_t*>(nodes), n_nodes, count, et, n_et,
+        static_cast<const float*>(u1), static_cast<const float*>(u2),
+        default_id, static_cast<int32_t*>(ids), static_cast<bool*>(valid));
+  } else if (n_draws < (int64_t{1} << 32)) {
+    launch_each<uint32_t>(fan_pack, n_rows, nodes, n_draws, count, et, n_et,
+                          u1, u2, default_id, ids, valid, s);
+  } else {
+    launch_each<int64_t>(fan_pack, n_rows, nodes, n_draws, count, et, n_et,
+                         u1, u2, default_id, ids, valid, s);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The draw the port runs: etpu_fan_draw_path with path 0.
 extern "C" int etpu_fan_draw(const void* fan_pack, int64_t n_rows,
                              const void* nodes, int64_t n_nodes, int count,
                              int et, int n_et, const void* u1,
                              const void* u2, int default_id, void* ids,
                              void* valid, void* stream) {
-  const int64_t n_draws = n_nodes * count;
-  if (n_draws == 0) return 0;
-  const int64_t blocks = (n_draws + kThreads - 1) / kThreads;
-  fan_draw_kernel<<<static_cast<unsigned>(blocks), kThreads, 0,
-                    static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const int32_t*>(fan_pack), n_rows,
-      static_cast<const int32_t*>(nodes), n_draws, count, et, n_et,
-      static_cast<const float*>(u1), static_cast<const float*>(u2),
-      default_id, static_cast<int32_t*>(ids), static_cast<bool*>(valid));
-  return static_cast<int>(cudaGetLastError());
+  return etpu_fan_draw_path(fan_pack, n_rows, nodes, n_nodes, count, et,
+                            n_et, u1, u2, default_id, ids, valid, stream, 0);
 }

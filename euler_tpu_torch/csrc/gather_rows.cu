@@ -22,83 +22,165 @@
 //
 // Bound: device-memory bytes. The gather must read each distinct row it
 // selects once (rows * D * elt), write M * D * elt and read 4 * M bytes
-// of ids; it does no arithmetic. The TPU kernel issues one DMA per row
-// from scalar memory; here one warp copies one row, each lane moving
-// 16 bytes at a time (a 128-wide f32 row is one 512-byte transaction of
-// the warp), and the warps stride over the rows. Byte offsets are int64:
-// row * D * elt passes 2^31 on a papers100M-sized table. This first
-// version keeps one row in flight per warp; several rows per warp, to
-// hide more latency, is the known next step.
+// of ids; it does no arithmetic. Random rows of 256-512 bytes are
+// latency-bound unless many are in flight: the first version kept one row
+// per warp in flight behind a dependent id load and reached 61% (f32) and
+// 49% (bf16) of the bound. Here each warp takes the ids 32 at a time
+// (lane k loads ids[base + k], one coalesced load, spread with
+// __shfl_sync) and loads the next tile's ids while the current tile's
+// rows are in flight. A row is moved by a power-of-two group of lanes (a
+// 512-byte f32 row by the warp, a 256-byte bf16 row by a half-warp, a
+// 64-byte label row by four lanes), in 16-byte words where the table,
+// the output and their strides allow it and else element by element, and
+// each lane holds kUnroll independent loads before its first store.
+//
+// A second path that moved aligned rows with Hopper's bulk copies
+// (cp.async.bulk into an mbarrier ring of shared-memory stages) took the
+// same time to within 1% on an H100 and was not kept (PERF.md).
+//
+// Byte offsets are int64: row * D * elt passes 2^31 on a
+// papers100M-sized table.
+#include <atomic>
 #include <cstdint>
 
 #include <cuda_runtime.h>
 
 namespace {
 
-constexpr int kThreads = 256;
-constexpr int kWarpsPerBlock = kThreads / 32;
-constexpr int kBlocksPerSm = 2048 / kThreads;  // full occupancy
+constexpr int kTile = 32;       // ids per tile
+constexpr int kUnroll = 8;      // loads in flight per lane
+constexpr int kThreads = 256;   // threads per block
+constexpr int kMaxDevices = 64;  // devices whose occupancy is remembered
+constexpr unsigned kAll = 0xffffffffu;
 
-// V is the word moved per lane and step: uint4 (16 bytes) on the aligned
-// path, else the element itself (uint32_t for f32, uint16_t for bf16).
+// V is the word one lane moves: uint4 (16 bytes) on the aligned path,
+// else the element itself (uint32_t for f32, uint16_t for bf16).
 // row_words is D in words; out_stride is W in words; out already points
-// at column col_offset.
+// at column col_offset. A row is moved by 2^lpr_log2 lanes.
 template <typename V>
-__global__ void gather_rows_kernel(const V* __restrict__ table,
-                                   int64_t n_rows, int64_t row_words,
-                                   const int32_t* __restrict__ ids,
-                                   int64_t m, V* __restrict__ out,
-                                   int64_t out_stride, V zero, V nan) {
+__global__ void __launch_bounds__(kThreads)
+gather_rows_kernel(const V* __restrict__ table, int64_t n_rows,
+                   int row_words, const int32_t* __restrict__ ids,
+                   int64_t m, V* __restrict__ out, int64_t out_stride,
+                   V zero, V nan, int lpr_log2) {
   const int lane = threadIdx.x & 31;
   const int64_t warp =
       (static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x) >> 5;
   const int64_t n_warps =
       (static_cast<int64_t>(gridDim.x) * blockDim.x) >> 5;
-  for (int64_t i = warp; i < m; i += n_warps) {
-    const int32_t id = __ldg(ids + i);
-    V* dst = out + i * out_stride;
-    if (id >= 0 && id < n_rows) {
-      const V* src = table + static_cast<int64_t>(id) * row_words;
-      for (int64_t j = lane; j < row_words; j += 32) dst[j] = __ldg(src + j);
-    } else {
-      const V fill = id < 0 ? zero : nan;
-      for (int64_t j = lane; j < row_words; j += 32) dst[j] = fill;
+  const int64_t n_tiles = (m + kTile - 1) / kTile;
+  const int lanes_per_row = 1 << lpr_log2;
+  const int rows_per_step = kTile >> lpr_log2;
+  const int sub = lane >> lpr_log2;             // row within a step
+  const int word0 = lane & (lanes_per_row - 1);
+
+  int64_t tile = warp;
+  int32_t id = -1;
+  if (tile < n_tiles && tile * kTile + lane < m) {
+    id = __ldg(ids + tile * kTile + lane);
+  }
+  for (; tile < n_tiles; tile += n_warps) {
+    const int64_t next = tile + n_warps;         // its ids load meanwhile
+    int32_t next_id = -1;
+    if (next < n_tiles && next * kTile + lane < m) {
+      next_id = __ldg(ids + next * kTile + lane);
     }
+    const int64_t base = tile * kTile;
+    const int rows =
+        static_cast<int>(min(static_cast<int64_t>(kTile), m - base));
+    const int steps = (rows + rows_per_step - 1) / rows_per_step;
+    for (int s0 = 0; s0 < steps; s0 += kUnroll) {
+      int r[kUnroll];
+      int32_t rid[kUnroll];
+#pragma unroll
+      for (int u = 0; u < kUnroll; ++u) {
+        r[u] = (s0 + u) * rows_per_step + sub;
+        const int32_t got = __shfl_sync(kAll, id, r[u] & (kTile - 1));
+        rid[u] = r[u] < rows ? got : -1;
+      }
+      for (int j = word0; j < row_words; j += lanes_per_row) {
+        V v[kUnroll];
+#pragma unroll
+        for (int u = 0; u < kUnroll; ++u) {
+          v[u] = rid[u] < 0 ? zero : nan;
+          if (rid[u] >= 0 && rid[u] < n_rows) {
+            v[u] = __ldg(table + static_cast<int64_t>(rid[u]) * row_words
+                         + j);
+          }
+        }
+#pragma unroll
+        for (int u = 0; u < kUnroll; ++u) {
+          if (r[u] < rows) out[(base + r[u]) * out_stride + j] = v[u];
+        }
+      }
+    }
+    id = next_id;
   }
 }
 
-int sm_count() {
-  int dev = 0, sms = 0;
-  if (cudaGetDevice(&dev) != cudaSuccess ||
-      cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev) !=
-          cudaSuccess || sms <= 0) {
-    return 132;  // H100 SXM; only sizes the grid
+// Blocks of gather_rows_kernel<V> that the current device runs at once:
+// asked of the runtime on the first launch on each device, then
+// remembered, so that a launch makes no query beyond cudaGetDevice.
+template <typename V>
+int64_t resident_blocks() {
+  static std::atomic<int64_t> known[kMaxDevices];
+  int dev = 0;
+  if (cudaGetDevice(&dev) != cudaSuccess) dev = -1;
+  const bool keep = dev >= 0 && dev < kMaxDevices;
+  if (keep) {
+    const int64_t got = known[dev].load(std::memory_order_relaxed);
+    if (got > 0) return got;
   }
-  return sms;
+  int sms = 0, per_sm = 0;
+  if (cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev) !=
+          cudaSuccess || sms <= 0) {
+    sms = 132;  // H100 SXM; only sizes the grid
+  }
+  if (cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+          &per_sm, gather_rows_kernel<V>, kThreads, 0) != cudaSuccess ||
+      per_sm <= 0) {
+    per_sm = 1;
+  }
+  const int64_t n = static_cast<int64_t>(sms) * per_sm;
+  if (keep) known[dev].store(n, std::memory_order_relaxed);
+  return n;
+}
+
+// A grid for `tiles` tiles of kThreads / 32 warps a block: as many blocks
+// as there are tiles for a warp each, up to what the device runs at once,
+// and then as many as give every block the same number of rounds.
+template <typename V>
+unsigned balanced_blocks(int64_t tiles) {
+  constexpr int64_t per_block = kThreads / 32;
+  const int64_t want = (tiles + per_block - 1) / per_block;
+  const int64_t cap = resident_blocks<V>();
+  if (want <= cap) return static_cast<unsigned>(want);
+  const int64_t rounds = (want + cap - 1) / cap;
+  return static_cast<unsigned>((want + rounds - 1) / rounds);
 }
 
 template <typename V>
-void launch(const void* table, int64_t n_rows, int64_t row_words,
-            const int32_t* ids, int64_t m, void* out, int64_t out_stride,
-            V zero, V nan, cudaStream_t stream) {
-  const int64_t want = (m + kWarpsPerBlock - 1) / kWarpsPerBlock;
-  const int64_t cap = static_cast<int64_t>(sm_count()) * kBlocksPerSm;
-  const unsigned blocks = static_cast<unsigned>(want < cap ? want : cap);
+int launch(const void* table, int64_t n_rows, int row_words,
+           const int32_t* ids, int64_t m, void* out, int64_t out_stride,
+           V zero, V nan, cudaStream_t stream) {
+  int lpr_log2 = 0;
+  while ((1 << lpr_log2) < row_words && lpr_log2 < 5) ++lpr_log2;
+  const unsigned blocks = balanced_blocks<V>((m + kTile - 1) / kTile);
   gather_rows_kernel<V><<<blocks, kThreads, 0, stream>>>(
       static_cast<const V*>(table), n_rows, row_words, ids, m,
-      static_cast<V*>(out), out_stride, zero, nan);
+      static_cast<V*>(out), out_stride, zero, nan, lpr_log2);
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
 
-// table [n_rows, d] of elt_size-byte elements (4: f32, 2: bf16), ids
-// int32 [m], out rows of out_stride elements, written from column
-// col_offset. Launches on `stream` and returns cudaGetLastError()
-// (0 = launched); an elt_size other than 2 or 4 returns
-// cudaErrorInvalidValue.
-extern "C" int etpu_gather_rows(const void* table, int64_t n_rows,
-                                int64_t d, int elt_size, const void* ids,
-                                int64_t m, void* out, int64_t out_stride,
+// table [n_rows, d] of elt_size-byte elements (4: f32, 2: bf16), ids int32
+// [m], out rows of out_stride elements, written from column col_offset.
+// Launches on `stream` and returns cudaGetLastError() (0 = launched); an
+// elt_size other than 2 or 4 returns cudaErrorInvalidValue.
+extern "C" int etpu_gather_rows(const void* table, int64_t n_rows, int64_t d,
+                                int elt_size, const void* ids, int64_t m,
+                                void* out, int64_t out_stride,
                                 int64_t col_offset, void* stream) {
   if (elt_size != 2 && elt_size != 4) {
     return static_cast<int>(cudaErrorInvalidValue);
@@ -114,16 +196,15 @@ extern "C" int etpu_gather_rows(const void* table, int64_t n_rows,
                        row_bytes % 16 == 0 && stride_bytes % 16 == 0;
   if (aligned) {
     const uint32_t w = elt_size == 4 ? 0x7fc00000u : 0x7fc07fc0u;
-    launch<uint4>(table, n_rows, row_bytes / 16, idx, m, dst,
-                  stride_bytes / 16, make_uint4(0, 0, 0, 0),
-                  make_uint4(w, w, w, w), s);
-  } else if (elt_size == 4) {
-    launch<uint32_t>(table, n_rows, d, idx, m, dst, out_stride, 0u,
-                     0x7fc00000u, s);
-  } else {
-    launch<uint16_t>(table, n_rows, d, idx, m, dst, out_stride,
-                     static_cast<uint16_t>(0),
-                     static_cast<uint16_t>(0x7fc0), s);
+    return launch<uint4>(table, n_rows, static_cast<int>(row_bytes / 16),
+                         idx, m, dst, stride_bytes / 16,
+                         make_uint4(0, 0, 0, 0), make_uint4(w, w, w, w), s);
   }
-  return static_cast<int>(cudaGetLastError());
+  if (elt_size == 4) {
+    return launch<uint32_t>(table, n_rows, static_cast<int>(d), idx, m, dst,
+                            out_stride, 0u, 0x7fc00000u, s);
+  }
+  return launch<uint16_t>(table, n_rows, static_cast<int>(d), idx, m, dst,
+                          out_stride, static_cast<uint16_t>(0),
+                          static_cast<uint16_t>(0x7fc0), s);
 }

@@ -35,9 +35,12 @@ def build():
         if _lib is None:
             lib = ctypes.CDLL(build_cuda_library("fan_draw"))
             vp, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
-            lib.etpu_fan_draw.argtypes = [vp, i64, vp, i64, i32, i32, i32,
-                                          vp, vp, i32, vp, vp, vp]
+            args = [vp, i64, vp, i64, i32, i32, i32, vp, vp, i32, vp, vp, vp]
+            lib.etpu_fan_draw.argtypes = args
             lib.etpu_fan_draw.restype = ctypes.c_int
+            # the same draw with its path named (chip_smoke.py times both)
+            lib.etpu_fan_draw_path.argtypes = args + [i32]
+            lib.etpu_fan_draw_path.restype = ctypes.c_int
             _lib = lib
         return _lib
 

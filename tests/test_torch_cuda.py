@@ -41,21 +41,68 @@ def dev():
     return torch.device("cuda")
 
 
-@pytest.mark.parametrize("B,C", [(1024, 25), (26_624, 10), (1021, 25)])
-def test_kernel_matches_plain(dev, B, C):
-    gen = torch.Generator(device=dev).manual_seed(B)
-    G = 4096
+def fan_inputs(dev, B, C, n_et, G=4096):
+    gen = torch.Generator(device=dev).manual_seed(B + C)
     packs = torch.from_numpy(synthetic_fan_pack(np.random.default_rng(B),
                                                 G)).to(dev)
-    nodes = torch.randint(0, G, (B,), generator=gen, dtype=torch.int32,
+    high = G if n_et == 1 else G + 50
+    nodes = torch.randint(0, high, (B,), generator=gen, dtype=torch.int32,
                           device=dev)
     nodes[::17] = -1
     u1, u2 = sampling.draw_fan_uniforms(gen, B, C, dev)
+    return packs, nodes, u1, u2
+
+
+@pytest.mark.parametrize("B,C,n_et,et", [
+    (1024, 25, 1, 0), (26_624, 10, 1, 0), (1021, 25, 1, 0),
+    (1, 1, 1, 0),
+    (333, 50, 1, 0),      # more draws per row than a warp has lanes
+    (4097, 10, 1, 0),     # one row past a multiple of a block's rows
+    (5000, 25, 1, 0),     # many rows of many draws: the row path
+    (1000, 10, 3, 1)])    # nodes up to G + 49: rows past the pack clamp
+def test_kernel_matches_plain(dev, B, C, n_et, et):
+    packs, nodes, u1, u2 = fan_inputs(dev, B, C, n_et)
     before = fd.fan_draw.launches
-    ids, valid = fd.fan_draw(packs, nodes, 0, 1, u1, u2, -1)
+    ids, valid = fd.fan_draw(packs, nodes, et, n_et, u1, u2, -1)
     torch.cuda.synchronize()
     assert fd.fan_draw.launches == before + 1
+    ref_ids, ref_valid = fd.fan_draw_plain(packs, nodes, et, n_et, u1, u2,
+                                           -1)
+    assert torch.equal(ids, ref_ids)
+    assert torch.equal(valid, ref_valid)
+
+
+def test_unaligned_pack_takes_the_draw_path(dev):
+    # a pack that is not 16-byte aligned, at a size that would take the
+    # row path: the kernel draws it all the same
+    packs, nodes, u1, u2 = fan_inputs(dev, 1024, 25, 1)
+    flat = torch.empty(packs.numel() + 1, dtype=torch.int32, device=dev)
+    shifted = flat[1:].view(packs.shape)
+    shifted.copy_(packs)
+    assert shifted.data_ptr() % 16 and shifted.is_contiguous()
+    ids, valid = fd.fan_draw(shifted, nodes, 0, 1, u1, u2, -1)
     ref_ids, ref_valid = fd.fan_draw_plain(packs, nodes, 0, 1, u1, u2, -1)
+    assert torch.equal(ids, ref_ids)
+    assert torch.equal(valid, ref_valid)
+
+
+@pytest.mark.parametrize("path", [1, 2])        # row path, draw path
+@pytest.mark.parametrize("B,C,n_et,et", [(1, 1, 1, 0), (333, 50, 1, 0),
+                                         (26_624, 10, 1, 0),
+                                         (1000, 10, 3, 1)])
+def test_fan_draw_paths_match_plain(dev, path, B, C, n_et, et):
+    # each path of the kernel at sizes where the wrapper takes the other
+    packs, nodes, u1, u2 = fan_inputs(dev, B, C, n_et)
+    ids = torch.full((B, C), 7, dtype=torch.int32, device=dev)
+    valid = torch.ones((B, C), dtype=torch.bool, device=dev)
+    rc = fd.build().etpu_fan_draw_path(
+        packs.data_ptr(), packs.shape[0], nodes.data_ptr(), B, C, et, n_et,
+        u1.data_ptr(), u2.data_ptr(), -1, ids.data_ptr(), valid.data_ptr(),
+        torch.cuda.current_stream().cuda_stream, path)
+    torch.cuda.synchronize()
+    assert rc == 0
+    ref_ids, ref_valid = fd.fan_draw_plain(packs, nodes, et, n_et, u1, u2,
+                                           -1)
     assert torch.equal(ids, ref_ids)
     assert torch.equal(valid, ref_valid)
 
@@ -88,24 +135,40 @@ def test_slice_on_card_matches_cpu(dev):
                                    atol=1e-4, err_msg=name)
 
 
-@pytest.mark.parametrize("N,D,M,dtype,W,off", [
-    (200_000, 128, 292_864, torch.float32, None, 0),
-    (200_000, 128, 292_864, torch.bfloat16, None, 0),
-    (200_000, 16, 1024, torch.float32, None, 0),
-    (5000, 1, 10_007, torch.float32, None, 0),
-    (5000, 3, 10_007, torch.float32, None, 0),
-    (5000, 127, 10_007, torch.float32, None, 0),
-    (5000, 5, 10_007, torch.bfloat16, None, 0),
-    (5000, 128, 4099, torch.float32, 256, 128),
-    (5000, 128, 4099, torch.bfloat16, 264, 8),
-    (5000, 64, 4099, torch.float32, 300, 37)])
-def test_gather_kernel_matches_plain(dev, N, D, M, dtype, W, off):
+@pytest.mark.parametrize("N,D,M,dtype,W,off,kind", [
+    (200_000, 128, 292_864, torch.float32, None, 0, "mixed"),
+    (200_000, 128, 292_864, torch.bfloat16, None, 0, "mixed"),
+    (200_000, 16, 1024, torch.float32, None, 0, "mixed"),
+    (5000, 1, 10_007, torch.float32, None, 0, "mixed"),
+    (5000, 3, 10_007, torch.float32, None, 0, "mixed"),
+    (5000, 127, 10_007, torch.float32, None, 0, "mixed"),
+    (5000, 5, 10_007, torch.bfloat16, None, 0, "mixed"),
+    (5000, 128, 4099, torch.float32, 256, 128, "mixed"),
+    (5000, 128, 4099, torch.bfloat16, 264, 8, "mixed"),
+    (5000, 64, 4099, torch.float32, 300, 37, "mixed"),
+    (5000, 128, 1, torch.float32, None, 0, "mixed"),
+    (5000, 128, 33, torch.float32, None, 0, "mixed"),     # one past a tile
+    (5000, 128, 1000, torch.float32, None, 0, "mixed"),   # ragged last stage
+    (5000, 128, 1000, torch.bfloat16, 200, 64, "mixed"),
+    (5000, 128, 4099, torch.float32, None, 0, "minus1"),
+    (5000, 128, 4099, torch.bfloat16, None, 0, "beyond"),
+    (5000, 128, 4099, torch.float32, 256, 0, "beyond"),
+    (5000, 128, 65_536, torch.float32, None, 0, "repeat"),
+    (200_000, 16, 1024, torch.bfloat16, None, 0, "mixed")])
+def test_gather_kernel_matches_plain(dev, N, D, M, dtype, W, off, kind):
     gen = torch.Generator(device=dev).manual_seed(M + D)
     table = torch.randn((N, D), generator=gen, device=dev, dtype=dtype)
     ids = torch.randint(0, N, (M,), generator=gen, dtype=torch.int32,
                         device=dev)
-    ids[::13] = -1
-    ids[5::101] = N + 3
+    if kind == "mixed":
+        ids[::13] = -1
+        ids[5::101] = N + 3
+    elif kind == "minus1":
+        ids[:] = -1
+    elif kind == "beyond":
+        ids += N
+    else:                           # "repeat": eight rows, over and over
+        ids %= 8
     base = None if W is None else torch.full((M, W), 7.0, dtype=dtype,
                                              device=dev)
     before = gr.gather_rows.launches
@@ -116,7 +179,9 @@ def test_gather_kernel_matches_plain(dev, N, D, M, dtype, W, off):
     want = gr.gather_rows_plain(table, ids,
                                 None if base is None else base.clone(), off)
     assert torch.equal(int_view(got), int_view(want))
-    assert torch.isnan(got[5, off:off + D]).all()
+    nan_rows = torch.isnan(got[:, off:off + D]).all(1)
+    assert torch.equal(nan_rows, ids >= N)
+    assert bool((got[ids < 0, off:off + D] == 0).all())
 
 
 def test_gather_on_the_card_never_runs_the_plain_version(dev, monkeypatch):

@@ -39,8 +39,10 @@ def run_port(fn, packs, nodes, et, n_et, u1, u2, default_id):
     return ids.numpy(), valid.numpy()
 
 
-@pytest.mark.parametrize("B,C,n_et,et", [(32, 16, 1, 0), (13, 4, 1, 0),
-                                         (64, 7, 3, 2)])
+@pytest.mark.parametrize("B,C,n_et,et", [
+    (32, 16, 1, 0), (13, 4, 1, 0), (64, 7, 3, 2),
+    (20, 50, 1, 0),      # more draws than a warp has lanes
+    (9, 600, 2, 1)])     # two of the Pallas kernel's tc=512 column tiles
 def test_plain_matches_pallas_bit_exact(B, C, n_et, et):
     rng = np.random.default_rng(B * 100 + C)
     G = 40 * n_et
