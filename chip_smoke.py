@@ -29,6 +29,16 @@ Phases, in order; any failure propagates and the exit code is not 0:
               4096, 8192, 12,800 and 26,624 with C = 10, 15, 20 and 25:
               where one overtakes the other. Then an empty launch timed the same
               way, the launch floor
+ 3b. union    fan_draw's typed and union epilogue against its plain
+              version, bit for bit (ids, valid and types), from the
+              wrapper and from each path, at both hop shapes: union rows
+              with types 0..15, ids up to FANU_MASK, reservoir rows, zero
+              weight sums and node -1 (with and without types), and the
+              one-type typed output on a 2-type pack whose rows past the
+              pack clamp. The union draw with types timed (CUDA events, L2
+              flushed) beside its plain version and its bytes bound, and
+              in turns with the untyped draw: untyped, union, union,
+              untyped
   4. gather   gather_rows against its plain version, bit for bit (NaN rows
               compared as integers, and exactly where ids >= N): the
               deepest feature gather (M=292,864, D=128 from [200,000, 128])
@@ -44,9 +54,9 @@ Phases, in order; any failure propagates and the exit code is not 0:
               the parent's kernel, bit-exact, and this one in turns
   5. graph    random_graph(200_000, 25, feat_dim=128, n_classes=16, seed=0,
               packs=("fan",)) on the card
-  6. model    SuperviseModel(GNNNet("sage", SageDataFlow([25, 10], ...),
-              dims=(128, 128)), "label", 16), weights from a seeded
-              generator
+  6. model    bench.make_model("sage"): SuperviseModel(GNNNet("sage",
+              SageDataFlow([25, 10], ...), dims=(128, 128)), "label", 16),
+              weights from a seeded generator
   7. infer    NodeEstimator.infer(arange(8192)), batch 1024: the serving
               path. The launch counts are set to 0 before and must be 16
               for fan_draw (2 hops x 8 batches) and 16 for gather_rows
@@ -67,15 +77,26 @@ Phases, in order; any failure propagates and the exit code is not 0:
               rows (fan_over_rows), with neighbors of each row's group.
               Then a torch.profiler table over two more steps
  11. grads    one training step on the card and on the CPU from the same
-              weights, roots and uniforms (f32, TF32 off): loss and the
-              gradient of every parameter within rtol = atol = 1e-4
- 12. bench    the port's bench (euler_tpu_torch/bench.py) at bench.py's
-              sage width, bf16 activations: warmup, single_loop and
-              pipelined JSON lines; each kernel 2 launches per step
- 13. report   one JSON line of kernels (the gather's f32 and bf16 times,
-              fan_draw's launch floor and its paths' crossover, each
-              kernel's ptxas figures), then
-              the last line {"ok": true, "device": {...}}
+              weights, roots and uniforms (f32, TF32 off): equal sampled
+              ids, loss and the gradient of every parameter within
+              rtol = atol = 1e-4
+ 12. families gin, gat and rgcn (bench.make_model, f32) at full width,
+              gin and gat on the graph of phase 5, rgcn on
+              random_graph(200_000, 25, ..., num_edge_types=4,
+              packs=("fanu",)): for each, phases 7, 10 and 11 as above
+              (infer of 8192 ids with 16 launches of each kernel, two
+              batches profiled; one step card vs CPU with equal sampled
+              ids and edge types; 8 train steps with 2 launches of each
+              kernel a step and the redraw of the graph's reservoir rows,
+              for rgcn the union rows, two steps profiled)
+ 13. bench    the port's bench (euler_tpu_torch/bench.py) in each mode,
+              sage, gin, gat and rgcn, at bench.py's width, bf16
+              activations: warmup, single_loop and pipelined JSON lines;
+              each kernel 2 launches per step
+ 14. report   one JSON line of kernels (the gather's f32 and bf16 times,
+              fan_draw's launch floor, its paths' crossover and its union
+              shapes, each kernel's launches on every path and ptxas
+              figures), then the last line {"ok": true, "device": {...}}
 
 It exits non-zero, with no result line, where torch.cuda.is_available()
 is false or the euler_tpu_torch package is missing.
@@ -102,16 +123,15 @@ import torch
 from euler_tpu_torch import bench
 from euler_tpu_torch._build import (NVCC_FLAGS, PACKAGE_DIR,
                                     build_shared_library, nvcc)
-from euler_tpu_torch.dataflow import SageDataFlow
 from euler_tpu_torch.datasets import random_graph
 from euler_tpu_torch.estimator import NodeEstimator, RunConfig
-from euler_tpu_torch.models import GNNNet, ShallowEncoder, SuperviseModel
 from euler_tpu_torch.native import loader as native
 from euler_tpu_torch.ops import fan_draw as fd
 from euler_tpu_torch.ops import gather_rows as gr
 from euler_tpu_torch.ops import sampling
 from euler_tpu_torch.ops.alias import (FAN_ALIAS_OFF, FAN_D, FAN_KEPT_OFF,
-                                       FAN_PROB_OFF)
+                                       FAN_PROB_OFF, FANU_MASK,
+                                       FANU_MAX_TYPES, FANU_SHIFT)
 from euler_tpu_torch.serving import serve_embeddings
 
 # H100 SXM device-memory rate (NVIDIA data sheet), the bytes bound's divisor
@@ -165,6 +185,18 @@ def synthetic_fan_pack(rng, G: int) -> np.ndarray:
     packs[:, FAN_PROB_OFF:FAN_PROB_OFF + FAN_D] = prob.view(np.int32)
     packs[:, FAN_KEPT_OFF:FAN_ALIAS_OFF + FAN_D] = rng.integers(
         0, G, (G, 2 * FAN_D))
+    return packs
+
+
+def synthetic_union_pack(rng, G: int) -> np.ndarray:
+    """[G, 128] union fan rows: the rows of ``synthetic_fan_pack`` whose
+    id lanes pack (type << FANU_SHIFT) | id, with types 0..15 and ids up
+    to FANU_MASK (the largest ones included)."""
+    packs = synthetic_fan_pack(rng, G)
+    ids = rng.integers(0, FANU_MASK + 1, (G, 2 * FAN_D))
+    ids[rng.random(ids.shape) < 0.05] = FANU_MASK
+    types = rng.integers(0, FANU_MAX_TYPES, (G, 2 * FAN_D))
+    packs[:, FAN_KEPT_OFF:FAN_ALIAS_OFF + FAN_D] = (types << FANU_SHIFT) | ids
     return packs
 
 
@@ -232,11 +264,21 @@ def checked(fn):
     return launch
 
 
+def n_params(src: str, entry: str) -> int:
+    """The number of parameters of ``extern "C" int entry(...)`` in the
+    source file ``src``."""
+    with open(src) as f:
+        m = re.search(rf"int {entry}\(([^)]*)\)", f.read())
+    return m.group(1).count(",") + 1
+
+
 def load_parent(parent_dir: str) -> dict:
     """The parent commit's two kernel libraries, built by nvcc with this
     checkout's flags from the sources under ``parent_dir`` (a copy of the
     parent's tree): entry name -> ctypes function, typed as the current
-    ones."""
+    ones up to the parent's number of parameters (``etpu_fan_draw`` had
+    no ``types`` and ``union_rows`` before they were added after
+    ``valid``)."""
     fns = {}
     for name, mod in (("fan_draw", fd), ("gather_rows", gr)):
         src = os.path.join(parent_dir, "euler_tpu_torch", "csrc",
@@ -245,21 +287,29 @@ def load_parent(parent_dir: str) -> dict:
             src, f"parent_{name}", [nvcc()] + NVCC_FLAGS))
         entry = f"etpu_{name}"
         fn, ref = getattr(lib, entry), getattr(mod.build(), entry)
-        fn.argtypes, fn.restype = ref.argtypes, ref.restype
+        fn.argtypes = ref.argtypes[:n_params(src, entry)]
+        fn.restype = ref.restype
         fns[entry] = fn
     return fns
 
 
-def fan_call(fn, fan_pack, nodes, et, n_et, u1, u2, ids, valid, *path):
+#: parameters of an ``etpu_fan_draw`` without types and union_rows
+IDS_ONLY_FAN_PARAMS = 13
+
+
+def fan_call(fn, fan_pack, nodes, et, n_et, u1, u2, ids, valid, *path,
+             types=None, union=False):
     """A raw call of an ``etpu_fan_draw`` (this checkout's or the
     parent's), or of ``etpu_fan_draw_path`` with its path, into
-    preallocated outputs."""
+    preallocated outputs (``types`` too, where given)."""
     B, C = u1.shape
     stream = torch.cuda.current_stream().cuda_stream
+    epilogue = () if len(fn.argtypes) == IDS_ONLY_FAN_PARAMS else (
+        None if types is None else types.data_ptr(), int(union))
     return checked(lambda: fn(
         fan_pack.data_ptr(), fan_pack.shape[0], nodes.data_ptr(), B, C, et,
         n_et, u1.data_ptr(), u2.data_ptr(), -1, ids.data_ptr(),
-        valid.data_ptr(), stream, *path))
+        valid.data_ptr(), *epilogue, stream, *path))
 
 
 def phase_kernel(dev, parent=None):
@@ -353,6 +403,86 @@ def phase_kernel(dev, parent=None):
     floor_ms = time_launches(lambda: torch.cuda._sleep(0), 200, flush)
     log(f"kernel: launch_floor_ms {floor_ms}")
     return shapes, crossover, floor_ms
+
+
+def phase_union(dev):
+    """The typed and union epilogue of fan_draw against the plain version,
+    bit for bit (ids, valid and types), from the wrapper and from each
+    path, at both hop shapes: union rows (types 0..15, ids up to
+    FANU_MASK) with and without types, and the one-type typed output on
+    a 2-type pack whose rows past the pack clamp. Then the union draw
+    (with types) timed in turns with the untyped draw over rows of the
+    same degrees: untyped, union, union, untyped."""
+    rng = np.random.default_rng(2)
+    G = N_NODES
+    union_pack = torch.from_numpy(synthetic_union_pack(rng, G)).to(dev)
+    fan_pack = torch.from_numpy(synthetic_fan_pack(rng, G)).to(dev)
+    gen = torch.Generator(device=dev).manual_seed(11)
+    flush = torch.empty(64 << 20, dtype=torch.uint8, device=dev)
+    mine = fd.build()
+    rows = []
+    for B, C in HOP_SHAPES:
+        nodes_np = rng.integers(0, G, B).astype(np.int32)
+        nodes_np[rng.random(B) < 0.03] = -1
+        nodes = torch.from_numpy(nodes_np).to(dev)
+        u1, u2 = sampling.draw_fan_uniforms(gen, B, C, dev)
+        # name -> (pack, et, n_et, union, nodes); the typed case's nodes
+        # reach G // 2 + 99, so rows 2 * node + 1 past the pack clamp
+        cases = {"union": (union_pack, 0, 1, True, nodes),
+                 "typed": (fan_pack, 1, 2, False, torch.where(
+                     nodes < 0, nodes, nodes % (G // 2 + 100)))}
+        row = dict(B=B, C=C, bit_exact=True)
+        for name, (pack, et, n_et, union, nd) in cases.items():
+            want = fd.fan_draw_plain(pack, nd, et, n_et, u1, u2, -1, union,
+                                     True)
+            got = {"wrapper": fd.fan_draw(pack, nd, et, n_et, u1, u2, -1,
+                                          union, True)}
+            ids_only = fd.fan_draw(pack, nd, et, n_et, u1, u2, -1, union)
+            for path in (1, 2):
+                out = (torch.full_like(want[0], 7), ~want[1],
+                       torch.full_like(want[2], 7))
+                fan_call(mine.etpu_fan_draw_path, pack, nd, et, n_et, u1, u2,
+                         out[0], out[1], path, types=out[2], union=union)()
+                got[f"path {path}"] = out
+            torch.cuda.synchronize()
+            for how, g in got.items():
+                check(all(torch.equal(a, b) for a, b in zip(g, want)),
+                      f"fan_draw {name} {how} != plain at B={B} C={C}")
+            check(torch.equal(ids_only[0], want[0])
+                  and torch.equal(ids_only[1], want[1]),
+                  f"fan_draw {name} without types != plain at B={B} C={C}")
+            ids, valid, types = want
+            row[name] = dict(
+                valid=int(valid.sum()), node_minus1=int((nd < 0).sum()),
+                max_id=int(ids.max()),
+                types=sorted(int(t) for t in torch.unique(types)),
+                max_abs_err=int((got["wrapper"][0].long()
+                                 - ids.long()).abs().max()))
+        check(row["union"]["types"] == [-1] + list(range(FANU_MAX_TYPES)),
+              f"union types at B={B}: {row['union']['types']}")
+        # times: the wrapper's union draw and its plain version, then the
+        # raw untyped and union draws in turns into preallocated outputs
+        row["ms"] = time_launches(
+            lambda: fd.fan_draw(union_pack, nodes, 0, 1, u1, u2, -1, True,
+                                True), 200, flush)
+        row["plain_ms"] = time_launches(
+            lambda: fd.fan_draw_plain(union_pack, nodes, 0, 1, u1, u2, -1,
+                                      True, True), 50, flush)
+        nbytes = needed_bytes(union_pack, nodes, u1, u2) + 4 * B * C
+        row.update(bytes=nbytes, bound_ms=nbytes / HBM_BYTES_PER_S * 1e3)
+        outs = [(torch.empty((B, C), dtype=torch.int32, device=dev),
+                 torch.empty((B, C), dtype=torch.bool, device=dev))
+                for _ in range(2)]
+        types = torch.empty((B, C), dtype=torch.int32, device=dev)
+        row["turns_ms"] = time_in_turns({
+            "untyped": fan_call(mine.etpu_fan_draw, fan_pack, nodes, 0, 1,
+                                u1, u2, *outs[0]),
+            "union": fan_call(mine.etpu_fan_draw, union_pack, nodes, 0, 1,
+                              u1, u2, *outs[1], types=types, union=True)},
+            200, flush)
+        rows.append(row)
+        log(f"kernel: union {json.dumps(row)}")
+    return rows
 
 
 # ---------------------------------------------------------------- phase 4 --
@@ -540,34 +670,47 @@ def phase_infer(model, graph, out_dir, dev):
         infer_edges_per_sec=EDGES_PER_BATCH / fwd_s)
 
 
-def profile(fn, what: str) -> dict:
+def profile(fn, what: str, attempts: int = 3) -> dict:
     """Log torch.profiler's table of CUDA time by kernel over ``fn()``,
     then one JSON line: the host-clock time of the window, the device's
     busy time (the sum of its kernels and copies; user annotations, which
     are spans, left out), its idle share of the window, and the kernels
-    with the most device time."""
+    with the most device time. A trace can lose kernels: the window is
+    taken again (up to ``attempts`` times) until it holds one event for
+    each launch of the two kernels, as their counts give them, and
+    ``kernel_events_complete`` says whether it did."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile as torch_profile
-    torch.cuda.synchronize()
-    with torch_profile(activities=[ProfilerActivity.CPU,
-                                   ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        fn()
+    for attempt in range(1, attempts + 1):
         torch.cuda.synchronize()
-        host_ms = (time.perf_counter() - t0) * 1e3
+        before = read_counts()
+        with torch_profile(activities=[ProfilerActivity.CPU,
+                                       ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            host_ms = (time.perf_counter() - t0) * 1e3
+        launched = {k: n - before[k] for k, n in read_counts().items()}
+        by_name = {}
+        for e in prof.events():
+            if e.device_type == DeviceType.CUDA and not getattr(
+                    e, "is_user_annotation", False):
+                us, n = by_name.get(e.name, (0.0, 0))
+                by_name[e.name] = (us + e.time_range.elapsed_us(), n + 1)
+        traced = {k: sum(n for name, (_, n) in by_name.items() if k in name)
+                  for k in launched}
+        if traced == launched:
+            break
+        log(f"profile ({what}): the trace holds {traced} of the launches "
+            f"{launched}" + ("; again" if attempt < attempts else ""))
     log(f"profile ({what}), by CUDA time:")
     log(prof.key_averages().table(sort_by="cuda_time_total", row_limit=20))
-    by_name = {}
-    for e in prof.events():
-        if e.device_type == DeviceType.CUDA and not getattr(
-                e, "is_user_annotation", False):
-            us, n = by_name.get(e.name, (0.0, 0))
-            by_name[e.name] = (us + e.time_range.elapsed_us(), n + 1)
     busy_ms = sum(us for us, _ in by_name.values()) / 1e3
     check(busy_ms > 0, f"the profile of {what} saw no device time")
     top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:12]
     out = dict(what=what, host_ms=host_ms, device_busy_ms=busy_ms,
                device_idle_share=1.0 - busy_ms / host_ms,
+               kernel_events_complete=traced == launched, attempts=attempt,
                kernels=[dict(name=k[:90], us=us, calls=n)
                         for k, (us, n) in top])
     log(f"profile: {json.dumps(out)}")
@@ -587,26 +730,47 @@ def phase_profile(model, graph, dev):
 
 # ---------------------------------------------------------------- phase 8 --
 
+def hop_uniforms(flow, g, roots, gen) -> list:
+    """One uniforms tuple per hop of ``flow`` from ``roots``, as the flow
+    draws them (the frontier grows by 1 + fanout a hop)."""
+    out, n = [], roots.shape[0]
+    for ets, c in zip(flow.metapath, flow.fanouts):
+        out.append(sampling.draw_neighbor_uniforms(g, ets, gen, n, c,
+                                                   roots.device))
+        n *= 1 + c
+    return out
+
+
+def same_blocks(flow, g, roots, uniforms, g_cpu, u_cpu) -> list:
+    """Sample ``roots`` on the card and on the CPU from the same uniforms
+    and check equal ids, masks and edge types; returns the card's
+    blocks."""
+    blocks = flow(g, roots, uniforms=uniforms)
+    blocks_cpu = flow(g_cpu, roots.cpu(), uniforms=u_cpu)
+    for i, (bk, bc) in enumerate(zip(blocks, blocks_cpu)):
+        check(torch.equal(bk.n_id.cpu(), bc.n_id)
+              and torch.equal(bk.mask.cpu(), bc.mask),
+              f"block {i}: sampled ids card != CPU")
+        check((bk.e_type is None) == (bc.e_type is None)
+              and (bk.e_type is None
+                   or torch.equal(bk.e_type.cpu(), bc.e_type)),
+              f"block {i}: sampled edge types card != CPU")
+    return blocks
+
+
 def phase_parity(model, graph, dev):
     roots = torch.arange(N_NODES // 2, N_NODES // 2 + BATCH,
                          dtype=torch.int32, device=dev)
     gen = torch.Generator(device=dev).manual_seed(5)
-    uniforms, n = [], BATCH
-    for c in FANOUTS:
-        uniforms.append(sampling.draw_fan_uniforms(gen, n, c, dev))
-        n *= 1 + c
+    flow = model.embedder.flow
+    uniforms = hop_uniforms(flow, graph.tensors, roots, gen)
     cpu = torch.device("cpu")
     g_cpu = graph.tensors.to(cpu)
     model_cpu = copy.deepcopy(model).to(cpu)
-    u_cpu = [(a.cpu(), b.cpu()) for a, b in uniforms]
-    flow = model.embedder.flow
+    u_cpu = [tuple(u.cpu() for u in hop) for hop in uniforms]
     with torch.no_grad():
-        blocks = flow(graph.tensors, roots, uniforms=uniforms)
-        blocks_cpu = flow(g_cpu, roots.cpu(), uniforms=u_cpu)
-        for i, (bk, bc) in enumerate(zip(blocks, blocks_cpu)):
-            check(torch.equal(bk.n_id.cpu(), bc.n_id)
-                  and torch.equal(bk.mask.cpu(), bc.mask),
-                  f"block {i}: sampled ids card != CPU")
+        blocks = same_blocks(flow, graph.tensors, roots, uniforms, g_cpu,
+                             u_cpu)
         emb = model(graph.tensors, roots, uniforms=uniforms)["embedding"]
         emb_cpu = model_cpu(g_cpu, roots.cpu(), uniforms=u_cpu)["embedding"]
     torch.cuda.synchronize()
@@ -657,11 +821,20 @@ def phase_serve(out_dir):
 
 # --------------------------------------------------------------- phase 10 --
 
-def check_redraw(before, g, rng) -> dict:
+def redrawn_pack(g) -> str:
+    """The pack whose reservoir rows a training run redraws and
+    check_redraw reads: "fan", or "fanu" for a graph built with the union
+    rows only."""
+    return "fan" if g.fan_pack is not None else "fanu"
+
+
+def check_redraw(before, g, rng, pack: str = "fan") -> dict:
     """The reservoir redraws rewrote only the kept and alias lanes of the
-    rows in fan_over_rows, with neighbors of each row's group."""
-    after = g.fan_pack
-    over = g.fan_over_rows.long()
+    rows in ``<pack>_over_rows`` of ``<pack>_pack``, with neighbors of
+    each row's group (for "fanu": packed (type << 27) | dst lanes of the
+    node's union group)."""
+    after = getattr(g, f"{pack}_pack")
+    over = getattr(g, f"{pack}_over_rows").long()
     keep = torch.ones(after.shape[0], dtype=torch.bool, device=after.device)
     keep[over] = False
     check(torch.equal(after[keep], before[keep]),
@@ -673,25 +846,32 @@ def check_redraw(before, g, rng) -> dict:
           "kept and alias lanes differ after the redraw")
     changed = (kept != before[over, FAN_KEPT_OFF:FAN_KEPT_OFF + FAN_D])
     check(bool(changed.any()), "the redraw changed nothing")
-    gp, dst = g.group_ptr.cpu().numpy(), g.adj_dst.cpu().numpy()
+    ptr, dst = ((g.group_ptr, g.adj_dst) if pack == "fan"
+                else (g.fanu_ptr, g.fanu_dst))
+    gp, dst = ptr.cpu().numpy(), dst.cpu().numpy()
     rows, kept_np = over.cpu().numpy(), kept.cpu().numpy()
     for i in rng.choice(len(rows), min(500, len(rows)), replace=False):
         r = rows[i]
         check(set(kept_np[i]) <= set(dst[gp[r]:gp[r + 1]]),
               f"redrawn row {r} holds a non-neighbor")
-    return dict(reservoir_rows=len(rows),
+    return dict(redrawn_pack=pack, reservoir_rows=len(rows),
                 lanes_changed=float(changed.float().mean()))
 
 
-def phase_train(model, graph, dev):
+def phase_train(model, graph, dev, seed: int = 0):
+    """``seed`` seeds the run's draws: a run on a graph whose reservoir
+    an earlier run redrew needs another, or its redraws repeat the
+    earlier run's and change nothing."""
     cfg = RunConfig(batch_size=BATCH, total_steps=TRAIN_STEPS,
                     optimizer="adam", learning_rate=1e-3,
-                    log_steps=TRAIN_STEPS, reservoir_refresh=TRAIN_REFRESH)
+                    log_steps=TRAIN_STEPS, reservoir_refresh=TRAIN_REFRESH,
+                    seed=seed)
     est = NodeEstimator(model, graph, cfg, device=dev)
     roots = []
     draw = est.train_batch
     est.train_batch = lambda g, gen: roots.append(draw(g, gen)) or roots[-1]
-    before = graph.tensors.fan_pack.clone()
+    pack = redrawn_pack(graph.tensors)
+    before = getattr(graph.tensors, f"{pack}_pack").clone()
 
     reset_counts()
     t0 = time.perf_counter()
@@ -705,7 +885,8 @@ def phase_train(model, graph, dev):
     r = torch.stack(roots)
     check(r.shape == (TRAIN_STEPS, BATCH) and int(r.min()) >= 0
           and int(r.max()) < N_NODES, "roots in [0, N)")
-    redraw = check_redraw(before, graph.tensors, np.random.default_rng(0))
+    redraw = check_redraw(before, graph.tensors, np.random.default_rng(0),
+                          pack)
 
     opt = torch.optim.Adam(model.parameters(), 1e-3)
     gen = torch.Generator(device=dev).manual_seed(6)
@@ -713,7 +894,9 @@ def phase_train(model, graph, dev):
                                      generator=gen) for _ in range(2)],
                    "2 train steps")
     return dict(launches=launches, profile_host_ms=prof["host_ms"],
-                profile_device_busy_ms=prof["device_busy_ms"], loss=res["loss"],
+                profile_device_busy_ms=prof["device_busy_ms"],
+                profile_complete=prof["kernel_events_complete"],
+                loss=res["loss"],
                 train_ms_per_step=train_s / TRAIN_STEPS * 1e3,
                 distinct_roots=int(torch.unique(r).numel()), **redraw)
 
@@ -723,16 +906,22 @@ def phase_train(model, graph, dev):
 def phase_grads(model, graph, dev):
     gen = torch.Generator(device=dev).manual_seed(8)
     roots = sampling.sample_node(graph.tensors, BATCH, -1, gen)
-    uniforms, n = [], BATCH
-    for c in FANOUTS:
-        uniforms.append(sampling.draw_fan_uniforms(gen, n, c, dev))
-        n *= 1 + c
+    flow = model.embedder.flow
+    uniforms = hop_uniforms(flow, graph.tensors, roots, gen)
     cpu = torch.device("cpu")
+    g_cpu = graph.tensors.to(cpu)
+    u_cpu = [tuple(u.cpu() for u in hop) for hop in uniforms]
+    with torch.no_grad():
+        blocks = same_blocks(flow, graph.tensors, roots, uniforms, g_cpu,
+                             u_cpu)
+    e_type = blocks[0].e_type
+    types = [] if e_type is None else sorted(
+        int(t) for t in torch.unique(e_type))
     runs = {}
     for where, m, g, r, u in (
             ("card", copy.deepcopy(model), graph.tensors, roots, uniforms),
-            ("cpu", copy.deepcopy(model).to(cpu), graph.tensors.to(cpu),
-             roots.cpu(), [(a.cpu(), b.cpu()) for a, b in uniforms])):
+            ("cpu", copy.deepcopy(model).to(cpu), g_cpu, roots.cpu(),
+             u_cpu)):
         m.train()
         m.zero_grad(set_to_none=True)
         loss = m(g, r, uniforms=u)["loss"]
@@ -747,29 +936,87 @@ def phase_grads(model, graph, dev):
         diffs[k] = float((gk - grads_c[k]).abs().max())
         check(torch.allclose(gk, grads_c[k], **PARITY_TOL),
               f"gradient of {k}: card vs CPU max abs diff {diffs[k]}")
-    return dict(loss_card=float(loss_k), loss_cpu=float(loss_c),
+    return dict(sampled_ids_equal=True, edge_types=types,
+                loss_card=float(loss_k), loss_cpu=float(loss_c),
                 loss_abs_diff=float((loss_k - loss_c).abs()),
                 grad_max_abs_diff=max(diffs.values()), n_params=len(diffs))
 
 
 # --------------------------------------------------------------- phase 12 --
 
+FAMILIES = ("gin", "gat", "rgcn")
+
+
+def phase_families(graph, dev):
+    """gin, gat and rgcn (bench.make_model, f32) at full width: gin and
+    gat on the sage graph, rgcn on a graph of the same size with 4 edge
+    types and the union rows only. Each: infer of 8192 ids (the serving
+    path's counts and checks), two batches profiled, one step card vs
+    CPU (sampled ids and types equal, loss and gradients within 1e-4),
+    then the train phase (counts, loss, the reservoir redraw of its
+    pack) with two steps profiled."""
+    t0 = time.perf_counter()
+    typed_graph = random_graph(N_NODES, AVG_DEGREE, feat_dim=FEAT_DIM,
+                               n_classes=N_CLASSES, seed=0,
+                               num_edge_types=bench.RGCN_TYPES,
+                               packs=("fanu",))
+    check(typed_graph.tensors.fan_pack is None
+          and typed_graph.tensors.fanu_pack.device.type == dev.type,
+          "the rgcn graph holds the union rows alone, on the card")
+    log(f"families: rgcn graph with {bench.RGCN_TYPES} edge types, "
+        f"{typed_graph.meta.n_edges} edges, "
+        f"{int(typed_graph.tensors.fanu_over_rows.numel())} union "
+        f"reservoir rows, built in {time.perf_counter() - t0:.1f} s")
+    out = {}
+    for i, family in enumerate(FAMILIES):
+        g = typed_graph if family == "rgcn" else graph
+        model = bench.make_model(family, dev,
+                                 generator=torch.Generator().manual_seed(0))
+        model.eval()
+        with tempfile.TemporaryDirectory() as out_dir:
+            _, infer = phase_infer(model, g, out_dir, dev)
+        prof = phase_profile(model, g, dev)
+        infer.update(profile_host_ms=prof["host_ms"],
+                     profile_device_busy_ms=prof["device_busy_ms"],
+                     profile_complete=prof["kernel_events_complete"])
+        grads = phase_grads(model, g, dev)
+        if family == "rgcn":
+            check(grads["edge_types"] == [-1] + list(
+                range(bench.RGCN_TYPES)),
+                f"rgcn's sampled edge types {grads['edge_types']}")
+        train = phase_train(model, g, dev, seed=1 + i)
+        out[family] = dict(infer=infer, grads=grads, train=train)
+        log(f"family {family}: {json.dumps(out[family])}")
+    return out
+
+
+# --------------------------------------------------------------- phase 13 --
+
 def phase_bench(dev):
+    """Every mode of the port's bench: three lines each, 2 launches of
+    each kernel per step."""
     _, _, spl, outer = bench.SIZES["cuda"]
-    reset_counts()
-    records = bench.run(dev, log=log)
-    launches = read_counts()
     steps = spl * (2 + outer)
-    want = dict(fan_draw=2 * steps, gather_rows=2 * steps)
-    check(launches == want, f"launches in bench {launches}, want {want}")
-    check(len(records) == 3 and all(r["platform"] == "cuda"
-                                    and r["vs_baseline"] is None
-                                    for r in records), "bench lines")
-    return dict(launches=launches,
-                **{f"{r['phase']}_ms_per_step": r["ms_per_step"]
-                   for r in records},
-                **{f"{r['phase']}_edges_per_sec": r["value"]
-                   for r in records})
+    out = {}
+    for mode in bench.MODELS:
+        reset_counts()
+        records = bench.run(dev, log=log, model=mode)
+        launches = read_counts()
+        want = dict(fan_draw=2 * steps, gather_rows=2 * steps)
+        check(launches == want,
+              f"launches in bench {mode} {launches}, want {want}")
+        check(len(records) == 3 and all(r["platform"] == "cuda"
+                                        and r["model"] == mode
+                                        and r["vs_baseline"] is None
+                                        for r in records),
+              f"bench {mode} lines")
+        out[mode] = dict(launches=launches,
+                         **{f"{r['phase']}_ms_per_step": r["ms_per_step"]
+                            for r in records},
+                         **{f"{r['phase']}_edges_per_sec": r["value"]
+                            for r in records})
+        log(f"bench {mode}: {json.dumps(out[mode])}")
+    return out
 
 
 # ------------------------------------------------------------------- main --
@@ -848,6 +1095,7 @@ def main() -> int:
 
     # 3. fan_draw vs plain; 4. gather_rows vs plain
     shapes, crossover, launch_floor_ms = phase_kernel(dev, parent)
+    unions = phase_union(dev)
     gathers = phase_gather(dev, parent)
 
     # 5. graph
@@ -861,11 +1109,8 @@ def main() -> int:
         f"built in {graph_s:.1f} s")
 
     # 6. model
-    gen = torch.Generator().manual_seed(0)
-    net = GNNNet("sage", SageDataFlow(FANOUTS, [(0,), (0,)]), DIMS,
-                 ShallowEncoder(("feature",)), in_dim=FEAT_DIM,
-                 generator=gen)
-    model = SuperviseModel(net, "label", N_CLASSES, generator=gen)
+    model = bench.make_model("sage", dev,
+                             generator=torch.Generator().manual_seed(0))
     model.eval()
 
     with tempfile.TemporaryDirectory() as out_dir:
@@ -874,7 +1119,8 @@ def main() -> int:
         log(f"infer: {json.dumps(infer)}")
         infer_prof = phase_profile(model, graph, dev)
         infer.update(profile_host_ms=infer_prof["host_ms"],
-                     profile_device_busy_ms=infer_prof["device_busy_ms"])
+                     profile_device_busy_ms=infer_prof["device_busy_ms"],
+                     profile_complete=infer_prof["kernel_events_complete"])
         # 8. card vs CPU
         parity = phase_parity(model, graph, dev)
         log(f"parity: {json.dumps(parity)}")
@@ -888,14 +1134,22 @@ def main() -> int:
     # 11. one step's loss and gradients, card vs CPU
     grads = phase_grads(model, graph, dev)
     log(f"grads: {json.dumps(grads)}")
-    # 12. the port's bench
+    # 12. gin, gat and rgcn
+    families = phase_families(graph, dev)
+    # 13. the port's bench, every mode
     benched = phase_bench(dev)
-    log(f"bench: {json.dumps(benched)}")
+
+    # each path's launches, its counts set to 0 just before it
+    path_launches = {"infer": infer["launches"], "train": train["launches"],
+                     "bench": benched["sage"]["launches"]}
+    for family, res in families.items():
+        path_launches.update({f"{family}_infer": res["infer"]["launches"],
+                              f"{family}_train": res["train"]["launches"],
+                              f"bench_{family}":
+                                  benched[family]["launches"]})
 
     def by_path(name):
-        return {"infer": infer["launches"][name],
-                "train": train["launches"][name],
-                "bench": benched["launches"][name]}
+        return {path: n[name] for path, n in path_launches.items()}
 
     hop = [s for s in shapes if "ms" in s]
     timed = [g for g in gathers if "ms" in g]
@@ -908,7 +1162,9 @@ def main() -> int:
         "launches": train["launches"]["fan_draw"],
         "launches_by_path": by_path("fan_draw"),
         "bit_exact": True,
-        "max_abs_err": max(s["max_abs_err"] for s in shapes),
+        "max_abs_err": max([s["max_abs_err"] for s in shapes]
+                           + [u[k]["max_abs_err"] for u in unions
+                              for k in ("union", "typed")]),
         # per batch or step: one launch at each hop shape
         "ms": sum(s["ms"] for s in hop),
         "plain_ms": sum(s["plain_ms"] for s in hop),
@@ -920,6 +1176,12 @@ def main() -> int:
         "shapes": [{k: s[k] for k in ("B", "C", "ms", "plain_ms", "bound_ms",
                                       "bytes", "turns_ms") if k in s}
                    for s in hop],
+        # the union epilogue with types (rgcn's hops), and the untyped
+        # draw in turns with it
+        "union_shapes": [{k: u[k] for k in ("B", "C", "ms", "plain_ms",
+                                            "bound_ms", "bytes",
+                                            "turns_ms")}
+                         for u in unions],
         "paths_ms": crossover,
     }, {
         "name": "gather_rows", "route": "cuda",
@@ -949,7 +1211,7 @@ def main() -> int:
         build_s=build_s, graph_s=graph_s,
         total_s=time.perf_counter() - t_start,
         native_core=native.available(), infer=infer, parity=parity,
-        train=train, grads=grads, bench=benched)}))
+        train=train, grads=grads, families=families, bench=benched)}))
     log(smi)                # nvidia-smi's name and power limit, as given
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,

@@ -1,25 +1,31 @@
-"""The port's training benchmark: bench.py's default ``sage`` mode.
+"""The port's training benchmark: bench.py's sampled modes.
 
-    python -m euler_tpu_torch.bench                 # on the card
+    python -m euler_tpu_torch.bench [--model sage|gin|gat|rgcn]
     python -m euler_tpu_torch.bench --device cpu    # off-chip sizes
 
-Counterpart of bench.py:260-454 for ``EULER_BENCH_MODEL=sage``:
-``random_graph(200_000, 25, seed=0)`` with 128-wide features (bf16 on the
-card) and 16 one-hot labels drawn on the device from a seeded generator,
-fanout [25, 10], dims (128, 128), batch 1024, Adam at 1e-3, roots from
-``sample_node`` each step, and one reservoir redraw at the start of each
-loop of 50 steps. ``--device cpu`` takes bench.py's off-chip sizes (5,000
-nodes, batch 256, 5 steps per loop, f32) and exists for tests.
+Counterpart of bench.py:260-454 for ``EULER_BENCH_MODEL=sage`` (the
+default), ``gin``, ``gat`` and ``rgcn``: ``random_graph(200_000, 25,
+seed=0)`` with 128-wide features (bf16 on the card) and 16 one-hot labels
+drawn on the device from a seeded generator, fanout [25, 10], dims
+(128, 128), batch 1024, Adam at 1e-3, roots from ``sample_node`` each
+step. sage, gin and gat sample one edge type from the ``fan`` pack and
+redraw its reservoir rows at the start of each loop of 50 steps. rgcn
+builds its graph with 4 edge types and the ``fanu`` pack only, samples
+every hop over all four types from the union rows with
+``SageDataFlow(typed=True)``, runs ``RelationConv`` with 4 relations fed
+from the sampled types, and redraws nothing (bench.py:385-393 redraws
+only ``fan_pack``). ``--device cpu`` takes bench.py's off-chip sizes
+(5,000 nodes, batch 256, 5 steps per loop, f32) and exists for tests.
 
 Three phases, as bench.py's: ``warmup`` (the first loop), ``single_loop``
 (one loop, waited for) and ``pipelined`` (4 loops, or 2 off the card,
 waited for once). Each phase prints one line ``ms_per_step ...`` and then
 bench.py's JSON line: metric ``sampled_aggregate_edges_per_sec_per_chip``,
-``value`` in edges/s with bench.py's per-step edge count (bench.py:
-409-410), ``"vs_baseline": null`` and ``"platform"`` the torch device
-type. Every time is a host clock around work that ends in reading the
-loss, which waits for the card. Without CUDA and without ``--device cpu``
-it raises.
+``"model"`` the mode, ``value`` in edges/s with bench.py's per-step edge
+count for every mode (bench.py:409-410), ``"vs_baseline": null`` and
+``"platform"`` the torch device type. Every time is a host clock around
+work that ends in reading the loss, which waits for the card. Without
+CUDA and without ``--device cpu`` it raises.
 """
 from __future__ import annotations
 
@@ -28,7 +34,7 @@ import dataclasses
 import json
 import sys
 import time
-from typing import Callable, List
+from typing import Callable, List, Optional
 
 import torch
 
@@ -43,6 +49,8 @@ from euler_tpu_torch.ops import sampling
 METRIC = "sampled_aggregate_edges_per_sec_per_chip"
 AVG_DEGREE, FEAT_DIM, N_CLASSES = 25, 128, 16
 FANOUT, DIMS, LR = [25, 10], (128, 128), 1e-3
+MODELS = ("sage", "gin", "gat", "rgcn")
+RGCN_TYPES = 4
 # (nodes, batch, steps per loop, pipelined loops) on the card and off it
 SIZES = {"cuda": (200_000, 1024, 50, 4), "cpu": (5_000, 256, 5, 2)}
 
@@ -53,13 +61,38 @@ def edges_per_step(batch: int) -> int:
             + batch + batch * FANOUT[0])
 
 
+def make_model(model: str, dev, dtype=None,
+               generator: Optional[torch.Generator] = None
+               ) -> SuperviseModel:
+    """The ``SuperviseModel`` of the bench's ``model`` mode: GNNNet over
+    SageDataFlow(FANOUT) at DIMS on the 128-wide ``feature``, 16 labels;
+    rgcn samples every hop over its RGCN_TYPES edge types with types
+    (``typed=True``) and feeds them to ``RelationConv`` as relations."""
+    if model not in MODELS:
+        raise ValueError(f"bench model {model!r} not in {MODELS}")
+    rgcn = model == "rgcn"
+    n_et = RGCN_TYPES if rgcn else 1
+    net = GNNNet({"rgcn": "relation"}.get(model, model),
+                 SageDataFlow(FANOUT, [tuple(range(n_et))] * 2, typed=rgcn),
+                 DIMS, ShallowEncoder(("feature",)), in_dim=FEAT_DIM,
+                 dtype=dtype, device=dev, generator=generator,
+                 conv_kwargs={"num_relations": n_et} if rgcn else None,
+                 relation_from_etype=rgcn)
+    return SuperviseModel(net, "label", N_CLASSES, device=dev,
+                          generator=generator)
+
+
 def build(dev: torch.device, n_nodes: int, batch: int,
-          steps_per_loop: int) -> NodeEstimator:
-    """The graph, features, model and estimator of the bench on ``dev``;
-    activations are bf16 on CUDA and f32 elsewhere."""
+          steps_per_loop: int, model: str = "sage") -> NodeEstimator:
+    """The graph, features, model and estimator of the bench's ``model``
+    mode on ``dev``; activations are bf16 on CUDA and f32 elsewhere."""
+    if model not in MODELS:
+        raise ValueError(f"bench model {model!r} not in {MODELS}")
+    rgcn = model == "rgcn"
     act = torch.bfloat16 if dev.type == "cuda" else None
-    graph = random_graph(n_nodes, AVG_DEGREE, seed=0, packs=("fan",),
-                         device=dev)
+    graph = random_graph(n_nodes, AVG_DEGREE, seed=0,
+                         num_edge_types=RGCN_TYPES if rgcn else 1,
+                         packs=("fanu",) if rgcn else ("fan",), device=dev)
     gen = torch.Generator(device=dev).manual_seed(42)
     feat = torch.randn((n_nodes, FEAT_DIM), generator=gen, device=dev,
                        dtype=act or torch.float32)
@@ -71,31 +104,30 @@ def build(dev: torch.device, n_nodes: int, batch: int,
     graph.meta = meta
     graph.tensors = dataclasses.replace(
         graph.tensors, meta=meta, dense_nf={"feature": feat, "label": lab})
-    wgen = torch.Generator().manual_seed(0)
-    net = GNNNet("sage", SageDataFlow(FANOUT, [(0,), (0,)]), DIMS,
-                 ShallowEncoder(("feature",)), in_dim=FEAT_DIM, dtype=act,
-                 device=dev, generator=wgen)
-    model = SuperviseModel(net, "label", N_CLASSES, device=dev,
-                           generator=wgen)
+    sup = make_model(model, dev, act, torch.Generator().manual_seed(0))
     cfg = RunConfig(batch_size=batch, optimizer="adam", learning_rate=LR,
                     log_steps=0, reservoir_refresh=steps_per_loop)
-    return NodeEstimator(model, graph, cfg, device=dev)
+    return NodeEstimator(sup, graph, cfg, device=dev)
 
 
-def run(device=None, log: Callable = print) -> List[dict]:
-    """Run the three phases; ``log`` gets each output line. Returns the
-    JSON records, each with its ``ms_per_step`` added."""
+def run(device=None, log: Callable = print,
+        model: str = "sage") -> List[dict]:
+    """Run the three phases of the ``model`` mode; ``log`` gets each
+    output line. Returns the JSON records, each with its ``ms_per_step``
+    added."""
     dev = resolve_device(device)
     n_nodes, batch, spl, outer = SIZES["cuda" if dev.type == "cuda"
                                        else "cpu"]
-    est = build(dev, n_nodes, batch, spl)
+    est = build(dev, n_nodes, batch, spl, model)
     g = est.graph.tensors
     opt = get_optimizer("adam", LR, est.model.parameters())
     gen = torch.Generator(device=dev).manual_seed(2)
 
     def run_loop():
-        # one reservoir redraw per loop, as bench.py's run_loop
-        sampling.refresh_fan_pack(g, gen)
+        # one redraw of the fan reservoir per loop, as bench.py's run_loop
+        # (which has none for rgcn's union rows)
+        if model != "rgcn":
+            sampling.refresh_fan_pack(g, gen)
         for _ in range(spl):
             loss = est.step(opt, est.train_batch(g, gen), generator=gen)
         return loss
@@ -105,7 +137,7 @@ def run(device=None, log: Callable = print) -> List[dict]:
     def record(loops: int, seconds: float, phase: str):
         steps = loops * spl
         value = edges_per_step(batch) * steps / seconds
-        out = {"metric": METRIC, "model": "sage", "value": round(value, 1),
+        out = {"metric": METRIC, "model": model, "value": round(value, 1),
                "unit": "edges/s", "vs_baseline": None,
                "platform": dev.type, "phase": phase,
                "config": f"b{batch}_f{FANOUT[0]}x{FANOUT[1]}_n{n_nodes}"}
@@ -129,7 +161,10 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--device", default=None,
                     help="torch device (default: cuda, which must exist)")
-    run(ap.parse_args(argv).device)
+    ap.add_argument("--model", default="sage", choices=MODELS,
+                    help="bench.py's EULER_BENCH_MODEL (default: sage)")
+    args = ap.parse_args(argv)
+    run(args.device, model=args.model)
     return 0
 
 

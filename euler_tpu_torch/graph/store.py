@@ -1,10 +1,11 @@
-"""Device-resident graph store: the fields the serving path reads.
+"""Device-resident graph store: the fields the sampled paths read.
 
 Counterpart of euler_tpu/graph/store.py (``GraphTensors``, ``Graph``,
 ``load_graph``). It reads the same converted directories (``meta.json``
 plus ``part_*.npz``) and builds, with the same host code, the grouped CSR,
-the per-group alias tables and the ``fan`` pack that neighbor sampling
-reads, and the per-node-type alias tables that the root draw reads. Only
+the per-group alias tables, the ``fan`` and ``fanu`` packs that neighbor
+sampling reads, and the per-node-type alias tables that the root draw
+reads. Only
 the fields the sampled training and inference paths need live on the
 device; external ids and binary features stay on the host.
 """
@@ -21,13 +22,16 @@ import torch
 from euler_tpu_torch._device import resolve_device
 from euler_tpu_torch.graph import convert as _convert
 from euler_tpu_torch.graph.meta import DENSE, GraphMeta
-from euler_tpu_torch.ops.alias import (FAN_D, build_fan_pack,
-                                       build_group_alias,
+from euler_tpu_torch.ops.alias import (FAN_D, FANU_MAX_TYPES, FANU_SHIFT,
+                                       build_fan_pack, build_group_alias,
                                        build_typed_alias_tables)
 
-#: packs the port builds; the reference's "group", "adj", "sample",
-#: "fanu" and "ell" packs wait for the slices whose verbs read them
+#: packs the port builds by default; the reference's "group", "adj",
+#: "sample" and "ell" packs wait for the slices whose verbs read them
 PACKS = ("fan",)
+#: packs the port can build: "fanu" (union fan rows, multi-type draws)
+#: only on request, as the reference leaves it out of its ALL_PACKS
+KNOWN_PACKS = ("fan", "fanu")
 
 
 @dataclasses.dataclass
@@ -62,6 +66,15 @@ class GraphTensors:
     # groups with degree > FAN_D whose rows are reservoirs
     fan_pack: Optional[torch.Tensor] = None       # int32 [N*ET, 128]
     fan_over_rows: Optional[torch.Tensor] = None  # int32 [K]
+    # union fan rows ("fanu" pack, ops/alias.py FANU_*): one row per node
+    # over all edge types, lanes packing (etype << 27) | dst; fanu_ptr/
+    # dst/prob/alias are the union-group CSR the reservoir redraw reads
+    fanu_pack: Optional[torch.Tensor] = None       # int32 [N, 128]
+    fanu_over_rows: Optional[torch.Tensor] = None  # int32 [K]
+    fanu_ptr: Optional[torch.Tensor] = None        # int32 [N+1]
+    fanu_dst: Optional[torch.Tensor] = None        # int32 [E] packed
+    fanu_prob: Optional[torch.Tensor] = None       # f32   [E]
+    fanu_alias: Optional[torch.Tensor] = None      # int32 [E]
 
     @property
     def device(self) -> torch.device:
@@ -95,16 +108,17 @@ def _load_parts(path: str) -> Dict[str, np.ndarray]:
 class Graph:
     """Host-side graph: external ids on the host, ``tensors`` on a device.
 
-    The equivalent of euler_tpu's ``Graph`` for the packs in ``PACKS``.
+    The equivalent of euler_tpu's ``Graph`` for the packs in
+    ``KNOWN_PACKS``.
     """
 
     def __init__(self, meta: GraphMeta, arrays: Dict[str, np.ndarray],
                  packs: Tuple[str, ...] = PACKS, device=None):
-        unknown = set(packs) - set(PACKS)
+        unknown = set(packs) - set(KNOWN_PACKS)
         if unknown:
             raise NotImplementedError(
                 f"packs {sorted(unknown)} are not ported yet; the port "
-                f"builds {PACKS}")
+                f"builds {KNOWN_PACKS}")
         dev = resolve_device(device)
         self.meta = meta
         n, net = meta.n_nodes, meta.num_edge_types
@@ -116,7 +130,7 @@ class Graph:
         node_w = arrays["node_w"][order]
         self._local_of = {int(e): i for i, e in enumerate(self.ext_ids)}
 
-        (group_ptr, adj_dst, adj_w, _, _, _) = _convert.build_csr(
+        (group_ptr, adj_dst, adj_w, _, _, perm) = _convert.build_csr(
             n, net, arrays["src"], arrays["dst"], arrays["etype"],
             arrays["ew"], arrays["eid"])
         # exact per-group weight sums (no cumsum cancellation)
@@ -142,6 +156,23 @@ class Graph:
                                             group_w_sum.reshape(-1))),
                 fan_over_rows=put(np.nonzero(
                     np.diff(group_ptr) > FAN_D)[0].astype(np.int32)))
+        # the reference's gate: built only where the lanes can encode it,
+        # and otherwise skipped without a word
+        if ("fanu" in packs and n and len(adj_dst) and 2 <= net
+                <= FANU_MAX_TYPES and n < (1 << FANU_SHIFT)):
+            node_ptr = group_ptr[::net].astype(np.int64)          # [N+1]
+            packed = (arrays["etype"][perm].astype(np.int32)
+                      << FANU_SHIFT) | adj_dst
+            prob_u, alias_u = build_group_alias(node_ptr, adj_w)
+            wsum_u = group_w_sum.reshape(n, net).sum(axis=1)
+            fan.update(
+                fanu_pack=put(build_fan_pack(node_ptr, packed, prob_u,
+                                             alias_u, wsum_u)),
+                fanu_over_rows=put(np.nonzero(
+                    np.diff(node_ptr) > FAN_D)[0].astype(np.int32)),
+                fanu_ptr=put(node_ptr.astype(np.int32)),
+                fanu_dst=put(packed), fanu_prob=put(prob_u),
+                fanu_alias=put(alias_u))
         self.tensors = GraphTensors(
             meta=meta,
             group_ptr=put(group_ptr.astype(np.int32)),

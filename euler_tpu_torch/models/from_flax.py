@@ -3,13 +3,18 @@
 The tree is numpy arrays (for example ``jax.tree.map(np.asarray,
 variables)``), with or without the top-level ``"params"`` key. Names:
 
-  embedder/conv_i/Dense_0/kernel   -> embedder.convs[i].self_fc.weight
-  embedder/conv_i/Dense_1/kernel   -> embedder.convs[i].neigh_fc.weight
+  embedder/conv_i/<name>           -> embedder.convs[i].<attribute>, by
+                                      conv (``_CONV_TREES``):
+    sage      Dense_0 -> self_fc, Dense_1 -> neigh_fc
+    gat       Dense_0 -> fc, Dense_1 -> a1, Dense_2 -> a2
+    gin       Dense_0 -> fc, eps -> eps (when trainable)
+    relation  Dense_0 -> self_fc, matrix -> matrix (both [R, dim, D_in])
   embedder/out_fc/{kernel, bias}   -> embedder.out_fc.{weight, bias}
   head_fc/kernel                   -> head_fc.weight
 
-A flax kernel is [in, out] and loads as ``Linear.weight = kernel.T``. A
-bare ``GNNNet`` takes the tree without the ``embedder`` level.
+A flax kernel is [in, out] and loads as ``Linear.weight = kernel.T``; any
+other parameter loads as it is. A bare ``GNNNet`` takes the tree without
+the ``embedder`` level.
 """
 from __future__ import annotations
 
@@ -19,7 +24,17 @@ import numpy as np
 import torch
 from torch import nn
 
+from euler_tpu_torch.models.convs import (GATConv, GINConv, RelationConv,
+                                         SAGEConv)
 from euler_tpu_torch.models.gnn import GNNNet, SuperviseModel
+
+#: flax name inside conv_i -> attribute of the port's conv
+_CONV_TREES = {
+    SAGEConv: {"Dense_0": "self_fc", "Dense_1": "neigh_fc"},
+    GATConv: {"Dense_0": "fc", "Dense_1": "a1", "Dense_2": "a2"},
+    GINConv: {"Dense_0": "fc", "eps": "eps"},
+    RelationConv: {"Dense_0": "self_fc", "matrix": "matrix"},
+}
 
 
 def _set(param: torch.Tensor, value, name: str) -> None:
@@ -37,11 +52,20 @@ def _load_dense(lin: nn.Linear, tree: Mapping, name: str) -> None:
         _set(lin.bias, tree["bias"], f"{name}/bias")
 
 
+def load_conv(conv: nn.Module, tree: Mapping, prefix: str = "") -> None:
+    """Copy one conv's flax tree (the contents of ``conv_i``) into
+    ``conv``; ``prefix`` names it in errors."""
+    for flax_name, attr in _CONV_TREES[type(conv)].items():
+        name, target = f"{prefix}{flax_name}", getattr(conv, attr)
+        if isinstance(target, nn.Linear):
+            _load_dense(target, tree[flax_name], name)
+        elif isinstance(target, torch.Tensor):          # not a fixed eps
+            _set(target, tree[flax_name], name)
+
+
 def _load_gnn(net: GNNNet, tree: Mapping, prefix: str) -> None:
     for i, conv in enumerate(net.convs):
-        c = tree[f"conv_{i}"]
-        _load_dense(conv.self_fc, c["Dense_0"], f"{prefix}conv_{i}/Dense_0")
-        _load_dense(conv.neigh_fc, c["Dense_1"], f"{prefix}conv_{i}/Dense_1")
+        load_conv(conv, tree[f"conv_{i}"], f"{prefix}conv_{i}/")
     _load_dense(net.out_fc, tree["out_fc"], f"{prefix}out_fc")
 
 

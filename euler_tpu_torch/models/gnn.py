@@ -26,28 +26,40 @@ class GNNNet(nn.Module):
 
     ``dims`` holds the hidden dim of each layer and, last, the output dim
     (one conv per block of the flow); ``in_dim`` is the width of the
-    ``feature`` encoder's output. ``dtype`` casts the activations between
-    stages (the parameters stay f32). Weights come from ``generator``, a
-    CPU torch.Generator; the module is then moved to ``device``.
+    ``feature`` encoder's output; ``conv_kwargs`` go to every conv (e.g.
+    ``{"num_relations": 4}``). With ``relation_from_etype`` each conv
+    also gets ``edge_attr = max(block.e_type, 0)``, the sampled edge types
+    of a typed flow (self loops and invalid draws become relation 0).
+    ``dtype`` casts the activations between stages (the parameters stay
+    f32). Weights come from ``generator``, a CPU torch.Generator; the
+    module is then moved to ``device``.
     """
 
     def __init__(self, conv: str, flow: Any, dims: Sequence[int],
                  feature: nn.Module, in_dim: int, dtype=None, device=None,
-                 generator: Optional[torch.Generator] = None):
+                 generator: Optional[torch.Generator] = None,
+                 conv_kwargs: Optional[dict] = None,
+                 relation_from_etype: bool = False):
         super().__init__()
         dev = resolve_device(device)
         n_layers = len(flow.fanouts)
         if len(dims) < n_layers:
             raise ValueError(f"dims {tuple(dims)} has fewer entries than "
                              f"the flow's {n_layers} hops")
+        if relation_from_etype and not getattr(flow, "typed", False):
+            raise ValueError(
+                "relation_from_etype needs edge types: construct the flow "
+                "with typed=True (fast path + per-draw types)")
         self.flow = flow
         self.dims = tuple(dims)
         self.feature = feature
         self.dtype = dtype
+        self.relation_from_etype = relation_from_etype
         cls = convs_lib.get_conv_class(conv)
         widths = [in_dim] + list(self.dims[:n_layers])
         self.convs = nn.ModuleList(
-            cls(widths[i], widths[i + 1], generator=generator)
+            cls(widths[i], widths[i + 1], generator=generator,
+                **(conv_kwargs or {}))
             for i in range(n_layers))
         self.out_fc = convs_lib.dense(widths[-1], self.dims[-1],
                                       generator=generator)
@@ -61,7 +73,10 @@ class GNNNet(nn.Module):
         if self.dtype is not None:
             x = x.to(self.dtype)
         for conv, block in zip(self.convs, blocks):
-            x = torch.relu(conv((x[: block.size[0]], x), block))
+            kw = {}
+            if self.relation_from_etype:
+                kw["edge_attr"] = block.e_type.clamp_min(0)
+            x = torch.relu(conv((x[: block.size[0]], x), block, **kw))
             if self.dtype is not None:
                 x = x.to(self.dtype)
         return self.out_fc(x.to(self.out_fc.weight.dtype))

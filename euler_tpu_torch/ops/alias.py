@@ -150,6 +150,14 @@ FAN_PROB_OFF = 2
 FAN_KEPT_OFF = FAN_PROB_OFF + FAN_D
 FAN_ALIAS_OFF = FAN_KEPT_OFF + FAN_D
 
+# Union fan rows (the "fanu" pack): one row per NODE over the union of all
+# edge types, whose kept and alias lanes pack (etype << FANU_SHIFT) | dst.
+# Fits graphs of fewer than 2^27 nodes and at most 16 edge types; a
+# multi-type draw then reads one row and decodes the lane.
+FANU_SHIFT = 27
+FANU_MASK = (1 << FANU_SHIFT) - 1
+FANU_MAX_TYPES = 16
+
 
 def build_fan_pack(group_ptr: np.ndarray, adj_dst: np.ndarray,
                    prob: np.ndarray, alias: np.ndarray,

@@ -1,11 +1,14 @@
 """Fused fan-row neighbor draw: the CUDA kernel and its plain version.
 
 ``fan_draw`` replaces euler_tpu/ops/pallas_fan.py::fan_draw (the Pallas
-TPU kernel) and the XLA gather and mask around it in the K=1 branch of
-euler_tpu/ops/sampling.py::sample_neighbor_fast. For each frontier node
-and each draw it reads the node's fan row (ops/alias.py FAN_* layout),
-picks a slot from ``u1``, keeps or aliases it by ``u2``, and masks
-invalid rows to ``default_id``.
+TPU kernel) and the XLA gather, mask and lane decode around it in the K=1
+and union branches of euler_tpu/ops/sampling.py::sample_neighbor_fast.
+For each frontier node and each draw it reads the node's fan row
+(ops/alias.py FAN_* layout), picks a slot from ``u1``, keeps or aliases
+it by ``u2``, and masks invalid rows to ``default_id``. With
+``union=True`` the rows are union rows (ops/alias.py FANU_*): the picked
+lane is decoded into its id and its edge type. With ``return_types`` it
+also returns each draw's edge type (-1 where invalid).
 
 For a CUDA tensor the wrapper launches csrc/fan_draw.cu (built with nvcc
 for sm_90a on first use, bound with ctypes) or raises; for a CPU tensor
@@ -21,7 +24,8 @@ import torch
 
 from euler_tpu_torch._build import build_cuda_library
 from euler_tpu_torch.ops.alias import (FAN_ALIAS_OFF, FAN_D, FAN_KEPT_OFF,
-                                       FAN_LANES, FAN_PROB_OFF)
+                                       FAN_LANES, FAN_PROB_OFF, FANU_MASK,
+                                       FANU_SHIFT)
 
 _lock = threading.Lock()
 _lib = None
@@ -35,7 +39,8 @@ def build():
         if _lib is None:
             lib = ctypes.CDLL(build_cuda_library("fan_draw"))
             vp, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
-            args = [vp, i64, vp, i64, i32, i32, i32, vp, vp, i32, vp, vp, vp]
+            args = [vp, i64, vp, i64, i32, i32, i32, vp, vp, i32, vp, vp, vp,
+                    i32, vp]
             lib.etpu_fan_draw.argtypes = args
             lib.etpu_fan_draw.restype = ctypes.c_int
             # the same draw with its path named (chip_smoke.py times both)
@@ -45,7 +50,7 @@ def build():
         return _lib
 
 
-def _check(fan_pack, nodes, et, num_edge_types, u1, u2):
+def _check(fan_pack, nodes, et, num_edge_types, u1, u2, union):
     dev = fan_pack.device
     for name, t, dt in (("fan_pack", fan_pack, torch.int32),
                         ("nodes", nodes, torch.int32),
@@ -70,14 +75,19 @@ def _check(fan_pack, nodes, et, num_edge_types, u1, u2):
     if not 0 <= et < num_edge_types:
         raise ValueError(f"fan_draw: edge type {et} not in "
                          f"[0, {num_edge_types})")
+    if union and num_edge_types != 1:
+        raise ValueError("fan_draw: union rows are one per node; pass "
+                         "num_edge_types=1, et=0")
 
 
 def fan_draw_plain(fan_pack, nodes, et: int, num_edge_types: int, u1, u2,
-                   default_id: int = -1):
+                   default_id: int = -1, union: bool = False,
+                   return_types: bool = False):
     """Plain PyTorch version of the kernel, on any device.
 
-    Returns (ids int32 [B, C], valid bool [B, C]). Prob and weight-sum
-    lanes are reinterpreted with ``.view(torch.float32)``, never cast.
+    Returns (ids int32 [B, C], valid bool [B, C]), and types int32 [B, C]
+    with ``return_types``. Prob and weight-sum lanes are reinterpreted
+    with ``.view(torch.float32)``, never cast.
     """
     G = fan_pack.shape[0]
     rows = (nodes.clamp_min(0).long() * num_edge_types + et).clamp_max(G - 1)
@@ -93,39 +103,51 @@ def fan_draw_plain(fan_pack, nodes, et: int, num_edge_types: int, u1, u2,
                        torch.gather(packs, 1, FAN_ALIAS_OFF + slot))
     valid = ((nodes >= 0)[:, None] & (deg > 0) & (wsum > 0)[:, None]
              ).expand(draw.shape).contiguous()
-    return torch.where(valid, draw, default_id), valid
+    ids = torch.where(valid, draw & FANU_MASK if union else draw, default_id)
+    if not return_types:
+        return ids, valid
+    ty = draw >> FANU_SHIFT if union else torch.full_like(draw, et)
+    return ids, valid, torch.where(valid, ty, -1)
 
 
 def fan_draw(fan_pack, nodes, et: int, num_edge_types: int, u1, u2,
-             default_id: int = -1):
+             default_id: int = -1, union: bool = False,
+             return_types: bool = False):
     """Weighted in-row draws for each node of ``nodes``.
 
-    fan_pack int32 [G, 128] (G = N * num_edge_types), nodes int32 [B]
-    (-1 = no node), u1/u2 f32 [B, C] uniforms in [0, 1). Returns
-    (ids int32 [B, C], valid bool [B, C]); invalid draws hold
-    ``default_id``. ``fan_draw.launches`` counts kernel launches.
+    fan_pack int32 [G, 128] (G = N * num_edge_types; union rows: G = N,
+    ``num_edge_types=1``, ``et=0``), nodes int32 [B] (-1 = no node),
+    u1/u2 f32 [B, C] uniforms in [0, 1). Returns (ids int32 [B, C], valid
+    bool [B, C]) and, with ``return_types``, types int32 [B, C]: the
+    decoded type of a union lane, else ``et``; -1 where invalid. Invalid
+    draws hold ``default_id``. ``fan_draw.launches`` counts kernel
+    launches.
     """
-    _check(fan_pack, nodes, et, num_edge_types, u1, u2)
+    _check(fan_pack, nodes, et, num_edge_types, u1, u2, union)
     if fan_pack.device.type == "cpu":
         return fan_draw_plain(fan_pack, nodes, et, num_edge_types, u1, u2,
-                              default_id)
+                              default_id, union, return_types)
     if fan_pack.device.type != "cuda":
         raise ValueError(f"fan_draw: no kernel for {fan_pack.device}")
     lib = build()
     B, C = u1.shape
-    ids = torch.empty((B, C), dtype=torch.int32, device=fan_pack.device)
-    valid = torch.empty((B, C), dtype=torch.bool, device=fan_pack.device)
-    with torch.cuda.device(fan_pack.device):
+    dev = fan_pack.device
+    ids = torch.empty((B, C), dtype=torch.int32, device=dev)
+    valid = torch.empty((B, C), dtype=torch.bool, device=dev)
+    types = torch.empty((B, C), dtype=torch.int32, device=dev) \
+        if return_types else None
+    with torch.cuda.device(dev):
         stream = torch.cuda.current_stream().cuda_stream
         rc = lib.etpu_fan_draw(
             fan_pack.data_ptr(), fan_pack.shape[0], nodes.data_ptr(), B, C,
             et, num_edge_types, u1.data_ptr(), u2.data_ptr(), default_id,
-            ids.data_ptr(), valid.data_ptr(), stream)
+            ids.data_ptr(), valid.data_ptr(),
+            None if types is None else types.data_ptr(), int(union), stream)
     if rc != 0:
         raise RuntimeError(f"fan_draw: kernel launch failed (CUDA error "
                            f"{rc})")
     fan_draw.launches += 1
-    return ids, valid
+    return (ids, valid, types) if return_types else (ids, valid)
 
 
 fan_draw.launches = 0

@@ -2,31 +2,41 @@
 neighbor draw and the reservoir redraw.
 
 Counterparts of euler_tpu/ops/sampling.py's ``sample_node`` (:46-72),
-the K=1 branch of ``sample_neighbor_fast`` (one edge type per hop, the
-GraphSAGE flows) and ``refresh_fan_rows``/``refresh_fan_pack`` with
-``over_rows`` (:379-461). The reference derives its uniforms from a jax
-PRNG key inside each verb; here each verb is split in two so that both
-packages can be fed the same numbers: a step that draws the uniforms
-from a torch.Generator (``draw_node_uniforms``, ``draw_fan_uniforms``,
-``draw_alias_uniforms``), and a deterministic select from given uniforms
-(``select_nodes``, ``select_fan_neighbors``, ``refresh_fan_rows``). The
-union-row and multi-type (K>1) branches are not ported.
+``sample_neighbor_fast`` (:223-376: its K=1, union-row and per-type K>1
+branches, with ``return_types``) and ``refresh_fan_rows``/
+``refresh_fan_pack`` with ``over_rows`` (:379-461). The reference derives
+its uniforms from a jax PRNG key inside each verb; here each verb is
+split in two so that both packages can be fed the same numbers: a step
+that draws the uniforms from a torch.Generator (``draw_node_uniforms``,
+``draw_fan_uniforms``, ``draw_typed_uniforms``, ``draw_alias_uniforms``,
+and ``draw_neighbor_uniforms`` for a hop), and a deterministic select
+from given uniforms (``select_nodes``, ``select_fan_neighbors``,
+``select_typed_neighbors``, ``select_neighbors`` for a hop,
+``refresh_fan_rows``).
 Matches Node::SampleNeighbor's weighted-with-replacement distribution
 (reference: euler/core/graph/node.h:82) exactly for groups of degree
 <= FAN_D; larger groups draw from an exact-marginal reservoir.
+
+A hop over one edge type reads ``fan_pack``; a hop over every edge type
+of the graph reads the union rows ``fanu_pack`` when the graph has them;
+any other multi-type hop reads one fan row per type (plain torch, as the
+reference does it in XLA). Where the reference falls back to the payload
+verb ``sample_neighbor`` (the graph lacks the pack a hop needs), the port
+raises ``NotImplementedError``: that verb is not ported.
 
 Conventions: node ids are int32 local ids, ``-1`` marks "no node", and
 missing neighbors get ``default_id``.
 """
 from __future__ import annotations
 
-from typing import Optional, Tuple
+from typing import Optional, Sequence, Tuple
 
 import torch
 
 from euler_tpu_torch.graph.store import GraphTensors
 from euler_tpu_torch.ops.alias import (FAN_ALIAS_OFF, FAN_D, FAN_KEPT_OFF,
-                                       alias_select, draw_alias_uniforms)
+                                       FAN_PROB_OFF, alias_select,
+                                       draw_alias_uniforms)
 from euler_tpu_torch.ops.fan_draw import fan_draw
 
 
@@ -97,17 +107,132 @@ def draw_fan_uniforms(generator: Optional[torch.Generator], B: int,
     return u1, u2
 
 
-def select_fan_neighbors(g: GraphTensors, nodes: torch.Tensor, et: int,
-                         u1: torch.Tensor, u2: torch.Tensor,
-                         default_id: int = -1):
-    """Deterministic weighted draws of edge type ``et`` from given
-    uniforms; returns (ids int32 [B, C], valid bool [B, C])."""
-    if g.fan_pack is None:
-        raise ValueError("the graph was built without the 'fan' pack")
-    return fan_draw(g.fan_pack, nodes.to(torch.int32).contiguous(), et,
-                    g.meta.num_edge_types, u1.contiguous(), u2.contiguous(),
-                    default_id)
+def uses_union(g: GraphTensors, ets: Tuple[int, ...]) -> bool:
+    """True where a hop over ``ets`` reads the union rows: more than one
+    type, every type of the graph, and the ``fanu`` pack built."""
+    return (g.fanu_pack is not None and len(ets) > 1
+            and sorted(ets) == list(range(g.meta.num_edge_types)))
 
+
+def _need_fan_pack(g: GraphTensors, ets: Tuple[int, ...]) -> None:
+    if g.fan_pack is None:
+        raise NotImplementedError(
+            f"a hop over edge types {ets} reads the 'fan' pack (or 'fanu' "
+            f"for a hop over every type), which the graph was built "
+            f"without; the reference's fallback, the payload verb "
+            f"sample_neighbor, is not ported")
+
+
+def select_fan_neighbors(g: GraphTensors, nodes: torch.Tensor, edge_types,
+                         u1: torch.Tensor, u2: torch.Tensor,
+                         default_id: int = -1, return_types: bool = False):
+    """Deterministic weighted draws from given uniforms through the
+    ``fan_draw`` kernel: over ``fan_pack`` for one edge type, over the
+    union rows for a hop over every type (``uses_union``). Returns (ids
+    int32 [B, C], valid bool [B, C]) and, with ``return_types``, each
+    draw's edge type (int32, -1 where invalid)."""
+    ets = as_etypes(g, edge_types)
+    nodes = nodes.to(torch.int32).contiguous()
+    if uses_union(g, ets):
+        return fan_draw(g.fanu_pack, nodes, 0, 1, u1.contiguous(),
+                        u2.contiguous(), default_id, union=True,
+                        return_types=return_types)
+    if len(ets) != 1:
+        raise ValueError(f"select_fan_neighbors draws one edge type or the "
+                         f"union rows, not {ets}: see select_neighbors")
+    _need_fan_pack(g, ets)
+    return fan_draw(g.fan_pack, nodes, ets[0], g.meta.num_edge_types,
+                    u1.contiguous(), u2.contiguous(), default_id,
+                    return_types=return_types)
+
+
+def draw_typed_uniforms(generator: Optional[torch.Generator], B: int,
+                        count: int, device) -> Tuple[torch.Tensor,
+                                                     torch.Tensor,
+                                                     torch.Tensor]:
+    """(ut, u1, u2), each f32 [B, count] in [0, 1): the type pick of a
+    multi-type draw, then the slot pick and the keep-vs-alias test (the
+    reference's ``kt, kd = split(key); k1, k2 = split(kd)``)."""
+    ut = torch.rand((B, count), generator=generator, device=device)
+    return (ut,) + draw_fan_uniforms(generator, B, count, device)
+
+
+def select_typed_neighbors(g: GraphTensors, nodes: torch.Tensor, edge_types,
+                           ut: torch.Tensor, u1: torch.Tensor,
+                           u2: torch.Tensor, default_id: int = -1,
+                           return_types: bool = False):
+    """Deterministic multi-type draws over one fan row per (node, type):
+    the K>1 branch of the reference (sampling.py:344-376), plain torch.
+
+    Each draw picks a type in proportion to the node's per-type weight
+    sums (``r = ut * total`` against their running sum, added left to
+    right as XLA's cumsum does: torch.cumsum associates otherwise), then
+    draws in that type's row. Out-of-range row indices clamp, as XLA's
+    gather does. Returns what ``select_fan_neighbors`` returns.
+    """
+    ets = as_etypes(g, edge_types)
+    _need_fan_pack(g, ets)
+    K, ET = len(ets), g.meta.num_edge_types
+    G = g.fan_pack.shape[0]
+    et = torch.tensor(ets, dtype=torch.int64, device=nodes.device)
+    rows = nodes.to(torch.int64).clamp_min(0)
+    packs = g.fan_pack[(rows[:, None] * ET + et[None, :]).clamp_max(G - 1)]
+    deg = packs[..., 0]                                        # [B, K]
+    wsum = packs[..., 1].contiguous().view(torch.float32)      # [B, K]
+    run = [wsum[:, 0]]
+    for k in range(1, K):
+        run.append(run[-1] + wsum[:, k])
+    cdf = torch.stack(run, 1)                                  # [B, K]
+    total = cdf[:, -1]
+    r = ut * total[:, None]
+    kidx = (r[:, :, None] >= cdf[:, None, :]).sum(-1).clamp_max(K - 1)
+    deg_c = torch.gather(deg, 1, kidx)
+    slot = torch.minimum((u1 * deg_c.to(torch.float32)).to(torch.int32),
+                         (deg_c - 1).clamp_min(0))
+    # lane (kidx, off + slot) of the node's K gathered rows
+    lane = kidx * packs.shape[-1] + slot.clamp(0, FAN_D - 1).long()
+    flat = packs.reshape(packs.shape[0], -1)                   # [B, K*128]
+
+    def pick(off):
+        return torch.gather(flat, 1, off + lane)
+
+    prob = pick(FAN_PROB_OFF).view(torch.float32)
+    draw = torch.where(u2 < prob, pick(FAN_KEPT_OFF), pick(FAN_ALIAS_OFF))
+    valid = (nodes >= 0)[:, None] & (deg_c > 0) & (total > 0)[:, None]
+    ids = torch.where(valid, draw, default_id)
+    if not return_types:
+        return ids, valid
+    return ids, valid, torch.where(valid, et.to(torch.int32)[kidx], -1)
+
+
+def draw_neighbor_uniforms(g: GraphTensors, edge_types,
+                           generator: Optional[torch.Generator], B: int,
+                           count: int, device) -> Tuple[torch.Tensor, ...]:
+    """The uniforms one hop over ``edge_types`` reads: (u1, u2) for one
+    type and for the union rows, (ut, u1, u2) for a per-type multi-type
+    hop. Raises NotImplementedError where the graph lacks the pack."""
+    ets = as_etypes(g, edge_types)
+    union = uses_union(g, ets)
+    if not union:
+        _need_fan_pack(g, ets)
+    if union or len(ets) == 1:
+        return draw_fan_uniforms(generator, B, count, device)
+    return draw_typed_uniforms(generator, B, count, device)
+
+
+def select_neighbors(g: GraphTensors, nodes: torch.Tensor, edge_types,
+                     uniforms: Sequence[torch.Tensor], default_id: int = -1,
+                     return_types: bool = False):
+    """One hop of ``sample_neighbor_fast`` from the uniforms that
+    ``draw_neighbor_uniforms`` gives for it."""
+    ets = as_etypes(g, edge_types)
+    want = 2 if len(ets) == 1 or uses_union(g, ets) else 3
+    if len(uniforms) != want:
+        raise ValueError(f"a hop over edge types {ets} reads {want} uniform "
+                         f"tensors, got {len(uniforms)}")
+    fn = select_fan_neighbors if want == 2 else select_typed_neighbors
+    return fn(g, nodes, ets, *uniforms, default_id=default_id,
+              return_types=return_types)
 
 
 # ---------------------------------------------------------------------------
@@ -149,15 +274,20 @@ def refresh_fan_rows(group_ptr: torch.Tensor, adj_dst: torch.Tensor,
 def refresh_fan_pack(g: GraphTensors,
                      generator: Optional[torch.Generator] = None
                      ) -> GraphTensors:
-    """Redraw the reservoir rows of ``g.fan_pack`` in place.
+    """Redraw the reservoir rows of ``g.fan_pack`` and of the union rows
+    ``g.fanu_pack`` in place, each from a uniform pair of its own.
 
     Groups with degree > FAN_D hold FAN_D precomputed i.i.d. draws;
     calling this every ``RunConfig.reservoir_refresh`` steps re-randomizes
     them so long runs see the full neighborhood of high-degree nodes.
     """
-    if g.fan_pack is not None:
-        K = g.fan_over_rows.shape[0]
-        u1, u2 = draw_alias_uniforms(generator, (K, FAN_D), g.device)
-        refresh_fan_rows(g.group_ptr, g.adj_dst, g.adj_prob, g.adj_alias,
-                         g.fan_pack, g.fan_over_rows, u1, u2)
+    for pack, over, csr in (
+            (g.fan_pack, g.fan_over_rows,
+             (g.group_ptr, g.adj_dst, g.adj_prob, g.adj_alias)),
+            (g.fanu_pack, g.fanu_over_rows,
+             (g.fanu_ptr, g.fanu_dst, g.fanu_prob, g.fanu_alias))):
+        if pack is not None:
+            u1, u2 = draw_alias_uniforms(generator, (over.shape[0], FAN_D),
+                                         g.device)
+            refresh_fan_rows(*csr, pack, over, u1, u2)
     return g

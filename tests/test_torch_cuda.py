@@ -20,7 +20,8 @@ import numpy as np
 import pytest
 import torch
 
-from chip_smoke import int_view, synthetic_fan_pack
+from chip_smoke import int_view, synthetic_fan_pack, synthetic_union_pack
+from euler_tpu_torch import bench
 from euler_tpu_torch.dataflow import SageDataFlow
 from euler_tpu_torch.datasets import random_graph
 from euler_tpu_torch.models import GNNNet, ShallowEncoder, SuperviseModel
@@ -98,13 +99,97 @@ def test_fan_draw_paths_match_plain(dev, path, B, C, n_et, et):
     rc = fd.build().etpu_fan_draw_path(
         packs.data_ptr(), packs.shape[0], nodes.data_ptr(), B, C, et, n_et,
         u1.data_ptr(), u2.data_ptr(), -1, ids.data_ptr(), valid.data_ptr(),
-        torch.cuda.current_stream().cuda_stream, path)
+        None, 0, torch.cuda.current_stream().cuda_stream, path)
     torch.cuda.synchronize()
     assert rc == 0
     ref_ids, ref_valid = fd.fan_draw_plain(packs, nodes, et, n_et, u1, u2,
                                            -1)
     assert torch.equal(ids, ref_ids)
     assert torch.equal(valid, ref_valid)
+
+
+@pytest.mark.parametrize("path", [0, 1, 2])     # wrapper's choice, row, draw
+@pytest.mark.parametrize("union", [True, False])
+@pytest.mark.parametrize("B,C", [(1024, 25), (26_624, 10), (333, 50)])
+def test_typed_epilogue_matches_plain(dev, path, union, B, C):
+    # union rows (types 0..15, ids up to FANU_MASK) decoded into ids and
+    # types, or the one-type typed output on a 3-type pack whose rows past
+    # the pack clamp; without types too
+    rng = np.random.default_rng(B + C)
+    G = 4096
+    make = synthetic_union_pack if union else synthetic_fan_pack
+    packs = torch.from_numpy(make(rng, G)).to(dev)
+    n_et, et = (1, 0) if union else (3, 2)
+    gen = torch.Generator(device=dev).manual_seed(C)
+    nodes = torch.randint(0, G + 50, (B,), generator=gen, dtype=torch.int32,
+                          device=dev)
+    nodes[::17] = -1
+    u1, u2 = sampling.draw_fan_uniforms(gen, B, C, dev)
+    want = fd.fan_draw_plain(packs, nodes, et, n_et, u1, u2, -3, union, True)
+    for typed in (True, False):
+        out = (torch.full((B, C), 7, dtype=torch.int32, device=dev),
+               torch.ones((B, C), dtype=torch.bool, device=dev),
+               torch.full((B, C), 7, dtype=torch.int32, device=dev))
+        rc = fd.build().etpu_fan_draw_path(
+            packs.data_ptr(), G, nodes.data_ptr(), B, C, et, n_et,
+            u1.data_ptr(), u2.data_ptr(), -3, out[0].data_ptr(),
+            out[1].data_ptr(), out[2].data_ptr() if typed else None,
+            int(union), torch.cuda.current_stream().cuda_stream, path)
+        torch.cuda.synchronize()
+        assert rc == 0
+        assert torch.equal(out[0], want[0]) and torch.equal(out[1], want[1])
+        assert torch.equal(out[2], want[2] if typed else torch.full_like(
+            out[2], 7))
+    got = fd.fan_draw(packs, nodes, et, n_et, u1, u2, -3, union, True)
+    assert all(torch.equal(a, b) for a, b in zip(got, want))
+    types = set(torch.unique(want[2]).tolist())
+    assert types == ({-1} | set(range(16)) if union else {-1, et})
+
+
+@pytest.mark.parametrize("family", ["gin", "gat", "rgcn"])
+def test_family_step_on_card_matches_cpu(dev, family):
+    # one step of each bench family, card vs CPU from the same weights,
+    # roots and uniforms: equal sampled ids and types, loss and every
+    # gradient within 1e-4
+    rgcn = family == "rgcn"
+    graph = random_graph(3000, 25, feat_dim=128, n_classes=16, seed=0,
+                         num_edge_types=bench.RGCN_TYPES if rgcn else 1,
+                         packs=("fanu",) if rgcn else ("fan",), device=dev)
+    model = bench.make_model(family, dev,
+                             generator=torch.Generator().manual_seed(0))
+    ugen = torch.Generator(device=dev).manual_seed(3)
+    roots = sampling.sample_node(graph.tensors, 64, -1, ugen)
+    flow = model.embedder.flow
+    uniforms, n = [], 64
+    for ets, c in zip(flow.metapath, flow.fanouts):
+        uniforms.append(sampling.draw_neighbor_uniforms(
+            graph.tensors, ets, ugen, n, c, dev))
+        n *= 1 + c
+    cpu = torch.device("cpu")
+    g_cpu = graph.tensors.to(cpu)
+    u_cpu = [tuple(u.cpu() for u in hop) for hop in uniforms]
+    with torch.no_grad():
+        for bk, bc in zip(flow(graph.tensors, roots, uniforms=uniforms),
+                          flow(g_cpu, roots.cpu(), uniforms=u_cpu)):
+            assert torch.equal(bk.n_id.cpu(), bc.n_id)
+            assert (bk.e_type is None) == (bc.e_type is None) == (not rgcn)
+            if rgcn:
+                assert torch.equal(bk.e_type.cpu(), bc.e_type)
+    before = fd.fan_draw.launches
+    runs = []
+    for m, g, r, u in ((model, graph.tensors, roots, uniforms),
+                       (copy.deepcopy(model).to(cpu), g_cpu, roots.cpu(),
+                        u_cpu)):
+        loss = m(g, r, uniforms=u)["loss"]
+        loss.backward()
+        runs.append((loss.detach().cpu(),
+                     {k: p.grad.cpu() for k, p in m.named_parameters()}))
+    assert fd.fan_draw.launches == before + 2
+    (lk, gk), (lc, gc) = runs
+    np.testing.assert_allclose(lk.numpy(), lc.numpy(), rtol=1e-4, atol=1e-4)
+    for k in gk:
+        np.testing.assert_allclose(gk[k].numpy(), gc[k].numpy(), rtol=1e-4,
+                                   atol=1e-4, err_msg=k)
 
 
 def test_slice_on_card_matches_cpu(dev):

@@ -13,6 +13,7 @@ import numpy as np
 import pytest
 import torch
 
+from euler_tpu.dataflow import flows as jax_flows
 from euler_tpu.ops import feature_ops as jax_feature_ops
 from euler_tpu.ops import sampling as jax_sampling
 from euler_tpu_torch.dataflow import SageDataFlow
@@ -85,11 +86,41 @@ def test_draw_fan_uniforms_shapes_and_range():
     assert not torch.equal(u1, u2)
 
 
-def test_multi_type_hops_are_not_ported(toy_dir):
+@pytest.mark.parametrize("typed", [False, True])
+def test_multi_type_hop_matches_reference(toy_dir, toy_graph, typed):
+    # the toy graph has no union rows, so the hop over (click, buy) takes
+    # the per-type branch: (ut, u1, u2) from kt, kd = split(sub) and
+    # k1, k2 = split(kd), where key, sub = split(key) in the flow
     g = load_graph(toy_dir, device="cpu")
-    flow = SageDataFlow([3], [(0, 1)])
-    with pytest.raises(NotImplementedError):
-        flow(g.tensors, torch.zeros(2, dtype=torch.int32))
+    roots = np.asarray([g.local_id(e) for e in range(100, 108)] + [-1],
+                       np.int32)
+    key = jax.random.PRNGKey(21)
+    want = jax_flows.SageDataFlow([6], [(0, 1)], typed=typed)(
+        toy_graph.tensors, key, jnp.asarray(roots))[0]
+    _, sub = jax.random.split(key)
+    kt, kd = jax.random.split(sub)
+    k1, k2 = jax.random.split(kd)
+    uniforms = [tuple(torch.from_numpy(np.array(jax.random.uniform(
+        k, (len(roots), 6)))) for k in (kt, k1, k2))]
+    got = SageDataFlow([6], [(0, 1)], typed=typed)(
+        g.tensors, torch.from_numpy(roots), uniforms=uniforms)[0]
+    for name in ("n_id", "edge_index", "mask", "edge_weight", "e_id") + (
+            ("e_type",) if typed else ()):
+        np.testing.assert_array_equal(getattr(got, name).numpy(),
+                                      np.asarray(getattr(want, name)),
+                                      err_msg=name)
+    assert (got.e_type is None) == (want.e_type is None) == (not typed)
+    assert got.mask[:-6].sum() > 30            # 107 and -1 draw nothing
+
+
+def test_typed_hop_without_its_pack_raises_naming_it(toy_dir):
+    g = load_graph(toy_dir, packs=("fanu",), device="cpu")
+    roots = torch.zeros(2, dtype=torch.int32)
+    # the union rows serve a hop over every type, not one over "click"
+    blk = SageDataFlow([3], [(0, 1)], typed=True)(g.tensors, roots)[0]
+    assert blk.e_type.shape == (8,)
+    with pytest.raises(NotImplementedError, match="'fan' pack"):
+        SageDataFlow([3], [("click",)], typed=True)(g.tensors, roots)
 
 
 def test_dense_feature_matches_reference_with_negative_ids(toy_dir,

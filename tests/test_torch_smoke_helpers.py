@@ -71,3 +71,53 @@ def test_checked_raises_on_a_cuda_error():
     chip_smoke.checked(lambda: 0)()
     with pytest.raises(RuntimeError, match="CUDA error 1"):
         chip_smoke.checked(lambda: 1)()
+
+
+def test_synthetic_union_pack_covers_every_type_and_the_largest_id():
+    from euler_tpu_torch.ops.alias import (FAN_ALIAS_OFF, FAN_D,
+                                           FAN_KEPT_OFF, FANU_MASK,
+                                           FANU_SHIFT)
+    packs = chip_smoke.synthetic_union_pack(np.random.default_rng(0), 500)
+    lanes = packs[:, FAN_KEPT_OFF:FAN_ALIAS_OFF + FAN_D]
+    assert set(np.unique(lanes >> FANU_SHIFT)) == set(range(16))
+    assert (lanes & FANU_MASK).max() == FANU_MASK and lanes.min() >= 0
+    assert (packs[:, 0] == 0).any() and (packs[:, 0] == FAN_D).any()
+
+
+@pytest.mark.parametrize("typed", [False, True])
+def test_hop_uniforms_and_the_redraw_check_on_each_pack(typed):
+    # one uniforms tuple per hop of the flow, (ut, u1, u2) only for a
+    # per-type hop; the train phase's redraw check on the pack it redraws
+    from euler_tpu_torch import bench
+    from euler_tpu_torch.datasets import random_graph
+    from euler_tpu_torch.ops import sampling
+    g = random_graph(300, 60, num_edge_types=4 if typed else 1,
+                     packs=("fanu",) if typed else ("fan",),
+                     device="cpu").tensors
+    flow = bench.make_model("rgcn" if typed else "sage", "cpu").embedder.flow
+    roots = torch.arange(7, dtype=torch.int32)
+    u = chip_smoke.hop_uniforms(flow, g, roots, torch.Generator())
+    assert [tuple(x.shape) for hop in u for x in hop] == [(7, 25)] * 2 + [
+        (7 * 26, 10)] * 2
+    pack = chip_smoke.redrawn_pack(g)
+    assert pack == ("fanu" if typed else "fan")
+    before = getattr(g, f"{pack}_pack").clone()
+    sampling.refresh_fan_pack(g, torch.Generator().manual_seed(1))
+    got = chip_smoke.check_redraw(before, g, np.random.default_rng(0), pack)
+    assert got["reservoir_rows"] > 0 and got["lanes_changed"] > 0.5
+    # a lane that no neighbor holds fails the check
+    getattr(g, f"{pack}_pack")[getattr(g, f"{pack}_over_rows")[0],
+                               chip_smoke.FAN_KEPT_OFF] = -5
+    getattr(g, f"{pack}_pack")[getattr(g, f"{pack}_over_rows")[0],
+                               chip_smoke.FAN_ALIAS_OFF] = -5
+    with pytest.raises(RuntimeError, match="non-neighbor"):
+        chip_smoke.check_redraw(before, g, np.random.default_rng(0), pack)
+
+
+def test_n_params_counts_the_entry_points_of_a_kernel_source():
+    # --parent types an older fan_draw entry point by its own count
+    src = chip_smoke.os.path.join(chip_smoke.PACKAGE_DIR, "csrc",
+                                  "fan_draw.cu")
+    assert chip_smoke.n_params(src, "etpu_fan_draw") == 15
+    assert chip_smoke.n_params(src, "etpu_fan_draw_path") == 16
+    assert chip_smoke.IDS_ONLY_FAN_PARAMS == 15 - 2
