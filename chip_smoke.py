@@ -51,7 +51,10 @@ Phases, in order; any failure propagates and the exit code is not 0:
               flushed) and the bytes bound; the kernel's time on the same
               ids sorted, and on M ids with no repeat from a table of 2N
               rows (with its own bound), each bit-exact; and with --parent
-              the parent's kernel, bit-exact, and this one in turns
+              the parent's kernel, bit-exact, and this one in turns. The
+              whole-graph gcn gathers too: ids arange(N) over
+              [100,000, 128] (f32 and bf16, timed with the bound, the
+              plain version, index_select and a copy) and [100,000, 16]
   5. graph    random_graph(200_000, 25, feat_dim=128, n_classes=16, seed=0,
               packs=("fan",)) on the card
   6. model    bench.make_model("sage"): SuperviseModel(GNNNet("sage",
@@ -89,14 +92,30 @@ Phases, in order; any failure propagates and the exit code is not 0:
               ids and edge types; 8 train steps with 2 launches of each
               kernel a step and the redraw of the graph's reservoir rows,
               for rgcn the union rows, two steps profiled)
+ 12b. gcn    bench.py's whole-graph gcn mode (bench.make_model("gcn"),
+              f32) on random_graph(100_000, 25, feat_dim=128,
+              n_classes=16, seed=0, packs=("ell",)), whose ELL pack must be
+              53 wide with a 49-wide transpose: infer of 8192 ids (16
+              gather_rows launches, no fan_draw) and two batches
+              profiled; one step on the card and on the CPU (blocks
+              equal, loss and every gradient within 1e-4); the forward on
+              the ELL pack against the edge list on the card (within
+              1e-4); 8 train steps over every node (2 gather_rows launches
+              a step, losses finite, peak memory) and two profiled;
+              _ell_agg alone (forward, and the backward to x) in bf16 and
+              f32 beside its bytes bound and, in f32, torch.sparse.mm; two
+              steps of the bench's bf16 model profiled, with peak memory
  13. bench    the port's bench (euler_tpu_torch/bench.py) in each mode,
-              sage, gin, gat and rgcn, at bench.py's width, bf16
-              activations: warmup, single_loop and pipelined JSON lines;
-              each kernel 2 launches per step
+              sage, gin, gat, rgcn and gcn, at bench.py's width, bf16
+              activations: warmup,
+              single_loop and pipelined JSON lines; each kernel 2
+              launches per step in the sampled modes, gather_rows 2 and
+              fan_draw none in gcn
  14. report   one JSON line of kernels (the gather's f32 and bf16 times,
-              fan_draw's launch floor, its paths' crossover and its union
-              shapes, each kernel's launches on every path and ptxas
-              figures), then the last line {"ok": true, "device": {...}}
+              also at gcn's shape, fan_draw's launch floor, its paths'
+              crossover and its union shapes, each kernel's launches on
+              every path and ptxas figures), then the last line
+              {"ok": true, "device": {...}}
 
 It exits non-zero, with no result line, where torch.cuda.is_available()
 is false or the euler_tpu_torch package is missing.
@@ -123,8 +142,11 @@ import torch
 from euler_tpu_torch import bench
 from euler_tpu_torch._build import (NVCC_FLAGS, PACKAGE_DIR,
                                     build_shared_library, nvcc)
+from euler_tpu_torch.dataflow import WholeDataFlow
+from euler_tpu_torch.dataflow import block as block_lib
 from euler_tpu_torch.datasets import random_graph
 from euler_tpu_torch.estimator import NodeEstimator, RunConfig
+from euler_tpu_torch.models import convs
 from euler_tpu_torch.native import loader as native
 from euler_tpu_torch.ops import fan_draw as fd
 from euler_tpu_torch.ops import gather_rows as gr
@@ -146,6 +168,10 @@ PARITY_TOL = dict(rtol=1e-4, atol=1e-4)
 # the deepest gathered set: roots plus both hops' draws
 GATHER_ROWS = BATCH * (1 + FANOUTS[0]) * (1 + FANOUTS[1])     # 292,864
 TRAIN_STEPS, TRAIN_REFRESH = 8, 3
+# the whole-graph gcn mode (bench.py's _gcn_child): every node a root, and
+# the widths of random_graph(100_000, 25, seed=0)'s ELL pack
+GCN_NODES = bench.GCN_SIZES["cuda"][0]
+GCN_C, GCN_C_IN = 53, 49
 
 
 def reset_counts() -> None:
@@ -494,8 +520,11 @@ def int_view(x: torch.Tensor) -> torch.Tensor:
 def gather_ids(rng, M: int, N: int, dev, kind: str = "mixed"):
     """int32 ids [M]. "mixed": uniform in [0, N) with about 1% of -1 and
     a few >= N (one of each at the front); "minus1": all -1; "beyond": all
-    >= N; "repeat": eight rows, over and over."""
-    if kind == "minus1":
+    >= N; "repeat": eight rows, over and over; "arange": 0 .. M-1 (the
+    whole-graph feature and label gathers)."""
+    if kind == "arange":
+        ids = np.arange(M, dtype=np.int32)
+    elif kind == "minus1":
         ids = np.full(M, -1, np.int32)
     elif kind == "beyond":
         ids = (N + rng.integers(0, 7, M)).astype(np.int32)
@@ -534,26 +563,31 @@ def phase_gather(dev, parent=None):
     gen = torch.Generator(device=dev).manual_seed(7)
     flush = torch.empty(64 << 20, dtype=torch.uint8, device=dev)
     f32, bf16 = torch.float32, torch.bfloat16
-    cases = [  # (N, D, M, dtype, out width or None, col_offset, ids, timed)
-        (N_NODES, FEAT_DIM, GATHER_ROWS, f32, None, 0, "mixed", True),
-        (N_NODES, FEAT_DIM, GATHER_ROWS, bf16, None, 0, "mixed", True),
-        (N_NODES, N_CLASSES, BATCH, f32, None, 0, "mixed", False),
-        (N_NODES, N_CLASSES, BATCH, bf16, None, 0, "mixed", False),
-        (5000, 1, 10_007, f32, None, 0, "mixed", False),
-        (5000, 3, 10_007, f32, None, 0, "mixed", False),
-        (5000, 127, 10_007, f32, None, 0, "mixed", False),
-        (5000, 5, 10_007, bf16, None, 0, "mixed", False),
-        (5000, 128, 10_007, f32, 256, 128, "mixed", False),  # 16-byte path
-        (5000, 128, 10_007, bf16, 264, 8, "mixed", False),   # 16-byte path
-        (5000, 64, 10_007, f32, 300, 37, "mixed", False),    # element path
-        (5000, 128, 1, f32, None, 0, "mixed", False),
-        (5000, 128, 33, f32, None, 0, "mixed", False),       # past a tile
-        (5000, 128, 1000, f32, None, 0, "mixed", False),     # ragged stage
-        (5000, 128, 1000, bf16, 200, 64, "mixed", False),
-        (5000, 128, 4099, f32, None, 0, "minus1", False),
-        (5000, 128, 4099, bf16, None, 0, "beyond", False),
-        (5000, 128, 4099, f32, 256, 0, "beyond", False),
-        (5000, 128, 65_536, f32, None, 0, "repeat", False),
+    # (N, D, M, dtype, out width or None, col_offset, ids, timed): timed
+    # "sampled" at the deepest hop's shape, "gcn" at the whole graph's
+    cases = [
+        (N_NODES, FEAT_DIM, GATHER_ROWS, f32, None, 0, "mixed", "sampled"),
+        (N_NODES, FEAT_DIM, GATHER_ROWS, bf16, None, 0, "mixed", "sampled"),
+        (GCN_NODES, FEAT_DIM, GCN_NODES, f32, None, 0, "arange", "gcn"),
+        (GCN_NODES, FEAT_DIM, GCN_NODES, bf16, None, 0, "arange", "gcn"),
+        (GCN_NODES, N_CLASSES, GCN_NODES, f32, None, 0, "arange", None),
+        (N_NODES, N_CLASSES, BATCH, f32, None, 0, "mixed", None),
+        (N_NODES, N_CLASSES, BATCH, bf16, None, 0, "mixed", None),
+        (5000, 1, 10_007, f32, None, 0, "mixed", None),
+        (5000, 3, 10_007, f32, None, 0, "mixed", None),
+        (5000, 127, 10_007, f32, None, 0, "mixed", None),
+        (5000, 5, 10_007, bf16, None, 0, "mixed", None),
+        (5000, 128, 10_007, f32, 256, 128, "mixed", None),  # 16-byte path
+        (5000, 128, 10_007, bf16, 264, 8, "mixed", None),   # 16-byte path
+        (5000, 64, 10_007, f32, 300, 37, "mixed", None),    # element path
+        (5000, 128, 1, f32, None, 0, "mixed", None),
+        (5000, 128, 33, f32, None, 0, "mixed", None),       # past a tile
+        (5000, 128, 1000, f32, None, 0, "mixed", None),     # ragged stage
+        (5000, 128, 1000, bf16, 200, 64, "mixed", None),
+        (5000, 128, 4099, f32, None, 0, "minus1", None),
+        (5000, 128, 4099, bf16, None, 0, "beyond", None),
+        (5000, 128, 4099, f32, 256, 0, "beyond", None),
+        (5000, 128, 65_536, f32, None, 0, "repeat", None),
     ]
     rows = []
     for N, D, M, dtype, W, off, kind, timed in cases:
@@ -580,6 +614,7 @@ def phase_gather(dev, parent=None):
         check(row["nan_rows"] == int((ids >= N).sum()),
               f"NaN rows exactly where ids >= N at {what}")
         if timed:
+            row["timed"] = timed
             out = torch.empty((M, D), dtype=dtype, device=dev)
             clamped = ids.clamp(0, N - 1)
             row["ms"] = time_launches(
@@ -597,6 +632,7 @@ def phase_gather(dev, parent=None):
             row["bound_ms"] = row["bytes"] / HBM_BYTES_PER_S * 1e3
             row["distinct_rows"] = int(torch.unique(
                 ids[(ids >= 0) & (ids < N)]).numel())
+        if timed == "sampled":
             # what the ids' order and repeats cost: the same ids sorted
             # (repeats adjacent, rows in order), and M ids with no repeat
             # in random order from a table of 2N rows, each bit-exact
@@ -635,7 +671,10 @@ def phase_gather(dev, parent=None):
 
 # ---------------------------------------------------------------- phase 7 --
 
-def phase_infer(model, graph, out_dir, dev):
+def phase_infer(model, graph, out_dir, dev, want=None,
+                edges_per_batch: int = EDGES_PER_BATCH):
+    """``want``: the launch counts of infer (default: 2 of each kernel a
+    batch); ``edges_per_batch``: the edges one forward aggregates."""
     roots0 = torch.arange(BATCH, dtype=torch.int32, device=dev)
     with torch.no_grad():                         # warm-up, not counted
         model(graph.tensors, roots0,
@@ -649,7 +688,8 @@ def phase_infer(model, graph, out_dir, dev):
     torch.cuda.synchronize()
     infer_s = time.perf_counter() - t0
     launches = read_counts()
-    want = dict(fan_draw=2 * N_INFER // BATCH, gather_rows=2 * N_INFER // BATCH)
+    want = want or dict(fan_draw=2 * N_INFER // BATCH,
+                        gather_rows=2 * N_INFER // BATCH)
     check(launches == want, f"launches in infer {launches}, want {want}")
     check(emb.shape == (N_INFER, DIMS[-1]), f"embedding shape {emb.shape}")
     check(bool(np.isfinite(emb).all()), "embeddings finite")
@@ -667,7 +707,7 @@ def phase_infer(model, graph, out_dir, dev):
     return emb, dict(
         launches=launches, infer_ms_per_batch=infer_s / len(batches) * 1e3,
         forward_ms_per_batch=fwd_s * 1e3,
-        infer_edges_per_sec=EDGES_PER_BATCH / fwd_s)
+        infer_edges_per_sec=edges_per_batch / fwd_s)
 
 
 def profile(fn, what: str, attempts: int = 3) -> dict:
@@ -990,23 +1030,246 @@ def phase_families(graph, dev):
     return out
 
 
+# -------------------------------------------------------------- phase 12b --
+
+def gcn_step(model, g, roots) -> tuple:
+    """One training step's loss and every parameter's gradient (copies on
+    the CPU); the model's own gradients are left as they were."""
+    m = copy.deepcopy(model)
+    m.train()
+    m.zero_grad(set_to_none=True)
+    loss = m(g, roots)["loss"]
+    loss.backward()
+    return loss.detach().cpu(), {k: p.grad.cpu()
+                                 for k, p in m.named_parameters()}
+
+
+def ell_agg_inputs(model, g, roots):
+    """The first gcn layer's ``_ell_agg`` arguments at full width, as
+    ``GCNConv`` hands them over: (C, w_s, w_l, nbr, tpos) with the
+    sym-norm scale and the mask folded into the weights."""
+    blk = model.embedder.flow(g, roots)[0]
+    norm_i, norm_j = convs._deg_inv_sqrt(blk)
+    scale = convs._edge_scale(blk.gather_tgt(norm_i),
+                              blk.gather_src(norm_j), blk.mask)
+    return (blk.fanout, *blk.ell_weights(None, scale), blk.ell_tpos)
+
+
+def time_ell_agg(model, g, roots, dev) -> list:
+    """``_ell_agg`` alone at the first gcn layer's shapes, bf16 and f32:
+    the forward and the backward that gcn's second layer runs (grad_x
+    only), CUDA events with L2 flushed, each beside its bytes bound (each
+    input read once, each output written once). In f32 also the forward
+    of one library call computing the same product, torch.sparse.mm of
+    the weighted CSR adjacency (self loops on its diagonal) by x, held
+    against the forward within 1e-4."""
+    flush = torch.empty(64 << 20, dtype=torch.uint8, device=dev)
+    gen = torch.Generator(device=dev).manual_seed(12)
+    C, w_s, w_l, nbr, tpos = ell_agg_inputs(model, g, roots)
+    N, C_in = nbr.shape[0], tpos.shape[1]
+    out_rows = []
+    for dtype in (torch.bfloat16, torch.float32):
+        x = torch.randn((N, FEAT_DIM), generator=gen, device=dev,
+                        dtype=dtype)
+        elt = x.element_size()
+        row = dict(dtype=str(dtype).replace("torch.", ""), N=N, C=C,
+                   C_in=C_in, D=FEAT_DIM)
+        row["fwd_ms"] = time_launches(
+            lambda: block_lib._ell_agg(C, x, w_s, w_l, nbr, tpos), 20, flush)
+        # nbr and w_s [N, C], w_l [N], x and out [N, D]
+        row["fwd_bytes"] = 8 * N * C + 4 * N + 2 * N * FEAT_DIM * elt
+        xg = x.clone().requires_grad_(True)
+        out = block_lib._ell_agg(C, xg, w_s, w_l, nbr, tpos)
+        gout = torch.randn_like(out)
+        row["bwd_x_ms"] = time_launches(
+            lambda: torch.autograd.grad(out, xg, gout, retain_graph=True),
+            20, flush)
+        # tpos [N, C_in], w_s [N, C], w_l [N], g and grad_x [N, D]
+        row["bwd_x_bytes"] = (4 * N * C_in + 4 * N * C + 4 * N
+                              + 2 * N * FEAT_DIM * elt)
+        for k in ("fwd", "bwd_x"):
+            row[f"{k}_bound_ms"] = row[f"{k}_bytes"] / HBM_BYTES_PER_S * 1e3
+        if dtype == torch.float32:
+            live = nbr >= 0
+            rows_t = torch.arange(N, device=dev)[:, None].expand(N, C)
+            idx = torch.cat([torch.stack([rows_t[live], nbr[live].long()]),
+                             torch.arange(N, device=dev).repeat(2, 1)], 1)
+            adj = torch.sparse_coo_tensor(
+                idx, torch.cat([w_s[live], w_l]), (N, N)).coalesce(
+            ).to_sparse_csr()
+            want = block_lib._ell_agg(C, x, w_s, w_l, nbr, tpos)
+            got = torch.sparse.mm(adj, x)
+            diff = float((got - want).abs().max())
+            check(torch.allclose(got, want, **PARITY_TOL),
+                  f"sparse.mm vs _ell_agg: max abs diff {diff}")
+            row["library_ms"] = time_launches(lambda: torch.sparse.mm(adj, x),
+                                              20, flush)
+            row["library_max_abs_diff"] = diff
+        out_rows.append(row)
+        log(f"gcn: ell_agg {json.dumps(row)}")
+    return out_rows
+
+
+def phase_gcn(dev):
+    """bench.py's gcn mode in f32 at its published width: the ELL pack's
+    widths, serving (infer of 8192 ids: 16 gather_rows launches, no
+    fan_draw) and two batches profiled, one step card vs CPU (blocks
+    equal, loss and gradients within 1e-4), the ELL layout against the
+    edge list on the card (forward within 1e-4), 8 train steps over every
+    node (2 gather_rows launches a step) with their peak memory, two
+    steps profiled, ``_ell_agg`` timed alone, and two steps of the bench's
+    own bf16 model profiled with their peak memory."""
+    t0 = time.perf_counter()
+    graph = random_graph(GCN_NODES, AVG_DEGREE, feat_dim=FEAT_DIM,
+                         n_classes=N_CLASSES, seed=0, packs=("ell",))
+    g = graph.tensors
+    check(g.ell_nbr.device.type == dev.type and g.fan_pack is None
+          and g.fanu_pack is None,
+          "the gcn graph holds the ELL pack alone, on the card")
+    widths = (int(g.ell_nbr.shape[1]), int(g.ell_tpos.shape[1]))
+    check(widths == (GCN_C, GCN_C_IN), f"ELL widths C, C_in = {widths}")
+    out = dict(graph_s=time.perf_counter() - t0, C=widths[0],
+               C_in=widths[1], edges=int(graph.meta.n_edges),
+               live_cells=int((g.ell_nbr >= 0).sum()))
+    log(f"gcn: graph {json.dumps(out)}")
+    model = bench.make_model("gcn", dev,
+                             generator=torch.Generator().manual_seed(0))
+    model.eval()
+    roots = torch.arange(GCN_NODES, dtype=torch.int32, device=dev)
+    edges = bench.gcn_edges_per_step(GCN_NODES)
+
+    # serving
+    with tempfile.TemporaryDirectory() as out_dir:
+        emb, infer = phase_infer(
+            model, graph, out_dir, dev,
+            want=dict(fan_draw=0, gather_rows=2 * N_INFER // BATCH),
+            edges_per_batch=edges)
+    prof = phase_profile(model, graph, dev)
+    infer.update(profile_host_ms=prof["host_ms"],
+                 profile_device_busy_ms=prof["device_busy_ms"],
+                 profile_complete=prof["kernel_events_complete"])
+    out["infer"] = infer
+
+    # one step card vs CPU: the same blocks, loss and gradients
+    t0 = time.perf_counter()
+    cpu = torch.device("cpu")
+    g_cpu = g.to(cpu)
+    flow = model.embedder.flow
+    with torch.no_grad():
+        bk, bc = flow(g, roots)[0], flow(g_cpu, roots.cpu())[0]
+        for name in ("n_id", "mask", "src_deg", "ell_tpos"):
+            check(torch.equal(getattr(bk, name).cpu(), getattr(bc, name)),
+                  f"gcn block {name}: card != CPU")
+    loss_k, grads_k = gcn_step(model, g, roots)
+    loss_c, grads_c = gcn_step(copy.deepcopy(model).to(cpu), g_cpu,
+                               roots.cpu())
+    check(torch.allclose(loss_k, loss_c, **PARITY_TOL),
+          f"gcn loss card {float(loss_k)} vs CPU {float(loss_c)}")
+    diffs = {}
+    for k, gk in grads_k.items():
+        diffs[k] = float((gk - grads_c[k]).abs().max())
+        check(torch.allclose(gk, grads_c[k], **PARITY_TOL),
+              f"gcn gradient of {k}: card vs CPU max abs diff {diffs[k]}")
+    out["grads"] = dict(blocks_equal=True, loss_card=float(loss_k),
+                        loss_cpu=float(loss_c),
+                        loss_abs_diff=float((loss_k - loss_c).abs()),
+                        grad_max_abs_diff=max(diffs.values()),
+                        n_params=len(diffs),
+                        seconds=time.perf_counter() - t0)
+    del g_cpu
+    log(f"gcn: grads {json.dumps(out['grads'])}")
+
+    # the ELL pack against the edge list on the card (index_add_ sums in
+    # no fixed order there: a tolerance, never bit for bit)
+    edge_list = copy.deepcopy(model)
+    edge_list.embedder.flow = WholeDataFlow(bench.GCN_LAYERS, [(0,)],
+                                            layout="edge_list")
+    with torch.no_grad():
+        emb_ell = model(g, roots)["embedding"]
+        emb_el = edge_list(g, roots)["embedding"]
+    diff = float((emb_ell - emb_el).abs().max())
+    check(torch.allclose(emb_ell, emb_el, **PARITY_TOL),
+          f"gcn ELL vs edge list: max abs diff {diff}")
+    out["ell_vs_edge_list_max_abs_diff"] = diff
+    del edge_list, emb_ell, emb_el
+
+    # training: 8 steps over every node
+    est = NodeEstimator(model, graph, RunConfig(batch_size=GCN_NODES),
+                        device=dev)
+    opt = torch.optim.Adam(model.parameters(), 1e-3)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    t0 = time.perf_counter()
+    losses = [est.step(opt, roots) for _ in range(TRAIN_STEPS)]
+    torch.cuda.synchronize()
+    train_s = time.perf_counter() - t0
+    launches = read_counts()
+    want = dict(fan_draw=0, gather_rows=2 * TRAIN_STEPS)
+    check(launches == want, f"launches in gcn train {launches}, want {want}")
+    losses = [float(x) for x in losses]
+    check(bool(np.isfinite(losses).all()), f"gcn train losses {losses}")
+    train = dict(launches=launches, losses=losses,
+                 train_ms_per_step=train_s / TRAIN_STEPS * 1e3,
+                 peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9)
+    prof = profile(lambda: [est.step(opt, roots) for _ in range(2)],
+                   "2 gcn train steps")
+    train.update(profile_host_ms=prof["host_ms"],
+                 profile_device_busy_ms=prof["device_busy_ms"],
+                 profile_idle_share=prof["device_idle_share"],
+                 profile_complete=prof["kernel_events_complete"])
+    out["train"] = train
+    log(f"gcn: train {json.dumps(train)}")
+    out["ell_agg"] = time_ell_agg(model, g, roots, dev)
+    del est, opt, graph, g
+
+    # the bench's own bf16 model: two steps profiled after two warm ones
+    est = bench.build(dev, GCN_NODES, GCN_NODES, bench.GCN_SIZES["cuda"][1],
+                      "gcn")
+    opt = torch.optim.Adam(est.model.parameters(), bench.LR)
+    for _ in range(2):
+        est.step(opt, roots)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    prof = profile(lambda: [est.step(opt, roots) for _ in range(2)],
+                   "2 gcn bench steps (bf16)")
+    out["bench_bf16_profile"] = dict(
+        host_ms=prof["host_ms"], device_busy_ms=prof["device_busy_ms"],
+        device_idle_share=prof["device_idle_share"],
+        kernels=prof["kernels"][:6],
+        peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9)
+    log(f"gcn: {json.dumps({'gcn': {k: v for k, v in out.items() if k != 'ell_agg'}})}")
+    return out
+
+
 # --------------------------------------------------------------- phase 13 --
 
 def phase_bench(dev):
-    """Every mode of the port's bench: three lines each, 2 launches of
-    each kernel per step."""
-    _, _, spl, outer = bench.SIZES["cuda"]
-    steps = spl * (2 + outer)
+    """Every mode of the port's bench: three lines each; each kernel 2
+    launches per step in the sampled modes, gather_rows 2 and fan_draw
+    none in gcn (on the ELL pack), with gcn's peak memory."""
     out = {}
     for mode in bench.MODELS:
+        if mode == "gcn":
+            _, spl, outer = bench.GCN_SIZES["cuda"]
+            steps = spl * (2 + outer)
+            want = dict(fan_draw=0, gather_rows=2 * steps)
+            metric = bench.GCN_METRIC
+        else:
+            _, _, spl, outer = bench.SIZES["cuda"]
+            steps = spl * (2 + outer)
+            want = dict(fan_draw=2 * steps, gather_rows=2 * steps)
+            metric = bench.METRIC
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
         reset_counts()
         records = bench.run(dev, log=log, model=mode)
         launches = read_counts()
-        want = dict(fan_draw=2 * steps, gather_rows=2 * steps)
         check(launches == want,
               f"launches in bench {mode} {launches}, want {want}")
         check(len(records) == 3 and all(r["platform"] == "cuda"
                                         and r["model"] == mode
+                                        and r["metric"] == metric
                                         and r["vs_baseline"] is None
                                         for r in records),
               f"bench {mode} lines")
@@ -1015,6 +1278,8 @@ def phase_bench(dev):
                             for r in records},
                          **{f"{r['phase']}_edges_per_sec": r["value"]
                             for r in records})
+        if mode == "gcn":
+            out[mode]["peak_mem_gb"] = torch.cuda.max_memory_allocated() / 1e9
         log(f"bench {mode}: {json.dumps(out[mode])}")
     return out
 
@@ -1136,13 +1401,16 @@ def main() -> int:
     log(f"grads: {json.dumps(grads)}")
     # 12. gin, gat and rgcn
     families = phase_families(graph, dev)
+    del graph
+    # 12b. whole-graph gcn
+    gcn = phase_gcn(dev)
     # 13. the port's bench, every mode
     benched = phase_bench(dev)
 
     # each path's launches, its counts set to 0 just before it
     path_launches = {"infer": infer["launches"], "train": train["launches"],
                      "bench": benched["sage"]["launches"]}
-    for family, res in families.items():
+    for family, res in list(families.items()) + [("gcn", gcn)]:
         path_launches.update({f"{family}_infer": res["infer"]["launches"],
                               f"{family}_train": res["train"]["launches"],
                               f"bench_{family}":
@@ -1152,7 +1420,8 @@ def main() -> int:
         return {path: n[name] for path, n in path_launches.items()}
 
     hop = [s for s in shapes if "ms" in s]
-    timed = [g for g in gathers if "ms" in g]
+    timed = [g for g in gathers if g.get("timed") == "sampled"]
+    gcn_gathers = [g for g in gathers if g.get("timed") == "gcn"]
     # the f32 gather as the train path runs it, the bf16 one as the bench
     f32_gather, bf16_gather = timed
     kernels = [{
@@ -1206,12 +1475,18 @@ def main() -> int:
                                       "bytes", "distinct_rows", "turns_ms")
                     if k in g}
                    for g in timed],
+        # the whole-graph gcn gathers: every feature row once, ids arange(N)
+        "gcn_shapes": [{k: g[k] for k in ("N", "D", "M", "dtype", "ms",
+                                          "plain_ms", "library_ms",
+                                          "copy_ms", "bound_ms", "bytes")}
+                       for g in gcn_gathers],
     }]
     log(json.dumps({"smoke": dict(
         build_s=build_s, graph_s=graph_s,
         total_s=time.perf_counter() - t_start,
         native_core=native.available(), infer=infer, parity=parity,
-        train=train, grads=grads, families=families, bench=benched)}))
+        train=train, grads=grads, families=families, gcn=gcn,
+        bench=benched)}))
     log(smi)                # nvidia-smi's name and power limit, as given
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,

@@ -1,6 +1,8 @@
-"""The port's training benchmark: bench.py's sampled modes.
+"""The port's training benchmark: bench.py's sampled modes and its
+whole-graph gcn mode.
 
-    python -m euler_tpu_torch.bench [--model sage|gin|gat|rgcn]
+    python -m euler_tpu_torch.bench [--model sage|gin|gat|rgcn|gcn]
+                                    [--gcn-layout ell|edge_list]
     python -m euler_tpu_torch.bench --device cpu    # off-chip sizes
 
 Counterpart of bench.py:260-454 for ``EULER_BENCH_MODEL=sage`` (the
@@ -16,6 +18,16 @@ every hop over all four types from the union rows with
 from the sampled types, and redraws nothing (bench.py:385-393 redraws
 only ``fan_pack``). ``--device cpu`` takes bench.py's off-chip sizes
 (5,000 nodes, batch 256, 5 steps per loop, f32) and exists for tests.
+
+``gcn`` is bench.py's ``_gcn_child`` (bench.py:478-588): full-batch GCN
+on ``random_graph(100_000, 25, seed=0, packs=("ell",))``, the same
+features and labels, ``GNNNet("gcn", WholeDataFlow(2, [(0,)]))`` at dims
+(128, 128), every node a root each step, 20 steps per loop, metric
+``fullgraph_spmm_edges_per_sec_per_chip`` over ``2 * (N*25 + N)`` edges a
+step. ``--gcn-layout edge_list`` is bench.py's ``EULER_BENCH_GCN_ELL=0``:
+the graph has no pack and every layer scatters over the edge list. Off
+the card: 2,000 nodes, 2 steps per loop, f32. It samples nothing, and
+its graph has no fan rows to redraw.
 
 Three phases, as bench.py's: ``warmup`` (the first loop), ``single_loop``
 (one loop, waited for) and ``pipelined`` (4 loops, or 2 off the card,
@@ -39,7 +51,7 @@ from typing import Callable, List, Optional
 import torch
 
 from euler_tpu_torch._device import resolve_device
-from euler_tpu_torch.dataflow import SageDataFlow
+from euler_tpu_torch.dataflow import SageDataFlow, WholeDataFlow
 from euler_tpu_torch.datasets import random_graph
 from euler_tpu_torch.estimator import NodeEstimator, RunConfig, get_optimizer
 from euler_tpu_torch.graph.meta import FeatureSpec
@@ -47,12 +59,18 @@ from euler_tpu_torch.models import GNNNet, ShallowEncoder, SuperviseModel
 from euler_tpu_torch.ops import sampling
 
 METRIC = "sampled_aggregate_edges_per_sec_per_chip"
+GCN_METRIC = "fullgraph_spmm_edges_per_sec_per_chip"
 AVG_DEGREE, FEAT_DIM, N_CLASSES = 25, 128, 16
 FANOUT, DIMS, LR = [25, 10], (128, 128), 1e-3
-MODELS = ("sage", "gin", "gat", "rgcn")
+SAMPLED = ("sage", "gin", "gat", "rgcn")
+MODELS = SAMPLED + ("gcn",)
 RGCN_TYPES = 4
+GCN_LAYERS = 2
+GCN_LAYOUTS = ("ell", "edge_list")
 # (nodes, batch, steps per loop, pipelined loops) on the card and off it
 SIZES = {"cuda": (200_000, 1024, 50, 4), "cpu": (5_000, 256, 5, 2)}
+# gcn: (nodes, steps per loop, pipelined loops); every node is a root
+GCN_SIZES = {"cuda": (100_000, 20, 4), "cpu": (2_000, 2, 2)}
 
 
 def edges_per_step(batch: int) -> int:
@@ -61,19 +79,29 @@ def edges_per_step(batch: int) -> int:
             + batch + batch * FANOUT[0])
 
 
+def gcn_edges_per_step(n_nodes: int) -> int:
+    """bench.py's count for gcn: every layer reads all N*25 edges and N
+    self loops."""
+    return GCN_LAYERS * (n_nodes * AVG_DEGREE + n_nodes)
+
+
 def make_model(model: str, dev, dtype=None,
-               generator: Optional[torch.Generator] = None
-               ) -> SuperviseModel:
-    """The ``SuperviseModel`` of the bench's ``model`` mode: GNNNet over
-    SageDataFlow(FANOUT) at DIMS on the 128-wide ``feature``, 16 labels;
-    rgcn samples every hop over its RGCN_TYPES edge types with types
-    (``typed=True``) and feeds them to ``RelationConv`` as relations."""
+               generator: Optional[torch.Generator] = None) -> SuperviseModel:
+    """The ``SuperviseModel`` of the bench's ``model`` mode: GNNNet at
+    DIMS on the 128-wide ``feature``, 16 labels. The sampled modes run
+    SageDataFlow(FANOUT); rgcn samples every hop over its RGCN_TYPES edge
+    types with types (``typed=True``) and feeds them to ``RelationConv``
+    as relations; gcn runs ``WholeDataFlow(GCN_LAYERS, [(0,)])``, on the
+    ELL pack where the graph has one and on the edge list elsewhere."""
     if model not in MODELS:
         raise ValueError(f"bench model {model!r} not in {MODELS}")
     rgcn = model == "rgcn"
     n_et = RGCN_TYPES if rgcn else 1
-    net = GNNNet({"rgcn": "relation"}.get(model, model),
-                 SageDataFlow(FANOUT, [tuple(range(n_et))] * 2, typed=rgcn),
+    if model == "gcn":
+        flow = WholeDataFlow(GCN_LAYERS, [(0,)])
+    else:
+        flow = SageDataFlow(FANOUT, [tuple(range(n_et))] * 2, typed=rgcn)
+    net = GNNNet({"rgcn": "relation"}.get(model, model), flow,
                  DIMS, ShallowEncoder(("feature",)), in_dim=FEAT_DIM,
                  dtype=dtype, device=dev, generator=generator,
                  conv_kwargs={"num_relations": n_et} if rgcn else None,
@@ -83,16 +111,23 @@ def make_model(model: str, dev, dtype=None,
 
 
 def build(dev: torch.device, n_nodes: int, batch: int,
-          steps_per_loop: int, model: str = "sage") -> NodeEstimator:
+          steps_per_loop: int, model: str = "sage",
+          gcn_layout: str = "ell") -> NodeEstimator:
     """The graph, features, model and estimator of the bench's ``model``
     mode on ``dev``; activations are bf16 on CUDA and f32 elsewhere."""
     if model not in MODELS:
         raise ValueError(f"bench model {model!r} not in {MODELS}")
+    if gcn_layout not in GCN_LAYOUTS:
+        raise ValueError(f"gcn layout {gcn_layout!r} not in {GCN_LAYOUTS}")
     rgcn = model == "rgcn"
     act = torch.bfloat16 if dev.type == "cuda" else None
+    if model == "gcn":
+        packs = ("ell",) if gcn_layout == "ell" else ()
+    else:
+        packs = ("fanu",) if rgcn else ("fan",)
     graph = random_graph(n_nodes, AVG_DEGREE, seed=0,
                          num_edge_types=RGCN_TYPES if rgcn else 1,
-                         packs=("fanu",) if rgcn else ("fan",), device=dev)
+                         packs=packs, device=dev)
     gen = torch.Generator(device=dev).manual_seed(42)
     feat = torch.randn((n_nodes, FEAT_DIM), generator=gen, device=dev,
                        dtype=act or torch.float32)
@@ -110,37 +145,49 @@ def build(dev: torch.device, n_nodes: int, batch: int,
     return NodeEstimator(sup, graph, cfg, device=dev)
 
 
-def run(device=None, log: Callable = print,
-        model: str = "sage") -> List[dict]:
+def run(device=None, log: Callable = print, model: str = "sage",
+        gcn_layout: str = "ell") -> List[dict]:
     """Run the three phases of the ``model`` mode; ``log`` gets each
     output line. Returns the JSON records, each with its ``ms_per_step``
     added."""
     dev = resolve_device(device)
-    n_nodes, batch, spl, outer = SIZES["cuda" if dev.type == "cuda"
-                                       else "cpu"]
-    est = build(dev, n_nodes, batch, spl, model)
+    where = "cuda" if dev.type == "cuda" else "cpu"
+    if model == "gcn":
+        n_nodes, spl, outer = GCN_SIZES[where]
+        batch = n_nodes
+        edges, metric = gcn_edges_per_step(n_nodes), GCN_METRIC
+        config = f"full_n{n_nodes}_e{n_nodes * AVG_DEGREE}_l{GCN_LAYERS}"
+    else:
+        n_nodes, batch, spl, outer = SIZES[where]
+        edges, metric = edges_per_step(batch), METRIC
+        config = f"b{batch}_f{FANOUT[0]}x{FANOUT[1]}_n{n_nodes}"
+    est = build(dev, n_nodes, batch, spl, model, gcn_layout)
     g = est.graph.tensors
     opt = get_optimizer("adam", LR, est.model.parameters())
     gen = torch.Generator(device=dev).manual_seed(2)
+    every_node = torch.arange(n_nodes, dtype=torch.int32, device=dev)
+
+    def roots():
+        return every_node if model == "gcn" else est.train_batch(g, gen)
 
     def run_loop():
         # one redraw of the fan reservoir per loop, as bench.py's run_loop
-        # (which has none for rgcn's union rows)
-        if model != "rgcn":
+        # (which has none for rgcn's union rows; gcn's graph has no fan
+        # rows)
+        if model in ("sage", "gin", "gat"):
             sampling.refresh_fan_pack(g, gen)
         for _ in range(spl):
-            loss = est.step(opt, est.train_batch(g, gen), generator=gen)
+            loss = est.step(opt, roots(), generator=gen)
         return loss
 
     records = []
 
     def record(loops: int, seconds: float, phase: str):
         steps = loops * spl
-        value = edges_per_step(batch) * steps / seconds
-        out = {"metric": METRIC, "model": model, "value": round(value, 1),
+        value = edges * steps / seconds
+        out = {"metric": metric, "model": model, "value": round(value, 1),
                "unit": "edges/s", "vs_baseline": None,
-               "platform": dev.type, "phase": phase,
-               "config": f"b{batch}_f{FANOUT[0]}x{FANOUT[1]}_n{n_nodes}"}
+               "platform": dev.type, "phase": phase, "config": config}
         ms = seconds / steps * 1e3
         log(f"ms_per_step {phase} {ms:.4f}")
         log(json.dumps(out))
@@ -163,8 +210,11 @@ def main(argv=None) -> int:
                     help="torch device (default: cuda, which must exist)")
     ap.add_argument("--model", default="sage", choices=MODELS,
                     help="bench.py's EULER_BENCH_MODEL (default: sage)")
+    ap.add_argument("--gcn-layout", default="ell", choices=GCN_LAYOUTS,
+                    help="gcn only: the ELL pack (default) or the edge "
+                         "list, bench.py's EULER_BENCH_GCN_ELL=0")
     args = ap.parse_args(argv)
-    run(args.device, model=args.model)
+    run(args.device, model=args.model, gcn_layout=args.gcn_layout)
     return 0
 
 

@@ -1,5 +1,8 @@
-"""Blocks and dataflows (sampled, regular fanout layout)."""
-from euler_tpu_torch.dataflow.block import Block, fanout_block
-from euler_tpu_torch.dataflow.flows import SageDataFlow
+"""Blocks and dataflows: sampled, capped-full and whole-graph."""
+from euler_tpu_torch.dataflow.block import (Block, fanout_block,
+                                            full_graph_block)
+from euler_tpu_torch.dataflow.flows import (GCNDataFlow, SageDataFlow,
+                                            WholeDataFlow)
 
-__all__ = ["Block", "SageDataFlow", "fanout_block"]
+__all__ = ["Block", "GCNDataFlow", "SageDataFlow", "WholeDataFlow",
+           "fanout_block", "full_graph_block"]

@@ -1,25 +1,36 @@
-"""Mini-batch bipartite blocks with static shapes (regular fanout layout).
+"""Bipartite blocks with static shapes: regular fanout, irregular and
+whole-graph ELL layouts.
 
-Counterpart of euler_tpu/dataflow/block.py for the sampled flows
-(reference: tf_euler/python/dataflow/base_dataflow.py:23-52). Layered node
-sets are ``N_{d+1} = concat(N_d, sampled_neighbors)`` with duplicates
-allowed, so every shape is a function of (batch, fanouts); dead neighbors
-carry an edge mask instead of being dropped.
+Counterpart of euler_tpu/dataflow/block.py (reference: tf_euler/python/
+dataflow/base_dataflow.py:23-52). Layered node sets are
+``N_{d+1} = concat(N_d, sampled_neighbors)`` with duplicates allowed, so
+every shape is a function of (batch, fanouts); dead neighbors carry an
+edge mask instead of being dropped.
 
 A fanout block has exactly ``fanout`` sampled edges per target, laid out
 contiguously (edge t*fanout+c has dst=t, src=T+t*fanout+c), optionally
 followed by T self-loop edges, so aggregation is a reshape and a reduce,
 the per-edge views are a slice and a broadcast, and the per-target
-softmax runs over a [T, C(+1)] grid. The irregular (``fanout`` None),
-ELL, shared-source and distributed (``psum_axis``) variants of the
-reference wait for the slices that use them.
+softmax runs over a [T, C(+1)] grid. An irregular block (``fanout``
+None, e.g. the whole graph's edge list) gathers and scatters through
+``ops.mp_ops``. A whole-graph ELL block is a fanout block over every node
+that also carries ``ell_tpos``: a conv may hand it the compact [N, D]
+table instead of the expanded source set, and ``aggregate_neighbors``
+then runs ``_ell_agg``, whose backward is a gather over the transpose
+positions and never a scatter. The reference's shared-source (layerwise)
+and distributed (``psum_axis``) blocks are not ported: no flow of the
+port builds them yet.
 """
 from __future__ import annotations
 
 import dataclasses
+import functools
 from typing import Optional, Tuple
 
 import torch
+
+from euler_tpu_torch.ops import mp_ops
+from euler_tpu_torch.ops.sampling import as_etypes
 
 
 @dataclasses.dataclass
@@ -31,14 +42,47 @@ class Block:
     edge_weight: Optional[torch.Tensor]  # f32 [E_blk]
     mask: torch.Tensor            # f32 [E_blk] 1=real edge, 0=padding
     size: Tuple[int, int]
-    fanout: int
+    # regular layout marker (see the module docstring); None = irregular
+    fanout: Optional[int] = None
     self_loops: bool = False
     # edge type per block edge (-1 for invalid draws and self loops), from
     # a typed sampling hop; RGCN's relation_from_etype reads it
     e_type: Optional[torch.Tensor] = None
+    # the source-side degree of each source slot [size[1]], for sym-norm
+    # convs on blocks whose source slots are copies of nodes (the
+    # whole-graph ELL layouts), where a per-slot count would be 1
+    src_deg: Optional[torch.Tensor] = None
+    # transpose positions [N, C_in] of the whole-graph ELL pack
+    # (GraphTensors.ell_tpos): expand and aggregate from the compact table
+    # with a scatter-free backward (ell_expand, _ell_agg below)
+    ell_tpos: Optional[torch.Tensor] = None
+
+    @functools.cached_property
+    def _edges64(self) -> torch.Tensor:
+        """edge_index as int64, converted once per block for the scatters
+        of the irregular layout."""
+        return self.edge_index.long()
+
+    def _is_compact(self, x_src: torch.Tensor) -> bool:
+        """True when x_src is the per-node [N, ...] table of a whole-graph
+        ELL block rather than its expanded source set."""
+        return (self.ell_tpos is not None
+                and x_src.shape[0] == self.size[0] != self.size[1])
+
+    def _expand(self, x: torch.Tensor) -> torch.Tensor:
+        """Compact [N, ...] -> the expanded source set, through
+        ``ell_expand``'s transpose-gather backward for 2-D tables."""
+        if x.dim() == 2:
+            return ell_expand(x, self.n_id, self.ell_tpos)
+        ok = (self.n_id >= 0).reshape((-1,) + (1,) * (x.dim() - 1))
+        return torch.where(ok, x[self.n_id.long().clamp_min(0)], 0)
 
     def gather_src(self, x_src: torch.Tensor) -> torch.Tensor:
         """Per-edge view of source values: x_src[edge_index[1]]."""
+        if self._is_compact(x_src):
+            x_src = self._expand(x_src)
+        if self.fanout is None:
+            return mp_ops.gather(x_src, self._edges64[1])
         T = self.size[0]
         if not self.self_loops:
             return x_src[T:]
@@ -46,7 +90,9 @@ class Block:
 
     def gather_tgt(self, v: torch.Tensor) -> torch.Tensor:
         """Per-edge view of target values: v[edge_index[0]] (v has size[0]
-        rows), a broadcast instead of a gather."""
+        rows); regular blocks broadcast instead of gathering."""
+        if self.fanout is None:
+            return mp_ops.gather(v, self._edges64[0])
         T, C = self.size[0], self.fanout
         tail = tuple(v.shape[1:])
         rep = v[:, None].expand((T, C) + tail).reshape((T * C,) + tail)
@@ -81,7 +127,18 @@ class Block:
                 tot = tot + up_l * m_l
                 cnt = cnt + m_l
             return tot / cnt.clamp_min(1e-7)          # masked_scatter_ parity
-        raise ValueError(f"aggregation {op!r} is not ported (add, mean)")
+        if op == "max":
+            # the reference's sentinel, reset to 0 where no edge is valid
+            neg = torch.finfo(up_s.dtype).min
+            vals = torch.where(m_s > 0, up_s, neg) if m_s is not None \
+                else up_s
+            out = vals.amax(dim=1)
+            if up_l is not None:
+                lv = torch.where(m_l > 0, up_l, neg) if m_l is not None \
+                    else up_l
+                out = torch.maximum(out, lv)
+            return torch.where(out <= neg * 0.5, 0.0, out)
+        raise ValueError(f"aggregation {op!r} (add, mean, max)")
 
     def _split_mask(self, mask, dtype, tail_nd):
         if mask is None:
@@ -90,8 +147,11 @@ class Block:
 
     def scatter(self, op: str, updates: torch.Tensor,
                 mask: Optional[torch.Tensor] = None) -> torch.Tensor:
-        """Aggregate per-edge updates into targets; mask drops padded
-        edges."""
+        """Aggregate per-edge updates into targets (a segment reduction
+        over edge_index[0] into size[0] rows); mask drops padded edges."""
+        if self.fanout is None:
+            return mp_ops.masked_scatter_(op, updates, self._edges64[0],
+                                          self.size[0], mask)
         up_s, up_l = self._split(updates)
         m_s, m_l = self._split_mask(mask, updates.dtype, updates.dim() - 1)
         return self._reduce(op, up_s, up_l, m_s, m_l)
@@ -100,18 +160,30 @@ class Block:
                             mask: Optional[torch.Tensor] = None,
                             scale: Optional[torch.Tensor] = None
                             ) -> torch.Tensor:
-        """``scatter(op, gather_src(x_src) * scale, mask)`` read through
-        strided views of ``x_src``, without the per-edge copy. ``scale``
-        is an optional per-edge multiplier ([E] or [E, 1], e.g. GAT's
+        """``scatter(op, gather_src(x_src) * scale, mask)``. Regular
+        blocks read strided views of ``x_src`` without the per-edge copy;
+        a compact table of a whole-graph ELL block goes through
+        ``_ell_agg`` for add and mean. ``scale`` is an optional per-edge
+        multiplier ([E] or [E, 1], e.g. GCN's sym-norm or GAT's
         attention), taken in the dtype of ``x_src`` as the reference
         does."""
+        if scale is not None and scale.dim() == 1:
+            scale = scale[:, None]
+        if self._is_compact(x_src):
+            if op in ("add", "mean") and x_src.dim() == 2:
+                return self._ell_aggregate(op, x_src, mask, scale)
+            x_src = self._expand(x_src)
+        if self.fanout is None:
+            xj = mp_ops.gather(x_src, self._edges64[1])
+            if scale is not None:
+                xj = xj * scale.to(xj.dtype)
+            return mp_ops.masked_scatter_(op, xj, self._edges64[0],
+                                          self.size[0], mask)
         T, C = self.size[0], self.fanout
         tail = tuple(x_src.shape[1:])
         up_s = x_src[T:].reshape((T, C) + tail)
         up_l = x_src[:T] if self.self_loops else None
         if scale is not None:
-            if scale.dim() == 1:
-                scale = scale[:, None]
             s_s, s_l = self._split(scale.to(x_src.dtype))
             up_s = up_s * s_s
             if up_l is not None:
@@ -119,13 +191,52 @@ class Block:
         m_s, m_l = self._split_mask(mask, x_src.dtype, x_src.dim() - 1)
         return self._reduce(op, up_s, up_l, m_s, m_l)
 
+    def ell_weights(self, mask: Optional[torch.Tensor] = None,
+                    scale: Optional[torch.Tensor] = None):
+        """The arguments ``_ell_agg`` takes from this whole-graph ELL
+        block besides the table: (w_s f32 [T, C], w_l f32 [T], nbr
+        [T, C]), the mask and the per-edge scale folded into the
+        weights (w_l is 0 without self loops)."""
+        T, C = self.size[0], self.fanout
+        eff = torch.ones((self.edge_index.shape[1],), dtype=torch.float32,
+                         device=self.n_id.device)
+        if scale is not None:
+            eff = eff * scale.reshape(-1).to(torch.float32)
+        if mask is not None:
+            eff = eff * mask.to(torch.float32)
+        w_l = eff[T * C:] if self.self_loops else torch.zeros(
+            (T,), dtype=torch.float32, device=eff.device)
+        return eff[:T * C].reshape(T, C), w_l, self.n_id[T:].reshape(T, C)
+
+    def _ell_aggregate(self, op: str, x: torch.Tensor, mask, scale
+                       ) -> torch.Tensor:
+        """add or mean straight from the compact [N, D] table through
+        ``_ell_agg``. The mean divides by C (+1) + 1e-7 without a mask
+        and by the valid count (at least 1e-7) with one, as the other
+        layouts do."""
+        T, C = self.size[0], self.fanout
+        out = _ell_agg(C, x, *self.ell_weights(mask, scale), self.ell_tpos)
+        if op == "add":
+            return out
+        if mask is None:
+            cnt = float(C) + (1.0 if self.self_loops else 0.0)
+            return out / (cnt + 1e-7)
+        cnt = mask[:T * C].reshape(T, C).sum(dim=1)
+        if self.self_loops:
+            cnt = cnt + mask[T * C:]
+        return out / cnt.clamp_min(1e-7)[:, None].to(out.dtype)
+
     def softmax(self, scores: torch.Tensor,
                 mask: Optional[torch.Tensor] = None) -> torch.Tensor:
         """Per-target softmax of per-edge scores [E, ...]: each target's
         sampled edges and its self loop (joined as column C) share one
         softmax; masked edges get probability 0, and a target whose edges
         are all masked gets 0 on every edge, not NaN (its max is reset to
-        0 and the denominator clamped at 1e-16, as the reference does)."""
+        0 and the denominator clamped at 1e-16, as the reference does).
+        Irregular blocks run ``mp_ops.masked_scatter_softmax``."""
+        if self.fanout is None:
+            return mp_ops.masked_scatter_softmax(scores, self._edges64[0],
+                                                 self.size[0], mask)
         T, C = self.size[0], self.fanout
         tail = tuple(scores.shape[1:])
         s_s, s_l = self._split(scores)
@@ -144,6 +255,119 @@ class Block:
         p = e / e.sum(dim=1, keepdim=True).clamp_min(1e-16)
         p_s = p[:, :C].reshape((T * C,) + tail)
         return p_s if s_l is None else torch.cat([p_s, p[:, C]])
+
+    def scatter_src_add(self, updates: torch.Tensor,
+                        mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """Segment sum over edge_index[1] into the source set (size[1]
+        rows); sym-norm convs read source-side degrees from it."""
+        if mask is not None:
+            updates = updates * mask.reshape(
+                (-1,) + (1,) * (updates.dim() - 1)).to(updates.dtype)
+        if self.fanout is None:
+            return mp_ops.scatter_add(updates, self._edges64[1],
+                                      self.size[1])
+        T, C = self.size[0], self.fanout
+        if self.self_loops:
+            head = updates[T * C:]
+        else:
+            head = updates.new_zeros((T,) + tuple(updates.shape[1:]))
+        return torch.cat([head, updates[:T * C]])        # slots T.. are 1:1
+
+
+class _EllExpand(torch.autograd.Function):
+    """euler_tpu/dataflow/block.py ``ell_expand`` (:367-393)."""
+
+    @staticmethod
+    def forward(ctx, x, n_id, tpos):
+        ctx.save_for_backward(tpos)
+        ctx.n = x.shape[0]
+        ok = (n_id >= 0)[:, None]
+        return torch.where(ok, x[n_id.long().clamp_min(0)], 0)
+
+    @staticmethod
+    def backward(ctx, g):
+        (tpos,) = ctx.saved_tensors
+        n = ctx.n
+        rows = g[n:][tpos.long().clamp_min(0)]                # [N, C_in, D]
+        rows = torch.where((tpos >= 0)[..., None], rows, 0)
+        return g[:n] + rows.sum(dim=1).to(g.dtype), None, None
+
+
+def ell_expand(x: torch.Tensor, n_id: torch.Tensor,
+               tpos: torch.Tensor) -> torch.Tensor:
+    """Expand a per-node [N, D] table into a whole-graph ELL block's
+    source set ``concat(x, x[nbr_flat])`` (``n_id = concat(arange(N),
+    nbr_flat)``, -1 rows 0), with the transpose adjacency driving the
+    backward:
+
+        grad_x[u] = g[u] + sum over c of g[N + tpos[u, c]]
+
+    a gather over the precomputed transpose positions instead of the
+    scatter-add that autograd gives a plain gather (pads -1 add 0)."""
+    return _EllExpand.apply(x, n_id, tpos)
+
+
+def _ell_rows(x: torch.Tensor, nbr: torch.Tensor) -> torch.Tensor:
+    """x[nbr] [N, C, D], rows of pads (-1) exactly 0: a gather from x with
+    a zero row appended, in one pass over the output."""
+    xz = torch.cat([x, x.new_zeros((1,) + tuple(x.shape[1:]))])
+    return xz[torch.where(nbr >= 0, nbr, x.shape[0]).long()]
+
+
+class _EllAgg(torch.autograd.Function):
+    """euler_tpu/dataflow/block.py ``_ell_agg`` (:399-443) and its VJP.
+    Each weighted sum over cells is a batched product ([1, C] by
+    [C, D] a row) over the gathered rows, so no weighted copy of them is
+    made. Saves x, not the [N, C, D] rows: the backward gathers them
+    again where it needs them. Each gradient is computed only where its
+    input asks for one (``needs_input_grad``)."""
+
+    @staticmethod
+    def forward(ctx, C, x, w_s, w_l, nbr, tpos):
+        ctx.save_for_backward(x, w_s, w_l, nbr, tpos)
+        ctx.C = C
+        out = torch.einsum("tc,tcd->td", w_s.to(x.dtype), _ell_rows(x, nbr))
+        return out + x * w_l[:, None].to(x.dtype)
+
+    @staticmethod
+    def backward(ctx, g):
+        x, w_s, w_l, nbr, tpos = ctx.saved_tensors
+        need_x, need_ws, need_wl = ctx.needs_input_grad[1:4]
+        grad_x = grad_ws = grad_wl = None
+        if need_x:
+            n = g.shape[0]
+            tp = tpos.long()
+            gv = g[torch.div(tp, ctx.C, rounding_mode="floor").clamp(
+                0, n - 1)]                                    # [N, C_in, D]
+            wv = torch.where(tpos >= 0,
+                             w_s.reshape(-1)[tp.clamp(0, w_s.numel() - 1)],
+                             0.0)
+            grad_x = (torch.einsum("tc,tcd->td", wv.to(g.dtype), gv)
+                      + g * w_l[:, None].to(g.dtype)).to(x.dtype)
+        if need_ws:
+            grad_ws = torch.einsum("td,tcd->tc", g.float(),
+                                   _ell_rows(x, nbr).float()).to(w_s.dtype)
+        if need_wl:
+            grad_wl = torch.einsum("td,td->t", g.float(),
+                                   x.float()).to(w_l.dtype)
+        return None, grad_x, grad_ws, grad_wl, None, None
+
+
+def _ell_agg(C: int, x: torch.Tensor, w_s: torch.Tensor, w_l: torch.Tensor,
+             nbr: torch.Tensor, tpos: torch.Tensor) -> torch.Tensor:
+    """Fused whole-graph ELL aggregate from the compact [N, D] table:
+
+        out[t] = sum over c of x[nbr[t, c]] * w_s[t, c]  +  x[t] * w_l[t]
+
+    (pads nbr = -1 read 0). Its backward gathers only from [N, ...]
+    arrays, never scatters:
+
+        grad_x[u]   = sum over cells p = tpos[u, c] of g[p // C] * w_s[p]
+                      + g[u] * w_l[u]
+        grad_w_s    = g[t] . x[nbr[t, c]]   (f32)
+        grad_w_l    = g[t] . x[t]           (f32)
+    """
+    return _EllAgg.apply(C, x, w_s, w_l, nbr, tpos)
 
 
 def fanout_block(targets: torch.Tensor, sampled: torch.Tensor,
@@ -195,3 +419,32 @@ def fanout_block(targets: torch.Tensor, sampled: torch.Tensor,
         self_loops=add_self_loops,
         e_type=e_type,
     )
+
+
+def full_graph_block(g, edge_types, add_self_loops: bool = True) -> Block:
+    """Whole-graph edge-list block: every stored edge, masked to the
+    requested types, messages flowing from each edge's destination (the
+    source slot) into its source (the target), as GetFullNeighbor
+    aggregates out-neighbors; then N self loops.
+
+    reference: euler_tpu/dataflow/block.py ``full_graph_block``
+    (tf_euler/python/dataflow/whole_dataflow.py:26-63)."""
+    ets = torch.tensor(as_etypes(g, edge_types), dtype=torch.int32,
+                       device=g.device)
+    n = g.meta.n_nodes
+    dev = g.device
+    mask = torch.isin(g.adj_type, ets).to(torch.float32)
+    dst, src, e_id, w = g.adj_src, g.adj_dst, g.adj_eid, g.adj_w
+    if add_self_loops:
+        loop = torch.arange(n, dtype=torch.int32, device=dev)
+        dst = torch.cat([dst, loop])
+        src = torch.cat([src, loop])
+        mask = torch.cat([mask, torch.ones((n,), dtype=torch.float32,
+                                           device=dev)])
+        w = torch.cat([w, torch.ones((n,), dtype=w.dtype, device=dev)])
+        e_id = torch.cat([e_id, torch.full((n,), -1, dtype=torch.int32,
+                                           device=dev)])
+    all_nodes = torch.arange(n, dtype=torch.int32, device=dev)
+    return Block(n_id=all_nodes, res_n_id=all_nodes,
+                 edge_index=torch.stack([dst, src]), e_id=e_id,
+                 edge_weight=w, mask=mask, size=(n, n))

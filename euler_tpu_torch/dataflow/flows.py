@@ -1,17 +1,22 @@
 """Dataflow samplers: sampling strategy -> sequence of bipartite Blocks.
 
-Counterpart of euler_tpu/dataflow/flows.py. Only ``SageDataFlow`` on its
-fast path (ids-only fan-row sampling; the reference's ``payload=False``,
-with or without ``typed``) is ported.
+Counterpart of euler_tpu/dataflow/flows.py: ``SageDataFlow`` on its fast
+path (ids-only fan-row sampling; the reference's ``payload=False``, with
+or without ``typed``), ``GCNDataFlow`` and ``WholeDataFlow`` on one
+device. Every flow is called as ``flow(g, roots, generator=None,
+uniforms=None)`` and returns its blocks deepest first; ``num_layers`` is
+the number of blocks, one conv each. Flows that draw nothing ignore
+``generator`` and ``uniforms``.
 """
 from __future__ import annotations
 
+import dataclasses
 from typing import Optional, Sequence
 
 import torch
 
-from euler_tpu_torch.dataflow.block import fanout_block
-from euler_tpu_torch.ops import sampling
+from euler_tpu_torch.dataflow.block import fanout_block, full_graph_block
+from euler_tpu_torch.ops import mp_ops, sampling
 
 
 class SageDataFlow:
@@ -43,6 +48,10 @@ class SageDataFlow:
         self.default_id = default_id
         self.typed = typed
 
+    @property
+    def num_layers(self) -> int:
+        return len(self.fanouts)
+
     def __call__(self, g, roots: torch.Tensor,
                  generator: Optional[torch.Generator] = None,
                  uniforms: Optional[Sequence] = None):
@@ -64,3 +73,108 @@ class SageDataFlow:
             blocks.append(blk)
             cur = blk.n_id
         return blocks[::-1]
+
+
+class GCNDataFlow:
+    """Full neighborhoods per hop, capped at ``caps[i]`` neighbors (a
+    neighborhood past its cap is cut, in CSR slot order).
+
+    reference: GCNDataFlow (euler_tpu/dataflow/flows.py:81-107;
+    tf_euler/python/dataflow/gcn_dataflow.py, get_full_neighbor). Blocks
+    carry the edges' weights, ids and types."""
+
+    def __init__(self, caps: Sequence[int], metapath,
+                 add_self_loops: bool = True, default_id: int = -1):
+        self.caps = list(caps)
+        self.metapath = list(metapath)
+        self.add_self_loops = add_self_loops
+        self.default_id = default_id
+
+    @property
+    def num_layers(self) -> int:
+        return len(self.caps)
+
+    def __call__(self, g, roots: torch.Tensor,
+                 generator: Optional[torch.Generator] = None,
+                 uniforms: Optional[Sequence] = None):
+        cur = roots.reshape(-1).to(torch.int32)
+        blocks = []
+        for ets, cap in zip(self.metapath, self.caps):
+            nbr, w, ty, eid, ok = sampling.get_full_neighbor(
+                g, cur, ets, cap, self.default_id)
+            blk = fanout_block(cur, torch.where(ok, nbr, -1), w, eid, cap,
+                               self.add_self_loops, etypes=ty)
+            blocks.append(blk)
+            cur = blk.n_id
+        return blocks[::-1]
+
+
+class WholeDataFlow:
+    """Whole-graph propagation (full-batch GCN): one block over every
+    node, repeated for each of ``num_layers`` layers; the caller picks the
+    roots' rows out of the last layer.
+
+    reference: WholeDataFlow (euler_tpu/dataflow/flows.py:110-196;
+    tf_euler/python/dataflow/whole_dataflow.py:26-63). Three layouts, by
+    the reference's rule: with ``layout="auto"`` or ``"ell"`` and the
+    graph's ``ell`` pack, the pack's regular [N, C] rows masked to the
+    metapath's types, with ``src_deg`` (in-degree over those types, + 1
+    for the self loop) and ``ell_tpos``, so that convs aggregate from the
+    compact [N, D] table; else, with ``cap`` set (at least the largest
+    degree for the exact graph), the same regular rows assembled per call
+    by ``get_full_neighbor`` (no transpose table: GNNNet expands each
+    layer's output through ``n_id``); else the edge-list block
+    ``full_graph_block``, whose reductions scatter. The distributed
+    branch waits for the sharded store.
+    """
+
+    def __init__(self, num_layers: int, metapath,
+                 add_self_loops: bool = True, cap: Optional[int] = None,
+                 layout: str = "auto"):
+        if layout not in ("auto", "ell", "edge_list"):
+            raise ValueError(f"layout {layout!r} not in auto, ell, "
+                             f"edge_list")
+        self.num_layers = num_layers
+        self.metapath = list(metapath)
+        self.add_self_loops = add_self_loops
+        self.cap = cap
+        self.layout = layout
+
+    def _src_deg(self, blk, deg_in: torch.Tensor) -> torch.Tensor:
+        if self.add_self_loops:
+            deg_in = deg_in + 1.0
+        ok = blk.n_id >= 0
+        return torch.where(ok, deg_in[blk.n_id.long().clamp_min(0)], 0.0)
+
+    def __call__(self, g, roots: torch.Tensor,
+                 generator: Optional[torch.Generator] = None,
+                 uniforms: Optional[Sequence] = None):
+        have_pack = g.ell_nbr is not None
+        use_ell = self.layout == "ell" or (
+            self.layout == "auto" and (have_pack or self.cap is not None))
+        n = g.meta.n_nodes
+        ets = torch.tensor(sampling.as_etypes(g, self.metapath[0]),
+                           dtype=torch.int32, device=g.device)
+        all_nodes = torch.arange(n, dtype=torch.int32, device=g.device)
+        if use_ell and have_pack:
+            sel = torch.isin(g.ell_ty, ets)
+            blk = fanout_block(
+                all_nodes, torch.where(sel, g.ell_nbr, -1),
+                torch.where(sel, g.ell_w, 0.0),
+                torch.where(sel, g.ell_eid, -1), int(g.ell_nbr.shape[1]),
+                self.add_self_loops, etypes=torch.where(sel, g.ell_ty, -1))
+            deg_in = g.ell_in_deg[:, ets.long()].sum(dim=1)
+            blk = dataclasses.replace(blk, src_deg=self._src_deg(blk, deg_in),
+                                      ell_tpos=g.ell_tpos)
+        elif use_ell and self.cap is not None:
+            nbr, w, ty, eid, ok = sampling.get_full_neighbor(
+                g, all_nodes, self.metapath[0], self.cap)
+            blk = fanout_block(all_nodes, torch.where(ok, nbr, -1), w, eid,
+                               self.cap, self.add_self_loops, etypes=ty)
+            sel = torch.isin(g.adj_type, ets).to(torch.float32)
+            deg_in = mp_ops.scatter_add(sel, g.adj_dst, n)
+            blk = dataclasses.replace(blk,
+                                      src_deg=self._src_deg(blk, deg_in))
+        else:
+            blk = full_graph_block(g, self.metapath[0], self.add_self_loops)
+        return [blk] * self.num_layers

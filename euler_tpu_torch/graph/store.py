@@ -1,13 +1,14 @@
-"""Device-resident graph store: the fields the sampled paths read.
+"""Device-resident graph store: the fields the sampled and whole-graph
+paths read.
 
 Counterpart of euler_tpu/graph/store.py (``GraphTensors``, ``Graph``,
 ``load_graph``). It reads the same converted directories (``meta.json``
-plus ``part_*.npz``) and builds, with the same host code, the grouped CSR,
-the per-group alias tables, the ``fan`` and ``fanu`` packs that neighbor
-sampling reads, and the per-node-type alias tables that the root draw
-reads. Only
-the fields the sampled training and inference paths need live on the
-device; external ids and binary features stay on the host.
+plus ``part_*.npz``) and builds, with the same host code, the grouped CSR
+with its per-slot source, type, weight and edge id, the per-group alias
+tables, the ``fan`` and ``fanu`` packs that neighbor sampling reads, the
+``ell`` pack that whole-graph propagation reads, and the per-node-type
+alias tables that the root draw reads. Only the fields these paths need
+live on the device; external ids and binary features stay on the host.
 """
 from __future__ import annotations
 
@@ -26,12 +27,13 @@ from euler_tpu_torch.ops.alias import (FAN_D, FANU_MAX_TYPES, FANU_SHIFT,
                                        build_fan_pack, build_group_alias,
                                        build_typed_alias_tables)
 
-#: packs the port builds by default; the reference's "group", "adj",
-#: "sample" and "ell" packs wait for the slices whose verbs read them
+#: packs the port builds by default; the reference's "group", "adj" and
+#: "sample" packs wait for the slices whose verbs read them
 PACKS = ("fan",)
 #: packs the port can build: "fanu" (union fan rows, multi-type draws)
-#: only on request, as the reference leaves it out of its ALL_PACKS
-KNOWN_PACKS = ("fan", "fanu")
+#: only on request, as the reference leaves it out of its ALL_PACKS, and
+#: "ell" (whole-graph ELL rows and their transpose) on request
+KNOWN_PACKS = ("fan", "fanu", "ell")
 
 
 @dataclasses.dataclass
@@ -56,7 +58,13 @@ class GraphTensors:
 
     meta: GraphMeta
     group_ptr: torch.Tensor      # int32 [N*ET + 1]
+    # per CSR slot (edges sorted by (src, type, dst)): the edge's source,
+    # destination, type, weight and original row
+    adj_src: torch.Tensor        # int32 [E]
     adj_dst: torch.Tensor        # int32 [E]
+    adj_type: torch.Tensor       # int32 [E]
+    adj_w: torch.Tensor          # f32   [E]
+    adj_eid: torch.Tensor        # int32 [E]
     adj_prob: torch.Tensor       # f32   [E] per-group alias keep-prob
     adj_alias: torch.Tensor      # int32 [E] within-group alias slots
     group_w_sum: torch.Tensor    # f32   [N, ET]
@@ -75,6 +83,17 @@ class GraphTensors:
     fanu_dst: Optional[torch.Tensor] = None        # int32 [E] packed
     fanu_prob: Optional[torch.Tensor] = None       # f32   [E]
     fanu_alias: Optional[torch.Tensor] = None      # int32 [E]
+    # whole-graph ELL pack ("ell"): every node's out-neighborhood (all
+    # types, in CSR slot order) as a regular [N, C] row padded with -1,
+    # and ell_tpos, per node u, the flat cells t*C + c that read u (the
+    # transpose adjacency), so the backward of a whole-graph aggregate is
+    # a gather, never a scatter (dataflow/block.py ``_ell_agg``)
+    ell_nbr: Optional[torch.Tensor] = None      # int32 [N, C] (-1 pad)
+    ell_w: Optional[torch.Tensor] = None        # f32   [N, C]
+    ell_eid: Optional[torch.Tensor] = None      # int32 [N, C]
+    ell_ty: Optional[torch.Tensor] = None       # int32 [N, C]
+    ell_tpos: Optional[torch.Tensor] = None     # int32 [N, C_in] (-1 pad)
+    ell_in_deg: Optional[torch.Tensor] = None   # f32   [N, ET]
 
     @property
     def device(self) -> torch.device:
@@ -91,6 +110,50 @@ class GraphTensors:
         return dataclasses.replace(self, **{
             f.name: mv(getattr(self, f.name))
             for f in dataclasses.fields(self)})
+
+
+def _ell_pack_np(n, net, group_ptr, adj_dst, adj_w, adj_eid, adj_type):
+    """The whole-graph ELL pack (``GraphTensors.ell_*``) as numpy arrays;
+    a copy of euler_tpu/graph/store.py ``_ell_pack_np``.
+
+    Returns None (pack skipped) when padding would explode: ELL rows are
+    max-degree wide, so a hub would inflate [N, C] far past the CSR's
+    size. Gate: C and C_in each <= max(64, 4 * average degree), and
+    N * C < 2^31.
+    """
+    E = len(adj_dst)
+    node_lo = group_ptr[np.arange(n) * net]
+    node_hi = group_ptr[np.arange(n) * net + net]
+    row_deg = (node_hi - node_lo).astype(np.int64)
+    in_deg = np.bincount(adj_dst, minlength=n).astype(np.int64)
+    C = int(row_deg.max(initial=0))
+    C_in = int(in_deg.max(initial=0))
+    cap = max(64, 4 * max(1, E // max(n, 1)))
+    if C > cap or C_in > cap or n * C >= 2 ** 31:
+        return None
+    rows = np.repeat(np.arange(n, dtype=np.int64), row_deg)
+    pos = np.arange(E, dtype=np.int64) - np.repeat(node_lo, row_deg)
+    nbr = np.full((n, C), -1, np.int32)
+    w = np.zeros((n, C), np.float32)
+    eid = np.full((n, C), -1, np.int32)
+    ty = np.full((n, C), -1, np.int32)
+    nbr[rows, pos] = adj_dst
+    w[rows, pos] = adj_w
+    eid[rows, pos] = adj_eid
+    ty[rows, pos] = adj_type
+    # transpose positions: for node u, the flat cells (row * C + pos)
+    # that read u, sorted stable by u so that each u's cells pack left
+    p = (rows * C + pos).astype(np.int64)
+    order = np.argsort(adj_dst, kind="stable")
+    u_sorted = adj_dst[order]
+    start = np.concatenate([[0], np.cumsum(in_deg)[:-1]])
+    pos_in_u = np.arange(E, dtype=np.int64) - np.repeat(start, in_deg)
+    tpos = np.full((n, C_in), -1, np.int64)
+    tpos[u_sorted, pos_in_u] = p[order]
+    ell_in_deg = np.zeros((n, net), np.float32)
+    np.add.at(ell_in_deg, (adj_dst, adj_type), 1.0)
+    return dict(ell_nbr=nbr, ell_w=w, ell_eid=eid, ell_ty=ty,
+                ell_tpos=tpos.astype(np.int32), ell_in_deg=ell_in_deg)
 
 
 def _load_parts(path: str) -> Dict[str, np.ndarray]:
@@ -130,9 +193,11 @@ class Graph:
         node_w = arrays["node_w"][order]
         self._local_of = {int(e): i for i, e in enumerate(self.ext_ids)}
 
-        (group_ptr, adj_dst, adj_w, _, _, perm) = _convert.build_csr(
+        (group_ptr, adj_dst, adj_w, _, adj_eid, perm) = _convert.build_csr(
             n, net, arrays["src"], arrays["dst"], arrays["etype"],
             arrays["ew"], arrays["eid"])
+        adj_src = arrays["src"][perm].astype(np.int32)
+        adj_type = arrays["etype"][perm].astype(np.int32)
         # exact per-group weight sums (no cumsum cancellation)
         seg = np.repeat(np.arange(n * net), np.diff(group_ptr))
         gws = np.zeros(n * net, np.float64)
@@ -148,9 +213,9 @@ class Graph:
         def put(x):
             return torch.from_numpy(np.ascontiguousarray(x)).to(dev)
 
-        fan = {}
+        pack_fields = {}
         if "fan" in packs:
-            fan = dict(
+            pack_fields.update(
                 fan_pack=put(build_fan_pack(group_ptr, adj_dst, adj_prob,
                                             adj_alias,
                                             group_w_sum.reshape(-1))),
@@ -161,11 +226,10 @@ class Graph:
         if ("fanu" in packs and n and len(adj_dst) and 2 <= net
                 <= FANU_MAX_TYPES and n < (1 << FANU_SHIFT)):
             node_ptr = group_ptr[::net].astype(np.int64)          # [N+1]
-            packed = (arrays["etype"][perm].astype(np.int32)
-                      << FANU_SHIFT) | adj_dst
+            packed = (adj_type << FANU_SHIFT) | adj_dst
             prob_u, alias_u = build_group_alias(node_ptr, adj_w)
             wsum_u = group_w_sum.reshape(n, net).sum(axis=1)
-            fan.update(
+            pack_fields.update(
                 fanu_pack=put(build_fan_pack(node_ptr, packed, prob_u,
                                              alias_u, wsum_u)),
                 fanu_over_rows=put(np.nonzero(
@@ -173,10 +237,19 @@ class Graph:
                 fanu_ptr=put(node_ptr.astype(np.int32)),
                 fanu_dst=put(packed), fanu_prob=put(prob_u),
                 fanu_alias=put(alias_u))
+        if "ell" in packs and n and len(adj_dst):
+            ell = _ell_pack_np(n, net, group_ptr, adj_dst, adj_w, adj_eid,
+                               adj_type)
+            if ell is not None:            # degree-gated, as the reference
+                pack_fields.update({k: put(v) for k, v in ell.items()})
         self.tensors = GraphTensors(
             meta=meta,
             group_ptr=put(group_ptr.astype(np.int32)),
+            adj_src=put(adj_src),
             adj_dst=put(adj_dst),
+            adj_type=put(adj_type),
+            adj_w=put(adj_w),
+            adj_eid=put(adj_eid),
             adj_prob=put(adj_prob),
             adj_alias=put(adj_alias),
             group_w_sum=put(group_w_sum),
@@ -185,7 +258,7 @@ class Graph:
                 ids=put(na["ids"]), type_ptr=put(na["type_ptr"].astype(
                     np.int32)), prob=put(na["prob"]), alias=put(na["alias"]),
                 w_sum=put(na["w_sum"])),
-            **fan)
+            **pack_fields)
 
     def local_id(self, ext_id: int) -> int:
         return self._local_of[int(ext_id)]

@@ -2,11 +2,13 @@
 
 Counterpart of euler_tpu/models/convs.py. Call convention:
 ``conv((x_tgt [size0, D], x_src [size1, D]), block) -> [size0, dim]``
-(``RelationConv`` also takes ``edge_attr``). Ported: ``SAGEConv``,
-``GATConv``, ``GINConv`` and ``RelationConv``, over the regular fanout
-layout. Parameters are f32; low-precision activations are cast up to
-them where flax's type promotion would (torch refuses mixed-dtype
-products), and stay low where the reference keeps them low.
+(``RelationConv`` also takes ``edge_attr``); on a whole-graph ELL block
+``x_src`` may be the compact [N, D] table. Ported: ``GCNConv``,
+``SAGEConv``, ``GATConv``, ``GINConv`` and ``RelationConv``, over every
+block layout the port builds. Parameters are f32; low-precision
+activations are cast up to them where flax's type promotion would (torch
+refuses mixed-dtype products), and stay low where the reference keeps
+them low.
 """
 from __future__ import annotations
 
@@ -34,6 +36,49 @@ def dense(in_dim: int, out_dim: int, bias: bool = True,
         if bias:
             lin.bias.zero_()
     return lin
+
+
+def _deg_inv_sqrt(block: Block):
+    """deg ** -0.5 of targets [size0, 1] and sources [size1, 1] (a degree
+    of 0 counts as 1), f32, from the masked edge counts, or from the
+    block's ``src_deg`` where its source slots are node copies
+    (reference: euler_tpu/models/convs.py:31-42, gcn_conv.py:38-46)."""
+    ew = torch.ones((block.edge_index.shape[1], 1), dtype=torch.float32,
+                    device=block.mask.device)
+    deg_t = block.scatter("add", ew, block.mask)
+    if block.src_deg is not None:
+        deg_s = block.src_deg[:, None].to(torch.float32)
+    else:
+        deg_s = block.scatter_src_add(ew, block.mask)
+    return tuple(torch.where(d > 0, d, 1.0) ** -0.5 for d in (deg_t, deg_s))
+
+
+def _edge_scale(ni: torch.Tensor, nj: torch.Tensor,
+                mask: Optional[torch.Tensor]) -> torch.Tensor:
+    """[E, 1] multiplier: the sym-norm factors and the edge mask."""
+    sc = ni * nj
+    return sc if mask is None else sc * mask[:, None]
+
+
+class GCNConv(nn.Module):
+    """reference: gcn_conv.py:26-54 (convs.py:55-68): the sym-normalised
+    sum ``sum_j x_j / sqrt(deg_i deg_j)`` over masked edges (self loops
+    included where the block has them), then ``fc``, flax's bias-free
+    ``Dense_0``. The degree math is f32; the scale is cast to the
+    activation type inside ``aggregate_neighbors``."""
+
+    def __init__(self, in_dim: int, dim: int,
+                 generator: Optional[torch.Generator] = None):
+        super().__init__()
+        self.fc = dense(in_dim, dim, bias=False, generator=generator)
+
+    def forward(self, x, block: Block) -> torch.Tensor:
+        _, x_src = x
+        norm_i, norm_j = _deg_inv_sqrt(block)
+        scale = _edge_scale(block.gather_tgt(norm_i),
+                            block.gather_src(norm_j), block.mask)
+        out = block.aggregate_neighbors("add", x_src, scale=scale)
+        return self.fc(out.to(self.fc.weight.dtype))
 
 
 class SAGEConv(nn.Module):
@@ -127,9 +172,10 @@ class GINConv(nn.Module):
 
 
 class RelationConv(nn.Module):
-    """reference: relation_conv.py:33-69 (convs.py:337-391), the regular
-    layout: per-relation sums of raw source features, then one product
-    with the relation matrices.
+    """reference: relation_conv.py:33-69 (convs.py:337-391): per-relation
+    sums of raw source features, then one product with the relation
+    matrices. The regular layout sums with one einsum over one-hot
+    relations; an irregular block runs one masked scatter per relation.
 
     ``matrix`` [R, dim, D_in] is flax's ``matrix``, initialised as
     ``variance_scaling(1, "fan_avg", "truncated_normal")`` for that shape
@@ -154,22 +200,31 @@ class RelationConv(nn.Module):
     def forward(self, x, block: Block,
                 edge_attr: Optional[torch.Tensor] = None) -> torch.Tensor:
         x_tgt, x_src = x
-        T, C, R = block.size[0], block.fanout, self.num_relations
+        R = self.num_relations
+        if block._is_compact(x_src):
+            x_src = block._expand(x_src)
         dt = x_src.dtype
         if edge_attr is None:
             edge_attr = torch.zeros(block.edge_index.shape[1],
                                     dtype=torch.int64, device=x_src.device)
         attr = edge_attr.long().clamp(0, R - 1)
         m = block.mask.to(dt)
-        at_s, at_l = block._split(attr)
-        m_s, m_l = block._split(m)
-        oh_s = torch.nn.functional.one_hot(at_s, R).to(dt) * m_s[..., None]
-        xj_s = x_src[T:].reshape(T, C, -1)
-        s = torch.einsum("tcf,tcr->trf", xj_s, oh_s)            # [T, R, f]
-        if block.self_loops:
-            oh_l = torch.nn.functional.one_hot(at_l, R).to(dt) \
-                * m_l[..., None]
-            s = s + x_src[:T, None, :] * oh_l[..., None]
+        if block.fanout is None:
+            xj = block.gather_src(x_src)
+            s = torch.stack([block.scatter("add", xj * (
+                (attr == r).to(dt) * m)[:, None]) for r in range(R)], 1)
+        else:
+            T, C = block.size[0], block.fanout
+            at_s, at_l = block._split(attr)
+            m_s, m_l = block._split(m)
+            oh_s = torch.nn.functional.one_hot(at_s, R).to(dt) \
+                * m_s[..., None]
+            xj_s = x_src[T:].reshape(T, C, -1)
+            s = torch.einsum("tcf,tcr->trf", xj_s, oh_s)        # [T, R, f]
+            if block.self_loops:
+                oh_l = torch.nn.functional.one_hot(at_l, R).to(dt) \
+                    * m_l[..., None]
+                s = s + x_src[:T, None, :] * oh_l[..., None]
         f32 = self.matrix.dtype
         tot = torch.einsum("trf,rdf->td", s.to(f32), self.matrix)
         cnt = block.scatter("add", torch.ones((attr.shape[0], 1), dtype=dt,
@@ -179,8 +234,9 @@ class RelationConv(nn.Module):
         return self.self_fc(x_tgt.to(f32)) + aggr
 
 
-_CONVS = {"sage": SAGEConv, "graphsage": SAGEConv, "gat": GATConv,
-          "gin": GINConv, "relation": RelationConv, "rgcn": RelationConv}
+_CONVS = {"gcn": GCNConv, "sage": SAGEConv, "graphsage": SAGEConv,
+          "gat": GATConv, "gin": GINConv, "relation": RelationConv,
+          "rgcn": RelationConv}
 
 
 def get_conv_class(name: str):

@@ -5,6 +5,7 @@ variables)``), with or without the top-level ``"params"`` key. Names:
 
   embedder/conv_i/<name>           -> embedder.convs[i].<attribute>, by
                                       conv (``_CONV_TREES``):
+    gcn       Dense_0 -> fc
     sage      Dense_0 -> self_fc, Dense_1 -> neigh_fc
     gat       Dense_0 -> fc, Dense_1 -> a1, Dense_2 -> a2
     gin       Dense_0 -> fc, eps -> eps (when trainable)
@@ -24,12 +25,13 @@ import numpy as np
 import torch
 from torch import nn
 
-from euler_tpu_torch.models.convs import (GATConv, GINConv, RelationConv,
-                                         SAGEConv)
+from euler_tpu_torch.models.convs import (GATConv, GCNConv, GINConv,
+                                         RelationConv, SAGEConv)
 from euler_tpu_torch.models.gnn import GNNNet, SuperviseModel
 
 #: flax name inside conv_i -> attribute of the port's conv
 _CONV_TREES = {
+    GCNConv: {"Dense_0": "fc"},
     SAGEConv: {"Dense_0": "self_fc", "Dense_1": "neigh_fc"},
     GATConv: {"Dense_0": "fc", "Dense_1": "a1", "Dense_2": "a2"},
     GINConv: {"Dense_0": "fc", "eps": "eps"},

@@ -1,12 +1,13 @@
 """GNN net + supervised head.
 
-Counterpart of euler_tpu/models/gnn.py: the sampled branch of ``GNNNet``
-and ``SuperviseModel`` (reference: tf_euler/python/mp_utils/base_gnn.py:
-74-92 and mp_utils/base.py:24-48). The dataflow runs inside ``forward``;
-its randomness comes from the ``generator`` (or the replayed
-``uniforms``) the caller passes. Training differentiates the loss with
-autograd: nothing on this path has a custom backward, and the features
-the encoder gathers are inputs, not parameters.
+Counterpart of euler_tpu/models/gnn.py: ``GNNNet`` over sampled and
+whole-graph flows, and ``SuperviseModel`` (reference: tf_euler/python/
+mp_utils/base_gnn.py:74-92 and mp_utils/base.py:24-48). The dataflow
+runs inside ``forward``; its randomness comes from the ``generator`` (or
+the replayed ``uniforms``) the caller passes. Training differentiates
+the loss with autograd; the whole-graph ELL aggregate and expansion have
+their own backward (dataflow/block.py), and the features the encoder
+gathers are inputs, not parameters.
 """
 from __future__ import annotations
 
@@ -25,7 +26,12 @@ class GNNNet(nn.Module):
     """Stack of graph convolutions over a dataflow, then ``out_fc``.
 
     ``dims`` holds the hidden dim of each layer and, last, the output dim
-    (one conv per block of the flow); ``in_dim`` is the width of the
+    (one conv per block of the flow, ``flow.num_layers``). Over a
+    whole-graph flow every layer computes all N nodes and the roots' rows
+    are picked at the end: ELL-pack blocks keep the activations compact,
+    [N, D], and the convs aggregate from that table; dynamic whole-graph
+    blocks (no transpose table) expand it through ``n_id`` each layer.
+    ``in_dim`` is the width of the
     ``feature`` encoder's output; ``conv_kwargs`` go to every conv (e.g.
     ``{"num_relations": 4}``). With ``relation_from_etype`` each conv
     also gets ``edge_attr = max(block.e_type, 0)``, the sampled edge types
@@ -42,7 +48,7 @@ class GNNNet(nn.Module):
                  relation_from_etype: bool = False):
         super().__init__()
         dev = resolve_device(device)
-        n_layers = len(flow.fanouts)
+        n_layers = flow.num_layers
         if len(dims) < n_layers:
             raise ValueError(f"dims {tuple(dims)} has fewer entries than "
                              f"the flow's {n_layers} hops")
@@ -69,16 +75,29 @@ class GNNNet(nn.Module):
                 generator: Optional[torch.Generator] = None,
                 uniforms: Optional[Sequence] = None) -> torch.Tensor:
         blocks = self.flow(g, roots, generator=generator, uniforms=uniforms)
-        x = self.feature(g, blocks[0].n_id)
+        if blocks[0].ell_tpos is not None:
+            x = self.feature(g, blocks[0].n_id[: blocks[0].size[0]])
+        else:
+            x = self.feature(g, blocks[0].n_id)
         if self.dtype is not None:
             x = x.to(self.dtype)
         for conv, block in zip(self.convs, blocks):
+            if (x.shape[0] == block.size[0] != block.size[1]
+                    and block.ell_tpos is None):
+                # dynamic whole-graph block: rebuild its source set
+                x = torch.where((block.n_id >= 0)[:, None],
+                                x[block.n_id.long().clamp_min(0)], 0)
             kw = {}
             if self.relation_from_etype:
                 kw["edge_attr"] = block.e_type.clamp_min(0)
             x = torch.relu(conv((x[: block.size[0]], x), block, **kw))
             if self.dtype is not None:
                 x = x.to(self.dtype)
+        if x.shape[0] != roots.shape[0]:
+            # whole-graph flow: the roots' rows (ids past N clamp, as XLA)
+            r = roots.reshape(-1).long()
+            x = torch.where((r >= 0)[:, None],
+                            x[r.clamp(0, x.shape[0] - 1)], 0)
         return self.out_fc(x.to(self.out_fc.weight.dtype))
 
 

@@ -4,7 +4,8 @@ neighbor draw and the reservoir redraw.
 Counterparts of euler_tpu/ops/sampling.py's ``sample_node`` (:46-72),
 ``sample_neighbor_fast`` (:223-376: its K=1, union-row and per-type K>1
 branches, with ``return_types``) and ``refresh_fan_rows``/
-``refresh_fan_pack`` with ``over_rows`` (:379-461). The reference derives
+``refresh_fan_pack`` with ``over_rows`` (:379-461), and the full
+neighborhood ``get_full_neighbor`` (:464-528). The reference derives
 its uniforms from a jax PRNG key inside each verb; here each verb is
 split in two so that both packages can be fed the same numbers: a step
 that draws the uniforms from a torch.Generator (``draw_node_uniforms``,
@@ -25,7 +26,8 @@ verb ``sample_neighbor`` (the graph lacks the pack a hop needs), the port
 raises ``NotImplementedError``: that verb is not ported.
 
 Conventions: node ids are int32 local ids, ``-1`` marks "no node", and
-missing neighbors get ``default_id``.
+missing neighbors get ``default_id``. An index past the end of a table
+clamps to its last row, as XLA clamps a gather index (torch would raise).
 """
 from __future__ import annotations
 
@@ -291,3 +293,70 @@ def refresh_fan_pack(g: GraphTensors,
                                          g.device)
             refresh_fan_rows(*csr, pack, over, u1, u2)
     return g
+
+
+# ---------------------------------------------------------------------------
+# full neighborhoods
+# ---------------------------------------------------------------------------
+
+def _group_bounds(g: GraphTensors, rows: torch.Tensor, etype: torch.Tensor):
+    """(lo, hi) CSR slot bounds of group (row, etype); rows and etype
+    broadcast. Group indices past the graph clamp."""
+    gidx = rows.long() * g.meta.num_edge_types + etype.long()
+    last = g.group_ptr.shape[0] - 1
+    return (g.group_ptr[gidx.clamp(0, last)],
+            g.group_ptr[(gidx + 1).clamp(0, last)])
+
+
+def _fetch_slots(g: GraphTensors, s: torch.Tensor, ok: torch.Tensor,
+                 default_id: int):
+    """(nbr, w, type, eid) of CSR slots ``s`` (in range), masked by
+    ``ok``: default_id, 0, -1 and -1 where not ok."""
+    nbr = torch.where(ok, g.adj_dst[s], default_id)
+    w = torch.where(ok, g.adj_w[s], 0.0)
+    ty = torch.where(ok, g.adj_type[s], -1)
+    eid = torch.where(ok, g.adj_eid[s], -1)
+    return nbr, w, ty, eid
+
+
+def get_full_neighbor(g: GraphTensors, nodes: torch.Tensor, edge_types,
+                      cap: int, default_id: int = -1,
+                      sorted_by_id: bool = False, offset: int = 0):
+    """Padded full neighborhood over the union of edge-type groups, in
+    CSR slot order (types in the order given).
+
+    reference: euler_tpu/ops/sampling.py ``get_full_neighbor``
+    (:482-528; API_GET_NB_NODE GetFullNeighbor / GetSortedFullNeighbor).
+    Returns (nbr int32, w f32, type int32, eid int32, ok bool), each
+    [B, cap]: positions ``offset .. offset + cap`` of the concatenated
+    neighborhood; past its end (and for nodes < 0) ``ok`` is false and
+    the values are default_id, 0, -1, -1. ``sorted_by_id`` orders each
+    row by neighbor id, invalid cells last (a stable sort).
+    """
+    ets = as_etypes(g, edge_types)
+    nodes = nodes.to(torch.int32)
+    dev = nodes.device
+    B, K = nodes.shape[0], len(ets)
+    rows = nodes.clamp_min(0)
+    et = torch.tensor(ets, dtype=torch.int32, device=dev)
+    lo, hi = _group_bounds(g, rows[:, None], et[None, :])        # [B, K]
+    deg = (hi - lo).long()
+    offs = torch.cat([torch.zeros((B, 1), dtype=torch.int64, device=dev),
+                      torch.cumsum(deg, dim=1)], dim=1)          # [B, K+1]
+    total = offs[:, -1]
+    j = offset + torch.arange(cap, dtype=torch.int64, device=dev)  # [cap]
+    # group k holds positions [offs[k], offs[k+1])
+    k_idx = (j[None, :, None] >= offs[:, None, 1:]).sum(dim=-1)
+    k_idx = k_idx.clamp_max(K - 1)
+    base = torch.gather(lo.long(), 1, k_idx)
+    off_k = torch.gather(offs[:, :-1], 1, k_idx)
+    slot = base + (j[None, :] - off_k)
+    ok = (j[None, :] < total[:, None]) & (nodes >= 0)[:, None]
+    s = slot.clamp(0, g.adj_dst.shape[0] - 1)
+    nbr, w, ty, eid = _fetch_slots(g, s, ok, default_id)
+    if sorted_by_id:
+        key = torch.where(ok, nbr, torch.iinfo(torch.int32).max)
+        order = torch.argsort(key, dim=1, stable=True)
+        nbr, w, ty, eid, ok = (torch.gather(x, 1, order)
+                               for x in (nbr, w, ty, eid, ok))
+    return nbr, w, ty, eid, ok

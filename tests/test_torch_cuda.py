@@ -12,7 +12,9 @@ Each kernel must equal its plain PyTorch version bit for bit (the row
 gather's NaN rows compared as integers); the whole slice on the card must
 sample the ids the CPU samples from the same uniforms and give embeddings,
 and a training step's loss and gradients, within rtol = atol = 1e-4 (f32
-on both, different summation order).
+on both, different summation order). The whole-graph autograd Functions
+(``_ell_agg``, ``ell_expand``) and ``scatter_max`` on the card must match
+themselves on the CPU within the same tolerance (exactly for the max).
 """
 import copy
 
@@ -22,12 +24,13 @@ import torch
 
 from chip_smoke import int_view, synthetic_fan_pack, synthetic_union_pack
 from euler_tpu_torch import bench
-from euler_tpu_torch.dataflow import SageDataFlow
+from euler_tpu_torch.dataflow import SageDataFlow, WholeDataFlow
+from euler_tpu_torch.dataflow import block as block_lib
 from euler_tpu_torch.datasets import random_graph
 from euler_tpu_torch.models import GNNNet, ShallowEncoder, SuperviseModel
 from euler_tpu_torch.ops import fan_draw as fd
 from euler_tpu_torch.ops import gather_rows as gr
-from euler_tpu_torch.ops import sampling
+from euler_tpu_torch.ops import mp_ops, sampling
 
 pytestmark = pytest.mark.cuda
 
@@ -311,3 +314,108 @@ def test_train_step_on_card_matches_cpu(dev):
     for k in gk:
         np.testing.assert_allclose(gk[k].numpy(), gc[k].numpy(), rtol=1e-4,
                                    atol=1e-4, err_msg=k)
+
+
+# ---------------------------------------------------- whole-graph gcn --
+
+def ell_block(dev, n=3000):
+    graph = random_graph(n, 25, feat_dim=16, n_classes=4, seed=0,
+                         packs=("ell",), device=dev)
+    roots = torch.arange(n, dtype=torch.int32, device=dev)
+    return graph, WholeDataFlow(1, [(0,)])(graph.tensors, roots)[0]
+
+
+def grads_on(where, fn, tensors, cot):
+    """fn(*tensors) on ``where`` and the gradient of <out, cot> for each
+    tensor, all returned on the CPU."""
+    ins = [x.to(where).detach().requires_grad_(x.is_floating_point())
+           for x in tensors]
+    out = fn(*ins)
+    diff = [x for x in ins if x.requires_grad]
+    grads = torch.autograd.grad(out, diff, cot.to(where))
+    return out.detach().cpu(), [g.cpu() for g in grads]
+
+
+def test_ell_agg_on_card_matches_cpu(dev):
+    _, blk = ell_block(dev)
+    T, C = blk.size[0], blk.fanout
+    gen = torch.Generator(device=dev).manual_seed(5)
+    nbr = blk.n_id[T:].reshape(T, C)
+    x = torch.randn((T, 32), generator=gen, device=dev)
+    w_s = torch.rand((T, C), generator=gen, device=dev) * (nbr >= 0)
+    w_l = torch.rand((T,), generator=gen, device=dev)
+    cot = torch.randn((T, 32), generator=gen, device=dev)
+
+    def fn(x, w_s, w_l, nbr, tpos):
+        return block_lib._ell_agg(C, x, w_s, w_l, nbr, tpos)
+    args = (x, w_s, w_l, nbr, blk.ell_tpos)
+    out_k, grads_k = grads_on(dev, fn, args, cot)
+    out_c, grads_c = grads_on("cpu", fn, args, cot)
+    np.testing.assert_allclose(out_k.numpy(), out_c.numpy(), rtol=1e-4,
+                               atol=1e-4)
+    assert len(grads_k) == 3
+    for a, b in zip(grads_k, grads_c):
+        np.testing.assert_allclose(a.numpy(), b.numpy(), rtol=1e-4,
+                                   atol=1e-4)
+
+
+def test_ell_expand_on_card_matches_cpu(dev):
+    _, blk = ell_block(dev)
+    gen = torch.Generator(device=dev).manual_seed(6)
+    x = torch.randn((blk.size[0], 8), generator=gen, device=dev)
+    cot = torch.randn((blk.size[1], 8), generator=gen, device=dev)
+    args = (x, blk.n_id, blk.ell_tpos)
+    out_k, (gk,) = grads_on(dev, block_lib.ell_expand, args, cot)
+    out_c, (gc,) = grads_on("cpu", block_lib.ell_expand, args, cot)
+    assert torch.equal(out_k, out_c)
+    np.testing.assert_allclose(gk.numpy(), gc.numpy(), rtol=1e-4, atol=1e-4)
+
+
+def test_scatter_max_ties_on_card_match_cpu(dev):
+    gen = torch.Generator(device=dev).manual_seed(7)
+    u = torch.randint(-3, 4, (5000, 4), generator=gen, device=dev).float()
+    idx = torch.randint(0, 900, (5000,), generator=gen, device=dev)
+    cot = torch.randn((1000, 4), generator=gen, device=dev)
+
+    def fn(u, idx):
+        return mp_ops.scatter_max(u, idx, 1000)
+    out_k, (gk,) = grads_on(dev, fn, (u, idx), cot)
+    out_c, (gc,) = grads_on("cpu", fn, (u, idx), cot)
+    assert torch.equal(out_k, out_c) and (out_k[900:] == 0).all()
+    np.testing.assert_allclose(gk.numpy(), gc.numpy(), rtol=1e-6, atol=1e-6)
+
+
+def test_gcn_step_on_card_matches_cpu(dev):
+    # a small gcn step over every node: loss and gradients card vs CPU,
+    # 2 gather launches on the card; the edge list (index_add_ in no fixed
+    # order) within 1e-4 of the ELL pack
+    graph, _ = ell_block(dev)
+    gen = torch.Generator().manual_seed(0)
+    net = GNNNet("gcn", WholeDataFlow(2, [(0,)]), (16, 8),
+                 ShallowEncoder(("feature",)), in_dim=16, generator=gen)
+    model = SuperviseModel(net, "label", 4, generator=gen)
+    roots = torch.arange(3000, dtype=torch.int32, device=dev)
+    cpu = torch.device("cpu")
+    before = gr.gather_rows.launches
+    runs = []
+    for m, g, r in ((model, graph.tensors, roots),
+                    (copy.deepcopy(model).to(cpu), graph.tensors.to(cpu),
+                     roots.cpu())):
+        loss = m(g, r)["loss"]
+        loss.backward()
+        runs.append((loss.detach().cpu(),
+                     {k: p.grad.cpu() for k, p in m.named_parameters()}))
+    assert gr.gather_rows.launches == before + 2
+    (lk, gk), (lc, gc) = runs
+    np.testing.assert_allclose(lk.numpy(), lc.numpy(), rtol=1e-4, atol=1e-4)
+    assert len(gk) == 5
+    for k in gk:
+        np.testing.assert_allclose(gk[k].numpy(), gc[k].numpy(), rtol=1e-4,
+                                   atol=1e-4, err_msg=k)
+    edge_list = copy.deepcopy(model)
+    edge_list.embedder.flow = WholeDataFlow(2, [(0,)], layout="edge_list")
+    with torch.no_grad():
+        a = model(graph.tensors, roots)["embedding"]
+        b = edge_list(graph.tensors, roots)["embedding"]
+    np.testing.assert_allclose(a.cpu().numpy(), b.cpu().numpy(), rtol=1e-4,
+                               atol=1e-4)
