@@ -105,17 +105,51 @@ Phases, in order; any failure propagates and the exit code is not 0:
               _ell_agg alone (forward, and the backward to x) in bf16 and
               f32 beside its bytes bound and, in f32, torch.sparse.mm; two
               steps of the bench's bf16 model profiled, with peak memory
+ 12c. transe bench.py's transe mode (f32) on random_graph(100_000, 25,
+              seed=0, num_edge_types=16, packs=()), whose edge alias
+              tables (17 type offsets) must be on the card: sample_edge
+              card vs CPU bit for bit on the same graph moved with .to
+              (counts 1, 4096 and 4097, every type and type 3);
+              EdgeEstimator(TransE at 100 wide, 5 negatives, batch 4096,
+              Adam 1e-3): 8 train steps, one step card vs CPU (loss and
+              every gradient within 1e-4), evaluate (mrr) of 4096 sampled
+              triples, evaluate_ranking of 256 triples both ways,
+              unfiltered and filtered by 100,000 sampled triples, ranks
+              card vs CPU equal but for near ties (candidates within
+              twice the 1e-4 card-vs-CPU tolerance of the true score,
+              whose scores must agree within it), infer of 8192
+              triples; TransH, TransR, TransD and DistMult at the same
+              width, the forward card vs CPU within 1e-4 and one step
+              each; neither kernel launched in the whole phase; two steps
+              profiled, with peak memory
+ 12d. unsup   unsupervised GraphSAGE (UnsuperviseModel over two sage
+              GNNNet towers, SageDataFlow([10, 10]), dims (128, 128), 20
+              negatives, f32) on the graph of phase 5: both kernels
+              against their plain versions, bit for bit and timed beside
+              their bounds, at the step's shapes on its own frontiers
+              and ids (the K=1 positive hop, the negatives tower's hops
+              of 20,480 and 225,280 nodes, its 2,478,080-row feature
+              gather); infer of 8192 ids
+              with 7 fan_draw launches a batch (the positive hop, then 2
+              hops in each of the 3 tower calls) and 3 gather_rows (one
+              per tower call), two batches profiled; evaluate (mrr) of
+              4096 roots; one step card vs CPU (equal positives,
+              negatives and tower blocks, loss and gradients within 1e-4);
+              8 train steps with 7 and 3 launches a step and the
+              reservoir redraw, two profiled
  13. bench    the port's bench (euler_tpu_torch/bench.py) in each mode,
-              sage, gin, gat, rgcn and gcn, at bench.py's width, bf16
-              activations: warmup,
+              sage, gin, gat, rgcn, gcn and transe, at bench.py's width,
+              bf16 activations in the GNN modes (transe is f32): warmup,
               single_loop and pipelined JSON lines; each kernel 2
               launches per step in the sampled modes, gather_rows 2 and
-              fan_draw none in gcn
+              fan_draw none in gcn, neither in transe
  14. report   one JSON line of kernels (the gather's f32 and bf16 times,
               also at gcn's shape, fan_draw's launch floor, its paths'
               crossover and its union shapes, each kernel's launches on
               every path and ptxas figures), then the last line
               {"ok": true, "device": {...}}
+
+Phases 12c and 12d run after 12, and 12b after them.
 
 It exits non-zero, with no result line, where torch.cuda.is_available()
 is false or the euler_tpu_torch package is missing.
@@ -126,6 +160,7 @@ import argparse
 import concurrent.futures
 import copy
 import ctypes
+import dataclasses
 import json
 import os
 import re
@@ -142,11 +177,13 @@ import torch
 from euler_tpu_torch import bench
 from euler_tpu_torch._build import (NVCC_FLAGS, PACKAGE_DIR,
                                     build_shared_library, nvcc)
-from euler_tpu_torch.dataflow import WholeDataFlow
+from euler_tpu_torch.dataflow import SageDataFlow, WholeDataFlow
 from euler_tpu_torch.dataflow import block as block_lib
 from euler_tpu_torch.datasets import random_graph
-from euler_tpu_torch.estimator import NodeEstimator, RunConfig
-from euler_tpu_torch.models import convs
+from euler_tpu_torch.estimator import (EdgeEstimator, NodeEstimator,
+                                       RunConfig, get_optimizer)
+from euler_tpu_torch.models import (GNNNet, ShallowEncoder, UnsuperviseModel,
+                                    convs, kg)
 from euler_tpu_torch.native import loader as native
 from euler_tpu_torch.ops import fan_draw as fd
 from euler_tpu_torch.ops import gather_rows as gr
@@ -172,6 +209,21 @@ TRAIN_STEPS, TRAIN_REFRESH = 8, 3
 # the widths of random_graph(100_000, 25, seed=0)'s ELL pack
 GCN_NODES = bench.GCN_SIZES["cuda"][0]
 GCN_C, GCN_C_IN = 53, 49
+# bench.py's transe mode: its graph and batch, the ranking's triples and
+# batch (trap: [batch, N, 100] f32 scores), the known triples of the
+# filtered setting, the triples served
+TRANSE_NODES, TRANSE_BATCH = bench.TRANSE_SIZES["cuda"][:2]
+RANK_TRIPLES, RANK_BATCH, FILTER_TRIPLES = 256, 64, 100_000
+KG_FAMILY = (kg.TransH, kg.TransR, kg.TransD, kg.DistMult)
+# unsupervised GraphSAGE (examples/graphsage/run_graphsage.py's fanouts):
+# a step embeds B roots, B positives and B * 20 negatives; it launches
+# fan_draw for the positive hop and 2 hops in each of 3 tower calls, and
+# gather_rows once per tower call
+UNSUP_FANOUTS, UNSUP_NEGS = [10, 10], 20
+UNSUP_ROOTS = BATCH * (2 + UNSUP_NEGS)
+UNSUP_EDGES_PER_BATCH = UNSUP_ROOTS * (
+    UNSUP_FANOUTS[0] * (2 + UNSUP_FANOUTS[1]) + 1)
+UNSUP_LAUNCHES = dict(fan_draw=1 + 2 * 3, gather_rows=3)
 
 
 def reset_counts() -> None:
@@ -898,10 +950,11 @@ def check_redraw(before, g, rng, pack: str = "fan") -> dict:
                 lanes_changed=float(changed.float().mean()))
 
 
-def phase_train(model, graph, dev, seed: int = 0):
+def phase_train(model, graph, dev, seed: int = 0, per_step=None):
     """``seed`` seeds the run's draws: a run on a graph whose reservoir
     an earlier run redrew needs another, or its redraws repeat the
-    earlier run's and change nothing."""
+    earlier run's and change nothing. ``per_step``: each kernel's
+    launches a step (default: 2 of each)."""
     cfg = RunConfig(batch_size=BATCH, total_steps=TRAIN_STEPS,
                     optimizer="adam", learning_rate=1e-3,
                     log_steps=TRAIN_STEPS, reservoir_refresh=TRAIN_REFRESH,
@@ -919,7 +972,8 @@ def phase_train(model, graph, dev, seed: int = 0):
     torch.cuda.synchronize()
     train_s = time.perf_counter() - t0
     launches = read_counts()
-    want = dict(fan_draw=2 * TRAIN_STEPS, gather_rows=2 * TRAIN_STEPS)
+    per_step = per_step or dict(fan_draw=2, gather_rows=2)
+    want = {k: n * TRAIN_STEPS for k, n in per_step.items()}
     check(launches == want, f"launches in train {launches}, want {want}")
     check(bool(np.isfinite(res["loss"])), f"train loss {res['loss']}")
     r = torch.stack(roots)
@@ -1242,15 +1296,393 @@ def phase_gcn(dev):
     return out
 
 
+# -------------------------------------------------------------- phase 12c --
+
+def kg_model(cls, dev):
+    """A TransX-family model at bench.py's transe width, weights from
+    seed 0."""
+    return cls(n_entities=TRANSE_NODES, n_relations=bench.TRANSE_RELATIONS,
+               ent_dim=bench.TRANSE_DIM, rel_dim=bench.TRANSE_DIM,
+               num_negs=bench.TRANSE_NEGS, device=dev,
+               generator=torch.Generator().manual_seed(0))
+
+
+def edge_triples(g, n: int, gen) -> torch.Tensor:
+    """int32 [n, 3] (src, dst, etype) from sample_edge over every type."""
+    return torch.stack(sampling.sample_edge(g, n, -1, gen)[:3], 1)
+
+
+def kg_step(model, g, batch, uniforms) -> tuple:
+    """One step's outputs and every parameter's gradient (on the CPU), on
+    a copy of ``model``."""
+    m = copy.deepcopy(model)
+    m.train()
+    out = m(g, batch, uniforms=uniforms)
+    out["loss"].backward()
+    return ({k: v.detach().cpu() for k, v in out.items()},
+            {k: p.grad.cpu() for k, p in m.named_parameters()})
+
+
+def check_ranks(model, g, model_cpu, g_cpu, triples, r_card, r_cpu,
+                what) -> dict:
+    """Full-entity ranks ('both': tail, then head) card vs CPU: equal,
+    except where a candidate's order against the true one may flip
+    between the two. For each triple whose ranks differ, its scores are
+    taken again on both: they must agree within PARITY_TOL, and the ranks
+    may differ by no more than the candidates whose CPU score lies within
+    twice that tolerance of the true one (the scores are about 16 in
+    magnitude, where one f32 step is 1.9e-6). Returns the count of such
+    triples and the largest score difference seen."""
+    T = len(triples)
+    bad = np.nonzero(r_card != r_cpu)[0]
+    tol = PARITY_TOL["atol"]
+    worst = 0.0
+    for i in bad:
+        d = "tail" if i < T else "head"
+        row = torch.from_numpy(triples[i % T][None])
+        with torch.no_grad():
+            s_k = model.rank_against_all(g, row.to(g.device), d)[0].cpu()
+            s_c = model_cpu.rank_against_all(g_cpu, row, d)[0]
+        worst = max(worst, float((s_k - s_c).abs().max()))
+        check(torch.allclose(s_k, s_c, **PARITY_TOL),
+              f"{what} scores of triple {i % T} ({d}) card vs CPU")
+        tgt = int(row[0, 1 if d == "tail" else 0])
+        near = (s_c - s_c[tgt]).abs() <= 2 * tol
+        near[tgt] = False
+        check(int(near.sum()) >= abs(int(r_card[i]) - int(r_cpu[i])),
+              f"{what} rank of triple {i % T} ({d}): card {r_card[i]}, CPU "
+              f"{r_cpu[i]}, with {int(near.sum())} candidates within "
+              f"{2 * tol} of the true score")
+    return dict(rank_mismatches=len(bad), mismatch_score_max_diff=worst,
+                rank_max_abs_diff=int(np.abs(r_card - r_cpu).max()))
+
+
+def phase_transe(dev):
+    """bench.py's transe mode at its width: the 16-type graph with no
+    pack; sample_edge card vs CPU bit for bit (counts 1, 4096 and 4097,
+    every type and type 3); TransE through EdgeEstimator: 8 train steps,
+    one step card vs CPU (loss and gradients within 1e-4), evaluate (mrr)
+    of 4096 triples, full-entity ranking of 256 triples both ways,
+    unfiltered and filtered by 100,000 sampled triples (ranks card vs CPU
+    under ``check_ranks``' near-tie rule), infer of 8192 triples; TransH, TransR,
+    TransD and DistMult one step each (forward card vs CPU within 1e-4);
+    no kernel launch in the whole phase; two TransE steps profiled, with
+    peak memory."""
+    t0 = time.perf_counter()
+    graph = random_graph(TRANSE_NODES, AVG_DEGREE, seed=0,
+                         num_edge_types=bench.TRANSE_RELATIONS, packs=())
+    g = graph.tensors
+    ea = g.edge_alias
+    check(ea.prob.device.type == dev.type and g.fan_pack is None
+          and ea.type_ptr.numel() == bench.TRANSE_RELATIONS + 1,
+          "the transe graph: 16 edge types' alias tables on the card, no "
+          "pack")
+    out = dict(graph_s=time.perf_counter() - t0,
+               edges=int(graph.meta.n_edges))
+    cpu = torch.device("cpu")
+    g_cpu = g.to(cpu)
+    reset_counts()
+
+    # the edge draw: card vs CPU from the same uniforms, bit for bit
+    gen = torch.Generator(device=dev).manual_seed(21)
+    for count in (1, 4096, 4097):
+        for edge_type in (-1, 3):
+            u = sampling.draw_edge_uniforms(gen, count, dev)
+            got = sampling.select_edges(g, edge_type, *u)
+            want = sampling.select_edges(g_cpu, edge_type,
+                                         *(x.cpu() for x in u))
+            check(all(torch.equal(a.cpu(), b) for a, b in zip(got, want)),
+                  f"sample_edge card != CPU at {count}, type {edge_type}")
+            check(bool((got[0] >= 0).all()), "every drawn edge is valid")
+    out["sample_edge_bit_exact"] = True
+
+    # training
+    model = kg_model(kg.TransE, dev)
+    cfg = RunConfig(batch_size=TRANSE_BATCH, total_steps=TRAIN_STEPS,
+                    optimizer="adam", learning_rate=bench.LR,
+                    log_steps=TRAIN_STEPS, reservoir_refresh=0, metric="mrr")
+    est = EdgeEstimator(model, graph, cfg, device=dev)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    res = est.train(log_fn=log)
+    torch.cuda.synchronize()
+    train_s = time.perf_counter() - t0
+    check(bool(np.isfinite(res["loss"])), f"transe train loss {res['loss']}")
+    out["train"] = dict(loss=res["loss"],
+                        train_ms_per_step=train_s / TRAIN_STEPS * 1e3,
+                        peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9)
+
+    # one step card vs CPU from the same weights, triples and negatives
+    gen = torch.Generator(device=dev).manual_seed(22)
+    batch = est.train_batch(g, gen)
+    u = sampling.draw_node_uniforms(gen, TRANSE_BATCH * bench.TRANSE_NEGS,
+                                    dev)
+    (ok, gk), (oc, gc) = (
+        kg_step(model, g, batch, u),
+        kg_step(copy.deepcopy(model).to(cpu), g_cpu, batch.cpu(),
+                [x.cpu() for x in u]))
+    diffs = {k: float((gk[k] - gc[k]).abs().max()) for k in gk}
+    check(torch.allclose(ok["loss"], oc["loss"], **PARITY_TOL),
+          f"transe loss card {float(ok['loss'])} vs CPU {float(oc['loss'])}")
+    for k in gk:
+        check(torch.allclose(gk[k], gc[k], **PARITY_TOL),
+              f"transe gradient of {k}: card vs CPU max abs diff {diffs[k]}")
+    out["grads"] = dict(loss_card=float(ok["loss"]),
+                        loss_cpu=float(oc["loss"]),
+                        grad_max_abs_diff=max(diffs.values()))
+
+    # evaluate, full-entity ranking and infer
+    ev = est.evaluate(edge_triples(g, 4096, gen).cpu().numpy())
+    check(0 < ev["mrr"] <= 1 and np.isfinite(ev["loss"]),
+          f"transe evaluate {ev}")
+    out["evaluate"] = ev
+    rank_est = EdgeEstimator(model, graph, dataclasses.replace(
+        cfg, batch_size=RANK_BATCH), device=dev)
+    model_cpu = copy.deepcopy(model).to(cpu)
+    rank_triples = edge_triples(g, RANK_TRIPLES, gen).cpu().numpy()
+    known = edge_triples(g, FILTER_TRIPLES, gen).cpu().numpy()
+    out["ranking"] = {}
+    for name, fk in (("unfiltered", None), ("filtered", known)):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        summary = rank_est.evaluate_ranking(rank_triples, "both", fk)
+        card_s = time.perf_counter() - t0
+        r_card = kg.entity_ranks(model, g, rank_triples, RANK_BATCH, "both",
+                                 fk)
+        t0 = time.perf_counter()
+        # the CPU in batches of 16: [16, 100,000, 100] f32 temporaries
+        r_cpu = kg.entity_ranks(model_cpu, g_cpu, rank_triples, 16, "both",
+                                fk)
+        cpu_s = time.perf_counter() - t0
+        check(summary["mr"] == float(r_card.mean()),
+              f"evaluate_ranking's mr {summary['mr']} vs its ranks")
+        out["ranking"][name] = dict(
+            summary, **check_ranks(model, g, model_cpu, g_cpu, rank_triples,
+                                   r_card, r_cpu, name),
+            card_s=card_s, cpu_s=cpu_s)
+    check(out["ranking"]["filtered"]["mr"]
+          <= out["ranking"]["unfiltered"]["mr"], "filtering lowers no rank")
+    del model_cpu
+    emb = est.infer(edge_triples(g, N_INFER, gen).cpu().numpy())
+    check(emb.shape == (N_INFER, bench.TRANSE_DIM)
+          and bool(np.isfinite(emb).all()), f"transe infer {emb.shape}")
+
+    # the rest of the family: the forward card vs CPU, then one step
+    out["family"] = {}
+    for cls in KG_FAMILY:
+        m = kg_model(cls, dev)
+        e = EdgeEstimator(m, graph, cfg, device=dev)
+        batch = e.train_batch(g, gen)
+        u = sampling.draw_node_uniforms(
+            gen, TRANSE_BATCH * bench.TRANSE_NEGS, dev)
+        with torch.no_grad():
+            fk = m(g, batch, uniforms=u)
+            fc = copy.deepcopy(m).to(cpu)(g_cpu, batch.cpu(),
+                                          uniforms=[x.cpu() for x in u])
+        diff = max(float((fk[k].cpu() - fc[k]).abs().max())
+                   for k in ("loss", "logits", "neg_logits", "embedding"))
+        check(all(torch.allclose(fk[k].cpu(), fc[k], **PARITY_TOL)
+                  for k in ("loss", "logits", "neg_logits", "embedding")),
+              f"{cls.__name__} forward card vs CPU: max abs diff {diff}")
+        opt = get_optimizer("adam", bench.LR, m.parameters())
+        loss = float(e.step(opt, batch, uniforms=u))
+        check(np.isfinite(loss), f"{cls.__name__} train loss {loss}")
+        out["family"][cls.__name__] = dict(loss=loss,
+                                           forward_max_abs_diff=diff)
+        del m, e, opt
+    del g_cpu
+
+    # the profile of two bench steps
+    opt = get_optimizer("adam", bench.LR, model.parameters())
+    for _ in range(2):
+        est.step(opt, est.train_batch(g, gen), generator=gen)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    prof = profile(lambda: [est.step(opt, est.train_batch(g, gen),
+                                     generator=gen) for _ in range(2)],
+                   "2 transe train steps")
+    out["profile"] = dict(
+        host_ms=prof["host_ms"], device_busy_ms=prof["device_busy_ms"],
+        device_idle_share=prof["device_idle_share"],
+        kernels=prof["kernels"][:6],
+        peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9)
+    launches = read_counts()
+    check(launches == dict(fan_draw=0, gather_rows=0),
+          f"launches in the transe phase {launches}, want none")
+    out["launches"] = launches
+    log(f"transe: {json.dumps(out)}")
+    return out
+
+
+# -------------------------------------------------------------- phase 12d --
+
+def unsup_model(dev) -> UnsuperviseModel:
+    """Unsupervised GraphSAGE at the bench's dims: two sage towers over
+    SageDataFlow([10, 10]) on the 128-wide feature, one edge type, 20
+    negatives; weights from seed 0."""
+    gen = torch.Generator().manual_seed(0)
+
+    def net():
+        return GNNNet("sage", SageDataFlow(UNSUP_FANOUTS, [(0,)] * 2), DIMS,
+                      ShallowEncoder(("feature",)), in_dim=FEAT_DIM,
+                      device=dev, generator=gen)
+    return UnsuperviseModel(net(), net(), (0,), num_negs=UNSUP_NEGS,
+                            device=dev)
+
+
+def phase_unsup_grads(model, graph, dev) -> dict:
+    """One step card vs CPU from the same weights, roots and uniforms (in
+    ``UnsuperviseModel``'s order): equal positives, negatives and tower
+    blocks, loss and every gradient within 1e-4."""
+    g = graph.tensors
+    gen = torch.Generator(device=dev).manual_seed(23)
+    roots = sampling.sample_node(g, BATCH, -1, gen)
+    B, n_neg = BATCH, model.num_negs
+    u_pos = sampling.draw_neighbor_uniforms(g, model.edge_types, gen, B, 1,
+                                            dev)
+    u_neg = sampling.draw_node_uniforms(gen, B * n_neg, dev)
+    cpu = torch.device("cpu")
+    g_cpu = g.to(cpu)
+    with torch.no_grad():
+        pos, _ = sampling.select_neighbors(g, roots, model.edge_types, u_pos)
+        negs = sampling.select_nodes(g, model.node_type, *u_neg)
+        pos_c, _ = sampling.select_neighbors(g_cpu, roots.cpu(),
+                                             model.edge_types,
+                                             [x.cpu() for x in u_pos])
+        negs_c = sampling.select_nodes(g_cpu, model.node_type,
+                                       *(x.cpu() for x in u_neg))
+        check(torch.equal(pos.cpu(), pos_c) and torch.equal(negs.cpu(),
+                                                            negs_c),
+              "unsupervised positives and negatives card != CPU")
+        towers = []
+        for net, r in ((model.embedder, roots),
+                       (model.context_embedder, pos[:, 0]),
+                       (model.context_embedder, negs)):
+            u = hop_uniforms(net.flow, g, r, gen)
+            u_c = [tuple(x.cpu() for x in hop) for hop in u]
+            same_blocks(net.flow, g, r, u, g_cpu, u_c)
+            towers.append((u, u_c))
+    uniforms = [u_pos, u_neg] + [u for u, _ in towers]
+    u_cpu = [[x.cpu() for x in u_pos], [x.cpu() for x in u_neg]] + [
+        u_c for _, u_c in towers]
+    (ok, gk), (oc, gc) = (
+        kg_step(model, g, roots, uniforms),
+        kg_step(copy.deepcopy(model).to(cpu), g_cpu, roots.cpu(), u_cpu))
+    check(torch.allclose(ok["loss"], oc["loss"], **PARITY_TOL),
+          f"unsupervised loss card {float(ok['loss'])} vs CPU "
+          f"{float(oc['loss'])}")
+    diffs = {k: float((gk[k] - gc[k]).abs().max()) for k in gk}
+    for k in gk:
+        check(torch.allclose(gk[k], gc[k], **PARITY_TOL),
+              f"unsupervised gradient of {k}: card vs CPU max abs diff "
+              f"{diffs[k]}")
+    return dict(sampled_ids_equal=True, loss_card=float(ok["loss"]),
+                loss_cpu=float(oc["loss"]),
+                grad_max_abs_diff=max(diffs.values()), n_params=len(diffs),
+                positives_valid=float(ok["pos_mask"].mean()))
+
+
+def unsup_kernel_shapes(model, graph, dev) -> dict:
+    """Both kernels at the shapes the unsupervised step gives them (the
+    positive hop, B=1024 and C=1; the negatives tower's two hops, B=20,480
+    and 225,280 with C=10; its feature gather, 2,478,080 rows of 128 f32),
+    on that tower's own frontiers and ids: each against its plain version
+    bit for bit, and timed (CUDA events, L2 flushed) beside its bytes
+    bound, its plain version and, for the gather, index_select."""
+    g = graph.tensors
+    flush = torch.empty(64 << 20, dtype=torch.uint8, device=dev)
+    gen = torch.Generator(device=dev).manual_seed(24)
+    roots = sampling.sample_node(g, BATCH, -1, gen)
+    negs = sampling.sample_node(g, BATCH * model.num_negs, -1, gen)
+    blocks = model.context_embedder.flow(g, negs, generator=gen)
+    draws, gathers = [], []
+    for nodes, C in ((roots, 1), (negs, UNSUP_FANOUTS[0]),
+                     (blocks[-1].n_id, UNSUP_FANOUTS[1])):
+        u1, u2 = sampling.draw_fan_uniforms(gen, nodes.shape[0], C, dev)
+        args = (g.fan_pack, nodes, 0, 1, u1, u2, -1)
+        check(all(torch.equal(a, b) for a, b in zip(
+            fd.fan_draw(*args), fd.fan_draw_plain(*args))),
+            f"fan_draw != plain at the unsupervised shape B="
+            f"{nodes.shape[0]} C={C}")
+        nbytes = needed_bytes(g.fan_pack, nodes, u1, u2)
+        draws.append(dict(
+            B=int(nodes.shape[0]), C=C, bit_exact=True,
+            ms=time_launches(lambda: fd.fan_draw(*args), 200, flush),
+            plain_ms=time_launches(lambda: fd.fan_draw_plain(*args), 20,
+                                   flush),
+            bytes=nbytes, bound_ms=nbytes / HBM_BYTES_PER_S * 1e3))
+    table, ids = g.dense_nf["feature"], blocks[0].n_id
+    out = torch.empty((ids.shape[0], table.shape[1]), dtype=table.dtype,
+                      device=dev)
+    check(torch.equal(int_view(gr.gather_rows(table, ids, out)),
+                      int_view(gr.gather_rows_plain(table, ids))),
+          f"gather_rows != plain at the unsupervised shape M={ids.shape[0]}")
+    clamped = ids.clamp(0, table.shape[0] - 1)
+    nbytes = gather_bytes(table, ids)
+    gathers.append(dict(
+        N=int(table.shape[0]), D=int(table.shape[1]), M=int(ids.shape[0]),
+        dtype=str(table.dtype).replace("torch.", ""), bit_exact=True,
+        ms=time_launches(lambda: gr.gather_rows(table, ids, out), 50,
+                         flush),
+        plain_ms=time_launches(lambda: gr.gather_rows_plain(table, ids), 10,
+                               flush),
+        library_ms=time_launches(
+            lambda: torch.index_select(table, 0, clamped), 50, flush),
+        bytes=nbytes, bound_ms=nbytes / HBM_BYTES_PER_S * 1e3))
+    out = dict(fan_draw=draws, gather_rows=gathers)
+    log(f"unsup: kernels {json.dumps(out)}")
+    return out
+
+
+def phase_unsup(graph, dev):
+    """Unsupervised GraphSAGE on the graph of phase 5: infer of 8192 ids
+    (7 fan_draw and 3 gather_rows launches a batch), two batches
+    profiled, evaluate (mrr) of 4096 roots, one step card vs CPU, 8 train
+    steps with the reservoir redraw (7 and 3 launches a step), two
+    profiled."""
+    model = unsup_model(dev)
+    model.eval()
+    kernels = unsup_kernel_shapes(model, graph, dev)
+    with tempfile.TemporaryDirectory() as out_dir:
+        _, infer = phase_infer(
+            model, graph, out_dir, dev,
+            want={k: n * N_INFER // BATCH for k, n in UNSUP_LAUNCHES.items()},
+            edges_per_batch=UNSUP_EDGES_PER_BATCH)
+    prof = phase_profile(model, graph, dev)
+    infer.update(profile_host_ms=prof["host_ms"],
+                 profile_device_busy_ms=prof["device_busy_ms"],
+                 profile_idle_share=prof["device_idle_share"],
+                 profile_complete=prof["kernel_events_complete"])
+    ev = NodeEstimator(model, graph, RunConfig(batch_size=BATCH,
+                                               metric="mrr"),
+                       device=dev).evaluate(np.arange(4096))
+    check(0 < ev["mrr"] <= 1 and np.isfinite(ev["loss"]),
+          f"unsupervised evaluate {ev}")
+    grads = phase_unsup_grads(model, graph, dev)
+    log(f"unsup: grads {json.dumps(grads)}")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    train = phase_train(model, graph, dev, seed=5, per_step=UNSUP_LAUNCHES)
+    train["peak_mem_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    out = dict(infer=infer, evaluate=ev, grads=grads, train=train)
+    log(f"unsup: {json.dumps(out)}")
+    return dict(out, kernels=kernels)
+
+
 # --------------------------------------------------------------- phase 13 --
 
 def phase_bench(dev):
     """Every mode of the port's bench: three lines each; each kernel 2
     launches per step in the sampled modes, gather_rows 2 and fan_draw
-    none in gcn (on the ELL pack), with gcn's peak memory."""
+    none in gcn (on the ELL pack), neither in transe; peak memory of gcn
+    and transe."""
     out = {}
     for mode in bench.MODELS:
-        if mode == "gcn":
+        if mode == "transe":
+            want = dict(fan_draw=0, gather_rows=0)
+            metric = bench.TRANSE_METRIC
+        elif mode == "gcn":
             _, spl, outer = bench.GCN_SIZES["cuda"]
             steps = spl * (2 + outer)
             want = dict(fan_draw=0, gather_rows=2 * steps)
@@ -1276,9 +1708,9 @@ def phase_bench(dev):
         out[mode] = dict(launches=launches,
                          **{f"{r['phase']}_ms_per_step": r["ms_per_step"]
                             for r in records},
-                         **{f"{r['phase']}_edges_per_sec": r["value"]
-                            for r in records})
-        if mode == "gcn":
+                         **{f"{r['phase']}_{r['unit'].split('/')[0]}"
+                            f"_per_sec": r["value"] for r in records})
+        if mode in ("gcn", "transe"):
             out[mode]["peak_mem_gb"] = torch.cuda.max_memory_allocated() / 1e9
         log(f"bench {mode}: {json.dumps(out[mode])}")
     return out
@@ -1401,6 +1833,9 @@ def main() -> int:
     log(f"grads: {json.dumps(grads)}")
     # 12. gin, gat and rgcn
     families = phase_families(graph, dev)
+    # 12c. transe; 12d. unsupervised GraphSAGE on the graph of phase 5
+    transe = phase_transe(dev)
+    unsup = phase_unsup(graph, dev)
     del graph
     # 12b. whole-graph gcn
     gcn = phase_gcn(dev)
@@ -1415,6 +1850,10 @@ def main() -> int:
                               f"{family}_train": res["train"]["launches"],
                               f"bench_{family}":
                                   benched[family]["launches"]})
+    path_launches.update(transe_train=transe["launches"],
+                         bench_transe=benched["transe"]["launches"],
+                         unsup_infer=unsup["infer"]["launches"],
+                         unsup_train=unsup["train"]["launches"])
 
     def by_path(name):
         return {path: n[name] for path, n in path_launches.items()}
@@ -1452,6 +1891,8 @@ def main() -> int:
                                             "turns_ms")}
                          for u in unions],
         "paths_ms": crossover,
+        # the unsupervised step's shapes, on its own frontiers
+        "unsup_shapes": unsup["kernels"]["fan_draw"],
     }, {
         "name": "gather_rows", "route": "cuda",
         "source": "euler_tpu_torch/csrc/gather_rows.cu",
@@ -1480,13 +1921,16 @@ def main() -> int:
                                           "plain_ms", "library_ms",
                                           "copy_ms", "bound_ms", "bytes")}
                        for g in gcn_gathers],
+        # the unsupervised step's negatives tower, on its own ids
+        "unsup_shapes": unsup["kernels"]["gather_rows"],
     }]
     log(json.dumps({"smoke": dict(
         build_s=build_s, graph_s=graph_s,
         total_s=time.perf_counter() - t_start,
         native_core=native.available(), infer=infer, parity=parity,
         train=train, grads=grads, families=families, gcn=gcn,
-        bench=benched)}))
+        transe=transe, unsup={k: v for k, v in unsup.items()
+                              if k != "kernels"}, bench=benched)}))
     log(smi)                # nvidia-smi's name and power limit, as given
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,

@@ -1,7 +1,7 @@
-"""The port's training benchmark: bench.py's sampled modes and its
-whole-graph gcn mode.
+"""The port's training benchmark: bench.py's sampled modes, its
+whole-graph gcn mode and its transe mode.
 
-    python -m euler_tpu_torch.bench [--model sage|gin|gat|rgcn|gcn]
+    python -m euler_tpu_torch.bench [--model sage|gin|gat|rgcn|gcn|transe]
                                     [--gcn-layout ell|edge_list]
     python -m euler_tpu_torch.bench --device cpu    # off-chip sizes
 
@@ -29,15 +29,24 @@ the graph has no pack and every layer scatters over the edge list. Off
 the card: 2,000 nodes, 2 steps per loop, f32. It samples nothing, and
 its graph has no fan rows to redraw.
 
+``transe`` is bench.py's ``_transe_child`` (bench.py:591-671): TransE
+(``models/kg.py``) on ``random_graph(100_000, 25, seed=0,
+num_edge_types=16, packs=())``, 100-wide entity and relation tables in
+f32 (as bench.py: no bf16), 5 negatives, batch 4096 triples drawn each
+step by ``sample_edge`` over every edge type, Adam at 1e-3, 50 steps per
+loop; metric ``transx_triples_per_sec_per_chip``, ``value`` in triples/s
+(batch x steps / seconds). It launches neither kernel. Off the card:
+2,000 nodes, batch 256, 5 steps per loop.
+
 Three phases, as bench.py's: ``warmup`` (the first loop), ``single_loop``
 (one loop, waited for) and ``pipelined`` (4 loops, or 2 off the card,
 waited for once). Each phase prints one line ``ms_per_step ...`` and then
 bench.py's JSON line: metric ``sampled_aggregate_edges_per_sec_per_chip``,
 ``"model"`` the mode, ``value`` in edges/s with bench.py's per-step edge
-count for every mode (bench.py:409-410), ``"vs_baseline": null`` and
-``"platform"`` the torch device type. Every time is a host clock around
-work that ends in reading the loss, which waits for the card. Without
-CUDA and without ``--device cpu`` it raises.
+count for every sampled mode (bench.py:409-410), ``"vs_baseline": null``
+and ``"platform"`` the torch device type. Every time is a host clock
+around work that ends in reading the loss, which waits for the card.
+Without CUDA and without ``--device cpu`` it raises.
 """
 from __future__ import annotations
 
@@ -53,17 +62,21 @@ import torch
 from euler_tpu_torch._device import resolve_device
 from euler_tpu_torch.dataflow import SageDataFlow, WholeDataFlow
 from euler_tpu_torch.datasets import random_graph
-from euler_tpu_torch.estimator import NodeEstimator, RunConfig, get_optimizer
+from euler_tpu_torch.estimator import (EdgeEstimator, NodeEstimator,
+                                       RunConfig, get_optimizer)
 from euler_tpu_torch.graph.meta import FeatureSpec
-from euler_tpu_torch.models import GNNNet, ShallowEncoder, SuperviseModel
+from euler_tpu_torch.models import (GNNNet, ShallowEncoder, SuperviseModel,
+                                    TransE)
 from euler_tpu_torch.ops import sampling
 
 METRIC = "sampled_aggregate_edges_per_sec_per_chip"
 GCN_METRIC = "fullgraph_spmm_edges_per_sec_per_chip"
+TRANSE_METRIC = "transx_triples_per_sec_per_chip"
 AVG_DEGREE, FEAT_DIM, N_CLASSES = 25, 128, 16
 FANOUT, DIMS, LR = [25, 10], (128, 128), 1e-3
 SAMPLED = ("sage", "gin", "gat", "rgcn")
-MODELS = SAMPLED + ("gcn",)
+GNN_MODELS = SAMPLED + ("gcn",)
+MODELS = GNN_MODELS + ("transe",)
 RGCN_TYPES = 4
 GCN_LAYERS = 2
 GCN_LAYOUTS = ("ell", "edge_list")
@@ -71,6 +84,10 @@ GCN_LAYOUTS = ("ell", "edge_list")
 SIZES = {"cuda": (200_000, 1024, 50, 4), "cpu": (5_000, 256, 5, 2)}
 # gcn: (nodes, steps per loop, pipelined loops); every node is a root
 GCN_SIZES = {"cuda": (100_000, 20, 4), "cpu": (2_000, 2, 2)}
+# transe: relations, table width, negatives; and (nodes, batch, steps per
+# loop, pipelined loops) on the card and off it
+TRANSE_RELATIONS, TRANSE_DIM, TRANSE_NEGS = 16, 100, 5
+TRANSE_SIZES = {"cuda": (100_000, 4096, 50, 4), "cpu": (2_000, 256, 5, 2)}
 
 
 def edges_per_step(batch: int) -> int:
@@ -93,8 +110,8 @@ def make_model(model: str, dev, dtype=None,
     types with types (``typed=True``) and feeds them to ``RelationConv``
     as relations; gcn runs ``WholeDataFlow(GCN_LAYERS, [(0,)])``, on the
     ELL pack where the graph has one and on the edge list elsewhere."""
-    if model not in MODELS:
-        raise ValueError(f"bench model {model!r} not in {MODELS}")
+    if model not in GNN_MODELS:
+        raise ValueError(f"bench GNN model {model!r} not in {GNN_MODELS}")
     rgcn = model == "rgcn"
     n_et = RGCN_TYPES if rgcn else 1
     if model == "gcn":
@@ -113,10 +130,11 @@ def make_model(model: str, dev, dtype=None,
 def build(dev: torch.device, n_nodes: int, batch: int,
           steps_per_loop: int, model: str = "sage",
           gcn_layout: str = "ell") -> NodeEstimator:
-    """The graph, features, model and estimator of the bench's ``model``
-    mode on ``dev``; activations are bf16 on CUDA and f32 elsewhere."""
-    if model not in MODELS:
-        raise ValueError(f"bench model {model!r} not in {MODELS}")
+    """The graph, features, model and estimator of the bench's GNN
+    ``model`` mode on ``dev``; activations are bf16 on CUDA and f32
+    elsewhere."""
+    if model not in GNN_MODELS:
+        raise ValueError(f"bench GNN model {model!r} not in {GNN_MODELS}")
     if gcn_layout not in GCN_LAYOUTS:
         raise ValueError(f"gcn layout {gcn_layout!r} not in {GCN_LAYOUTS}")
     rgcn = model == "rgcn"
@@ -145,35 +163,64 @@ def build(dev: torch.device, n_nodes: int, batch: int,
     return NodeEstimator(sup, graph, cfg, device=dev)
 
 
+def build_transe(dev: torch.device, n_nodes: int,
+                 batch: int) -> EdgeEstimator:
+    """bench.py's transe graph and model on ``dev``: TransE over
+    ``n_nodes`` entities and TRANSE_RELATIONS edge types, f32 tables from
+    seed 0, an ``EdgeEstimator`` that draws ``batch`` triples a step."""
+    graph = random_graph(n_nodes, AVG_DEGREE, seed=0,
+                         num_edge_types=TRANSE_RELATIONS, packs=(),
+                         device=dev)
+    model = TransE(n_entities=n_nodes, n_relations=TRANSE_RELATIONS,
+                   ent_dim=TRANSE_DIM, rel_dim=TRANSE_DIM,
+                   num_negs=TRANSE_NEGS, device=dev,
+                   generator=torch.Generator().manual_seed(0))
+    cfg = RunConfig(batch_size=batch, optimizer="adam", learning_rate=LR,
+                    log_steps=0, reservoir_refresh=0)
+    return EdgeEstimator(model, graph, cfg, device=dev)
+
+
 def run(device=None, log: Callable = print, model: str = "sage",
         gcn_layout: str = "ell") -> List[dict]:
     """Run the three phases of the ``model`` mode; ``log`` gets each
     output line. Returns the JSON records, each with its ``ms_per_step``
     added."""
+    if model not in MODELS:
+        raise ValueError(f"bench model {model!r} not in {MODELS}")
     dev = resolve_device(device)
     where = "cuda" if dev.type == "cuda" else "cpu"
+    # per step: the count the metric reads, and its unit
     if model == "gcn":
         n_nodes, spl, outer = GCN_SIZES[where]
         batch = n_nodes
-        edges, metric = gcn_edges_per_step(n_nodes), GCN_METRIC
+        count, metric = gcn_edges_per_step(n_nodes), GCN_METRIC
+        unit = "edges/s"
         config = f"full_n{n_nodes}_e{n_nodes * AVG_DEGREE}_l{GCN_LAYERS}"
+    elif model == "transe":
+        n_nodes, batch, spl, outer = TRANSE_SIZES[where]
+        count, metric, unit = batch, TRANSE_METRIC, "triples/s"
+        config = (f"b{batch}_negs{TRANSE_NEGS}_n{n_nodes}"
+                  f"_r{TRANSE_RELATIONS}")
     else:
         n_nodes, batch, spl, outer = SIZES[where]
-        edges, metric = edges_per_step(batch), METRIC
+        count, metric = edges_per_step(batch), METRIC
+        unit = "edges/s"
         config = f"b{batch}_f{FANOUT[0]}x{FANOUT[1]}_n{n_nodes}"
-    est = build(dev, n_nodes, batch, spl, model, gcn_layout)
+    est = (build_transe(dev, n_nodes, batch) if model == "transe" else
+           build(dev, n_nodes, batch, spl, model, gcn_layout))
     g = est.graph.tensors
     opt = get_optimizer("adam", LR, est.model.parameters())
     gen = torch.Generator(device=dev).manual_seed(2)
     every_node = torch.arange(n_nodes, dtype=torch.int32, device=dev)
 
     def roots():
+        # gcn: every node; transe: sampled triples; else: sampled roots
         return every_node if model == "gcn" else est.train_batch(g, gen)
 
     def run_loop():
         # one redraw of the fan reservoir per loop, as bench.py's run_loop
-        # (which has none for rgcn's union rows; gcn's graph has no fan
-        # rows)
+        # (which has none for rgcn's union rows; the graphs of gcn and
+        # transe have no fan rows)
         if model in ("sage", "gin", "gat"):
             sampling.refresh_fan_pack(g, gen)
         for _ in range(spl):
@@ -184,9 +231,9 @@ def run(device=None, log: Callable = print, model: str = "sage",
 
     def record(loops: int, seconds: float, phase: str):
         steps = loops * spl
-        value = edges * steps / seconds
+        value = count * steps / seconds
         out = {"metric": metric, "model": model, "value": round(value, 1),
-               "unit": "edges/s", "vs_baseline": None,
+               "unit": unit, "vs_baseline": None,
                "platform": dev.type, "phase": phase, "config": config}
         ms = seconds / steps * 1e3
         log(f"ms_per_step {phase} {ms:.4f}")

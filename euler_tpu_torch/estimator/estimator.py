@@ -3,9 +3,10 @@
 Counterpart of euler_tpu/estimator/estimator.py (reference:
 euler_estimator/python/base_estimator.py:28-188, node_estimator.py:26):
 ``RunConfig``, ``get_optimizer``, ``BaseEstimator.train``/``evaluate``/
-``infer`` and ``NodeEstimator``. The reference's jitted step with optax
-becomes an eager step with autograd and a torch.optim optimizer. Not
-ported yet: ``steps_per_loop``, checkpoints and the profiler hook.
+``infer``, ``NodeEstimator`` and ``EdgeEstimator`` (edge_estimator.py:27).
+The reference's jitted step with optax becomes an eager step with
+autograd and a torch.optim optimizer. Not ported yet: ``steps_per_loop``,
+checkpoints and the profiler hook.
 """
 from __future__ import annotations
 
@@ -19,6 +20,7 @@ import torch
 
 from euler_tpu_torch._device import resolve_device
 from euler_tpu_torch.graph.store import Graph
+from euler_tpu_torch.models.kg import rank_all_entities
 from euler_tpu_torch.ops import sampling
 from euler_tpu_torch.utils import metrics as metrics_lib
 
@@ -139,38 +141,50 @@ class BaseEstimator:
             outs.append(fn(g, batch, gen))
         return outs, n
 
+    def _check_ids(self, ids: np.ndarray) -> None:
+        """Raise if ``ids`` is not what the model takes."""
+
     def evaluate(self, ids: Sequence[int]) -> Dict[str, float]:
         """The config's metric and the mean batch loss over ``ids``
-        (reference: estimator.py:273-314, supervised branch)."""
+        (reference: estimator.py:273-314): f1 or accuracy of the logits
+        against the labels for a supervised model, and for a model without
+        ``logit`` (the unsupervised and KG heads) the metric of the
+        positives' ``logits`` against their ``neg_logits``."""
         name = self.config.metric
         metric = metrics_lib.get(name)
+        ids = np.asarray(ids, np.int32)
+        self._check_ids(ids)
 
         def run(g, batch, gen):
             return self.model(g, batch, generator=gen)
 
         self.model.eval()
         with torch.no_grad():
-            outs, n = self._batched_apply(np.asarray(ids, np.int32), run)
-            if "logit" not in outs[0]:
-                raise NotImplementedError(
-                    "evaluate is ported for supervised models (logit and "
-                    "label outputs) only")
-            logits = torch.cat([o["logit"] for o in outs])[:n]
-            labels = torch.cat([o["label"] for o in outs])[:n]
-            if name == "f1":
-                val = metric(labels, torch.sigmoid(logits))
+            outs, n = self._batched_apply(ids, run)
+            if "logit" in outs[0]:
+                logits = torch.cat([o["logit"] for o in outs])[:n]
+                labels = torch.cat([o["label"] for o in outs])[:n]
+                if name == "f1":
+                    val = metric(labels, torch.sigmoid(logits))
+                else:
+                    val = metric(labels, logits)
             else:
-                val = metric(labels, logits)
+                pos = torch.cat([o["logits"] for o in outs])[:n]
+                neg = torch.cat([o["neg_logits"] for o in outs])[:n]
+                val = metric(pos, neg)
             loss = float(np.mean([float(o["loss"]) for o in outs]))
         return {name: float(val), "loss": loss}
 
     def infer(self, ids: Sequence[int], out_dir: Optional[str] = None,
               worker: int = 0) -> np.ndarray:
-        """Embeddings for ids; optionally written as
+        """Embeddings for ids (for an ``EdgeEstimator``, [T, 3] triples,
+        whose node columns are checked); optionally written as
         embedding_{worker}.npy + ids_{worker}.npy."""
         ids = np.asarray(ids, np.int32)
+        self._check_ids(ids)
+        nodes = ids[:, :2] if ids.ndim == 2 else ids
         n_nodes = self.graph.meta.n_nodes
-        if ids.size and (ids.min() < -1 or ids.max() >= n_nodes):
+        if nodes.size and (nodes.min() < -1 or nodes.max() >= n_nodes):
             raise ValueError(f"ids must lie in [0, {n_nodes}) (or be -1)")
 
         def embed(g, batch, gen):
@@ -199,3 +213,38 @@ class NodeEstimator(BaseEstimator):
     def train_batch(self, g, generator: torch.Generator) -> torch.Tensor:
         return sampling.sample_node(g, self.config.batch_size,
                                     self.train_node_type, generator)
+
+
+class EdgeEstimator(BaseEstimator):
+    """Train source = sample_edge(batch, edge_type); the model receives
+    (src, dst, etype) stacked int32 [B, 3] (reference:
+    edge_estimator.py:32-72)."""
+
+    def __init__(self, model: torch.nn.Module, graph: Graph,
+                 config: RunConfig, train_edge_type=-1, device=None):
+        super().__init__(model, graph, config, device=device)
+        self.train_edge_type = train_edge_type
+
+    def train_batch(self, g, generator: torch.Generator) -> torch.Tensor:
+        src, dst, ty, _ = sampling.sample_edge(
+            g, self.config.batch_size, self.train_edge_type, generator)
+        return torch.stack([src, dst, ty], dim=1)
+
+    def _check_ids(self, ids: np.ndarray) -> None:
+        if ids.ndim == 1:
+            raise ValueError(
+                "EdgeEstimator needs [T,3] (src,dst,etype) test triples, "
+                "not node ids (the reference evaluates from triple id "
+                "files); use sample_edge to build a triple set or "
+                "evaluate_ranking for full-entity MR/Hit@k")
+
+    def evaluate_ranking(self, triples, corrupt: str = "both",
+                         filter_known=None, hit_ks=(1, 3, 10)
+                         ) -> Dict[str, float]:
+        """Full-entity ranking (MeanRank, MRR, Hit@k) of [T, 3] test
+        triples in batches of ``config.batch_size``, which bounds the
+        [batch, n_entities, dim] scores; needs a TransX-family model."""
+        return rank_all_entities(self.model, self.graph.tensors, triples,
+                                 batch_size=self.config.batch_size,
+                                 corrupt=corrupt, filter_known=filter_known,
+                                 hit_ks=hit_ks)

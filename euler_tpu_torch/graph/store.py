@@ -7,8 +7,10 @@ plus ``part_*.npz``) and builds, with the same host code, the grouped CSR
 with its per-slot source, type, weight and edge id, the per-group alias
 tables, the ``fan`` and ``fanu`` packs that neighbor sampling reads, the
 ``ell`` pack that whole-graph propagation reads, and the per-node-type
-alias tables that the root draw reads. Only the fields these paths need
-live on the device; external ids and binary features stay on the host.
+alias tables that the root draw reads, and the per-edge-type alias
+tables over the CSR slots that the edge draw reads. Only the fields
+these paths need live on the device; external ids and binary features
+stay on the host.
 """
 from __future__ import annotations
 
@@ -34,18 +36,61 @@ PACKS = ("fan",)
 #: only on request, as the reference leaves it out of its ALL_PACKS, and
 #: "ell" (whole-graph ELL rows and their transpose) on request
 KNOWN_PACKS = ("fan", "fanu", "ell")
+#: the block of XLA's CPU split of a cumsum's reduce_window; the cdf
+#: matches ``jnp.cumsum`` bit for bit only with this value
+_XLA_CUMSUM_BLOCK = 16
+
+
+def xla_cumsum(w: np.ndarray) -> np.ndarray:
+    """The f32 running sum of ``w`` as XLA adds it on the CPU
+    (``jnp.cumsum``, a reduce_window that XLA splits into blocks): left to
+    right for up to ``_XLA_CUMSUM_BLOCK`` values; past that, left to right
+    inside each block, and each block's sum offset by the running sum of
+    the earlier blocks' totals, taken the same way."""
+    block = _XLA_CUMSUM_BLOCK
+    w = np.asarray(w, np.float32)
+    n = len(w)
+    if n <= block:
+        return np.cumsum(w, dtype=np.float32)
+    m = -(-n // block)
+    inner = np.zeros(m * block, np.float32)
+    inner[:n] = w
+    inner = np.cumsum(inner.reshape(m, block), axis=1, dtype=np.float32)
+    before = np.zeros(m, np.float32)
+    before[1:] = xla_cumsum(inner[:-1, -1])
+    return (inner + before[:, None]).reshape(-1)[:n]
 
 
 @dataclasses.dataclass
 class AliasTables:
     """Per-type alias tables over a typed population (ops/alias.py
-    ``build_typed_alias_tables``), on one device."""
+    ``build_typed_alias_tables``), on one device.
+
+    ``cdf`` is the running sum of ``w_sum`` that a draw over every type
+    searches. The reference takes ``jnp.cumsum(w_sum)`` at each draw;
+    torch.cumsum associates otherwise and differs in the last bit for
+    three types or more, so the sum is taken once on the host when the
+    graph is built, in XLA's order (``xla_cumsum``).
+    """
 
     ids: torch.Tensor       # int32 [n] population sorted by type
     type_ptr: torch.Tensor  # int32 [T+1]
     prob: torch.Tensor      # f32   [n]
     alias: torch.Tensor     # int32 [n] (within-type slots)
     w_sum: torch.Tensor     # f32   [T]
+    cdf: torch.Tensor       # f32   [T] running sum of w_sum (xla_cumsum)
+
+    @classmethod
+    def build(cls, type_of: np.ndarray, weights: np.ndarray,
+              num_types: int, put) -> "AliasTables":
+        """The tables of ``build_typed_alias_tables``, each array passed
+        through ``put`` (numpy -> device tensor)."""
+        t = build_typed_alias_tables(type_of, weights, num_types)
+        return cls(ids=put(t["ids"]),
+                   type_ptr=put(t["type_ptr"].astype(np.int32)),
+                   prob=put(t["prob"]), alias=put(t["alias"]),
+                   w_sum=put(t["w_sum"]),
+                   cdf=put(xla_cumsum(t["w_sum"])))
 
     def to(self, device) -> "AliasTables":
         return AliasTables(**{f.name: getattr(self, f.name).to(device)
@@ -70,6 +115,7 @@ class GraphTensors:
     group_w_sum: torch.Tensor    # f32   [N, ET]
     dense_nf: Dict[str, torch.Tensor]
     node_alias: AliasTables      # population = nodes, typed by node type
+    edge_alias: AliasTables      # population = CSR slots, typed by edge type
     # per-(node, edge_type) fan rows (ops/alias.py FAN_* layout) and the
     # groups with degree > FAN_D whose rows are reservoirs
     fan_pack: Optional[torch.Tensor] = None       # int32 [N*ET, 128]
@@ -204,8 +250,6 @@ class Graph:
         np.add.at(gws, seg, adj_w.astype(np.float64))
         group_w_sum = gws.astype(np.float32).reshape(n, net)
         adj_prob, adj_alias = build_group_alias(group_ptr, adj_w)
-        na = build_typed_alias_tables(node_type, node_w,
-                                      meta.num_node_types)
 
         dense_nf = {spec.name: arrays[f"nf_d:{spec.name}"][order]
                     for spec in meta.node_features if spec.kind == DENSE}
@@ -254,10 +298,9 @@ class Graph:
             adj_alias=put(adj_alias),
             group_w_sum=put(group_w_sum),
             dense_nf={k: put(v) for k, v in dense_nf.items()},
-            node_alias=AliasTables(
-                ids=put(na["ids"]), type_ptr=put(na["type_ptr"].astype(
-                    np.int32)), prob=put(na["prob"]), alias=put(na["alias"]),
-                w_sum=put(na["w_sum"])),
+            node_alias=AliasTables.build(node_type, node_w,
+                                         meta.num_node_types, put),
+            edge_alias=AliasTables.build(adj_type, adj_w, net, put),
             **pack_fields)
 
     def local_id(self, ext_id: int) -> int:

@@ -1,14 +1,18 @@
 """Feature encoders: node ids + graph features -> input vectors.
 
 Counterpart of euler_tpu/models/encoders.py ``ShallowEncoder`` on its
-dense path (reference: tf_euler/python/utils/encoders.py:32-120). The id
-and sparse-id embeddings wait for the slices whose models use them.
+dense path (reference: tf_euler/python/utils/encoders.py:32-120), and
+``Embed``, flax's ``nn.Embed`` as the KG tables and ``EmbedOnly`` use it.
+The id and sparse-id embeddings of ``ShallowEncoder`` wait for the slices
+whose models use them.
 """
 from __future__ import annotations
 
-from typing import Sequence
+import math
+from typing import Optional, Sequence
 
 import torch
+import torch.nn.functional as F
 from torch import nn
 
 from euler_tpu_torch.graph.store import GraphTensors
@@ -48,3 +52,28 @@ class ShallowEncoder(nn.Module):
         else:
             out = torch.cat([gather_rows(t, flat) for t in tables], dim=-1)
         return out.reshape(tuple(n_id.shape) + (out.shape[1],))
+
+
+class Embed(nn.Module):
+    """flax's ``nn.Embed``: a [num, features] table looked up by id.
+
+    flax looks up with ``jnp.take``, whose default mode fills the row of
+    an id past the table with NaN, where ``nn.Embedding`` would raise.
+    Here ids clamp to the last row and those rows become NaN with a
+    ``where``, so the clamped row takes no gradient from them. Callers
+    clamp ids below 0, as the reference's do. The table starts as flax's
+    ``default_embed_init``: normal with variance 1 / features, drawn from
+    ``generator``, a CPU generator.
+    """
+
+    def __init__(self, num: int, features: int,
+                 generator: Optional[torch.Generator] = None):
+        super().__init__()
+        self.weight = nn.Parameter(torch.randn(
+            (num, features), generator=generator) / math.sqrt(features))
+
+    def forward(self, ids: torch.Tensor) -> torch.Tensor:
+        n = self.weight.shape[0]
+        ids = ids.long()
+        out = F.embedding(ids.clamp_max(n - 1), self.weight)
+        return torch.where((ids < n)[..., None], out, float("nan"))

@@ -12,10 +12,18 @@ variables)``), with or without the top-level ``"params"`` key. Names:
     relation  Dense_0 -> self_fc, matrix -> matrix (both [R, dim, D_in])
   embedder/out_fc/{kernel, bias}   -> embedder.out_fc.{weight, bias}
   head_fc/kernel                   -> head_fc.weight
+  Embed_0/embedding                -> EmbedOnly.embed.weight
+  {embedder, context_embedder}/... -> UnsuperviseModel's towers, each a
+                                      GNNNet or an EmbedOnly tree
+  <table>/embedding                -> TransX.<table>.weight, for
+                                      entity_encoder, relation_encoder,
+                                      hyper_vector, transfer_matrix,
+                                      entity_transfer, relation_transfer
 
 A flax kernel is [in, out] and loads as ``Linear.weight = kernel.T``; any
-other parameter loads as it is. A bare ``GNNNet`` takes the tree without
-the ``embedder`` level.
+other parameter, an embedding [rows, features] included, loads as it is.
+A bare ``GNNNet`` or ``EmbedOnly`` takes the tree without the
+``embedder`` level. A shape that does not fit raises.
 """
 from __future__ import annotations
 
@@ -27,7 +35,10 @@ from torch import nn
 
 from euler_tpu_torch.models.convs import (GATConv, GCNConv, GINConv,
                                          RelationConv, SAGEConv)
-from euler_tpu_torch.models.gnn import GNNNet, SuperviseModel
+from euler_tpu_torch.models.encoders import Embed
+from euler_tpu_torch.models.gnn import (EmbedOnly, GNNNet, SuperviseModel,
+                                        UnsuperviseModel)
+from euler_tpu_torch.models.kg import TransX
 
 #: flax name inside conv_i -> attribute of the port's conv
 _CONV_TREES = {
@@ -71,14 +82,32 @@ def _load_gnn(net: GNNNet, tree: Mapping, prefix: str) -> None:
     _load_dense(net.out_fc, tree["out_fc"], f"{prefix}out_fc")
 
 
+def _load_embed(emb: Embed, tree: Mapping, name: str) -> None:
+    _set(emb.weight, tree["embedding"], f"{name}/embedding")
+
+
+def _load_net(net: nn.Module, tree: Mapping, prefix: str) -> None:
+    """A tower: a ``GNNNet`` or an ``EmbedOnly``."""
+    if isinstance(net, EmbedOnly):
+        _load_embed(net.embed, tree["Embed_0"], f"{prefix}Embed_0")
+    elif isinstance(net, GNNNet):
+        _load_gnn(net, tree, prefix)
+    else:
+        raise TypeError(f"no flax mapping for {type(net).__name__}")
+
+
 def load_flax_params(model: nn.Module, params: Mapping) -> nn.Module:
     """Copy the flax tree ``params`` into ``model`` in place; returns it."""
     tree = params.get("params", params)
     if isinstance(model, SuperviseModel):
-        _load_gnn(model.embedder, tree["embedder"], "embedder/")
+        _load_net(model.embedder, tree["embedder"], "embedder/")
         _load_dense(model.head_fc, tree["head_fc"], "head_fc")
-    elif isinstance(model, GNNNet):
-        _load_gnn(model, tree, "")
+    elif isinstance(model, UnsuperviseModel):
+        for name in ("embedder", "context_embedder"):
+            _load_net(getattr(model, name), tree[name], f"{name}/")
+    elif isinstance(model, TransX):
+        for name, table in model.named_children():
+            _load_embed(table, tree[name], name)
     else:
-        raise TypeError(f"no flax mapping for {type(model).__name__}")
+        _load_net(model, tree, "")
     return model

@@ -1,8 +1,9 @@
-"""GNN net + supervised head.
+"""GNN net, id-embedding net, and the supervised and unsupervised heads.
 
 Counterpart of euler_tpu/models/gnn.py: ``GNNNet`` over sampled and
-whole-graph flows, and ``SuperviseModel`` (reference: tf_euler/python/
-mp_utils/base_gnn.py:74-92 and mp_utils/base.py:24-48). The dataflow
+whole-graph flows, ``EmbedOnly``, ``SuperviseModel`` and
+``UnsuperviseModel`` (reference: tf_euler/python/mp_utils/
+base_gnn.py:74-92 and mp_utils/base.py:24-91). The dataflow
 runs inside ``forward``; its randomness comes from the ``generator`` (or
 the replayed ``uniforms``) the caller passes. Training differentiates
 the loss with autograd; the whole-graph ELL aggregate and expansion have
@@ -19,7 +20,8 @@ from torch import nn
 from euler_tpu_torch._device import resolve_device
 from euler_tpu_torch.graph.store import GraphTensors
 from euler_tpu_torch.models import convs as convs_lib
-from euler_tpu_torch.ops import feature_ops
+from euler_tpu_torch.models.encoders import Embed
+from euler_tpu_torch.ops import feature_ops, sampling
 
 
 class GNNNet(nn.Module):
@@ -101,6 +103,26 @@ class GNNNet(nn.Module):
         return self.out_fc(x.to(self.out_fc.weight.dtype))
 
 
+class EmbedOnly(nn.Module):
+    """Pure id-embedding net (the DeepWalk/LINE context towers): a
+    ``max_id + 2`` row table whose last row is the embedding of id -1
+    (gnn.py:152-162). It draws nothing: ``generator`` and ``uniforms``
+    are accepted and ignored, as a flow that draws nothing ignores them.
+    """
+
+    def __init__(self, max_id: int, dim: int, device=None,
+                 generator: Optional[torch.Generator] = None):
+        super().__init__()
+        self.max_id, self.dim = max_id, dim
+        self.embed = Embed(max_id + 2, dim, generator)
+        self.to(resolve_device(device))
+
+    def forward(self, g: GraphTensors, roots: torch.Tensor,
+                generator: Optional[torch.Generator] = None,
+                uniforms: Optional[Sequence] = None) -> torch.Tensor:
+        return self.embed(torch.where(roots >= 0, roots, self.max_id + 1))
+
+
 class SuperviseModel(nn.Module):
     """Multi-label supervised head: sigmoid cross-entropy
     (reference: mp_utils/base.py:24-48)."""
@@ -130,7 +152,70 @@ class SuperviseModel(nn.Module):
                     valid=valid)
 
 
+class UnsuperviseModel(nn.Module):
+    """Skip-gram head: each root against one neighbor drawn over
+    ``edge_types`` and ``num_negs`` nodes of ``node_type``, sigmoid
+    cross-entropy (reference: mp_utils/base.py:50-91, gnn.py:188-218).
+
+    ``embedder`` embeds the roots, ``context_embedder`` the positives and
+    then the flattened negatives (two calls). ``uniforms`` replays every
+    draw of a call, in this order: the positive hop (what
+    ``sampling.draw_neighbor_uniforms`` gives for B nodes and 1 draw),
+    the negative draw (``draw_node_uniforms`` of ``B * num_negs``), then
+    the per-hop uniforms of the three tower calls (roots, positives,
+    negatives; None for a tower that draws nothing).
+    """
+
+    def __init__(self, embedder: nn.Module, context_embedder: nn.Module,
+                 edge_types, node_type=-1, num_negs: int = 20, device=None):
+        super().__init__()
+        self.embedder = embedder
+        self.context_embedder = context_embedder
+        self.edge_types = edge_types
+        self.node_type = node_type
+        self.num_negs = num_negs
+        self.to(resolve_device(device))
+
+    def forward(self, g: GraphTensors, roots: torch.Tensor,
+                generator: Optional[torch.Generator] = None,
+                uniforms: Optional[Sequence] = None):
+        B, dev = roots.shape[0], roots.device
+        roots = roots.to(torch.int32)
+        if uniforms is None:
+            u_pos = sampling.draw_neighbor_uniforms(g, self.edge_types,
+                                                    generator, B, 1, dev)
+            u_neg = sampling.draw_node_uniforms(generator, B * self.num_negs,
+                                                dev)
+            towers = (None,) * 3
+        else:
+            u_pos, u_neg, *towers = uniforms
+        pos, _ = sampling.select_neighbors(g, roots, self.edge_types, u_pos)
+        negs = sampling.select_nodes(g, self.node_type, *u_neg)
+        emb = self.embedder(g, roots, generator=generator,
+                            uniforms=towers[0])                     # [B, D]
+        emb_pos = self.context_embedder(g, pos[:, 0], generator=generator,
+                                        uniforms=towers[1])         # [B, D]
+        emb_negs = self.context_embedder(
+            g, negs, generator=generator,
+            uniforms=towers[2]).reshape(B, self.num_negs, -1)
+        logits = (emb * emb_pos).sum(-1, keepdim=True)             # [B, 1]
+        neg_logits = torch.einsum("bd,bnd->bn", emb, emb_negs)      # [B, N]
+        pos_ok = (pos[:, 0] >= 0).to(torch.float32)[:, None]
+        true_xent = _sigmoid_xent(logits, torch.ones_like(logits)) * pos_ok
+        neg_xent = _sigmoid_xent(neg_logits, torch.zeros_like(neg_logits))
+        loss = (true_xent.sum() + neg_xent.sum()) / (
+            pos_ok.sum().clamp_min(1.0) + neg_xent.numel())
+        return dict(embedding=emb, logits=logits, neg_logits=neg_logits,
+                    loss=loss, pos_mask=pos_ok)
+
+
+def xla_abs(x: torch.Tensor) -> torch.Tensor:
+    """|x| with XLA's gradient: 1 at x = 0 (torch's ``abs`` gives 0)."""
+    return torch.where(x >= 0, x, -x)
+
+
 def _sigmoid_xent(logits, labels):
-    """tf.nn.sigmoid_cross_entropy_with_logits."""
-    return logits.clamp_min(0) - logits * labels + \
-        torch.log1p(torch.exp(-logits.abs()))
+    """tf.nn.sigmoid_cross_entropy_with_logits, with the reference's
+    gradient at a logit of 0 (``maximum`` splits its tie, ``xla_abs``)."""
+    return torch.maximum(logits, torch.zeros_like(logits)) - \
+        logits * labels + torch.log1p(torch.exp(-xla_abs(logits)))

@@ -1,7 +1,8 @@
-"""Root and neighbor sampling: the weighted node draw, the fan-row
-neighbor draw and the reservoir redraw.
+"""Root and neighbor sampling: the weighted node and edge draws, the
+fan-row neighbor draw and the reservoir redraw.
 
 Counterparts of euler_tpu/ops/sampling.py's ``sample_node`` (:46-72),
+``sample_edge`` (:94-123),
 ``sample_neighbor_fast`` (:223-376: its K=1, union-row and per-type K>1
 branches, with ``return_types``) and ``refresh_fan_rows``/
 ``refresh_fan_pack`` with ``over_rows`` (:379-461), and the full
@@ -9,11 +10,11 @@ neighborhood ``get_full_neighbor`` (:464-528). The reference derives
 its uniforms from a jax PRNG key inside each verb; here each verb is
 split in two so that both packages can be fed the same numbers: a step
 that draws the uniforms from a torch.Generator (``draw_node_uniforms``,
-``draw_fan_uniforms``, ``draw_typed_uniforms``, ``draw_alias_uniforms``,
-and ``draw_neighbor_uniforms`` for a hop), and a deterministic select
-from given uniforms (``select_nodes``, ``select_fan_neighbors``,
-``select_typed_neighbors``, ``select_neighbors`` for a hop,
-``refresh_fan_rows``).
+``draw_edge_uniforms``, ``draw_fan_uniforms``, ``draw_typed_uniforms``,
+``draw_alias_uniforms``, and ``draw_neighbor_uniforms`` for a hop), and
+a deterministic select from given uniforms (``select_nodes``,
+``select_edges``, ``select_fan_neighbors``, ``select_typed_neighbors``,
+``select_neighbors`` for a hop, ``refresh_fan_rows``).
 Matches Node::SampleNeighbor's weighted-with-replacement distribution
 (reference: euler/core/graph/node.h:82) exactly for groups of degree
 <= FAN_D; larger groups draw from an exact-marginal reservoir.
@@ -35,7 +36,7 @@ from typing import Optional, Sequence, Tuple
 
 import torch
 
-from euler_tpu_torch.graph.store import GraphTensors
+from euler_tpu_torch.graph.store import AliasTables, GraphTensors
 from euler_tpu_torch.ops.alias import (FAN_ALIAS_OFF, FAN_D, FAN_KEPT_OFF,
                                        FAN_PROB_OFF, alias_select,
                                        draw_alias_uniforms)
@@ -49,7 +50,7 @@ def as_etypes(g: GraphTensors, edge_types) -> Tuple[int, ...]:
 
 
 # ---------------------------------------------------------------------------
-# global node sampling (alias tables)
+# global node and edge sampling (alias tables)
 # ---------------------------------------------------------------------------
 
 def draw_node_uniforms(generator: Optional[torch.Generator], count: int,
@@ -61,30 +62,39 @@ def draw_node_uniforms(generator: Optional[torch.Generator], count: int,
     return (u_type,) + draw_alias_uniforms(generator, (count,), device)
 
 
+#: (u_type, u1, u2) of ``count`` edge draws, as for nodes
+draw_edge_uniforms = draw_node_uniforms
+
+
+def _select_typed(at: AliasTables, t: int, u_type: torch.Tensor,
+                  u1: torch.Tensor, u2: torch.Tensor) -> torch.Tensor:
+    """Members of ``at`` drawn from given uniforms; int32, -1 where the
+    drawn type is empty.
+
+    ``t=-1`` picks a type per draw in proportion to the per-type weight
+    sums (``u_type * cdf[-1]`` searched to the right in ``cdf``, clamped
+    to the last type), then draws from its table; ``u_type`` is read
+    only then.
+    """
+    if t == -1:
+        r = u_type * at.cdf[-1]
+        t = torch.searchsorted(at.cdf, r, right=True)
+        t = t.clamp_max(at.w_sum.shape[0] - 1)
+    lo = at.type_ptr[t]
+    size = at.type_ptr[t + 1] - lo
+    pos = alias_select(at.prob, at.alias, lo, size, u1, u2)
+    return torch.where(pos >= 0, at.ids[pos.clamp_min(0).long()], -1)
+
+
 def select_nodes(g: GraphTensors, node_type, u_type: torch.Tensor,
                  u1: torch.Tensor, u2: torch.Tensor) -> torch.Tensor:
     """Deterministic weighted node draws from given uniforms; int32
     [count] node ids, -1 where the drawn type has no node.
-
-    ``node_type=-1`` picks a type per draw in proportion to the per-type
-    weight sums (``u_type * cumsum(w_sum)[-1]``, searchsorted to the
-    right, clamped to the last type), then draws from its table.
-    """
-    na = g.node_alias
+    ``node_type`` is a type id, a name, or -1 for a draw over every type
+    in proportion to the per-type weight sums."""
     if isinstance(node_type, str):
         node_type = g.meta.node_type_id(node_type)
-    if node_type == -1:
-        cdf = torch.cumsum(na.w_sum, 0)
-        r = u_type * cdf[-1]
-        t = torch.searchsorted(cdf, r, right=True)
-        t = t.clamp_max(na.w_sum.shape[0] - 1)
-        lo = na.type_ptr[t]
-        size = na.type_ptr[t + 1] - lo
-    else:
-        lo = na.type_ptr[node_type]
-        size = na.type_ptr[node_type + 1] - lo
-    pos = alias_select(na.prob, na.alias, lo, size, u1, u2)
-    return torch.where(pos >= 0, na.ids[pos.clamp_min(0).long()], -1)
+    return _select_typed(g.node_alias, node_type, u_type, u1, u2)
 
 
 def sample_node(g: GraphTensors, count: int, node_type=-1,
@@ -93,6 +103,30 @@ def sample_node(g: GraphTensors, count: int, node_type=-1,
     per-type alias tables); int32 [count]."""
     return select_nodes(g, node_type,
                         *draw_node_uniforms(generator, count, g.device))
+
+
+def select_edges(g: GraphTensors, edge_type, u_type: torch.Tensor,
+                 u1: torch.Tensor, u2: torch.Tensor):
+    """Deterministic weighted edge draws from given uniforms over the
+    per-edge-type alias tables of the CSR slots (``g.edge_alias``).
+    ``edge_type`` is a type id, a name, or -1 for a draw over every type.
+    Returns (src, dst, etype, eid), each int32 [count], -1 where the
+    drawn type has no edge."""
+    if isinstance(edge_type, str):
+        edge_type = g.meta.edge_type_id(edge_type)
+    slot = _select_typed(g.edge_alias, edge_type, u_type, u1, u2)
+    ok = slot >= 0
+    s = slot.clamp_min(0).long()
+    return tuple(torch.where(ok, f[s], -1)
+                 for f in (g.adj_src, g.adj_dst, g.adj_type, g.adj_eid))
+
+
+def sample_edge(g: GraphTensors, count: int, edge_type=-1,
+                generator: Optional[torch.Generator] = None):
+    """Weighted global edge sampling (reference: API_SAMPLE_EDGE);
+    (src, dst, etype, eid), each int32 [count]."""
+    return select_edges(g, edge_type,
+                        *draw_edge_uniforms(generator, count, g.device))
 
 
 # ---------------------------------------------------------------------------

@@ -15,6 +15,10 @@ and a training step's loss and gradients, within rtol = atol = 1e-4 (f32
 on both, different summation order). The whole-graph autograd Functions
 (``_ell_agg``, ``ell_expand``) and ``scatter_max`` on the card must match
 themselves on the CPU within the same tolerance (exactly for the max).
+The edge draw on the card must equal the CPU's bit for bit from the same
+uniforms; a TransE step and an unsupervised GraphSAGE step must match the
+CPU within 1e-4, the latter with 7 ``fan_draw`` and 3 ``gather_rows``
+launches.
 """
 import copy
 
@@ -27,7 +31,8 @@ from euler_tpu_torch import bench
 from euler_tpu_torch.dataflow import SageDataFlow, WholeDataFlow
 from euler_tpu_torch.dataflow import block as block_lib
 from euler_tpu_torch.datasets import random_graph
-from euler_tpu_torch.models import GNNNet, ShallowEncoder, SuperviseModel
+from euler_tpu_torch.models import (GNNNet, ShallowEncoder, SuperviseModel,
+                                    TransE, UnsuperviseModel)
 from euler_tpu_torch.ops import fan_draw as fd
 from euler_tpu_torch.ops import gather_rows as gr
 from euler_tpu_torch.ops import mp_ops, sampling
@@ -419,3 +424,99 @@ def test_gcn_step_on_card_matches_cpu(dev):
         b = edge_list(graph.tensors, roots)["embedding"]
     np.testing.assert_allclose(a.cpu().numpy(), b.cpu().numpy(), rtol=1e-4,
                                atol=1e-4)
+
+
+# ------------------------------------------------- transe, unsupervised --
+
+def test_sample_edge_on_card_matches_cpu(dev):
+    graph = random_graph(3000, 25, num_edge_types=16, seed=0, packs=(),
+                         device=dev)
+    g_cpu = graph.tensors.to("cpu")
+    gen = torch.Generator(device=dev).manual_seed(4)
+    for count in (1, 4096, 4097):
+        for edge_type in (-1, 3):
+            u = sampling.draw_edge_uniforms(gen, count, dev)
+            got = sampling.select_edges(graph.tensors, edge_type, *u)
+            want = sampling.select_edges(g_cpu, edge_type,
+                                         *(x.cpu() for x in u))
+            assert all(torch.equal(a.cpu(), b) for a, b in zip(got, want))
+            assert bool((got[0] >= 0).all())
+
+
+def test_transe_step_on_card_matches_cpu(dev):
+    graph = random_graph(3000, 25, num_edge_types=16, seed=0, packs=(),
+                         device=dev)
+    model = TransE(3000, 16, 100, 100, num_negs=5, device=dev,
+                   generator=torch.Generator().manual_seed(0))
+    gen = torch.Generator(device=dev).manual_seed(1)
+    src, dst, ty, _ = sampling.sample_edge(graph.tensors, 512, -1, gen)
+    batch = torch.stack([src, dst, ty], 1)
+    u = sampling.draw_node_uniforms(gen, 512 * 5, dev)
+    before = (fd.fan_draw.launches, gr.gather_rows.launches)
+    runs = []
+    for m, g, b, uu in ((model, graph.tensors, batch, u),
+                        (copy.deepcopy(model).to("cpu"),
+                         graph.tensors.to("cpu"), batch.cpu(),
+                         [x.cpu() for x in u])):
+        out = m(g, b, uniforms=uu)
+        out["loss"].backward()
+        runs.append((out, {k: p.grad.cpu() for k, p in m.named_parameters()}))
+    assert (fd.fan_draw.launches, gr.gather_rows.launches) == before
+    (ok, gk), (oc, gc) = runs
+    for name in ("loss", "logits", "neg_logits", "embedding"):
+        np.testing.assert_allclose(ok[name].detach().cpu().numpy(),
+                                   oc[name].detach().numpy(), rtol=1e-4,
+                                   atol=1e-4, err_msg=name)
+    for k in gk:
+        np.testing.assert_allclose(gk[k].numpy(), gc[k].numpy(), rtol=1e-4,
+                                   atol=1e-4, err_msg=k)
+
+
+def test_unsupervised_step_on_card_matches_cpu(dev):
+    # 7 fan_draw launches (the positive hop, then 2 hops in each of the 3
+    # tower calls) and 3 gather_rows (one feature gather per tower call)
+    graph = random_graph(3000, 25, feat_dim=16, seed=0, device=dev)
+    gen = torch.Generator().manual_seed(0)
+
+    def net():
+        return GNNNet("sage", SageDataFlow([10, 10], [(0,), (0,)]), (16, 16),
+                      ShallowEncoder(("feature",)), in_dim=16, device=dev,
+                      generator=gen)
+    model = UnsuperviseModel(net(), net(), (0,), num_negs=20, device=dev)
+    ugen = torch.Generator(device=dev).manual_seed(2)
+    roots = sampling.sample_node(graph.tensors, 64, -1, ugen)
+    uniforms = [sampling.draw_neighbor_uniforms(graph.tensors, (0,), ugen, 64,
+                                                1, dev),
+                sampling.draw_node_uniforms(ugen, 64 * 20, dev)]
+    for n in (64, 64, 64 * 20):
+        uniforms.append([sampling.draw_fan_uniforms(ugen, n, 10, dev),
+                         sampling.draw_fan_uniforms(ugen, n * 11, 10, dev)])
+
+    def to_cpu(u):
+        if isinstance(u, torch.Tensor):
+            return u.cpu()
+        return None if u is None else type(u)(to_cpu(x) for x in u)
+
+    before = (fd.fan_draw.launches, gr.gather_rows.launches)
+    runs = []
+    for m, g, r, u in ((model, graph.tensors, roots, uniforms),
+                       (copy.deepcopy(model).to("cpu"),
+                        graph.tensors.to("cpu"), roots.cpu(),
+                        to_cpu(uniforms))):
+        out = m(g, r, uniforms=u)
+        out["loss"].backward()
+        runs.append((out, {k: p.grad.cpu() for k, p in m.named_parameters()}))
+        if m is model:
+            torch.cuda.synchronize()
+            assert (fd.fan_draw.launches - before[0],
+                    gr.gather_rows.launches - before[1]) == (7, 3)
+    (ok, gk), (oc, gc) = runs
+    assert torch.equal(ok["pos_mask"].cpu(), oc["pos_mask"])
+    for name in ("loss", "logits", "neg_logits", "embedding"):
+        np.testing.assert_allclose(ok[name].detach().cpu().numpy(),
+                                   oc[name].detach().numpy(), rtol=1e-4,
+                                   atol=1e-4, err_msg=name)
+    assert len(gk) == 12
+    for k in gk:
+        np.testing.assert_allclose(gk[k].numpy(), gc[k].numpy(), rtol=1e-4,
+                                   atol=1e-4, err_msg=k)

@@ -42,6 +42,8 @@ from euler_tpu_torch.dataflow import SageDataFlow
 from euler_tpu_torch.datasets import random_graph
 from euler_tpu_torch.estimator import NodeEstimator, RunConfig, get_optimizer
 from euler_tpu_torch.graph import load_graph
+from euler_tpu_torch.graph.meta import GraphMeta
+from euler_tpu_torch.graph.store import Graph
 from euler_tpu_torch.models import (GNNNet, ShallowEncoder, SuperviseModel,
                                     load_flax_params)
 from euler_tpu_torch.ops import alias, sampling
@@ -106,6 +108,61 @@ def test_sample_node_bit_exact_on_a_random_graph():
     got = sampling.select_nodes(gt.tensors, -1, t(u(kt, (2048,))),
                                 t(u(k1, (2048,))), t(u(k2, (2048,))))
     np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+
+
+def _cdf_trap(T=4, seed=0):
+    """Per-type weight sums w (f32 [T]) whose running sums differ in one
+    entry k < T-1 between torch.cumsum and a left-to-right sum (equal
+    totals), and a u_type whose r = u_type * total is the smaller of the
+    two: a root draw there picks type k on one side and k+1 on the
+    other."""
+    rng = np.random.default_rng(seed)
+    while True:
+        w = (rng.random(T) * 1e6).astype(np.float32)
+        left = np.cumsum(w, dtype=np.float32)
+        other = torch.cumsum(torch.from_numpy(w), 0).numpy()
+        diff = np.nonzero(left != other)[0]
+        if left[-1] != other[-1] or not len(diff):
+            continue
+        k = int(diff[0])
+        r = min(left[k], other[k])
+        u = np.float32(r / left[-1])
+        for _ in range(8):          # step u until u * total rounds to r
+            got = u * left[-1]
+            if got == r:
+                return w, u, k
+            u = np.nextafter(u, np.float32(2 if got < r else -1),
+                             dtype=np.float32)
+
+
+def test_root_draw_cdf_adds_left_to_right():
+    # a root draw over 4 node types (one node each, with the weight sums
+    # of _cdf_trap): the port picks the node the reference's
+    # jnp.cumsum(w_sum) picks, where torch.cumsum would pick another
+    w, u, k = _cdf_trap()
+    T = len(w)
+    meta = GraphMeta(n_nodes=T, n_edges=1,
+                     node_types=tuple(f"t{i}" for i in range(T)),
+                     edge_types=("e",), node_features=(), edge_features=())
+    arrays = dict(ext_ids=np.arange(T, dtype=np.int64),
+                  node_local=np.arange(T, dtype=np.int32),
+                  node_type=np.arange(T, dtype=np.int32), node_w=w,
+                  src=np.zeros(1, np.int32), dst=np.ones(1, np.int32),
+                  etype=np.zeros(1, np.int32), ew=np.ones(1, np.float32),
+                  eid=np.zeros(1, np.int32))
+    g = Graph(meta, arrays, packs=(), device="cpu").tensors
+    np.testing.assert_array_equal(g.node_alias.w_sum.numpy(), w)
+    cdf = jnp.cumsum(jnp.asarray(w))
+    want = int(jnp.minimum(jnp.searchsorted(cdf, u * cdf[-1], side="right"),
+                           T - 1))
+    torch_cdf = torch.cumsum(torch.from_numpy(w), 0)
+    wrong = int(torch.searchsorted(torch_cdf, t(np.float32(u)) * torch_cdf[-1],
+                                   right=True))
+    assert {want, wrong} == {k, k + 1}
+    half = t(np.full(1, 0.5, np.float32))
+    got = sampling.select_nodes(g, -1, t(np.full(1, u, np.float32)), half,
+                                half)
+    assert int(got[0]) == want != wrong
 
 
 def test_alias_select_matches_alias_draw_with_empty_segments():
@@ -373,7 +430,7 @@ def test_metrics_match_reference(masked):
                                    err_msg=name)
     assert metrics.get("acc") is metrics.accuracy
     with pytest.raises(NotImplementedError):
-        metrics.get("mrr")
+        metrics.get("ndcg")
 
 
 # ------------------------------------------------------------ estimator --
