@@ -137,10 +137,32 @@ Phases, in order; any failure propagates and the exit code is not 0:
               negatives and tower blocks, loss and gradients within 1e-4);
               8 train steps with 7 and 3 launches a step and the
               reservoir redraw, two profiled
+ 12e. loop    every family's train loop, f32, as NodeEstimator and
+              EdgeEstimator.train run it with steps_per_loop = 5 (sage,
+              gin, gat and the unsupervised head on the graph of phase 5,
+              rgcn, gcn and transe on graphs of their own): 2 loops (a
+              captured step replayed) against 10 eager steps from the
+              same weights, seed and reservoir rows, the final loss and
+              every parameter equal bit for bit (transe within rtol 1e-4,
+              atol 1e-5: its Embed backward sums with index_add_ atomics);
+              each kernel launched inside the replays equal to its plain
+              version on the last replay's inputs; both runs' launch
+              counts equal, and per step as in phases 10 and 12; two
+              replays draw different batches; the replayed and the eager
+              step timed (host clock); 4 loops of 5 replays profiled (the
+              card's idle share); one eager step under
+              torch.cuda.set_sync_debug_mode("error"). For sage and gcn,
+              one captured step replayed against 5 steps captured in one
+              graph (capture seconds, peak memory, ms per step). Sage with
+              a checkpoint every loop (2 kept) and RunConfig.profile: the
+              checkpoints left, a fresh estimator restoring equal
+              parameters at its first infer, the ProfilerHook's trace
+              naming both kernels
  13. bench    the port's bench (euler_tpu_torch/bench.py) in each mode,
               sage, gin, gat, rgcn, gcn and transe, at bench.py's width,
               bf16 activations in the GNN modes (transe is f32): warmup,
-              single_loop and pipelined JSON lines; each kernel 2
+              single_loop and pipelined JSON lines, each loop a TrainLoop
+              (one captured step replayed); each kernel 2
               launches per step in the sampled modes, gather_rows 2 and
               fan_draw none in gcn, neither in transe
  14. report   one JSON line of kernels (the gather's f32 and bf16 times,
@@ -149,7 +171,7 @@ Phases, in order; any failure propagates and the exit code is not 0:
               every path and ptxas figures), then the last line
               {"ok": true, "device": {...}}
 
-Phases 12c and 12d run after 12, and 12b after them.
+Phases 12c, 12d and 12e run after 12, and 12b after them.
 
 It exits non-zero, with no result line, where torch.cuda.is_available()
 is false or the euler_tpu_torch package is missing.
@@ -181,11 +203,13 @@ from euler_tpu_torch.dataflow import SageDataFlow, WholeDataFlow
 from euler_tpu_torch.dataflow import block as block_lib
 from euler_tpu_torch.datasets import random_graph
 from euler_tpu_torch.estimator import (EdgeEstimator, NodeEstimator,
-                                       RunConfig, get_optimizer)
+                                       RunConfig, TrainLoop, get_optimizer)
+from euler_tpu_torch.estimator.estimator import capture_stream
 from euler_tpu_torch.models import (GNNNet, ShallowEncoder, UnsuperviseModel,
-                                    convs, kg)
+                                    convs, encoders, kg)
 from euler_tpu_torch.native import loader as native
 from euler_tpu_torch.ops import fan_draw as fd
+from euler_tpu_torch.ops import feature_ops
 from euler_tpu_torch.ops import gather_rows as gr
 from euler_tpu_torch.ops import sampling
 from euler_tpu_torch.ops.alias import (FAN_ALIAS_OFF, FAN_D, FAN_KEPT_OFF,
@@ -1670,14 +1694,373 @@ def phase_unsup(graph, dev):
     return dict(out, kernels=kernels)
 
 
+# -------------------------------------------------------------- phase 12e --
+
+# the loop phase: each run is 2 loops of LOOP_SPL steps, the reservoir
+# redrawn between them
+LOOP_SPL = 5
+LOOP_FAMILIES = ("sage", "gin", "gat", "unsup", "rgcn", "gcn", "transe")
+# loops of replays in a family's profiled window
+PROFILED_LOOPS = 4
+# the steps whose backward sums with atomics, in no fixed order on the card:
+# their graph is held to their eager steps within LOOP_TOL; every other
+# family's must equal its eager steps bit for bit
+ATOMIC_STEPS = {"transe": "Embed's index_add_ backward (the entity and "
+                          "relation tables)"}
+LOOP_TOL = dict(rtol=1e-4, atol=1e-5)
+
+
+class KernelRecorder:
+    """While active, every call of the two kernel wrappers made during a
+    CUDA graph capture is recorded with its arguments and result. Holding
+    them keeps the capture's tensors alive, so that the graph's pool gives
+    their memory to no other tensor of the capture: after a replay they
+    hold that replay's inputs and outputs."""
+
+    SITES = ((sampling, "fan_draw"), (encoders, "gather_rows"),
+             (feature_ops, "gather_rows"))
+
+    def __init__(self):
+        self.calls = []
+
+    def __enter__(self):
+        self._saved = [(mod, name, getattr(mod, name))
+                       for mod, name in self.SITES]
+        for mod, name, fn in self._saved:
+            setattr(mod, name, self._recording(name, fn))
+        return self
+
+    def __exit__(self, *exc):
+        for mod, name, fn in self._saved:
+            setattr(mod, name, fn)
+
+    def _recording(self, name, fn):
+        def call(*args, **kwargs):
+            out = fn(*args, **kwargs)
+            if torch.cuda.is_current_stream_capturing():
+                self.calls.append((name, args, kwargs, out))
+            return out
+        return call
+
+    def check_plain(self, what: str) -> dict:
+        """Each recorded launch against its plain version on what it read
+        in the last replay, bit for bit (gathered rows as integers); the
+        number of launches checked per kernel."""
+        n = dict(fan_draw=0, gather_rows=0)
+        for name, args, kwargs, out in self.calls:
+            if name == "fan_draw":
+                want = fd.fan_draw_plain(*args, **kwargs)
+                ok = all(torch.equal(a, b) for a, b in zip(out, want))
+            else:
+                table, ids = args[:2]
+                off = args[3] if len(args) > 3 else kwargs.get(
+                    "col_offset", 0)
+                rows = out[:, off:off + table.shape[1]]
+                ok = torch.equal(int_view(rows),
+                                 int_view(gr.gather_rows_plain(table, ids)))
+            check(ok, f"{what}: {name} inside a replay != its plain version")
+            n[name] += 1
+        return n
+
+
+def whole_loop_graph(est, opt, gen, steps: int, batch):
+    """The alternative to TrainLoop's one captured step: ``steps`` train
+    steps captured in one CUDA graph, after one eager warm-up step, both
+    on the estimator's capture stream; returns the graph and its last
+    step's loss tensor."""
+    side = capture_stream(est.device)
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        est.step(opt, batch(), generator=gen)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    graph.register_generator_state(gen)
+    with torch.cuda.graph(graph, stream=side):
+        for _ in range(steps):
+            loss = est.step(opt, batch(), generator=gen)
+    return graph, loss
+
+
+def compare_capture(est, dev, seed: int) -> dict:
+    """One captured step replayed LOOP_SPL times (TrainLoop, kept) against
+    LOOP_SPL steps captured in one graph and replayed once: seconds to
+    capture, peak memory from the capture through 4 loops, ms per step of
+    those 4 loops (host clock, waited for)."""
+    g = est.graph.tensors
+    out = {}
+    for kind in ("one_step", "whole_loop"):
+        gen = torch.Generator(device=dev).manual_seed(seed)
+        opt = get_optimizer("adam", bench.LR, est.model.parameters())
+
+        def batch():
+            return est.train_batch(g, gen)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        if kind == "one_step":
+            loop = TrainLoop(est, opt, gen, LOOP_SPL, batch)
+            loop()
+            run = loop
+        else:
+            graph, last = whole_loop_graph(est, opt, gen, LOOP_SPL, batch)
+
+            def run():
+                graph.replay()
+                return last.clone()
+        torch.cuda.synchronize()
+        capture_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        for _ in range(4):
+            loss = run()
+        check(bool(torch.isfinite(loss)), f"{kind} loss finite")
+        torch.cuda.synchronize()
+        out[kind] = dict(
+            capture_s=capture_s,
+            ms_per_step=(time.perf_counter() - t0) / (4 * LOOP_SPL) * 1e3,
+            peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9)
+        del run
+    return out
+
+
+def loop_family(name: str, make_est, graph, dev, per_step: dict,
+                batch_size: int, seed: int) -> dict:
+    """One family's loop checks. Two estimators from the same weights and
+    seed train 2 loops of LOOP_SPL steps, one with steps_per_loop =
+    LOOP_SPL (a captured step replayed) and one with 1 (eager), from the
+    same reservoir rows: their final losses and parameters equal bit for
+    bit (within LOOP_TOL for ATOMIC_STEPS), each kernel launched inside
+    the replays equal to its plain version, the launch counts equal and
+    ``per_step`` a step. Then, on a TrainLoop of its own: two replays
+    draw different batches, the replayed and the eager step timed, a
+    loop of replays profiled (the card's idle share), and one eager step
+    under ``torch.cuda.set_sync_debug_mode("error")``."""
+    t_start = time.perf_counter()
+    g = graph.tensors
+    steps = 2 * LOOP_SPL
+    cfg = RunConfig(batch_size=batch_size, total_steps=steps,
+                    optimizer="adam", learning_rate=bench.LR,
+                    log_steps=LOOP_SPL, reservoir_refresh=LOOP_SPL,
+                    steps_per_loop=LOOP_SPL, seed=seed, metric="mrr")
+    graphed = make_est(cfg)
+    eager = make_est(dataclasses.replace(cfg, steps_per_loop=1))
+    eager.model.load_state_dict(graphed.model.state_dict())
+    packs = {k: getattr(g, k).clone() for k in ("fan_pack", "fanu_pack")
+             if getattr(g, k) is not None}
+    runs = {}
+    rec = KernelRecorder()
+    for kind, est in (("eager", eager), ("graph", graphed)):
+        for k, p in packs.items():
+            getattr(g, k).copy_(p)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        reset_counts()
+        t0 = time.perf_counter()
+        if kind == "graph":
+            with rec:
+                res = est.train(log_fn=lambda _: None)
+        else:
+            res = est.train(log_fn=lambda _: None)
+        torch.cuda.synchronize()
+        runs[kind] = dict(res=res, launches=read_counts(),
+                          train_s=time.perf_counter() - t0,
+                          peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9)
+    want = {k: n * steps for k, n in per_step.items()}
+    for kind, r in runs.items():
+        check(r["launches"] == want,
+              f"{name}: launches of the {kind} run {r['launches']}, "
+              f"want {want}")
+    loss_g, loss_e = runs["graph"]["res"]["loss"], runs["eager"]["res"]["loss"]
+    check(bool(np.isfinite(loss_g)), f"{name}: loss {loss_g}")
+    params_e = dict(eager.model.named_parameters())
+    pairs = [(p, params_e[k]) for k, p in graphed.model.named_parameters()]
+    max_diff = max(float((p - q).detach().abs().max()) for p, q in pairs)
+    bit_equal = loss_g == loss_e and all(torch.equal(p, q) for p, q in pairs)
+    if name in ATOMIC_STEPS:
+        check(bool(np.isclose(loss_g, loss_e, **LOOP_TOL)) and all(
+            torch.allclose(p, q, **LOOP_TOL) for p, q in pairs),
+            f"{name}: graph vs eager beyond {LOOP_TOL}: loss {loss_g} vs "
+            f"{loss_e}, parameters {max_diff}")
+    else:
+        check(bit_equal, f"{name}: graph != eager bit for bit: loss "
+                         f"{loss_g} vs {loss_e}, parameters {max_diff}")
+    in_replay = rec.check_plain(name)
+    for k, n in per_step.items():
+        check((in_replay[k] > 0) == (n > 0),
+              f"{name}: {in_replay[k]} {k} launches recorded in the capture")
+    del rec
+
+    # a TrainLoop of its own: draws, times, the profile, no syncs
+    gen = torch.Generator(device=dev).manual_seed(seed + 100)
+    opt = get_optimizer("adam", bench.LR, graphed.model.parameters())
+    seen = []
+
+    def batch():
+        seen.append(graphed.train_batch(g, gen))
+        return seen[-1]
+    loop = TrainLoop(graphed, opt, gen, LOOP_SPL, batch)
+    t0 = time.perf_counter()
+    loop()
+    torch.cuda.synchronize()
+    capture_s = time.perf_counter() - t0
+    drawn = []
+    for _ in range(2):
+        loop()
+        drawn.append(seen[-1].clone())
+    check(not torch.equal(*drawn), f"{name}: two replays drew one batch")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(4):
+        loss = loop()
+    check(bool(torch.isfinite(loss)), f"{name}: replayed loss finite")
+    torch.cuda.synchronize()
+    replay_ms = (time.perf_counter() - t0) / (4 * LOOP_SPL) * 1e3
+    prof = profile(lambda: [loop() for _ in range(PROFILED_LOOPS)],
+                   f"{name}: {PROFILED_LOOPS} loops of {LOOP_SPL} replays")
+
+    gen_e = torch.Generator(device=dev).manual_seed(seed + 200)
+    opt_e = get_optimizer("adam", bench.LR, eager.model.parameters())
+    eager.step(opt_e, eager.train_batch(g, gen_e), generator=gen_e)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(4 * LOOP_SPL):
+        loss = eager.step(opt_e, eager.train_batch(g, gen_e), generator=gen_e)
+    check(bool(torch.isfinite(loss)), f"{name}: eager loss finite")
+    torch.cuda.synchronize()
+    eager_ms = (time.perf_counter() - t0) / (4 * LOOP_SPL) * 1e3
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        eager.step(opt_e, eager.train_batch(g, gen_e), generator=gen_e)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+
+    out = dict(
+        steps_per_loop=LOOP_SPL, steps=steps, bit_equal=bit_equal,
+        atomics=ATOMIC_STEPS.get(name), loss_graph=loss_g,
+        loss_eager=loss_e, max_param_diff=max_diff,
+        launches=runs["graph"]["launches"], held_per_replay=loop.held,
+        kernel_launches_checked_in_replay=in_replay, draws_differ=True,
+        sync_free_eager_step=True, capture_s=capture_s,
+        graph_train_s=runs["graph"]["train_s"],
+        eager_train_s=runs["eager"]["train_s"],
+        graph_peak_mem_gb=runs["graph"]["peak_mem_gb"],
+        eager_peak_mem_gb=runs["eager"]["peak_mem_gb"],
+        replay_ms_per_step=replay_ms, eager_ms_per_step=eager_ms,
+        profile_host_ms=prof["host_ms"],
+        profile_device_busy_ms=prof["device_busy_ms"],
+        device_idle_share=prof["device_idle_share"],
+        profile_complete=prof["kernel_events_complete"],
+        # the profiled busy time a step against the unprofiled replay
+        busy_ms_per_step=prof["device_busy_ms"] / (PROFILED_LOOPS
+                                                   * LOOP_SPL),
+        seconds=time.perf_counter() - t_start)
+    log(f"loop {name}: {json.dumps(out)}")
+    return out
+
+
+def loop_hooks(graph, dev) -> dict:
+    """Sage through NodeEstimator.train with steps_per_loop = LOOP_SPL, a
+    checkpoint every loop (2 kept) and RunConfig.profile: the checkpoints
+    left, a fresh estimator (other weights) restoring equal parameters at
+    its first infer, and the ProfilerHook's Chrome trace naming both
+    kernels."""
+    with tempfile.TemporaryDirectory() as d:
+        cfg = RunConfig(batch_size=BATCH, total_steps=4 * LOOP_SPL,
+                        optimizer="adam", learning_rate=bench.LR,
+                        log_steps=0, reservoir_refresh=LOOP_SPL,
+                        steps_per_loop=LOOP_SPL, model_dir=d,
+                        save_steps=LOOP_SPL, keep_checkpoints=2, profile=True,
+                        profile_dir=os.path.join(d, "prof"), seed=9)
+        model = bench.make_model("sage", dev,
+                                 generator=torch.Generator().manual_seed(0))
+        NodeEstimator(model, graph, cfg, device=dev).train(
+            log_fn=lambda _: None)
+        kept = sorted(os.listdir(os.path.join(d, "ckpt")))
+        want = sorted([str(3 * LOOP_SPL), str(4 * LOOP_SPL), "latest"])
+        check(kept == want, f"checkpoints kept {kept}, want {want}")
+        fresh = bench.make_model("sage", dev,
+                                 generator=torch.Generator().manual_seed(1))
+        NodeEstimator(fresh, graph, cfg, device=dev).infer(np.arange(BATCH))
+        check(all(torch.equal(p, q) for p, q in zip(model.parameters(),
+                                                    fresh.parameters())),
+              "a fresh estimator restored other parameters")
+        traces = os.listdir(cfg.profile_dir)
+        check(len(traces) == 1, f"profiler traces {traces}")
+        with open(os.path.join(cfg.profile_dir, traces[0])) as f:
+            events = json.load(f)["traceEvents"]
+        kernels = {e["name"] for e in events if e.get("cat") == "kernel"}
+        named = {k: sorted(n for n in kernels if k in n)
+                 for k in ("fan_draw", "gather_rows")}
+        check(all(named.values()), f"the trace's kernels name {named}")
+    out = dict(checkpoints_kept=kept, restored_equal=True,
+               trace_kernels=len(kernels), trace_names=named)
+    log(f"loop hooks: {json.dumps(out)}")
+    return out
+
+
+def phase_loop(graph, dev) -> dict:
+    """Every family's train loop as a captured step replayed
+    (``loop_family``): sage, gin, gat and the unsupervised head on the
+    graph of phase 5, rgcn on its 4-type union-row graph, gcn on its ELL
+    graph (sampled roots, as NodeEstimator draws them), transe on its
+    16-type graph; for sage and gcn one captured step against a whole
+    loop captured (``compare_capture``); checkpoints and the profiler
+    hook under the loop (``loop_hooks``)."""
+    t0 = time.perf_counter()
+    out = {}
+
+    def node_est(model_fn, g):
+        return lambda cfg: NodeEstimator(model_fn(), g, cfg, device=dev)
+
+    def gnn(family):
+        return lambda: bench.make_model(
+            family, dev, generator=torch.Generator().manual_seed(0))
+    two = dict(fan_draw=2, gather_rows=2)
+    for i, family in enumerate(("sage", "gin", "gat")):
+        out[family] = loop_family(family, node_est(gnn(family), graph),
+                                  graph, dev, two, BATCH, 40 + i)
+    out["unsup"] = loop_family(
+        "unsup", node_est(lambda: unsup_model(dev), graph), graph, dev,
+        UNSUP_LAUNCHES, BATCH, 43)
+    out["capture_sage"] = compare_capture(
+        node_est(gnn("sage"), graph)(RunConfig(batch_size=BATCH)), dev, 50)
+    out["hooks"] = loop_hooks(graph, dev)
+    typed = random_graph(N_NODES, AVG_DEGREE, feat_dim=FEAT_DIM,
+                         n_classes=N_CLASSES, seed=0,
+                         num_edge_types=bench.RGCN_TYPES, packs=("fanu",))
+    out["rgcn"] = loop_family("rgcn", node_est(gnn("rgcn"), typed), typed,
+                              dev, two, BATCH, 44)
+    del typed
+    whole = random_graph(GCN_NODES, AVG_DEGREE, feat_dim=FEAT_DIM,
+                         n_classes=N_CLASSES, seed=0, packs=("ell",))
+    out["gcn"] = loop_family("gcn", node_est(gnn("gcn"), whole), whole, dev,
+                             dict(fan_draw=0, gather_rows=2), BATCH, 45)
+    out["capture_gcn"] = compare_capture(
+        node_est(gnn("gcn"), whole)(RunConfig(batch_size=BATCH)), dev, 51)
+    del whole
+    kg_graph = random_graph(TRANSE_NODES, AVG_DEGREE, seed=0,
+                            num_edge_types=bench.TRANSE_RELATIONS, packs=())
+    out["transe"] = loop_family(
+        "transe", lambda cfg: EdgeEstimator(kg_model(kg.TransE, dev),
+                                            kg_graph, cfg, device=dev),
+        kg_graph, dev, dict(fan_draw=0, gather_rows=0), TRANSE_BATCH, 46)
+    del kg_graph
+    out["seconds"] = time.perf_counter() - t0
+    log(f"loop: {out['seconds']:.1f} s; capture: "
+        f"{json.dumps({k: out[k] for k in ('capture_sage', 'capture_gcn')})}")
+    return out
+
+
 # --------------------------------------------------------------- phase 13 --
 
 def phase_bench(dev):
     """Every mode of the port's bench: three lines each; each kernel 2
     launches per step in the sampled modes, gather_rows 2 and fan_draw
     none in gcn (on the ELL pack), neither in transe; peak memory of gcn
-    and transe."""
-    out = {}
+    and transe, and the memory still allocated when the phase starts."""
+    out = dict(allocated_before_gb=torch.cuda.memory_allocated() / 1e9)
+    log(f"bench: {out['allocated_before_gb']:.3f} GB allocated before the "
+        f"first mode")
     for mode in bench.MODELS:
         if mode == "transe":
             want = dict(fan_draw=0, gather_rows=0)
@@ -1825,20 +2208,36 @@ def main() -> int:
         served = phase_serve(out_dir)
         log(f"serve: {json.dumps(served)}")
 
+    # the device memory still allocated after each phase from here on
+    allocated = {}
+
+    def allocated_after(phase: str) -> None:
+        allocated[phase] = torch.cuda.memory_allocated() / 1e9
+        log(f"memory: {allocated[phase]:.3f} GB allocated after {phase}")
+    allocated_after("serving")
     # 10. train (the training path)
     train = phase_train(model, graph, dev)
     log(f"train: {json.dumps(train)}")
+    allocated_after("train")
     # 11. one step's loss and gradients, card vs CPU
     grads = phase_grads(model, graph, dev)
     log(f"grads: {json.dumps(grads)}")
     # 12. gin, gat and rgcn
     families = phase_families(graph, dev)
+    allocated_after("families")
     # 12c. transe; 12d. unsupervised GraphSAGE on the graph of phase 5
     transe = phase_transe(dev)
+    allocated_after("transe")
     unsup = phase_unsup(graph, dev)
+    allocated_after("unsup")
+    # 12e. every family's train loop as a captured step replayed
+    loop = phase_loop(graph, dev)
+    allocated_after("loop")
     del graph
+    allocated_after("del graph")
     # 12b. whole-graph gcn
     gcn = phase_gcn(dev)
+    allocated_after("gcn")
     # 13. the port's bench, every mode
     benched = phase_bench(dev)
 
@@ -1854,6 +2253,8 @@ def main() -> int:
                          bench_transe=benched["transe"]["launches"],
                          unsup_infer=unsup["infer"]["launches"],
                          unsup_train=unsup["train"]["launches"])
+    path_launches.update({f"loop_{family}": loop[family]["launches"]
+                          for family in LOOP_FAMILIES})
 
     def by_path(name):
         return {path: n[name] for path, n in path_launches.items()}
@@ -1930,7 +2331,8 @@ def main() -> int:
         native_core=native.available(), infer=infer, parity=parity,
         train=train, grads=grads, families=families, gcn=gcn,
         transe=transe, unsup={k: v for k, v in unsup.items()
-                              if k != "kernels"}, bench=benched)}))
+                              if k != "kernels"}, loop=loop,
+        bench=benched, allocated_gb_after=allocated)}))
     log(smi)                # nvidia-smi's name and power limit, as given
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,

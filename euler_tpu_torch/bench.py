@@ -38,9 +38,13 @@ loop; metric ``transx_triples_per_sec_per_chip``, ``value`` in triples/s
 (batch x steps / seconds). It launches neither kernel. Off the card:
 2,000 nodes, batch 256, 5 steps per loop.
 
-Three phases, as bench.py's: ``warmup`` (the first loop), ``single_loop``
-(one loop, waited for) and ``pipelined`` (4 loops, or 2 off the card,
-waited for once). Each phase prints one line ``ms_per_step ...`` and then
+A loop is the estimator's ``TrainLoop`` of the mode's steps per loop, as
+bench.py's loop is one ``lax.scan`` (bench.py:378-403): on the card one
+train step captured as a CUDA graph and replayed, off it eager steps.
+Three phases, as bench.py's: ``warmup`` (the first loop, whose first step
+runs eagerly and whose second is captured), ``single_loop`` (one loop,
+waited for) and ``pipelined`` (4 loops, or 2 off the card, waited for
+once). Each phase prints one line ``ms_per_step ...`` and then
 bench.py's JSON line: metric ``sampled_aggregate_edges_per_sec_per_chip``,
 ``"model"`` the mode, ``value`` in edges/s with bench.py's per-step edge
 count for every sampled mode (bench.py:409-410), ``"vs_baseline": null``
@@ -63,7 +67,7 @@ from euler_tpu_torch._device import resolve_device
 from euler_tpu_torch.dataflow import SageDataFlow, WholeDataFlow
 from euler_tpu_torch.datasets import random_graph
 from euler_tpu_torch.estimator import (EdgeEstimator, NodeEstimator,
-                                       RunConfig, get_optimizer)
+                                       RunConfig, TrainLoop, get_optimizer)
 from euler_tpu_torch.graph.meta import FeatureSpec
 from euler_tpu_torch.models import (GNNNet, ShallowEncoder, SuperviseModel,
                                     TransE)
@@ -159,15 +163,17 @@ def build(dev: torch.device, n_nodes: int, batch: int,
         graph.tensors, meta=meta, dense_nf={"feature": feat, "label": lab})
     sup = make_model(model, dev, act, torch.Generator().manual_seed(0))
     cfg = RunConfig(batch_size=batch, optimizer="adam", learning_rate=LR,
-                    log_steps=0, reservoir_refresh=steps_per_loop)
+                    log_steps=0, reservoir_refresh=steps_per_loop,
+                    steps_per_loop=steps_per_loop)
     return NodeEstimator(sup, graph, cfg, device=dev)
 
 
-def build_transe(dev: torch.device, n_nodes: int,
-                 batch: int) -> EdgeEstimator:
+def build_transe(dev: torch.device, n_nodes: int, batch: int,
+                 steps_per_loop: int) -> EdgeEstimator:
     """bench.py's transe graph and model on ``dev``: TransE over
     ``n_nodes`` entities and TRANSE_RELATIONS edge types, f32 tables from
-    seed 0, an ``EdgeEstimator`` that draws ``batch`` triples a step."""
+    seed 0, an ``EdgeEstimator`` that draws ``batch`` triples a step in
+    loops of ``steps_per_loop``."""
     graph = random_graph(n_nodes, AVG_DEGREE, seed=0,
                          num_edge_types=TRANSE_RELATIONS, packs=(),
                          device=dev)
@@ -176,7 +182,8 @@ def build_transe(dev: torch.device, n_nodes: int,
                    num_negs=TRANSE_NEGS, device=dev,
                    generator=torch.Generator().manual_seed(0))
     cfg = RunConfig(batch_size=batch, optimizer="adam", learning_rate=LR,
-                    log_steps=0, reservoir_refresh=0)
+                    log_steps=0, reservoir_refresh=0,
+                    steps_per_loop=steps_per_loop)
     return EdgeEstimator(model, graph, cfg, device=dev)
 
 
@@ -206,8 +213,8 @@ def run(device=None, log: Callable = print, model: str = "sage",
         count, metric = edges_per_step(batch), METRIC
         unit = "edges/s"
         config = f"b{batch}_f{FANOUT[0]}x{FANOUT[1]}_n{n_nodes}"
-    est = (build_transe(dev, n_nodes, batch) if model == "transe" else
-           build(dev, n_nodes, batch, spl, model, gcn_layout))
+    est = (build_transe(dev, n_nodes, batch, spl) if model == "transe"
+           else build(dev, n_nodes, batch, spl, model, gcn_layout))
     g = est.graph.tensors
     opt = get_optimizer("adam", LR, est.model.parameters())
     gen = torch.Generator(device=dev).manual_seed(2)
@@ -217,15 +224,15 @@ def run(device=None, log: Callable = print, model: str = "sage",
         # gcn: every node; transe: sampled triples; else: sampled roots
         return every_node if model == "gcn" else est.train_batch(g, gen)
 
+    loop = TrainLoop(est, opt, gen, est.config.steps_per_loop, roots)
+
     def run_loop():
         # one redraw of the fan reservoir per loop, as bench.py's run_loop
         # (which has none for rgcn's union rows; the graphs of gcn and
         # transe have no fan rows)
         if model in ("sage", "gin", "gat"):
             sampling.refresh_fan_pack(g, gen)
-        for _ in range(spl):
-            loss = est.step(opt, roots(), generator=gen)
-        return loss
+        return loop()
 
     records = []
 

@@ -30,7 +30,7 @@ from typing import Optional, Tuple
 import torch
 
 from euler_tpu_torch.ops import mp_ops
-from euler_tpu_torch.ops.sampling import as_etypes
+from euler_tpu_torch.ops.sampling import as_etypes, etype_tensor
 
 
 @dataclasses.dataclass
@@ -429,8 +429,7 @@ def full_graph_block(g, edge_types, add_self_loops: bool = True) -> Block:
 
     reference: euler_tpu/dataflow/block.py ``full_graph_block``
     (tf_euler/python/dataflow/whole_dataflow.py:26-63)."""
-    ets = torch.tensor(as_etypes(g, edge_types), dtype=torch.int32,
-                       device=g.device)
+    ets = etype_tensor(as_etypes(g, edge_types), torch.int32, g.device)
     n = g.meta.n_nodes
     dev = g.device
     mask = torch.isin(g.adj_type, ets).to(torch.float32)

@@ -153,8 +153,8 @@ class WholeDataFlow:
         use_ell = self.layout == "ell" or (
             self.layout == "auto" and (have_pack or self.cap is not None))
         n = g.meta.n_nodes
-        ets = torch.tensor(sampling.as_etypes(g, self.metapath[0]),
-                           dtype=torch.int32, device=g.device)
+        ets = sampling.etype_tensor(sampling.as_etypes(g, self.metapath[0]),
+                                    torch.int32, g.device)
         all_nodes = torch.arange(n, dtype=torch.int32, device=g.device)
         if use_ell and have_pack:
             sel = torch.isin(g.ell_ty, ets)

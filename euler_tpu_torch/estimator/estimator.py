@@ -3,14 +3,28 @@
 Counterpart of euler_tpu/estimator/estimator.py (reference:
 euler_estimator/python/base_estimator.py:28-188, node_estimator.py:26):
 ``RunConfig``, ``get_optimizer``, ``BaseEstimator.train``/``evaluate``/
-``infer``, ``NodeEstimator`` and ``EdgeEstimator`` (edge_estimator.py:27).
-The reference's jitted step with optax becomes an eager step with
-autograd and a torch.optim optimizer. Not ported yet: ``steps_per_loop``,
-checkpoints and the profiler hook.
+``infer`` with ``steps_per_loop``, checkpoints and the profiler hook,
+``NodeEstimator`` and ``EdgeEstimator`` (edge_estimator.py:27). The
+reference's jitted step with optax becomes an eager step with autograd and
+a torch.optim optimizer; its ``lax.scan`` of ``steps_per_loop`` steps
+becomes ``TrainLoop``: on the card, one train step captured as a CUDA
+graph and replayed. sgd, momentum and adam (``capturable=True`` on the
+card) capture; Adagrad reads its step count on the host and cannot, so
+``steps_per_loop > 1`` with it raises on the card. On the CPU, which has
+no graphs, a loop is its steps run one by one.
+
+Intended differences from the reference: ``RunConfig.model_dir`` defaults
+to None, which writes and restores no checkpoint (the reference's
+``/tmp/euler_tpu_model`` would let runs restore one another's); a
+checkpoint that does not fit the model raises where the reference starts
+afresh in silence; and ``RunConfig.profile`` traces from the first loop
+boundary at or past step 10, where the reference's hook waits for step 10
+exactly and so never starts when the loop's steps skip it.
 """
 from __future__ import annotations
 
 import dataclasses
+import functools
 import os
 import time
 from typing import Callable, Dict, List, Optional, Sequence, Tuple
@@ -22,21 +36,47 @@ from euler_tpu_torch._device import resolve_device
 from euler_tpu_torch.graph.store import Graph
 from euler_tpu_torch.models.kg import rank_all_entities
 from euler_tpu_torch.ops import sampling
+from euler_tpu_torch.ops.fan_draw import fan_draw
+from euler_tpu_torch.ops.gather_rows import gather_rows
 from euler_tpu_torch.utils import metrics as metrics_lib
+from euler_tpu_torch.utils.hooks import ProfilerHook
+
+#: the kernel wrappers; each counts the launches of its kernel in
+#: ``.launches``
+KERNELS = (fan_draw, gather_rows)
 
 
 def get_optimizer(name: str, lr: float, params) -> torch.optim.Optimizer:
     """reference: tf_euler/python/utils/optimizers.py:23-31, as optax
     builds them. Adagrad takes optax's accumulator start (0.1) and eps
-    (1e-7), where torch's defaults are 0 and 1e-10."""
+    (1e-7), where torch's defaults are 0 and 1e-10. Adam on CUDA
+    parameters is ``capturable`` (its step count stays on the card), so
+    that ``TrainLoop`` can capture it; SGD captures as it is."""
     params = list(params)
+    on_card = any(p.is_cuda for p in params)
     return {
         "sgd": lambda: torch.optim.SGD(params, lr),
         "momentum": lambda: torch.optim.SGD(params, lr, momentum=0.9),
         "adagrad": lambda: torch.optim.Adagrad(
             params, lr, initial_accumulator_value=0.1, eps=1e-7),
-        "adam": lambda: torch.optim.Adam(params, lr),
+        "adam": lambda: torch.optim.Adam(params, lr, capturable=on_card),
     }[name]()
+
+
+@functools.lru_cache(maxsize=None)
+def capture_stream(device: torch.device) -> torch.cuda.Stream:
+    """The one side stream of ``device`` on which every ``TrainLoop``
+    warms up and captures. cuBLAS keeps a workspace (about 32 MiB) for
+    each stream it has run on, for the life of the process, so a new
+    stream per capture would leave one behind at every ``train``."""
+    return torch.cuda.Stream(device)
+
+
+def _capturable(optimizer: torch.optim.Optimizer) -> bool:
+    """Whether a CUDA graph can capture ``optimizer.step()``: SGD's, and
+    that of an optimizer built with ``capturable=True``."""
+    return (type(optimizer) is torch.optim.SGD
+            or bool(optimizer.defaults.get("capturable")))
 
 
 @dataclasses.dataclass
@@ -51,7 +91,94 @@ class RunConfig:
     reservoir_refresh: int = 100  # redraw the fan_pack reservoir rows
     # every N steps (0 = never): groups with degree > FAN_D hold
     # pre-drawn neighbors, exact per draw but repeated until redrawn
-    # (ops/sampling.refresh_fan_pack)
+    # (ops/sampling.refresh_fan_pack); checked at each loop's start
+    model_dir: Optional[str] = None  # checkpoints under model_dir/ckpt;
+    # None: none written, none restored
+    save_steps: int = 0          # 0 => only at the end
+    keep_checkpoints: int = 5    # retain the newest N (0 = all)
+    profile: bool = False        # torch.profiler trace of steps 10-20
+    profile_dir: str = "prof_dir"
+    steps_per_loop: int = 1      # > 1: that many steps as one TrainLoop,
+    # on the card one captured step replayed; log/save/profile
+    # granularity rounds to loop boundaries
+
+
+class TrainLoop:
+    """``steps`` optimizer steps as one call: the counterpart of the
+    reference's ``lax.scan`` over its step (estimator.py:446-459).
+
+    Each step is ``estimator.step(optimizer, batch(), generator)``. On a
+    CUDA device with ``steps > 1`` the first call runs one such step
+    eagerly on the device's ``capture_stream`` (the warm-up: it builds
+    the optimizer's state, the kernels' libraries, the cached constants
+    and the stream's cuBLAS workspace), captures on that stream the
+    next one whole (``batch()``, forward, backward, ``optimizer.step()``)
+    in a ``torch.cuda.CUDAGraph`` with ``generator`` registered, so that
+    each replay draws anew, and replays it for the loop's other steps;
+    later calls replay it ``steps`` times. Elsewhere a call runs its steps
+    eagerly. Either way the losses and parameters are those of the eager
+    steps from the same generator state, up to the order of atomic sums.
+
+    A replay reads the addresses it captured: the parameters, the
+    optimizer's state and the graph's tensors are updated in place, never
+    rebound. A call returns a copy of its last step's loss, made before
+    the next replay overwrites it. The kernel wrappers' ``launches`` count
+    what ran: a capture records launches and runs none, and each replay
+    adds the launches its graph holds (``held``). A capture that fails
+    raises; there is no eager fallback.
+    """
+
+    def __init__(self, estimator: "BaseEstimator",
+                 optimizer: torch.optim.Optimizer,
+                 generator: torch.Generator, steps: int,
+                 batch: Callable[[], torch.Tensor]):
+        self.estimator, self.optimizer = estimator, optimizer
+        self.generator, self.steps, self.batch = generator, steps, batch
+        self.graphed = steps > 1 and estimator.device.type == "cuda"
+        if self.graphed and not _capturable(optimizer):
+            raise ValueError(
+                f"{type(optimizer).__name__} reads its step count on the "
+                f"host, so a CUDA graph cannot capture its step: "
+                f"steps_per_loop > 1 on the card needs sgd, momentum or "
+                f"adam")
+        self.graph = self.loss = None
+        self.held: Dict[str, int] = {}
+
+    def _step(self) -> torch.Tensor:
+        return self.estimator.step(self.optimizer, self.batch(),
+                                   generator=self.generator)
+
+    def _capture(self) -> None:
+        dev = self.estimator.device
+        side = capture_stream(dev)
+        side.wait_stream(torch.cuda.current_stream(dev))
+        with torch.cuda.stream(side):
+            self._step()
+        torch.cuda.current_stream(dev).wait_stream(side)
+        graph = torch.cuda.CUDAGraph()
+        graph.register_generator_state(self.generator)
+        before = {k: k.launches for k in KERNELS}
+        with torch.cuda.graph(graph, stream=side):
+            self.loss = self._step()
+        self.held = {k.__name__: k.launches - n for k, n in before.items()}
+        for k, n in before.items():
+            k.launches = n
+        self.graph = graph
+
+    def __call__(self) -> torch.Tensor:
+        if not self.graphed:
+            for _ in range(self.steps):
+                loss = self._step()
+            return loss
+        replays = self.steps
+        if self.graph is None:
+            self._capture()            # its warm-up is this loop's first
+            replays -= 1
+        for _ in range(replays):
+            self.graph.replay()
+        for k in KERNELS:
+            k.launches += self.held[k.__name__] * replays
+        return self.loss.clone()
 
 
 class BaseEstimator:
@@ -67,6 +194,7 @@ class BaseEstimator:
         self.model = model
         self.graph = graph
         self.config = config
+        self._restore_checked = False
         for what, dev in (("graph", graph.tensors.device),
                           ("model", next(model.parameters()).device)):
             if dev.type != self.device.type:
@@ -94,32 +222,104 @@ class BaseEstimator:
 
     def train(self, total_steps: Optional[int] = None,
               log_fn: Callable = print) -> Dict[str, float]:
-        """``total_steps`` optimizer steps from a fresh optimizer state,
-        as the reference's ``train`` (base_estimator.py:160-254); the
-        reservoir redraws stay in ``graph.tensors`` afterwards."""
+        """``total_steps`` optimizer steps from a fresh optimizer state, as
+        the reference's loop (estimator.py:410-504): loops of
+        ``steps_per_loop`` steps (``TrainLoop``) while a whole loop fits,
+        single steps after; the reservoir redraw checked at each loop's
+        start; a log line where ``i % log_steps < steps_per_loop`` and a
+        checkpoint where ``i % save_steps < steps_per_loop`` (i >=
+        save_steps), i the steps done, and one at the end. The reservoir
+        redraws stay in ``graph.tensors`` afterwards."""
         cfg = self.config
         total = total_steps or cfg.total_steps
+        self._restore()
         g = self.graph.tensors
         opt = get_optimizer(cfg.optimizer, cfg.learning_rate,
                             self.model.parameters())
         gen = torch.Generator(device=self.device)
         gen.manual_seed(cfg.seed + 1)
+        spl = max(1, int(cfg.steps_per_loop))
+        loop = TrainLoop(self, opt, gen, spl,
+                         lambda: self.train_batch(g, gen))
+        profiler = (ProfilerHook(cfg.profile_dir, start=10, steps=10)
+                    if cfg.profile else None)
         t0 = time.time()
         loss = last_loss = None
+        i = 0
         next_refresh = cfg.reservoir_refresh or float("inf")
-        for i in range(1, total + 1):
-            if i - 1 >= next_refresh:
-                sampling.refresh_fan_pack(g, gen)
-                next_refresh += cfg.reservoir_refresh
-            loss = self.step(opt, self.train_batch(g, gen), generator=gen)
-            if cfg.log_steps and i % cfg.log_steps == 0:
-                last_loss = float(loss)
-                rate = i * cfg.batch_size / (time.time() - t0)
-                log_fn(f"[euler_tpu_torch] step {i}/{total} "
-                       f"loss={last_loss:.4f} ({rate:.0f} ex/s)")
+        try:
+            while i < total:
+                if i >= next_refresh:
+                    sampling.refresh_fan_pack(g, gen)
+                    next_refresh += cfg.reservoir_refresh
+                if spl > 1 and i + spl <= total:
+                    loss = loop()
+                    i += spl
+                else:
+                    loss = self.step(opt, self.train_batch(g, gen),
+                                     generator=gen)
+                    i += 1
+                if profiler is not None:
+                    profiler(i)
+                if cfg.log_steps and i % cfg.log_steps < spl:
+                    last_loss = float(loss)
+                    rate = i * cfg.batch_size / (time.time() - t0)
+                    log_fn(f"[euler_tpu_torch] step {i}/{total} "
+                           f"loss={last_loss:.4f} ({rate:.0f} ex/s)")
+                if cfg.save_steps and i % cfg.save_steps < spl \
+                        and i >= cfg.save_steps:
+                    self._save(i)
+        finally:
+            if profiler is not None:
+                profiler.close()
+        self._save(total)
         if last_loss is None or last_loss != last_loss:
             last_loss = float(loss)
         return {"loss": last_loss, "steps": total}
+
+    # ---- checkpoints -------------------------------------------------------
+    def _ckpt_dir(self) -> str:
+        return os.path.join(os.path.abspath(self.config.model_dir), "ckpt")
+
+    def _save(self, step: int) -> None:
+        """``model.state_dict()`` to ``model_dir/ckpt/<step>`` and the step
+        to ``model_dir/ckpt/latest``; then only the newest
+        ``keep_checkpoints`` steps stay, this one always among them
+        (reference: estimator.py:375-393). No ``model_dir``: nothing."""
+        if self.config.model_dir is None:
+            return
+        d = self._ckpt_dir()
+        os.makedirs(d, exist_ok=True)
+        tmp = os.path.join(d, f"{step}.tmp")
+        torch.save(self.model.state_dict(), tmp)
+        os.replace(tmp, os.path.join(d, str(step)))
+        with open(os.path.join(d, "latest"), "w") as f:
+            f.write(str(step))
+        keep = self.config.keep_checkpoints
+        if keep > 0:
+            older = sorted((int(n) for n in os.listdir(d)
+                            if n.isdigit() and int(n) != step), reverse=True)
+            for old in older[keep - 1:]:
+                os.remove(os.path.join(d, str(old)))
+
+    def _restore(self) -> None:
+        """Load the checkpoint that ``model_dir/ckpt/latest`` names into the
+        model, in place, at the first train, evaluate or infer of this
+        estimator (reference: the ``params`` property, estimator.py:
+        351-356). A checkpoint that does not fit the model raises."""
+        if self._restore_checked:
+            return
+        self._restore_checked = True
+        if self.config.model_dir is None:
+            return
+        latest = os.path.join(self._ckpt_dir(), "latest")
+        if not os.path.exists(latest):
+            return
+        with open(latest) as f:
+            step = f.read().strip()
+        state = torch.load(os.path.join(self._ckpt_dir(), step),
+                           map_location=self.device, weights_only=True)
+        self.model.load_state_dict(state)
 
     # ---- evaluation and inference -----------------------------------------
     def _batched_apply(self, ids: np.ndarray, fn: Callable
@@ -154,6 +354,7 @@ class BaseEstimator:
         metric = metrics_lib.get(name)
         ids = np.asarray(ids, np.int32)
         self._check_ids(ids)
+        self._restore()
 
         def run(g, batch, gen):
             return self.model(g, batch, generator=gen)
@@ -186,6 +387,7 @@ class BaseEstimator:
         n_nodes = self.graph.meta.n_nodes
         if nodes.size and (nodes.min() < -1 or nodes.max() >= n_nodes):
             raise ValueError(f"ids must lie in [0, {n_nodes}) (or be -1)")
+        self._restore()
 
         def embed(g, batch, gen):
             return self.model(g, batch, generator=gen)["embedding"]

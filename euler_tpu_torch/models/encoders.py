@@ -12,7 +12,6 @@ import math
 from typing import Optional, Sequence
 
 import torch
-import torch.nn.functional as F
 from torch import nn
 
 from euler_tpu_torch.graph.store import GraphTensors
@@ -54,6 +53,28 @@ class ShallowEncoder(nn.Module):
         return out.reshape(tuple(n_id.shape) + (out.shape[1],))
 
 
+class _Lookup(torch.autograd.Function):
+    """Rows ``weight[ids]``; the backward adds each row's cotangent into a
+    zero table with ``index_add_``. On the card that sums repeated ids
+    with atomics, in no fixed order, and never waits for the card (the
+    dense backward of ``F.embedding`` sorts the ids and spends host time
+    waiting), so a step through it can be captured in a CUDA graph."""
+
+    @staticmethod
+    def forward(ctx, weight, ids):
+        ctx.save_for_backward(ids)
+        ctx.shape = weight.shape
+        return weight.index_select(0, ids.reshape(-1)).reshape(
+            tuple(ids.shape) + (weight.shape[1],))
+
+    @staticmethod
+    def backward(ctx, g):
+        (ids,) = ctx.saved_tensors
+        grad = g.new_zeros(ctx.shape)
+        grad.index_add_(0, ids.reshape(-1), g.reshape(-1, ctx.shape[1]))
+        return grad, None
+
+
 class Embed(nn.Module):
     """flax's ``nn.Embed``: a [num, features] table looked up by id.
 
@@ -61,9 +82,11 @@ class Embed(nn.Module):
     an id past the table with NaN, where ``nn.Embedding`` would raise.
     Here ids clamp to the last row and those rows become NaN with a
     ``where``, so the clamped row takes no gradient from them. Callers
-    clamp ids below 0, as the reference's do. The table starts as flax's
-    ``default_embed_init``: normal with variance 1 / features, drawn from
-    ``generator``, a CPU generator.
+    clamp ids below 0, as the reference's do. The gradient of the table
+    is an ``index_add_`` of the rows' cotangents (``_Lookup``): on the
+    card its sums over repeated ids run in no fixed order. The table
+    starts as flax's ``default_embed_init``: normal with variance
+    1 / features, drawn from ``generator``, a CPU generator.
     """
 
     def __init__(self, num: int, features: int,
@@ -75,5 +98,5 @@ class Embed(nn.Module):
     def forward(self, ids: torch.Tensor) -> torch.Tensor:
         n = self.weight.shape[0]
         ids = ids.long()
-        out = F.embedding(ids.clamp_max(n - 1), self.weight)
+        out = _Lookup.apply(self.weight, ids.clamp_max(n - 1))
         return torch.where((ids < n)[..., None], out, float("nan"))

@@ -244,8 +244,10 @@ def alias_select(prob: torch.Tensor, alias: torch.Tensor, lo, size,
     clamps it; here every table index is clamped to the table.
     """
     n = prob.shape[0]
-    lo = torch.as_tensor(lo, dtype=torch.int32, device=u1.device)
-    size = torch.as_tensor(size, dtype=torch.int32, device=u1.device)
+    # an int becomes a fill on the device, never a copy from the host
+    lo, size = (x.to(torch.int32) if torch.is_tensor(x) else
+                torch.full((), x, dtype=torch.int32, device=u1.device)
+                for x in (lo, size))
     safe = size.clamp_min(1)
     slot = torch.minimum((u1 * safe.to(torch.float32)).to(torch.int32),
                          safe - 1)

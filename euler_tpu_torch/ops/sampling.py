@@ -32,6 +32,7 @@ clamps to its last row, as XLA clamps a gather index (torch would raise).
 """
 from __future__ import annotations
 
+import functools
 from typing import Optional, Sequence, Tuple
 
 import torch
@@ -47,6 +48,16 @@ def as_etypes(g: GraphTensors, edge_types) -> Tuple[int, ...]:
     if isinstance(edge_types, (int, str)):
         edge_types = (edge_types,)
     return tuple(g.meta.edge_type_id(t) for t in edge_types)
+
+
+@functools.lru_cache(maxsize=64)
+def etype_tensor(ets: Tuple[int, ...], dtype: torch.dtype,
+                 device: torch.device) -> torch.Tensor:
+    """The edge-type ids ``ets`` as a tensor on ``device``, built once per
+    (ets, dtype, device) and shared: never write to it. A step that a
+    CUDA graph captures may not copy a Python list to the card, so the
+    copy happens at the first, eager call."""
+    return torch.tensor(ets, dtype=dtype, device=device)
 
 
 # ---------------------------------------------------------------------------
@@ -210,7 +221,7 @@ def select_typed_neighbors(g: GraphTensors, nodes: torch.Tensor, edge_types,
     _need_fan_pack(g, ets)
     K, ET = len(ets), g.meta.num_edge_types
     G = g.fan_pack.shape[0]
-    et = torch.tensor(ets, dtype=torch.int64, device=nodes.device)
+    et = etype_tensor(ets, torch.int64, nodes.device)
     rows = nodes.to(torch.int64).clamp_min(0)
     packs = g.fan_pack[(rows[:, None] * ET + et[None, :]).clamp_max(G - 1)]
     deg = packs[..., 0]                                        # [B, K]
@@ -372,7 +383,7 @@ def get_full_neighbor(g: GraphTensors, nodes: torch.Tensor, edge_types,
     dev = nodes.device
     B, K = nodes.shape[0], len(ets)
     rows = nodes.clamp_min(0)
-    et = torch.tensor(ets, dtype=torch.int32, device=dev)
+    et = etype_tensor(ets, torch.int32, dev)
     lo, hi = _group_bounds(g, rows[:, None], et[None, :])        # [B, K]
     deg = (hi - lo).long()
     offs = torch.cat([torch.zeros((B, 1), dtype=torch.int64, device=dev),

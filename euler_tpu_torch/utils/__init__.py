@@ -1,1 +1,1 @@
-"""Utilities of the port (metrics so far)."""
+"""Utilities of the port: metrics, run hooks, config, io and dense."""

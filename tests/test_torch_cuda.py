@@ -18,9 +18,15 @@ themselves on the CPU within the same tolerance (exactly for the max).
 The edge draw on the card must equal the CPU's bit for bit from the same
 uniforms; a TransE step and an unsupervised GraphSAGE step must match the
 CPU within 1e-4, the latter with 7 ``fan_draw`` and 3 ``gather_rows``
-launches.
+launches. A loop of ``steps_per_loop`` steps, one captured step replayed
+(``TrainLoop``), must equal the eager steps from the same generator state
+bit for bit (transe within 1e-5: its ``Embed`` backward sums with
+atomics), advance the generator as they do, and count each replay's
+kernel launches.
 """
 import copy
+import dataclasses
+import gc
 
 import numpy as np
 import pytest
@@ -31,6 +37,8 @@ from euler_tpu_torch import bench
 from euler_tpu_torch.dataflow import SageDataFlow, WholeDataFlow
 from euler_tpu_torch.dataflow import block as block_lib
 from euler_tpu_torch.datasets import random_graph
+from euler_tpu_torch.estimator import (EdgeEstimator, NodeEstimator,
+                                       RunConfig, TrainLoop, get_optimizer)
 from euler_tpu_torch.models import (GNNNet, ShallowEncoder, SuperviseModel,
                                     TransE, UnsuperviseModel)
 from euler_tpu_torch.ops import fan_draw as fd
@@ -520,3 +528,139 @@ def test_unsupervised_step_on_card_matches_cpu(dev):
     for k in gk:
         np.testing.assert_allclose(gk[k].numpy(), gc[k].numpy(), rtol=1e-4,
                                    atol=1e-4, err_msg=k)
+
+
+# ---- the estimator's loop: a captured step replayed (TrainLoop) -----------
+
+LOOP_SPL = 4
+
+
+def loop_estimators(dev, family):
+    """(graph, estimator with steps_per_loop = LOOP_SPL, one with 1) from
+    the same weights; sage on a graph with reservoir rows, transe on 16
+    edge types."""
+    if family == "sage":
+        graph = random_graph(3000, 50, feat_dim=16, n_classes=4, seed=0,
+                             device=dev)
+
+        def make():
+            net = GNNNet("sage", SageDataFlow([5, 3], [(0,), (0,)]),
+                         (16, 16), ShallowEncoder(("feature",)), in_dim=16,
+                         device=dev,
+                         generator=torch.Generator().manual_seed(0))
+            return SuperviseModel(net, "label", 4, device=dev,
+                                  generator=torch.Generator().manual_seed(0))
+        cls = NodeEstimator
+    else:
+        graph = random_graph(3000, 25, num_edge_types=16, seed=0, packs=(),
+                             device=dev)
+
+        def make():
+            return TransE(3000, 16, 32, 32, num_negs=5, device=dev,
+                          generator=torch.Generator().manual_seed(0))
+        cls = EdgeEstimator
+    cfg = RunConfig(batch_size=256, total_steps=2 * LOOP_SPL,
+                    learning_rate=1e-3, log_steps=0,
+                    reservoir_refresh=LOOP_SPL, steps_per_loop=LOOP_SPL,
+                    seed=3)
+    return (graph, cls(make(), graph, cfg, device=dev),
+            cls(make(), graph, dataclasses.replace(cfg, steps_per_loop=1),
+                device=dev))
+
+
+@pytest.mark.parametrize("family", ["sage", "transe"])
+def test_replayed_loop_equals_eager_steps(dev, family):
+    """Bit for bit, but for transe, whose Embed backward sums repeated ids
+    with index_add_ atomics in no fixed order."""
+    graph, graphed, eager = loop_estimators(dev, family)
+    g = graph.tensors
+    pack = None if g.fan_pack is None else g.fan_pack.clone()
+    losses, counts = [], []
+    for est in (eager, graphed):
+        if pack is not None:
+            g.fan_pack.copy_(pack)
+        before = (fd.fan_draw.launches, gr.gather_rows.launches)
+        losses.append(est.train()["loss"])
+        torch.cuda.synchronize()
+        counts.append((fd.fan_draw.launches - before[0],
+                       gr.gather_rows.launches - before[1]))
+    if pack is not None:
+        assert not torch.equal(g.fan_pack, pack)         # redrawn
+    per_step = 2 if family == "sage" else 0
+    assert counts == [(per_step * 2 * LOOP_SPL,) * 2] * 2
+    pairs = list(zip(graphed.model.parameters(), eager.model.parameters()))
+    if family == "sage":
+        assert losses[0] == losses[1]
+        assert all(torch.equal(a, b) for a, b in pairs)
+    else:
+        np.testing.assert_allclose(losses[1], losses[0], rtol=1e-5,
+                                   atol=1e-6)
+        for a, b in pairs:
+            torch.testing.assert_close(a, b, rtol=1e-5, atol=1e-6)
+
+
+def test_replays_advance_the_generator_as_eager_steps(dev):
+    graph, graphed, eager = loop_estimators(dev, "sage")
+    g = graph.tensors
+    draws = []
+    for est, spl in ((graphed, LOOP_SPL), (eager, 1)):
+        gen = torch.Generator(device=dev).manual_seed(5)
+        opt = get_optimizer("adam", 1e-3, est.model.parameters())
+        seen = []
+
+        def batch():
+            seen.append(est.train_batch(g, gen))
+            return seen[-1]
+        loop = TrainLoop(est, opt, gen, spl, batch)
+        roots = []
+        for _ in range(3 * LOOP_SPL // spl):
+            loop()
+            roots.append(seen[-1].clone())
+        draws.append((roots[LOOP_SPL // spl - 1::LOOP_SPL // spl],
+                      torch.rand(8, generator=gen, device=dev)))
+        if spl > 1:
+            assert loop.held == dict(fan_draw=2, gather_rows=2)
+    (roots_g, after_g), (roots_e, after_e) = draws
+    assert not torch.equal(roots_g[1], roots_g[2])       # replays draw anew
+    assert all(torch.equal(a, b) for a, b in zip(roots_g, roots_e))
+    assert torch.equal(after_g, after_e)
+
+
+def test_launch_counts_through_replays(dev):
+    graph, graphed, _ = loop_estimators(dev, "sage")
+    gen = torch.Generator(device=dev).manual_seed(6)
+    opt = get_optimizer("adam", 1e-3, graphed.model.parameters())
+    loop = TrainLoop(graphed, opt, gen, LOOP_SPL,
+                     lambda: graphed.train_batch(graph.tensors, gen))
+    counts = []
+    for _ in range(3):
+        before = (fd.fan_draw.launches, gr.gather_rows.launches)
+        loop()
+        counts.append((fd.fan_draw.launches - before[0],
+                       gr.gather_rows.launches - before[1]))
+    assert counts == [(2 * LOOP_SPL, 2 * LOOP_SPL)] * 3
+
+
+def test_adagrad_is_refused_under_a_loop_on_the_card(dev):
+    graph, graphed, _ = loop_estimators(dev, "sage")
+    graphed.config.optimizer = "adagrad"
+    with pytest.raises(ValueError, match="Adagrad"):
+        graphed.train()
+
+
+def test_train_under_a_loop_leaves_no_device_memory_behind(dev):
+    """Each train call captures anew and frees its graph with it. (A new
+    side stream for each capture once left that stream's cuBLAS
+    workspaces behind at every call.)"""
+    graph, graphed, _ = loop_estimators(dev, "sage")
+
+    def allocated():
+        torch.cuda.synchronize()
+        gc.collect()
+        return torch.cuda.memory_allocated()
+    graphed.train()
+    after = []
+    for _ in range(3):
+        graphed.train()
+        after.append(allocated())
+    assert after[0] == after[1] == after[2]
