@@ -150,14 +150,19 @@ Phases, in order; any failure propagates and the exit code is not 0:
               counts equal, and per step as in phases 10 and 12; two
               replays draw different batches; the replayed and the eager
               step timed (host clock); 4 loops of 5 replays profiled (the
-              card's idle share); one eager step under
-              torch.cuda.set_sync_debug_mode("error"). For sage and gcn,
-              one captured step replayed against 5 steps captured in one
-              graph (capture seconds, peak memory, ms per step). Sage with
-              a checkpoint every loop (2 kept) and RunConfig.profile: the
+              card's idle share), the launches a replay adds to the counts
+              equal to an eager step's and the trace holding one event for
+              each launch counted; one eager step under
+              torch.cuda.set_sync_debug_mode("error"). Sage with a
+              checkpoint every loop (2 kept) and RunConfig.profile: the
               checkpoints left, a fresh estimator restoring equal
               parameters at its first infer, the ProfilerHook's trace
-              naming both kernels
+              naming both kernels. Then sage, gin, gat, rgcn and gcn as
+              phase 13's bench builds and loops them (bf16, 50 steps a
+              loop, gcn's 20 over every node): 2 loops replayed against
+              the same loops run eagerly, loss and parameters equal bit
+              for bit and the counts equal, and one loop of replays
+              profiled with the same trace check
  13. bench    the port's bench (euler_tpu_torch/bench.py) in each mode,
               sage, gin, gat, rgcn, gcn and transe, at bench.py's width,
               bf16 activations in the GNN modes (transe is f32): warmup,
@@ -204,10 +209,10 @@ from euler_tpu_torch.dataflow import block as block_lib
 from euler_tpu_torch.datasets import random_graph
 from euler_tpu_torch.estimator import (EdgeEstimator, NodeEstimator,
                                        RunConfig, TrainLoop, get_optimizer)
-from euler_tpu_torch.estimator.estimator import capture_stream
 from euler_tpu_torch.models import (GNNNet, ShallowEncoder, UnsuperviseModel,
                                     convs, encoders, kg)
 from euler_tpu_torch.native import loader as native
+from euler_tpu_torch.ops import COUNTED
 from euler_tpu_torch.ops import fan_draw as fd
 from euler_tpu_torch.ops import feature_ops
 from euler_tpu_torch.ops import gather_rows as gr
@@ -251,13 +256,12 @@ UNSUP_LAUNCHES = dict(fan_draw=1 + 2 * 3, gather_rows=3)
 
 
 def reset_counts() -> None:
-    fd.fan_draw.launches = 0
-    gr.gather_rows.launches = 0
+    for k in COUNTED:
+        k.launches = 0
 
 
 def read_counts() -> dict:
-    return dict(fan_draw=fd.fan_draw.launches,
-                gather_rows=gr.gather_rows.launches)
+    return {k.__name__: k.launches for k in COUNTED}
 
 
 def log(msg: str) -> None:
@@ -786,6 +790,13 @@ def phase_infer(model, graph, out_dir, dev, want=None,
         infer_edges_per_sec=edges_per_batch / fwd_s)
 
 
+# a trace can lose the first of its kernel events, from one to a few
+# hundred: PAD_LAUNCHES fills of an int16 scalar (a kernel the port never
+# runs) open each profiled window and take that loss
+PAD_LAUNCHES = 2000
+PAD_KERNEL = "FillFunctor<short>"
+
+
 def profile(fn, what: str, attempts: int = 3) -> dict:
     """Log torch.profiler's table of CUDA time by kernel over ``fn()``,
     then one JSON line: the host-clock time of the window, the device's
@@ -794,23 +805,33 @@ def profile(fn, what: str, attempts: int = 3) -> dict:
     with the most device time. A trace can lose kernels: the window is
     taken again (up to ``attempts`` times) until it holds one event for
     each launch of the two kernels, as their counts give them, and
-    ``kernel_events_complete`` says whether it did."""
+    ``kernel_events_complete`` says whether it did (``traced`` and
+    ``launched`` give both counts). PAD_LAUNCHES fills open the window
+    before ``fn`` runs; their events are left out of every figure but
+    ``pad_traced``, the number the trace kept."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile as torch_profile
+    pad = torch.empty(1, dtype=torch.int16, device="cuda")
     for attempt in range(1, attempts + 1):
         torch.cuda.synchronize()
         before = read_counts()
         with torch_profile(activities=[ProfilerActivity.CPU,
                                        ProfilerActivity.CUDA]) as prof:
+            for _ in range(PAD_LAUNCHES):
+                pad.fill_(1)
+            torch.cuda.synchronize()
             t0 = time.perf_counter()
             fn()
             torch.cuda.synchronize()
             host_ms = (time.perf_counter() - t0) * 1e3
         launched = {k: n - before[k] for k, n in read_counts().items()}
-        by_name = {}
+        by_name, pad_traced = {}, 0
         for e in prof.events():
             if e.device_type == DeviceType.CUDA and not getattr(
                     e, "is_user_annotation", False):
+                if PAD_KERNEL in e.name:
+                    pad_traced += 1
+                    continue
                 us, n = by_name.get(e.name, (0.0, 0))
                 by_name[e.name] = (us + e.time_range.elapsed_us(), n + 1)
         traced = {k: sum(n for name, (_, n) in by_name.items() if k in name)
@@ -819,14 +840,16 @@ def profile(fn, what: str, attempts: int = 3) -> dict:
             break
         log(f"profile ({what}): the trace holds {traced} of the launches "
             f"{launched}" + ("; again" if attempt < attempts else ""))
-    log(f"profile ({what}), by CUDA time:")
+    log(f"profile ({what}), by CUDA time (the {PAD_KERNEL} fills open "
+        f"the window):")
     log(prof.key_averages().table(sort_by="cuda_time_total", row_limit=20))
     busy_ms = sum(us for us, _ in by_name.values()) / 1e3
     check(busy_ms > 0, f"the profile of {what} saw no device time")
     top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:12]
     out = dict(what=what, host_ms=host_ms, device_busy_ms=busy_ms,
                device_idle_share=1.0 - busy_ms / host_ms,
-               kernel_events_complete=traced == launched, attempts=attempt,
+               kernel_events_complete=traced == launched, traced=traced,
+               launched=launched, pad_traced=pad_traced, attempts=attempt,
                kernels=[dict(name=k[:90], us=us, calls=n)
                         for k, (us, n) in top])
     log(f"profile: {json.dumps(out)}")
@@ -1708,6 +1731,9 @@ PROFILED_LOOPS = 4
 ATOMIC_STEPS = {"transe": "Embed's index_add_ backward (the entity and "
                           "relation tables)"}
 LOOP_TOL = dict(rtol=1e-4, atol=1e-5)
+# the bench's GNN modes, also held to their eager steps as the bench builds
+# and loops them (bf16; transe's bench step is loop_family's own)
+LOOP_BENCH_MODES = ("sage", "gin", "gat", "rgcn", "gcn")
 
 
 class KernelRecorder:
@@ -1746,7 +1772,7 @@ class KernelRecorder:
         """Each recorded launch against its plain version on what it read
         in the last replay, bit for bit (gathered rows as integers); the
         number of launches checked per kernel."""
-        n = dict(fan_draw=0, gather_rows=0)
+        n = {k.__name__: 0 for k in COUNTED}
         for name, args, kwargs, out in self.calls:
             if name == "fan_draw":
                 want = fd.fan_draw_plain(*args, **kwargs)
@@ -1763,65 +1789,6 @@ class KernelRecorder:
         return n
 
 
-def whole_loop_graph(est, opt, gen, steps: int, batch):
-    """The alternative to TrainLoop's one captured step: ``steps`` train
-    steps captured in one CUDA graph, after one eager warm-up step, both
-    on the estimator's capture stream; returns the graph and its last
-    step's loss tensor."""
-    side = capture_stream(est.device)
-    side.wait_stream(torch.cuda.current_stream())
-    with torch.cuda.stream(side):
-        est.step(opt, batch(), generator=gen)
-    torch.cuda.current_stream().wait_stream(side)
-    graph = torch.cuda.CUDAGraph()
-    graph.register_generator_state(gen)
-    with torch.cuda.graph(graph, stream=side):
-        for _ in range(steps):
-            loss = est.step(opt, batch(), generator=gen)
-    return graph, loss
-
-
-def compare_capture(est, dev, seed: int) -> dict:
-    """One captured step replayed LOOP_SPL times (TrainLoop, kept) against
-    LOOP_SPL steps captured in one graph and replayed once: seconds to
-    capture, peak memory from the capture through 4 loops, ms per step of
-    those 4 loops (host clock, waited for)."""
-    g = est.graph.tensors
-    out = {}
-    for kind in ("one_step", "whole_loop"):
-        gen = torch.Generator(device=dev).manual_seed(seed)
-        opt = get_optimizer("adam", bench.LR, est.model.parameters())
-
-        def batch():
-            return est.train_batch(g, gen)
-        torch.cuda.synchronize()
-        torch.cuda.reset_peak_memory_stats()
-        t0 = time.perf_counter()
-        if kind == "one_step":
-            loop = TrainLoop(est, opt, gen, LOOP_SPL, batch)
-            loop()
-            run = loop
-        else:
-            graph, last = whole_loop_graph(est, opt, gen, LOOP_SPL, batch)
-
-            def run():
-                graph.replay()
-                return last.clone()
-        torch.cuda.synchronize()
-        capture_s = time.perf_counter() - t0
-        t0 = time.perf_counter()
-        for _ in range(4):
-            loss = run()
-        check(bool(torch.isfinite(loss)), f"{kind} loss finite")
-        torch.cuda.synchronize()
-        out[kind] = dict(
-            capture_s=capture_s,
-            ms_per_step=(time.perf_counter() - t0) / (4 * LOOP_SPL) * 1e3,
-            peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9)
-        del run
-    return out
-
-
 def loop_family(name: str, make_est, graph, dev, per_step: dict,
                 batch_size: int, seed: int) -> dict:
     """One family's loop checks. Two estimators from the same weights and
@@ -1831,9 +1798,9 @@ def loop_family(name: str, make_est, graph, dev, per_step: dict,
     bit (within LOOP_TOL for ATOMIC_STEPS), each kernel launched inside
     the replays equal to its plain version, the launch counts equal and
     ``per_step`` a step. Then, on a TrainLoop of its own: two replays
-    draw different batches, the replayed and the eager step timed, a
-    loop of replays profiled (the card's idle share), and one eager step
-    under ``torch.cuda.set_sync_debug_mode("error")``."""
+    draw different batches, the replayed and the eager step timed, loops
+    of replays profiled (the card's idle share; ``check_held``), and one
+    eager step under ``torch.cuda.set_sync_debug_mode("error")``."""
     t_start = time.perf_counter()
     g = graph.tensors
     steps = 2 * LOOP_SPL
@@ -1916,6 +1883,7 @@ def loop_family(name: str, make_est, graph, dev, per_step: dict,
     replay_ms = (time.perf_counter() - t0) / (4 * LOOP_SPL) * 1e3
     prof = profile(lambda: [loop() for _ in range(PROFILED_LOOPS)],
                    f"{name}: {PROFILED_LOOPS} loops of {LOOP_SPL} replays")
+    check_held(loop, per_step, prof, name)
 
     gen_e = torch.Generator(device=dev).manual_seed(seed + 200)
     opt_e = get_optimizer("adam", bench.LR, eager.model.parameters())
@@ -1955,6 +1923,80 @@ def loop_family(name: str, make_est, graph, dev, per_step: dict,
                                                    * LOOP_SPL),
         seconds=time.perf_counter() - t_start)
     log(f"loop {name}: {json.dumps(out)}")
+    return out
+
+
+def check_held(loop: TrainLoop, per_step: dict, prof: dict,
+               what: str) -> None:
+    """The launches a replay of ``loop`` adds to the counts (``held``, the
+    launches its capture recorded) are ``per_step``, those of an eager
+    step, and the trace of replays in ``prof`` holds one kernel event for
+    each launch so counted."""
+    check(loop.held == per_step,
+          f"{what}: a replay adds {loop.held} launches, a step makes "
+          f"{per_step}")
+    check(prof["kernel_events_complete"],
+          f"{what}: the trace of replays holds {prof['traced']} kernel "
+          f"events, the counts {prof['launched']}")
+
+
+def loop_bench(mode: str, dev) -> dict:
+    """The bench's ``mode`` as bench.run builds and loops it (bench.build:
+    bf16 activations, its steps_per_loop; bench.train_loop: the redraw,
+    then a captured step replayed; gcn's roots every node): 2 loops
+    against the same loops run eagerly, from the same weights, generator
+    seed and reservoir rows, the last loss and every parameter equal bit
+    for bit and the launch counts equal. Then one loop of replays
+    profiled (``check_held``)."""
+    t0 = time.perf_counter()
+    if mode == "gcn":
+        n_nodes, spl, _ = bench.GCN_SIZES["cuda"]
+        batch = n_nodes
+        per_step = dict(fan_draw=0, gather_rows=2)
+    else:
+        n_nodes, batch, spl, _ = bench.SIZES["cuda"]
+        per_step = dict(fan_draw=2, gather_rows=2)
+    graphed = bench.build(dev, n_nodes, batch, spl, mode)
+    eager = NodeEstimator(
+        bench.make_model(mode, dev, torch.bfloat16,
+                         torch.Generator().manual_seed(0)),
+        graphed.graph, graphed.config, device=dev)
+    eager.model.load_state_dict(graphed.model.state_dict())
+    g = graphed.graph.tensors
+    packs = {k: getattr(g, k).clone() for k in ("fan_pack", "fanu_pack")
+             if getattr(g, k) is not None}
+    runs = {}
+    for kind, est in (("eager", eager), ("graph", graphed)):
+        for k, p in packs.items():
+            getattr(g, k).copy_(p)
+        run = bench.train_loop(est, mode,
+                               torch.Generator(device=dev).manual_seed(2))
+        run.loop.graphed = kind == "graph"     # the eager run: its steps
+        reset_counts()
+        for _ in range(2):
+            loss = run()
+        runs[kind] = dict(run=run, loss=float(loss), launches=read_counts())
+    want = {k: n * 2 * spl for k, n in per_step.items()}
+    for kind, r in runs.items():
+        check(r["launches"] == want, f"bench {mode}: launches of the {kind} "
+                                     f"loops {r['launches']}, want {want}")
+    loss_g, loss_e = runs["graph"]["loss"], runs["eager"]["loss"]
+    pairs = list(zip(graphed.model.parameters(), eager.model.parameters()))
+    max_diff = max(float((p - q).float().abs().max()) for p, q in pairs)
+    check(bool(np.isfinite(loss_g)) and loss_g == loss_e
+          and all(torch.equal(p, q) for p, q in pairs),
+          f"bench {mode}: graph != eager bit for bit: loss {loss_g} vs "
+          f"{loss_e}, parameters {max_diff}")
+    run = runs["graph"]["run"]
+    prof = profile(run, f"bench {mode}: a loop of {spl} replays")
+    check_held(run.loop, per_step, prof, f"bench {mode}")
+    out = dict(steps_per_loop=spl, steps=2 * spl, bit_equal=True,
+               loss=loss_g, launches=runs["graph"]["launches"],
+               held_per_replay=run.loop.held, traced=prof["traced"],
+               device_idle_share=prof["device_idle_share"],
+               busy_ms_per_step=prof["device_busy_ms"] / spl,
+               seconds=time.perf_counter() - t0)
+    log(f"loop bench {mode}: {json.dumps(out)}")
     return out
 
 
@@ -2003,9 +2045,9 @@ def phase_loop(graph, dev) -> dict:
     (``loop_family``): sage, gin, gat and the unsupervised head on the
     graph of phase 5, rgcn on its 4-type union-row graph, gcn on its ELL
     graph (sampled roots, as NodeEstimator draws them), transe on its
-    16-type graph; for sage and gcn one captured step against a whole
-    loop captured (``compare_capture``); checkpoints and the profiler
-    hook under the loop (``loop_hooks``)."""
+    16-type graph; checkpoints and the profiler hook under the loop
+    (``loop_hooks``); then the bench's GNN modes as the bench builds and
+    loops them (``loop_bench``)."""
     t0 = time.perf_counter()
     out = {}
 
@@ -2022,8 +2064,6 @@ def phase_loop(graph, dev) -> dict:
     out["unsup"] = loop_family(
         "unsup", node_est(lambda: unsup_model(dev), graph), graph, dev,
         UNSUP_LAUNCHES, BATCH, 43)
-    out["capture_sage"] = compare_capture(
-        node_est(gnn("sage"), graph)(RunConfig(batch_size=BATCH)), dev, 50)
     out["hooks"] = loop_hooks(graph, dev)
     typed = random_graph(N_NODES, AVG_DEGREE, feat_dim=FEAT_DIM,
                          n_classes=N_CLASSES, seed=0,
@@ -2035,8 +2075,6 @@ def phase_loop(graph, dev) -> dict:
                          n_classes=N_CLASSES, seed=0, packs=("ell",))
     out["gcn"] = loop_family("gcn", node_est(gnn("gcn"), whole), whole, dev,
                              dict(fan_draw=0, gather_rows=2), BATCH, 45)
-    out["capture_gcn"] = compare_capture(
-        node_est(gnn("gcn"), whole)(RunConfig(batch_size=BATCH)), dev, 51)
     del whole
     kg_graph = random_graph(TRANSE_NODES, AVG_DEGREE, seed=0,
                             num_edge_types=bench.TRANSE_RELATIONS, packs=())
@@ -2045,9 +2083,9 @@ def phase_loop(graph, dev) -> dict:
                                             kg_graph, cfg, device=dev),
         kg_graph, dev, dict(fan_draw=0, gather_rows=0), TRANSE_BATCH, 46)
     del kg_graph
+    out["bench"] = {mode: loop_bench(mode, dev) for mode in LOOP_BENCH_MODES}
     out["seconds"] = time.perf_counter() - t0
-    log(f"loop: {out['seconds']:.1f} s; capture: "
-        f"{json.dumps({k: out[k] for k in ('capture_sage', 'capture_gcn')})}")
+    log(f"loop: {out['seconds']:.1f} s")
     return out
 
 
@@ -2255,6 +2293,8 @@ def main() -> int:
                          unsup_train=unsup["train"]["launches"])
     path_launches.update({f"loop_{family}": loop[family]["launches"]
                           for family in LOOP_FAMILIES})
+    path_launches.update({f"loop_bench_{mode}": loop["bench"][mode]["launches"]
+                          for mode in LOOP_BENCH_MODES})
 
     def by_path(name):
         return {path: n[name] for path, n in path_launches.items()}

@@ -66,8 +66,9 @@ import torch
 from euler_tpu_torch._device import resolve_device
 from euler_tpu_torch.dataflow import SageDataFlow, WholeDataFlow
 from euler_tpu_torch.datasets import random_graph
-from euler_tpu_torch.estimator import (EdgeEstimator, NodeEstimator,
-                                       RunConfig, TrainLoop, get_optimizer)
+from euler_tpu_torch.estimator import (BaseEstimator, EdgeEstimator,
+                                       NodeEstimator, RunConfig, TrainLoop,
+                                       get_optimizer)
 from euler_tpu_torch.graph.meta import FeatureSpec
 from euler_tpu_torch.models import (GNNNet, ShallowEncoder, SuperviseModel,
                                     TransE)
@@ -187,6 +188,34 @@ def build_transe(dev: torch.device, n_nodes: int, batch: int,
     return EdgeEstimator(model, graph, cfg, device=dev)
 
 
+def train_loop(est: BaseEstimator, model: str,
+               gen: torch.Generator) -> Callable[[], torch.Tensor]:
+    """The bench's loop of the ``model`` mode on ``est``, drawing from
+    ``gen``: one redraw of the fan reservoir (sage, gin, gat, as bench.py's
+    run_loop, which has none for rgcn's union rows; the graphs of gcn and
+    transe have no fan rows), then ``est.config.steps_per_loop`` Adam
+    steps as one ``TrainLoop`` (on the card a captured step replayed), on
+    every node as the roots (gcn), sampled triples (transe) or sampled
+    roots. Returns the loop's last loss; the ``TrainLoop`` is the
+    function's ``.loop``."""
+    g = est.graph.tensors
+    opt = get_optimizer("adam", LR, est.model.parameters())
+    every_node = torch.arange(est.graph.meta.n_nodes, dtype=torch.int32,
+                              device=est.device)
+
+    def roots():
+        return every_node if model == "gcn" else est.train_batch(g, gen)
+
+    loop = TrainLoop(est, opt, gen, est.config.steps_per_loop, roots)
+
+    def run_loop():
+        if model in ("sage", "gin", "gat"):
+            sampling.refresh_fan_pack(g, gen)
+        return loop()
+    run_loop.loop = loop
+    return run_loop
+
+
 def run(device=None, log: Callable = print, model: str = "sage",
         gcn_layout: str = "ell") -> List[dict]:
     """Run the three phases of the ``model`` mode; ``log`` gets each
@@ -215,24 +244,8 @@ def run(device=None, log: Callable = print, model: str = "sage",
         config = f"b{batch}_f{FANOUT[0]}x{FANOUT[1]}_n{n_nodes}"
     est = (build_transe(dev, n_nodes, batch, spl) if model == "transe"
            else build(dev, n_nodes, batch, spl, model, gcn_layout))
-    g = est.graph.tensors
-    opt = get_optimizer("adam", LR, est.model.parameters())
-    gen = torch.Generator(device=dev).manual_seed(2)
-    every_node = torch.arange(n_nodes, dtype=torch.int32, device=dev)
-
-    def roots():
-        # gcn: every node; transe: sampled triples; else: sampled roots
-        return every_node if model == "gcn" else est.train_batch(g, gen)
-
-    loop = TrainLoop(est, opt, gen, est.config.steps_per_loop, roots)
-
-    def run_loop():
-        # one redraw of the fan reservoir per loop, as bench.py's run_loop
-        # (which has none for rgcn's union rows; the graphs of gcn and
-        # transe have no fan rows)
-        if model in ("sage", "gin", "gat"):
-            sampling.refresh_fan_pack(g, gen)
-        return loop()
+    run_loop = train_loop(est, model,
+                          torch.Generator(device=dev).manual_seed(2))
 
     records = []
 

@@ -26,7 +26,6 @@ from __future__ import annotations
 import dataclasses
 import functools
 import os
-import time
 from typing import Callable, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
@@ -35,15 +34,9 @@ import torch
 from euler_tpu_torch._device import resolve_device
 from euler_tpu_torch.graph.store import Graph
 from euler_tpu_torch.models.kg import rank_all_entities
-from euler_tpu_torch.ops import sampling
-from euler_tpu_torch.ops.fan_draw import fan_draw
-from euler_tpu_torch.ops.gather_rows import gather_rows
+from euler_tpu_torch.ops import COUNTED, sampling
 from euler_tpu_torch.utils import metrics as metrics_lib
-from euler_tpu_torch.utils.hooks import ProfilerHook
-
-#: the kernel wrappers; each counts the launches of its kernel in
-#: ``.launches``
-KERNELS = (fan_draw, gather_rows)
+from euler_tpu_torch.utils.hooks import LoggingHook, ProfilerHook
 
 
 def get_optimizer(name: str, lr: float, params) -> torch.optim.Optimizer:
@@ -122,10 +115,10 @@ class TrainLoop:
     A replay reads the addresses it captured: the parameters, the
     optimizer's state and the graph's tensors are updated in place, never
     rebound. A call returns a copy of its last step's loss, made before
-    the next replay overwrites it. The kernel wrappers' ``launches`` count
-    what ran: a capture records launches and runs none, and each replay
-    adds the launches its graph holds (``held``). A capture that fails
-    raises; there is no eager fallback.
+    the next replay overwrites it. The ``launches`` of the kernel wrappers
+    in ``ops.COUNTED`` count what ran: a capture records launches and
+    runs none, and each replay adds the launches its graph holds
+    (``held``). A capture that fails raises; there is no eager fallback.
     """
 
     def __init__(self, estimator: "BaseEstimator",
@@ -157,7 +150,7 @@ class TrainLoop:
         torch.cuda.current_stream(dev).wait_stream(side)
         graph = torch.cuda.CUDAGraph()
         graph.register_generator_state(self.generator)
-        before = {k: k.launches for k in KERNELS}
+        before = {k: k.launches for k in COUNTED}
         with torch.cuda.graph(graph, stream=side):
             self.loss = self._step()
         self.held = {k.__name__: k.launches - n for k, n in before.items()}
@@ -176,7 +169,7 @@ class TrainLoop:
             replays -= 1
         for _ in range(replays):
             self.graph.replay()
-        for k in KERNELS:
+        for k in COUNTED:
             k.launches += self.held[k.__name__] * replays
         return self.loss.clone()
 
@@ -243,7 +236,8 @@ class BaseEstimator:
                          lambda: self.train_batch(g, gen))
         profiler = (ProfilerHook(cfg.profile_dir, start=10, steps=10)
                     if cfg.profile else None)
-        t0 = time.time()
+        logger = LoggingHook(cfg.log_steps, log_fn, steps_per_call=spl,
+                             total=total)
         loss = last_loss = None
         i = 0
         next_refresh = cfg.reservoir_refresh or float("inf")
@@ -261,11 +255,9 @@ class BaseEstimator:
                     i += 1
                 if profiler is not None:
                     profiler(i)
-                if cfg.log_steps and i % cfg.log_steps < spl:
-                    last_loss = float(loss)
-                    rate = i * cfg.batch_size / (time.time() - t0)
-                    log_fn(f"[euler_tpu_torch] step {i}/{total} "
-                           f"loss={last_loss:.4f} ({rate:.0f} ex/s)")
+                logged = logger(i, loss, cfg.batch_size)
+                if logged is not None:
+                    last_loss = logged
                 if cfg.save_steps and i % cfg.save_steps < spl \
                         and i >= cfg.save_steps:
                     self._save(i)

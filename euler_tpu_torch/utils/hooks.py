@@ -11,26 +11,41 @@ from __future__ import annotations
 
 import os
 import time
-from typing import Callable
+from typing import Callable, Optional
 
 import torch
 
 
 class LoggingHook:
-    """Call ``log_fn`` every ``every`` steps with step/loss/rate."""
+    """Call ``log_fn`` with step/loss/rate at the steps ``every`` picks.
 
-    def __init__(self, every: int = 100, log_fn: Callable = print):
+    Called with the number of steps done after every ``steps_per_call``
+    steps (a loop of ``steps_per_loop``, or 1), it logs where ``step %
+    every < steps_per_call``: at each multiple of ``every`` for single
+    steps, and at the first call past one under loops, as the reference's
+    loop does (euler_tpu/estimator/estimator.py:237). The rate counts
+    from the hook's construction; ``total``, when given, follows the step
+    as ``/total``.
+    """
+
+    def __init__(self, every: int = 100, log_fn: Callable = print,
+                 steps_per_call: int = 1, total: Optional[int] = None):
         self.every = every
         self.log_fn = log_fn
-        self._t0 = None
+        self.steps_per_call = steps_per_call
+        self.of = f"/{total}" if total else ""
+        self._t0 = time.time()
 
-    def __call__(self, step: int, loss: float, batch_size: int):
-        if self._t0 is None:
-            self._t0 = time.time()
-        if self.every and step % self.every == 0:
-            rate = step * batch_size / max(time.time() - self._t0, 1e-9)
-            self.log_fn(f"[euler_tpu_torch] step {step} loss={loss:.4f} "
-                        f"({rate:.0f} ex/s)")
+    def __call__(self, step: int, loss, batch_size: int) -> Optional[float]:
+        """Log where ``step`` is due; returns the loss logged (``loss`` may
+        be a tensor on the card: only a logged one is read), else None."""
+        if not self.every or step % self.every >= self.steps_per_call:
+            return None
+        loss = float(loss)
+        rate = step * batch_size / max(time.time() - self._t0, 1e-9)
+        self.log_fn(f"[euler_tpu_torch] step {step}{self.of} "
+                    f"loss={loss:.4f} ({rate:.0f} ex/s)")
+        return loss
 
 
 class ProfilerHook:

@@ -259,6 +259,17 @@ def test_logging_hook():
     assert [s.split()[2] for s in lines] == ["2", "4"]
 
 
+def test_logging_hook_under_loops():
+    """Calls after each loop of 3 steps log at the first call past each
+    multiple of 4, with the total, and read the loss only there."""
+    lines = []
+    h = hooks.LoggingHook(every=4, log_fn=lines.append, steps_per_call=3,
+                          total=12)
+    got = [h(step, torch.tensor(0.25), 8) for step in (3, 6, 9, 12)]
+    assert got == [None, 0.25, 0.25, 0.25]
+    assert [s.split()[2] for s in lines] == ["6/12", "9/12", "12/12"]
+    assert hooks.LoggingHook(every=0, log_fn=lines.append)(4, 0.5, 8) is None
+
 def test_graph_config_matches_reference():
     for conf in ("a=1; b = x ;flag=true;;f=2.5", {"k": 3, "on": "no"}, None):
         ours, ref = config.GraphConfig(conf), jax_config.GraphConfig(conf)
