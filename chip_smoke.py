@@ -113,7 +113,7 @@ Phases, in order; any failure propagates and the exit code is not 0:
               EdgeEstimator(TransE at 100 wide, 5 negatives, batch 4096,
               Adam 1e-3): 8 train steps, one step card vs CPU (loss and
               every gradient within 1e-4), evaluate (mrr) of 4096 sampled
-              triples, evaluate_ranking of 256 triples both ways,
+              triples, evaluate_ranking of 64 triples both ways,
               unfiltered and filtered by 100,000 sampled triples, ranks
               card vs CPU equal but for near ties (candidates within
               twice the 1e-4 card-vs-CPU tolerance of the true score,
@@ -163,8 +163,37 @@ Phases, in order; any failure propagates and the exit code is not 0:
               the same loops run eagerly, loss and parameters equal bit
               for bit and the counts equal, and one loop of replays
               profiled with the same trace check
+ 12f. convs   the eight convs of bench.CONV_MODES (tag, sgcn, agnn, appnp,
+              graph, arma, dna, gated; bench.make_model, f32) at full
+              width on the graph of phase 5, each: infer of 8192 ids (16
+              + 16 launches); one step card vs CPU (sampled ids equal,
+              loss and every gradient within 1e-4); phase 12e's loop
+              checks (steps_per_loop = 5: 2 loops replayed against 10
+              eager steps bit for bit, both kernels equal to their plain
+              versions on the last replay's inputs, held 2 + 2 checked
+              against a trace of replays, the replayed step's busy time,
+              idle share and peak memory)
+ 12h. encoder sage at full width over ShallowEncoder(dense "feature", the id
+              table of N + 1 rows, a "tags" sparse feature hashed into
+              1000 rows; both tables 16 wide), "tags" an [N, 8] int32
+              table drawn from a numpy seed (ids 0..9,999, -1 past random
+              lengths 0-8), for the sum and the mean combiner: one step
+              card vs CPU (within 1e-4) and the loop checks of 12e (the
+              replayed loop within rtol 1e-4, atol 1e-5 of the eager
+              steps: the tables' backward is an index_add_); then
+              JKGNNNet("sage", concat) over it, one step card vs CPU
+ 12g. whole   the examples' whole-graph configurations, tag, sgcn, agnn,
+              appnp and arma over WholeDataFlow(2, [(0,)]) at dims
+              (128, 128), f32, on phase 12b's graph, each: the forward on
+              the ELL pack against the edge list on the card (within
+              1e-4); 2 train steps over every node (0 + 2 launches a
+              step) with their time and peak memory, two more profiled, a
+              loop of 2 steps replayed and timed; one step card vs CPU
+              (loss and every gradient within 1e-4) on a 10,000-node
+              graph of the same kind
  13. bench    the port's bench (euler_tpu_torch/bench.py) in each mode,
-              sage, gin, gat, rgcn, gcn and transe, at bench.py's width,
+              sage, gin, gat, rgcn, the eight of bench.CONV_MODES, gcn and
+              transe, at bench.py's width,
               bf16 activations in the GNN modes (transe is f32): warmup,
               single_loop and pipelined JSON lines, each loop a TrainLoop
               (one captured step replayed); each kernel 2
@@ -176,7 +205,8 @@ Phases, in order; any failure propagates and the exit code is not 0:
               every path and ptxas figures), then the last line
               {"ok": true, "device": {...}}
 
-Phases 12c, 12d and 12e run after 12, and 12b after them.
+Phases 12c, 12d, 12e, 12f and 12h run after 12 in that order, then
+12b and 12g.
 
 It exits non-zero, with no result line, where torch.cuda.is_available()
 is false or the euler_tpu_torch package is missing.
@@ -209,8 +239,9 @@ from euler_tpu_torch.dataflow import block as block_lib
 from euler_tpu_torch.datasets import random_graph
 from euler_tpu_torch.estimator import (EdgeEstimator, NodeEstimator,
                                        RunConfig, TrainLoop, get_optimizer)
-from euler_tpu_torch.models import (GNNNet, ShallowEncoder, UnsuperviseModel,
-                                    convs, encoders, kg)
+from euler_tpu_torch.models import (GNNNet, JKGNNNet, ShallowEncoder,
+                                    SuperviseModel, UnsuperviseModel, convs,
+                                    encoders, kg)
 from euler_tpu_torch.native import loader as native
 from euler_tpu_torch.ops import COUNTED
 from euler_tpu_torch.ops import fan_draw as fd
@@ -242,7 +273,7 @@ GCN_C, GCN_C_IN = 53, 49
 # batch (trap: [batch, N, 100] f32 scores), the known triples of the
 # filtered setting, the triples served
 TRANSE_NODES, TRANSE_BATCH = bench.TRANSE_SIZES["cuda"][:2]
-RANK_TRIPLES, RANK_BATCH, FILTER_TRIPLES = 256, 64, 100_000
+RANK_TRIPLES, RANK_BATCH, FILTER_TRIPLES = 64, 64, 100_000
 KG_FAMILY = (kg.TransH, kg.TransR, kg.TransD, kg.DistMult)
 # unsupervised GraphSAGE (examples/graphsage/run_graphsage.py's fanouts):
 # a step embeds B roots, B positives and B * 20 negatives; it launches
@@ -1044,13 +1075,20 @@ def phase_train(model, graph, dev, seed: int = 0, per_step=None):
 
 # --------------------------------------------------------------- phase 11 --
 
-def phase_grads(model, graph, dev):
+def phase_grads(model, graph, dev, g_cpu=None):
+    """``g_cpu``: the graph's tensors moved to the CPU (made here where
+    not given); its reservoir rows are first set to the card's, which a
+    train run since may have redrawn."""
     gen = torch.Generator(device=dev).manual_seed(8)
     roots = sampling.sample_node(graph.tensors, BATCH, -1, gen)
     flow = model.embedder.flow
     uniforms = hop_uniforms(flow, graph.tensors, roots, gen)
     cpu = torch.device("cpu")
-    g_cpu = graph.tensors.to(cpu)
+    if g_cpu is None:
+        g_cpu = graph.tensors.to(cpu)
+    for k in ("fan_pack", "fanu_pack"):
+        if getattr(g_cpu, k) is not None:
+            getattr(g_cpu, k).copy_(getattr(graph.tensors, k))
     u_cpu = [tuple(u.cpu() for u in hop) for hop in uniforms]
     with torch.no_grad():
         blocks = same_blocks(flow, graph.tensors, roots, uniforms, g_cpu,
@@ -1409,7 +1447,7 @@ def phase_transe(dev):
     pack; sample_edge card vs CPU bit for bit (counts 1, 4096 and 4097,
     every type and type 3); TransE through EdgeEstimator: 8 train steps,
     one step card vs CPU (loss and gradients within 1e-4), evaluate (mrr)
-    of 4096 triples, full-entity ranking of 256 triples both ways,
+    of 4096 triples, full-entity ranking of 64 triples both ways,
     unfiltered and filtered by 100,000 sampled triples (ranks card vs CPU
     under ``check_ranks``' near-tie rule), infer of 8192 triples; TransH, TransR,
     TransD and DistMult one step each (forward card vs CPU within 1e-4);
@@ -1729,7 +1767,10 @@ PROFILED_LOOPS = 4
 # their graph is held to their eager steps within LOOP_TOL; every other
 # family's must equal its eager steps bit for bit
 ATOMIC_STEPS = {"transe": "Embed's index_add_ backward (the entity and "
-                          "relation tables)"}
+                          "relation tables)",
+                **{f"encoder_{c}": "Embed's index_add_ backward (the id and "
+                                   "sparse-id tables)"
+                   for c in ("sum", "mean")}}
 LOOP_TOL = dict(rtol=1e-4, atol=1e-5)
 # the bench's GNN modes, also held to their eager steps as the bench builds
 # and loops them (bf16; transe's bench step is loop_family's own)
@@ -1790,7 +1831,7 @@ class KernelRecorder:
 
 
 def loop_family(name: str, make_est, graph, dev, per_step: dict,
-                batch_size: int, seed: int) -> dict:
+                batch_size: int, seed: int, optimizer: str = "adam") -> dict:
     """One family's loop checks. Two estimators from the same weights and
     seed train 2 loops of LOOP_SPL steps, one with steps_per_loop =
     LOOP_SPL (a captured step replayed) and one with 1 (eager), from the
@@ -1800,12 +1841,14 @@ def loop_family(name: str, make_est, graph, dev, per_step: dict,
     ``per_step`` a step. Then, on a TrainLoop of its own: two replays
     draw different batches, the replayed and the eager step timed, loops
     of replays profiled (the card's idle share; ``check_held``), and one
-    eager step under ``torch.cuda.set_sync_debug_mode("error")``."""
+    eager step under ``torch.cuda.set_sync_debug_mode("error")``.
+    ``optimizer`` trains the two estimators; the loop of its own runs
+    Adam."""
     t_start = time.perf_counter()
     g = graph.tensors
     steps = 2 * LOOP_SPL
     cfg = RunConfig(batch_size=batch_size, total_steps=steps,
-                    optimizer="adam", learning_rate=bench.LR,
+                    optimizer=optimizer, learning_rate=bench.LR,
                     log_steps=LOOP_SPL, reservoir_refresh=LOOP_SPL,
                     steps_per_loop=LOOP_SPL, seed=seed, metric="mrr")
     graphed = make_est(cfg)
@@ -1903,8 +1946,9 @@ def loop_family(name: str, make_est, graph, dev, per_step: dict,
     torch.cuda.synchronize()
 
     out = dict(
-        steps_per_loop=LOOP_SPL, steps=steps, bit_equal=bit_equal,
-        atomics=ATOMIC_STEPS.get(name), loss_graph=loss_g,
+        steps_per_loop=LOOP_SPL, steps=steps, optimizer=optimizer,
+        bit_equal=bit_equal, atomics=ATOMIC_STEPS.get(name),
+        loss_graph=loss_g,
         loss_eager=loss_e, max_param_diff=max_diff,
         launches=runs["graph"]["launches"], held_per_replay=loop.held,
         kernel_launches_checked_in_replay=in_replay, draws_differ=True,
@@ -2089,6 +2133,241 @@ def phase_loop(graph, dev) -> dict:
     return out
 
 
+# -------------------------------------------------------------- phase 12f --
+
+def phase_convs(graph, dev) -> dict:
+    """The eight convs of bench.CONV_MODES (bench.make_model, f32) at full
+    width on the graph of phase 5, each: infer of 8192 ids (16 + 16
+    launches); one step card vs CPU (sampled ids equal, loss and every
+    gradient within 1e-4); ``loop_family`` (2 loops of LOOP_SPL replays
+    bit for bit against 10 eager steps, both kernels equal to their plain
+    versions on the last replay's inputs, ``held`` 2 + 2 held against a
+    trace of replays, the replayed step's busy time, idle share and peak
+    memory)."""
+    t0 = time.perf_counter()
+    g_cpu = graph.tensors.to(torch.device("cpu"))
+    out = {}
+    for i, conv in enumerate(bench.CONV_MODES):
+        t1 = time.perf_counter()
+
+        def make(conv=conv):
+            return bench.make_model(conv, dev,
+                                    generator=torch.Generator().manual_seed(0))
+        model = make()
+        model.eval()
+        with tempfile.TemporaryDirectory() as out_dir:
+            _, infer = phase_infer(model, graph, out_dir, dev)
+        grads = phase_grads(model, graph, dev, g_cpu)
+        del model
+        loop = loop_family(
+            conv, lambda cfg: NodeEstimator(make(), graph, cfg, device=dev),
+            graph, dev, dict(fan_draw=2, gather_rows=2), BATCH, 50 + i)
+        out[conv] = dict(infer=infer, grads=grads, loop=loop,
+                         seconds=time.perf_counter() - t1)
+        log(f"conv {conv}: {json.dumps(dict(infer=infer, grads=grads))}")
+    out["seconds"] = time.perf_counter() - t0
+    log(f"convs: {out['seconds']:.1f} s")
+    return out
+
+
+# -------------------------------------------------------------- phase 12g --
+
+# the examples' whole-graph configurations (examples/{tagcn,sgcn,agnn,
+# appnp,arma}, flow_name="whole"), and the node count of the graph on
+# which their step is held card against CPU
+WHOLE_CONVS = ("tag", "sgcn", "agnn", "appnp", "arma")
+WHOLE_CHECK_NODES = 10_000
+WHOLE_STEPS = 2
+
+
+def whole_model(conv: str, dev, layout: str = "auto") -> SuperviseModel:
+    """``conv`` over ``WholeDataFlow(2, [(0,)])`` at DIMS on the 128-wide
+    ``feature``, 16 labels, f32, weights from seed 0."""
+    gen = torch.Generator().manual_seed(0)
+    net = GNNNet(conv, WholeDataFlow(bench.GCN_LAYERS, [(0,)],
+                                     layout=layout),
+                 DIMS, ShallowEncoder(("feature",)), in_dim=FEAT_DIM,
+                 device=dev, generator=gen)
+    return SuperviseModel(net, "label", N_CLASSES, device=dev, generator=gen)
+
+
+def phase_whole(dev) -> dict:
+    """WHOLE_CONVS on phase 12b's graph (random_graph(100_000, 25, ...,
+    packs=("ell",))), each: the forward on the ELL pack against the edge
+    list on the card (within 1e-4); WHOLE_STEPS train steps over every
+    node (2 gather_rows launches a step, no fan_draw), their time and
+    peak memory, two more profiled; a TrainLoop of 2 steps (one captured
+    step replayed) timed over 2 more loops; one step card vs CPU (loss and
+    every gradient within 1e-4) on a WHOLE_CHECK_NODES graph of the same
+    kind, which the CPU can afford."""
+    t0 = time.perf_counter()
+    graph = random_graph(GCN_NODES, AVG_DEGREE, feat_dim=FEAT_DIM,
+                         n_classes=N_CLASSES, seed=0, packs=("ell",))
+    small = random_graph(WHOLE_CHECK_NODES, AVG_DEGREE, feat_dim=FEAT_DIM,
+                         n_classes=N_CLASSES, seed=0, packs=("ell",))
+    cpu = torch.device("cpu")
+    small_cpu = small.tensors.to(cpu)
+    check(graph.tensors.ell_nbr is not None
+          and small.tensors.ell_nbr is not None, "ELL packs built")
+    roots = torch.arange(GCN_NODES, dtype=torch.int32, device=dev)
+    small_roots = torch.arange(WHOLE_CHECK_NODES, dtype=torch.int32,
+                               device=dev)
+    out = dict(graph_s=time.perf_counter() - t0)
+    for conv in WHOLE_CONVS:
+        t1 = time.perf_counter()
+        model = whole_model(conv, dev)
+        edge_list = whole_model(conv, dev, layout="edge_list")
+        edge_list.load_state_dict(model.state_dict())
+        with torch.no_grad():
+            emb_ell = model(graph.tensors, roots)["embedding"]
+            emb_el = edge_list(graph.tensors, roots)["embedding"]
+        diff = float((emb_ell - emb_el).abs().max())
+        check(bool(torch.isfinite(emb_ell).all())
+              and torch.allclose(emb_ell, emb_el, **PARITY_TOL),
+              f"whole {conv}: ELL vs edge list max abs diff {diff}")
+        del edge_list, emb_ell, emb_el
+
+        est = NodeEstimator(model, graph, RunConfig(batch_size=GCN_NODES),
+                            device=dev)
+        opt = get_optimizer("adam", bench.LR, model.parameters())
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        reset_counts()
+        t2 = time.perf_counter()
+        losses = [float(est.step(opt, roots)) for _ in range(WHOLE_STEPS)]
+        torch.cuda.synchronize()
+        step_ms = (time.perf_counter() - t2) / WHOLE_STEPS * 1e3
+        launches = read_counts()
+        want = dict(fan_draw=0, gather_rows=2 * WHOLE_STEPS)
+        check(launches == want,
+              f"whole {conv}: launches {launches}, want {want}")
+        check(bool(np.isfinite(losses).all()), f"whole {conv}: {losses}")
+        peak = torch.cuda.max_memory_allocated() / 1e9
+        prof = profile(lambda: [est.step(opt, roots) for _ in range(2)],
+                       f"2 whole-graph {conv} train steps")
+        gen = torch.Generator(device=dev).manual_seed(60)
+        loop = TrainLoop(est, opt, gen, 2, lambda: roots)
+        loop()
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+        for _ in range(2):
+            loss = loop()
+        check(bool(torch.isfinite(loss)), f"whole {conv}: replayed loss")
+        torch.cuda.synchronize()
+        replay_ms = (time.perf_counter() - t2) / 4 * 1e3
+        held = dict(loop.held)
+        check(held == dict(fan_draw=0, gather_rows=2),
+              f"whole {conv}: a replay holds {held}")
+        del loop, est, opt
+
+        loss_k, grads_k = gcn_step(model, small.tensors, small_roots)
+        loss_c, grads_c = gcn_step(copy.deepcopy(model).to(cpu), small_cpu,
+                                   small_roots.cpu())
+        check(torch.allclose(loss_k, loss_c, **PARITY_TOL),
+              f"whole {conv}: loss card {float(loss_k)} vs CPU "
+              f"{float(loss_c)}")
+        diffs = {}
+        for k, gk in grads_k.items():
+            diffs[k] = float((gk - grads_c[k]).abs().max())
+            check(torch.allclose(gk, grads_c[k], **PARITY_TOL),
+                  f"whole {conv}: gradient of {k}, card vs CPU max abs "
+                  f"diff {diffs[k]}")
+        out[conv] = dict(
+            ell_vs_edge_list_max_abs_diff=diff, launches=launches,
+            losses=losses, train_ms_per_step=step_ms, peak_mem_gb=peak,
+            replay_ms_per_step=replay_ms, held_per_replay=held,
+            profile_host_ms=prof["host_ms"],
+            device_busy_ms_per_step=prof["device_busy_ms"] / 2,
+            device_idle_share=prof["device_idle_share"],
+            profile_complete=prof["kernel_events_complete"],
+            top_kernels=prof["kernels"][:4],
+            check_nodes=WHOLE_CHECK_NODES, loss_card=float(loss_k),
+            loss_cpu=float(loss_c), grad_max_abs_diff=max(diffs.values()),
+            seconds=time.perf_counter() - t1)
+        log(f"whole {conv}: {json.dumps(out[conv])}")
+        del model
+    out["seconds"] = time.perf_counter() - t0
+    log(f"whole: {out['seconds']:.1f} s")
+    return out
+
+
+# -------------------------------------------------------------- phase 12h --
+
+# the smoke's sparse feature: up to TAG_WIDTH ids in [0, TAG_IDS) a node,
+# hashed into ENC_BUCKETS rows; the id and sparse tables' widths
+TAG_WIDTH, TAG_IDS, ENC_BUCKETS, ENC_DIM = 8, 10_000, 1000, 16
+
+
+def tagged_graph(graph):
+    """The graph of phase 5 with a ``tags`` sparse node feature: an
+    [N, TAG_WIDTH] int32 table drawn from a numpy seed, ids in
+    [0, TAG_IDS), -1 past a random length in 0..TAG_WIDTH (smoke data,
+    not a feature of random_graph). The other tensors are shared."""
+    rng = np.random.default_rng(21)
+    lens = rng.integers(0, TAG_WIDTH + 1, N_NODES).astype(np.int32)
+    ids = rng.integers(0, TAG_IDS, (N_NODES, TAG_WIDTH)).astype(np.int32)
+    ids[np.arange(TAG_WIDTH)[None, :] >= lens[:, None]] = -1
+    out = copy.copy(graph)
+    dev = graph.tensors.device
+    out.tensors = dataclasses.replace(graph.tensors, sparse_nf={"tags": (
+        torch.from_numpy(ids).to(dev), torch.from_numpy(lens).to(dev))})
+    return out
+
+
+def encoder_model(dev, combiner: str, jk: bool = False) -> SuperviseModel:
+    """Sage at full width over ShallowEncoder(dense ``feature``, the id
+    table of N + 1 rows and ``tags`` in ENC_BUCKETS rows, both ENC_DIM
+    wide): GNNNet, or JKGNNNet in concat mode."""
+    gen = torch.Generator().manual_seed(0)
+    enc = ShallowEncoder(("feature",), use_id=True, max_id=N_NODES - 1,
+                         id_dim=ENC_DIM, sparse_names=("tags",),
+                         sparse_buckets=ENC_BUCKETS, sparse_dim=ENC_DIM,
+                         sparse_combiner=combiner, generator=gen)
+    flow = SageDataFlow(FANOUTS, [(0,)] * 2)
+    in_dim = ENC_DIM + FEAT_DIM + ENC_DIM
+    if jk:
+        net = JKGNNNet("sage", flow, DIMS, enc, in_dim, jk_mode="concat",
+                       device=dev, generator=gen)
+    else:
+        net = GNNNet("sage", flow, DIMS, enc, in_dim, device=dev,
+                     generator=gen)
+    return SuperviseModel(net, "label", N_CLASSES, device=dev, generator=gen)
+
+
+def phase_encoder(graph, dev) -> dict:
+    """Sage over the id and sparse-id encoder on ``tagged_graph``, for the
+    sum and the mean combiner: one step card vs CPU (within 1e-4), and
+    ``loop_family`` (the replayed loop against eager steps within
+    rtol 1e-4 / atol 1e-5: the tables' backward is an index_add_); then
+    JKGNNNet("sage", concat) over the same encoder, one step card vs
+    CPU. The two loops train with SGD: the order of the atomic sums
+    moves a gradient in its last bits, and SGD's step moves with it by
+    as little, where Adam's divides by the gradient's running RMS, so an
+    element whose sum lies within rounding of zero (a sparse table row
+    sums about 2,300 rows a step) steps up to the learning rate apart:
+    1.1e-4 after 10 steps on an H100."""
+    t0 = time.perf_counter()
+    tagged = tagged_graph(graph)
+    g_cpu = tagged.tensors.to(torch.device("cpu"))
+    out = {}
+    for i, comb in enumerate(("sum", "mean")):
+        grads = phase_grads(encoder_model(dev, comb), tagged, dev, g_cpu)
+        loop = loop_family(
+            f"encoder_{comb}",
+            lambda cfg, comb=comb: NodeEstimator(encoder_model(dev, comb),
+                                                 tagged, cfg, device=dev),
+            tagged, dev, dict(fan_draw=2, gather_rows=2), BATCH, 70 + i,
+            optimizer="sgd")
+        out[comb] = dict(grads=grads, loop=loop)
+        log(f"encoder {comb}: grads {json.dumps(grads)}")
+    out["jk_concat"] = dict(grads=phase_grads(encoder_model(dev, "sum",
+                                                            jk=True),
+                                              tagged, dev, g_cpu))
+    log(f"encoder jk: {json.dumps(out['jk_concat'])}")
+    out["seconds"] = time.perf_counter() - t0
+    return out
+
+
 # --------------------------------------------------------------- phase 13 --
 
 def phase_bench(dev):
@@ -2215,6 +2494,7 @@ def main() -> int:
     shapes, crossover, launch_floor_ms = phase_kernel(dev, parent)
     unions = phase_union(dev)
     gathers = phase_gather(dev, parent)
+    log(f"kernels: phases 3-4, {time.perf_counter() - t_start:.1f} s in")
 
     # 5. graph
     t0 = time.perf_counter()
@@ -2251,7 +2531,8 @@ def main() -> int:
 
     def allocated_after(phase: str) -> None:
         allocated[phase] = torch.cuda.memory_allocated() / 1e9
-        log(f"memory: {allocated[phase]:.3f} GB allocated after {phase}")
+        log(f"memory: {allocated[phase]:.3f} GB allocated after {phase}, "
+            f"{time.perf_counter() - t_start:.1f} s in")
     allocated_after("serving")
     # 10. train (the training path)
     train = phase_train(model, graph, dev)
@@ -2271,13 +2552,21 @@ def main() -> int:
     # 12e. every family's train loop as a captured step replayed
     loop = phase_loop(graph, dev)
     allocated_after("loop")
+    # 12f. the other eight convs; 12h. the id and sparse-id encoder
+    conv_runs = phase_convs(graph, dev)
+    allocated_after("convs")
+    encoder = phase_encoder(graph, dev)
+    allocated_after("encoder")
     del graph
     allocated_after("del graph")
-    # 12b. whole-graph gcn
+    # 12b. whole-graph gcn; 12g. the examples' whole-graph convs
     gcn = phase_gcn(dev)
     allocated_after("gcn")
+    whole = phase_whole(dev)
+    allocated_after("whole")
     # 13. the port's bench, every mode
     benched = phase_bench(dev)
+    allocated_after("bench")
 
     # each path's launches, its counts set to 0 just before it
     path_launches = {"infer": infer["launches"], "train": train["launches"],
@@ -2295,6 +2584,15 @@ def main() -> int:
                           for family in LOOP_FAMILIES})
     path_launches.update({f"loop_bench_{mode}": loop["bench"][mode]["launches"]
                           for mode in LOOP_BENCH_MODES})
+    for conv in bench.CONV_MODES:
+        res = conv_runs[conv]
+        path_launches.update({f"{conv}_infer": res["infer"]["launches"],
+                              f"loop_{conv}": res["loop"]["launches"],
+                              f"bench_{conv}": benched[conv]["launches"]})
+    path_launches.update({f"whole_{conv}_train": whole[conv]["launches"]
+                          for conv in WHOLE_CONVS})
+    path_launches.update({f"loop_encoder_{c}": encoder[c]["loop"]["launches"]
+                          for c in ("sum", "mean")})
 
     def by_path(name):
         return {path: n[name] for path, n in path_launches.items()}
@@ -2370,8 +2668,8 @@ def main() -> int:
         total_s=time.perf_counter() - t_start,
         native_core=native.available(), infer=infer, parity=parity,
         train=train, grads=grads, families=families, gcn=gcn,
-        transe=transe, unsup={k: v for k, v in unsup.items()
-                              if k != "kernels"}, loop=loop,
+        convs=conv_runs, whole=whole, encoder=encoder, transe=transe,
+        unsup={k: v for k, v in unsup.items() if k != "kernels"}, loop=loop,
         bench=benched, allocated_gb_after=allocated)}))
     log(smi)                # nvidia-smi's name and power limit, as given
     log(json.dumps({"kernels": kernels}))

@@ -1,8 +1,9 @@
 """The port's training benchmark: bench.py's sampled modes, its
 whole-graph gcn mode and its transe mode.
 
-    python -m euler_tpu_torch.bench [--model sage|gin|gat|rgcn|gcn|transe]
-                                    [--gcn-layout ell|edge_list]
+    python -m euler_tpu_torch.bench [--model sage|gin|gat|rgcn|tag|sgcn|
+                                     agnn|appnp|graph|arma|dna|gated|gcn|
+                                     transe] [--gcn-layout ell|edge_list]
     python -m euler_tpu_torch.bench --device cpu    # off-chip sizes
 
 Counterpart of bench.py:260-454 for ``EULER_BENCH_MODEL=sage`` (the
@@ -16,7 +17,11 @@ builds its graph with 4 edge types and the ``fanu`` pack only, samples
 every hop over all four types from the union rows with
 ``SageDataFlow(typed=True)``, runs ``RelationConv`` with 4 relations fed
 from the sampled types, and redraws nothing (bench.py:385-393 redraws
-only ``fan_pack``). ``--device cpu`` takes bench.py's off-chip sizes
+only ``fan_pack``). The eight modes of ``CONV_MODES`` run as sage with
+their conv at its reference defaults (TAG K=3, SGCN K=1, APPNP K=10 and
+alpha 0.1, ARMA K=2 and T=1, DNA one head, Gated two steps), as
+bench.py's sampled branch builds ``GNNNet(conv=mode)`` for any registry
+name. ``--device cpu`` takes bench.py's off-chip sizes
 (5,000 nodes, batch 256, 5 steps per loop, f32) and exists for tests.
 
 ``gcn`` is bench.py's ``_gcn_child`` (bench.py:478-588): full-batch GCN
@@ -79,7 +84,12 @@ GCN_METRIC = "fullgraph_spmm_edges_per_sec_per_chip"
 TRANSE_METRIC = "transx_triples_per_sec_per_chip"
 AVG_DEGREE, FEAT_DIM, N_CLASSES = 25, 128, 16
 FANOUT, DIMS, LR = [25, 10], (128, 128), 1e-3
-SAMPLED = ("sage", "gin", "gat", "rgcn")
+#: the sampled modes: bench.py's and, as its sampled branch builds
+#: ``GNNNet(conv=mode)`` for any registry name (bench.py:342), the other
+#: eight convs at their reference defaults
+CONV_MODES = ("tag", "sgcn", "agnn", "appnp", "graph", "arma", "dna",
+              "gated")
+SAMPLED = ("sage", "gin", "gat", "rgcn") + CONV_MODES
 GNN_MODELS = SAMPLED + ("gcn",)
 MODELS = GNN_MODELS + ("transe",)
 RGCN_TYPES = 4
@@ -191,9 +201,10 @@ def build_transe(dev: torch.device, n_nodes: int, batch: int,
 def train_loop(est: BaseEstimator, model: str,
                gen: torch.Generator) -> Callable[[], torch.Tensor]:
     """The bench's loop of the ``model`` mode on ``est``, drawing from
-    ``gen``: one redraw of the fan reservoir (sage, gin, gat, as bench.py's
-    run_loop, which has none for rgcn's union rows; the graphs of gcn and
-    transe have no fan rows), then ``est.config.steps_per_loop`` Adam
+    ``gen``: one redraw of the fan reservoir where the graph has fan rows
+    (every sampled mode but rgcn, as bench.py's run_loop, which has none
+    for rgcn's union rows; the graphs of gcn and transe have no fan rows),
+    then ``est.config.steps_per_loop`` Adam
     steps as one ``TrainLoop`` (on the card a captured step replayed), on
     every node as the roots (gcn), sampled triples (transe) or sampled
     roots. Returns the loop's last loss; the ``TrainLoop`` is the
@@ -209,7 +220,7 @@ def train_loop(est: BaseEstimator, model: str,
     loop = TrainLoop(est, opt, gen, est.config.steps_per_loop, roots)
 
     def run_loop():
-        if model in ("sage", "gin", "gat"):
+        if g.fan_pack is not None:
             sampling.refresh_fan_pack(g, gen)
         return loop()
     run_loop.loop = loop

@@ -6,11 +6,12 @@ Counterpart of euler_tpu/graph/store.py (``GraphTensors``, ``Graph``,
 plus ``part_*.npz``) and builds, with the same host code, the grouped CSR
 with its per-slot source, type, weight and edge id, the per-group alias
 tables, the ``fan`` and ``fanu`` packs that neighbor sampling reads, the
-``ell`` pack that whole-graph propagation reads, and the per-node-type
-alias tables that the root draw reads, and the per-edge-type alias
-tables over the CSR slots that the edge draw reads. Only the fields
-these paths need live on the device; external ids and binary features
-stay on the host.
+``ell`` pack that whole-graph propagation reads, the per-node-type
+alias tables that the root draw reads, the per-edge-type alias tables
+over the CSR slots that the edge draw reads, the dense and sparse node
+and edge features, and each edge row's type. Only the fields these
+paths need live on the device; external ids and binary features stay on
+the host.
 """
 from __future__ import annotations
 
@@ -24,7 +25,7 @@ import torch
 
 from euler_tpu_torch._device import resolve_device
 from euler_tpu_torch.graph import convert as _convert
-from euler_tpu_torch.graph.meta import DENSE, GraphMeta
+from euler_tpu_torch.graph.meta import DENSE, SPARSE, GraphMeta
 from euler_tpu_torch.ops.alias import (FAN_D, FANU_MAX_TYPES, FANU_SHIFT,
                                        build_fan_pack, build_group_alias,
                                        build_typed_alias_tables)
@@ -140,6 +141,15 @@ class GraphTensors:
     ell_ty: Optional[torch.Tensor] = None       # int32 [N, C]
     ell_tpos: Optional[torch.Tensor] = None     # int32 [N, C_in] (-1 pad)
     ell_in_deg: Optional[torch.Tensor] = None   # f32   [N, ET]
+    # sparse node features: name -> (ids int32 [N, L] padded with -1,
+    # lengths int32 [N]); edge features and types by original edge row
+    sparse_nf: Dict[str, Tuple[torch.Tensor, torch.Tensor]] = \
+        dataclasses.field(default_factory=dict)
+    dense_ef: Dict[str, torch.Tensor] = dataclasses.field(
+        default_factory=dict)
+    sparse_ef: Dict[str, Tuple[torch.Tensor, torch.Tensor]] = \
+        dataclasses.field(default_factory=dict)
+    eid_type: Optional[torch.Tensor] = None     # int32 [E]
 
     @property
     def device(self) -> torch.device:
@@ -152,6 +162,8 @@ class GraphTensors:
                 return v.to(device)
             if isinstance(v, dict):
                 return {k: mv(x) for k, x in v.items()}
+            if isinstance(v, tuple):
+                return tuple(mv(x) for x in v)
             return v
         return dataclasses.replace(self, **{
             f.name: mv(getattr(self, f.name))
@@ -202,6 +214,18 @@ def _ell_pack_np(n, net, group_ptr, adj_dst, adj_w, adj_eid, adj_type):
                 ell_tpos=tpos.astype(np.int32), ell_in_deg=ell_in_deg)
 
 
+def _check_edge_ids(eid: np.ndarray) -> None:
+    """The edge-row tables (``eid_type``, ``dense_ef``, ``sparse_ef``) need
+    edge ids that are a permutation of 0..E-1, as the reference requires
+    (euler_tpu/graph/store.py:320-332)."""
+    e = np.sort(eid.astype(np.int64))
+    if len(e) and not np.array_equal(e, np.arange(len(e), dtype=np.int64)):
+        raise ValueError(
+            "edge ids must be a dense permutation of 0..E-1 "
+            f"(got min={e[0]}, max={e[-1]}, E={len(e)}); re-run the "
+            "converter, which assigns them")
+
+
 def _load_parts(path: str) -> Dict[str, np.ndarray]:
     files = sorted(glob.glob(os.path.join(path, "part_*.npz")))
     if not files:
@@ -239,6 +263,8 @@ class Graph:
         node_w = arrays["node_w"][order]
         self._local_of = {int(e): i for i, e in enumerate(self.ext_ids)}
 
+        eid = np.asarray(arrays["eid"])
+        _check_edge_ids(eid)
         (group_ptr, adj_dst, adj_w, _, adj_eid, perm) = _convert.build_csr(
             n, net, arrays["src"], arrays["dst"], arrays["etype"],
             arrays["ew"], arrays["eid"])
@@ -253,6 +279,16 @@ class Graph:
 
         dense_nf = {spec.name: arrays[f"nf_d:{spec.name}"][order]
                     for spec in meta.node_features if spec.kind == DENSE}
+        sparse_nf = {spec.name: (arrays[f"nf_sp:{spec.name}"][order],
+                                 arrays[f"nf_splen:{spec.name}"][order])
+                     for spec in meta.node_features if spec.kind == SPARSE}
+        # edge features and types in original edge-row order
+        eorder = np.argsort(eid, kind="stable")
+        dense_ef = {spec.name: arrays[f"ef_d:{spec.name}"][eorder]
+                    for spec in meta.edge_features if spec.kind == DENSE}
+        sparse_ef = {spec.name: (arrays[f"ef_sp:{spec.name}"][eorder],
+                                 arrays[f"ef_splen:{spec.name}"][eorder])
+                     for spec in meta.edge_features if spec.kind == SPARSE}
 
         def put(x):
             return torch.from_numpy(np.ascontiguousarray(x)).to(dev)
@@ -298,6 +334,12 @@ class Graph:
             adj_alias=put(adj_alias),
             group_w_sum=put(group_w_sum),
             dense_nf={k: put(v) for k, v in dense_nf.items()},
+            sparse_nf={k: (put(v[0]), put(v[1]))
+                       for k, v in sparse_nf.items()},
+            dense_ef={k: put(v) for k, v in dense_ef.items()},
+            sparse_ef={k: (put(v[0]), put(v[1]))
+                       for k, v in sparse_ef.items()},
+            eid_type=put(arrays["etype"][eorder].astype(np.int32)),
             node_alias=AliasTables.build(node_type, node_w,
                                          meta.num_node_types, put),
             edge_alias=AliasTables.build(adj_type, adj_w, net, put),

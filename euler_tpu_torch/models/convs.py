@@ -3,12 +3,19 @@
 Counterpart of euler_tpu/models/convs.py. Call convention:
 ``conv((x_tgt [size0, D], x_src [size1, D]), block) -> [size0, dim]``
 (``RelationConv`` also takes ``edge_attr``); on a whole-graph ELL block
-``x_src`` may be the compact [N, D] table. Ported: ``GCNConv``,
-``SAGEConv``, ``GATConv``, ``GINConv`` and ``RelationConv``, over every
-block layout the port builds. Parameters are f32; low-precision
-activations are cast up to them where flax's type promotion would (torch
-refuses mixed-dtype products), and stay low where the reference keeps
-them low.
+``x_src`` may be the compact [N, D] table. Every conv of the
+reference's registry is ported, over every block layout the port builds.
+Each conv's ``out_dim`` is the width it outputs: ``dim``, but the input
+width for ``AGNNConv`` and ``APPNPConv``, which propagate without a
+projection. Parameters are f32; low-precision activations are cast up to
+them where flax's type promotion would (torch refuses mixed-dtype
+products), and stay low where the reference keeps them low.
+
+The multi-hop convs (TAG, SGCN, APPNP, Gated) feed each hop's output to
+the next as the reference does, ``_next_src``: the targets' rows replace
+the first ``size[0]`` rows of the source set when the block has more
+sources than targets. On a compact ELL table the rest is empty, so the
+source set stays compact. ARMA keeps its own rule.
 """
 from __future__ import annotations
 
@@ -60,6 +67,24 @@ def _edge_scale(ni: torch.Tensor, nj: torch.Tensor,
     return sc if mask is None else sc * mask[:, None]
 
 
+def _sym_scale(block: Block) -> torch.Tensor:
+    """The [E, 1] f32 sym-norm scale of every edge, mask folded in."""
+    norm_i, norm_j = _deg_inv_sqrt(block)
+    return _edge_scale(block.gather_tgt(norm_i), block.gather_src(norm_j),
+                       block.mask)
+
+
+def _next_src(cur: torch.Tensor, src: torch.Tensor, size) -> torch.Tensor:
+    """The reference's propagation rule: ``cat([cur, src[size0:]])`` when
+    the block has more sources than targets, else ``cur`` (the type
+    promoted as ``jnp.concatenate`` does)."""
+    if size[1] <= size[0]:
+        return cur
+    rest = src[size[0]:]
+    dt = torch.promote_types(cur.dtype, rest.dtype)
+    return torch.cat([cur.to(dt), rest.to(dt)])
+
+
 class GCNConv(nn.Module):
     """reference: gcn_conv.py:26-54 (convs.py:55-68): the sym-normalised
     sum ``sum_j x_j / sqrt(deg_i deg_j)`` over masked edges (self loops
@@ -70,14 +95,12 @@ class GCNConv(nn.Module):
     def __init__(self, in_dim: int, dim: int,
                  generator: Optional[torch.Generator] = None):
         super().__init__()
+        self.out_dim = dim
         self.fc = dense(in_dim, dim, bias=False, generator=generator)
 
     def forward(self, x, block: Block) -> torch.Tensor:
         _, x_src = x
-        norm_i, norm_j = _deg_inv_sqrt(block)
-        scale = _edge_scale(block.gather_tgt(norm_i),
-                            block.gather_src(norm_j), block.mask)
-        out = block.aggregate_neighbors("add", x_src, scale=scale)
+        out = block.aggregate_neighbors("add", x_src, scale=_sym_scale(block))
         return self.fc(out.to(self.fc.weight.dtype))
 
 
@@ -90,6 +113,7 @@ class SAGEConv(nn.Module):
     def __init__(self, in_dim: int, dim: int,
                  generator: Optional[torch.Generator] = None):
         super().__init__()
+        self.out_dim = dim
         self.self_fc = dense(in_dim, dim, bias=False, generator=generator)
         self.neigh_fc = dense(in_dim, dim, bias=False, generator=generator)
 
@@ -125,6 +149,7 @@ class GATConv(nn.Module):
     def __init__(self, in_dim: int, dim: int, improved: bool = False,
                  generator: Optional[torch.Generator] = None):
         super().__init__()
+        self.out_dim = dim
         self.improved = improved
         self.fc = dense(in_dim, dim, bias=False, generator=generator)
         self.a1 = dense(dim, 1, bias=False, generator=generator)
@@ -156,6 +181,7 @@ class GINConv(nn.Module):
                  train_eps: bool = True,
                  generator: Optional[torch.Generator] = None):
         super().__init__()
+        self.out_dim = dim
         self.eps = nn.Parameter(torch.tensor([eps])) if train_eps else eps
         self.fc = dense(in_dim, dim, bias=False, generator=generator)
 
@@ -169,6 +195,267 @@ class GINConv(nn.Module):
         else:
             h = (1 + self.eps) * x_tgt + aggr
         return self.fc(h.to(self.fc.weight.dtype))
+
+
+class TAGConv(nn.Module):
+    """reference: tag_conv.py (convs.py:136-159): K sym-normalised hops
+    (each hop propagates the last, ``_next_src``), concatenated after
+    x_tgt, then ``fc``, flax's bias-free ``Dense_0`` on (K+1)·D_in."""
+
+    def __init__(self, in_dim: int, dim: int, K: int = 3,
+                 generator: Optional[torch.Generator] = None):
+        super().__init__()
+        self.K, self.out_dim = K, dim
+        self.fc = dense(in_dim * (K + 1), dim, bias=False,
+                        generator=generator)
+
+    def forward(self, x, block: Block) -> torch.Tensor:
+        x_tgt, x_src = x
+        scale = _sym_scale(block)
+        xs, cur_src = [x_tgt], x_src
+        for _ in range(self.K):
+            cur = block.aggregate_neighbors("add", cur_src, scale=scale)
+            xs.append(cur)
+            cur_src = _next_src(cur, cur_src, block.size)
+        h = torch.cat([v.to(self.fc.weight.dtype) for v in xs], dim=-1)
+        return self.fc(h)
+
+
+class SGCNConv(nn.Module):
+    """reference: sgcn_conv.py (convs.py:162-181): K sym-normalised
+    propagations, then ``fc``, flax's bias-free ``Dense_0``."""
+
+    def __init__(self, in_dim: int, dim: int, K: int = 1,
+                 generator: Optional[torch.Generator] = None):
+        super().__init__()
+        self.K, self.out_dim = K, dim
+        self.fc = dense(in_dim, dim, bias=False, generator=generator)
+
+    def forward(self, x, block: Block) -> torch.Tensor:
+        cur_tgt, cur_src = x
+        scale = _sym_scale(block)
+        for _ in range(self.K):
+            cur_tgt = block.aggregate_neighbors("add", cur_src, scale=scale)
+            cur_src = _next_src(cur_tgt, cur_src, block.size)
+        return self.fc(cur_tgt.to(self.fc.weight.dtype))
+
+
+def _l2norm(v: torch.Tensor) -> torch.Tensor:
+    """Rows over their L2 norm (at least 1e-12), in v's dtype. At a zero
+    row the gradient is 1e12 times the cotangent, where the reference's
+    (``jnp.linalg.norm``'s sqrt at 0) is NaN; both die at the previous
+    layer's relu, so parameter gradients agree."""
+    return v / torch.linalg.vector_norm(v, dim=-1,
+                                        keepdim=True).clamp_min(1e-12)
+
+
+class AGNNConv(nn.Module):
+    """reference: agnn_conv.py (convs.py:184-200): cosine attention
+    ``beta * <x_i/|x_i|, x_j/|x_j|>`` (``beta`` a trainable [1], flax's
+    ``beta``), the block softmax, and the attention-weighted sum of the raw
+    sources. No projection: ``dim`` is unused and the output is as wide as
+    the input. An f32 ``beta`` promotes the scores to f32; the sum stays in
+    the dtype of x_src."""
+
+    def __init__(self, in_dim: int, dim: int,
+                 generator: Optional[torch.Generator] = None):
+        super().__init__()
+        self.out_dim = in_dim
+        self.beta = nn.Parameter(torch.ones(1))
+
+    def forward(self, x, block: Block) -> torch.Tensor:
+        x_tgt, x_src = x
+        ni = block.gather_tgt(_l2norm(x_tgt))
+        nj = block.gather_src(_l2norm(x_src))
+        alpha = (self.beta * (ni * nj)).sum(dim=-1, keepdim=True)
+        alpha = block.softmax(alpha, block.mask)
+        return block.aggregate_neighbors("add", x_src, scale=alpha)
+
+
+class APPNPConv(nn.Module):
+    """reference: appnp_conv.py (convs.py:203-224): K personalised-pagerank
+    steps ``(1 - alpha) * sym_norm_sum + alpha * x_tgt``. No parameters;
+    the output is as wide as the input and in its dtype (the reference's
+    Python-float weights are weak)."""
+
+    def __init__(self, in_dim: int, dim: int, K: int = 10,
+                 alpha: float = 0.1,
+                 generator: Optional[torch.Generator] = None):
+        super().__init__()
+        self.K, self.alpha, self.out_dim = K, alpha, in_dim
+
+    def forward(self, x, block: Block) -> torch.Tensor:
+        x_tgt, x_src = x
+        scale = _sym_scale(block)
+        out_tgt, out_src = x_tgt, x_src
+        for _ in range(self.K):
+            aggr = block.aggregate_neighbors("add", out_src, scale=scale)
+            out_tgt = (1 - self.alpha) * aggr + self.alpha * x_tgt
+            out_src = _next_src(out_tgt, out_src, block.size)
+        return out_tgt
+
+
+class GraphConv(nn.Module):
+    """reference: graph_conv.py (convs.py:227-236): the masked mean of
+    ``src_fc(x_j)`` plus ``self_fc(x_tgt)``. ``src_fc`` is flax's
+    bias-free ``Dense_0``, ``self_fc`` its ``Dense_1``, with a bias."""
+
+    def __init__(self, in_dim: int, dim: int,
+                 generator: Optional[torch.Generator] = None):
+        super().__init__()
+        self.out_dim = dim
+        self.src_fc = dense(in_dim, dim, bias=False, generator=generator)
+        self.self_fc = dense(in_dim, dim, bias=True, generator=generator)
+
+    def forward(self, x, block: Block) -> torch.Tensor:
+        x_tgt, x_src = x
+        f32 = self.src_fc.weight.dtype
+        aggr = block.aggregate_neighbors("mean", self.src_fc(x_src.to(f32)),
+                                         block.mask)
+        return self.self_fc(x_tgt.to(f32)) + aggr
+
+
+class ARMAConv(nn.Module):
+    """reference: arma_conv.py (convs.py:239-275): K parallel stacks of T
+    recursive layers, ``relu(sym_norm_sum(w(cur_src)) + v(x_tgt))``, then
+    the mean over the K stacks. ``ws[t]`` are flax's ``Dense_0..nW-1`` and
+    ``vs[t]`` its ``Dense_nW..2nW-1`` (nW = 1 with ``shared_weights``,
+    else T), all bias-free and K·dim wide; ``ws[t]`` reads D_in at t = 0
+    and K·dim after. Its own propagation rule: where x_src is the
+    expanded source set (more rows than targets), the next source set is
+    ``cat([out, v(x_src[size0:])])``; elsewhere (the edge list, the
+    compact ELL table) it is ``out``."""
+
+    def __init__(self, in_dim: int, dim: int, K: int = 2, T: int = 1,
+                 shared_weights: bool = False,
+                 generator: Optional[torch.Generator] = None):
+        super().__init__()
+        self.K, self.T, self.dim, self.out_dim = K, T, dim, dim
+        self.shared_weights = shared_weights
+        nW = 1 if shared_weights else T
+        self.ws = nn.ModuleList(
+            dense(in_dim if t == 0 else K * dim, K * dim, bias=False,
+                  generator=generator) for t in range(nW))
+        self.vs = nn.ModuleList(
+            dense(in_dim, K * dim, bias=False, generator=generator)
+            for _ in range(nW))
+
+    def forward(self, x, block: Block) -> torch.Tensor:
+        x_tgt, x_src = x
+        size = block.size
+        f32 = self.vs[0].weight.dtype
+        scale = _sym_scale(block)
+        cur_src, out = x_src, None
+        for t in range(self.T):
+            i = 0 if self.shared_weights else t
+            w, v = self.ws[i], self.vs[i]
+            aggr = block.aggregate_neighbors("add", w(cur_src.to(f32)),
+                                             scale=scale)
+            out = torch.relu(aggr + v(x_tgt.to(f32)))
+            if size[1] > size[0] and x_src.shape[0] == size[1]:
+                cur_src = torch.cat([out, v(x_src[size[0]:].to(f32))])
+            else:
+                cur_src = out
+        return out.reshape(-1, self.K, self.dim).mean(dim=1)
+
+
+class DNAConv(nn.Module):
+    """reference: dna_conv.py (convs.py:278-310): a shared bias-free
+    ``in_fc`` (flax's ``Dense_0``) on both endpoints, per-edge
+    ``q_i . k_j / sqrt(d / heads)`` per head through a sigmoid gate (the
+    reference's restricted softmax over one key), the gated ``v_j``, and
+    the masked mean over each target's edges. ``q``, ``k`` and ``v`` are
+    ``Dense_1``-``Dense_3``, each with a bias."""
+
+    def __init__(self, in_dim: int, dim: int, heads: int = 1,
+                 generator: Optional[torch.Generator] = None):
+        super().__init__()
+        self.heads, self.out_dim = heads, dim
+        self.in_fc = dense(in_dim, dim, bias=False, generator=generator)
+        self.q = dense(dim, dim, generator=generator)
+        self.k = dense(dim, dim, generator=generator)
+        self.v = dense(dim, dim, generator=generator)
+
+    def forward(self, x, block: Block) -> torch.Tensor:
+        x_tgt, x_src = x
+        f32 = self.in_fc.weight.dtype
+        d, h = self.out_dim, self.heads
+        dh = d // h
+        x_tgt, x_src = self.in_fc(x_tgt.to(f32)), self.in_fc(x_src.to(f32))
+        q = block.gather_tgt(self.q(x_tgt)).reshape(-1, h, dh)
+        k = block.gather_src(self.k(x_src)).reshape(-1, h, dh)
+        v = block.gather_src(self.v(x_src)).reshape(-1, h, dh)
+        gate = torch.sigmoid((q * k).sum(dim=-1) / math.sqrt(dh))   # [E, h]
+        msg = (gate[:, :, None] * v).reshape(-1, d)
+        return block.scatter("mean", msg, block.mask)
+
+
+class GRUCell(nn.Module):
+    """flax's ``nn.GRUCell`` (not ``torch.nn.GRUCell``, which also has
+    biases on the hidden-state gates ``hr`` and ``hz``):
+
+        r = sigmoid(ir(x) + hr(h)),  z = sigmoid(iz(x) + hz(h))
+        n = tanh(in(x) + r * hn(h)),  h' = (1 - z) * n + z * h
+
+    ``ir``, ``iz``, ``in`` and ``hn`` have a bias, ``hr`` and ``hz`` none.
+    Input kernels start lecun-normal (flax's Dense default), recurrent
+    kernels orthogonal, biases zero; called as flax's ``cell(h, x)``."""
+
+    def __init__(self, in_dim: int, dim: int,
+                 generator: Optional[torch.Generator] = None):
+        super().__init__()
+        self.gates = nn.ModuleDict()
+        for name in ("ir", "iz", "in"):
+            self.gates[name] = dense(in_dim, dim, generator=generator)
+        for name in ("hr", "hz", "hn"):
+            lin = nn.Linear(dim, dim, bias=name == "hn")
+            with torch.no_grad():
+                nn.init.orthogonal_(lin.weight, generator=generator)
+                if lin.bias is not None:
+                    lin.bias.zero_()
+            self.gates[name] = lin
+
+    def forward(self, h: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
+        f = self.gates
+        f32 = f["ir"].weight.dtype
+        h, x = h.to(f32), x.to(f32)
+        r = torch.sigmoid(f["ir"](x) + f["hr"](h))
+        z = torch.sigmoid(f["iz"](x) + f["hz"](h))
+        n = torch.tanh(f["in"](x) + r * f["hn"](h))
+        return (1.0 - z) * n + z * h
+
+
+class GatedConv(nn.Module):
+    """reference: gated_graph_conv.py (convs.py:313-334): a bias-free
+    ``proj`` to ``dim`` where D_in != dim (flax's ``Dense_0``, which then
+    shifts the per-step Denses by one), then ``processing_steps`` rounds
+    of a masked sum of ``fcs[i](h_src)`` (flax's ``Dense_{i(+1)}``, bias-
+    free) fed to a shared ``GRUCell`` (``GRUCell_0``) as
+    ``gru(h_tgt, aggr)``, each round propagating ``h_tgt``
+    (``_next_src``)."""
+
+    def __init__(self, in_dim: int, dim: int, processing_steps: int = 2,
+                 generator: Optional[torch.Generator] = None):
+        super().__init__()
+        self.out_dim = dim
+        self.proj = dense(in_dim, dim, bias=False, generator=generator) \
+            if in_dim != dim else None
+        self.gru = GRUCell(dim, dim, generator=generator)
+        self.fcs = nn.ModuleList(
+            dense(dim, dim, bias=False, generator=generator)
+            for _ in range(processing_steps))
+
+    def forward(self, x, block: Block) -> torch.Tensor:
+        h_tgt, h_src = x
+        f32 = self.gru.gates["ir"].weight.dtype
+        if self.proj is not None:
+            h_tgt, h_src = self.proj(h_tgt.to(f32)), self.proj(h_src.to(f32))
+        for fc in self.fcs:
+            aggr = block.aggregate_neighbors("add", fc(h_src.to(f32)),
+                                             block.mask)
+            h_tgt = self.gru(h_tgt, aggr)
+            h_src = _next_src(h_tgt, h_src, block.size)
+        return h_tgt
 
 
 class RelationConv(nn.Module):
@@ -193,6 +480,7 @@ class RelationConv(nn.Module):
         fan_avg = (dim * R + in_dim * R) / 2.0
         std = math.sqrt(1.0 / fan_avg) / 0.87962566103423978
         self.num_relations = R
+        self.out_dim = dim
         self.matrix = nn.Parameter(_trunc_normal((R, dim, in_dim), std,
                                                  generator))
         self.self_fc = dense(in_dim, dim, bias=False, generator=generator)
@@ -234,14 +522,29 @@ class RelationConv(nn.Module):
         return self.self_fc(x_tgt.to(f32)) + aggr
 
 
-_CONVS = {"gcn": GCNConv, "sage": SAGEConv, "graphsage": SAGEConv,
-          "gat": GATConv, "gin": GINConv, "relation": RelationConv,
-          "rgcn": RelationConv}
+#: registry names, as the reference's ``_CONVS`` (convs.py:394-413)
+_CONVS = {
+    "gcn": GCNConv,
+    "sage": SAGEConv,
+    "graphsage": SAGEConv,
+    "gat": GATConv,
+    "gin": GINConv,
+    "tag": TAGConv,
+    "tagcn": TAGConv,
+    "sgcn": SGCNConv,
+    "agnn": AGNNConv,
+    "appnp": APPNPConv,
+    "graph": GraphConv,
+    "graphgcn": GraphConv,
+    "arma": ARMAConv,
+    "dna": DNAConv,
+    "gated": GatedConv,
+    "gated_graph": GatedConv,
+    "relation": RelationConv,
+    "rgcn": RelationConv,
+}
 
 
 def get_conv_class(name: str):
-    try:
-        return _CONVS[name]
-    except KeyError:
-        raise NotImplementedError(
-            f"conv {name!r} is not ported; known: {sorted(_CONVS)}") from None
+    """reference: mp_utils/utils.py get_conv_class."""
+    return _CONVS[name]

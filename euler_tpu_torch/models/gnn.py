@@ -1,9 +1,9 @@
 """GNN net, id-embedding net, and the supervised and unsupervised heads.
 
-Counterpart of euler_tpu/models/gnn.py: ``GNNNet`` over sampled and
-whole-graph flows, ``EmbedOnly``, ``SuperviseModel`` and
+Counterpart of euler_tpu/models/gnn.py: ``GNNNet`` and ``JKGNNNet`` over
+sampled and whole-graph flows, ``EmbedOnly``, ``SuperviseModel`` and
 ``UnsuperviseModel`` (reference: tf_euler/python/mp_utils/
-base_gnn.py:74-92 and mp_utils/base.py:24-91). The dataflow
+base_gnn.py:74-139 and mp_utils/base.py:24-91). The dataflow
 runs inside ``forward``; its randomness comes from the ``generator`` (or
 the replayed ``uniforms``) the caller passes. Training differentiates
 the loss with autograd; the whole-graph ELL aggregate and expansion have
@@ -50,10 +50,6 @@ class GNNNet(nn.Module):
                  relation_from_etype: bool = False):
         super().__init__()
         dev = resolve_device(device)
-        n_layers = flow.num_layers
-        if len(dims) < n_layers:
-            raise ValueError(f"dims {tuple(dims)} has fewer entries than "
-                             f"the flow's {n_layers} hops")
         if relation_from_etype and not getattr(flow, "typed", False):
             raise ValueError(
                 "relation_from_etype needs edge types: construct the flow "
@@ -63,12 +59,8 @@ class GNNNet(nn.Module):
         self.feature = feature
         self.dtype = dtype
         self.relation_from_etype = relation_from_etype
-        cls = convs_lib.get_conv_class(conv)
-        widths = [in_dim] + list(self.dims[:n_layers])
-        self.convs = nn.ModuleList(
-            cls(widths[i], widths[i + 1], generator=generator,
-                **(conv_kwargs or {}))
-            for i in range(n_layers))
+        self.convs, widths = _make_convs(conv, in_dim, self.dims, flow,
+                                         generator, conv_kwargs)
         self.out_fc = convs_lib.dense(widths[-1], self.dims[-1],
                                       generator=generator)
         self.to(dev)
@@ -77,29 +69,115 @@ class GNNNet(nn.Module):
                 generator: Optional[torch.Generator] = None,
                 uniforms: Optional[Sequence] = None) -> torch.Tensor:
         blocks = self.flow(g, roots, generator=generator, uniforms=uniforms)
-        if blocks[0].ell_tpos is not None:
-            x = self.feature(g, blocks[0].n_id[: blocks[0].size[0]])
-        else:
-            x = self.feature(g, blocks[0].n_id)
+        x = _input_features(self.feature, g, blocks)
         if self.dtype is not None:
             x = x.to(self.dtype)
         for conv, block in zip(self.convs, blocks):
-            if (x.shape[0] == block.size[0] != block.size[1]
-                    and block.ell_tpos is None):
-                # dynamic whole-graph block: rebuild its source set
-                x = torch.where((block.n_id >= 0)[:, None],
-                                x[block.n_id.long().clamp_min(0)], 0)
+            x = _source_set(x, block)
             kw = {}
             if self.relation_from_etype:
                 kw["edge_attr"] = block.e_type.clamp_min(0)
             x = torch.relu(conv((x[: block.size[0]], x), block, **kw))
             if self.dtype is not None:
                 x = x.to(self.dtype)
-        if x.shape[0] != roots.shape[0]:
-            # whole-graph flow: the roots' rows (ids past N clamp, as XLA)
-            r = roots.reshape(-1).long()
-            x = torch.where((r >= 0)[:, None],
-                            x[r.clamp(0, x.shape[0] - 1)], 0)
+        x = _pick_roots(x, roots)
+        return self.out_fc(x.to(self.out_fc.weight.dtype))
+
+
+def _make_convs(conv: str, in_dim: int, dims: Sequence[int], flow: Any,
+                generator: Optional[torch.Generator],
+                conv_kwargs: Optional[dict]):
+    """One conv per block of ``flow``, at the leading entries of ``dims``,
+    each reading the width the last one outputs (its ``out_dim``: AGNN
+    and APPNP keep their input width, as flax's lazily shaped layers
+    would); returns (convs, widths), the widths from ``in_dim`` to the
+    last conv's output."""
+    n_layers = flow.num_layers
+    if len(dims) < n_layers:
+        raise ValueError(f"dims {tuple(dims)} has fewer entries than "
+                         f"the flow's {n_layers} hops")
+    cls = convs_lib.get_conv_class(conv)
+    widths, convs = [in_dim], []
+    for dim in dims[:n_layers]:
+        convs.append(cls(widths[-1], dim, generator=generator,
+                         **(conv_kwargs or {})))
+        widths.append(convs[-1].out_dim)
+    return nn.ModuleList(convs), widths
+
+
+def _input_features(feature: nn.Module, g: GraphTensors,
+                    blocks) -> torch.Tensor:
+    """The encoder's rows of the deepest block's sources; over ELL-pack
+    blocks the compact [N, D] table of their targets."""
+    if blocks[0].ell_tpos is not None:
+        return feature(g, blocks[0].n_id[: blocks[0].size[0]])
+    return feature(g, blocks[0].n_id)
+
+
+def _source_set(x: torch.Tensor, block) -> torch.Tensor:
+    """A dynamic whole-graph block (no transpose table) reads the expanded
+    source set: rebuild it from the per-node rows ``x``."""
+    if (x.shape[0] == block.size[0] != block.size[1]
+            and block.ell_tpos is None):
+        return torch.where((block.n_id >= 0)[:, None],
+                           x[block.n_id.long().clamp_min(0)], 0)
+    return x
+
+
+def _pick_roots(x: torch.Tensor, roots: torch.Tensor) -> torch.Tensor:
+    """After a whole-graph flow, the roots' rows (ids past N clamp, as
+    XLA; ids < 0 give 0); a sampled flow's output is already theirs."""
+    if x.shape[0] == roots.shape[0]:
+        return x
+    r = roots.reshape(-1).long()
+    return torch.where((r >= 0)[:, None], x[r.clamp(0, x.shape[0] - 1)], 0)
+
+
+class JKGNNNet(nn.Module):
+    """Jumping-knowledge net (reference: base_gnn.py:94-139,
+    euler_tpu/models/gnn.py:111-149): each conv's relu output, cut to the
+    last block's targets, joined by ``jk_mode`` and fed to ``out_fc``.
+    ``"concat"`` concatenates them; ``"maxpool"`` is, as in the reference,
+    their SUM (``jnp.sum(jnp.stack(...), 1)``), not a max. No activation
+    dtype and no relation types, as the reference has neither.
+    """
+
+    def __init__(self, conv: str, flow: Any, dims: Sequence[int],
+                 feature: nn.Module, in_dim: int, jk_mode: str = "concat",
+                 device=None, generator: Optional[torch.Generator] = None,
+                 conv_kwargs: Optional[dict] = None):
+        super().__init__()
+        if jk_mode not in ("concat", "maxpool"):
+            raise ValueError(f"jk_mode {jk_mode!r} not in concat, maxpool")
+        self.flow = flow
+        self.dims = tuple(dims)
+        self.feature = feature
+        self.jk_mode = jk_mode
+        self.convs, widths = _make_convs(conv, in_dim, self.dims, flow,
+                                         generator, conv_kwargs)
+        if jk_mode == "maxpool" and len(set(widths[1:])) > 1:
+            raise ValueError(f"jk_mode maxpool sums the layers' outputs, "
+                             f"whose widths {widths[1:]} differ")
+        jk_width = sum(widths[1:]) if jk_mode == "concat" else widths[-1]
+        self.out_fc = convs_lib.dense(jk_width, self.dims[-1],
+                                      generator=generator)
+        self.to(resolve_device(device))
+
+    def forward(self, g: GraphTensors, roots: torch.Tensor,
+                generator: Optional[torch.Generator] = None,
+                uniforms: Optional[Sequence] = None) -> torch.Tensor:
+        blocks = self.flow(g, roots, generator=generator, uniforms=uniforms)
+        x = _input_features(self.feature, g, blocks)
+        hidden = []
+        for conv, block in zip(self.convs, blocks):
+            x = _source_set(x, block)
+            x = torch.relu(conv((x[: block.size[0]], x), block))
+            hidden = [h[: block.size[0]] for h in hidden] + [x]
+        if self.jk_mode == "concat":
+            x = torch.cat(hidden, dim=1)
+        else:
+            x = torch.stack(hidden, 1).sum(dim=1)
+        x = _pick_roots(x, roots)
         return self.out_fc(x.to(self.out_fc.weight.dtype))
 
 

@@ -22,7 +22,10 @@ launches. A loop of ``steps_per_loop`` steps, one captured step replayed
 (``TrainLoop``), must equal the eager steps from the same generator state
 bit for bit (transe within 1e-5: its ``Embed`` backward sums with
 atomics), advance the generator as they do, and count each replay's
-kernel launches.
+kernel launches; so must a loop of each of the eight other convs of the
+registry (tag, sgcn, agnn, appnp, graph, arma, dna, gated; bit for bit)
+and of sage over the id and sparse-id encoder (within rtol 1e-4, atol
+1e-5, trained with SGD: its tables sum with atomics too).
 """
 import copy
 import dataclasses
@@ -664,3 +667,79 @@ def test_train_under_a_loop_leaves_no_device_memory_behind(dev):
         graphed.train()
         after.append(allocated())
     assert after[0] == after[1] == after[2]
+
+
+# ---- the other eight convs and the id and sparse-id encoder in a loop -----
+
+CONV_LOOPS = ("tag", "sgcn", "agnn", "appnp", "graph", "arma", "dna",
+              "gated", "encoder")
+
+
+def conv_loop_estimators(dev, conv):
+    """(graph, estimator with steps_per_loop = LOOP_SPL, one with 1) of a
+    sage-flow model over ``conv``; "encoder" is sage over the id table and
+    a ``tags`` sparse feature (4 ids a node at most, -1 padded)."""
+    graph = random_graph(3000, 50, feat_dim=16, n_classes=4, seed=0,
+                         device=dev)
+    if conv == "encoder":
+        rng = np.random.default_rng(0)
+        ids = rng.integers(0, 500, (3000, 4)).astype(np.int32)
+        ids[rng.random((3000, 4)) < 0.4] = -1
+        graph.tensors = dataclasses.replace(graph.tensors, sparse_nf={
+            "tags": (torch.from_numpy(ids).to(dev),
+                     torch.from_numpy((ids >= 0).sum(1).astype(np.int32))
+                     .to(dev))})
+
+    def make():
+        gen = torch.Generator().manual_seed(0)
+        if conv == "encoder":
+            enc = ShallowEncoder(("feature",), use_id=True, max_id=2999,
+                                 id_dim=8, sparse_names=("tags",),
+                                 sparse_buckets=64, sparse_dim=8,
+                                 generator=gen)
+            name, in_dim = "sage", 32
+        else:
+            enc, name, in_dim = ShallowEncoder(("feature",)), conv, 16
+        net = GNNNet(name, SageDataFlow([5, 3], [(0,), (0,)]), (16, 16),
+                     enc, in_dim=in_dim, device=dev, generator=gen)
+        return SuperviseModel(net, "label", 4, device=dev, generator=gen)
+    # the encoder trains with SGD: its tables' atomic sums differ in the
+    # last bits, which Adam's step (over the gradient's RMS) can blow up
+    # to the learning rate where a sum lies within rounding of zero
+    cfg = RunConfig(batch_size=256, total_steps=2 * LOOP_SPL,
+                    optimizer="sgd" if conv == "encoder" else "adam",
+                    learning_rate=1e-3, log_steps=0,
+                    reservoir_refresh=LOOP_SPL, steps_per_loop=LOOP_SPL,
+                    seed=3)
+    return (graph, NodeEstimator(make(), graph, cfg, device=dev),
+            NodeEstimator(make(), graph,
+                          dataclasses.replace(cfg, steps_per_loop=1),
+                          device=dev))
+
+
+@pytest.mark.parametrize("conv", CONV_LOOPS)
+def test_conv_replayed_loop_equals_eager_steps(dev, conv):
+    """Bit for bit, but for the encoder, whose tables' backward sums
+    repeated ids with index_add_ atomics in no fixed order; 2 + 2
+    launches a step either way."""
+    graph, graphed, eager = conv_loop_estimators(dev, conv)
+    g = graph.tensors
+    pack = g.fan_pack.clone()
+    losses, counts = [], []
+    for est in (eager, graphed):
+        g.fan_pack.copy_(pack)
+        before = (fd.fan_draw.launches, gr.gather_rows.launches)
+        losses.append(est.train()["loss"])
+        torch.cuda.synchronize()
+        counts.append((fd.fan_draw.launches - before[0],
+                       gr.gather_rows.launches - before[1]))
+    assert counts == [(2 * 2 * LOOP_SPL,) * 2] * 2
+    pairs = list(zip(graphed.model.parameters(), eager.model.parameters()))
+    if conv == "encoder":
+        np.testing.assert_allclose(losses[1], losses[0], rtol=1e-4,
+                                   atol=1e-5)
+        for a, b in pairs:
+            torch.testing.assert_close(a, b, rtol=1e-4, atol=1e-5)
+    else:
+        assert losses[0] == losses[1]
+        assert all(torch.equal(a, b) for a, b in pairs)
