@@ -191,6 +191,26 @@ Phases, in order; any failure propagates and the exit code is not 0:
               loop of 2 steps replayed and timed; one step card vs CPU
               (loss and every gradient within 1e-4) on a 10,000-node
               graph of the same kind
+ 12i. walk    sage with dedup_features=True on the graph of phase 5: its
+              embeddings on one batch equal the plain fetch's, and phase
+              12e's loop checks (2 + 2 launches a step, each gather_rows
+              launch inside a replay equal to its plain version). Then
+              random_graph(200_000, 25, seed=0, packs=("group", "adj",
+              "sample", "fan"), build_in_edges=True): check_bias_cap
+              (node2vec's 64-neighbor windows truncate no node); the new
+              verbs card vs CPU bit for bit (phase_verbs; the layer draw
+              but for a near tie at its edge; the graph-label verbs on a
+              labelled graph of 2,000 nodes); one step from the hub
+              200,000 times, unbiased and node2vec's, against the hub's
+              edge weights; then DeepWalk, Node2Vec (p 0.5, q 2, exact,
+              windows of 64) and LINE of orders 1 and 2, 64 wide, walks of
+              5 steps, windows 1 and 1, 8 negatives: one batch card vs
+              CPU (walks equal but for near ties of node2vec's Gumbel
+              keys, loss and gradients within 1e-4), evaluate (mrr) of
+              4096 roots and infer of 8192 ids, neither launching a
+              kernel, and phase 12e's loop checks with SGD and
+              steps_per_loop 10 (replays bit for bit, 0 + 0 launches held
+              against a trace, a profiled window of 20 replays)
  13. bench    the port's bench (euler_tpu_torch/bench.py) in each mode,
               sage, gin, gat, rgcn, the eight of bench.CONV_MODES, gcn and
               transe, at bench.py's width,
@@ -205,8 +225,8 @@ Phases, in order; any failure propagates and the exit code is not 0:
               every path and ptxas figures), then the last line
               {"ok": true, "device": {...}}
 
-Phases 12c, 12d, 12e, 12f and 12h run after 12 in that order, then
-12b and 12g.
+Phases 12c, 12d, 12e, 12f, 12h and the dedup part of 12i run after 12
+in that order, then the walk part of 12i, 12b and 12g.
 
 It exits non-zero, with no result line, where torch.cuda.is_available()
 is false or the euler_tpu_torch package is missing.
@@ -239,15 +259,17 @@ from euler_tpu_torch.dataflow import block as block_lib
 from euler_tpu_torch.datasets import random_graph
 from euler_tpu_torch.estimator import (EdgeEstimator, NodeEstimator,
                                        RunConfig, TrainLoop, get_optimizer)
-from euler_tpu_torch.models import (GNNNet, JKGNNNet, ShallowEncoder,
-                                    SuperviseModel, UnsuperviseModel, convs,
-                                    encoders, kg)
+from euler_tpu_torch.graph.meta import FeatureSpec, GraphMeta
+from euler_tpu_torch.graph.store import Graph
+from euler_tpu_torch.models import (LINE, DeepWalk, GNNNet, JKGNNNet,
+                                    Node2Vec, ShallowEncoder, SuperviseModel,
+                                    UnsuperviseModel, convs, encoders, kg)
 from euler_tpu_torch.native import loader as native
 from euler_tpu_torch.ops import COUNTED
 from euler_tpu_torch.ops import fan_draw as fd
 from euler_tpu_torch.ops import feature_ops
 from euler_tpu_torch.ops import gather_rows as gr
-from euler_tpu_torch.ops import sampling
+from euler_tpu_torch.ops import sampling, util_ops, walk
 from euler_tpu_torch.ops.alias import (FAN_ALIAS_OFF, FAN_D, FAN_KEPT_OFF,
                                        FAN_PROB_OFF, FANU_MASK,
                                        FANU_MAX_TYPES, FANU_SHIFT)
@@ -1761,8 +1783,8 @@ def phase_unsup(graph, dev):
 # redrawn between them
 LOOP_SPL = 5
 LOOP_FAMILIES = ("sage", "gin", "gat", "unsup", "rgcn", "gcn", "transe")
-# loops of replays in a family's profiled window
-PROFILED_LOOPS = 4
+# replays in a family's profiled window
+PROFILED_REPLAYS = 20
 # the steps whose backward sums with atomics, in no fixed order on the card:
 # their graph is held to their eager steps within LOOP_TOL; every other
 # family's must equal its eager steps bit for bit
@@ -1831,10 +1853,11 @@ class KernelRecorder:
 
 
 def loop_family(name: str, make_est, graph, dev, per_step: dict,
-                batch_size: int, seed: int, optimizer: str = "adam") -> dict:
+                batch_size: int, seed: int, optimizer: str = "adam",
+                spl: int = LOOP_SPL) -> dict:
     """One family's loop checks. Two estimators from the same weights and
-    seed train 2 loops of LOOP_SPL steps, one with steps_per_loop =
-    LOOP_SPL (a captured step replayed) and one with 1 (eager), from the
+    seed train 2 loops of ``spl`` steps, one with steps_per_loop = ``spl``
+    (a captured step replayed) and one with 1 (eager), from the
     same reservoir rows: their final losses and parameters equal bit for
     bit (within LOOP_TOL for ATOMIC_STEPS), each kernel launched inside
     the replays equal to its plain version, the launch counts equal and
@@ -1846,11 +1869,11 @@ def loop_family(name: str, make_est, graph, dev, per_step: dict,
     Adam."""
     t_start = time.perf_counter()
     g = graph.tensors
-    steps = 2 * LOOP_SPL
+    steps = 2 * spl
     cfg = RunConfig(batch_size=batch_size, total_steps=steps,
                     optimizer=optimizer, learning_rate=bench.LR,
-                    log_steps=LOOP_SPL, reservoir_refresh=LOOP_SPL,
-                    steps_per_loop=LOOP_SPL, seed=seed, metric="mrr")
+                    log_steps=spl, reservoir_refresh=spl,
+                    steps_per_loop=spl, seed=seed, metric="mrr")
     graphed = make_est(cfg)
     eager = make_est(dataclasses.replace(cfg, steps_per_loop=1))
     eager.model.load_state_dict(graphed.model.state_dict())
@@ -1907,7 +1930,7 @@ def loop_family(name: str, make_est, graph, dev, per_step: dict,
     def batch():
         seen.append(graphed.train_batch(g, gen))
         return seen[-1]
-    loop = TrainLoop(graphed, opt, gen, LOOP_SPL, batch)
+    loop = TrainLoop(graphed, opt, gen, spl, batch)
     t0 = time.perf_counter()
     loop()
     torch.cuda.synchronize()
@@ -1923,9 +1946,10 @@ def loop_family(name: str, make_est, graph, dev, per_step: dict,
         loss = loop()
     check(bool(torch.isfinite(loss)), f"{name}: replayed loss finite")
     torch.cuda.synchronize()
-    replay_ms = (time.perf_counter() - t0) / (4 * LOOP_SPL) * 1e3
-    prof = profile(lambda: [loop() for _ in range(PROFILED_LOOPS)],
-                   f"{name}: {PROFILED_LOOPS} loops of {LOOP_SPL} replays")
+    replay_ms = (time.perf_counter() - t0) / (4 * spl) * 1e3
+    loops = max(1, PROFILED_REPLAYS // spl)
+    prof = profile(lambda: [loop() for _ in range(loops)],
+                   f"{name}: {loops} loops of {spl} replays")
     check_held(loop, per_step, prof, name)
 
     gen_e = torch.Generator(device=dev).manual_seed(seed + 200)
@@ -1946,7 +1970,7 @@ def loop_family(name: str, make_est, graph, dev, per_step: dict,
     torch.cuda.synchronize()
 
     out = dict(
-        steps_per_loop=LOOP_SPL, steps=steps, optimizer=optimizer,
+        steps_per_loop=spl, steps=steps, optimizer=optimizer,
         bit_equal=bit_equal, atomics=ATOMIC_STEPS.get(name),
         loss_graph=loss_g,
         loss_eager=loss_e, max_param_diff=max_diff,
@@ -1963,8 +1987,8 @@ def loop_family(name: str, make_est, graph, dev, per_step: dict,
         device_idle_share=prof["device_idle_share"],
         profile_complete=prof["kernel_events_complete"],
         # the profiled busy time a step against the unprofiled replay
-        busy_ms_per_step=prof["device_busy_ms"] / (PROFILED_LOOPS
-                                                   * LOOP_SPL),
+        busy_ms_per_step=prof["device_busy_ms"] / (loops * spl),
+        top_kernels=prof["kernels"][:5],
         seconds=time.perf_counter() - t_start)
     log(f"loop {name}: {json.dumps(out)}")
     return out
@@ -1984,14 +2008,17 @@ def check_held(loop: TrainLoop, per_step: dict, prof: dict,
           f"events, the counts {prof['launched']}")
 
 
-def loop_bench(mode: str, dev) -> dict:
+def loop_bench(mode: str, dev, built=None) -> dict:
     """The bench's ``mode`` as bench.run builds and loops it (bench.build:
     bf16 activations, its steps_per_loop; bench.train_loop: the redraw,
     then a captured step replayed; gcn's roots every node): 2 loops
     against the same loops run eagerly, from the same weights, generator
     seed and reservoir rows, the last loss and every parameter equal bit
     for bit and the launch counts equal. Then one loop of replays
-    profiled (``check_held``)."""
+    profiled (``check_held``). ``built``: an estimator that bench.build
+    made for another mode on the same graph (sage's, gin's and gat's are
+    one), whose graph and config this mode's model takes, as bench.build
+    would make them."""
     t0 = time.perf_counter()
     if mode == "gcn":
         n_nodes, spl, _ = bench.GCN_SIZES["cuda"]
@@ -2000,7 +2027,13 @@ def loop_bench(mode: str, dev) -> dict:
     else:
         n_nodes, batch, spl, _ = bench.SIZES["cuda"]
         per_step = dict(fan_draw=2, gather_rows=2)
-    graphed = bench.build(dev, n_nodes, batch, spl, mode)
+    if built is None:
+        graphed = bench.build(dev, n_nodes, batch, spl, mode)
+    else:
+        graphed = NodeEstimator(
+            bench.make_model(mode, dev, torch.bfloat16,
+                             torch.Generator().manual_seed(0)),
+            built.graph, dataclasses.replace(built.config), device=dev)
     eager = NodeEstimator(
         bench.make_model(mode, dev, torch.bfloat16,
                          torch.Generator().manual_seed(0)),
@@ -2041,7 +2074,7 @@ def loop_bench(mode: str, dev) -> dict:
                busy_ms_per_step=prof["device_busy_ms"] / spl,
                seconds=time.perf_counter() - t0)
     log(f"loop bench {mode}: {json.dumps(out)}")
-    return out
+    return dict(out, estimator=graphed)
 
 
 def loop_hooks(graph, dev) -> dict:
@@ -2127,7 +2160,15 @@ def phase_loop(graph, dev) -> dict:
                                             kg_graph, cfg, device=dev),
         kg_graph, dev, dict(fan_draw=0, gather_rows=0), TRANSE_BATCH, 46)
     del kg_graph
-    out["bench"] = {mode: loop_bench(mode, dev) for mode in LOOP_BENCH_MODES}
+    out["bench"], sage_bench = {}, None
+    for mode in LOOP_BENCH_MODES:
+        res = loop_bench(mode, dev,
+                         sage_bench if mode in ("gin", "gat") else None)
+        est = res.pop("estimator")
+        if mode == "sage":
+            sage_bench = est
+        out["bench"][mode] = res
+    del sage_bench
     out["seconds"] = time.perf_counter() - t0
     log(f"loop: {out['seconds']:.1f} s")
     return out
@@ -2368,6 +2409,404 @@ def phase_encoder(graph, dev) -> dict:
     return out
 
 
+# -------------------------------------------------------------- phase 12i --
+
+# the walk family at examples/deepwalk/run_deepwalk.py:14-16's and
+# examples/line/run_line.py's widths: 64-wide tables, walks of 5 steps,
+# windows of 1 and 1 (10 pairs a root), 8 negatives a pair; node2vec
+# with p = 0.5, q = 2 over windows of 64 neighbors. The graph is the sage
+# graph's, with the reference's general packs and the in-CSR
+WALK_PACKS = ("group", "adj", "sample", "fan")
+WALK_DIM, WALK_LEN, WALK_NEGS, WALK_CAP = 64, 5, 8, 64
+WALK_P, WALK_Q = 0.5, 2.0
+WALK_MODELS = ("deepwalk", "node2vec", "line1", "line2")
+WALK_SPL, WALK_EVAL = 10, 4096
+NO_LAUNCHES = dict(fan_draw=0, gather_rows=0)
+# draws of one step from the hub, and the most rows of a near tie
+HUB_DRAWS, NEAR_TIE_SHARE = 200_000, 1e-3
+
+
+def walk_model(name: str, dev):
+    """DeepWalk, Node2Vec, LINE order 1 or order 2 over edge type 0 of
+    the N_NODES-node graph; tables from seed 0."""
+    gen = torch.Generator().manual_seed(0)
+    if name.startswith("line"):
+        return LINE(N_NODES, WALK_DIM, (0,), order=int(name[-1]),
+                    num_negs=WALK_NEGS, device=dev, generator=gen)
+    cls, kw = DeepWalk, {}
+    if name == "node2vec":
+        cls, kw = Node2Vec, dict(walk_p=WALK_P, walk_q=WALK_Q,
+                                 bias_cap=WALK_CAP)
+    return cls(N_NODES, WALK_DIM, (0,), walk_len=WALK_LEN, left_win=1,
+               right_win=1, num_negs=WALK_NEGS, device=dev, generator=gen,
+               **kw)
+
+
+def to_device(u, dev):
+    """Nested arguments: each tensor in tuples and lists moved to ``dev``,
+    anything else as it is."""
+    if isinstance(u, torch.Tensor):
+        return u.to(dev)
+    if isinstance(u, (tuple, list)):
+        return type(u)(to_device(x, dev) for x in u)
+    return u
+
+
+def near_tie_rows(g, paths, ets, p, q, cap, u_walk) -> torch.Tensor:
+    """Rows of exact node2vec walks ``paths`` where a step's two best
+    Gumbel-max keys (``walk.exact_keys`` over g) lie within 4 ulps of
+    each other: there XLA's log, the CPU's and the card's may pick
+    otherwise."""
+    near = torch.zeros(paths.shape[0], dtype=torch.bool,
+                       device=paths.device)
+    for s, keys in enumerate(u_walk):
+        prev = paths[:, s - 1] if s else torch.full_like(paths[:, 0], -1)
+        sc = torch.cat([walk.exact_keys(g, paths[:, s], prev, tuple(ets), p,
+                                        q, -1, cap, win, u)[1]
+                        for win, u in enumerate(keys)], dim=1)
+        top = sc.topk(2, dim=1).values
+        big = top[:, 0].abs()
+        ulp = torch.nextafter(big, torch.full_like(big, float("inf"))) - big
+        near |= torch.isfinite(top[:, 1]) & (top[:, 0] - top[:, 1] <= 4 * ulp)
+    return near
+
+
+def walk_grads(name: str, model, graph, g_cpu, dev) -> dict:
+    """One batch of replayed uniforms through ``model`` on the card and on
+    the CPU: LINE's positives and negatives equal and the whole forward;
+    DeepWalk's and Node2Vec's walks equal but for rows of near ties
+    (under NEAR_TIE_SHARE of the rows), then the skip-gram head on the
+    card's walks on both. Loss and every gradient within 1e-4."""
+    g = graph.tensors
+    gen = torch.Generator(device=dev).manual_seed(31)
+    roots = sampling.sample_node(g, BATCH, -1, gen)
+    u = model.draw_uniforms(roots, gen)
+    u_cpu = to_device(u, "cpu")
+    out = {}
+    if name.startswith("line"):
+        def fwd(m, gg, r, uu):
+            return m(gg, r, uniforms=uu)
+    else:
+        with torch.no_grad():
+            paths = model.walk(g, roots, u[0]).cpu()
+            paths_cpu = model.walk(g_cpu, roots.cpu(), u_cpu[0])
+        near = torch.zeros(BATCH, dtype=torch.bool)
+        if name == "node2vec":
+            near = near_tie_rows(g_cpu, paths_cpu, (0,), WALK_P, WALK_Q,
+                                 WALK_CAP, u_cpu[0])
+        differ = (paths != paths_cpu).any(1)
+        check(not bool((differ & ~near).any())
+              and float(near.float().mean()) < NEAR_TIE_SHARE,
+              f"{name}: walks card != CPU in {int(differ.sum())} rows, "
+              f"{int(near.sum())} of them near ties")
+        out.update(walk_rows_differ=int(differ.sum()),
+                   near_tie_rows=int(near.sum()),
+                   walk_valid_share=float((paths[:, -1] >= 0).float()
+                                          .mean()))
+
+        def fwd(m, gg, r, uu):
+            return m.score(gg, r, paths.to(r.device), uu[1])
+    runs = []
+    for m, gg, r, uu in ((model, g, roots, u),
+                         (copy.deepcopy(model).to("cpu"), g_cpu, roots.cpu(),
+                          u_cpu)):
+        m = copy.deepcopy(m)
+        m.train()
+        o = fwd(m, gg, r, uu)
+        o["loss"].backward()
+        runs.append((o, {k: p.grad.cpu() for k, p in m.named_parameters()}))
+    (ok, gk), (oc, gc) = runs
+    check(torch.equal(ok["pos_mask"].cpu(), oc["pos_mask"]),
+          f"{name}: positives card != CPU")
+    diffs = {k: float((gk[k] - gc[k]).abs().max()) for k in gk}
+    loss_diff = abs(float(ok["loss"]) - float(oc["loss"]))
+    check(torch.allclose(ok["loss"].cpu(), oc["loss"], **PARITY_TOL)
+          and all(torch.allclose(gk[k], gc[k], **PARITY_TOL) for k in gk),
+          f"{name}: card vs CPU loss {loss_diff}, gradients {diffs}")
+    out.update(loss_card=float(ok["loss"]), loss_cpu=float(oc["loss"]),
+               loss_abs_diff=loss_diff, grad_max_abs_diff=max(diffs.values()),
+               n_params=len(diffs),
+               pos_valid_share=float(ok["pos_mask"].mean()))
+    return out
+
+
+def walk_hub(graph, dev) -> dict:
+    """One step from the highest-degree node, HUB_DRAWS times, unbiased
+    and node2vec's first (no previous node: the weights alone): each
+    neighbor's share against its share of the hub's edge weights (a
+    neighbor on several edges summed), within 5 standard errors and
+    1e-4."""
+    g = graph.tensors
+    gp = g.group_ptr.cpu().numpy().astype(np.int64)
+    hub = int(np.diff(gp).argmax())
+    lo, hi = gp[hub], gp[hub + 1]
+    ids, inv = np.unique(g.adj_dst[lo:hi].cpu().numpy(), return_inverse=True)
+    w = np.bincount(inv, g.adj_w[lo:hi].cpu().numpy().astype(np.float64))
+    want = w / w.sum()
+    gen = torch.Generator(device=dev).manual_seed(32)
+    starts = torch.full((HUB_DRAWS,), hub, dtype=torch.int32, device=dev)
+    out = dict(hub=hub, degree=int(hi - lo), neighbors=len(ids))
+    for name, p, q in (("deepwalk", 1.0, 1.0), ("node2vec", WALK_P, WALK_Q)):
+        nxt = walk.random_walk(g, starts, (0,), 1, p, q, bias_cap=WALK_CAP,
+                               generator=gen)[:, 1].cpu().numpy()
+        pos = np.searchsorted(ids, nxt).clip(0, len(ids) - 1)
+        check(bool((ids[pos] == nxt).all()),
+              f"hub walk ({name}) left the hub's neighbors")
+        got = np.bincount(pos, minlength=len(ids)) / HUB_DRAWS
+        err = np.abs(got - want)
+        bound = 5 * np.sqrt(want * (1 - want) / HUB_DRAWS) + 1e-4
+        check(bool((err <= bound).all()),
+              f"hub walk ({name}): shares off the edge weights by up to "
+              f"{err.max()} (bound {bound[err.argmax()]})")
+        out[name] = dict(max_abs_err=float(err.max()),
+                         max_err_over_bound=float((err / bound).max()))
+    return out
+
+
+def walk_serve(model, graph, dev) -> dict:
+    """``evaluate`` (mrr) of WALK_EVAL roots and ``infer`` of N_INFER ids,
+    neither launching a kernel."""
+    est = NodeEstimator(model, graph, RunConfig(batch_size=BATCH,
+                                                metric="mrr"), device=dev)
+    reset_counts()
+    ev = est.evaluate(np.arange(WALK_EVAL))
+    check(0 < ev["mrr"] <= 1 and np.isfinite(ev["loss"]),
+          f"walk evaluate {ev}")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    emb = est.infer(np.arange(N_INFER))
+    infer_s = time.perf_counter() - t0
+    launches = read_counts()
+    check(launches == NO_LAUNCHES, f"walk evaluate and infer launched "
+                                   f"{launches}")
+    check(emb.shape == (N_INFER, WALK_DIM) and bool(np.isfinite(emb).all()),
+          f"walk infer: embeddings {emb.shape}, finite "
+          f"{bool(np.isfinite(emb).all())}")
+    return dict(evaluate=ev, launches=launches,
+                infer_ms_per_batch=infer_s / (N_INFER // BATCH) * 1e3)
+
+
+def both(fn, g, g_cpu, *args, what: str):
+    """``fn(g, *args)`` on the card and ``fn(g_cpu, *args on the CPU)``:
+    every output equal bit for bit; returns the card's."""
+    card = fn(g, *args)
+    cpu = fn(g_cpu, *to_device(list(args), "cpu"))
+    flat_card, flat_cpu = [], []
+
+    def flatten(x, out):
+        if isinstance(x, torch.Tensor):
+            out.append(x)
+        elif isinstance(x, (tuple, list)):
+            for y in x:
+                flatten(y, out)
+    flatten(card, flat_card)
+    flatten(cpu, flat_cpu)
+    check(len(flat_card) == len(flat_cpu) and all(
+        torch.equal(a.cpu(), b) for a, b in zip(flat_card, flat_cpu)),
+        f"verbs: {what} card != CPU")
+    return card
+
+
+def labelled_graph(dev):
+    """2,000 nodes in 100 graphs of the ``graph_label`` binary feature
+    (every 7th node unlabelled), 10,000 random edges."""
+    rng = np.random.default_rng(34)
+    n, m = 2000, 10_000
+    labels = np.array([f"g{i % 100}" if i % 7 else "" for i in range(n)])
+    arrays = dict(ext_ids=np.arange(n, dtype=np.int64),
+                  node_local=np.arange(n, dtype=np.int32),
+                  node_type=np.zeros(n, np.int32),
+                  node_w=np.ones(n, np.float32),
+                  src=rng.integers(0, n, m).astype(np.int32),
+                  dst=rng.integers(0, n, m).astype(np.int32),
+                  etype=np.zeros(m, np.int32),
+                  ew=np.ones(m, np.float32),
+                  eid=np.arange(m, dtype=np.int32))
+    arrays["nf_bin:graph_label"] = labels
+    meta = GraphMeta(n_nodes=n, n_edges=m, node_types=("n",),
+                     edge_types=("e",), node_features=(
+                         FeatureSpec("graph_label", "binary", 0),),
+                     edge_features=())
+    return Graph(meta, arrays, device=dev)
+
+
+def phase_verbs(graph, g_cpu, dev) -> dict:
+    """The verbs of ops/sampling.py, ops/walk.py and ops/util_ops.py on
+    the card against the CPU on the same graph and uniforms, bit for bit:
+    on 1024 nodes (ids -1 and past the graph among them) the general
+    weighted draw on its sample-pack and alias branches, the draw by
+    source type, top-k, the in-neighbor draw, full and top-k
+    in-neighborhoods, a [10, 5] fanout and its multi-hop adjacency,
+    sparse_get_adj of 256 x 1024 nodes, node types, the membership
+    test, gen_pair, inflate_idx, unique_gather and sparse_gather; the
+    layer draw (sqrt scores, 4 candidates a node, 1024 of them kept)
+    equal but for a near tie at its edge; the graph-label verbs on a
+    labelled graph of its own."""
+    t0 = time.perf_counter()
+    g = graph.tensors
+    bare = (dataclasses.replace(g, sample_pack=None),
+            dataclasses.replace(g_cpu, sample_pack=None))
+    gen = torch.Generator(device=dev).manual_seed(33)
+    nodes = torch.randint(-1, N_NODES + 2, (BATCH,), generator=gen,
+                          device=dev, dtype=torch.int32)
+    small = nodes[:256]
+    for gg, gc, what in ((g, g_cpu, "sample pack"), (*bare, "alias")):
+        both(sampling.select_sampled_neighbors, gg, gc, nodes, (0,),
+             *sampling.draw_sample_uniforms(gen, BATCH, 10, dev),
+             what=f"sample_neighbor ({what})")
+    both(sampling.select_nodes_with_src, g, g_cpu, nodes,
+         *sampling.draw_alias_uniforms(gen, (BATCH, 5), dev),
+         what="sample_node_with_src")
+    both(sampling.get_top_k_neighbor, g, g_cpu, nodes, (0,), 5,
+         what="get_top_k_neighbor")
+    inn = both(sampling.select_in_neighbors, g, g_cpu, nodes, (0,),
+               *sampling.draw_sample_uniforms(gen, BATCH, 10, dev),
+               what="sample_in_neighbor")
+    both(sampling.get_full_in_neighbor, g, g_cpu, nodes, (0,), 48, -1, True,
+         what="get_full_in_neighbor")
+    both(sampling.get_top_k_in_neighbor, g, g_cpu, nodes, (0,), 5,
+         what="get_top_k_in_neighbor")
+    u_fan = sampling.draw_fanout_uniforms(gen, small.shape[0], [10, 5], dev)
+    both(sampling.select_fanout, g, g_cpu, small, [(0,), (0,)], [10, 5],
+         u_fan, what="sample_fanout")
+    both(lambda gg, n, u: sampling.get_multi_hop_neighbor(
+        gg, n, [(0,), (0,)], [10, 5], uniforms=u), g, g_cpu, small, u_fan,
+        what="get_multi_hop_neighbor")
+    nb = torch.randint(-1, N_NODES, (1024,), generator=gen, device=dev,
+                       dtype=torch.int32)
+    nb[:small.shape[0]] = sampling.get_full_neighbor(g, small, (0,), 1)[0][
+        :, 0]
+    adj = both(sampling.sparse_get_adj, g, g_cpu, small, nb, (0,),
+               what="sparse_get_adj")
+    check(bool(adj[0].any()), "sparse_get_adj found no edge")
+    both(sampling.get_node_type, g, g_cpu, nodes, what="get_node_type")
+    cand = torch.where(torch.rand(inn[0].shape, generator=gen, device=dev)
+                       < 0.5, inn[0], nb[:10])
+    both(lambda gg, s, c: walk._is_neighbor(gg, s, (0,), c), g, g_cpu,
+         nodes[:, None].expand_as(cand).contiguous(), cand,
+         what="_is_neighbor")
+    paths = torch.randint(-1, N_NODES, (BATCH, WALK_LEN + 1), generator=gen,
+                          device=dev, dtype=torch.int32)
+    for lw, rw in ((1, 1), (2, 3)):
+        both(lambda _, p: walk.gen_pair(p, lw, rw), g, g_cpu, paths,
+             what=f"gen_pair({lw}, {rw})")
+    idx = torch.randint(0, 5000, (20_000,), generator=gen, device=dev)
+    both(lambda _, i: util_ops.inflate_idx(i), g, g_cpu, idx,
+         what="inflate_idx")
+    table = torch.randn((N_NODES, 16), generator=gen, device=dev)
+    both(lambda _, t, i: util_ops.unique_gather(
+        lambda x: gr.gather_rows(t, x), i), g, g_cpu, table,
+        paths.reshape(-1), what="unique_gather")
+    sparse = torch.randint(0, 99, (BATCH, 8), generator=gen, device=dev,
+                           dtype=torch.int32)
+    both(lambda _, i, s, mk: util_ops.sparse_gather(i, s, mk), g, g_cpu,
+         nodes % (BATCH + 3) - 1, sparse, sparse > 20, what="sparse_gather")
+    # the layer draw: its keys pass through log
+    u_layer = sampling.draw_layer_uniforms(gen, BATCH, 4, dev)
+    keep = BATCH
+    ids, w = sampling.select_layer(g, nodes, (0,), 4, keep, u_layer)
+    ids_c, w_c = sampling.select_layer(g_cpu, nodes.cpu(), (0,), 4, keep,
+                                       to_device(u_layer, "cpu"))
+    keyed = sampling.layer_keys(g_cpu, nodes.cpu(), (0,), 4,
+                                to_device(u_layer, "cpu"))[2]
+    top = keyed.sort(descending=True).values
+    edge = top[keep - 1]
+    near = bool(edge - top[keep] <= 4 * (torch.nextafter(
+        edge.abs(), torch.tensor(float("inf"))) - edge.abs()))
+    same = torch.equal(ids.cpu().sort().values, ids_c.sort().values)
+    check(same or near, "verbs: sample_layer card != CPU")
+    # graph labels
+    lg = labelled_graph(dev)
+    members = both(sampling.get_graph_by_label, lg.tensors,
+                   lg.tensors.to("cpu"),
+                   torch.tensor([0, 5, 99, -1], dtype=torch.int32,
+                                device=dev), what="get_graph_by_label")
+    lab = sampling.sample_graph_label(lg.tensors, 4096, generator=gen)
+    check(bool(((lab >= 0) & (lab < 100)).all()) and bool(members[1].any()),
+          "sample_graph_label out of range")
+    out = dict(seconds=time.perf_counter() - t0, layer_equal=same,
+               layer_near_tie=near, in_draw_valid=float(
+                   (inn[0] >= 0).float().mean()))
+    log(f"verbs: {json.dumps(out)}")
+    return out
+
+
+def phase_walk(dev) -> dict:
+    """The walk family on the sage graph built with the general packs and
+    the in-CSR: ``check_bias_cap`` (no node truncated), ``phase_verbs``,
+    the hub's step distribution (``walk_hub``), then DeepWalk, Node2Vec
+    and LINE of orders 1 and 2, each: one batch card vs CPU
+    (``walk_grads``), evaluate and infer (``walk_serve``), and
+    ``loop_family`` with SGD and steps_per_loop = WALK_SPL (replays equal
+    to eager steps bit for bit, 0 + 0 launches held and checked against
+    a trace, a profiled window of 20 replays)."""
+    t0 = time.perf_counter()
+    graph = random_graph(N_NODES, AVG_DEGREE, seed=0, packs=WALK_PACKS,
+                         build_in_edges=True, device=dev)
+    graph_s = time.perf_counter() - t0
+    bias = walk.check_bias_cap(graph, (0,), WALK_CAP)
+    check(bias[2] == 0, f"node2vec windows truncate: check_bias_cap {bias}")
+    log(f"walk: graph built in {graph_s:.1f} s; check_bias_cap (max "
+        f"degree, windows needed, truncated nodes) {bias}")
+    g_cpu = graph.tensors.to(torch.device("cpu"))
+    out = dict(graph_s=graph_s, check_bias_cap=bias,
+               verbs=phase_verbs(graph, g_cpu, dev),
+               hub=walk_hub(graph, dev))
+    log(f"walk: hub {json.dumps(out['hub'])}")
+    for i, name in enumerate(WALK_MODELS):
+        t1 = time.perf_counter()
+        model = walk_model(name, dev)
+        res = dict(grads=walk_grads(name, model, graph, g_cpu, dev),
+                   serve=walk_serve(model, graph, dev))
+        log(f"walk {name}: {json.dumps(res)}")
+        del model
+        res["loop"] = loop_family(
+            name, lambda cfg, name=name: NodeEstimator(
+                walk_model(name, dev), graph, cfg, device=dev),
+            graph, dev, NO_LAUNCHES, BATCH, 80 + i, optimizer="sgd",
+            spl=WALK_SPL)
+        res["seconds"] = time.perf_counter() - t1
+        out[name] = res
+    out["seconds"] = time.perf_counter() - t0
+    log(f"walk: {out['seconds']:.1f} s")
+    return out
+
+
+def phase_dedup(graph, dev) -> dict:
+    """Sage with ``dedup_features=True`` on the graph of phase 5: on one
+    batch of replayed uniforms its embeddings equal those of the plain
+    fetch bit for bit, and ``loop_family`` (2 + 2 launches a step, the
+    replays bit for bit with eager steps, each gather_rows launch inside
+    a replay equal to its plain version, the held launches against a
+    trace)."""
+    t0 = time.perf_counter()
+
+    def make():
+        model = bench.make_model("sage", dev,
+                                 generator=torch.Generator().manual_seed(0))
+        model.embedder.dedup_features = True
+        return model
+    plain, dedup = (bench.make_model(
+        "sage", dev, generator=torch.Generator().manual_seed(0)), make())
+    g = graph.tensors
+    gen = torch.Generator(device=dev).manual_seed(35)
+    roots = sampling.sample_node(g, BATCH, -1, gen)
+    uniforms = hop_uniforms(plain.embedder.flow, g, roots, gen)
+    with torch.no_grad():
+        a, b = (m(g, roots, uniforms=uniforms)["embedding"]
+                for m in (plain, dedup))
+    check(torch.equal(a, b), "dedup_features changed the embeddings")
+    loop = loop_family("sage_dedup",
+                       lambda cfg: NodeEstimator(make(), graph, cfg,
+                                                 device=dev),
+                       graph, dev, dict(fan_draw=2, gather_rows=2), BATCH,
+                       90)
+    out = dict(embedding_equal=True, loop=loop,
+               seconds=time.perf_counter() - t0)
+    log(f"dedup: {json.dumps(dict(embedding_equal=True))}")
+    return out
+
+
 # --------------------------------------------------------------- phase 13 --
 
 def phase_bench(dev):
@@ -2557,8 +2996,14 @@ def main() -> int:
     allocated_after("convs")
     encoder = phase_encoder(graph, dev)
     allocated_after("encoder")
+    # 12i. sage's deepest fetch deduplicated, then the walk family on a
+    # graph of its own
+    dedup = phase_dedup(graph, dev)
+    allocated_after("dedup")
     del graph
     allocated_after("del graph")
+    walks = phase_walk(dev)
+    allocated_after("walk")
     # 12b. whole-graph gcn; 12g. the examples' whole-graph convs
     gcn = phase_gcn(dev)
     allocated_after("gcn")
@@ -2593,6 +3038,11 @@ def main() -> int:
                           for conv in WHOLE_CONVS})
     path_launches.update({f"loop_encoder_{c}": encoder[c]["loop"]["launches"]
                           for c in ("sum", "mean")})
+    path_launches["loop_sage_dedup"] = dedup["loop"]["launches"]
+    for model in WALK_MODELS:
+        path_launches.update({
+            f"{model}_evaluate_infer": walks[model]["serve"]["launches"],
+            f"loop_{model}": walks[model]["loop"]["launches"]})
 
     def by_path(name):
         return {path: n[name] for path, n in path_launches.items()}
@@ -2669,6 +3119,7 @@ def main() -> int:
         native_core=native.available(), infer=infer, parity=parity,
         train=train, grads=grads, families=families, gcn=gcn,
         convs=conv_runs, whole=whole, encoder=encoder, transe=transe,
+        dedup=dedup, walk=walks,
         unsup={k: v for k, v in unsup.items() if k != "kernels"}, loop=loop,
         bench=benched, allocated_gb_after=allocated)}))
     log(smi)                # nvidia-smi's name and power limit, as given

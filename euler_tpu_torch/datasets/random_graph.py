@@ -15,8 +15,10 @@ from euler_tpu_torch.graph.store import PACKS, Graph
 def random_graph(n_nodes: int, avg_degree: int, feat_dim: int = 0,
                  n_classes: int = 0, num_edge_types: int = 1,
                  seed: int = 0, weighted: bool = True,
-                 packs=PACKS, device=None) -> Graph:
-    """Uniform random multigraph with optional dense features/labels."""
+                 build_in_edges: bool = False, packs=PACKS,
+                 device=None) -> Graph:
+    """Uniform random multigraph with optional dense features/labels;
+    ``build_in_edges`` adds the in-CSR (``GraphMeta.has_in_edges``)."""
     rng = np.random.default_rng(seed)
     m = n_nodes * avg_degree
     src = rng.integers(0, n_nodes, m).astype(np.int32)
@@ -48,5 +50,6 @@ def random_graph(n_nodes: int, avg_degree: int, feat_dim: int = 0,
         n_nodes=n_nodes, n_edges=m,
         node_types=("n",), edge_types=tuple(str(i) for i in
                                             range(num_edge_types)),
-        node_features=tuple(node_features), edge_features=())
+        node_features=tuple(node_features), edge_features=(),
+        has_in_edges=build_in_edges)
     return Graph(meta, arrays, packs=packs, device=device)

@@ -5,13 +5,16 @@ Counterpart of euler_tpu/graph/store.py (``GraphTensors``, ``Graph``,
 ``load_graph``). It reads the same converted directories (``meta.json``
 plus ``part_*.npz``) and builds, with the same host code, the grouped CSR
 with its per-slot source, type, weight and edge id, the per-group alias
-tables, the ``fan`` and ``fanu`` packs that neighbor sampling reads, the
-``ell`` pack that whole-graph propagation reads, the per-node-type
-alias tables that the root draw reads, the per-edge-type alias tables
-over the CSR slots that the edge draw reads, the dense and sparse node
-and edge features, and each edge row's type. Only the fields these
-paths need live on the device; external ids and binary features stay on
-the host.
+tables, the ``fan`` and ``fanu`` packs that the fan-row draws read, the
+``group``, ``adj`` and ``sample`` packs that the general verbs read
+(``ops/sampling.py``'s ``sample_neighbor`` and full neighborhoods), the
+``ell`` pack that whole-graph propagation reads, the in-CSR where the
+graph was converted with in-edges, the per-node-type alias tables that
+the root draw reads, the per-edge-type alias tables over the CSR slots
+that the edge draw reads, each node's type, the dense and sparse node and
+edge features, each edge row's type and the graph-label membership table.
+Only the fields these paths need live on the device; external ids and
+binary features stay on the host.
 """
 from __future__ import annotations
 
@@ -25,30 +28,33 @@ import torch
 
 from euler_tpu_torch._device import resolve_device
 from euler_tpu_torch.graph import convert as _convert
-from euler_tpu_torch.graph.meta import DENSE, SPARSE, GraphMeta
+from euler_tpu_torch.graph.meta import BINARY, DENSE, SPARSE, GraphMeta
 from euler_tpu_torch.ops.alias import (FAN_D, FANU_MAX_TYPES, FANU_SHIFT,
                                        build_fan_pack, build_group_alias,
                                        build_typed_alias_tables)
 
-#: packs the port builds by default; the reference's "group", "adj" and
-#: "sample" packs wait for the slices whose verbs read them
+#: packs the port builds by default: the fan rows that the sampled flows
+#: read. The others are built on request: "group" (each group's CSR
+#: bounds in one row), "adj" (each CSR slot's payload in one row) and
+#: "sample" (the fused alias-draw row) for the general verbs, as the
+#: reference's ALL_PACKS builds them; "fanu" (union fan rows, multi-type
+#: draws), which the reference leaves out of its ALL_PACKS; "ell"
+#: (whole-graph ELL rows and their transpose)
 PACKS = ("fan",)
-#: packs the port can build: "fanu" (union fan rows, multi-type draws)
-#: only on request, as the reference leaves it out of its ALL_PACKS, and
-#: "ell" (whole-graph ELL rows and their transpose) on request
-KNOWN_PACKS = ("fan", "fanu", "ell")
+#: packs the port can build
+KNOWN_PACKS = ("group", "adj", "sample", "fan", "fanu", "ell")
 #: the block of XLA's CPU split of a cumsum's reduce_window; the cdf
 #: matches ``jnp.cumsum`` bit for bit only with this value
-_XLA_CUMSUM_BLOCK = 16
+XLA_CUMSUM_BLOCK = 16
 
 
 def xla_cumsum(w: np.ndarray) -> np.ndarray:
     """The f32 running sum of ``w`` as XLA adds it on the CPU
     (``jnp.cumsum``, a reduce_window that XLA splits into blocks): left to
-    right for up to ``_XLA_CUMSUM_BLOCK`` values; past that, left to right
+    right for up to ``XLA_CUMSUM_BLOCK`` values; past that, left to right
     inside each block, and each block's sum offset by the running sum of
     the earlier blocks' totals, taken the same way."""
-    block = _XLA_CUMSUM_BLOCK
+    block = XLA_CUMSUM_BLOCK
     w = np.asarray(w, np.float32)
     n = len(w)
     if n <= block:
@@ -60,6 +66,48 @@ def xla_cumsum(w: np.ndarray) -> np.ndarray:
     before = np.zeros(m, np.float32)
     before[1:] = xla_cumsum(inner[:-1, -1])
     return (inner + before[:, None]).reshape(-1)[:n]
+
+
+def _adj_pack_np(adj_dst, adj_type, adj_eid, adj_w):
+    """Interleaved (dst, type, eid, weight bits) int32 rows, one a CSR
+    slot; a copy of euler_tpu/graph/store.py ``_adj_pack_np``."""
+    return np.stack(
+        [adj_dst.astype(np.int32), adj_type.astype(np.int32),
+         adj_eid.astype(np.int32),
+         adj_w.astype(np.float32).view(np.int32)], axis=1)
+
+
+def _sample_pack_np(group_ptr, prob, alias, adj_pack):
+    """The fused alias-draw rows (``GraphTensors.sample_pack``); a copy of
+    euler_tpu/graph/store.py ``_sample_pack_np``. ``alias`` holds
+    within-group slots: each resolves to a global slot through its
+    group's start, and both candidates' payloads are inlined, so that a
+    weighted draw reads one row."""
+    gp = np.asarray(group_ptr, np.int64)
+    e = adj_pack.shape[0]
+    seg = np.repeat(np.arange(len(gp) - 1), np.diff(gp))
+    alias_global = gp[seg] + np.asarray(alias, np.int64)
+    out = np.empty((e, 9), np.int32)
+    out[:, 0] = np.asarray(prob, np.float32).view(np.int32)
+    out[:, 1:5] = adj_pack
+    out[:, 5:9] = adj_pack[alias_global] if e else adj_pack
+    return out
+
+
+def _graph_members_np(labels: np.ndarray) -> Dict[str, np.ndarray]:
+    """The graph-label membership table of the ``graph_label`` binary node
+    feature, as euler_tpu/graph/store.py:393-411 builds it: one row per
+    distinct non-empty label in sorted order, holding the label's nodes
+    padded with -1, and each row's count. No label: no table."""
+    uniq = sorted({v for v in labels if v != ""})
+    members = [np.nonzero(labels == u)[0].astype(np.int32) for u in uniq]
+    if not members:
+        return {}
+    tab = np.full((len(uniq), max(len(m) for m in members)), -1, np.int32)
+    for i, m in enumerate(members):
+        tab[i, :len(m)] = m
+    return dict(graph_members=tab, graph_member_cnt=np.asarray(
+        [len(m) for m in members], np.int32))
 
 
 @dataclasses.dataclass
@@ -103,6 +151,7 @@ class GraphTensors:
     """The device graph. Every array field is a tensor on one device."""
 
     meta: GraphMeta
+    node_type: torch.Tensor      # int32 [N]
     group_ptr: torch.Tensor      # int32 [N*ET + 1]
     # per CSR slot (edges sorted by (src, type, dst)): the edge's source,
     # destination, type, weight and original row
@@ -117,6 +166,14 @@ class GraphTensors:
     dense_nf: Dict[str, torch.Tensor]
     node_alias: AliasTables      # population = nodes, typed by node type
     edge_alias: AliasTables      # population = CSR slots, typed by edge type
+    # interleaved rows of the general verbs: each group's (lo, hi) CSR
+    # bounds ("group"), each slot's (dst, type, eid, weight bits) ("adj"),
+    # and the fused alias-draw row ("sample"): the keep-probability bits,
+    # then the payload if kept and the payload if aliased, so that a
+    # weighted draw reads one row
+    group_pack: Optional[torch.Tensor] = None     # int32 [N*ET, 2]
+    adj_pack: Optional[torch.Tensor] = None       # int32 [E, 4]
+    sample_pack: Optional[torch.Tensor] = None    # int32 [E, 9]
     # per-(node, edge_type) fan rows (ops/alias.py FAN_* layout) and the
     # groups with degree > FAN_D whose rows are reservoirs
     fan_pack: Optional[torch.Tensor] = None       # int32 [N*ET, 128]
@@ -150,6 +207,19 @@ class GraphTensors:
     sparse_ef: Dict[str, Tuple[torch.Tensor, torch.Tensor]] = \
         dataclasses.field(default_factory=dict)
     eid_type: Optional[torch.Tensor] = None     # int32 [E]
+    # the in-CSR of a graph converted with in-edges (meta.has_in_edges):
+    # groups by (dst, edge_type), each slot's neighbor the true source
+    in_group_ptr: Optional[torch.Tensor] = None   # int32 [N*ET + 1]
+    in_adj_src: Optional[torch.Tensor] = None     # int32 [E]
+    in_adj_w: Optional[torch.Tensor] = None       # f32   [E]
+    in_adj_eid: Optional[torch.Tensor] = None     # int32 [E]
+    in_group_w_sum: Optional[torch.Tensor] = None  # f32  [N, ET]
+    in_adj_prob: Optional[torch.Tensor] = None    # f32   [E]
+    in_adj_alias: Optional[torch.Tensor] = None   # int32 [E]
+    # graph-label membership (the 'graph_label' binary node feature): the
+    # nodes of each graph, padded with -1, and their counts
+    graph_members: Optional[torch.Tensor] = None     # int32 [G, maxN]
+    graph_member_cnt: Optional[torch.Tensor] = None  # int32 [G]
 
     @property
     def device(self) -> torch.device:
@@ -239,7 +309,8 @@ def _load_parts(path: str) -> Dict[str, np.ndarray]:
 
 
 class Graph:
-    """Host-side graph: external ids on the host, ``tensors`` on a device.
+    """Host-side graph: external ids and binary features on the host,
+    ``tensors`` on a device.
 
     The equivalent of euler_tpu's ``Graph`` for the packs in
     ``KNOWN_PACKS``.
@@ -289,11 +360,41 @@ class Graph:
         sparse_ef = {spec.name: (arrays[f"ef_sp:{spec.name}"][eorder],
                                  arrays[f"ef_splen:{spec.name}"][eorder])
                      for spec in meta.edge_features if spec.kind == SPARSE}
+        self.binary_nf = {spec.name: arrays[f"nf_bin:{spec.name}"][order]
+                          for spec in meta.node_features
+                          if spec.kind == BINARY}
+        extra = {}
+        if meta.has_in_edges:
+            # the in-CSR: groups by dst, the "neighbor" column the source
+            (ig_ptr, i_src, i_w, _, i_eid, _) = _convert.build_csr(
+                n, net, arrays["dst"], arrays["src"], arrays["etype"],
+                arrays["ew"], arrays["eid"])
+            iseg = np.repeat(np.arange(n * net), np.diff(ig_ptr))
+            igws = np.zeros(n * net, np.float64)
+            np.add.at(igws, iseg, i_w.astype(np.float64))
+            i_prob, i_alias = build_group_alias(ig_ptr, i_w)
+            extra.update(in_group_ptr=ig_ptr.astype(np.int32),
+                         in_adj_src=i_src, in_adj_w=i_w, in_adj_eid=i_eid,
+                         in_group_w_sum=igws.astype(np.float32).reshape(
+                             n, net),
+                         in_adj_prob=i_prob, in_adj_alias=i_alias)
+        if "graph_label" in self.binary_nf:
+            extra.update(_graph_members_np(self.binary_nf["graph_label"]))
+        if "group" in packs:
+            extra["group_pack"] = np.stack(
+                [group_ptr[:-1], group_ptr[1:]], axis=1).astype(np.int32)
+        if "adj" in packs or "sample" in packs:
+            adj_pack = _adj_pack_np(adj_dst, adj_type, adj_eid, adj_w)
+            if "adj" in packs:
+                extra["adj_pack"] = adj_pack
+            if "sample" in packs:
+                extra["sample_pack"] = _sample_pack_np(group_ptr, adj_prob,
+                                                       adj_alias, adj_pack)
 
         def put(x):
             return torch.from_numpy(np.ascontiguousarray(x)).to(dev)
 
-        pack_fields = {}
+        pack_fields = {k: put(v) for k, v in extra.items()}
         if "fan" in packs:
             pack_fields.update(
                 fan_pack=put(build_fan_pack(group_ptr, adj_dst, adj_prob,
@@ -324,6 +425,7 @@ class Graph:
                 pack_fields.update({k: put(v) for k, v in ell.items()})
         self.tensors = GraphTensors(
             meta=meta,
+            node_type=put(node_type.astype(np.int32)),
             group_ptr=put(group_ptr.astype(np.int32)),
             adj_src=put(adj_src),
             adj_dst=put(adj_dst),

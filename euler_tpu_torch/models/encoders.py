@@ -116,15 +116,19 @@ class _Lookup(torch.autograd.Function):
     zero table with ``index_add_``. On the card that sums repeated ids
     with atomics, in no fixed order, and never waits for the card (the
     dense backward of ``F.embedding`` sorts the ids and spends host time
-    waiting), so a step through it can be captured in a CUDA graph. (A
-    sum in a fixed order, ``index_put_(accumulate=True)``, sorts the ids
-    and adds each id's rows one after another: on an H100, 330 ms a step
-    where 2,300 ids share a row of a hashed sparse table, against 7.3 ms.)"""
+    waiting), so a step through it can be captured in a CUDA graph. With
+    ``fixed_order`` the sum on the card is ``index_put_(accumulate=True)``:
+    it sorts the ids and adds each id's rows one after another, in the
+    same order on every run, and captures too; on an H100 it took 330 ms
+    a step where 2,300 ids share a row of a hashed sparse table, against
+    7.3 ms with atomics, so only tables whose ids rarely repeat take it.
+    (On the CPU it is the other way round: ``index_add_`` adds in the
+    ids' order, and ``index_put_(accumulate=True)`` in no fixed one.)"""
 
     @staticmethod
-    def forward(ctx, weight, ids):
+    def forward(ctx, weight, ids, fixed_order):
         ctx.save_for_backward(ids)
-        ctx.shape = weight.shape
+        ctx.shape, ctx.fixed_order = weight.shape, fixed_order
         return weight.index_select(0, ids.reshape(-1)).reshape(
             tuple(ids.shape) + (weight.shape[1],))
 
@@ -132,8 +136,12 @@ class _Lookup(torch.autograd.Function):
     def backward(ctx, g):
         (ids,) = ctx.saved_tensors
         grad = g.new_zeros(ctx.shape)
-        grad.index_add_(0, ids.reshape(-1), g.reshape(-1, ctx.shape[1]))
-        return grad, None
+        rows = g.reshape(-1, ctx.shape[1])
+        if ctx.fixed_order and grad.is_cuda:
+            grad.index_put_((ids.reshape(-1),), rows, accumulate=True)
+        else:
+            grad.index_add_(0, ids.reshape(-1), rows)
+        return grad, None, None
 
 
 class Embed(nn.Module):
@@ -145,19 +153,23 @@ class Embed(nn.Module):
     ``where``, so the clamped row takes no gradient from them. Callers
     clamp ids below 0, as the reference's do. The gradient of the table
     is an ``index_add_`` of the rows' cotangents (``_Lookup``): on the
-    card its sums over repeated ids run in no fixed order. The table
-    starts as flax's ``default_embed_init``: normal with variance
-    1 / features, drawn from ``generator``, a CPU generator.
+    card its sums over repeated ids run in no fixed order, unless
+    ``fixed_order``. The table starts as flax's ``default_embed_init``:
+    normal with variance 1 / features, drawn from ``generator``, a CPU
+    generator.
     """
 
     def __init__(self, num: int, features: int,
-                 generator: Optional[torch.Generator] = None):
+                 generator: Optional[torch.Generator] = None,
+                 fixed_order: bool = False):
         super().__init__()
+        self.fixed_order = fixed_order
         self.weight = nn.Parameter(torch.randn(
             (num, features), generator=generator) / math.sqrt(features))
 
     def forward(self, ids: torch.Tensor) -> torch.Tensor:
         n = self.weight.shape[0]
         ids = ids.long()
-        out = _Lookup.apply(self.weight, ids.clamp_max(n - 1))
+        out = _Lookup.apply(self.weight, ids.clamp_max(n - 1),
+                            self.fixed_order)
         return torch.where((ids < n)[..., None], out, float("nan"))

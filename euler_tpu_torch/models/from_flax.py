@@ -30,7 +30,10 @@ variables)``), with or without the top-level ``"params"`` key. Names:
   <table>/embedding                -> TransX.<table>.weight, for
                                       entity_encoder, relation_encoder,
                                       hyper_vector, transfer_matrix,
-                                      entity_transfer, relation_transfer
+                                      entity_transfer, relation_transfer;
+                                      DeepWalk's, Node2Vec's and LINE's
+                                      .<table>.weight, for target_emb and
+                                      context_emb (none in LINE order 1)
 
 A flax kernel is [in, out] and loads as ``Linear.weight = kernel.T``; any
 other parameter, an embedding [rows, features] included, loads as it is.
@@ -54,6 +57,7 @@ from euler_tpu_torch.models.encoders import Embed, ShallowEncoder
 from euler_tpu_torch.models.gnn import (EmbedOnly, GNNNet, JKGNNNet,
                                         SuperviseModel, UnsuperviseModel)
 from euler_tpu_torch.models.kg import TransX
+from euler_tpu_torch.models.walk_models import LINE, DeepWalk
 
 #: flax name inside conv_i -> attribute of the port's conv
 _CONV_TREES = {
@@ -163,7 +167,7 @@ def load_flax_params(model: nn.Module, params: Mapping) -> nn.Module:
     elif isinstance(model, UnsuperviseModel):
         for name in ("embedder", "context_embedder"):
             _load_net(getattr(model, name), tree[name], f"{name}/")
-    elif isinstance(model, TransX):
+    elif isinstance(model, (TransX, DeepWalk, LINE)):
         for name, table in model.named_children():
             _load_embed(table, tree[name], name)
     else:

@@ -21,7 +21,7 @@ from euler_tpu_torch._device import resolve_device
 from euler_tpu_torch.graph.store import GraphTensors
 from euler_tpu_torch.models import convs as convs_lib
 from euler_tpu_torch.models.encoders import Embed
-from euler_tpu_torch.ops import feature_ops, sampling
+from euler_tpu_torch.ops import feature_ops, sampling, util_ops
 
 
 class GNNNet(nn.Module):
@@ -39,15 +39,21 @@ class GNNNet(nn.Module):
     also gets ``edge_attr = max(block.e_type, 0)``, the sampled edge types
     of a typed flow (self loops and invalid draws become relation 0).
     ``dtype`` casts the activations between stages (the parameters stay
-    f32). Weights come from ``generator``, a CPU torch.Generator; the
-    module is then moved to ``device``.
+    f32). With ``dedup_features`` the deepest block's features are
+    fetched through ``util_ops.unique_gather``: each distinct id once,
+    its repeats as -1 ids (zero rows), then a gather of the rows back to
+    every position (the reference's gnn.py:73-76; not over whole-graph
+    ELL blocks, whose fetch is already one row a node). Weights come from
+    ``generator``, a CPU torch.Generator; the module is then moved to
+    ``device``.
     """
 
     def __init__(self, conv: str, flow: Any, dims: Sequence[int],
                  feature: nn.Module, in_dim: int, dtype=None, device=None,
                  generator: Optional[torch.Generator] = None,
                  conv_kwargs: Optional[dict] = None,
-                 relation_from_etype: bool = False):
+                 relation_from_etype: bool = False,
+                 dedup_features: bool = False):
         super().__init__()
         dev = resolve_device(device)
         if relation_from_etype and not getattr(flow, "typed", False):
@@ -59,6 +65,7 @@ class GNNNet(nn.Module):
         self.feature = feature
         self.dtype = dtype
         self.relation_from_etype = relation_from_etype
+        self.dedup_features = dedup_features
         self.convs, widths = _make_convs(conv, in_dim, self.dims, flow,
                                          generator, conv_kwargs)
         self.out_fc = convs_lib.dense(widths[-1], self.dims[-1],
@@ -69,7 +76,11 @@ class GNNNet(nn.Module):
                 generator: Optional[torch.Generator] = None,
                 uniforms: Optional[Sequence] = None) -> torch.Tensor:
         blocks = self.flow(g, roots, generator=generator, uniforms=uniforms)
-        x = _input_features(self.feature, g, blocks)
+        if self.dedup_features and blocks[0].ell_tpos is None:
+            x = util_ops.unique_gather(lambda ids: self.feature(g, ids),
+                                       blocks[0].n_id)
+        else:
+            x = _input_features(self.feature, g, blocks)
         if self.dtype is not None:
             x = x.to(self.dtype)
         for conv, block in zip(self.convs, blocks):

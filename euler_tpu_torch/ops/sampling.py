@@ -1,34 +1,50 @@
-"""Root and neighbor sampling: the weighted node and edge draws, the
-fan-row neighbor draw and the reservoir redraw.
+"""The sampling verbs: the weighted node and edge draws, neighbor
+draws over the fan rows, the sample pack and the alias tables, full and
+top-k neighborhoods (out and in), fanouts, the layer draw, adjacency,
+graph labels and node types, and the reservoir redraw.
 
-Counterparts of euler_tpu/ops/sampling.py's ``sample_node`` (:46-72),
-``sample_edge`` (:94-123),
+Counterparts of every single-device verb of euler_tpu/ops/sampling.py:
+``sample_node`` (:46-72), ``sample_node_with_src`` (:75-91),
+``sample_edge`` (:94-123), ``sample_neighbor`` (:165-220, its
+``sample_pack`` branch and its per-group alias branch),
 ``sample_neighbor_fast`` (:223-376: its K=1, union-row and per-type K>1
-branches, with ``return_types``) and ``refresh_fan_rows``/
-``refresh_fan_pack`` with ``over_rows`` (:379-461), and the full
-neighborhood ``get_full_neighbor`` (:464-528). The reference derives
-its uniforms from a jax PRNG key inside each verb; here each verb is
-split in two so that both packages can be fed the same numbers: a step
-that draws the uniforms from a torch.Generator (``draw_node_uniforms``,
-``draw_edge_uniforms``, ``draw_fan_uniforms``, ``draw_typed_uniforms``,
-``draw_alias_uniforms``, and ``draw_neighbor_uniforms`` for a hop), and
+branches, with ``return_types``), ``refresh_fan_rows``/
+``refresh_fan_pack`` with ``over_rows`` (:379-461), ``get_full_neighbor``
+(:482-528), ``get_top_k_neighbor`` (:531-544), the in-neighbor verbs
+over the in-CSR (:551-657), ``sample_fanout`` and
+``get_multi_hop_neighbor`` (:660-700), ``sample_layer`` (:703-726),
+``sparse_get_adj`` (:729-772), ``sample_graph_label`` and
+``get_graph_by_label`` (:775-809) and ``get_node_type`` (:812-818). The
+reference derives its uniforms from a jax PRNG key inside each verb;
+here each random verb is split in two so that both packages can be fed
+the same numbers: a step that draws the uniforms from a torch.Generator
+(``draw_node_uniforms``, ``draw_edge_uniforms``, ``draw_fan_uniforms``,
+``draw_typed_uniforms``, ``draw_sample_uniforms``,
+``draw_alias_uniforms``, ``draw_fanout_uniforms``,
+``draw_layer_uniforms``, and ``draw_neighbor_uniforms`` for a hop), and
 a deterministic select from given uniforms (``select_nodes``,
 ``select_edges``, ``select_fan_neighbors``, ``select_typed_neighbors``,
+``select_sampled_neighbors``, ``select_nodes_with_src``,
+``select_in_neighbors``, ``select_fanout``, ``select_layer`` over
+``layer_keys``,
 ``select_neighbors`` for a hop, ``refresh_fan_rows``).
 Matches Node::SampleNeighbor's weighted-with-replacement distribution
-(reference: euler/core/graph/node.h:82) exactly for groups of degree
-<= FAN_D; larger groups draw from an exact-marginal reservoir.
+(reference: euler/core/graph/node.h:82) exactly; the fan rows do so for
+groups of degree <= FAN_D, larger groups draw from an exact-marginal
+reservoir.
 
-A hop over one edge type reads ``fan_pack``; a hop over every edge type
-of the graph reads the union rows ``fanu_pack`` when the graph has them;
-any other multi-type hop reads one fan row per type (plain torch, as the
-reference does it in XLA). Where the reference falls back to the payload
-verb ``sample_neighbor`` (the graph lacks the pack a hop needs), the port
-raises ``NotImplementedError``: that verb is not ported.
+A hop of the sampled flows over one edge type reads ``fan_pack``; a hop
+over every edge type of the graph reads the union rows ``fanu_pack``
+when the graph has them; any other multi-type hop reads one fan row per
+type. Where the reference's ``sample_neighbor_fast`` falls back to
+``sample_neighbor`` (the graph lacks the pack a hop needs), the port's
+hop raises ``NotImplementedError`` and names the pack.
 
 Conventions: node ids are int32 local ids, ``-1`` marks "no node", and
 missing neighbors get ``default_id``. An index past the end of a table
 clamps to its last row, as XLA clamps a gather index (torch would raise).
+A per-row running sum over edge types is added in XLA's order
+(``row_cdf``).
 """
 from __future__ import annotations
 
@@ -37,7 +53,8 @@ from typing import Optional, Sequence, Tuple
 
 import torch
 
-from euler_tpu_torch.graph.store import AliasTables, GraphTensors
+from euler_tpu_torch.graph.store import (XLA_CUMSUM_BLOCK, AliasTables,
+                                         GraphTensors)
 from euler_tpu_torch.ops.alias import (FAN_ALIAS_OFF, FAN_D, FAN_KEPT_OFF,
                                        FAN_PROB_OFF, alias_select,
                                        draw_alias_uniforms)
@@ -58,6 +75,43 @@ def etype_tensor(ets: Tuple[int, ...], dtype: torch.dtype,
     CUDA graph captures may not copy a Python list to the card, so the
     copy happens at the first, eager call."""
     return torch.tensor(ets, dtype=dtype, device=device)
+
+
+def row_cdf(w: torch.Tensor) -> torch.Tensor:
+    """Each row's f32 running sum of ``w`` [B, K], in the order XLA adds
+    ``jnp.cumsum(w, axis=1)`` on the CPU: left to right for up to 16
+    columns; past that, left to right inside blocks of 16, each block
+    offset by the running sum of the earlier blocks' totals, taken the
+    same way (the per-row form of ``graph.store.xla_cumsum``).
+    torch.cumsum associates otherwise. Runs on ``w``'s device with no
+    copy from the host, so a captured step can use it."""
+    B, K = w.shape
+    block = XLA_CUMSUM_BLOCK
+    if K <= block:
+        run = [w[:, 0]]
+        for k in range(1, K):
+            run.append(run[-1] + w[:, k])
+        return torch.stack(run, 1)
+    m = -(-K // block)
+    x = torch.nn.functional.pad(w, (0, m * block - K)).reshape(B, m, block)
+    run = [x[:, :, 0]]
+    for k in range(1, block):
+        run.append(run[-1] + x[:, :, k])
+    inner = torch.stack(run, 2)                                # [B, m, 16]
+    before = torch.nn.functional.pad(row_cdf(inner[:, :-1, -1]), (1, 0))
+    return (inner + before[:, :, None]).reshape(B, m * block)[:, :K]
+
+
+def _pick_types(w: torch.Tensor, ut: torch.Tensor):
+    """The type pick of a multi-type draw: each draw's column of ``w``
+    [B, K] (per-type weight sums), in proportion to them (``r = ut *
+    total`` counted against the running sums, clamped to K - 1). Returns
+    (kidx int64 [B, C], total f32 [B])."""
+    cdf = row_cdf(w)
+    total = cdf[:, -1]
+    r = ut * total[:, None]
+    kidx = (r[:, :, None] >= cdf[:, None, :]).sum(-1)
+    return kidx.clamp_max(w.shape[1] - 1), total
 
 
 # ---------------------------------------------------------------------------
@@ -166,8 +220,7 @@ def _need_fan_pack(g: GraphTensors, ets: Tuple[int, ...]) -> None:
         raise NotImplementedError(
             f"a hop over edge types {ets} reads the 'fan' pack (or 'fanu' "
             f"for a hop over every type), which the graph was built "
-            f"without; the reference's fallback, the payload verb "
-            f"sample_neighbor, is not ported")
+            f"without; sampling.sample_neighbor draws without it")
 
 
 def select_fan_neighbors(g: GraphTensors, nodes: torch.Tensor, edge_types,
@@ -212,27 +265,20 @@ def select_typed_neighbors(g: GraphTensors, nodes: torch.Tensor, edge_types,
     the K>1 branch of the reference (sampling.py:344-376), plain torch.
 
     Each draw picks a type in proportion to the node's per-type weight
-    sums (``r = ut * total`` against their running sum, added left to
-    right as XLA's cumsum does: torch.cumsum associates otherwise), then
-    draws in that type's row. Out-of-range row indices clamp, as XLA's
-    gather does. Returns what ``select_fan_neighbors`` returns.
+    sums (``_pick_types``), then draws in that type's row. Out-of-range
+    row indices clamp, as XLA's gather does. Returns what
+    ``select_fan_neighbors`` returns.
     """
     ets = as_etypes(g, edge_types)
     _need_fan_pack(g, ets)
-    K, ET = len(ets), g.meta.num_edge_types
+    ET = g.meta.num_edge_types
     G = g.fan_pack.shape[0]
     et = etype_tensor(ets, torch.int64, nodes.device)
     rows = nodes.to(torch.int64).clamp_min(0)
     packs = g.fan_pack[(rows[:, None] * ET + et[None, :]).clamp_max(G - 1)]
     deg = packs[..., 0]                                        # [B, K]
     wsum = packs[..., 1].contiguous().view(torch.float32)      # [B, K]
-    run = [wsum[:, 0]]
-    for k in range(1, K):
-        run.append(run[-1] + wsum[:, k])
-    cdf = torch.stack(run, 1)                                  # [B, K]
-    total = cdf[:, -1]
-    r = ut * total[:, None]
-    kidx = (r[:, :, None] >= cdf[:, None, :]).sum(-1).clamp_max(K - 1)
+    kidx, total = _pick_types(wsum, ut)
     deg_c = torch.gather(deg, 1, kidx)
     slot = torch.minimum((u1 * deg_c.to(torch.float32)).to(torch.int32),
                          (deg_c - 1).clamp_min(0))
@@ -341,13 +387,18 @@ def refresh_fan_pack(g: GraphTensors,
 
 
 # ---------------------------------------------------------------------------
-# full neighborhoods
+# the general weighted draw over the grouped CSR
 # ---------------------------------------------------------------------------
 
 def _group_bounds(g: GraphTensors, rows: torch.Tensor, etype: torch.Tensor):
     """(lo, hi) CSR slot bounds of group (row, etype); rows and etype
-    broadcast. Group indices past the graph clamp."""
+    broadcast. Group indices past the graph clamp as XLA's gathers do:
+    to the last group's row of ``group_pack`` where the graph has it (one
+    row read), else to the end of ``group_ptr``."""
     gidx = rows.long() * g.meta.num_edge_types + etype.long()
+    if g.group_pack is not None:
+        gp = g.group_pack[gidx.clamp(0, g.group_pack.shape[0] - 1)]
+        return gp[..., 0], gp[..., 1]
     last = g.group_ptr.shape[0] - 1
     return (g.group_ptr[gidx.clamp(0, last)],
             g.group_ptr[(gidx + 1).clamp(0, last)])
@@ -356,13 +407,115 @@ def _group_bounds(g: GraphTensors, rows: torch.Tensor, etype: torch.Tensor):
 def _fetch_slots(g: GraphTensors, s: torch.Tensor, ok: torch.Tensor,
                  default_id: int):
     """(nbr, w, type, eid) of CSR slots ``s`` (in range), masked by
-    ``ok``: default_id, 0, -1 and -1 where not ok."""
-    nbr = torch.where(ok, g.adj_dst[s], default_id)
-    w = torch.where(ok, g.adj_w[s], 0.0)
-    ty = torch.where(ok, g.adj_type[s], -1)
-    eid = torch.where(ok, g.adj_eid[s], -1)
-    return nbr, w, ty, eid
+    ``ok``: default_id, 0, -1 and -1 where not ok. One row of
+    ``adj_pack`` a slot where the graph has it."""
+    if g.adj_pack is not None:
+        pk = g.adj_pack[s]                                     # [..., 4]
+        nbr, ty, eid = pk[..., 0], pk[..., 1], pk[..., 2]
+        w = pk[..., 3].contiguous().view(torch.float32)
+    else:
+        nbr, w, ty, eid = g.adj_dst[s], g.adj_w[s], g.adj_type[s], \
+            g.adj_eid[s]
+    return (torch.where(ok, nbr, default_id), torch.where(ok, w, 0.0),
+            torch.where(ok, ty, -1), torch.where(ok, eid, -1))
 
+
+#: (u_type, u1, u2), each f32 [B, count]: the type pick, then the slot
+#: pick and the keep-vs-alias test of ``sample_neighbor``'s draws (the
+#: reference's ``kt, kd = split(key); k1, k2 = split(kd)``)
+draw_sample_uniforms = draw_typed_uniforms
+
+
+def select_sampled_neighbors(g: GraphTensors, nodes: torch.Tensor,
+                             edge_types, u_type: torch.Tensor,
+                             u1: torch.Tensor, u2: torch.Tensor,
+                             default_id: int = -1):
+    """Deterministic weighted draws with replacement over the union of the
+    given edge-type groups, from the uniforms ``draw_sample_uniforms``
+    gives (reference: sampling.py:165-220).
+
+    Each draw picks a type in proportion to the node's per-type weight
+    sums (``_pick_types``), then one slot of that group: a row of
+    ``sample_pack`` where the graph has it (the slot ``u1 * size``
+    truncated, its kept payload where ``u2 < prob``, else its alias's),
+    otherwise the group's alias draw (``alias_select``) and the slot's
+    payload. Returns (nbr int32, w f32, type int32, eid int32), each
+    [B, count]; default_id, 0, -1 and -1 where the node is < 0, its
+    weight sum 0 or the picked group empty. (The reference's third
+    branch, a search over a weight cumsum for a graph without group alias
+    tables, is left out: every graph that either package builds on one
+    device has them.)
+    """
+    ets = as_etypes(g, edge_types)
+    nodes = nodes.to(torch.int32)
+    rows = nodes.clamp_min(0)
+    et = etype_tensor(ets, torch.int64, nodes.device)
+    n = g.group_w_sum.shape[0]
+    W = g.group_w_sum[rows.long().clamp_max(n - 1)][:, et]    # [B, K]
+    kidx, total = _pick_types(W, u_type)
+    etype = et[kidx]                                           # [B, C]
+    valid = (nodes >= 0)[:, None] & (total > 0)[:, None]
+    lo, hi = _group_bounds(g, rows[:, None], etype)
+    size = hi - lo
+    if g.sample_pack is not None:
+        slot = torch.minimum((u1 * size.to(torch.float32)).to(torch.int32),
+                             (size - 1).clamp_min(0))
+        E = g.sample_pack.shape[0]
+        row = g.sample_pack[(lo + slot).long().clamp(0, E - 1)]  # [B, C, 9]
+        prob = row[..., 0].contiguous().view(torch.float32)
+        sel = torch.where((u2 < prob)[..., None], row[..., 1:5],
+                          row[..., 5:9])
+        ok = valid & (size > 0)
+        w = sel[..., 3].contiguous().view(torch.float32)
+        return (torch.where(ok, sel[..., 0], default_id),
+                torch.where(ok, w, 0.0), torch.where(ok, sel[..., 1], -1),
+                torch.where(ok, sel[..., 2], -1))
+    slot = alias_select(g.adj_prob, g.adj_alias, lo, size, u1, u2)
+    ok = (slot >= 0) & valid
+    s = slot.long().clamp(0, g.adj_dst.shape[0] - 1)
+    return _fetch_slots(g, s, ok, default_id)
+
+
+def sample_neighbor(g: GraphTensors, nodes: torch.Tensor, edge_types,
+                    count: int, default_id: int = -1,
+                    generator: Optional[torch.Generator] = None):
+    """Sample ``count`` weighted neighbors per node from the union of the
+    given edge-type groups, with replacement (reference: API_SAMPLE_NB,
+    Node::SampleNeighbor): (nbr, w, type, eid), each [B, count]."""
+    u = draw_sample_uniforms(generator, nodes.shape[0], count, nodes.device)
+    return select_sampled_neighbors(g, nodes, edge_types, *u, default_id)
+
+
+def select_nodes_with_src(g: GraphTensors, src_nodes: torch.Tensor,
+                          u1: torch.Tensor, u2: torch.Tensor) -> torch.Tensor:
+    """For each src node, ``count`` weighted draws of nodes of its node
+    type from given uniforms u1, u2 (f32 [B, count]); int32 [B, count],
+    -1 in rows of src < 0 (reference: sampling.py:75-91)."""
+    na = g.node_alias
+    src = src_nodes.to(torch.int32)
+    n = g.node_type.shape[0]
+    types = g.node_type[src.long().clamp(0, n - 1)].long()
+    lo = na.type_ptr[types][:, None]
+    size = (na.type_ptr[types + 1] - na.type_ptr[types])[:, None]
+    pos = alias_select(na.prob, na.alias, lo, size, u1, u2)
+    out = torch.where(pos >= 0, na.ids[pos.clamp_min(0).long()], -1)
+    return torch.where((src >= 0)[:, None], out, -1)
+
+
+def sample_node_with_src(g: GraphTensors, src_nodes: torch.Tensor,
+                         count: int,
+                         generator: Optional[torch.Generator] = None
+                         ) -> torch.Tensor:
+    """For each src node, ``count`` nodes of the same node type (negative
+    sampling; reference: API_SAMPLE_N_WITH_TYPES)."""
+    u1, u2 = draw_alias_uniforms(generator, (src_nodes.shape[0], count),
+                                 src_nodes.device)
+    return select_nodes_with_src(g, src_nodes, u1, u2)
+
+
+# ---------------------------------------------------------------------------
+# full neighborhoods
+# ---------------------------------------------------------------------------
 
 def get_full_neighbor(g: GraphTensors, nodes: torch.Tensor, edge_types,
                       cap: int, default_id: int = -1,
@@ -405,3 +558,361 @@ def get_full_neighbor(g: GraphTensors, nodes: torch.Tensor, edge_types,
         nbr, w, ty, eid, ok = (torch.gather(x, 1, order)
                                for x in (nbr, w, ty, eid, ok))
     return nbr, w, ty, eid, ok
+
+
+def _top_k_rows(k: int, nbr, w, ty, eid, ok, default_id: int):
+    """The ``k`` cells of each row with the largest weights, invalid cells
+    last, ties to the lower column as ``jax.lax.top_k`` breaks them (a
+    stable sort: torch.topk promises no order among ties); cells past the
+    valid ones give default_id, 0, -1, -1."""
+    neg = torch.where(ok, w, float("-inf"))
+    idx = torch.sort(neg, dim=1, descending=True, stable=True)[1][:, :k]
+    nbr, w, ty, eid, ok = (torch.gather(x, 1, idx)
+                           for x in (nbr, w, ty, eid, ok))
+    return (torch.where(ok, nbr, default_id), torch.where(ok, w, 0.0),
+            torch.where(ok, ty, -1), torch.where(ok, eid, -1), ok)
+
+
+def get_top_k_neighbor(g: GraphTensors, nodes: torch.Tensor, edge_types,
+                       k: int, cap: Optional[int] = None,
+                       default_id: int = -1):
+    """Top-k neighbors by edge weight among the first ``cap`` (default
+    max(k, 16)) of the full neighborhood (reference: sampling.py:531-544,
+    API_GET_NB_NODE TopK); (nbr, w, type, eid, ok), each [B, k]."""
+    cap = cap or max(k, 16)
+    return _top_k_rows(k, *get_full_neighbor(g, nodes, edge_types, cap,
+                                             default_id), default_id)
+
+
+# ---------------------------------------------------------------------------
+# in-neighbor verbs over the in-CSR (graphs converted with in-edges)
+# ---------------------------------------------------------------------------
+
+def _require_in_csr(g: GraphTensors, name: str) -> None:
+    if g.in_group_ptr is None:
+        raise ValueError(
+            f"{name} needs the in-adjacency: build the graph with "
+            "has_in_edges=True (GraphMeta.has_in_edges)")
+
+
+def _in_group_bounds(g: GraphTensors, rows: torch.Tensor,
+                     etype: torch.Tensor):
+    gidx = rows.long() * g.meta.num_edge_types + etype.long()
+    last = g.in_group_ptr.shape[0] - 1
+    return (g.in_group_ptr[gidx.clamp(0, last)],
+            g.in_group_ptr[(gidx + 1).clamp(0, last)])
+
+
+def _fetch_in_slots(g: GraphTensors, s: torch.Tensor, ty: torch.Tensor,
+                    ok: torch.Tensor, default_id: int):
+    return (torch.where(ok, g.in_adj_src[s], default_id),
+            torch.where(ok, g.in_adj_w[s], 0.0), torch.where(ok, ty, -1),
+            torch.where(ok, g.in_adj_eid[s], -1))
+
+
+def select_in_neighbors(g: GraphTensors, nodes: torch.Tensor, edge_types,
+                        u_type: torch.Tensor, u1: torch.Tensor,
+                        u2: torch.Tensor, default_id: int = -1):
+    """Deterministic weighted in-neighbor draws over the union of the
+    (dst = node, edge type) in-groups, from the uniforms
+    ``draw_sample_uniforms`` gives (reference: sampling.py:571-602): the
+    type pick of ``select_sampled_neighbors``, then the in-group's alias
+    draw. Returns (src, w, type, eid), each [B, count]."""
+    _require_in_csr(g, "sample_in_neighbor")
+    ets = as_etypes(g, edge_types)
+    nodes = nodes.to(torch.int32)
+    rows = nodes.clamp_min(0)
+    et = etype_tensor(ets, torch.int64, nodes.device)
+    n = g.in_group_w_sum.shape[0]
+    W = g.in_group_w_sum[rows.long().clamp_max(n - 1)][:, et]
+    kidx, total = _pick_types(W, u_type)
+    etype = et[kidx]
+    lo, hi = _in_group_bounds(g, rows[:, None], etype)
+    pos = alias_select(g.in_adj_prob, g.in_adj_alias, lo, hi - lo, u1, u2)
+    ok = (pos >= 0) & (nodes >= 0)[:, None] & (total > 0)[:, None]
+    s = pos.long().clamp(0, g.in_adj_src.shape[0] - 1)
+    return _fetch_in_slots(g, s, etype.to(torch.int32), ok, default_id)
+
+
+def sample_in_neighbor(g: GraphTensors, nodes: torch.Tensor, edge_types,
+                       count: int, default_id: int = -1,
+                       generator: Optional[torch.Generator] = None):
+    """Weighted in-neighbor sampling (reference: Node::SampleInNeighbor,
+    the in-edge mirror of SampleNeighbor)."""
+    _require_in_csr(g, "sample_in_neighbor")
+    u = draw_sample_uniforms(generator, nodes.shape[0], count, nodes.device)
+    return select_in_neighbors(g, nodes, edge_types, *u, default_id)
+
+
+def get_full_in_neighbor(g: GraphTensors, nodes: torch.Tensor, edge_types,
+                         cap: int, default_id: int = -1,
+                         sorted_by_id: bool = False):
+    """Padded full in-neighborhood, the mirror of ``get_full_neighbor``
+    (reference: sampling.py:605-642): (src, w, type, eid, ok), each
+    [B, cap]."""
+    _require_in_csr(g, "get_full_in_neighbor")
+    ets = as_etypes(g, edge_types)
+    nodes = nodes.to(torch.int32)
+    dev = nodes.device
+    B, K = nodes.shape[0], len(ets)
+    rows = nodes.clamp_min(0)
+    et = etype_tensor(ets, torch.int32, dev)
+    lo, hi = _in_group_bounds(g, rows[:, None], et[None, :])     # [B, K]
+    deg = (hi - lo).long()
+    offs = torch.cat([torch.zeros((B, 1), dtype=torch.int64, device=dev),
+                      torch.cumsum(deg, dim=1)], dim=1)
+    total = offs[:, -1]
+    j = torch.arange(cap, dtype=torch.int64, device=dev)
+    k_idx = (j[None, :, None] >= offs[:, None, 1:]).sum(dim=-1)
+    k_idx = k_idx.clamp_max(K - 1)
+    slot = torch.gather(lo.long(), 1, k_idx) + (
+        j[None, :] - torch.gather(offs[:, :-1], 1, k_idx))
+    ok = (j[None, :] < total[:, None]) & (nodes >= 0)[:, None]
+    s = slot.clamp(0, g.in_adj_src.shape[0] - 1)
+    nbr, w, ty, eid = _fetch_in_slots(g, s, et[k_idx], ok, default_id)
+    if sorted_by_id:
+        key = torch.where(ok, nbr, torch.iinfo(torch.int32).max)
+        order = torch.argsort(key, dim=1, stable=True)
+        nbr, w, ty, eid, ok = (torch.gather(x, 1, order)
+                               for x in (nbr, w, ty, eid, ok))
+    return nbr, w, ty, eid, ok
+
+
+def get_top_k_in_neighbor(g: GraphTensors, nodes: torch.Tensor, edge_types,
+                          k: int, cap: Optional[int] = None,
+                          default_id: int = -1):
+    """Top-k in-neighbors by edge weight (reference: sampling.py:645-657)."""
+    cap = cap or max(k, 16)
+    return _top_k_rows(k, *get_full_in_neighbor(g, nodes, edge_types, cap,
+                                                default_id), default_id)
+
+
+# ---------------------------------------------------------------------------
+# fanouts and the layer draw
+# ---------------------------------------------------------------------------
+
+def draw_fanout_uniforms(generator: Optional[torch.Generator], B: int,
+                         counts: Sequence[int], device) -> list:
+    """One ``draw_sample_uniforms`` tuple per hop of a fanout from B
+    nodes: hop i draws counts[i] for each of B * prod(counts[:i])."""
+    out, n = [], B
+    for c in counts:
+        out.append(draw_sample_uniforms(generator, n, c, device))
+        n *= c
+    return out
+
+
+def select_fanout(g: GraphTensors, nodes: torch.Tensor, edge_types_per_hop,
+                  counts: Sequence[int], uniforms: Sequence,
+                  default_id: int = -1):
+    """Multi-hop fanout from the uniforms ``draw_fanout_uniforms`` gives
+    (reference: sampling.py:660-683, a loop of ``sample_neighbor``).
+    Returns (hop_nodes, hop_weights, hop_types, hop_eids): hop_nodes[0]
+    is ``nodes``, hop_nodes[i] has B * prod(counts[:i]) entries."""
+    cur = nodes.to(torch.int32).reshape(-1)
+    hop_nodes, hop_w, hop_ty, hop_eid = [cur], [], [], []
+    for ets, cnt, u in zip(edge_types_per_hop, counts, uniforms):
+        nbr, w, ty, eid = select_sampled_neighbors(g, cur, ets, *u,
+                                                   default_id)
+        cur = nbr.reshape(-1)
+        hop_nodes.append(cur)
+        hop_w.append(w.reshape(-1))
+        hop_ty.append(ty.reshape(-1))
+        hop_eid.append(eid.reshape(-1))
+    return hop_nodes, hop_w, hop_ty, hop_eid
+
+
+def sample_fanout(g: GraphTensors, nodes: torch.Tensor, edge_types_per_hop,
+                  counts: Sequence[int], default_id: int = -1,
+                  generator: Optional[torch.Generator] = None):
+    """Multi-hop fanout sampling (reference: SampleFanout,
+    tf_euler/kernels/sample_fanout_op.cc:30-148)."""
+    u = draw_fanout_uniforms(generator, nodes.reshape(-1).shape[0], counts,
+                             nodes.device)
+    return select_fanout(g, nodes, edge_types_per_hop, counts, u,
+                         default_id)
+
+
+def get_multi_hop_neighbor(g: GraphTensors, nodes: torch.Tensor,
+                           edge_types_per_hop, counts: Sequence[int],
+                           generator: Optional[torch.Generator] = None,
+                           uniforms: Optional[Sequence] = None) -> list:
+    """Per hop (frontier, edge_src_pos, edge_dst_nodes, mask) of a fanout,
+    the sampled bipartite adjacency (reference: sampling.py:686-700);
+    ``uniforms`` replays ``draw_fanout_uniforms``."""
+    if uniforms is None:
+        uniforms = draw_fanout_uniforms(generator, nodes.reshape(-1).shape[0],
+                                        counts, nodes.device)
+    hop_nodes, *_ = select_fanout(g, nodes, edge_types_per_hop, counts,
+                                  uniforms)
+    out = []
+    for i, cnt in enumerate(counts):
+        dst = hop_nodes[i + 1]
+        # each frontier position repeated cnt times, as jnp.repeat
+        src = torch.arange(dst.shape[0], dtype=torch.int32,
+                           device=dst.device) // cnt
+        out.append((dst, src, dst, dst >= 0))
+    return out
+
+
+#: the smallest key uniform of a Gumbel draw: the reference's
+#: ``uniform(minval=1e-20, maxval=1.0)`` maps a 0 there, so log never
+#: sees 0
+GUMBEL_MIN = 1e-20
+
+
+def draw_gumbel_uniforms(generator: Optional[torch.Generator], shape,
+                         device) -> torch.Tensor:
+    """f32 uniforms in [1e-20, 1) of ``shape``, as the reference's
+    ``jax.random.uniform(key, shape, minval=1e-20, maxval=1.0)`` gives
+    them (its 0 becomes 1e-20): the keys of a Gumbel-max draw."""
+    return torch.rand(shape, generator=generator,
+                      device=device).clamp_min_(GUMBEL_MIN)
+
+
+def gumbel(u: torch.Tensor) -> torch.Tensor:
+    """-log(-log(u)): Gumbel noise from ``draw_gumbel_uniforms``."""
+    return -torch.log(-torch.log(u))
+
+
+_WEIGHT_FUNCS = {"sqrt": torch.sqrt, "id": lambda x: x,
+                 "uniform": torch.ones_like}
+
+
+def draw_layer_uniforms(generator: Optional[torch.Generator], n: int,
+                        candidates_per_node: int, device):
+    """(the candidates' ``draw_sample_uniforms`` [n, c], the Gumbel keys
+    [n * c]) of ``sample_layer`` over n frontier nodes."""
+    u = draw_sample_uniforms(generator, n, candidates_per_node, device)
+    return u, draw_gumbel_uniforms(generator, (n * candidates_per_node,),
+                                   device)
+
+
+def layer_keys(g: GraphTensors, frontier: torch.Tensor, edge_types,
+               candidates_per_node: int, uniforms, weight_func="sqrt"):
+    """The candidates of ``select_layer`` and their keys: (ids int32,
+    weights f32, keys f32), each [n * candidates_per_node]; a key is
+    log(weight_func(w)) + Gumbel noise, -inf where the score is 0."""
+    wf = _WEIGHT_FUNCS.get(weight_func, weight_func)
+    u_cand, u_key = uniforms
+    cand, cw, _, _ = select_sampled_neighbors(g, frontier.reshape(-1),
+                                              edge_types, *u_cand)
+    flat, fw = cand.reshape(-1), cw.reshape(-1)
+    score = torch.where(flat >= 0, wf(fw.clamp_min(0.0)), 0.0)
+    return flat, fw, torch.where(score > 0, torch.log(score) + gumbel(u_key),
+                                 float("-inf"))
+
+
+def select_layer(g: GraphTensors, frontier: torch.Tensor, edge_types,
+                 candidates_per_node: int, n_layer_nodes: int, uniforms,
+                 weight_func="sqrt"):
+    """One shared layer from the union of the frontier's neighborhoods,
+    from the uniforms ``draw_layer_uniforms`` gives (reference:
+    sampling.py:703-726, API_SAMPLE_L): ``candidates_per_node`` weighted
+    draws a frontier node, scored ``weight_func(w)`` ("sqrt", "id",
+    "uniform" or a callable), then the ``n_layer_nodes`` best of
+    log(score) + Gumbel noise without replacement (``layer_keys``; ties
+    to the lower index, as ``jax.lax.top_k``). Returns (layer_ids int32,
+    weights f32), each [n_layer_nodes], -1 and 0 where fewer candidates
+    have a score."""
+    flat, fw, keyed = layer_keys(g, frontier, edge_types,
+                                 candidates_per_node, uniforms, weight_func)
+    top = torch.sort(keyed, descending=True, stable=True)[1][:n_layer_nodes]
+    ok = torch.isfinite(keyed[top])
+    return torch.where(ok, flat[top], -1), torch.where(ok, fw[top], 0.0)
+
+
+def sample_layer(g: GraphTensors, frontier: torch.Tensor, edge_types,
+                 candidates_per_node: int, n_layer_nodes: int,
+                 weight_func="sqrt",
+                 generator: Optional[torch.Generator] = None):
+    """One shared layer sampled from the union of frontier neighborhoods
+    (the op behind ``sampleLNB``); see ``select_layer``."""
+    u = draw_layer_uniforms(generator, frontier.reshape(-1).shape[0],
+                            candidates_per_node, frontier.device)
+    return select_layer(g, frontier, edge_types, candidates_per_node,
+                        n_layer_nodes, u, weight_func)
+
+
+# ---------------------------------------------------------------------------
+# adjacency, graph labels and node types
+# ---------------------------------------------------------------------------
+
+#: halving steps of a search over one CSR group: enough for any group
+#: of fewer than 2^31 edges
+SEARCH_STEPS = 32
+
+
+def sparse_get_adj(g: GraphTensors, nodes: torch.Tensor,
+                   nb_nodes: torch.Tensor, edge_types):
+    """Bipartite adjacency between ``nodes`` [B] and ``nb_nodes`` [M]
+    under the given edge types, as a dense (connected bool, weight f32)
+    pair of [B, M] (reference: sampling.py:729-772, SparseGetAdj). Each
+    membership test is the reference's 32 halving steps over the
+    dst-sorted CSR group; a later type's hit overwrites the weight."""
+    ets = as_etypes(g, edge_types)
+    nodes = nodes.to(torch.int32).reshape(-1)
+    nb = nb_nodes.to(torch.int32).reshape(-1)
+    rows = nodes.clamp_min(0)
+    B, M = nodes.shape[0], nb.shape[0]
+    conn = torch.zeros((B, M), dtype=torch.bool, device=nodes.device)
+    w = torch.zeros((B, M), dtype=torch.float32, device=nodes.device)
+    E = g.adj_dst.shape[0]
+    tgt = nb[None, :].expand(B, M)
+    for t in ets:
+        lo, hi = _group_bounds(g, rows, torch.full_like(rows, t))
+        h_b = hi.long()[:, None].expand(B, M)
+        l, h = lo.long()[:, None].expand(B, M), h_b
+        for _ in range(SEARCH_STEPS):
+            mid = (l + h) // 2
+            right = g.adj_dst[mid.clamp(0, E - 1)] < tgt
+            l, h = torch.where(right, mid + 1, l), torch.where(right, h, mid)
+        slot = l.clamp(0, E - 1)
+        hit = ((l < h_b) & (g.adj_dst[slot] == tgt)
+               & (nodes >= 0)[:, None] & (nb >= 0)[None, :])
+        conn = conn | hit
+        w = torch.where(hit, g.adj_w[slot], w)
+    return conn, w
+
+
+def _require_graph_members(g: GraphTensors, name: str) -> None:
+    if g.graph_members is None:
+        raise ValueError(
+            f"{name} needs graph-label membership: the graph must carry a "
+            "'graph_label' binary node feature (store.Graph builds the "
+            "table)")
+
+
+def sample_graph_label(g: GraphTensors, count: int,
+                       generator: Optional[torch.Generator] = None
+                       ) -> torch.Tensor:
+    """``count`` graph indices drawn uniformly (reference:
+    API_SAMPLE_GRAPH_LABEL); int32 [count]."""
+    _require_graph_members(g, "sample_graph_label")
+    return torch.randint(0, g.graph_members.shape[0], (count,),
+                         generator=generator, device=g.device,
+                         dtype=torch.int32)
+
+
+def get_graph_by_label(g: GraphTensors, graph_idx: torch.Tensor):
+    """The nodes of each graph (reference: sampling.py:795-809): (node ids
+    int32 [B, maxN] padded with -1, mask [B, maxN], each node's graph
+    index int32 [B * maxN]). A graph index < 0 counts from the end and
+    one past the table clamps, as a jnp index does."""
+    _require_graph_members(g, "get_graph_by_label")
+    G = g.graph_members.shape[0]
+    idx = graph_idx.long()
+    members = g.graph_members[torch.where(idx < 0, idx + G, idx).clamp(
+        0, G - 1)]
+    B, maxN = members.shape
+    node_graph_idx = torch.arange(B * maxN, dtype=torch.int32,
+                                  device=members.device) // maxN
+    return members, members >= 0, node_graph_idx
+
+
+def get_node_type(g: GraphTensors, nodes: torch.Tensor) -> torch.Tensor:
+    """Each node's type id, -1 for nodes < 0 (reference: API_GET_NODE_T)."""
+    nodes = nodes.to(torch.int32)
+    n = g.node_type.shape[0]
+    return torch.where(nodes >= 0,
+                       g.node_type[nodes.long().clamp(0, n - 1)], -1)

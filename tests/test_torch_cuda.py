@@ -25,7 +25,11 @@ atomics), advance the generator as they do, and count each replay's
 kernel launches; so must a loop of each of the eight other convs of the
 registry (tag, sgcn, agnn, appnp, graph, arma, dna, gated; bit for bit)
 and of sage over the id and sparse-id encoder (within rtol 1e-4, atol
-1e-5, trained with SGD: its tables sum with atomics too).
+1e-5, trained with SGD: its tables sum with atomics too). DeepWalk,
+Node2Vec and LINE (orders 1 and 2): a step on the card must match the
+CPU's on the same uniforms (walks equal but for near ties of node2vec's
+Gumbel keys; loss and gradients within 1e-4), and a replayed loop under
+SGD must equal its eager steps bit for bit, launching no kernel.
 """
 import copy
 import dataclasses
@@ -35,15 +39,17 @@ import numpy as np
 import pytest
 import torch
 
-from chip_smoke import int_view, synthetic_fan_pack, synthetic_union_pack
+from chip_smoke import (WALK_PACKS, int_view, synthetic_fan_pack,
+                        synthetic_union_pack, walk_grads)
 from euler_tpu_torch import bench
 from euler_tpu_torch.dataflow import SageDataFlow, WholeDataFlow
 from euler_tpu_torch.dataflow import block as block_lib
 from euler_tpu_torch.datasets import random_graph
 from euler_tpu_torch.estimator import (EdgeEstimator, NodeEstimator,
                                        RunConfig, TrainLoop, get_optimizer)
-from euler_tpu_torch.models import (GNNNet, ShallowEncoder, SuperviseModel,
-                                    TransE, UnsuperviseModel)
+from euler_tpu_torch.models import (LINE, DeepWalk, GNNNet, Node2Vec,
+                                    ShallowEncoder, SuperviseModel, TransE,
+                                    UnsuperviseModel)
 from euler_tpu_torch.ops import fan_draw as fd
 from euler_tpu_torch.ops import gather_rows as gr
 from euler_tpu_torch.ops import mp_ops, sampling
@@ -743,3 +749,64 @@ def test_conv_replayed_loop_equals_eager_steps(dev, conv):
     else:
         assert losses[0] == losses[1]
         assert all(torch.equal(a, b) for a, b in pairs)
+
+
+# ---- the walk family: DeepWalk, Node2Vec, LINE ----------------------------
+
+WALK_FAMILY = ("deepwalk", "node2vec", "line1", "line2")
+
+
+def walk_setup(dev, name):
+    """A 3000-node graph with the general packs and the in-CSR, and one
+    of the walk models on it at 16 wide: walks of 5 steps, 4 negatives,
+    node2vec with p = 0.5, q = 2."""
+    graph = random_graph(3000, 25, seed=0, packs=WALK_PACKS,
+                         build_in_edges=True, device=dev)
+    gen = torch.Generator().manual_seed(0)
+    if name.startswith("line"):
+        model = LINE(3000, 16, (0,), order=int(name[-1]), num_negs=4,
+                     device=dev, generator=gen)
+    else:
+        kw = dict(walk_p=0.5, walk_q=2.0) if name == "node2vec" else {}
+        cls = Node2Vec if name == "node2vec" else DeepWalk
+        model = cls(3000, 16, (0,), walk_len=5, num_negs=4, device=dev,
+                    generator=gen, **kw)
+    return graph, model
+
+
+@pytest.mark.parametrize("name", WALK_FAMILY)
+def test_walk_step_on_card_matches_cpu(dev, name):
+    """On the same uniforms: LINE's positives, negatives, loss and
+    gradients; the walks equal but for near ties of the exact node2vec
+    step (its keys pass through log), then the skip-gram head's loss and
+    gradients within 1e-4 (``chip_smoke.walk_grads``), no kernel
+    launched."""
+    graph, model = walk_setup(dev, name)
+    before = (fd.fan_draw.launches, gr.gather_rows.launches)
+    out = walk_grads(name, model, graph, graph.tensors.to("cpu"), dev)
+    assert (fd.fan_draw.launches, gr.gather_rows.launches) == before
+    assert out["n_params"] == (1 if name == "line1" else 2)
+    assert out["pos_valid_share"] > 0.9
+
+
+@pytest.mark.parametrize("name", WALK_FAMILY)
+def test_walk_replayed_loop_equals_eager_steps(dev, name):
+    """A loop of LOOP_SPL replays equals as many eager steps under SGD bit
+    for bit: the tables' backward sums in a fixed order
+    (``Embed(fixed_order=True)``). No kernel is launched."""
+    graph, _ = walk_setup(dev, name)
+    cfg = RunConfig(batch_size=256, total_steps=2 * LOOP_SPL,
+                    optimizer="sgd", learning_rate=0.05, log_steps=0,
+                    steps_per_loop=LOOP_SPL, seed=3, metric="mrr")
+    ests = [NodeEstimator(walk_setup(dev, name)[1], graph, c, device=dev)
+            for c in (cfg, dataclasses.replace(cfg, steps_per_loop=1))]
+    losses = []
+    before = (fd.fan_draw.launches, gr.gather_rows.launches)
+    for est in ests:
+        losses.append(est.train()["loss"])
+    torch.cuda.synchronize()
+    assert (fd.fan_draw.launches, gr.gather_rows.launches) == before
+    assert np.isfinite(losses[0]) and losses[0] == losses[1]
+    assert all(torch.equal(a, b) for a, b in zip(ests[0].model.parameters(),
+                                                 ests[1].model.parameters()))
+    assert 0 < ests[0].evaluate(np.arange(512))["mrr"] <= 1

@@ -140,6 +140,7 @@ def test_entry_points_need_cuda_or_an_explicit_device(monkeypatch,
 
 
 def test_unported_packs_are_refused():
-    # "ell" is ported (tests/test_torch_whole.py); "adj" is not yet
+    # every pack of the reference is ported ("group", "adj" and "sample":
+    # tests/test_torch_verbs.py); a name that is none of them is refused
     with pytest.raises(NotImplementedError, match="not ported"):
-        random_graph(10, 2, packs=("fan", "adj"), device="cpu")
+        random_graph(10, 2, packs=("fan", "adjacency"), device="cpu")

@@ -39,7 +39,8 @@ def test_port_modules_import_without_jax():
     names = [m.name for m in pkgutil.walk_packages(
         euler_tpu_torch.__path__, "euler_tpu_torch.")]
     for name in ("serving", "bench", "utils.hooks", "utils.config",
-                 "utils.io", "utils.dense"):
+                 "utils.io", "utils.dense", "ops.walk", "ops.util_ops",
+                 "models.walk_models"):
         assert f"euler_tpu_torch.{name}" in names
     env = dict(os.environ, PYTHONPATH=REPO)
     out = subprocess.run([sys.executable, "-c", _CHECK], cwd=REPO, env=env,

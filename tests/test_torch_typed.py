@@ -338,3 +338,84 @@ def test_union_draw_needs_one_row_per_node():
     with pytest.raises(ValueError, match="union rows"):
         fd.fan_draw(packs, torch.zeros(2, dtype=torch.int32), 0, 2, u, u,
                     union=True)
+
+
+# ------------------------------------------ the row cdf past 16 columns --
+
+@pytest.mark.parametrize("K", [8, 17, 18, 40, 300])
+def test_row_cdf_matches_jnp_cumsum(K):
+    # XLA's CPU cumsum adds left to right up to 16 columns and in blocks
+    # of 16 past that; the type pick compares against its sums
+    rng = np.random.default_rng(K)
+    w = (rng.random((400, K)) * rng.choice([1e-3, 1.0, 7.0, 300.0],
+                                           (400, 1))).astype(np.float32)
+    w[::9, rng.integers(0, K)] = 0.0
+    got = sampling.row_cdf(torch.from_numpy(w)).numpy()
+    want = np.asarray(jnp.cumsum(jnp.asarray(w), axis=1))
+    assert got.dtype == want.dtype and got.shape == (400, K)
+    np.testing.assert_array_equal(got, want)
+
+
+@pytest.fixture(scope="module")
+def forty_types():
+    # 40 edge types, about 7 edges of each a node, fan and sample packs
+    # and the in-CSR
+    with native_off(("build_csr_native",)):
+        kw = dict(seed=5, num_edge_types=40, packs=("fan", "sample"),
+                  build_in_edges=True)
+        return (jax_random_graph(60, 300, **kw),
+                random_graph(60, 300, device="cpu", **kw))
+
+
+def boundary_uniforms(w: np.ndarray) -> np.ndarray:
+    """Type-pick uniforms [B, 3K] that land each draw's ``u * total`` on
+    or next to one of the reference's running sums of ``w`` [B, K], where
+    a running sum added in another order sends a draw to another type."""
+    cdf = np.asarray(jnp.cumsum(jnp.asarray(w), axis=1))
+    u = (cdf / cdf[:, -1:]).astype(np.float32)
+    u = np.concatenate([u, np.nextafter(u, np.float32(0)),
+                        np.nextafter(u, np.float32(1))], axis=1)
+    return np.minimum(u, np.nextafter(np.float32(1), np.float32(0)))
+
+
+@pytest.mark.parametrize("verb", ["fan", "sample", "in"])
+def test_typed_hop_over_forty_types_bit_exact(monkeypatch, forty_types,
+                                              verb):
+    gj, gt = forty_types
+    ets = tuple(np.random.default_rng(1).permutation(40).tolist())
+    nodes = np.arange(-1, 40, dtype=np.int32)
+    t = gt.tensors
+    w_all = (t.in_group_w_sum if verb == "in" else t.group_w_sum).numpy()
+    ut = boundary_uniforms(w_all[np.maximum(nodes, 0)][:, list(ets)])
+    B, C = ut.shape
+    rng = np.random.default_rng(2)
+    u1, u2 = (rng.random((B, C)).astype(np.float32) for _ in range(2))
+    fed = [ut, u1, u2]
+    # the reference's draws read these uniforms in order, for its key's
+    real = jax.random.uniform
+    monkeypatch.setattr(jax.random, "uniform",
+                        lambda k, shape, *a, **kw: jnp.asarray(fed.pop(0)))
+    key, n = jax.random.PRNGKey(0), jnp.asarray(nodes)
+    if verb == "fan":
+        want = jax_sampling.sample_neighbor_fast(gj.tensors, key, n, ets, C,
+                                                 return_types=True)
+        got = sampling.select_typed_neighbors(
+            t, torch.from_numpy(nodes), ets, *map(torch.from_numpy,
+                                                  (ut, u1, u2)),
+            return_types=True)
+        # ids, validity and types
+        want = (want[0], want[1], want[2])
+    else:
+        fn = jax_sampling.sample_neighbor if verb == "sample" else \
+            jax_sampling.sample_in_neighbor
+        sel = sampling.select_sampled_neighbors if verb == "sample" else \
+            sampling.select_in_neighbors
+        want = fn(gj.tensors, key, n, ets, C)
+        got = sel(t, torch.from_numpy(nodes), ets,
+                  *map(torch.from_numpy, (ut, u1, u2)))
+    monkeypatch.setattr(jax.random, "uniform", real)
+    assert not fed
+    for a, b in zip(got, want):
+        np.testing.assert_array_equal(a.numpy(), np.asarray(b))
+    ty = got[2].numpy()
+    assert len(set(ty[ty >= 0].tolist())) == 40
