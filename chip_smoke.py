@@ -211,6 +211,33 @@ Phases, in order; any failure propagates and the exit code is not 0:
               kernel, and phase 12e's loop checks with SGD and
               steps_per_loop 10 (replays bit for bit, 0 + 0 launches held
               against a trace, a profiled window of 20 replays)
+ 12j. rest    this slice's families, f32, Adam 1e-3: on random_graph(
+              200_000, 25, feat_dim=128, n_classes=16, seed=0, packs=(
+              "group", "adj", "sample", "fan")) at batch 1024 and dims
+              (128, 128), adaptivegcn and fastgcn (GNNNet gcn over
+              LayerwiseDataFlow / FastDataFlow([1024, 1024]), 8
+              candidates a node), GAE, VGAE and DGI (gcn over
+              SageDataFlow([10, 10]), 5 negatives), GeniePath ([10, 10])
+              and LGCN ([6, 6], k 4) under SuperviseModel, ScalableSageNet
+              (2 layers, fanout 10, mean, one [200,001, 128] store),
+              SolutionModel (DenseLogits over sage [10, 10]) by
+              NodeEstimator and by SampleEstimator over a [100,000, 1]
+              table, SampleSolutionModel (two sage towers in GroupGNNNet,
+              PosNegLogits, xent_loss); on motif_graph(188) gin ([5, 5],
+              hidden 32, batch 32 graphs) with mean pooling and with
+              set2set, by GraphEstimator. Each: one loop of 10 steps
+              (the first eager, one captured and replayed) against 10
+              eager steps, loss and state (the scalable store too) equal
+              bit for bit (the pools sum in a fixed order), each kernel
+              launch inside the replays
+              equal to its plain version, the counts per step as
+              REST_LAUNCHES; a loop of replays timed beside eager steps,
+              one profiled (busy and idle time, held launches against the
+              trace), peak memory; then one step card vs CPU on a
+              10,000-node graph of the same kind (the motif graph for the
+              graph families) from the same weights, batch and draws: loss
+              and every gradient within 1e-4, the layer draws equal but
+              for near ties of their Gumbel keys
  13. bench    the port's bench (euler_tpu_torch/bench.py) in each mode,
               sage, gin, gat, rgcn, the eight of bench.CONV_MODES, gcn and
               transe, at bench.py's width,
@@ -226,7 +253,7 @@ Phases, in order; any failure propagates and the exit code is not 0:
               {"ok": true, "device": {...}}
 
 Phases 12c, 12d, 12e, 12f, 12h and the dedup part of 12i run after 12
-in that order, then the walk part of 12i, 12b and 12g.
+in that order, then the walk part of 12i, 12j, 12b and 12g.
 
 It exits non-zero, with no result line, where torch.cuda.is_available()
 is false or the euler_tpu_torch package is missing.
@@ -254,16 +281,26 @@ import torch
 from euler_tpu_torch import bench
 from euler_tpu_torch._build import (NVCC_FLAGS, PACKAGE_DIR,
                                     build_shared_library, nvcc)
-from euler_tpu_torch.dataflow import SageDataFlow, WholeDataFlow
+from euler_tpu_torch.dataflow import (FastDataFlow, LayerwiseDataFlow,
+                                      SageDataFlow, WholeDataFlow)
 from euler_tpu_torch.dataflow import block as block_lib
-from euler_tpu_torch.datasets import random_graph
-from euler_tpu_torch.estimator import (EdgeEstimator, NodeEstimator,
-                                       RunConfig, TrainLoop, get_optimizer)
+from euler_tpu_torch.datasets import motif_graph, random_graph
+from euler_tpu_torch.datasets.synthetic import (MOTIF_CLASSES,
+                                                MOTIF_FEATURE_DIM)
+from euler_tpu_torch.estimator import (EdgeEstimator, GaeEstimator,
+                                       GraphEstimator, NodeEstimator,
+                                       RunConfig, SampleEstimator, TrainLoop,
+                                       get_optimizer, make_graph_batch)
 from euler_tpu_torch.graph.meta import FeatureSpec, GraphMeta
 from euler_tpu_torch.graph.store import Graph
-from euler_tpu_torch.models import (LINE, DeepWalk, GNNNet, JKGNNNet,
-                                    Node2Vec, ShallowEncoder, SuperviseModel,
-                                    UnsuperviseModel, convs, encoders, kg)
+from euler_tpu_torch.models import (DGI, GAE, LINE, VGAE, DeepWalk,
+                                    GeniePathLazyNet, GNNNet, GraphModel,
+                                    GroupGNNNet, JKGNNNet, LGCNNet, Node2Vec,
+                                    SampleSolutionModel, ScalableSageNet,
+                                    SegmentPool, Set2SetPool, ShallowEncoder,
+                                    SolutionModel, SuperviseModel,
+                                    UnsuperviseModel, autoencoders, convs,
+                                    encoders, kg)
 from euler_tpu_torch.native import loader as native
 from euler_tpu_torch.ops import COUNTED
 from euler_tpu_torch.ops import fan_draw as fd
@@ -2807,6 +2844,368 @@ def phase_dedup(graph, dev) -> dict:
     return out
 
 
+# -------------------------------------------------------------- phase 12j --
+
+# this slice's families on one graph: the sage graph's width with the
+# general packs (select_layer, sparse_get_adj and scalable's draw read
+# them); batch 1024, dims (128, 128), f32, Adam 1e-3
+REST_PACKS = ("group", "adj", "sample", "fan")
+REST_FANOUTS, REST_NEGS, REST_SPL = [10, 10], 5, 10
+# examples/common.py:173-174 at batch 1024: layers of max(64, batch) nodes
+LAYER_SIZES, LAYER_CPN = [BATCH, BATCH], 8
+LGCN_FANOUTS, LGCN_K = [6, 6], 4
+SAMPLE_ROWS = 100_000
+# run_graph_conv_example's settings over MotifDataset at MUTAG's count
+MOTIF_GRAPHS, MOTIF_FANOUTS, MOTIF_HIDDEN, MOTIF_BATCH = 188, [5, 5], 32, 32
+# the card-vs-CPU step: a 10,000-node graph of the same kind
+REST_CPU_NODES, REST_CPU_BATCH = 10_000, 128
+REST_FAMILIES = ("adaptivegcn", "fastgcn", "gae", "vgae", "dgi",
+                 "geniepath", "lgcn", "scalable", "solution",
+                 "sample_solution", "solution_samples", "gin_mean",
+                 "gin_set2set")
+# launches a step: fan_draw per sampled hop of each tower call, gather_rows
+# per tower call (features) and per label fetch; the layerwise flows and
+# the scalable hop draw through select_sampled_neighbors (no fan_draw)
+REST_LAUNCHES = {
+    "adaptivegcn": (0, 2), "fastgcn": (0, 2), "gae": (6, 3),
+    "vgae": (6, 3), "dgi": (4, 2), "geniepath": (2, 2), "lgcn": (2, 2),
+    "scalable": (0, 3), "solution": (2, 2), "sample_solution": (4, 2),
+    "solution_samples": (2, 2), "gin_mean": (2, 2), "gin_set2set": (2, 2)}
+
+
+def rest_model(name: str, dev, n_nodes: int):
+    """The family's model, weights from seed 0, for a graph of
+    ``n_nodes`` nodes (the scalable store's rows)."""
+    gen = torch.Generator().manual_seed(0)
+    et = [(0,)] * 2
+
+    def enc():
+        return ShallowEncoder(("feature",))
+
+    def gnn(conv, flow, dims=DIMS, in_dim=FEAT_DIM):
+        return GNNNet(conv, flow, dims, enc(), in_dim=in_dim, device=dev,
+                      generator=gen)
+
+    def sage():
+        return gnn("sage", SageDataFlow(REST_FANOUTS, et))
+
+    def sup(net):
+        return SuperviseModel(net, "label", N_CLASSES, device=dev,
+                              generator=gen)
+    if name in ("adaptivegcn", "fastgcn"):
+        cls = LayerwiseDataFlow if name == "adaptivegcn" else FastDataFlow
+        return sup(gnn("gcn", cls(LAYER_SIZES, et,
+                                  candidates_per_node=LAYER_CPN)))
+    if name in ("gae", "vgae"):
+        cls = GAE if name == "gae" else VGAE
+        return cls(gnn("gcn", SageDataFlow(REST_FANOUTS, et)), (0,),
+                   num_negs=REST_NEGS, device=dev, generator=gen)
+    if name == "dgi":
+        return DGI(gnn("gcn", SageDataFlow(REST_FANOUTS, et)),
+                   num_negs=REST_NEGS, device=dev, generator=gen)
+    if name == "geniepath":
+        return sup(GeniePathLazyNet(SageDataFlow(REST_FANOUTS, et), DIMS,
+                                    enc(), FEAT_DIM, device=dev,
+                                    generator=gen))
+    if name == "lgcn":
+        return sup(LGCNNet(SageDataFlow(LGCN_FANOUTS, et), DIMS + DIMS[-1:],
+                           enc(), FEAT_DIM, k=LGCN_K, device=dev,
+                           generator=gen))
+    if name == "scalable":
+        return sup(ScalableSageNet((0,), 2, DIMS[0], enc(), FEAT_DIM,
+                                   n_nodes, fanout=REST_FANOUTS[0],
+                                   device=dev, generator=gen))
+    if name in ("solution", "solution_samples"):
+        return SolutionModel(sage(), "label", N_CLASSES, device=dev,
+                             generator=gen)
+    if name == "sample_solution":
+        return SampleSolutionModel(GroupGNNNet([sage(), sage()], device=dev),
+                                   (0,), num_negs=REST_NEGS, device=dev)
+    h = MOTIF_HIDDEN
+    net = GNNNet("gin", SageDataFlow(MOTIF_FANOUTS, et), (h, h, h), enc(),
+                 in_dim=MOTIF_FEATURE_DIM, device=dev, generator=gen)
+    pool = SegmentPool(h, MOTIF_BATCH, "mean") if name == "gin_mean" else \
+        Set2SetPool(h, MOTIF_BATCH, h, generator=gen)
+    return GraphModel(net, pool, MOTIF_CLASSES, device=dev, generator=gen)
+
+
+def rest_estimator(name: str, model, graph, cfg, dev):
+    if name in ("gae", "vgae", "dgi"):
+        return GaeEstimator(model, graph, cfg, device=dev)
+    if name == "solution_samples":
+        rows = np.random.default_rng(7).integers(
+            0, graph.meta.n_nodes, (SAMPLE_ROWS, 1))
+        return SampleEstimator(model, graph, cfg, rows, device=dev)
+    if name.startswith("gin_"):
+        return GraphEstimator(model, graph, cfg, "label", MOTIF_CLASSES,
+                              device=dev)
+    return NodeEstimator(model, graph, cfg, device=dev)
+
+
+class DrawReplay:
+    """Records each draw a model makes (the uniforms and normals of the
+    port's draw functions, outermost calls only) and each layer select on
+    the card, then replays them, moved to the CPU, in the same order: the
+    same step on the CPU from the card's draws. The layer selects are
+    replayed too, because their Gumbel keys pass through ``log``, whose
+    last bit the card and the CPU may round otherwise; ``check_layers``
+    holds each recorded select against the CPU's by the near-tie rule."""
+
+    SITES = ((sampling, "draw_neighbor_uniforms"),
+             (sampling, "draw_layer_uniforms"),
+             (sampling, "draw_sample_uniforms"),
+             (sampling, "draw_node_uniforms"),
+             (autoencoders, "draw_normals"), (sampling, "select_layer"))
+
+    def __init__(self):
+        self.calls, self.replay, self.depth = [], None, 0
+
+    def __enter__(self):
+        self._saved = [(m, n, getattr(m, n)) for m, n in self.SITES]
+        for m, n, fn in self._saved:
+            setattr(m, n, self._wrap(n, fn))
+        return self
+
+    def __exit__(self, *exc):
+        for m, n, fn in self._saved:
+            setattr(m, n, fn)
+
+    def replaying(self):
+        self.replay = iter(self.calls)
+        return self
+
+    def _wrap(self, name, fn):
+        def call(*args, **kwargs):
+            if self.depth:
+                return fn(*args, **kwargs)
+            if self.replay is not None:
+                got, _, out = next(self.replay)
+                check(got == name, f"replayed draws out of order: {name} "
+                                   f"where {got} was drawn")
+                return to_device(out, "cpu")
+            self.depth += 1
+            try:
+                out = fn(*args, **kwargs)
+            finally:
+                self.depth -= 1
+            self.calls.append((name, (args, kwargs), out))
+            return out
+        return call
+
+    def check_layers(self, g_cpu) -> dict:
+        """Each layer select on the CPU from the card's inputs: ids equal
+        at every place but those whose key lies within 4 ulps of a
+        neighbour's, and equal as sets unless such a near tie sits at the
+        layer's edge; the number of places with a near tie."""
+        near_places = selects = 0
+        for name, (args, kwargs), out in self.calls:
+            if name != "select_layer":
+                continue
+            selects += 1
+            ids = out[0]
+            a = to_device(list(args[1:]), "cpu")
+            ids_c, _ = self._saved[-1][2](g_cpu, *a, **kwargs)
+            g, frontier, ets, cpn, m, u = (g_cpu, *a[:5])
+            keyed = sampling.layer_keys(g, frontier, ets, cpn, u, *a[5:])[2]
+            top = keyed.sort(descending=True).values[:m + 1]
+            ulp = torch.nextafter(top.abs(), torch.tensor(float("inf"))) \
+                - top.abs()
+            # near[i]: keys i and i + 1 within 4 ulps (False past the keys)
+            near = torch.zeros(m + 1, dtype=torch.bool)
+            near[:top.numel() - 1] = top[:-1] - top[1:] <= 4 * ulp[:-1]
+            tie = near[:m] | torch.cat([near[:1] & False, near[:m - 1]])
+            same = ids.cpu() == ids_c
+            check(bool(same[~tie].all()), "layer select card != CPU away "
+                                          "from a near tie")
+            check(torch.equal(ids.cpu().sort().values, ids_c.sort().values)
+                  or bool(near[m - 1]), "layer select card != CPU as sets")
+            near_places += int(tie.sum())
+        return dict(layer_selects=selects, near_tie_places=near_places)
+
+
+def rest_vs_cpu(name: str, dev) -> dict:
+    """One train step of the family on a 10,000-node graph of the same
+    kind (the motif graph for the graph families) on the card and on the
+    CPU from the same weights, batch and draws (``DrawReplay``): loss and
+    every gradient within PARITY_TOL."""
+    graph_cls = name.startswith("gin_")
+    graph = motif_graph(MOTIF_GRAPHS, device=dev) if graph_cls else \
+        random_graph(REST_CPU_NODES, AVG_DEGREE, feat_dim=FEAT_DIM,
+                     n_classes=N_CLASSES, seed=0, packs=REST_PACKS,
+                     device=dev)
+    g, g_cpu = graph.tensors, graph.tensors.to(torch.device("cpu"))
+    model = rest_model(name, dev, graph.meta.n_nodes)
+    model_cpu = copy.deepcopy(model).to("cpu")
+    gen = torch.Generator(device=dev).manual_seed(61)
+    if graph_cls:
+        n = MOTIF_BATCH
+        ids = torch.randint(0, MOTIF_GRAPHS, (n,), generator=gen,
+                            device=dev, dtype=torch.int32)
+        batch, batch_cpu = (make_graph_batch(gg, i, "label", MOTIF_CLASSES)
+                            for gg, i in ((g, ids), (g_cpu, ids.cpu())))
+    else:
+        n = REST_CPU_BATCH
+        batch = sampling.sample_node(g, n, -1, gen)
+        batch_cpu = batch.cpu()
+    outs = []
+    with DrawReplay() as rec:
+        for m, gg, b, gn in ((model, g, batch, gen),
+                             (model_cpu, g_cpu, batch_cpu, None)):
+            m.train()
+            m.zero_grad(set_to_none=True)
+            outs.append(m(gg, b, generator=gn))
+            outs[-1]["loss"].backward()
+            rec.replaying()
+        layers = rec.check_layers(g_cpu)
+    card, cpu = outs
+    loss_card, loss_cpu = card["loss"].item(), cpu["loss"].item()
+    check(bool(np.isclose(loss_card, loss_cpu, **PARITY_TOL)),
+          f"{name}: loss card {loss_card} vs CPU {loss_cpu}")
+    grads_cpu = dict(model_cpu.named_parameters())
+    diffs = []
+    for k, p in model.named_parameters():
+        q = grads_cpu[k]
+        check(p.grad is not None and q.grad is not None
+              and torch.allclose(p.grad.cpu(), q.grad, **PARITY_TOL),
+              f"{name}: gradient of {k} card vs CPU")
+        diffs.append(float((p.grad.cpu() - q.grad).abs().max()))
+    emb_diff = float((card["embedding"].detach().cpu()
+                      - cpu["embedding"].detach()).abs().max())
+    check(emb_diff <= 1e-4 + 1e-4 * float(cpu["embedding"].abs().max()),
+          f"{name}: embeddings card vs CPU differ by {emb_diff}")
+    return dict(nodes=graph.meta.n_nodes, batch=n, loss=loss_cpu,
+                loss_abs_diff=abs(loss_card - loss_cpu),
+                max_grad_abs_diff=max(diffs),
+                embedding_max_abs_diff=emb_diff, draws=len(rec.calls),
+                **layers)
+
+
+def rest_loop(name: str, graph, dev, seed: int) -> dict:
+    """The family's loop checks at full width: an estimator training one
+    loop of REST_SPL steps (the first eager, the next captured and
+    replayed) against one training REST_SPL eager steps from the same
+    weights, seed and reservoir rows: loss and parameters (and the
+    scalable store) equal bit for bit,
+    each kernel launch inside the replays equal to its plain version,
+    both runs' counts REST_LAUNCHES a step. Then a TrainLoop of its own:
+    a loop of replays timed (host clock) beside eager steps, one loop
+    profiled (busy and idle time; ``check_held``), and the peak memory
+    of the replayed run."""
+    t_start = time.perf_counter()
+    g = graph.tensors
+    fan, gat = REST_LAUNCHES[name]
+    per_step = dict(fan_draw=fan, gather_rows=gat)
+    bs = MOTIF_BATCH if name.startswith("gin_") else BATCH
+    cfg = RunConfig(batch_size=bs, total_steps=REST_SPL,
+                    learning_rate=bench.LR, log_steps=0,
+                    reservoir_refresh=0, steps_per_loop=REST_SPL, seed=seed,
+                    metric="mrr")
+
+    def make(c):
+        return rest_estimator(name, rest_model(name, dev, graph.meta.n_nodes),
+                              graph, c, dev)
+    graphed = make(cfg)
+    eager = make(dataclasses.replace(cfg, steps_per_loop=1))
+    eager.model.load_state_dict(graphed.model.state_dict())
+    runs, rec = {}, KernelRecorder()
+    for kind, est in (("eager", eager), ("graph", graphed)):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        reset_counts()
+        t0 = time.perf_counter()
+        if kind == "graph":
+            with rec:
+                res = est.train(log_fn=lambda _: None)
+        else:
+            res = est.train(log_fn=lambda _: None)
+        torch.cuda.synchronize()
+        runs[kind] = dict(res=res, launches=read_counts(),
+                          train_s=time.perf_counter() - t0,
+                          peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9)
+    want = {k: n * REST_SPL for k, n in per_step.items()}
+    for kind, r in runs.items():
+        check(r["launches"] == want, f"{name}: launches of the {kind} run "
+                                     f"{r['launches']}, want {want}")
+    loss_g, loss_e = runs["graph"]["res"]["loss"], runs["eager"]["res"]["loss"]
+    check(bool(np.isfinite(loss_g)), f"{name}: loss {loss_g}")
+    state_e = eager.model.state_dict()
+    pairs = [(v, state_e[k]) for k, v in graphed.model.state_dict().items()]
+    max_diff = max(float((p - q).abs().max()) for p, q in pairs)
+    bit_equal = loss_g == loss_e and all(torch.equal(p, q) for p, q in pairs)
+    check(bit_equal, f"{name}: graph != eager bit for bit: loss {loss_g} "
+                     f"vs {loss_e}, state {max_diff}")
+    in_replay = rec.check_plain(name)
+    for k, n in per_step.items():
+        check((in_replay[k] > 0) == (n > 0),
+              f"{name}: {in_replay[k]} {k} launches recorded in the capture")
+    del rec, eager
+
+    gen = torch.Generator(device=dev).manual_seed(seed + 100)
+    opt = get_optimizer("adam", bench.LR, graphed.model.parameters())
+    loop = TrainLoop(graphed, opt, gen, REST_SPL,
+                     lambda: graphed.train_batch(g, gen))
+    loop()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    loss = loop()
+    torch.cuda.synchronize()
+    replay_ms = (time.perf_counter() - t0) / REST_SPL * 1e3
+    check(bool(torch.isfinite(loss)), f"{name}: replayed loss finite")
+    prof = profile(loop, f"{name}: a loop of {REST_SPL} replays")
+    check_held(loop, per_step, prof, name)
+    gen_e = torch.Generator(device=dev).manual_seed(seed + 200)
+    graphed.step(opt, graphed.train_batch(g, gen_e), generator=gen_e)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(4):
+        loss = graphed.step(opt, graphed.train_batch(g, gen_e),
+                            generator=gen_e)
+    torch.cuda.synchronize()
+    eager_ms = (time.perf_counter() - t0) / 4 * 1e3
+    check(bool(torch.isfinite(loss)), f"{name}: eager loss finite")
+    return dict(
+        steps=REST_SPL, bit_equal=bit_equal,
+        loss_graph=loss_g, loss_eager=loss_e, max_state_diff=max_diff,
+        launches=runs["graph"]["launches"], held_per_replay=loop.held,
+        kernel_launches_checked_in_replay=in_replay,
+        replay_ms_per_step=replay_ms, eager_ms_per_step=eager_ms,
+        busy_ms_per_step=prof["device_busy_ms"] / REST_SPL,
+        device_idle_share=prof["device_idle_share"],
+        profile_complete=prof["kernel_events_complete"],
+        graph_peak_mem_gb=runs["graph"]["peak_mem_gb"],
+        eager_peak_mem_gb=runs["eager"]["peak_mem_gb"],
+        graph_train_s=runs["graph"]["train_s"],
+        eager_train_s=runs["eager"]["train_s"],
+        top_kernels=prof["kernels"][:4],
+        seconds=time.perf_counter() - t_start)
+
+
+def phase_rest(dev) -> dict:
+    """This slice's families (REST_FAMILIES): the node families on
+    random_graph(200_000, 25, feat_dim=128, n_classes=16, seed=0,
+    packs=REST_PACKS), the graph families on motif_graph(188). Each:
+    ``rest_loop`` at full width, then ``rest_vs_cpu`` on a 10,000-node
+    graph of the same kind."""
+    t0 = time.perf_counter()
+    graph = random_graph(N_NODES, AVG_DEGREE, feat_dim=FEAT_DIM,
+                         n_classes=N_CLASSES, seed=0, packs=REST_PACKS,
+                         device=dev)
+    motif = motif_graph(MOTIF_GRAPHS, device=dev)
+    out = dict(graph_s=time.perf_counter() - t0)
+    log(f"rest: graphs built in {out['graph_s']:.1f} s")
+    for i, name in enumerate(REST_FAMILIES):
+        t1 = time.perf_counter()
+        res = dict(loop=rest_loop(name, motif if name.startswith("gin_")
+                                  else graph, dev, 300 + i),
+                   vs_cpu=rest_vs_cpu(name, dev))
+        res["seconds"] = time.perf_counter() - t1
+        log(f"rest {name}: {json.dumps(res)}")
+        out[name] = res
+    out["seconds"] = time.perf_counter() - t0
+    log(f"rest: {out['seconds']:.1f} s")
+    return out
+
+
 # --------------------------------------------------------------- phase 13 --
 
 def phase_bench(dev):
@@ -3004,6 +3403,10 @@ def main() -> int:
     allocated_after("del graph")
     walks = phase_walk(dev)
     allocated_after("walk")
+    # 12j. this slice's families: the layerwise flows and the rest of the
+    # models
+    rest = phase_rest(dev)
+    allocated_after("rest")
     # 12b. whole-graph gcn; 12g. the examples' whole-graph convs
     gcn = phase_gcn(dev)
     allocated_after("gcn")
@@ -3043,6 +3446,9 @@ def main() -> int:
         path_launches.update({
             f"{model}_evaluate_infer": walks[model]["serve"]["launches"],
             f"loop_{model}": walks[model]["loop"]["launches"]})
+
+    path_launches.update({f"loop_{family}": rest[family]["loop"]["launches"]
+                          for family in REST_FAMILIES})
 
     def by_path(name):
         return {path: n[name] for path, n in path_launches.items()}
@@ -3119,7 +3525,7 @@ def main() -> int:
         native_core=native.available(), infer=infer, parity=parity,
         train=train, grads=grads, families=families, gcn=gcn,
         convs=conv_runs, whole=whole, encoder=encoder, transe=transe,
-        dedup=dedup, walk=walks,
+        dedup=dedup, walk=walks, rest=rest,
         unsup={k: v for k, v in unsup.items() if k != "kernels"}, loop=loop,
         bench=benched, allocated_gb_after=allocated)}))
     log(smi)                # nvidia-smi's name and power limit, as given

@@ -17,9 +17,12 @@ None, e.g. the whole graph's edge list) gathers and scatters through
 that also carries ``ell_tpos``: a conv may hand it the compact [N, D]
 table instead of the expanded source set, and ``aggregate_neighbors``
 then runs ``_ell_agg``, whose backward is a gather over the transpose
-positions and never a scatter. The reference's shared-source (layerwise)
-and distributed (``psum_axis``) blocks are not ported: no flow of the
-port builds them yet.
+positions and never a scatter. A shared-source block (the layerwise
+flows') is a fanout block whose ``fanout`` sources are one layer shared
+by every target: edge t*fanout+j has dst=t and src=T+j, so the per-edge
+views broadcast the layer and the source-side sums reduce over the
+targets. The reference's distributed (``psum_axis``) blocks wait for the
+sharded store.
 """
 from __future__ import annotations
 
@@ -45,6 +48,10 @@ class Block:
     # regular layout marker (see the module docstring); None = irregular
     fanout: Optional[int] = None
     self_loops: bool = False
+    # shared-source variant of the regular layout (layerwise blocks): edge
+    # t*fanout+j connects dst=t to src=T+j, the same ``fanout`` sources
+    # for every target
+    shared_src: bool = False
     # edge type per block edge (-1 for invalid draws and self loops), from
     # a typed sampling hop; RGCN's relation_from_etype reads it
     e_type: Optional[torch.Tensor] = None
@@ -84,9 +91,14 @@ class Block:
         if self.fanout is None:
             return mp_ops.gather(x_src, self._edges64[1])
         T = self.size[0]
+        sampled = x_src[T:]
+        if self.shared_src:
+            tail = tuple(sampled.shape[1:])
+            sampled = sampled[None].expand((T, self.fanout) + tail).reshape(
+                (T * self.fanout,) + tail)
         if not self.self_loops:
-            return x_src[T:]
-        return torch.cat([x_src[T:], x_src[:T]])
+            return sampled
+        return torch.cat([sampled, x_src[:T]])
 
     def gather_tgt(self, v: torch.Tensor) -> torch.Tensor:
         """Per-edge view of target values: v[edge_index[0]] (v has size[0]
@@ -162,11 +174,12 @@ class Block:
                             ) -> torch.Tensor:
         """``scatter(op, gather_src(x_src) * scale, mask)``. Regular
         blocks read strided views of ``x_src`` without the per-edge copy;
-        a compact table of a whole-graph ELL block goes through
-        ``_ell_agg`` for add and mean. ``scale`` is an optional per-edge
-        multiplier ([E] or [E, 1], e.g. GCN's sym-norm or GAT's
-        attention), taken in the dtype of ``x_src`` as the reference
-        does."""
+        a shared-source block sums add and mean of a 2-D ``x_src`` as one
+        product with its layer (``_shared_aggregate``); a compact table of
+        a whole-graph ELL block goes through ``_ell_agg`` for add and
+        mean. ``scale`` is an optional per-edge multiplier ([E] or [E, 1],
+        e.g. GCN's sym-norm or GAT's attention), taken in the dtype of
+        ``x_src`` as the reference does."""
         if scale is not None and scale.dim() == 1:
             scale = scale[:, None]
         if self._is_compact(x_src):
@@ -179,9 +192,14 @@ class Block:
                 xj = xj * scale.to(xj.dtype)
             return mp_ops.masked_scatter_(op, xj, self._edges64[0],
                                           self.size[0], mask)
+        if self.shared_src and op in ("add", "mean") and x_src.dim() == 2:
+            return self._shared_aggregate(op, x_src, mask, scale)
         T, C = self.size[0], self.fanout
         tail = tuple(x_src.shape[1:])
-        up_s = x_src[T:].reshape((T, C) + tail)
+        if self.shared_src:
+            up_s = x_src[T:][None].expand((T, C) + tail)
+        else:
+            up_s = x_src[T:].reshape((T, C) + tail)
         up_l = x_src[:T] if self.self_loops else None
         if scale is not None:
             s_s, s_l = self._split(scale.to(x_src.dtype))
@@ -190,6 +208,33 @@ class Block:
                 up_l = up_l * s_l
         m_s, m_l = self._split_mask(mask, x_src.dtype, x_src.dim() - 1)
         return self._reduce(op, up_s, up_l, m_s, m_l)
+
+    def _shared_aggregate(self, op: str, x_src: torch.Tensor, mask,
+                          scale) -> torch.Tensor:
+        """add or mean over a shared-source block as one product: the
+        per-edge weights (scale times mask, in the dtype of ``x_src``)
+        [T, C] times the shared layer [C, D], plus the self loops; never
+        the [T, C, D] broadcast. The mean divides as ``_reduce`` does."""
+        T, C = self.size[0], self.fanout
+        dt = x_src.dtype
+        w = torch.ones((self.edge_index.shape[1],), dtype=dt,
+                       device=x_src.device)
+        if scale is not None:
+            w = w * scale.reshape(-1).to(dt)
+        if mask is not None:
+            w = w * mask.to(dt)
+        out = w[:T * C].reshape(T, C) @ x_src[T:]
+        if self.self_loops:
+            out = out + x_src[:T] * w[T * C:, None]
+        if op == "add":
+            return out
+        if mask is None:
+            return out / (float(C) + (1.0 if self.self_loops else 0.0)
+                          + 1e-7)
+        cnt = mask[:T * C].reshape(T, C).to(dt).sum(dim=1)
+        if self.self_loops:
+            cnt = cnt + mask[T * C:].to(dt)
+        return out / cnt.clamp_min(1e-7)[:, None]
 
     def ell_weights(self, mask: Optional[torch.Tensor] = None,
                     scale: Optional[torch.Tensor] = None):
@@ -267,11 +312,17 @@ class Block:
             return mp_ops.scatter_add(updates, self._edges64[1],
                                       self.size[1])
         T, C = self.size[0], self.fanout
+        tail = tuple(updates.shape[1:])
+        if self.shared_src:
+            # one source column per layer node, summed over the targets
+            sampled = updates[:T * C].reshape((T, C) + tail).sum(dim=0)
+        else:
+            sampled = updates[:T * C]                    # slots T.. are 1:1
         if self.self_loops:
             head = updates[T * C:]
         else:
-            head = updates.new_zeros((T,) + tuple(updates.shape[1:]))
-        return torch.cat([head, updates[:T * C]])        # slots T.. are 1:1
+            head = updates.new_zeros((T,) + tail)
+        return torch.cat([head, sampled])
 
 
 class _EllExpand(torch.autograd.Function):

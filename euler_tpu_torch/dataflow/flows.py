@@ -2,10 +2,11 @@
 
 Counterpart of euler_tpu/dataflow/flows.py: ``SageDataFlow`` on its fast
 path (ids-only fan-row sampling; the reference's ``payload=False``, with
-or without ``typed``), ``GCNDataFlow`` and ``WholeDataFlow`` on one
-device. Every flow is called as ``flow(g, roots, generator=None,
-uniforms=None)`` and returns its blocks deepest first; ``num_layers`` is
-the number of blocks, one conv each. Flows that draw nothing ignore
+or without ``typed``), ``GCNDataFlow``, ``WholeDataFlow``,
+``LayerwiseDataFlow`` and ``FastDataFlow`` on one device, and the
+registry ``get_flow_class``. Every flow is called as ``flow(g, roots,
+generator=None, uniforms=None)`` and returns its blocks deepest first;
+``num_layers`` is the number of blocks, one conv each. Flows that draw nothing ignore
 ``generator`` and ``uniforms``.
 """
 from __future__ import annotations
@@ -15,7 +16,8 @@ from typing import Optional, Sequence
 
 import torch
 
-from euler_tpu_torch.dataflow.block import fanout_block, full_graph_block
+from euler_tpu_torch.dataflow.block import (Block, fanout_block,
+                                            full_graph_block)
 from euler_tpu_torch.ops import mp_ops, sampling
 
 
@@ -178,3 +180,115 @@ class WholeDataFlow:
         else:
             blk = full_graph_block(g, self.metapath[0], self.add_self_loops)
         return [blk] * self.num_layers
+
+
+class LayerwiseDataFlow:
+    """Layer-wise importance sampling (LADIES-style): each hop draws one
+    layer of ``layer_sizes[i]`` nodes shared by the whole frontier, with
+    the full frontier x layer adjacency.
+
+    reference: LayerwiseDataFlow (euler_tpu/dataflow/flows.py:245-311;
+    tf_euler/python/dataflow/layerwise_dataflow.py). Per hop:
+    ``sampling.select_layer`` (``candidates_per_node`` weighted draws a
+    frontier node, the best ``m`` of log(weight_func(w)) + Gumbel noise),
+    then the layer deduplicated (a node drawn through several candidates
+    keeps its first place, the others become -1: first places from an
+    argmax over the equality grid, the first maximal index winning as in
+    jnp), then ``sampling.sparse_get_adj`` of frontier x layer. The block
+    is ``shared_src`` over ``n_id = concat(frontier, layer)``: edge
+    t*m+j joins target t to layer node j, masked where they are not
+    adjacent (or either is -1) and weighted by the edge's weight, then T
+    self loops of weight 1.
+
+    ``weight_func`` is "sqrt" (the reference's default), "id", "uniform"
+    or a callable. A call takes ``generator`` or ``uniforms``, one
+    ``sampling.draw_layer_uniforms`` tuple per hop.
+    """
+
+    def __init__(self, layer_sizes: Sequence[int], metapath,
+                 add_self_loops: bool = True, candidates_per_node: int = 8,
+                 weight_func="sqrt"):
+        if len(layer_sizes) != len(metapath):
+            raise ValueError("need one metapath entry per layer size")
+        self.layer_sizes = list(layer_sizes)
+        self.metapath = list(metapath)
+        self.add_self_loops = add_self_loops
+        self.cpn = candidates_per_node
+        self.weight_func = weight_func
+
+    @property
+    def num_layers(self) -> int:
+        return len(self.layer_sizes)
+
+    def __call__(self, g, roots: torch.Tensor,
+                 generator: Optional[torch.Generator] = None,
+                 uniforms: Optional[Sequence] = None):
+        if uniforms is not None and len(uniforms) != len(self.layer_sizes):
+            raise ValueError(f"need {len(self.layer_sizes)} uniform tuples, "
+                             f"got {len(uniforms)}")
+        cur = roots.reshape(-1).to(torch.int32)
+        dev = cur.device
+        blocks = []
+        for hop, (ets, m) in enumerate(zip(self.metapath, self.layer_sizes)):
+            T = cur.shape[0]
+            u = uniforms[hop] if uniforms is not None else \
+                sampling.draw_layer_uniforms(generator, T, self.cpn, dev)
+            layer, _ = sampling.select_layer(g, cur, ets, self.cpn, m, u,
+                                             self.weight_func)
+            eq = (layer[None, :] == layer[:, None]).to(torch.uint8)
+            first = eq.argmax(dim=1)
+            layer = torch.where(first != torch.arange(m, device=dev), -1,
+                                layer)
+            conn, w2 = sampling.sparse_get_adj(g, cur, layer, ets)
+            conn = conn & (cur >= 0)[:, None] & (layer >= 0)[None, :]
+            n_id = torch.cat([cur, layer])
+            dst = torch.arange(T, dtype=torch.int32,
+                               device=dev).repeat_interleave(m)
+            src = T + torch.arange(m, dtype=torch.int32, device=dev).repeat(T)
+            mask = conn.to(torch.float32).reshape(-1)
+            w = torch.where(conn, w2, 0.0).reshape(-1)
+            e_id = torch.full((T * m,), -1, dtype=torch.int32, device=dev)
+            if self.add_self_loops:
+                loop = torch.arange(T, dtype=torch.int32, device=dev)
+                dst = torch.cat([dst, loop])
+                src = torch.cat([src, loop])
+                mask = torch.cat([mask, (cur >= 0).to(torch.float32)])
+                w = torch.cat([w, torch.ones((T,), dtype=w.dtype,
+                                             device=dev)])
+                e_id = torch.cat([e_id, torch.full(
+                    (T,), -1, dtype=torch.int32, device=dev)])
+            blocks.append(Block(
+                n_id=n_id,
+                res_n_id=torch.arange(T, dtype=torch.int32, device=dev),
+                edge_index=torch.stack([dst, src]), e_id=e_id,
+                edge_weight=w, mask=mask, size=(T, T + m), fanout=m,
+                self_loops=self.add_self_loops, shared_src=True))
+            cur = n_id
+        return blocks[::-1]
+
+
+class FastDataFlow(LayerwiseDataFlow):
+    """FastGCN: the layerwise flow with every candidate scored alike
+    (reference: flows.py:314-320, fast_dataflow.py)."""
+
+    def __init__(self, layer_sizes: Sequence[int], metapath, **kw):
+        kw.setdefault("weight_func", "uniform")
+        super().__init__(layer_sizes, metapath, **kw)
+
+
+_FLOWS = {
+    "sage": SageDataFlow,
+    "sample": SageDataFlow,
+    "full": GCNDataFlow,
+    "gcn": GCNDataFlow,
+    "whole": WholeDataFlow,
+    "layerwise": LayerwiseDataFlow,
+    "adapt": LayerwiseDataFlow,
+    "fast": FastDataFlow,
+}
+
+
+def get_flow_class(name: str):
+    """The flow class of a registry name, as the reference's
+    ``get_flow_class`` (flows.py:326-338; mp_utils/utils.py)."""
+    return _FLOWS[name]

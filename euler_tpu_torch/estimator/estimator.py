@@ -4,7 +4,9 @@ Counterpart of euler_tpu/estimator/estimator.py (reference:
 euler_estimator/python/base_estimator.py:28-188, node_estimator.py:26):
 ``RunConfig``, ``get_optimizer``, ``BaseEstimator.train``/``evaluate``/
 ``infer`` with ``steps_per_loop``, checkpoints and the profiler hook,
-``NodeEstimator`` and ``EdgeEstimator`` (edge_estimator.py:27). The
+``NodeEstimator``, ``EdgeEstimator`` (edge_estimator.py:27),
+``GaeEstimator``, ``SampleEstimator``, ``GraphEstimator`` and
+``make_graph_batch`` (estimator.py:390-514). The
 reference's jitted step with optax becomes an eager step with autograd and
 a torch.optim optimizer; its ``lax.scan`` of ``steps_per_loop`` steps
 becomes ``TrainLoop``: on the card, one train step captured as a CUDA
@@ -26,7 +28,7 @@ from __future__ import annotations
 import dataclasses
 import functools
 import os
-from typing import Callable, Dict, List, Optional, Sequence, Tuple
+from typing import Callable, Dict, List, Optional, Sequence, Tuple, Union
 
 import numpy as np
 import torch
@@ -34,9 +36,13 @@ import torch
 from euler_tpu_torch._device import resolve_device
 from euler_tpu_torch.graph.store import Graph
 from euler_tpu_torch.models.kg import rank_all_entities
-from euler_tpu_torch.ops import COUNTED, sampling
+from euler_tpu_torch.ops import COUNTED, feature_ops, sampling
 from euler_tpu_torch.utils import metrics as metrics_lib
 from euler_tpu_torch.utils.hooks import LoggingHook, ProfilerHook
+
+
+#: a model input: node ids, [B, 3] triples, or a dict of tensors
+Batch = Union[torch.Tensor, Dict[str, torch.Tensor]]
 
 
 def get_optimizer(name: str, lr: float, params) -> torch.optim.Optimizer:
@@ -100,7 +106,9 @@ class TrainLoop:
     """``steps`` optimizer steps as one call: the counterpart of the
     reference's ``lax.scan`` over its step (estimator.py:446-459).
 
-    Each step is ``estimator.step(optimizer, batch(), generator)``. On a
+    Each step is ``estimator.step(optimizer, batch(), generator)``;
+    ``batch()`` returns a tensor or a dict of tensors (a graph batch),
+    made inside the step, so that a capture holds each by its address. On a
     CUDA device with ``steps > 1`` the first call runs one such step
     eagerly on the device's ``capture_stream`` (the warm-up: it builds
     the optimizer's state, the kernels' libraries, the cached constants
@@ -124,7 +132,7 @@ class TrainLoop:
     def __init__(self, estimator: "BaseEstimator",
                  optimizer: torch.optim.Optimizer,
                  generator: torch.Generator, steps: int,
-                 batch: Callable[[], torch.Tensor]):
+                 batch: Callable[[], Batch]):
         self.estimator, self.optimizer = estimator, optimizer
         self.generator, self.steps, self.batch = generator, steps, batch
         self.graphed = steps > 1 and estimator.device.type == "cuda"
@@ -195,16 +203,17 @@ class BaseEstimator:
                                  f"on {self.device}")
 
     # ---- batch source (subclass hook) -------------------------------------
-    def train_batch(self, g, generator: torch.Generator) -> torch.Tensor:
+    def train_batch(self, g, generator: torch.Generator) -> Batch:
         """Return the per-step model input."""
         raise NotImplementedError
 
     # ---- training ----------------------------------------------------------
-    def step(self, optimizer: torch.optim.Optimizer, batch: torch.Tensor,
+    def step(self, optimizer: torch.optim.Optimizer, batch: Batch,
              generator: Optional[torch.Generator] = None,
              uniforms: Optional[Sequence] = None) -> torch.Tensor:
-        """One optimizer step on ``batch``; returns the loss as a 0-d
-        tensor on the device (reading it waits for the card)."""
+        """One optimizer step on ``batch`` (a tensor, or a dict of tensors
+        for the models that take one); returns the loss as a 0-d tensor
+        on the device (reading it waits for the card)."""
         self.model.train()
         optimizer.zero_grad(set_to_none=True)
         out = self.model(self.graph.tensors, batch, generator=generator,
@@ -442,3 +451,130 @@ class EdgeEstimator(BaseEstimator):
                                  batch_size=self.config.batch_size,
                                  corrupt=corrupt, filter_known=filter_known,
                                  hit_ks=hit_ks)
+
+
+class GaeEstimator(NodeEstimator):
+    """Autoencoder runs: node-sampled training, with evaluation and
+    inference inputs from id files (reference: estimator.py:390-406,
+    gae_estimator.py). For ``GAE``, ``VGAE`` and ``DGI``."""
+
+    @staticmethod
+    def ids_from_file(path: str) -> np.ndarray:
+        """One integer id per line -> an int64 array."""
+        return np.loadtxt(path, dtype=np.int64).reshape(-1)
+
+    def evaluate_id_file(self, path: str) -> Dict[str, float]:
+        return self.evaluate(self.ids_from_file(path))
+
+    def infer_id_file(self, path: str, out_dir: Optional[str] = None):
+        return self.infer(self.ids_from_file(path), out_dir)
+
+
+class SampleEstimator(BaseEstimator):
+    """Training from precomputed samples (reference: estimator.py:409-441,
+    sample_estimator.py). ``samples`` is an [M, K] int array or a text
+    file of K comma-separated ints a line; the table is moved to the
+    device once. Each step draws ``batch_size`` rows uniformly with
+    replacement (``draw_rows``, the registered generator's ``randint``)
+    and selects them (``select_rows``); a one-column table feeds the model
+    a flat id batch."""
+
+    def __init__(self, model: torch.nn.Module, graph: Graph,
+                 config: RunConfig, samples, device=None):
+        super().__init__(model, graph, config, device=device)
+        if isinstance(samples, str):
+            samples = np.loadtxt(samples, delimiter=",", dtype=np.int64,
+                                 ndmin=2)
+        samples = np.asarray(samples)
+        if samples.ndim == 1:
+            samples = samples[:, None]
+        if not len(samples):
+            raise ValueError("empty sample set")
+        self.samples = torch.from_numpy(samples.astype(np.int32)).to(
+            self.device)
+
+    def draw_rows(self, generator: Optional[torch.Generator]
+                  ) -> torch.Tensor:
+        """``batch_size`` row indices of the table, int64, uniform."""
+        return torch.randint(0, self.samples.shape[0],
+                             (self.config.batch_size,), generator=generator,
+                             device=self.device)
+
+    def select_rows(self, idx: torch.Tensor) -> torch.Tensor:
+        rows = self.samples[idx]
+        return rows[:, 0] if rows.shape[1] == 1 else rows
+
+    def train_batch(self, g, generator: torch.Generator) -> torch.Tensor:
+        return self.select_rows(self.draw_rows(generator))
+
+
+def make_graph_batch(g, graph_idx: torch.Tensor, label_name: str,
+                     num_classes: int) -> Dict[str, torch.Tensor]:
+    """A graph-classification batch from graph indices (reference:
+    estimator.py:444-460, graph_estimator.py:45-56): ``node_ids`` (the
+    graphs' members, flat, -1 padded), ``mask`` (real members of graphs
+    >= 0), ``node_graph_idx`` (each slot's batch row) and ``label``, the
+    one-hot of the first member's ``label_name`` feature (truncated to
+    an int; 0 rows for graph indices < 0 and classes out of range). No
+    size is read on the host."""
+    members, mask, node_graph_idx = sampling.get_graph_by_label(g, graph_idx)
+    (lab,) = feature_ops.get_dense_feature(g, members[:, 0], [label_name])
+    classes = torch.arange(num_classes, device=lab.device)
+    label = (lab[:, :1].to(torch.int32) == classes).to(torch.float32)
+    ok = graph_idx >= 0
+    label = torch.where(ok[:, None], label, 0.0)
+    return dict(node_ids=members.reshape(-1),
+                mask=mask.reshape(-1) & ok.repeat_interleave(
+                    members.shape[1]),
+                node_graph_idx=node_graph_idx, label=label)
+
+
+class GraphEstimator(BaseEstimator):
+    """Graph classification (reference: estimator.py:463-514,
+    graph_estimator.py:32-77): each step draws ``batch_size`` graph
+    indices (``sampling.sample_graph_label``) and feeds ``GraphModel`` the
+    dict ``make_graph_batch`` builds; evaluate gives the accuracy and the
+    mean batch loss over graph indices, infer their pooled embeddings."""
+
+    def __init__(self, model: torch.nn.Module, graph: Graph,
+                 config: RunConfig, label_name: str = "label",
+                 num_classes: int = 2, device=None):
+        super().__init__(model, graph, config, device=device)
+        self.label_name, self.num_classes = label_name, num_classes
+
+    def make_batch(self, g, graph_idx: torch.Tensor) -> Dict[str,
+                                                             torch.Tensor]:
+        return make_graph_batch(g, graph_idx, self.label_name,
+                                self.num_classes)
+
+    def train_batch(self, g, generator: torch.Generator) -> Dict[
+            str, torch.Tensor]:
+        return self.make_batch(g, sampling.sample_graph_label(
+            g, self.config.batch_size, generator))
+
+    def _run(self, graph_ids, fn) -> Tuple[List, int]:
+        self._restore()
+        self.model.eval()
+        with torch.no_grad():
+            return self._batched_apply(
+                np.asarray(graph_ids, np.int32),
+                lambda g, gidx, gen: fn(self.model(
+                    g, self.make_batch(g, gidx), generator=gen)))
+
+    def evaluate(self, graph_ids: Sequence[int]) -> Dict[str, float]:
+        outs, n = self._run(graph_ids, lambda o: o)
+        logits = torch.cat([o["logit"] for o in outs])[:n]
+        labels = torch.cat([o["label"] for o in outs])[:n]
+        return {"accuracy": float(metrics_lib.accuracy(labels, logits)),
+                "loss": float(np.mean([float(o["loss"]) for o in outs]))}
+
+    def infer(self, graph_ids: Sequence[int], out_dir: Optional[str] = None,
+              worker: int = 0) -> np.ndarray:
+        outs, n = self._run(graph_ids, lambda o: o["embedding"])
+        emb = torch.cat(outs)[:n].cpu().numpy()
+        if out_dir:
+            os.makedirs(out_dir, exist_ok=True)
+            np.save(os.path.join(out_dir, f"embedding_{worker}.npy"), emb)
+            np.save(os.path.join(out_dir, f"ids_{worker}.npy"),
+                    np.asarray(graph_ids, np.int32))
+        return emb

@@ -462,7 +462,9 @@ class RelationConv(nn.Module):
     """reference: relation_conv.py:33-69 (convs.py:337-391): per-relation
     sums of raw source features, then one product with the relation
     matrices. The regular layout sums with one einsum over one-hot
-    relations; an irregular block runs one masked scatter per relation.
+    relations; an irregular or a shared-source block (whose sources are
+    not a per-target [T, C] stack) runs one masked scatter per relation,
+    as the reference's ``not block.shared_src`` guard does.
 
     ``matrix`` [R, dim, D_in] is flax's ``matrix``, initialised as
     ``variance_scaling(1, "fan_avg", "truncated_normal")`` for that shape
@@ -497,7 +499,7 @@ class RelationConv(nn.Module):
                                     dtype=torch.int64, device=x_src.device)
         attr = edge_attr.long().clamp(0, R - 1)
         m = block.mask.to(dt)
-        if block.fanout is None:
+        if block.fanout is None or block.shared_src:
             xj = block.gather_src(x_src)
             s = torch.stack([block.scatter("add", xj * (
                 (attr == r).to(dt) * m)[:, None]) for r in range(R)], 1)

@@ -14,7 +14,7 @@ import torch
 from torch import nn
 
 from euler_tpu_torch.graph.store import GraphTensors
-from euler_tpu_torch.ops import feature_ops
+from euler_tpu_torch.ops import feature_ops, mp_ops
 from euler_tpu_torch.ops.gather_rows import gather_rows
 
 
@@ -112,18 +112,15 @@ class ShallowEncoder(nn.Module):
 
 
 class _Lookup(torch.autograd.Function):
-    """Rows ``weight[ids]``; the backward adds each row's cotangent into a
-    zero table with ``index_add_``. On the card that sums repeated ids
-    with atomics, in no fixed order, and never waits for the card (the
-    dense backward of ``F.embedding`` sorts the ids and spends host time
-    waiting), so a step through it can be captured in a CUDA graph. With
-    ``fixed_order`` the sum on the card is ``index_put_(accumulate=True)``:
-    it sorts the ids and adds each id's rows one after another, in the
-    same order on every run, and captures too; on an H100 it took 330 ms
-    a step where 2,300 ids share a row of a hashed sparse table, against
-    7.3 ms with atomics, so only tables whose ids rarely repeat take it.
-    (On the CPU it is the other way round: ``index_add_`` adds in the
-    ids' order, and ``index_put_(accumulate=True)`` in no fixed one.)"""
+    """Rows ``weight[ids]``; the backward sums each row's cotangent into a
+    zero table with ``mp_ops.scatter_add``. On the card that sums
+    repeated ids with atomics, in no fixed order, and never waits for the
+    card (the dense backward of ``F.embedding`` sorts the ids and spends
+    host time waiting), so a step through it can be captured in a CUDA
+    graph. With ``fixed_order`` the sum takes a fixed order (see
+    ``mp_ops``) and captures too; on an H100 it took 330 ms a step where
+    2,300 ids share a row of a hashed sparse table, against 7.3 ms with
+    atomics, so only tables whose ids rarely repeat take it."""
 
     @staticmethod
     def forward(ctx, weight, ids, fixed_order):
@@ -135,12 +132,9 @@ class _Lookup(torch.autograd.Function):
     @staticmethod
     def backward(ctx, g):
         (ids,) = ctx.saved_tensors
-        grad = g.new_zeros(ctx.shape)
-        rows = g.reshape(-1, ctx.shape[1])
-        if ctx.fixed_order and grad.is_cuda:
-            grad.index_put_((ids.reshape(-1),), rows, accumulate=True)
-        else:
-            grad.index_add_(0, ids.reshape(-1), rows)
+        grad = mp_ops.scatter_add(g.reshape(-1, ctx.shape[1]),
+                                  ids.reshape(-1), ctx.shape[0],
+                                  ctx.fixed_order)
         return grad, None, None
 
 
@@ -152,7 +146,7 @@ class Embed(nn.Module):
     Here ids clamp to the last row and those rows become NaN with a
     ``where``, so the clamped row takes no gradient from them. Callers
     clamp ids below 0, as the reference's do. The gradient of the table
-    is an ``index_add_`` of the rows' cotangents (``_Lookup``): on the
+    is a ``mp_ops.scatter_add`` of the rows' cotangents (``_Lookup``): on the
     card its sums over repeated ids run in no fixed order, unless
     ``fixed_order``. The table starts as flax's ``default_embed_init``:
     normal with variance 1 / features, drawn from ``generator``, a CPU

@@ -10,6 +10,14 @@ among the updates that tie for a segment's maximum (mp_ops.py:52-62).
 an int32 index tensor on every call, so a caller that reuses one (a
 whole-graph block's ``edge_index``) passes it as int64 once; ``Block``
 caches that conversion. Scatter indices must lie in [0, size).
+
+The sums take ``fixed_order``: ``index_add_`` adds with atomics on the
+card, in no fixed order, so a replayed step may leave its eager step in
+the last bits, and a loop of them drifts. With ``fixed_order`` the card
+sums with ``index_put_(accumulate=True)``, which sorts the indices and
+adds each segment's rows one after another, the same on every run; the
+CPU keeps ``index_add_``, which adds in the indices' order (there
+``index_put_`` is the one in no fixed order).
 """
 from __future__ import annotations
 
@@ -44,9 +52,12 @@ def gather(params: torch.Tensor, indices: torch.Tensor) -> torch.Tensor:
 
 
 def scatter_add(updates: torch.Tensor, indices: torch.Tensor,
-                size: int) -> torch.Tensor:
-    """Segment sum of ``updates`` [E, ...] into ``size`` rows."""
+                size: int, fixed_order: bool = False) -> torch.Tensor:
+    """Segment sum of ``updates`` [E, ...] into ``size`` rows; the
+    gradient is a gather."""
     out = updates.new_zeros((size,) + tuple(updates.shape[1:]))
+    if fixed_order and updates.is_cuda:
+        return out.index_put((_long(indices),), updates, accumulate=True)
     return out.index_add(0, _long(indices), updates)
 
 
@@ -102,30 +113,32 @@ def _masked_max(updates: torch.Tensor, idx: torch.Tensor, size: int,
 
 
 def scatter_mean(updates: torch.Tensor, indices: torch.Tensor,
-                 size: int) -> torch.Tensor:
+                 size: int, fixed_order: bool = False) -> torch.Tensor:
     """reference mp_ops.py:65-69: divides by the segment's count + 1e-7."""
-    out = scatter_add(updates, indices, size)
+    out = scatter_add(updates, indices, size, fixed_order)
     ones = updates.new_ones((updates.shape[0], 1))
-    count = scatter_add(ones, indices, size) + 1e-7
+    count = scatter_add(ones, indices, size, fixed_order) + 1e-7
     return out / count
 
 
 def scatter_softmax(updates: torch.Tensor, indices: torch.Tensor,
-                    size: int) -> torch.Tensor:
+                    size: int, fixed_order: bool = False) -> torch.Tensor:
     """Max-shifted segment softmax (reference mp_ops.py:76-79)."""
     idx = _long(indices)
     shifted = updates - gather(scatter_max(updates, idx, size), idx)
     e = torch.exp(shifted)
-    denom = gather(scatter_add(e, idx, size), idx)
+    denom = gather(scatter_add(e, idx, size, fixed_order), idx)
     return e / denom.clamp_min(1e-16)
 
 
 def scatter_(op: str, updates: torch.Tensor, indices: torch.Tensor,
-             size: int) -> torch.Tensor:
+             size: int, fixed_order: bool = False) -> torch.Tensor:
     """Dispatch by aggregator name ('add' | 'mean' | 'max'), reference
-    mp_ops.py:72-73."""
-    return {"add": scatter_add, "mean": scatter_mean,
-            "max": scatter_max}[op](updates, indices, size)
+    mp_ops.py:72-73 ('max' sums nothing, so it ignores ``fixed_order``)."""
+    if op == "max":
+        return scatter_max(updates, indices, size)
+    return {"add": scatter_add, "mean": scatter_mean}[op](
+        updates, indices, size, fixed_order)
 
 
 def _as_mask(mask: torch.Tensor, updates: torch.Tensor) -> torch.Tensor:
@@ -133,19 +146,20 @@ def _as_mask(mask: torch.Tensor, updates: torch.Tensor) -> torch.Tensor:
 
 
 def masked_scatter_(op: str, updates: torch.Tensor, indices: torch.Tensor,
-                    size: int, mask: Optional[torch.Tensor] = None
-                    ) -> torch.Tensor:
+                    size: int, mask: Optional[torch.Tensor] = None,
+                    fixed_order: bool = False) -> torch.Tensor:
     """Aggregation that ignores padded edges (mask == 0): 'mean' divides
     by the valid count (at least 1e-7), 'max' ignores masked rows and
     gives 0 where a segment has none."""
     if mask is None:
-        return scatter_(op, updates, indices, size)
+        return scatter_(op, updates, indices, size, fixed_order)
     mask = _as_mask(mask, updates)
     if op == "add":
-        return scatter_add(updates * mask, indices, size)
+        return scatter_add(updates * mask, indices, size, fixed_order)
     if op == "mean":
-        tot = scatter_add(updates * mask, indices, size)
-        cnt = scatter_add(mask.expand(updates.shape[0], 1), indices, size)
+        tot = scatter_add(updates * mask, indices, size, fixed_order)
+        cnt = scatter_add(mask.expand(updates.shape[0], 1), indices, size,
+                          fixed_order)
         return tot / cnt.clamp_min(1e-7)
     if op == "max":
         return _masked_max(updates, _long(indices), size, mask,
@@ -154,19 +168,19 @@ def masked_scatter_(op: str, updates: torch.Tensor, indices: torch.Tensor,
 
 
 def masked_scatter_softmax(updates: torch.Tensor, indices: torch.Tensor,
-                           size: int, mask: Optional[torch.Tensor] = None
-                           ) -> torch.Tensor:
+                           size: int, mask: Optional[torch.Tensor] = None,
+                           fixed_order: bool = False) -> torch.Tensor:
     """Segment softmax over unmasked edges (reference mp_ops.py:115-126):
     masked edges get 0, and a segment whose edges are all masked gives 0
     on every edge (its max reset to 0, the denominator clamped at
     1e-16)."""
     if mask is None:
-        return scatter_softmax(updates, indices, size)
+        return scatter_softmax(updates, indices, size, fixed_order)
     idx = _long(indices)
     mask = _as_mask(mask, updates)
     neg = -1e30
     mx = _masked_max(updates, idx, size, mask, neg)
     z = torch.where(mask > 0, updates - gather(mx, idx), neg)
     e = torch.exp(z)
-    denom = gather(scatter_add(e, idx, size), idx)
+    denom = gather(scatter_add(e, idx, size, fixed_order), idx)
     return e / denom.clamp_min(1e-16)

@@ -29,7 +29,14 @@ and of sage over the id and sparse-id encoder (within rtol 1e-4, atol
 Node2Vec and LINE (orders 1 and 2): a step on the card must match the
 CPU's on the same uniforms (walks equal but for near ties of node2vec's
 Gumbel keys; loss and gradients within 1e-4), and a replayed loop under
-SGD must equal its eager steps bit for bit, launching no kernel.
+SGD must equal its eager steps bit for bit, launching no kernel. Each
+family of the layerwise and remaining model slice (adaptivegcn, fastgcn,
+GAE, VGAE, DGI, GeniePath, LGCN, scalable, the solution models, gin with
+mean and set2set pooling): a step on the card must match the CPU's on the
+same weights, batch and draws within 1e-4 (``chip_smoke.rest_vs_cpu``,
+the layer draws equal but for near ties), and a replayed loop must equal
+its eager steps bit for bit (the pools sum in a fixed order), the
+scalable store included, with the family's launches a step.
 """
 import copy
 import dataclasses
@@ -39,12 +46,15 @@ import numpy as np
 import pytest
 import torch
 
-from chip_smoke import (WALK_PACKS, int_view, synthetic_fan_pack,
-                        synthetic_union_pack, walk_grads)
+from chip_smoke import (REST_FAMILIES, REST_LAUNCHES, REST_PACKS,
+                        WALK_PACKS, int_view,
+                        rest_estimator, rest_model, rest_vs_cpu,
+                        synthetic_fan_pack, synthetic_union_pack,
+                        walk_grads)
 from euler_tpu_torch import bench
 from euler_tpu_torch.dataflow import SageDataFlow, WholeDataFlow
 from euler_tpu_torch.dataflow import block as block_lib
-from euler_tpu_torch.datasets import random_graph
+from euler_tpu_torch.datasets import motif_graph, random_graph
 from euler_tpu_torch.estimator import (EdgeEstimator, NodeEstimator,
                                        RunConfig, TrainLoop, get_optimizer)
 from euler_tpu_torch.models import (LINE, DeepWalk, GNNNet, Node2Vec,
@@ -810,3 +820,42 @@ def test_walk_replayed_loop_equals_eager_steps(dev, name):
     assert all(torch.equal(a, b) for a, b in zip(ests[0].model.parameters(),
                                                  ests[1].model.parameters()))
     assert 0 < ests[0].evaluate(np.arange(512))["mrr"] <= 1
+
+
+# ---- the layerwise flows and the rest of the models -----------------------
+
+@pytest.mark.parametrize("name", REST_FAMILIES)
+def test_rest_step_on_card_matches_cpu(dev, name):
+    """One step on a 10,000-node graph (the motif graph for gin) from the
+    same weights, batch and draws: loss and every gradient within 1e-4."""
+    out = rest_vs_cpu(name, dev)
+    assert out["draws"] > 0 and np.isfinite(out["loss"])
+
+
+@pytest.mark.parametrize("name", REST_FAMILIES)
+def test_rest_replayed_loop_equals_eager_steps(dev, name):
+    graph = motif_graph(60, device=dev) if name.startswith("gin_") else \
+        random_graph(3000, 25, feat_dim=128, n_classes=16, seed=0,
+                     packs=REST_PACKS, device=dev)
+    cfg = RunConfig(batch_size=32 if name.startswith("gin_") else 128,
+                    total_steps=2 * LOOP_SPL, learning_rate=1e-3,
+                    log_steps=0, reservoir_refresh=0,
+                    steps_per_loop=LOOP_SPL, seed=3, metric="mrr")
+    ests = [rest_estimator(name, rest_model(name, dev, graph.meta.n_nodes),
+                           graph, c, dev)
+            for c in (cfg, dataclasses.replace(cfg, steps_per_loop=1))]
+    ests[1].model.load_state_dict(ests[0].model.state_dict())
+    losses, counts = [], []
+    for est in ests:
+        before = (fd.fan_draw.launches, gr.gather_rows.launches)
+        losses.append(est.train()["loss"])
+        torch.cuda.synchronize()
+        counts.append((fd.fan_draw.launches - before[0],
+                       gr.gather_rows.launches - before[1]))
+    fan, gat = REST_LAUNCHES[name]
+    assert counts == [(fan * 2 * LOOP_SPL, gat * 2 * LOOP_SPL)] * 2
+    assert np.isfinite(losses[0]) and losses[0] == losses[1]
+    assert all(torch.equal(a, b) for a, b in zip(
+        ests[0].model.state_dict().values(),
+        ests[1].model.state_dict().values()))
+

@@ -40,7 +40,11 @@ def test_port_modules_import_without_jax():
         euler_tpu_torch.__path__, "euler_tpu_torch.")]
     for name in ("serving", "bench", "utils.hooks", "utils.config",
                  "utils.io", "utils.dense", "ops.walk", "ops.util_ops",
-                 "models.walk_models"):
+                 "models.walk_models", "models.aggregators",
+                 "models.autoencoders", "models.extra_nets",
+                 "models.graph_model", "models.group_gnn", "models.layers",
+                 "models.pooling", "models.scalable", "models.solution",
+                 "datasets.synthetic"):
         assert f"euler_tpu_torch.{name}" in names
     env = dict(os.environ, PYTHONPATH=REPO)
     out = subprocess.run([sys.executable, "-c", _CHECK], cwd=REPO, env=env,
