@@ -238,6 +238,31 @@ Phases, in order; any failure propagates and the exit code is not 0:
               graph families) from the same weights, batch and draws: loss
               and every gradient within 1e-4, the layer draws equal but
               for near ties of their Gumbel keys
+ 12k. data    the data plane at the main path's width: the graph of
+              phase 5's shape (200,000 nodes typed "train" or "test",
+              5,000,000 edges of one type, "feature" 128 and "label" 16,
+              from a numpy seed) converted by graph.stream_convert's
+              StreamWriter in chunks of at most 1M rows into 4
+              partitions (seconds, traced host memory peak, part bytes),
+              loaded back with packs=("fan",) and held against what was
+              written (the edges as a multiset of (src, dst, weight), the
+              node types and features by external id); one sage step
+              (bench.make_model, f32, Adam 1e-3, batch 1024 of the train
+              nodes) card vs CPU (ids, masks, weights and edge ids equal,
+              loss within 1e-5, gradients within 1e-4) and through
+              NodeEstimator.step with 2 + 2 launches, and its loop of 10
+              (captured, replayed) against 10 eager steps bit for bit,
+              one loop of replays profiled; the same step over a bf16
+              feature table (load_graph(feature_dtype=torch.bfloat16));
+              the same step and loop over packs=() (the fan-less
+              fallback, 0 + 2 launches); one payload rgcn step
+              (SageDataFlow(payload=True) over 4 relations,
+              relation_from_etype) card vs CPU on a copy of the graph with
+              4 relations and the "sample" pack (0 + 2 launches); then
+              the example scripts run_graphsage, run_gcn and run_rgcn by
+              their main(argv) on the SBM stand-in that the port converts
+              under a temporary --data_dir, each train_and_evaluate of 20
+              steps, and run_graphsage's infer from its checkpoint
  13. bench    the port's bench (euler_tpu_torch/bench.py) in each mode,
               sage, gin, gat, rgcn, the eight of bench.CONV_MODES, gcn and
               transe, at bench.py's width,
@@ -253,7 +278,7 @@ Phases, in order; any failure propagates and the exit code is not 0:
               {"ok": true, "device": {...}}
 
 Phases 12c, 12d, 12e, 12f, 12h and the dedup part of 12i run after 12
-in that order, then the walk part of 12i, 12j, 12b and 12g.
+in that order, then the walk part of 12i, 12j, 12b, 12g and 12k.
 
 It exits non-zero, with no result line, where torch.cuda.is_available()
 is false or the euler_tpu_torch package is missing.
@@ -271,8 +296,10 @@ import re
 import statistics
 import subprocess
 import sys
+import resource
 import tempfile
 import time
+import tracemalloc
 import urllib.request
 
 import numpy as np
@@ -291,8 +318,13 @@ from euler_tpu_torch.estimator import (EdgeEstimator, GaeEstimator,
                                        GraphEstimator, NodeEstimator,
                                        RunConfig, SampleEstimator, TrainLoop,
                                        get_optimizer, make_graph_batch)
+from euler_tpu_torch.examples.gcn import run_gcn
+from euler_tpu_torch.examples.graphsage import run_graphsage
+from euler_tpu_torch.examples.rgcn import run_rgcn
+from euler_tpu_torch.graph import store
 from euler_tpu_torch.graph.meta import FeatureSpec, GraphMeta
-from euler_tpu_torch.graph.store import Graph
+from euler_tpu_torch.graph.store import Graph, load_graph
+from euler_tpu_torch.graph.stream_convert import StreamWriter
 from euler_tpu_torch.models import (DGI, GAE, LINE, VGAE, DeepWalk,
                                     GeniePathLazyNet, GNNNet, GraphModel,
                                     GroupGNNNet, JKGNNNet, LGCNNet, Node2Vec,
@@ -964,21 +996,22 @@ def hop_uniforms(flow, g, roots, gen) -> list:
     draws them (the frontier grows by 1 + fanout a hop)."""
     out, n = [], roots.shape[0]
     for ets, c in zip(flow.metapath, flow.fanouts):
-        out.append(sampling.draw_neighbor_uniforms(g, ets, gen, n, c,
-                                                   roots.device))
+        out.append(flow.draw_hop(g, ets, gen, n, c, roots.device))
         n *= 1 + c
     return out
 
 
 def same_blocks(flow, g, roots, uniforms, g_cpu, u_cpu) -> list:
     """Sample ``roots`` on the card and on the CPU from the same uniforms
-    and check equal ids, masks and edge types; returns the card's
-    blocks."""
+    and check equal ids, masks, edge weights, edge ids and edge types;
+    returns the card's blocks."""
     blocks = flow(g, roots, uniforms=uniforms)
     blocks_cpu = flow(g_cpu, roots.cpu(), uniforms=u_cpu)
     for i, (bk, bc) in enumerate(zip(blocks, blocks_cpu)):
         check(torch.equal(bk.n_id.cpu(), bc.n_id)
-              and torch.equal(bk.mask.cpu(), bc.mask),
+              and torch.equal(bk.mask.cpu(), bc.mask)
+              and torch.equal(bk.edge_weight.cpu(), bc.edge_weight)
+              and torch.equal(bk.e_id.cpu(), bc.e_id),
               f"block {i}: sampled ids card != CPU")
         check((bk.e_type is None) == (bc.e_type is None)
               and (bk.e_type is None
@@ -3206,6 +3239,300 @@ def phase_rest(dev) -> dict:
     return out
 
 
+# -------------------------------------------------------------- phase 12k --
+
+DATA_PARTS, DATA_CHUNK, DATA_TRAIN_SHARE = 4, 1_000_000, 0.7
+DATA_LOOP, DATA_RELATIONS, DATA_LOSS_TOL = 10, 4, 1e-5
+EXAMPLE_STEPS = 20
+
+
+def data_input(seed: int = 0) -> dict:
+    """The main path's graph as the converter's input, from a numpy seed:
+    N_NODES nodes, each "train" with probability DATA_TRAIN_SHARE else
+    "test", N_NODES * AVG_DEGREE edges of the one type "link" with weights
+    in [0.1, 1.1), a dense FEAT_DIM-wide "feature" and a one-hot
+    N_CLASSES-wide "label"."""
+    rng = np.random.default_rng(seed)
+    m = N_NODES * AVG_DEGREE
+    label = np.zeros((N_NODES, N_CLASSES), np.float32)
+    label[np.arange(N_NODES), rng.integers(0, N_CLASSES, N_NODES)] = 1
+    return dict(
+        train=rng.random(N_NODES) < DATA_TRAIN_SHARE,
+        src=rng.integers(0, N_NODES, m).astype(np.int32),
+        dst=rng.integers(0, N_NODES, m).astype(np.int32),
+        ew=rng.random(m, dtype=np.float32) + np.float32(0.1),
+        feature=rng.standard_normal((N_NODES, FEAT_DIM), np.float32),
+        label=label)
+
+
+def data_convert(d: dict, out_dir: str) -> dict:
+    """``d`` through the port's StreamWriter into DATA_PARTS partitions,
+    in chunks of at most DATA_CHUNK rows: the seconds, the traced host
+    memory peak of the conversion and the part files' bytes."""
+    t0 = time.perf_counter()
+    tracemalloc.start()
+    w = StreamWriter(out_dir, n_partitions=DATA_PARTS, build_in_edges=False)
+    for lo in range(0, N_NODES, DATA_CHUNK):
+        sl = slice(lo, lo + DATA_CHUNK)
+        w.add_nodes(np.arange(N_NODES)[sl],
+                    np.where(d["train"][sl], "train", "test"),
+                    dense={"feature": d["feature"][sl],
+                           "label": d["label"][sl]})
+    for lo in range(0, len(d["src"]), DATA_CHUNK):
+        sl = slice(lo, lo + DATA_CHUNK)
+        w.add_edges(d["src"][sl], d["dst"][sl], "link", d["ew"][sl])
+    meta = w.finalize()
+    _, peak = tracemalloc.get_traced_memory()
+    tracemalloc.stop()
+    parts = [os.path.join(out_dir, f"part_{p}.npz") for p in range(DATA_PARTS)]
+    check(meta.n_nodes == N_NODES and meta.n_edges == len(d["src"])
+          and meta.n_partitions == DATA_PARTS
+          and all(os.path.exists(p) for p in parts),
+          f"converted meta {meta}")
+    return dict(convert_s=time.perf_counter() - t0,
+                convert_traced_peak_gb=peak / 1e9,
+                part_bytes=sum(os.path.getsize(p) for p in parts),
+                edge_counts=list(meta.part_edge_counts))
+
+
+def data_load(out_dir: str, dev, **kw):
+    """``load_graph(out_dir, device=dev, **kw)`` and its seconds."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    graph = load_graph(out_dir, device=dev, **kw)
+    torch.cuda.synchronize()
+    return graph, time.perf_counter() - t0
+
+
+def data_check_loaded(graph, d: dict, edges: bool = True) -> dict:
+    """The loaded graph holds what was written: the edges as a multiset
+    of (src, dst, weight) (with ``edges``), and the node types, features
+    and labels by external id (cast to the table's dtype)."""
+    g = graph.tensors
+    if edges:
+        got = [g.adj_src.cpu().numpy(), g.adj_dst.cpu().numpy(),
+               g.adj_w.cpu().numpy()]
+        want = [d["src"], d["dst"], d["ew"]]
+        for cols in (got, want):
+            order = np.lexsort(cols[::-1])
+            cols[:] = [c[order] for c in cols]
+        check(all(np.array_equal(a, b) for a, b in zip(got, want)),
+              "loaded edges != the written (src, dst, weight) multiset")
+    local = graph.local_ids(np.arange(N_NODES))
+    train = graph.meta.node_type_id("train")
+    check(np.array_equal(g.node_type.cpu().numpy()[local] == train,
+                         d["train"]), "loaded node types != written")
+    for name in ("feature", "label"):
+        table = g.dense_nf[name].float().cpu().numpy()[local]
+        want_t = torch.from_numpy(d[name]).to(g.dense_nf[name].dtype)
+        check(np.array_equal(table, want_t.float().numpy()),
+              f"loaded {name} rows != written, by external id")
+    return dict(edges_checked=len(d["src"]) if edges else 0,
+                nodes_checked=N_NODES)
+
+
+def data_step(model, graph, dev, want: dict, seed: int) -> dict:
+    """One train step of ``model`` on the card against the CPU
+    (``phase_grads``: the sampled blocks equal, loss and gradients within
+    PARITY_TOL, the loss also within DATA_LOSS_TOL), then one optimizer
+    step through NodeEstimator over the "train" nodes with the counts set
+    to 0 just before: ``want`` launches."""
+    grads = phase_grads(model, graph, dev)
+    check(grads["loss_abs_diff"] <= DATA_LOSS_TOL,
+          f"loss card vs CPU {grads['loss_abs_diff']} > {DATA_LOSS_TOL}")
+    train = graph.meta.node_type_id("train")
+    est = NodeEstimator(model, graph, RunConfig(batch_size=BATCH,
+                                                learning_rate=bench.LR),
+                        train_node_type=train, device=dev)
+    opt = get_optimizer("adam", bench.LR, model.parameters())
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    roots = est.train_batch(graph.tensors, gen)
+    torch.cuda.synchronize()
+    reset_counts()
+    t0 = time.perf_counter()
+    loss = est.step(opt, roots, generator=gen)
+    torch.cuda.synchronize()
+    step_ms = (time.perf_counter() - t0) * 1e3
+    launches = read_counts()
+    check(launches == want, f"launches in a step {launches}, want {want}")
+    check(bool(torch.isfinite(loss)), f"step loss {float(loss)}")
+    check(bool((graph.tensors.node_type[roots.long()] == train).all()),
+          "roots outside the train nodes")
+    return dict(grads, launches=launches, step_loss=float(loss),
+                eager_step_ms=step_ms)
+
+
+def data_loop(graph, dev, per_step: dict, seed: int) -> dict:
+    """Sage's TrainLoop of DATA_LOOP steps (the first eager, one captured,
+    the rest replayed) against DATA_LOOP eager steps from the same weights
+    and seed: loss and parameters bit for bit, both runs' counts
+    ``per_step`` a step; then a loop of replays profiled: busy ms a step,
+    idle share, launches held against the trace."""
+    cfg = RunConfig(batch_size=BATCH, total_steps=DATA_LOOP,
+                    learning_rate=bench.LR, log_steps=0, reservoir_refresh=0,
+                    steps_per_loop=DATA_LOOP, seed=seed)
+    train = graph.meta.node_type_id("train")
+
+    def make(c):
+        model = bench.make_model("sage", dev,
+                                 generator=torch.Generator().manual_seed(1))
+        return NodeEstimator(model, graph, c, train_node_type=train,
+                             device=dev)
+    runs = {}
+    for kind, c in (("eager", dataclasses.replace(cfg, steps_per_loop=1)),
+                    ("graph", cfg)):
+        est = make(c)
+        reset_counts()
+        res = est.train(log_fn=lambda _: None)
+        torch.cuda.synchronize()
+        runs[kind] = (est, res["loss"], read_counts())
+    want = {k: n * DATA_LOOP for k, n in per_step.items()}
+    for kind, (_, _, launches) in runs.items():
+        check(launches == want,
+              f"launches of the {kind} run {launches}, want {want}")
+    (eager, loss_e, _), (graphed, loss_g, launches) = runs["eager"], \
+        runs["graph"]
+    state_e = eager.model.state_dict()
+    check(loss_g == loss_e and all(
+        torch.equal(v, state_e[k])
+        for k, v in graphed.model.state_dict().items()),
+        f"replayed loop != eager steps: loss {loss_g} vs {loss_e}")
+    gen = torch.Generator(device=dev).manual_seed(seed + 100)
+    opt = get_optimizer("adam", bench.LR, graphed.model.parameters())
+    loop = TrainLoop(graphed, opt, gen, DATA_LOOP,
+                     lambda: graphed.train_batch(graph.tensors, gen))
+    loop()
+    prof = profile(loop, f"data: a loop of {DATA_LOOP} replays")
+    check_held(loop, per_step, prof, "data loop")
+    return dict(bit_equal=True, loss=loss_g, launches=launches,
+                held_per_replay=loop.held,
+                busy_ms_per_step=prof["device_busy_ms"] / DATA_LOOP,
+                replay_host_ms_per_step=prof["host_ms"] / DATA_LOOP,
+                device_idle_share=prof["device_idle_share"],
+                profile_complete=prof["kernel_events_complete"],
+                top_kernels=prof["kernels"][:4])
+
+
+def relation_copy(out_dir: str, dev, seed: int = 0):
+    """The converted graph again with each edge given one of
+    DATA_RELATIONS relations from a numpy seed, built with the "sample"
+    pack that the payload draw reads."""
+    arrays = store._load_parts(out_dir)
+    with open(os.path.join(out_dir, "meta.json")) as f:
+        meta = GraphMeta.from_json(f.read())
+    arrays["etype"] = np.random.default_rng(seed).integers(
+        0, DATA_RELATIONS, len(arrays["etype"])).astype(np.int32)
+    meta = dataclasses.replace(meta, edge_types=tuple(
+        f"r{i}" for i in range(DATA_RELATIONS)))
+    return Graph(meta, arrays, packs=("sample",), device=dev)
+
+
+def payload_rgcn(dev):
+    """RGCN over every relation through SageDataFlow(payload=True): the
+    blocks carry each edge's true weight, id and type."""
+    gen = torch.Generator().manual_seed(2)
+    ets = tuple(range(DATA_RELATIONS))
+    net = GNNNet("relation", SageDataFlow(FANOUTS, [ets] * 2, payload=True),
+                 DIMS, ShallowEncoder(("feature",)), in_dim=FEAT_DIM,
+                 device=dev, generator=gen,
+                 conv_kwargs={"num_relations": DATA_RELATIONS},
+                 relation_from_etype=True)
+    return SuperviseModel(net, "label", N_CLASSES, device=dev, generator=gen)
+
+
+def data_examples(root: str) -> dict:
+    """run_graphsage, run_gcn and run_rgcn through their main(argv) on the
+    port's SBM stand-in, converted by the port under ``root``, each
+    train_and_evaluate of EXAMPLE_STEPS steps on the card; then
+    run_graphsage's infer from the checkpoint it left."""
+    scripts = dict(graphsage=run_graphsage, gcn=run_gcn, rgcn=run_rgcn)
+    out = {}
+    for name, script in scripts.items():
+        reset_counts()
+        t0 = time.perf_counter()
+        res = script.main(["--dataset", "sbm", "--data_dir", root,
+                           "--run_mode", "train_and_evaluate",
+                           "--total_steps", str(EXAMPLE_STEPS),
+                           "--model_dir", os.path.join(root, f"m_{name}")])
+        torch.cuda.synchronize()
+        check(res["steps"] == EXAMPLE_STEPS
+              and all(np.isfinite(v) for v in res.values()),
+              f"example {name}: {res}")
+        out[name] = dict(res, launches=read_counts(),
+                         seconds=time.perf_counter() - t0)
+    emb_dir = os.path.join(root, "emb")
+    res = run_graphsage.main(["--dataset", "sbm", "--data_dir", root,
+                              "--run_mode", "infer", "--infer_dir", emb_dir,
+                              "--model_dir", os.path.join(root,
+                                                          "m_graphsage")])
+    emb = np.load(os.path.join(emb_dir, "embedding_0.npy"))
+    check(emb.shape == tuple(res["embeddings"]) and emb.shape[0] > 0
+          and bool(np.isfinite(emb).all()), f"example infer {res}")
+    out["graphsage_infer"] = dict(embeddings=list(emb.shape))
+    check(out["graphsage"]["launches"]["fan_draw"] > 0
+          and out["gcn"]["launches"]["fan_draw"] == 0
+          and out["rgcn"]["launches"]["fan_draw"] == 0,
+          f"example launches {[(n, out[n]['launches']) for n in scripts]}")
+    return out
+
+
+def phase_data(dev) -> dict:
+    """The data plane at the main path's width: convert, load and check
+    the graph; one sage step over "fan" in f32 and over a bf16 feature
+    table, one over packs=() (the fan-less fallback) with its replayed
+    loop, the replayed loop over "fan" beside it, one payload rgcn step on
+    a 4-relation copy, each card vs CPU; then the three example
+    scripts."""
+    t_start = time.perf_counter()
+    out = {}
+    fan_step = dict(fan_draw=2, gather_rows=2)
+    no_fan = dict(fan_draw=0, gather_rows=2)
+    with tempfile.TemporaryDirectory() as root:
+        gdir = os.path.join(root, "graph")
+        d = data_input()
+        out["convert"] = data_convert(d, gdir)
+        log(f"data convert: {json.dumps(out['convert'])}")
+        graph, out["load_fan_s"] = data_load(gdir, dev, packs=("fan",))
+        out["check"] = data_check_loaded(graph, d)
+        model = bench.make_model("sage", dev,
+                                 generator=torch.Generator().manual_seed(0))
+        out["fan_step"] = data_step(model, graph, dev, fan_step, 20)
+        out["fan_loop"] = data_loop(graph, dev, fan_step, 21)
+        log(f"data fan: {json.dumps(out['fan_step'])} "
+            f"{json.dumps(out['fan_loop'])}")
+        del graph
+        graph, out["load_bf16_s"] = data_load(
+            gdir, dev, packs=("fan",), feature_dtype=torch.bfloat16)
+        check(graph.tensors.dense_nf["feature"].dtype == torch.bfloat16,
+              "bf16 feature table")
+        data_check_loaded(graph, d, edges=False)
+        out["bf16_step"] = data_step(model, graph, dev, fan_step, 22)
+        del graph
+        graph, out["load_fallback_s"] = data_load(gdir, dev, packs=())
+        check(graph.tensors.fan_pack is None, "packs=() built a fan pack")
+        out["fallback_step"] = data_step(model, graph, dev, no_fan, 23)
+        out["fallback_loop"] = data_loop(graph, dev, no_fan, 24)
+        log(f"data fallback: {json.dumps(out['fallback_step'])} "
+            f"{json.dumps(out['fallback_loop'])}")
+        del graph, d
+        t0 = time.perf_counter()
+        graph = relation_copy(gdir, dev)
+        out["load_relations_s"] = time.perf_counter() - t0
+        out["rgcn_step"] = data_step(payload_rgcn(dev), graph, dev, no_fan,
+                                     25)
+        check([t for t in out["rgcn_step"]["edge_types"] if t >= 0]
+              == list(range(DATA_RELATIONS)),
+              f"payload rgcn drew relations {out['rgcn_step']['edge_types']}")
+        log(f"data rgcn: {json.dumps(out['rgcn_step'])}")
+        del graph
+        out["examples"] = data_examples(os.path.join(root, "datasets"))
+    out["host_max_rss_gb"] = resource.getrusage(
+        resource.RUSAGE_SELF).ru_maxrss / 1e6
+    out["seconds"] = time.perf_counter() - t_start
+    log(f"data: {json.dumps(out['examples'])}; {out['seconds']:.1f} s")
+    return out
+
+
 # --------------------------------------------------------------- phase 13 --
 
 def phase_bench(dev):
@@ -3412,6 +3739,10 @@ def main() -> int:
     allocated_after("gcn")
     whole = phase_whole(dev)
     allocated_after("whole")
+    # 12k. the data plane: convert, load, the fan-less and payload paths,
+    # the example scripts
+    data = phase_data(dev)
+    allocated_after("data")
     # 13. the port's bench, every mode
     benched = phase_bench(dev)
     allocated_after("bench")
@@ -3449,6 +3780,11 @@ def main() -> int:
 
     path_launches.update({f"loop_{family}": rest[family]["loop"]["launches"]
                           for family in REST_FAMILIES})
+    path_launches.update({f"data_{k}": data[k]["launches"] for k in (
+        "fan_step", "bf16_step", "fallback_step", "rgcn_step", "fan_loop",
+        "fallback_loop")})
+    path_launches.update({f"example_{name}": data["examples"][name][
+        "launches"] for name in ("graphsage", "gcn", "rgcn")})
 
     def by_path(name):
         return {path: n[name] for path, n in path_launches.items()}
@@ -3525,7 +3861,7 @@ def main() -> int:
         native_core=native.available(), infer=infer, parity=parity,
         train=train, grads=grads, families=families, gcn=gcn,
         convs=conv_runs, whole=whole, encoder=encoder, transe=transe,
-        dedup=dedup, walk=walks, rest=rest,
+        dedup=dedup, walk=walks, rest=rest, data=data,
         unsup={k: v for k, v in unsup.items() if k != "kernels"}, loop=loop,
         bench=benched, allocated_gb_after=allocated)}))
     log(smi)                # nvidia-smi's name and power limit, as given

@@ -1,13 +1,14 @@
 """Dataflow samplers: sampling strategy -> sequence of bipartite Blocks.
 
-Counterpart of euler_tpu/dataflow/flows.py: ``SageDataFlow`` on its fast
-path (ids-only fan-row sampling; the reference's ``payload=False``, with
-or without ``typed``), ``GCNDataFlow``, ``WholeDataFlow``,
+Counterpart of euler_tpu/dataflow/flows.py: ``SageDataFlow`` (the
+fan-row draws, with or without ``typed``, and ``payload=True``),
+``GCNDataFlow``, ``WholeDataFlow``,
 ``LayerwiseDataFlow`` and ``FastDataFlow`` on one device, and the
 registry ``get_flow_class``. Every flow is called as ``flow(g, roots,
 generator=None, uniforms=None)`` and returns its blocks deepest first;
-``num_layers`` is the number of blocks, one conv each. Flows that draw nothing ignore
-``generator`` and ``uniforms``.
+``num_layers`` is the number of blocks, one conv each. Flows that draw
+nothing ignore ``generator`` and ``uniforms``. Every flow's constructor
+ignores unknown keywords, as the reference's do.
 """
 from __future__ import annotations
 
@@ -24,35 +25,51 @@ from euler_tpu_torch.ops import mp_ops, sampling
 class SageDataFlow:
     """Per-hop weighted neighbor sampling (GraphSAGE).
 
-    reference: SageDataFlow (tf_euler/python/dataflow/sage_dataflow.py:24-50).
-    Blocks carry edge_weight = the 0/1 validity mask and e_id = -1; with
-    ``typed=True`` also ``e_type``, each draw's edge type (-1 where
-    invalid), which RGCN's ``relation_from_etype`` reads.
+    reference: SageDataFlow (euler_tpu/dataflow/flows.py:26-78;
+    tf_euler/python/dataflow/sage_dataflow.py:24-50).
+    ``payload=False`` (default): blocks carry edge_weight = the 0/1
+    validity mask and e_id = -1; with ``typed=True`` also ``e_type``,
+    each draw's edge type (-1 where invalid), which RGCN's
+    ``relation_from_etype`` reads. A hop over one edge type draws from
+    the fan rows, a hop over every type from the union rows where the
+    graph has them, any other multi-type hop from one fan row per type,
+    and a hop without its pack through ``select_sampled_neighbors``
+    (``sampling.hop_kind``). ``payload=True`` draws every hop through
+    ``select_sampled_neighbors`` (the reference's ``sample_neighbor``),
+    so that blocks carry each edge's true weight, id and type; it wins
+    over ``typed``.
 
-    A hop over one edge type draws from the fan rows, a hop over every
-    type from the union rows where the graph has them, any other
-    multi-type hop from one fan row per type (ops/sampling.py). A call
-    takes either ``generator`` (a torch.Generator on the graph's device,
-    or None for the default one) or ``uniforms``, a list with one tuple
-    per hop, so that a caller can replay given draws: ``(u1, u2)`` for
-    one-type and union hops, ``(ut, u1, u2)`` for per-type hops
-    (``sampling.draw_neighbor_uniforms``).
+    A call takes either ``generator`` (a torch.Generator on the graph's
+    device, or None for the default one) or ``uniforms``, a list with one
+    tuple per hop, so that a caller can replay given draws (``draw_hop``
+    gives a hop's: ``(u1, u2)`` for fan and union hops, ``(ut, u1, u2)``
+    for per-type, fan-less and payload hops). Unknown keywords are
+    ignored, as the reference's flows ignore them.
     """
 
     def __init__(self, fanouts: Sequence[int], metapath,
                  add_self_loops: bool = True, default_id: int = -1,
-                 typed: bool = False):
+                 payload: bool = False, typed: bool = False, **_):
         if len(fanouts) != len(metapath):
             raise ValueError("need one metapath entry per fanout")
         self.fanouts = list(fanouts)
         self.metapath = list(metapath)
         self.add_self_loops = add_self_loops
         self.default_id = default_id
+        self.payload = payload
         self.typed = typed
 
     @property
     def num_layers(self) -> int:
         return len(self.fanouts)
+
+    def draw_hop(self, g, ets, generator: Optional[torch.Generator],
+                 B: int, count: int, device) -> tuple:
+        """The uniforms of one hop of ``count`` draws for B nodes."""
+        if self.payload:
+            return sampling.draw_sample_uniforms(generator, B, count, device)
+        return sampling.draw_neighbor_uniforms(g, ets, generator, B, count,
+                                               device)
 
     def __call__(self, g, roots: torch.Tensor,
                  generator: Optional[torch.Generator] = None,
@@ -64,14 +81,19 @@ class SageDataFlow:
         blocks = []
         for hop, (ets, cnt) in enumerate(zip(self.metapath, self.fanouts)):
             u = uniforms[hop] if uniforms is not None else \
-                sampling.draw_neighbor_uniforms(g, ets, generator,
-                                                cur.shape[0], cnt, cur.device)
-            nbr, valid, *ty = sampling.select_neighbors(
-                g, cur, ets, u, self.default_id, return_types=self.typed)
-            blk = fanout_block(cur, nbr, valid.to(torch.float32),
-                               torch.full_like(nbr, -1), cnt,
-                               self.add_self_loops,
-                               etypes=ty[0] if ty else None)
+                self.draw_hop(g, ets, generator, cur.shape[0], cnt,
+                              cur.device)
+            if self.payload:
+                nbr, w, ty, eid = sampling.select_sampled_neighbors(
+                    g, cur, ets, *u, default_id=self.default_id)
+            else:
+                nbr, valid, *tys = sampling.select_neighbors(
+                    g, cur, ets, u, self.default_id,
+                    return_types=self.typed)
+                w, eid = valid.to(torch.float32), torch.full_like(nbr, -1)
+                ty = tys[0] if tys else None
+            blk = fanout_block(cur, nbr, w, eid, cnt, self.add_self_loops,
+                               etypes=ty)
             blocks.append(blk)
             cur = blk.n_id
         return blocks[::-1]
@@ -86,7 +108,7 @@ class GCNDataFlow:
     carry the edges' weights, ids and types."""
 
     def __init__(self, caps: Sequence[int], metapath,
-                 add_self_loops: bool = True, default_id: int = -1):
+                 add_self_loops: bool = True, default_id: int = -1, **_):
         self.caps = list(caps)
         self.metapath = list(metapath)
         self.add_self_loops = add_self_loops
@@ -132,7 +154,7 @@ class WholeDataFlow:
 
     def __init__(self, num_layers: int, metapath,
                  add_self_loops: bool = True, cap: Optional[int] = None,
-                 layout: str = "auto"):
+                 layout: str = "auto", **_):
         if layout not in ("auto", "ell", "edge_list"):
             raise ValueError(f"layout {layout!r} not in auto, ell, "
                              f"edge_list")
@@ -207,7 +229,7 @@ class LayerwiseDataFlow:
 
     def __init__(self, layer_sizes: Sequence[int], metapath,
                  add_self_loops: bool = True, candidates_per_node: int = 8,
-                 weight_func="sqrt"):
+                 weight_func="sqrt", **_):
         if len(layer_sizes) != len(metapath):
             raise ValueError("need one metapath entry per layer size")
         self.layer_sizes = list(layer_sizes)

@@ -403,6 +403,14 @@ class BaseEstimator:
             np.save(os.path.join(out_dir, f"ids_{worker}.npy"), ids)
         return emb
 
+    def train_and_evaluate(self, eval_ids) -> Dict[str, float]:
+        """``train()``, then ``evaluate(eval_ids)``: the two results in one
+        dict, evaluate's loss over train's (reference:
+        estimator.py:344-347)."""
+        res = self.train()
+        res.update(self.evaluate(eval_ids))
+        return res
+
 
 class NodeEstimator(BaseEstimator):
     """Train source = sample_node(batch, node_type)

@@ -14,13 +14,16 @@ the root draw reads, the per-edge-type alias tables over the CSR slots
 that the edge draw reads, each node's type, the dense and sparse node and
 edge features, each edge row's type and the graph-label membership table.
 Only the fields these paths need live on the device; external ids and
-binary features stay on the host.
+binary node and edge features stay on the host. ``feature_dtype`` (e.g.
+``torch.bfloat16``) keeps the dense feature tables half width, cast on
+the host with round-to-nearest-even as numpy's cast to jnp.bfloat16
+rounds. ``initialize_graph``/``default_graph`` hold a process-default
+graph, as the reference's do.
 """
 from __future__ import annotations
 
 import dataclasses
-import glob
-import os
+from concurrent.futures import ThreadPoolExecutor
 from typing import Dict, Optional, Tuple
 
 import numpy as np
@@ -32,14 +35,20 @@ from euler_tpu_torch.graph.meta import BINARY, DENSE, SPARSE, GraphMeta
 from euler_tpu_torch.ops.alias import (FAN_D, FANU_MAX_TYPES, FANU_SHIFT,
                                        build_fan_pack, build_group_alias,
                                        build_typed_alias_tables)
+from euler_tpu_torch.utils import io as _io
 
 #: packs the port builds by default: the fan rows that the sampled flows
-#: read. The others are built on request: "group" (each group's CSR
-#: bounds in one row), "adj" (each CSR slot's payload in one row) and
-#: "sample" (the fused alias-draw row) for the general verbs, as the
-#: reference's ALL_PACKS builds them; "fanu" (union fan rows, multi-type
-#: draws), which the reference leaves out of its ALL_PACKS; "ell"
-#: (whole-graph ELL rows and their transpose)
+#: read. The reference builds its ALL_PACKS ("group", "adj", "sample",
+#: "fan", "ell") by default; the port builds the others on request, since
+#: the main path reads none of them and "sample" alone is 36 B an edge
+#: (and a hop draws otherwise with it: give both packages the same packs
+#: to compare draws). On request: "group" (each group's CSR bounds in one
+#: row), "adj" (each CSR slot's payload in one row) and "sample" (the
+#: fused alias-draw row) for the general verbs; "fanu" (union fan rows,
+#: multi-type draws), which the reference leaves out of its ALL_PACKS;
+#: "ell" (whole-graph ELL rows and their transpose). Every verb draws
+#: without a pack it lacks (a hop without "fan" through the sample pack
+#: or the group alias tables).
 PACKS = ("fan",)
 #: packs the port can build
 KNOWN_PACKS = ("group", "adj", "sample", "fan", "fanu", "ell")
@@ -297,15 +306,26 @@ def _check_edge_ids(eid: np.ndarray) -> None:
 
 
 def _load_parts(path: str) -> Dict[str, np.ndarray]:
-    files = sorted(glob.glob(os.path.join(path, "part_*.npz")))
+    """Every ``part_*.npz`` under ``path``, each array concatenated over
+    the partitions in file order; several partitions are read on up to 8
+    threads (zlib and file reads release the GIL), as the reference reads
+    them (euler_tpu/graph/store.py:257-280)."""
+    files = _io.glob(_io.join(path, "part_*.npz"))
     if not files:
         raise FileNotFoundError(f"no part_*.npz under {path}")
-    parts = []
-    for f in files:
-        with np.load(f, allow_pickle=False) as z:
-            parts.append(dict(z))
+
+    def read(f):
+        with _io.open_file(f, "rb") as fh:
+            return dict(np.load(fh, allow_pickle=False))
+
+    if len(files) > 1:
+        with ThreadPoolExecutor(max_workers=min(8, len(files))) as ex:
+            parts = list(ex.map(read, files))
+    else:
+        parts = [read(files[0])]
     return {k: np.concatenate([p[k] for p in parts], axis=0)
             for k in parts[0]}
+
 
 
 class Graph:
@@ -313,11 +333,13 @@ class Graph:
     ``tensors`` on a device.
 
     The equivalent of euler_tpu's ``Graph`` for the packs in
-    ``KNOWN_PACKS``.
+    ``KNOWN_PACKS``. ``feature_dtype`` stores the dense node and edge
+    feature tables in that dtype (e.g. ``torch.bfloat16``).
     """
 
     def __init__(self, meta: GraphMeta, arrays: Dict[str, np.ndarray],
-                 packs: Tuple[str, ...] = PACKS, device=None):
+                 packs: Tuple[str, ...] = PACKS, device=None,
+                 feature_dtype: Optional[torch.dtype] = None):
         unknown = set(packs) - set(KNOWN_PACKS)
         if unknown:
             raise NotImplementedError(
@@ -363,6 +385,9 @@ class Graph:
         self.binary_nf = {spec.name: arrays[f"nf_bin:{spec.name}"][order]
                           for spec in meta.node_features
                           if spec.kind == BINARY}
+        self.binary_ef = {spec.name: arrays[f"ef_bin:{spec.name}"][eorder]
+                          for spec in meta.edge_features
+                          if spec.kind == BINARY}
         extra = {}
         if meta.has_in_edges:
             # the in-CSR: groups by dst, the "neighbor" column the source
@@ -391,8 +416,11 @@ class Graph:
                 extra["sample_pack"] = _sample_pack_np(group_ptr, adj_prob,
                                                        adj_alias, adj_pack)
 
-        def put(x):
-            return torch.from_numpy(np.ascontiguousarray(x)).to(dev)
+        def put(x, dtype=None):
+            # the cast happens on the host: torch rounds f32 to bf16 to
+            # nearest even, as numpy's cast to jnp.bfloat16 does
+            t = torch.from_numpy(np.ascontiguousarray(x))
+            return (t if dtype is None else t.to(dtype)).to(dev)
 
         pack_fields = {k: put(v) for k, v in extra.items()}
         if "fan" in packs:
@@ -435,10 +463,10 @@ class Graph:
             adj_prob=put(adj_prob),
             adj_alias=put(adj_alias),
             group_w_sum=put(group_w_sum),
-            dense_nf={k: put(v) for k, v in dense_nf.items()},
+            dense_nf={k: put(v, feature_dtype) for k, v in dense_nf.items()},
             sparse_nf={k: (put(v[0]), put(v[1]))
                        for k, v in sparse_nf.items()},
-            dense_ef={k: put(v) for k, v in dense_ef.items()},
+            dense_ef={k: put(v, feature_dtype) for k, v in dense_ef.items()},
             sparse_ef={k: (put(v[0]), put(v[1]))
                        for k, v in sparse_ef.items()},
             eid_type=put(arrays["etype"][eorder].astype(np.int32)),
@@ -447,13 +475,55 @@ class Graph:
             edge_alias=AliasTables.build(adj_type, adj_w, net, put),
             **pack_fields)
 
+    # ---- host-side lookups (reference: store.py:496-516) ------------------
     def local_id(self, ext_id: int) -> int:
         return self._local_of[int(ext_id)]
 
+    def local_ids(self, ext_ids) -> np.ndarray:
+        return np.asarray([self._local_of[int(e)] for e in ext_ids], np.int32)
 
-def load_graph(path: str, packs: Tuple[str, ...] = PACKS,
-               device=None) -> Graph:
-    """Load a converted graph directory (local files) onto ``device``."""
-    with open(os.path.join(path, _convert.META_FILE)) as f:
+    def get_binary_feature(self, nodes, names):
+        """Binary (string) node features, host only: one array per name."""
+        nodes = np.asarray(nodes)
+        return [self.binary_nf[n][nodes] for n in names]
+
+    def get_edge_binary_feature(self, eids, names):
+        """Binary edge features by original edge row, host only."""
+        eids = np.asarray(eids)
+        return [self.binary_ef[n][eids] for n in names]
+
+    @property
+    def max_id(self) -> int:
+        return self.meta.n_nodes - 1
+
+
+def load_graph(path: str, packs: Tuple[str, ...] = PACKS, device=None,
+               feature_dtype: Optional[torch.dtype] = None) -> Graph:
+    """Load a converted graph directory (local files) onto ``device``;
+    ``feature_dtype`` as ``Graph``'s."""
+    with _io.open_file(_io.join(path, _convert.META_FILE), "r") as f:
         meta = GraphMeta.from_json(f.read())
-    return Graph(meta, _load_parts(path), packs=packs, device=device)
+    return Graph(meta, _load_parts(path), packs=packs, device=device,
+                 feature_dtype=feature_dtype)
+
+
+# ---- the process-default graph (reference: store.py:536-553) -------------
+_default_graph: Optional[Graph] = None
+
+
+def initialize_graph(path_or_graph, **kw) -> Graph:
+    """Set the process-default graph: a ``Graph``, or a directory that
+    ``load_graph(path, **kw)`` loads (cf. tf_euler's
+    initialize_embedded_graph)."""
+    global _default_graph
+    if isinstance(path_or_graph, Graph):
+        _default_graph = path_or_graph
+    else:
+        _default_graph = load_graph(path_or_graph, **kw)
+    return _default_graph
+
+
+def default_graph() -> Graph:
+    if _default_graph is None:
+        raise RuntimeError("no graph initialized; call initialize_graph first")
+    return _default_graph

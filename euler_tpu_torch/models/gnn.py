@@ -37,7 +37,8 @@ class GNNNet(nn.Module):
     ``feature`` encoder's output; ``conv_kwargs`` go to every conv (e.g.
     ``{"num_relations": 4}``). With ``relation_from_etype`` each conv
     also gets ``edge_attr = max(block.e_type, 0)``, the sampled edge types
-    of a typed flow (self loops and invalid draws become relation 0).
+    of a typed or payload flow (self loops and invalid draws become
+    relation 0).
     ``dtype`` casts the activations between stages (the parameters stay
     f32). With ``dedup_features`` the deepest block's features are
     fetched through ``util_ops.unique_gather``: each distinct id once,
@@ -56,10 +57,13 @@ class GNNNet(nn.Module):
                  dedup_features: bool = False):
         super().__init__()
         dev = resolve_device(device)
-        if relation_from_etype and not getattr(flow, "typed", False):
+        if relation_from_etype and \
+                getattr(flow, "payload", True) is False and \
+                not getattr(flow, "typed", False):
             raise ValueError(
-                "relation_from_etype needs edge types: construct the flow "
-                "with typed=True (fast path + per-draw types)")
+                "relation_from_etype needs edge types: construct the "
+                "flow with typed=True (fast path + per-draw types) or "
+                "payload=True (fast ids-only sampling carries e_id=-1)")
         self.flow = flow
         self.dims = tuple(dims)
         self.feature = feature
@@ -81,8 +85,9 @@ class GNNNet(nn.Module):
                                        blocks[0].n_id)
         else:
             x = _input_features(self.feature, g, blocks)
-        if self.dtype is not None:
-            x = x.to(self.dtype)
+        # a half-width feature table (load_graph's feature_dtype) reaches
+        # f32 parameters in f32, as flax's Dense promotes its input
+        x = x.to(self.dtype if self.dtype is not None else torch.float32)
         for conv, block in zip(self.convs, blocks):
             x = _source_set(x, block)
             kw = {}

@@ -2,8 +2,9 @@
 
 The port's own loader: it compiles the repository's ``csrc/euler_core.cc``
 with g++ into ``build/euler_tpu_torch/`` (never into the JAX package) on
-first use, and binds the three host builders the graph store needs: the
-CSR build and the two alias-table builders. When g++ or the source is
+first use, and binds the three host builders the graph store needs (the
+CSR build and the two alias-table builders) and the edge-list parser of
+the streaming converter. When g++ or the source is
 missing, ``get_lib()`` returns None and the callers fall back to their
 numpy implementations; ``available()`` says which path is in use.
 """
@@ -50,6 +51,9 @@ def get_lib():
         lib.etpu_build_group_alias.restype = ctypes.c_int
         lib.etpu_build_group_alias.argtypes = [
             ctypes.c_int64, ctypes.c_int64, i64, f32, f32, i32]
+        lib.etpu_parse_edge_list.restype = ctypes.c_int64
+        lib.etpu_parse_edge_list.argtypes = [
+            ctypes.c_char_p, ctypes.c_int64, i32, i32, f32, ctypes.c_int64]
         _lib = lib
         return _lib
 
@@ -114,3 +118,22 @@ def build_group_alias_native(group_ptr, weights):
     if lib.etpu_build_group_alias(len(gp) - 1, m, gp, w, prob, alias) != 0:
         return None
     return prob, alias
+
+
+def parse_edge_list_native(buf: bytes):
+    """Parse "src<sep>dst[<sep>w]" text (bytes) -> (src, dst, w) int32/
+    int32/f32 arrays in file order, or None without the native core.
+    Skips '#' comments and malformed lines, the contract of the Python
+    loop in graph.stream_convert.convert_edge_list (reference:
+    euler_tpu/native/loader.py:139-154)."""
+    lib = get_lib()
+    if lib is None:
+        return None
+    cap = buf.count(b"\n") + 1
+    src = np.empty(cap, np.int32)
+    dst = np.empty(cap, np.int32)
+    w = np.empty(cap, np.float32)
+    n = lib.etpu_parse_edge_list(buf, len(buf), src, dst, w, cap)
+    if n < 0:
+        return None
+    return src[:n], dst[:n], w[:n]

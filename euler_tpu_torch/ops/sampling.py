@@ -36,9 +36,10 @@ reservoir.
 A hop of the sampled flows over one edge type reads ``fan_pack``; a hop
 over every edge type of the graph reads the union rows ``fanu_pack``
 when the graph has them; any other multi-type hop reads one fan row per
-type. Where the reference's ``sample_neighbor_fast`` falls back to
-``sample_neighbor`` (the graph lacks the pack a hop needs), the port's
-hop raises ``NotImplementedError`` and names the pack.
+type. A hop that finds neither the ``fan`` pack nor, over every type,
+the ``fanu`` pack draws through ``select_sampled_neighbors``, as the
+reference's ``sample_neighbor_fast`` falls back to ``sample_neighbor``
+(:265-268); ``hop_kind`` names the branch a hop takes.
 
 Conventions: node ids are int32 local ids, ``-1`` marks "no node", and
 missing neighbors get ``default_id``. An index past the end of a table
@@ -215,12 +216,24 @@ def uses_union(g: GraphTensors, ets: Tuple[int, ...]) -> bool:
             and sorted(ets) == list(range(g.meta.num_edge_types)))
 
 
-def _need_fan_pack(g: GraphTensors, ets: Tuple[int, ...]) -> None:
+def hop_kind(g: GraphTensors, ets: Tuple[int, ...]) -> str:
+    """The branch of ``sample_neighbor_fast`` that a hop over ``ets``
+    takes on ``g``: "union" (the ``fanu`` rows), "fan" (one fan row, one
+    type), "typed" (one fan row per type) or "sampled" (neither pack:
+    ``select_sampled_neighbors``). The "fan" and "union" hops read the
+    uniforms (u1, u2), the others (ut, u1, u2)."""
+    if uses_union(g, ets):
+        return "union"
     if g.fan_pack is None:
-        raise NotImplementedError(
-            f"a hop over edge types {ets} reads the 'fan' pack (or 'fanu' "
-            f"for a hop over every type), which the graph was built "
-            f"without; sampling.sample_neighbor draws without it")
+        return "sampled"
+    return "fan" if len(ets) == 1 else "typed"
+
+
+def _fan_rows(g: GraphTensors) -> torch.Tensor:
+    if g.fan_pack is None:
+        raise ValueError("the graph has no 'fan' pack: select_neighbors "
+                         "draws such a hop through select_sampled_neighbors")
+    return g.fan_pack
 
 
 def select_fan_neighbors(g: GraphTensors, nodes: torch.Tensor, edge_types,
@@ -240,8 +253,7 @@ def select_fan_neighbors(g: GraphTensors, nodes: torch.Tensor, edge_types,
     if len(ets) != 1:
         raise ValueError(f"select_fan_neighbors draws one edge type or the "
                          f"union rows, not {ets}: see select_neighbors")
-    _need_fan_pack(g, ets)
-    return fan_draw(g.fan_pack, nodes, ets[0], g.meta.num_edge_types,
+    return fan_draw(_fan_rows(g), nodes, ets[0], g.meta.num_edge_types,
                     u1.contiguous(), u2.contiguous(), default_id,
                     return_types=return_types)
 
@@ -270,12 +282,12 @@ def select_typed_neighbors(g: GraphTensors, nodes: torch.Tensor, edge_types,
     ``select_fan_neighbors`` returns.
     """
     ets = as_etypes(g, edge_types)
-    _need_fan_pack(g, ets)
+    fan = _fan_rows(g)
     ET = g.meta.num_edge_types
-    G = g.fan_pack.shape[0]
+    G = fan.shape[0]
     et = etype_tensor(ets, torch.int64, nodes.device)
     rows = nodes.to(torch.int64).clamp_min(0)
-    packs = g.fan_pack[(rows[:, None] * ET + et[None, :]).clamp_max(G - 1)]
+    packs = fan[(rows[:, None] * ET + et[None, :]).clamp_max(G - 1)]
     deg = packs[..., 0]                                        # [B, K]
     wsum = packs[..., 1].contiguous().view(torch.float32)      # [B, K]
     kidx, total = _pick_types(wsum, ut)
@@ -301,14 +313,10 @@ def select_typed_neighbors(g: GraphTensors, nodes: torch.Tensor, edge_types,
 def draw_neighbor_uniforms(g: GraphTensors, edge_types,
                            generator: Optional[torch.Generator], B: int,
                            count: int, device) -> Tuple[torch.Tensor, ...]:
-    """The uniforms one hop over ``edge_types`` reads: (u1, u2) for one
-    type and for the union rows, (ut, u1, u2) for a per-type multi-type
-    hop. Raises NotImplementedError where the graph lacks the pack."""
-    ets = as_etypes(g, edge_types)
-    union = uses_union(g, ets)
-    if not union:
-        _need_fan_pack(g, ets)
-    if union or len(ets) == 1:
+    """The uniforms one hop over ``edge_types`` reads: (u1, u2) for a
+    "fan" or "union" hop, (ut, u1, u2) for a "typed" hop and for a
+    "sampled" one (``hop_kind``; ``draw_sample_uniforms``)."""
+    if hop_kind(g, as_etypes(g, edge_types)) in ("fan", "union"):
         return draw_fan_uniforms(generator, B, count, device)
     return draw_typed_uniforms(generator, B, count, device)
 
@@ -317,12 +325,19 @@ def select_neighbors(g: GraphTensors, nodes: torch.Tensor, edge_types,
                      uniforms: Sequence[torch.Tensor], default_id: int = -1,
                      return_types: bool = False):
     """One hop of ``sample_neighbor_fast`` from the uniforms that
-    ``draw_neighbor_uniforms`` gives for it."""
+    ``draw_neighbor_uniforms`` gives for it: (ids, valid[, types]). A
+    "sampled" hop's valid is its type >= 0, as the reference's
+    fallback returns it."""
     ets = as_etypes(g, edge_types)
-    want = 2 if len(ets) == 1 or uses_union(g, ets) else 3
+    kind = hop_kind(g, ets)
+    want = 2 if kind in ("fan", "union") else 3
     if len(uniforms) != want:
         raise ValueError(f"a hop over edge types {ets} reads {want} uniform "
                          f"tensors, got {len(uniforms)}")
+    if kind == "sampled":
+        nbr, _, ty, _ = select_sampled_neighbors(g, nodes, ets, *uniforms,
+                                                 default_id=default_id)
+        return (nbr, ty >= 0, ty) if return_types else (nbr, ty >= 0)
     fn = select_fan_neighbors if want == 2 else select_typed_neighbors
     return fn(g, nodes, ets, *uniforms, default_id=default_id,
               return_types=return_types)

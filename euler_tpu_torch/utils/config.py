@@ -5,8 +5,9 @@ euler/client/graph_config.{h,cc} — "k=v;k=v" string or dict with typed
 getters, parsed on the python side at
 tf_euler/python/euler_ops/base.py:50-60; tf_euler/python/utils/flags.py
 ``set_defaults``); stdlib only but for ``parse_mesh_flag``, which counts
-the CUDA devices where the reference counts jax's. Nothing reads
-``--mesh`` yet.
+the CUDA devices where the reference counts jax's. The example runners
+refuse ``--mesh`` until the sharded estimators exist; ``--device`` (the
+port's own) picks the card or the CPU.
 """
 from __future__ import annotations
 
@@ -88,6 +89,9 @@ def define_run_flags(parser: Optional[argparse.ArgumentParser] = None
                         "(graph axis = all devices). Requires D*G == the "
                         "CUDA device count; the reference's equivalent "
                         "is dist_tf_euler.sh PS/worker launch")
+    p.add_argument("--device", default="cuda",
+                   help="the device to run on: cuda (default; it must "
+                        "exist) or cpu")
     return p
 
 

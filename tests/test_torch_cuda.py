@@ -36,7 +36,13 @@ mean and set2set pooling): a step on the card must match the CPU's on the
 same weights, batch and draws within 1e-4 (``chip_smoke.rest_vs_cpu``,
 the layer draws equal but for near ties), and a replayed loop must equal
 its eager steps bit for bit (the pools sum in a fixed order), the
-scalable store included, with the family's launches a step.
+scalable store included, with the family's launches a step. The
+fan-less hop (a graph without the ``fan`` pack) and the payload hop
+(``SageDataFlow(payload=True)``) must equal the CPU's bit for bit from
+the same uniforms and launch no ``fan_draw``; a bf16 feature table
+(``load_graph(feature_dtype=torch.bfloat16)``) must gather through
+``gather_rows`` bit for bit; a sage step without the ``fan`` pack makes
+0 ``fan_draw`` and 2 ``gather_rows`` launches.
 """
 import copy
 import dataclasses
@@ -54,7 +60,7 @@ from chip_smoke import (REST_FAMILIES, REST_LAUNCHES, REST_PACKS,
 from euler_tpu_torch import bench
 from euler_tpu_torch.dataflow import SageDataFlow, WholeDataFlow
 from euler_tpu_torch.dataflow import block as block_lib
-from euler_tpu_torch.datasets import motif_graph, random_graph
+from euler_tpu_torch.datasets import SBMDataset, motif_graph, random_graph
 from euler_tpu_torch.estimator import (EdgeEstimator, NodeEstimator,
                                        RunConfig, TrainLoop, get_optimizer)
 from euler_tpu_torch.models import (LINE, DeepWalk, GNNNet, Node2Vec,
@@ -859,3 +865,86 @@ def test_rest_replayed_loop_equals_eager_steps(dev, name):
         ests[0].model.state_dict().values(),
         ests[1].model.state_dict().values()))
 
+
+
+# ------------------------------------------- the fan-less and payload hops --
+
+@pytest.mark.parametrize("packs", [(), ("group", "adj", "sample")])
+def test_fallback_hop_on_card_matches_cpu(dev, packs):
+    graph = random_graph(2000, 12, num_edge_types=4, seed=3, packs=packs)
+    g, g_cpu = graph.tensors, graph.tensors.to("cpu")
+    nodes = torch.arange(-1, 600, dtype=torch.int32, device=dev)
+    gen = torch.Generator(device=dev).manual_seed(4)
+    fd.fan_draw.launches = 0
+    for ets in ((0,), (1, 2), (0, 1, 2, 3)):
+        assert sampling.hop_kind(g, ets) == "sampled"
+        u = sampling.draw_neighbor_uniforms(g, ets, gen, len(nodes), 9, dev)
+        got = sampling.select_neighbors(g, nodes, ets, u, return_types=True)
+        want = sampling.select_neighbors(g_cpu, nodes.cpu(), ets,
+                                         [x.cpu() for x in u],
+                                         return_types=True)
+        for a, b in zip(got, want):
+            assert torch.equal(a.cpu(), b)
+        assert float(got[1].float().mean()) > 0.9
+    assert fd.fan_draw.launches == 0
+
+
+def test_payload_hop_on_card_matches_cpu(dev):
+    graph = random_graph(2000, 12, num_edge_types=4, seed=5,
+                         packs=("sample",))
+    g, g_cpu = graph.tensors, graph.tensors.to("cpu")
+    flow = SageDataFlow([6, 4], [(0, 1, 2, 3), (2, 0)], payload=True)
+    roots = torch.arange(-1, 300, dtype=torch.int32, device=dev)
+    gen = torch.Generator(device=dev).manual_seed(6)
+    uniforms, n = [], len(roots)
+    for ets, c in zip(flow.metapath, flow.fanouts):
+        uniforms.append(flow.draw_hop(g, ets, gen, n, c, dev))
+        n *= 1 + c
+    fd.fan_draw.launches = 0
+    got = flow(g, roots, uniforms=uniforms)
+    want = flow(g_cpu, roots.cpu(),
+                uniforms=[tuple(x.cpu() for x in u) for u in uniforms])
+    assert fd.fan_draw.launches == 0
+    for bk, bc in zip(got, want):
+        for name in ("n_id", "edge_index", "e_id", "edge_weight", "mask",
+                     "e_type"):
+            assert torch.equal(getattr(bk, name).cpu(), getattr(bc, name)), \
+                name
+    assert bool((got[-1].e_id >= 0).any())
+
+
+def test_bf16_feature_table_through_gather_rows(dev, tmp_path):
+    ds = SBMDataset(str(tmp_path), n_nodes=500, feat_dim=24, seed=1)
+    graph = ds.load_graph(device=dev, feature_dtype=torch.bfloat16)
+    table = graph.tensors.dense_nf["feature"]
+    assert table.dtype == torch.bfloat16 and table.is_cuda
+    f32 = ds.load_graph(device="cpu").tensors.dense_nf["feature"]
+    assert torch.equal(table.cpu(), f32.to(torch.bfloat16))
+    ids = torch.tensor([0, -1, 499, 500, 7, 7], dtype=torch.int32,
+                       device=dev)
+    gr.gather_rows.launches = 0
+    got = ShallowEncoder(("feature", "label"))(graph.tensors, ids)
+    torch.cuda.synchronize()
+    assert gr.gather_rows.launches == 2 and got.dtype == torch.bfloat16
+    want = gr.gather_rows_plain(
+        torch.cat([table, graph.tensors.dense_nf["label"]], 1).cpu(),
+        ids.cpu())
+    assert torch.equal(int_view(got.cpu()), int_view(want))
+
+
+def test_fan_less_sage_step_launches_no_fan_draw(dev):
+    graph = random_graph(3000, 25, feat_dim=16, n_classes=4, seed=0,
+                         packs=())
+    gen = torch.Generator().manual_seed(0)
+    net = GNNNet("sage", SageDataFlow([25, 10], [(0,), (0,)]), (16, 16),
+                 ShallowEncoder(("feature",)), in_dim=16, generator=gen)
+    model = SuperviseModel(net, "label", 4, generator=gen)
+    est = NodeEstimator(model, graph, RunConfig(batch_size=64))
+    opt = get_optimizer("adam", 1e-3, model.parameters())
+    ugen = torch.Generator(device=dev).manual_seed(1)
+    fd.fan_draw.launches = gr.gather_rows.launches = 0
+    loss = est.step(opt, est.train_batch(graph.tensors, ugen),
+                    generator=ugen)
+    torch.cuda.synchronize()
+    assert (fd.fan_draw.launches, gr.gather_rows.launches) == (0, 2)
+    assert bool(torch.isfinite(loss))

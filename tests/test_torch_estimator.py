@@ -287,8 +287,11 @@ def test_graph_config_matches_reference():
     [], ["--dataset", "cora", "--fanouts", "10", "5", "--profile",
          "--optimizer", "momentum", "--total_steps", "7"]])
 def test_run_flags_match_reference(argv, monkeypatch):
-    assert vars(config.define_run_flags().parse_args(argv)) == vars(
-        jax_config.define_run_flags().parse_args(argv))
+    # the reference's flags, and the port's own --device (default cuda)
+    assert vars(config.define_run_flags().parse_args(argv)) == dict(
+        vars(jax_config.define_run_flags().parse_args(argv)), device="cuda")
+    assert config.define_run_flags().parse_args(
+        argv + ["--device", "cpu"]).device == "cpu"
     monkeypatch.setattr(config, "_DEFAULTS", {})
     config.set_defaults(batch_size=99, nope=1)
     args = config.apply_defaults(config.define_run_flags().parse_args(argv))

@@ -44,7 +44,10 @@ def test_port_modules_import_without_jax():
                  "models.autoencoders", "models.extra_nets",
                  "models.graph_model", "models.group_gnn", "models.layers",
                  "models.pooling", "models.scalable", "models.solution",
-                 "datasets.synthetic"):
+                 "datasets.synthetic", "datasets.registry",
+                 "graph.convert", "graph.stream_convert", "examples.common",
+                 "examples.graphsage.run_graphsage", "examples.gcn.run_gcn",
+                 "examples.rgcn.run_rgcn"):
         assert f"euler_tpu_torch.{name}" in names
     env = dict(os.environ, PYTHONPATH=REPO)
     out = subprocess.run([sys.executable, "-c", _CHECK], cwd=REPO, env=env,

@@ -119,8 +119,16 @@ def test_typed_hop_without_its_pack_raises_naming_it(toy_dir):
     # the union rows serve a hop over every type, not one over "click"
     blk = SageDataFlow([3], [(0, 1)], typed=True)(g.tensors, roots)[0]
     assert blk.e_type.shape == (8,)
-    with pytest.raises(NotImplementedError, match="'fan' pack"):
-        SageDataFlow([3], [("click",)], typed=True)(g.tensors, roots)
+    # the hop over "click" lacks its 'fan' pack: it draws through
+    # select_sampled_neighbors (the reference's sample_neighbor fallback)
+    flow = SageDataFlow([3], [("click",)], typed=True)
+    u = [flow.draw_hop(g.tensors, ("click",), None, 2, 3, "cpu")]
+    blk = flow(g.tensors, roots, uniforms=u)[0]
+    nbr, _, ty, _ = sampling.select_sampled_neighbors(g.tensors, roots,
+                                                      ("click",), *u[0])
+    assert len(u[0]) == 3 and torch.equal(blk.n_id[2:], nbr.reshape(-1))
+    assert set(blk.e_type.numpy().tolist()) <= {-1, g.meta.edge_type_id(
+        "click")}
 
 
 def test_dense_feature_matches_reference_with_negative_ids(toy_dir,

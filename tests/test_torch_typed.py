@@ -247,12 +247,21 @@ def test_hops_on_a_graph_without_their_pack_name_it():
     u = sampling.draw_neighbor_uniforms(g, (0, 1, 2, 3), None, 4, 3, "cpu")
     assert sampling.select_neighbors(g, nodes, (0, 1, 2, 3), u)[0].shape \
         == (4, 3)
+    # a hop that lacks its pack draws through select_sampled_neighbors,
+    # as the reference's sample_neighbor_fast falls back to
+    # sample_neighbor (tests/test_torch_fallback.py holds it bit exact)
     for ets in ((1,), (0, 2)):
-        with pytest.raises(NotImplementedError, match="'fan' pack"):
-            sampling.draw_neighbor_uniforms(g, ets, None, 4, 3, "cpu")
-        with pytest.raises(NotImplementedError, match="'fan' pack"):
-            sampling.select_neighbors(g, nodes, ets, u + (u[0],)
-                                      if len(ets) > 1 else u)
+        assert sampling.hop_kind(g, ets) == "sampled"
+        uf = sampling.draw_neighbor_uniforms(g, ets, None, 4, 3, "cpu")
+        assert len(uf) == 3
+        ids, valid, ty = sampling.select_neighbors(g, nodes, ets, uf,
+                                                   return_types=True)
+        nbr, _, ty_s, _ = sampling.select_sampled_neighbors(g, nodes, ets,
+                                                            *uf)
+        assert torch.equal(ids, nbr) and torch.equal(ty, ty_s)
+        assert torch.equal(valid, ty_s >= 0)
+        with pytest.raises(ValueError, match="uniform tensors"):
+            sampling.select_neighbors(g, nodes, ets, uf[1:])
 
 
 # ------------------------------------------------------- union reservoir --
