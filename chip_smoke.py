@@ -263,6 +263,40 @@ Phases, in order; any failure propagates and the exit code is not 0:
               their main(argv) on the SBM stand-in that the port converts
               under a temporary --data_dir, each train_and_evaluate of 20
               steps, and run_graphsage's infer from its checkpoint
+ 12l. query  the query path on the graph of phase 5 and its CPU copy:
+              Query(g).v(1024 ids).sampleNB([0], 25).values("feature");
+              sampleN(-1, 1024).gt("feature", 0.5) over the [N] mask and
+              over an AttrIndex of feature:0; sampleE(-1, 4096).gt(
+              "weight", 0.9) over the [E] mask; v(ids).outE([0], 64)
+              .inV().values(udf_mean, udf_max of "feature") (one gather
+              shared); v(ids).sampleNB([0], 25).order_by("weight",
+              desc=True).limit(10); v(ids).sampleLNB([0], 8, 1024). Each
+              on the card from a generator and on the CPU from the card's
+              uniforms: ids, masks, weights, types and eids equal bit for
+              bit, gathered features bit for bit, the UDFs within 1e-6,
+              the layer by the near-tie rule (DrawReplay); the launches of
+              each query (gather_rows 1 where it gathers, fan_draw none),
+              each gather_rows launch equal to its plain version; ms per
+              query (CUDA-event medians of QUERY_RUNS runs). Then the IVF
+              index over the graph's [200,000, 128] feature table, nlist
+              256: k-means on the card step by step against the CPU's
+              Lloyd step from the same centroids (assignments equal but
+              for points whose two nearest centroids lie within 1e-5
+              relative, centroids within 1e-4 in the clusters no such
+              point touched), the build's seconds and the k-means with
+              and without the fixed-order sum; recall@10 of 1024 numpy
+              queries against the exact KnnIndex at nprobe 8 and (256 of
+              them) at nprobe 256, which must be 1.0 but for near ties;
+              ms per 256 queries at nprobe 8; one search batch's
+              gather_rows launch equal to its plain version
+ 12m. examples the 28 example scripts of this slice (TransX and its four
+              model scripts, distmult, deepwalk, line, gat, agnn, appnp,
+              arma, sgcn, tagcn, dna, adaptivegcn, fastgcn, gin, graphgcn,
+              set2set, gated_graph, dgi, gae, geniepath, lgcn,
+              scalable_sage, solution, sample_solution) by their
+              main(argv) on their stand-ins under a temporary --data_dir,
+              each train_and_evaluate of EXAMPLE_12M_STEPS steps on the
+              card, with each script's launches
  13. bench    the port's bench (euler_tpu_torch/bench.py) in each mode,
               sage, gin, gat, rgcn, the eight of bench.CONV_MODES, gcn and
               transe, at bench.py's width,
@@ -277,8 +311,8 @@ Phases, in order; any failure propagates and the exit code is not 0:
               every path and ptxas figures), then the last line
               {"ok": true, "device": {...}}
 
-Phases 12c, 12d, 12e, 12f, 12h and the dedup part of 12i run after 12
-in that order, then the walk part of 12i, 12j, 12b, 12g and 12k.
+Phases 12c, 12d, 12e, 12f, 12h, the dedup part of 12i and 12l run after
+12 in that order, then the walk part of 12i, 12j, 12b, 12g, 12k and 12m.
 
 It exits non-zero, with no result line, where torch.cuda.is_available()
 is false or the euler_tpu_torch package is missing.
@@ -290,6 +324,7 @@ import concurrent.futures
 import copy
 import ctypes
 import dataclasses
+import importlib
 import json
 import os
 import re
@@ -305,7 +340,7 @@ import urllib.request
 import numpy as np
 import torch
 
-from euler_tpu_torch import bench
+from euler_tpu_torch import bench, knn
 from euler_tpu_torch._build import (NVCC_FLAGS, PACKAGE_DIR,
                                     build_shared_library, nvcc)
 from euler_tpu_torch.dataflow import (FastDataFlow, LayerwiseDataFlow,
@@ -337,11 +372,13 @@ from euler_tpu_torch.native import loader as native
 from euler_tpu_torch.ops import COUNTED
 from euler_tpu_torch.ops import fan_draw as fd
 from euler_tpu_torch.ops import feature_ops
+from euler_tpu_torch.ops import index as index_ops
 from euler_tpu_torch.ops import gather_rows as gr
 from euler_tpu_torch.ops import sampling, util_ops, walk
 from euler_tpu_torch.ops.alias import (FAN_ALIAS_OFF, FAN_D, FAN_KEPT_OFF,
                                        FAN_PROB_OFF, FANU_MASK,
                                        FANU_MAX_TYPES, FANU_SHIFT)
+from euler_tpu_torch.query import EdgeResult, Query, udf_max, udf_mean
 from euler_tpu_torch.serving import serve_embeddings
 
 # H100 SXM device-memory rate (NVIDIA data sheet), the bytes bound's divisor
@@ -1871,16 +1908,16 @@ LOOP_BENCH_MODES = ("sage", "gin", "gat", "rgcn", "gcn")
 
 class KernelRecorder:
     """While active, every call of the two kernel wrappers made during a
-    CUDA graph capture is recorded with its arguments and result. Holding
-    them keeps the capture's tensors alive, so that the graph's pool gives
-    their memory to no other tensor of the capture: after a replay they
-    hold that replay's inputs and outputs."""
+    CUDA graph capture (with ``eager``, every call) is recorded with its
+    arguments and result. Holding them keeps the capture's tensors alive,
+    so that the graph's pool gives their memory to no other tensor of the
+    capture: after a replay they hold that replay's inputs and outputs."""
 
     SITES = ((sampling, "fan_draw"), (encoders, "gather_rows"),
-             (feature_ops, "gather_rows"))
+             (feature_ops, "gather_rows"), (knn, "gather_rows"))
 
-    def __init__(self):
-        self.calls = []
+    def __init__(self, eager: bool = False):
+        self.calls, self.eager = [], eager
 
     def __enter__(self):
         self._saved = [(mod, name, getattr(mod, name))
@@ -1896,15 +1933,15 @@ class KernelRecorder:
     def _recording(self, name, fn):
         def call(*args, **kwargs):
             out = fn(*args, **kwargs)
-            if torch.cuda.is_current_stream_capturing():
+            if self.eager or torch.cuda.is_current_stream_capturing():
                 self.calls.append((name, args, kwargs, out))
             return out
         return call
 
     def check_plain(self, what: str) -> dict:
         """Each recorded launch against its plain version on what it read
-        in the last replay, bit for bit (gathered rows as integers); the
-        number of launches checked per kernel."""
+        (in a capture: in the last replay), bit for bit (gathered rows as
+        integers); the number of launches checked per kernel."""
         n = {k.__name__: 0 for k in COUNTED}
         for name, args, kwargs, out in self.calls:
             if name == "fan_draw":
@@ -3533,6 +3570,334 @@ def phase_data(dev) -> dict:
     return out
 
 
+# -------------------------------------------------------------- phase 12l --
+
+QUERY_RUNS = 20
+#: the conditional roots' thresholds: feature column 0 of a unit normal
+#: (31% of the nodes pass) and the edge weight, uniform in [0.1, 1.1) (20%)
+QUERY_FEATURE_T, QUERY_WEIGHT_T = 0.5, 0.9
+QUERY_EDGES, QUERY_OUT_CAP, QUERY_LIMIT = 4096, 64, 10
+QUERY_LAYER_CPN, QUERY_LAYER_NODES = 8, 1024
+IVF_NLIST, IVF_NPROBE, IVF_K, IVF_ITERS = 256, 8, 10, 10
+IVF_QUERIES, IVF_BATCH, IVF_ALL_QUERIES = 1024, 256, 256
+#: the candidate rows one search batch may gather at nprobe = nlist
+IVF_ALL_BYTES = 4 << 30
+#: relative gap under which two squared distances count as a near tie
+IVF_TIE = 1e-5
+
+
+def smoke_queries(ids) -> dict:
+    """The queries of phase 12l: name -> (a function that makes the
+    Query, the graph it runs on, "plain" or "indexed", its gather_rows
+    launches)."""
+    def roots(q):
+        return q.sampleN(-1, BATCH).gt("feature", QUERY_FEATURE_T).alias("n")
+    return {
+        "sampleNB_values": (lambda q: q.v(ids).sampleNB([0], FANOUTS[0])
+                            .alias("nb").values("feature").alias("f"),
+                            "plain", 1),
+        "sampleN_mask": (roots, "plain", 0),
+        "sampleN_index": (roots, "indexed", 0),
+        "sampleE_mask": (lambda q: q.sampleE(-1, QUERY_EDGES).gt(
+            "weight", QUERY_WEIGHT_T).alias("e"), "plain", 0),
+        "outE_udf": (lambda q: q.v(ids).outE([0], QUERY_OUT_CAP).inV()
+                     .values(udf_mean("feature"), udf_max("feature"))
+                     .alias("m"), "plain", 1),
+        "order_by_limit": (lambda q: q.v(ids).sampleNB([0], FANOUTS[0])
+                           .order_by("weight", desc=True).limit(QUERY_LIMIT)
+                           .alias("top"), "plain", 0),
+    }
+
+
+def flat_result(x, path="out"):
+    """(path, tensor) pairs of a query's result dict, in order."""
+    if isinstance(x, torch.Tensor):
+        return [(path, x)]
+    if isinstance(x, dict):
+        return [p for k in sorted(x) for p in flat_result(x[k],
+                                                          f"{path}.{k}")]
+    if isinstance(x, (tuple, list)):
+        return [p for i, y in enumerate(x)
+                for p in flat_result(y, f"{path}[{i}]")]
+    if dataclasses.is_dataclass(x):
+        return [p for f in dataclasses.fields(x)
+                for p in flat_result(getattr(x, f.name), f"{path}.{f.name}")]
+    return []
+
+
+def same_query_results(card, cpu, what: str, close=()) -> float:
+    """Card and CPU results of one query: every tensor equal bit for bit
+    (floats as integers, so NaN rows too), those under an alias in
+    ``close`` within 1e-6; the largest difference among those."""
+    a, b = flat_result(card), flat_result(cpu)
+    check([p for p, _ in a] == [p for p, _ in b], f"query {what}: fields")
+    err = 0.0
+    for (path, x), (_, y) in zip(a, b):
+        x = x.cpu()
+        check(x.dtype == y.dtype and x.shape == y.shape,
+              f"query {what}: {path} {x.dtype} {tuple(x.shape)} vs "
+              f"{y.dtype} {tuple(y.shape)}")
+        if any(path.startswith(f"out.{c}") for c in close):
+            d = float((x - y).abs().max()) if x.numel() else 0.0
+            check(d <= 1e-6, f"query {what}: {path} differs by {d}")
+            err = max(err, d)
+        elif x.dtype.is_floating_point:
+            check(torch.equal(int_view(x), int_view(y)),
+                  f"query {what}: {path} card != CPU")
+        else:
+            check(torch.equal(x, y), f"query {what}: {path} card != CPU")
+    return err
+
+
+def time_query(q, gen) -> float:
+    """CUDA-event median of QUERY_RUNS runs of ``q`` from ``gen``, ms."""
+    times = []
+    for _ in range(QUERY_RUNS):
+        start, end = (torch.cuda.Event(enable_timing=True) for _ in "se")
+        start.record()
+        q.run(generator=gen)
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end))
+    return statistics.median(times)
+
+
+def query_phase(graph, dev) -> dict:
+    """The queries of ``smoke_queries`` and the layer query on the card
+    and on the CPU from the card's uniforms."""
+    g = graph.tensors
+    g_idx = index_ops.build_attr_index(g, [("feature", 0)])
+    on = {"plain": (g, g.to("cpu")), "indexed": (g_idx, g_idx.to("cpu"))}
+    rng = np.random.default_rng(40)
+    ids_np = rng.integers(0, N_NODES, BATCH).astype(np.int32)
+    ids_np[::97] = -1
+    ids = torch.from_numpy(ids_np).to(dev)
+    out = {}
+    for i, (name, (build, where, gathers)) in enumerate(
+            smoke_queries(ids).items()):
+        gq, gq_cpu = on[where]
+        gen = torch.Generator(device=dev).manual_seed(50 + i)
+        q = build(Query(gq))
+        with KernelRecorder(eager=True) as rec:
+            reset_counts()
+            card = q.run(generator=gen)
+            torch.cuda.synchronize()
+            launches = read_counts()
+        checked = rec.check_plain(f"query {name}")
+        check(launches == dict(fan_draw=0, gather_rows=gathers)
+              and checked["gather_rows"] == gathers,
+              f"query {name}: launches {launches}, want {gathers} "
+              f"gather_rows and no fan_draw")
+        cpu = build(Query(gq_cpu)).run(
+            uniforms=to_device(q.last_uniforms, "cpu"))
+        udf_err = same_query_results(card, cpu, name, close=("m",))
+        frontier = card["_frontier"]
+        res = dict(launches=launches, ms=time_query(q, gen),
+                   valid=int((frontier.eids if isinstance(frontier,
+                                                         EdgeResult)
+                              else frontier.ids).ge(0).sum()))
+        if name == "outE_udf":
+            res["udf_max_abs_err"] = udf_err
+        out[name] = res
+    # the layer draw: card vs CPU by the near-tie rule of its Gumbel keys
+    gen = torch.Generator(device=dev).manual_seed(59)
+    q = Query(g).v(ids).sampleLNB([0], QUERY_LAYER_CPN, QUERY_LAYER_NODES)
+    with DrawReplay() as rep:
+        reset_counts()
+        layer = q.run(generator=gen)["_frontier"]
+        torch.cuda.synchronize()
+        launches = read_counts()
+    check(launches == dict(fan_draw=0, gather_rows=0),
+          f"query sampleLNB launches {launches}")
+    near = rep.check_layers(on["plain"][1])
+    out["sampleLNB"] = dict(launches=launches, ms=time_query(q, gen),
+                            valid=int((layer.ids >= 0).sum()), **near)
+    log(f"query: {json.dumps(out)}")
+    return out
+
+
+def ivf_recall(queries, emb, got, want) -> dict:
+    """Recall@k of ``got`` against the exact ``want`` ids [Q, k]: raw
+    (ids in common), and counting as hits the ids whose squared distance
+    (float64) lies within IVF_TIE of the exact k-th (a near tie)."""
+    q = queries.astype(np.float64)
+
+    def dist(ids):
+        return ((emb[np.maximum(ids, 0)].astype(np.float64)
+                 - q[:, None, :]) ** 2).sum(-1)
+    kth = dist(want).max(axis=1, keepdims=True)
+    inside = np.array([np.isin(g, w) for g, w in zip(got, want)])
+    tie = (dist(got) <= kth * (1 + IVF_TIE)) & ~inside
+    k = want.shape[1]
+    valid = got >= 0
+    return dict(recall=float((inside & valid).sum() / want.size),
+                recall_near_ties=float(((inside | tie) & valid).sum()
+                                       / want.size),
+                near_tie_hits=int((tie & valid).sum()), k=k)
+
+
+def kmeans_vs_cpu(emb_dev, emb_cpu, cent0) -> dict:
+    """The IVF build's Lloyd steps on the card, each against the CPU's
+    step from the same centroids: assignments equal but for points whose
+    two nearest centroids lie within IVF_TIE (relative, in float64),
+    centroids within 1e-4 in every cluster no such point touched. Returns
+    the card's final centroids and the counts."""
+    cent, flips, touched, err = cent0, 0, 0, 0.0
+    C = cent0.shape[0]
+    for _ in range(IVF_ITERS):
+        new, a = knn.lloyd_step(emb_dev, cent)
+        new_c, a_c = knn.lloyd_step(emb_cpu, cent.cpu())
+        a, c = a.cpu(), cent.cpu().double()
+        moved = torch.nonzero(a != a_c).ravel()
+        keep = torch.ones(C, dtype=torch.bool)
+        if moved.numel():
+            x = emb_cpu[moved].double()
+            da = ((x - c[a[moved]]) ** 2).sum(1)
+            db = ((x - c[a_c[moved]]) ** 2).sum(1)
+            check(bool(((da - db).abs()
+                        <= IVF_TIE * torch.maximum(da, db)).all()),
+                  "k-means: card and CPU assign a point otherwise away "
+                  "from a near tie")
+            keep[a[moved]] = keep[a_c[moved]] = False
+        flips += int(moved.numel())
+        touched += int((~keep).sum())
+        d = float((new.cpu() - new_c)[keep].abs().max())
+        check(d <= 1e-4, f"k-means step: centroids card vs CPU {d}")
+        err = max(err, d)
+        cent = new
+    return dict(cent=cent, near_tie_flips=flips, clusters_touched=touched,
+                centroid_max_abs_err=err)
+
+
+def ivf_phase(graph, dev) -> dict:
+    """The IVF index over the graph's feature table (see the module
+    docstring, phase 12l)."""
+    emb = graph.tensors.dense_nf["feature"].cpu().numpy()
+    n, D = emb.shape
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    index = knn.IvfKnnIndex(emb, n_clusters=IVF_NLIST, nprobe=IVF_NPROBE,
+                            iters=IVF_ITERS, device=dev)
+    torch.cuda.synchronize()
+    out = dict(build_s=time.perf_counter() - t0,
+               max_members=int(index._members.shape[1]))
+    # the same initial centroids as the build's
+    cent0 = torch.from_numpy(emb[np.random.default_rng(0).choice(
+        n, IVF_NLIST, replace=False)]).to(dev)
+    kmeans_ms = {True: [], False: []}
+    for fixed in (True, False, False, True):
+        start, end = (torch.cuda.Event(enable_timing=True) for _ in "se")
+        start.record()
+        cent = knn.kmeans(index._emb, cent0, IVF_ITERS, fixed_order=fixed)
+        end.record()
+        end.synchronize()
+        kmeans_ms[fixed].append(start.elapsed_time(end))
+        if fixed:
+            check(torch.equal(cent, index._cent),
+                  "k-means in a fixed order gave two indexes")
+    out.update(kmeans_fixed_order_ms=kmeans_ms[True],
+               kmeans_atomic_ms=kmeans_ms[False])
+    steps = kmeans_vs_cpu(index._emb, torch.from_numpy(emb), cent0)
+    check(torch.equal(steps.pop("cent"), index._cent),
+          "k-means step by step != the build's")
+    out["kmeans_vs_cpu"] = steps
+    end_cpu = knn.kmeans(torch.from_numpy(emb), cent0.cpu(), IVF_ITERS)
+    out["centroids_end_to_end_max_abs_diff"] = float(
+        (index._cent.cpu() - end_cpu).abs().max())
+    queries = np.random.default_rng(7).normal(
+        size=(IVF_QUERIES, D)).astype(np.float32)
+    _, want = knn.KnnIndex(emb, device=dev).search(queries, IVF_K)
+    got, ms = [], []
+    reset_counts()
+    for b in range(0, IVF_QUERIES, IVF_BATCH):
+        with KernelRecorder(eager=b == 0) as rec:
+            start, end = (torch.cuda.Event(enable_timing=True) for _ in "se")
+            start.record()
+            got.append(index.search(queries[b:b + IVF_BATCH], IVF_K)[1])
+            end.record()
+            end.synchronize()
+            ms.append(start.elapsed_time(end))
+        if b == 0:
+            check(rec.check_plain("ivf search")["gather_rows"] == 1,
+                  "ivf search: one gather_rows launch a batch")
+            del rec
+    out["launches"] = read_counts()
+    check(out["launches"] == dict(fan_draw=0,
+                                  gather_rows=IVF_QUERIES // IVF_BATCH),
+          f"ivf launches {out['launches']}")
+    out["ms_per_256_queries"] = statistics.median(ms)
+    out[f"nprobe_{IVF_NPROBE}"] = ivf_recall(queries, emb,
+                                             np.concatenate(got), want)
+    C, maxM = index._members.shape
+    qb = max(1, IVF_ALL_BYTES // (C * maxM * D * 4))
+    sub = queries[:IVF_ALL_QUERIES]
+    got = [index.search(sub[b:b + qb], IVF_K, nprobe=C)[1]
+           for b in range(0, len(sub), qb)]
+    every = ivf_recall(sub, emb, np.concatenate(got), want[:len(sub)])
+    check(every["recall_near_ties"] == 1.0,
+          f"ivf recall@{IVF_K} at nprobe = nlist: {every}")
+    out[f"nprobe_{C}"] = dict(every, queries_per_batch=qb)
+    log(f"ivf: {json.dumps(out)}")
+    return out
+
+
+def phase_query(graph, dev) -> dict:
+    t0 = time.perf_counter()
+    out = dict(queries=query_phase(graph, dev), ivf=ivf_phase(graph, dev))
+    out["seconds"] = time.perf_counter() - t0
+    return out
+
+
+# -------------------------------------------------------------- phase 12m --
+
+EXAMPLE_12M_STEPS = 5
+#: (directory, script) of each example runner this slice added
+EXAMPLES_12M = [("TransX", s) for s in ("transX", "transE", "transH",
+                                        "transR", "transD")] + [
+    (d, d) for d in ("distmult", "deepwalk", "line", "gat", "agnn", "appnp",
+                     "arma", "sgcn", "tagcn", "dna", "adaptivegcn",
+                     "fastgcn", "gin", "graphgcn", "set2set", "gated_graph",
+                     "dgi", "gae", "geniepath", "lgcn", "scalable_sage",
+                     "solution", "sample_solution")]
+#: the scripts whose sampled flow draws over the fan rows (fan_draw), and
+#: those that gather no dense feature (the KG and walk tables)
+FAN_EXAMPLES = {"dna", "gin", "graphgcn", "set2set", "gated_graph", "dgi",
+                "gae", "geniepath", "lgcn", "solution", "sample_solution"}
+TABLE_EXAMPLES = {"transX", "transE", "transH", "transR", "transD",
+                  "distmult", "deepwalk", "line"}
+
+
+def phase_examples(dev) -> dict:
+    """Each script of EXAMPLES_12M by its main(argv) on its stand-in,
+    train_and_evaluate of EXAMPLE_12M_STEPS steps on the card."""
+    t_start = time.perf_counter()
+    out = {}
+    with tempfile.TemporaryDirectory() as root:
+        for d, script in EXAMPLES_12M:
+            mod = importlib.import_module(
+                f"euler_tpu_torch.examples.{d}.run_{script}")
+            reset_counts()
+            t0 = time.perf_counter()
+            res = mod.main(argv=[
+                "--data_dir", root, "--run_mode", "train_and_evaluate",
+                "--total_steps", str(EXAMPLE_12M_STEPS),
+                "--model_dir", os.path.join(root, f"m_{script}")])
+            torch.cuda.synchronize()
+            launches = read_counts()
+            check(res["steps"] == EXAMPLE_12M_STEPS
+                  and all(np.isfinite(v) for v in res.values()),
+                  f"example {script}: {res}")
+            check((launches["fan_draw"] > 0) == (script in FAN_EXAMPLES)
+                  and (launches["gather_rows"] > 0)
+                  == (script not in TABLE_EXAMPLES),
+                  f"example {script} launches {launches}")
+            out[script] = dict(res, launches=launches,
+                               seconds=time.perf_counter() - t0)
+    out["seconds"] = time.perf_counter() - t_start
+    log(f"examples: {json.dumps(out)}")
+    return out
+
+
 # --------------------------------------------------------------- phase 13 --
 
 def phase_bench(dev):
@@ -3726,6 +4091,9 @@ def main() -> int:
     # graph of its own
     dedup = phase_dedup(graph, dev)
     allocated_after("dedup")
+    # 12l. the query path and the IVF index on the graph of phase 5
+    queried = phase_query(graph, dev)
+    allocated_after("query")
     del graph
     allocated_after("del graph")
     walks = phase_walk(dev)
@@ -3743,6 +4111,9 @@ def main() -> int:
     # the example scripts
     data = phase_data(dev)
     allocated_after("data")
+    # 12m. this slice's example scripts
+    examples = phase_examples(dev)
+    allocated_after("examples")
     # 13. the port's bench, every mode
     benched = phase_bench(dev)
     allocated_after("bench")
@@ -3785,6 +4156,11 @@ def main() -> int:
         "fallback_loop")})
     path_launches.update({f"example_{name}": data["examples"][name][
         "launches"] for name in ("graphsage", "gcn", "rgcn")})
+    path_launches.update({f"query_{name}": res["launches"]
+                          for name, res in queried["queries"].items()})
+    path_launches["ivf_search"] = queried["ivf"]["launches"]
+    path_launches.update({f"example_{script}": examples[script]["launches"]
+                          for _, script in EXAMPLES_12M})
 
     def by_path(name):
         return {path: n[name] for path, n in path_launches.items()}
@@ -3861,7 +4237,8 @@ def main() -> int:
         native_core=native.available(), infer=infer, parity=parity,
         train=train, grads=grads, families=families, gcn=gcn,
         convs=conv_runs, whole=whole, encoder=encoder, transe=transe,
-        dedup=dedup, walk=walks, rest=rest, data=data,
+        dedup=dedup, walk=walks, rest=rest, data=data, query=queried,
+        examples=examples,
         unsup={k: v for k, v in unsup.items() if k != "kernels"}, loop=loop,
         bench=benched, allocated_gb_after=allocated)}))
     log(smi)                # nvidia-smi's name and power limit, as given

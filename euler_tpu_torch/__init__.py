@@ -14,3 +14,10 @@ device it raises.
 """
 
 __version__ = "0.1.0"
+
+from euler_tpu_torch.graph import (Graph, GraphMeta, GraphTensors,
+                                   convert_json_file, convert_json_graph,
+                                   default_graph, initialize_graph,
+                                   load_graph)
+from euler_tpu_torch.query import (Query, register_udf, udf, udf_max,
+                                   udf_mean, udf_min)

@@ -29,7 +29,7 @@ __all__ = ["build_gnn", "edge_type_ids", "feature_dim", "get_dataset",
            "kg_test_triples", "kg_test_triples_meta", "load_dataset",
            "make_config", "parse_flags", "run_conv_example",
            "run_edge_model", "run_graph_conv_example", "run_graph_model",
-           "run_node_model", "weights"]
+           "run_node_model", "sampled_parts", "weights"]
 
 
 def parse_flags(argv=None, **defaults):
@@ -185,6 +185,24 @@ def build_gnn(args, ds, graph, conv: str, flow_name: str = "sage",
                      generator=gen, conv_kwargs=conv_kwargs or {})
     return SuperviseModel(net, ds.label_idx, ds.label_dim, device=dev,
                           generator=gen)
+
+
+def sampled_parts(args, ds, graph, gen: torch.Generator,
+                  default_fanout: int = 10) -> dict:
+    """The keyword arguments of a net over sampled neighborhoods, as the
+    reference's scripts build them: ``SageDataFlow`` of ``--fanouts``
+    (``default_fanout`` a layer without it) over the dataset's train edge
+    types, ``--hidden_dim`` at every layer and the output, a
+    ``ShallowEncoder`` of the dataset's feature (its width from the
+    graph), ``--device`` and the weights' generator ``gen`` (towers of
+    one model share it)."""
+    ets = edge_type_ids(graph, ds.train_edge_type)
+    fanouts = args.fanouts or [default_fanout] * args.layers
+    return dict(flow=flows.SageDataFlow(fanouts, [ets] * args.layers),
+                dims=tuple([args.hidden_dim] * (args.layers + 1)),
+                feature=ShallowEncoder(dense_names=(ds.feature_idx,)),
+                in_dim=feature_dim(graph, ds.feature_idx),
+                device=device_of(args), generator=gen)
 
 
 def run_conv_example(conv: str, flow_name: str = "sage", conv_kwargs=None,

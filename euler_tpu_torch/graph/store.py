@@ -11,10 +11,13 @@ tables, the ``fan`` and ``fanu`` packs that the fan-row draws read, the
 ``ell`` pack that whole-graph propagation reads, the in-CSR where the
 graph was converted with in-edges, the per-node-type alias tables that
 the root draw reads, the per-edge-type alias tables over the CSR slots
-that the edge draw reads, each node's type, the dense and sparse node and
-edge features, each edge row's type and the graph-label membership table.
-Only the fields these paths need live on the device; external ids and
-binary node and edge features stay on the host. ``feature_dtype`` (e.g.
+that the edge draw reads, each node's type and weight, the dense and
+sparse node and edge features, each edge row's type and CSR slot, the
+hash of each binary node feature that the query's predicates compare
+(``string_hash32``) and the graph-label membership table; the attribute
+indexes of ops/index.py (``node_index``, ``edge_index_``) are built after
+the load. Only the fields these paths need live on the device; external
+ids and binary node and edge features stay on the host. ``feature_dtype`` (e.g.
 ``torch.bfloat16``) keeps the dense feature tables half width, cast on
 the host with round-to-nearest-even as numpy's cast to jnp.bfloat16
 rounds. ``initialize_graph``/``default_graph`` hold a process-default
@@ -75,6 +78,16 @@ def xla_cumsum(w: np.ndarray) -> np.ndarray:
     before = np.zeros(m, np.float32)
     before[1:] = xla_cumsum(inner[:-1, -1])
     return (inner + before[:, None]).reshape(-1)[:n]
+
+
+def string_hash32(s: str) -> int:
+    """Deterministic FNV-1a 32-bit hash of a string, as a signed int32; a
+    copy of euler_tpu/graph/store.py ``string_hash32``. Binary (string)
+    features are compared on the device through it."""
+    h = 2166136261
+    for b in s.encode("utf-8"):
+        h = ((h ^ b) * 16777619) & 0xFFFFFFFF
+    return h - 2**32 if h >= 2**31 else h
 
 
 def _adj_pack_np(adj_dst, adj_type, adj_eid, adj_w):
@@ -161,6 +174,7 @@ class GraphTensors:
 
     meta: GraphMeta
     node_type: torch.Tensor      # int32 [N]
+    node_w: torch.Tensor         # f32   [N]
     group_ptr: torch.Tensor      # int32 [N*ET + 1]
     # per CSR slot (edges sorted by (src, type, dst)): the edge's source,
     # destination, type, weight and original row
@@ -216,6 +230,17 @@ class GraphTensors:
     sparse_ef: Dict[str, Tuple[torch.Tensor, torch.Tensor]] = \
         dataclasses.field(default_factory=dict)
     eid_type: Optional[torch.Tensor] = None     # int32 [E]
+    # each original edge row's CSR slot (the stable argsort of adj_eid),
+    # so that a verb that names edges by row (Query.e) never sorts
+    eid_slot: Optional[torch.Tensor] = None     # int32 [E]
+    # the int32 string_hash32 of each binary node feature's values, which
+    # the query's predicates compare on the device
+    binary_hash_nf: Dict[str, torch.Tensor] = dataclasses.field(
+        default_factory=dict)
+    # ops/index.py's AttrIndex of each indexed attribute ("name:column"),
+    # built after the load by ``index.build_attr_index``
+    node_index: Dict[str, object] = dataclasses.field(default_factory=dict)
+    edge_index_: Dict[str, object] = dataclasses.field(default_factory=dict)
     # the in-CSR of a graph converted with in-edges (meta.has_in_edges):
     # groups by (dst, edge_type), each slot's neighbor the true source
     in_group_ptr: Optional[torch.Tensor] = None   # int32 [N*ET + 1]
@@ -237,7 +262,9 @@ class GraphTensors:
     def to(self, device) -> "GraphTensors":
         """A copy with every tensor on ``device``."""
         def mv(v):
-            if isinstance(v, (torch.Tensor, AliasTables)):
+            # tensors, AliasTables and ops/index.py's AttrIndex
+            if isinstance(v, torch.Tensor) or callable(getattr(v, "to",
+                                                               None)):
                 return v.to(device)
             if isinstance(v, dict):
                 return {k: mv(x) for k, x in v.items()}
@@ -303,6 +330,15 @@ def _check_edge_ids(eid: np.ndarray) -> None:
             "edge ids must be a dense permutation of 0..E-1 "
             f"(got min={e[0]}, max={e[-1]}, E={len(e)}); re-run the "
             "converter, which assigns them")
+
+
+def _inverse_permutation(p: np.ndarray) -> np.ndarray:
+    """int32 ``inv`` with ``inv[p[i]] = i``: for ``adj_eid``, a permutation
+    of 0..E-1 (``_check_edge_ids``), the reference's stable argsort
+    (euler_tpu/graph/store.py:477), by a scatter in place of a sort."""
+    inv = np.empty(len(p), np.int32)
+    inv[p] = np.arange(len(p), dtype=np.int32)
+    return inv
 
 
 def _load_parts(path: str) -> Dict[str, np.ndarray]:
@@ -454,6 +490,7 @@ class Graph:
         self.tensors = GraphTensors(
             meta=meta,
             node_type=put(node_type.astype(np.int32)),
+            node_w=put(np.asarray(node_w, np.float32)),
             group_ptr=put(group_ptr.astype(np.int32)),
             adj_src=put(adj_src),
             adj_dst=put(adj_dst),
@@ -470,6 +507,10 @@ class Graph:
             sparse_ef={k: (put(v[0]), put(v[1]))
                        for k, v in sparse_ef.items()},
             eid_type=put(arrays["etype"][eorder].astype(np.int32)),
+            eid_slot=put(_inverse_permutation(adj_eid)),
+            binary_hash_nf={
+                k: put(np.asarray([string_hash32(x) for x in v], np.int32))
+                for k, v in self.binary_nf.items()},
             node_alias=AliasTables.build(node_type, node_w,
                                          meta.num_node_types, put),
             edge_alias=AliasTables.build(adj_type, adj_w, net, put),

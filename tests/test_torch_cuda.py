@@ -42,7 +42,15 @@ fan-less hop (a graph without the ``fan`` pack) and the payload hop
 the same uniforms and launch no ``fan_draw``; a bf16 feature table
 (``load_graph(feature_dtype=torch.bfloat16)``) must gather through
 ``gather_rows`` bit for bit; a sage step without the ``fan`` pack makes
-0 ``fan_draw`` and 2 ``gather_rows`` launches.
+0 ``fan_draw`` and 2 ``gather_rows`` launches. Each query of
+``chip_smoke.smoke_queries`` must give on the card what it gives on the
+CPU from the card's uniforms, bit for bit (the UDFs within 1e-6), with
+its ``gather_rows`` launches (``values`` gathers through the kernel, each
+launch equal to its plain version) and no ``fan_draw``; the layer query
+equal but for near ties; the index's draws and the blocked running sum
+equal to the CPU's bit for bit; the IVF index's centroids within 1e-4 of
+the CPU's build, its members and search ids equal, one ``gather_rows``
+launch a search; ``k`` past the corpus raises on the card too.
 """
 import copy
 import dataclasses
@@ -53,10 +61,14 @@ import pytest
 import torch
 
 from chip_smoke import (REST_FAMILIES, REST_LAUNCHES, REST_PACKS,
-                        WALK_PACKS, int_view,
+                        WALK_PACKS, DrawReplay, KernelRecorder, int_view,
                         rest_estimator, rest_model, rest_vs_cpu,
+                        same_query_results, smoke_queries,
                         synthetic_fan_pack, synthetic_union_pack,
-                        walk_grads)
+                        to_device, walk_grads)
+from euler_tpu_torch import knn
+from euler_tpu_torch.ops import index as index_ops
+from euler_tpu_torch.query import Query
 from euler_tpu_torch import bench
 from euler_tpu_torch.dataflow import SageDataFlow, WholeDataFlow
 from euler_tpu_torch.dataflow import block as block_lib
@@ -948,3 +960,84 @@ def test_fan_less_sage_step_launches_no_fan_draw(dev):
     torch.cuda.synchronize()
     assert (fd.fan_draw.launches, gr.gather_rows.launches) == (0, 2)
     assert bool(torch.isfinite(loss))
+
+
+# ------------------------------------------------ the query path and KNN --
+
+@pytest.fixture
+def query_graph(dev):
+    graph = random_graph(3000, 12, feat_dim=16, n_classes=4,
+                         num_edge_types=2, seed=7)
+    g = graph.tensors
+    g_idx = index_ops.build_attr_index(g, [("feature", 0)])
+    return {"plain": (g, g.to("cpu")), "indexed": (g_idx, g_idx.to("cpu"))}
+
+
+def query_ids(dev):
+    ids = np.random.default_rng(3).integers(0, 3000, 300).astype(np.int32)
+    ids[::17] = -1
+    return torch.from_numpy(ids).to(dev)
+
+
+@pytest.mark.parametrize("name", list(smoke_queries(None)))
+def test_query_on_card_matches_cpu(dev, query_graph, name):
+    build, where, gathers = smoke_queries(query_ids(dev))[name]
+    g, g_cpu = query_graph[where]
+    q = build(Query(g))
+    with KernelRecorder(eager=True) as rec:
+        fd.fan_draw.launches = gr.gather_rows.launches = 0
+        card = q.run(generator=torch.Generator(device=dev).manual_seed(1))
+        torch.cuda.synchronize()
+        assert (fd.fan_draw.launches, gr.gather_rows.launches) == \
+            (0, gathers)
+    assert rec.check_plain(name)["gather_rows"] == gathers
+    cpu = build(Query(g_cpu)).run(uniforms=to_device(q.last_uniforms,
+                                                     "cpu"))
+    same_query_results(card, cpu, name, close=("m",))
+
+
+def test_query_layer_on_card_matches_cpu_but_for_near_ties(dev,
+                                                           query_graph):
+    g, g_cpu = query_graph["plain"]
+    with DrawReplay() as rep:
+        Query(g).v(query_ids(dev)).sampleLNB([0, 1], 8, 500).run(
+            generator=torch.Generator(device=dev).manual_seed(2))
+    assert rep.check_layers(g_cpu)["layer_selects"] == 1
+
+
+def test_index_draws_on_card_match_cpu(dev, query_graph):
+    g, g_cpu = query_graph["indexed"]
+    gen = torch.Generator(device=dev).manual_seed(3)
+    for p in (index_ops.Pred("feature", "gt", 0.3),
+              index_ops.Pred("feature", "not_in", (0.0, 1.0)),
+              index_ops.Pred("feature", "le", -2.0)):
+        u = index_ops.draw_indexed_uniforms(gen, 5000, dev)
+        got = index_ops.select_indexed(g, p, u)
+        assert torch.equal(got.cpu(), index_ops.select_indexed(
+            g_cpu, p, to_device(u, "cpu")))
+    w = torch.rand(5_000_000, generator=gen, device=dev)
+    assert torch.equal(sampling.row_cdf(w[None]).cpu(),
+                       sampling.row_cdf(w[None].cpu()))
+    u = index_ops.draw_masked_uniforms(gen, 4096, dev)
+    assert torch.equal(index_ops.select_masked(w, u).cpu(),
+                       index_ops.select_masked(w.cpu(), u.cpu()))
+
+
+def test_ivf_on_card_matches_cpu(dev):
+    rng = np.random.default_rng(0)
+    centers = rng.normal(0, 4, (16, 32))
+    emb = (centers[rng.integers(0, 16, 4000)]
+           + rng.normal(0, 1, (4000, 32))).astype(np.float32)
+    card = knn.IvfKnnIndex(emb, n_clusters=16, nprobe=3, device=dev)
+    cpu = knn.IvfKnnIndex(emb, n_clusters=16, nprobe=3, device="cpu")
+    assert float((card._cent.cpu() - cpu._cent).abs().max()) <= 1e-4
+    assert torch.equal(card._members.cpu(), cpu._members)
+    q = emb[:100] + 0.1
+    gr.gather_rows.launches = 0
+    d, i = card.search(q, k=10)
+    assert gr.gather_rows.launches == 1
+    dc, ic = cpu.search(q, k=10)
+    np.testing.assert_array_equal(i, ic)
+    np.testing.assert_allclose(d, dc, rtol=1e-4, atol=1e-3)
+    with pytest.raises(ValueError, match="k argument to top_k"):
+        knn.KnnIndex(emb[:5], device=dev).search(q, k=8)

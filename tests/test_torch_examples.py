@@ -24,11 +24,14 @@ FLAGS = ["--dataset", "sbm", "--hidden_dim", "8", "--batch_size", "16",
          "--total_steps", "3", "--learning_rate", "0.005", "--log_steps", "2"]
 
 
-def reference_script(name):
-    """examples/<name>/run_<name>.py, imported as the script imports
-    itself (its directory's parent on sys.path, ``common`` beside it)."""
-    path = os.path.join(REPO, "examples", name, f"run_{name}.py")
-    spec = importlib.util.spec_from_file_location(f"ref_run_{name}", path)
+def reference_script(name, script=None):
+    """examples/<name>/run_<script or name>.py, imported as the script
+    imports itself (its directory's parent on sys.path, ``common`` beside
+    it)."""
+    script = script or name
+    path = os.path.join(REPO, "examples", name, f"run_{script}.py")
+    spec = importlib.util.spec_from_file_location(f"ref_run_{script}",
+                                                  path)
     mod = importlib.util.module_from_spec(spec)
     saved = list(sys.path)
     try:

@@ -47,7 +47,25 @@ def test_port_modules_import_without_jax():
                  "datasets.synthetic", "datasets.registry",
                  "graph.convert", "graph.stream_convert", "examples.common",
                  "examples.graphsage.run_graphsage", "examples.gcn.run_gcn",
-                 "examples.rgcn.run_rgcn"):
+                 "examples.rgcn.run_rgcn", "query", "ops.index", "knn",
+                 "examples.TransX.run_transX", "examples.TransX.run_transE",
+                 "examples.TransX.run_transH", "examples.TransX.run_transR",
+                 "examples.TransX.run_transD", "examples.distmult.run_distmult",
+                 "examples.deepwalk.run_deepwalk", "examples.line.run_line",
+                 "examples.gat.run_gat", "examples.agnn.run_agnn",
+                 "examples.appnp.run_appnp", "examples.arma.run_arma",
+                 "examples.sgcn.run_sgcn", "examples.tagcn.run_tagcn",
+                 "examples.dna.run_dna",
+                 "examples.adaptivegcn.run_adaptivegcn",
+                 "examples.fastgcn.run_fastgcn", "examples.gin.run_gin",
+                 "examples.graphgcn.run_graphgcn",
+                 "examples.set2set.run_set2set",
+                 "examples.gated_graph.run_gated_graph",
+                 "examples.dgi.run_dgi", "examples.gae.run_gae",
+                 "examples.geniepath.run_geniepath", "examples.lgcn.run_lgcn",
+                 "examples.scalable_sage.run_scalable_sage",
+                 "examples.solution.run_solution",
+                 "examples.sample_solution.run_sample_solution"):
         assert f"euler_tpu_torch.{name}" in names
     env = dict(os.environ, PYTHONPATH=REPO)
     out = subprocess.run([sys.executable, "-c", _CHECK], cwd=REPO, env=env,
