@@ -166,8 +166,8 @@ Phases, in order; any failure propagates and the exit code is not 0:
  12f. convs   the eight convs of bench.CONV_MODES (tag, sgcn, agnn, appnp,
               graph, arma, dna, gated; bench.make_model, f32) at full
               width on the graph of phase 5, each: infer of 8192 ids (16
-              + 16 launches); one step card vs CPU (sampled ids equal,
-              loss and every gradient within 1e-4); phase 12e's loop
+              + 16 launches); one step card vs CPU on 256 roots (sampled
+              ids equal, loss and every gradient within 1e-4); phase 12e's loop
               checks (steps_per_loop = 5: 2 loops replayed against 10
               eager steps bit for bit, both kernels equal to their plain
               versions on the last replay's inputs, held 2 + 2 checked
@@ -305,14 +305,40 @@ Phases, in order; any failure propagates and the exit code is not 0:
               (one captured step replayed); each kernel 2
               launches per step in the sampled modes, gather_rows 2 and
               fan_draw none in gcn, neither in transe
- 14. report   one JSON line of kernels (the gather's f32 and bf16 times,
+ 14. mesh     sharded sage serving over torch.distributed on the graph
+              of phase 5 and the model of phase 6 (f32): build_sharded
+              into 4 shards and into 1 on the host, one file a shard
+              under build/mesh14/; the one-card pack's rows checked equal
+              to the shards' but for the reservoir rows (which each
+              shard, and phase 10's redraws, draw on their own), which
+              it takes from the one shard for the one-card forward of
+              rank 0's 1024 roots, then from the 4 shards for the
+              one-card forward of 4 x 1024 roots, each rank's from its
+              own uniforms U_r. Then 4 gloo ranks spawned on the one
+              card (data=1, graph=4), each loading only its shard: one
+              make_sharded_apply of the whole batch with every owner
+              reading U_all = cat(U_0..U_3), each rank's embeddings and
+              logits equal to the one-card forward bit for bit, 2 + 2
+              launches, each equal to its plain version; one batch's
+              bytes and calls by collective and the gloo host copies
+              (comms.account()); ms per batch (CUDA-event median of 20,
+              40 + 40 launches); rank 0 profiles one batch (its trace
+              holding the 4 launches), lists the host ops of another
+              (self CPU time by op, beside the one-card forward's) and
+              times each kernel at the shape it launched; each rank's
+              seconds by stage. Then a one-rank NCCL group (data=1,
+              graph=1) in this process over the one shard, held the
+              same way against the one-card forward of rank 0's roots.
+              A rank that fails or outlives the timeout fails the phase
+ 15. report   one JSON line of kernels (the gather's f32 and bf16 times,
               also at gcn's shape, fan_draw's launch floor, its paths'
               crossover and its union shapes, each kernel's launches on
-              every path and ptxas figures), then the last line
-              {"ok": true, "device": {...}}
+              every path, the mesh's shapes and ptxas figures), then the
+              last line {"ok": true, "device": {...}}
 
-Phases 12c, 12d, 12e, 12f, 12h, the dedup part of 12i and 12l run after
-12 in that order, then the walk part of 12i, 12j, 12b, 12g, 12k and 12m.
+Phases 12c, 12d, 12e, 12f, 12h, the dedup part of 12i, 12l and 14 run
+after 12 in that order, then the walk part of 12i, 12j, 12b, 12g, 12k
+and 12m.
 
 It exits non-zero, with no result line, where torch.cuda.is_available()
 is false or the euler_tpu_torch package is missing.
@@ -326,8 +352,10 @@ import ctypes
 import dataclasses
 import importlib
 import json
+import multiprocessing
 import os
 import re
+import shutil
 import statistics
 import subprocess
 import sys
@@ -339,6 +367,7 @@ import urllib.request
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from euler_tpu_torch import bench, knn
 from euler_tpu_torch._build import (NVCC_FLAGS, PACKAGE_DIR,
@@ -378,6 +407,9 @@ from euler_tpu_torch.ops import sampling, util_ops, walk
 from euler_tpu_torch.ops.alias import (FAN_ALIAS_OFF, FAN_D, FAN_KEPT_OFF,
                                        FAN_PROB_OFF, FANU_MASK,
                                        FANU_MAX_TYPES, FANU_SHIFT)
+from euler_tpu_torch.parallel import comms, sharded
+from euler_tpu_torch.parallel import mesh as mesh_lib
+from euler_tpu_torch.parallel import train as sharded_train
 from euler_tpu_torch.query import EdgeResult, Query, udf_max, udf_mean
 from euler_tpu_torch.serving import serve_embeddings
 
@@ -1012,6 +1044,28 @@ def profile(fn, what: str, attempts: int = 3) -> dict:
                kernels=[dict(name=k[:90], us=us, calls=n)
                         for k, (us, n) in top])
     log(f"profile: {json.dumps(out)}")
+    return out
+
+
+def host_ops(fn, what: str, top: int = 15) -> dict:
+    """torch.profiler's host side of one ``fn()``: the window's host-clock
+    time, the self CPU time of every op together, and the ``top`` ops by
+    self CPU time (CUDA runtime calls included) with their calls. No
+    fills open this window, so no device figure is read from it."""
+    from torch.profiler import ProfilerActivity, profile as torch_profile
+    torch.cuda.synchronize()
+    with torch_profile(activities=[ProfilerActivity.CPU,
+                                   ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        host_ms = (time.perf_counter() - t0) * 1e3
+    ops = sorted(prof.key_averages(), key=lambda e: -e.self_cpu_time_total)
+    out = dict(what=what, host_ms=host_ms,
+               self_cpu_ms=sum(e.self_cpu_time_total for e in ops) / 1e3,
+               ops=[dict(name=e.key[:70], self_cpu_us=e.self_cpu_time_total,
+                         calls=e.count) for e in ops[:top]])
+    log(f"host ops: {json.dumps(out)}")
     return out
 
 
@@ -1914,7 +1968,8 @@ class KernelRecorder:
     capture: after a replay they hold that replay's inputs and outputs."""
 
     SITES = ((sampling, "fan_draw"), (encoders, "gather_rows"),
-             (feature_ops, "gather_rows"), (knn, "gather_rows"))
+             (feature_ops, "gather_rows"), (knn, "gather_rows"),
+             (sharded, "gather_rows"))
 
     def __init__(self, eager: bool = False):
         self.calls, self.eager = [], eager
@@ -3978,6 +4033,337 @@ def ptxas_report(name: str) -> dict:
     return report
 
 
+# --------------------------------------------------------------- phase 14 --
+
+# the mesh phase: the sage graph over MESH_SHARDS graph shards, one gloo
+# rank a shard on the one card, BATCH roots a rank; then one NCCL rank
+# over the whole graph as one shard
+MESH_SHARDS, MESH_BATCHES, MESH_TIMEOUT_S = 4, 20, 600
+MESH_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build",
+                        "mesh14")
+
+
+def mesh_rank(work: str, tag: str, rank: int, data: int, graph: int,
+              backend: str, shards: str, spawned: float) -> None:
+    """One gloo rank of phase 14, in a spawned process: join the mesh,
+    load this rank's shard onto the card and ``mesh_serve``; only rank 0
+    prints. ``spawned``: the parent's wall clock when it started the
+    rank."""
+    if rank:
+        sys.stdout = open(os.devnull, "w")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    t0 = time.perf_counter()
+    start_s = time.time() - spawned
+    dev = torch.device("cuda", 0)
+    torch.cuda.set_device(dev)
+    mesh = mesh_lib.make_mesh(
+        data, graph, backend=backend, device=dev,
+        init_method="file://" + os.path.join(work, f"rendezvous_{tag}"),
+        rank=rank, timeout_s=MESH_TIMEOUT_S)
+    view = sharded.load_shard(shards, mesh.graph_index, dev, mesh)
+    mesh_serve(work, tag, mesh, view, t0, start_s)
+    mesh_lib.close()
+
+
+def mesh_serve(work: str, tag: str, mesh, view, t0: float,
+               start_s: float = 0.0) -> None:
+    """One rank's part of phase 14 over its ``view``: hold one sharded
+    apply of the parent's U_all against the parent's one-card forward
+    (embeddings and logits equal) with each kernel launch against its
+    plain version and 2 + 2 launches, account one batch's collectives
+    (bytes and calls), time MESH_BATCHES batches (CUDA events), profile
+    one and list the host ops of another; rank 0 then times each kernel
+    at the shapes it launched while the others wait. ``stages_s``: the
+    seconds from the spawn to the rank's start (``start_s``, 0 in the
+    parent), to the shard on the card, and of each part after. Writes
+    ``result_<tag>_<rank>.json``."""
+    rank, backend, dev = mesh.rank, mesh.backend, view.device
+    model = bench.make_model("sage", dev,
+                             generator=torch.Generator().manual_seed(0))
+    model.load_state_dict(torch.load(os.path.join(work, "model.pt"),
+                                     map_location=dev))
+    apply = sharded_train.make_sharded_apply(model, mesh)
+    with np.load(os.path.join(work, f"inputs_{tag}.npz")) as z:
+        batch = torch.from_numpy(z["batch"]).to(dev)
+        u_all = [tuple(torch.from_numpy(z[f"h{h}_u{i}"]).to(dev)
+                       for i in range(2)) for h in range(len(FANOUTS))]
+        want = {k: torch.from_numpy(z[k]).to(dev)
+                for k in ("embedding", "logit")}
+    res = dict(rank=rank, backend=backend, ready_s=time.perf_counter() - t0)
+    stages = dict(start=start_s, ready=res["ready_s"])
+    t_stage = time.perf_counter()
+
+    def stage(name):
+        nonlocal t_stage
+        stages[name] = time.perf_counter() - t_stage
+        t_stage = time.perf_counter()
+    rec = KernelRecorder(eager=True)
+    reset_counts()
+    with rec:
+        out = apply(view, batch, uniforms=u_all)
+    torch.cuda.synchronize()
+    res["launches"] = read_counts()
+    check(res["launches"] == {"fan_draw": 2, "gather_rows": 2},
+          f"mesh rank {rank}: launches {res['launches']}, want 2 + 2")
+    res["checked_plain"] = rec.check_plain(f"mesh rank {rank}")
+    res["max_abs_err"] = {k: float((out[k] - want[k]).abs().max())
+                          for k in want}
+    for k in want:
+        check(torch.equal(out[k], want[k]),
+              f"mesh rank {rank}: {k} != the one-card forward")
+    check(out["embedding"].shape == (batch.shape[0], DIMS[-1])
+          and bool(torch.isfinite(out["embedding"]).all()),
+          f"mesh rank {rank}: embeddings not finite [B, D]")
+    stage("checked")
+    with comms.account() as acc:
+        apply(view, batch, seed=0)
+    res["bytes_per_batch"] = acc.totals()
+    res["collective_calls_per_batch"] = {
+        k: sum(1 for e in acc.events if e[0] == k) for k in sorted(
+            {e[0] for e in acc.events})}
+    reset_counts()
+    ms = []
+    for i in range(MESH_BATCHES):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        o = apply(view, batch, seed=1 + i)
+        end.record()
+        torch.cuda.synchronize()
+        ms.append(start.elapsed_time(end))
+        check(bool(torch.isfinite(o["logit"]).all()),
+              f"mesh rank {rank}: logits not finite")
+    res["batch_ms"] = ms
+    res["batch_ms_median"] = statistics.median(ms)
+    res["timed_launches"] = read_counts()
+    check(res["timed_launches"] == {"fan_draw": 2 * MESH_BATCHES,
+                                    "gather_rows": 2 * MESH_BATCHES},
+          f"mesh rank {rank}: {res['timed_launches']} in {MESH_BATCHES} "
+          f"batches")
+    stage("timed")
+
+    def one_batch():
+        apply(view, batch, seed=99)
+    if rank == 0:
+        prof = profile(one_batch, f"one sharded batch ({backend})",
+                       attempts=1)
+        res["profile"] = {k: prof[k] for k in (
+            "host_ms", "device_busy_ms", "device_idle_share",
+            "kernel_events_complete", "traced", "launched")}
+        check(prof["kernel_events_complete"],
+              f"mesh rank 0: the trace holds {prof['traced']} of "
+              f"{prof['launched']}")
+        res["host_ops"] = host_ops(one_batch,
+                                   f"one sharded batch ({backend})")
+    else:
+        one_batch()
+        one_batch()
+    torch.cuda.synchronize()
+    stage("profiled")
+    if rank == 0:
+        res["kernels"] = mesh_kernel_times(rec.calls, dev)
+    stage("kernels")
+    dist.barrier(group=mesh.world_group)
+    stage("barrier")
+    res["stages_s"] = stages
+    with open(os.path.join(work, f"result_{tag}_{rank}.json"), "w") as f:
+        json.dump(res, f)
+
+
+def mesh_kernel_times(calls, dev) -> list:
+    """Each kernel launch of one sharded batch on rank 0, timed at its
+    shape (CUDA-event medians, L2 flushed) beside its plain version, its
+    bytes bound and, for the gather, torch.index_select."""
+    flush = torch.empty(64 << 20, dtype=torch.uint8, device=dev)
+    rows = []
+    for name, args, kwargs, _ in calls:
+        if name == "fan_draw":
+            pack, nodes, u1, u2 = args[0], args[1], args[4], args[5]
+            row = dict(name=name, B=u1.shape[0], C=u1.shape[1],
+                       live=int((nodes >= 0).sum()),
+                       bytes=needed_bytes(pack, nodes, u1, u2))
+            row["ms"] = time_launches(lambda: fd.fan_draw(*args, **kwargs),
+                                      200, flush)
+            row["plain_ms"] = time_launches(
+                lambda: fd.fan_draw_plain(*args, **kwargs), 50, flush)
+            row["library_ms"] = None
+        else:
+            table, ids = args[0], args[1]
+            clamped = ids.long().clamp(0, table.shape[0] - 1)
+            row = dict(name=name, N=table.shape[0], D=table.shape[1],
+                       M=ids.shape[0], live=int((ids >= 0).sum()),
+                       bytes=gather_bytes(table, ids))
+            row["ms"] = time_launches(lambda: gr.gather_rows(table, ids),
+                                      200, flush)
+            row["plain_ms"] = time_launches(
+                lambda: gr.gather_rows_plain(table, ids), 50, flush)
+            row["library_ms"] = time_launches(
+                lambda: torch.index_select(table, 0, clamped), 200, flush)
+        row["bound_ms"] = row["bytes"] / HBM_BYTES_PER_S * 1e3
+        rows.append(row)
+        log(f"mesh kernel: {json.dumps(row)}")
+    return rows
+
+
+def run_ranks(tag: str, world: int, data: int, graph: int, backend: str,
+              shards: str) -> list:
+    """Spawn ``world`` ranks of ``mesh_rank`` (the spawn start method: this
+    process holds CUDA), join each within MESH_TIMEOUT_S and fail if any
+    failed or timed out; the ranks' results."""
+    ctx = multiprocessing.get_context("spawn")
+    procs = [ctx.Process(target=mesh_rank, args=(
+        MESH_DIR, tag, r, data, graph, backend, shards, time.time()))
+        for r in range(world)]
+    for p in procs:
+        p.start()
+    deadline = time.monotonic() + MESH_TIMEOUT_S
+    try:
+        for p in procs:
+            p.join(max(1.0, deadline - time.monotonic()))
+    finally:
+        alive = [p for p in procs if p.is_alive()]
+        for p in alive:
+            p.kill()
+            p.join()
+    check(not alive, f"mesh {tag}: {len(alive)} ranks timed out")
+    codes = [p.exitcode for p in procs]
+    check(codes == [0] * world, f"mesh {tag}: rank exit codes {codes}")
+    out = []
+    for r in range(world):
+        with open(os.path.join(MESH_DIR, f"result_{tag}_{r}.json")) as f:
+            out.append(json.load(f))
+    return out
+
+
+def mesh_inputs(tag: str, batch: np.ndarray, per_rank: list, embs, logits,
+                groups) -> None:
+    """The inputs of one mesh run: the whole batch, each hop's U_all (the
+    concatenation of the group members' uniforms, in member order) and
+    the one-card forward's embeddings and logits of the whole batch."""
+    arrays = dict(batch=batch, embedding=torch.cat(embs).cpu().numpy(),
+                  logit=torch.cat(logits).cpu().numpy())
+    for h in range(len(FANOUTS)):
+        for i in range(2):
+            arrays[f"h{h}_u{i}"] = torch.cat(
+                [per_rank[r][h][i] for r in groups]).cpu().numpy()
+    np.savez(os.path.join(MESH_DIR, f"inputs_{tag}.npz"), **arrays)
+
+
+def adopt_shard_reservoirs(g, sg) -> int:
+    """Check that each shard's fan rows equal the one-card pack's rows of
+    the same (node, type) groups, but for the reservoir rows (groups of
+    degree > FAN_D), which each shard draws with a generator of its own;
+    then write those into the one-card pack, so that both hold the same
+    draws. Returns the rows written."""
+    S, ET = sg.num_shards, sg.meta.num_edge_types
+    written = 0
+    for s in range(S):
+        n_local = len(range(s, sg.meta.n_nodes, S))
+        local = torch.from_numpy(sg.fan_pack[s][: n_local * ET]).to(g.device)
+        glob = ((torch.arange(n_local, device=g.device)[:, None] * S + s)
+                * ET + torch.arange(ET, device=g.device)).reshape(-1)
+        res = torch.from_numpy(np.diff(sg.group_ptr[s])[: n_local * ET]
+                               > FAN_D).to(g.device)
+        check(torch.equal(g.fan_pack[glob[~res]], local[~res]),
+              f"mesh: shard {s}'s fan rows != the one-card pack's")
+        g.fan_pack[glob[res]] = local[res]
+        written += int(res.sum())
+    return written
+
+
+def phase_mesh(graph, model, dev, smi: str) -> dict:
+    """Phase 14: sharded sage serving over torch.distributed."""
+    t_phase = time.perf_counter()
+    shutil.rmtree(MESH_DIR, ignore_errors=True)
+    os.makedirs(MESH_DIR)
+    t0 = time.perf_counter()
+    sgs = {S: sharded.build_sharded(graph, S) for S in (MESH_SHARDS, 1)}
+    sharded.write_shards(sgs[MESH_SHARDS],
+                         os.path.join(MESH_DIR, f"shards{MESH_SHARDS}"))
+    out = dict(shard_host_s=time.perf_counter() - t0)
+    torch.save(model.state_dict(), os.path.join(MESH_DIR, "model.pt"))
+    # the one-card forward of each rank's roots from its own uniforms:
+    # rank 0's on the one shard's reservoir rows (the NCCL rank's), then
+    # every rank's on the 4 shards', each adopted by the one-card pack
+    rng = np.random.default_rng(14)
+    batch = rng.integers(0, N_NODES, MESH_SHARDS * BATCH).astype(np.int32)
+    flow, g = model.embedder.flow, graph.tensors
+    gen = torch.Generator(device=dev).manual_seed(14)
+    roots_of = [torch.from_numpy(batch[r * BATCH:(r + 1) * BATCH]).to(dev)
+                for r in range(MESH_SHARDS)]
+    per_rank = [hop_uniforms(flow, g, roots, gen) for roots in roots_of]
+    model.eval()
+    with torch.no_grad():
+        out["reservoir_rows_adopted"] = [adopt_shard_reservoirs(g, sgs[1])]
+        one = model(g, roots_of[0], uniforms=per_rank[0])
+        out["reservoir_rows_adopted"].append(adopt_shard_reservoirs(
+            g, sgs[MESH_SHARDS]))
+        embs, logits = [], []
+        for roots, u in zip(roots_of, per_rank):
+            o = model(g, roots, uniforms=u)
+            embs.append(o["embedding"])
+            logits.append(o["logit"])
+        ms = []
+        roots = torch.from_numpy(batch[:BATCH]).to(dev)
+        for i in range(MESH_BATCHES):
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            model(g, roots, generator=gen)
+            end.record()
+            torch.cuda.synchronize()
+            ms.append(start.elapsed_time(end))
+        out["single_card_host_ops"] = host_ops(
+            lambda: model(g, roots, generator=gen), "one-card forward")
+    out["single_card_batch_ms_median"] = statistics.median(ms)
+    mesh_inputs("gloo", batch, per_rank, embs, logits,
+                range(MESH_SHARDS))
+    mesh_inputs("nccl", batch[:BATCH], per_rank[:1], [one["embedding"]],
+                [one["logit"]], range(1))
+    t0 = time.perf_counter()
+    out["gloo"] = run_ranks("gloo", MESH_SHARDS, 1, MESH_SHARDS, "gloo",
+                            os.path.join(MESH_DIR, f"shards{MESH_SHARDS}"))
+    out["gloo_s"] = time.perf_counter() - t0
+    # the one-rank NCCL group in this process, over the one shard
+    t0 = time.perf_counter()
+    mesh = mesh_lib.make_mesh(
+        1, 1, backend="nccl", device=torch.device("cuda", 0),
+        init_method="file://" + os.path.join(MESH_DIR, "rendezvous_nccl"),
+        rank=0, timeout_s=MESH_TIMEOUT_S)
+    try:
+        mesh_serve(MESH_DIR, "nccl", mesh,
+                   sharded.take_shard(sgs[1], 0, mesh.device, mesh), t0)
+    finally:
+        mesh_lib.close()
+    del sgs
+    with open(os.path.join(MESH_DIR, "result_nccl_0.json")) as f:
+        out["nccl"] = [json.load(f)]
+    out["nccl_s"] = time.perf_counter() - t0
+    out["seconds"] = time.perf_counter() - t_phase
+    shutil.rmtree(MESH_DIR, ignore_errors=True)
+    for tag in ("gloo", "nccl"):
+        for res in out[tag]:
+            log(f"mesh {tag} rank {res['rank']}: "
+                f"{res['batch_ms_median']:.4f} ms per sharded infer batch "
+                f"(CUDA-event median of {MESH_BATCHES}); {smi}")
+        log(f"mesh {tag} rank 0 bytes per batch: "
+            f"{json.dumps(out[tag][0]['bytes_per_batch'])}; collective "
+            f"calls per batch: "
+            f"{json.dumps(out[tag][0]['collective_calls_per_batch'])}; "
+            f"{smi}")
+        for res in out[tag]:
+            log(f"mesh {tag} rank {res['rank']} stages (s): "
+                f"{json.dumps(res['stages_s'])}")
+    log(f"mesh single card: {out['single_card_batch_ms_median']:.4f} ms per "
+        f"infer batch of {BATCH} roots (CUDA-event median of "
+        f"{MESH_BATCHES}); {smi}")
+    log(f"mesh phase: {out['seconds']:.1f} s (shards on the host "
+        f"{out['shard_host_s']:.1f} s, gloo ranks {out['gloo_s']:.1f} s, "
+        f"the nccl group {out['nccl_s']:.1f} s); {smi}")
+    return out
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument(
@@ -4094,6 +4480,9 @@ def main() -> int:
     # 12l. the query path and the IVF index on the graph of phase 5
     queried = phase_query(graph, dev)
     allocated_after("query")
+    # 14. sharded sage serving over 4 gloo ranks and one NCCL rank
+    meshed = phase_mesh(graph, model, dev, smi)
+    allocated_after("mesh")
     del graph
     allocated_after("del graph")
     walks = phase_walk(dev)
@@ -4161,6 +4550,17 @@ def main() -> int:
     path_launches["ivf_search"] = queried["ivf"]["launches"]
     path_launches.update({f"example_{script}": examples[script]["launches"]
                           for _, script in EXAMPLES_12M})
+    path_launches.update({f"mesh_{tag}_rank{res['rank']}": res["launches"]
+                          for tag in ("gloo", "nccl")
+                          for res in meshed[tag]})
+
+    def mesh_shapes(name):
+        """One sharded batch's launches of ``name`` on rank 0 of each
+        mesh, at their shapes."""
+        return [dict(backend=tag, **{k: v for k, v in row.items()
+                                      if k != "name"})
+                for tag in ("gloo", "nccl")
+                for row in meshed[tag][0]["kernels"] if row["name"] == name]
 
     def by_path(name):
         return {path: n[name] for path, n in path_launches.items()}
@@ -4200,6 +4600,10 @@ def main() -> int:
         "paths_ms": crossover,
         # the unsupervised step's shapes, on its own frontiers
         "unsup_shapes": unsup["kernels"]["fan_draw"],
+        # each owner's draw over the spread rows of 4 gloo ranks' hops
+        # (local rows, -1 where another shard owns the id), and the NCCL
+        # rank's over the whole graph as one shard
+        "mesh_shapes": mesh_shapes("fan_draw"),
     }, {
         "name": "gather_rows", "route": "cuda",
         "source": "euler_tpu_torch/csrc/gather_rows.cu",
@@ -4230,6 +4634,9 @@ def main() -> int:
                        for g in gcn_gathers],
         # the unsupervised step's negatives tower, on its own ids
         "unsup_shapes": unsup["kernels"]["gather_rows"],
+        # each owner's feature and label answers (request-routed over 4
+        # gloo ranks; spread on the NCCL rank's one shard)
+        "mesh_shapes": mesh_shapes("gather_rows"),
     }]
     log(json.dumps({"smoke": dict(
         build_s=build_s, graph_s=graph_s,
@@ -4238,7 +4645,7 @@ def main() -> int:
         train=train, grads=grads, families=families, gcn=gcn,
         convs=conv_runs, whole=whole, encoder=encoder, transe=transe,
         dedup=dedup, walk=walks, rest=rest, data=data, query=queried,
-        examples=examples,
+        examples=examples, mesh=meshed,
         unsup={k: v for k, v in unsup.items() if k != "kernels"}, loop=loop,
         bench=benched, allocated_gb_after=allocated)}))
     log(smi)                # nvidia-smi's name and power limit, as given

@@ -21,8 +21,8 @@ positions and never a scatter. A shared-source block (the layerwise
 flows') is a fanout block whose ``fanout`` sources are one layer shared
 by every target: edge t*fanout+j has dst=t and src=T+j, so the per-edge
 views broadcast the layer and the source-side sums reduce over the
-targets. The reference's distributed (``psum_axis``) blocks wait for the
-sharded store.
+targets. The reference's distributed (``psum_axis``) blocks, which
+train over the mesh, are left to ROADMAP Queue A item 11b.
 """
 from __future__ import annotations
 

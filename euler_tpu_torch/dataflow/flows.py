@@ -67,7 +67,8 @@ class SageDataFlow:
                  B: int, count: int, device) -> tuple:
         """The uniforms of one hop of ``count`` draws for B nodes."""
         if self.payload:
-            return sampling.draw_sample_uniforms(generator, B, count, device)
+            return sampling.draw_sample_uniforms(
+                generator, sampling.neighbor_rows(g, B), count, device)
         return sampling.draw_neighbor_uniforms(g, ets, generator, B, count,
                                                device)
 
@@ -149,7 +150,8 @@ class WholeDataFlow:
     by ``get_full_neighbor`` (no transpose table: GNNNet expands each
     layer's output through ``n_id``); else the edge-list block
     ``full_graph_block``, whose reductions scatter. The distributed
-    branch waits for the sharded store.
+    branch (the reference's ``full_graph_block_sharded``) is left to
+    ROADMAP Queue A item 11b.
     """
 
     def __init__(self, num_layers: int, metapath,
@@ -254,7 +256,7 @@ class LayerwiseDataFlow:
         for hop, (ets, m) in enumerate(zip(self.metapath, self.layer_sizes)):
             T = cur.shape[0]
             u = uniforms[hop] if uniforms is not None else \
-                sampling.draw_layer_uniforms(generator, T, self.cpn, dev)
+                sampling.draw_layer_uniforms(generator, T, self.cpn, dev, g)
             layer, _ = sampling.select_layer(g, cur, ets, self.cpn, m, u,
                                              self.weight_func)
             eq = (layer[None, :] == layer[:, None]).to(torch.uint8)

@@ -7,7 +7,7 @@ examples/gcn/run_gcn.py:45-89 of tf_euler). Every example script builds
 its model from the port's pieces and hands it to ``run_node_model``,
 ``run_edge_model`` or ``run_graph_model``. ``--device`` picks the card
 (default ``cuda``, which must exist) or ``cpu``; ``--mesh`` raises, since
-the sharded estimators are not ported yet (ROADMAP.md, Queue A item 11).
+the sharded estimators are not ported yet (ROADMAP.md, Queue A item 11b).
 Model weights come from a CPU generator seeded with 0.
 """
 from __future__ import annotations
@@ -48,7 +48,7 @@ def device_of(args) -> torch.device:
     if getattr(args, "mesh", None) is not None:
         raise NotImplementedError(
             "--mesh: the sharded estimators are not ported yet (ROADMAP.md, "
-            "Queue A item 11); run on one device without --mesh")
+            "Queue A item 11b); run on one device without --mesh")
     return resolve_device(args.device)
 
 

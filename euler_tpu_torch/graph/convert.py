@@ -162,17 +162,20 @@ def convert_json_graph(
         nfeat, efeat)
 
 
-def build_csr(n, n_et, src, dst, etype, ew, eid=None):
+def build_csr(n, n_et, src, dst, etype, ew, eid=None, native: bool = True):
     """Sort edges by (src, etype, dst); return group CSR arrays.
 
     Returns (group_ptr [n*n_et+1], col, w, w_cumsum, eid_sorted, perm).
     ``eid_sorted`` maps each CSR slot back to the original edge row.
-    The native core does the sort when it loaded; numpy otherwise.
+    The native core does the sort when it loaded and ``native`` is true;
+    numpy otherwise, whose sort is stable: edges with equal keys keep
+    their input order (the native core's parallel sort does not).
     """
     m = len(src)
     if eid is None:
         eid = np.arange(m, dtype=np.int32)
-    res = _native.build_csr_native(n, n_et, src, dst, etype, ew, eid)
+    res = _native.build_csr_native(n, n_et, src, dst, etype, ew, eid) \
+        if native else None
     if res is not None:
         return res
     perm = np.lexsort((dst, etype, src))

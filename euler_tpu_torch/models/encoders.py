@@ -15,6 +15,7 @@ from torch import nn
 
 from euler_tpu_torch.graph.store import GraphTensors
 from euler_tpu_torch.ops import feature_ops, mp_ops
+from euler_tpu_torch.ops.dispatch import is_shard_view
 from euler_tpu_torch.ops.gather_rows import gather_rows
 
 
@@ -68,6 +69,10 @@ class ShallowEncoder(nn.Module):
             for name in sparse_names})
 
     def _dense(self, g: GraphTensors, n_id: torch.Tensor) -> torch.Tensor:
+        if is_shard_view(g):
+            # each owner answers its rows through gather_rows
+            parts = feature_ops.get_dense_feature(g, n_id, self.dense_names)
+            return torch.cat(parts, dim=-1)
         tables = [g.dense_nf[n] for n in self.dense_names]
         flat = n_id.reshape(-1).to(torch.int32).contiguous()
         dtypes = {t.dtype for t in tables}

@@ -279,7 +279,7 @@ class UnsuperviseModel(nn.Module):
             u_pos = sampling.draw_neighbor_uniforms(g, self.edge_types,
                                                     generator, B, 1, dev)
             u_neg = sampling.draw_node_uniforms(generator, B * self.num_negs,
-                                                dev)
+                                                dev, g)
             towers = (None,) * 3
         else:
             u_pos, u_neg, *towers = uniforms

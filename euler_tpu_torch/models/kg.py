@@ -50,8 +50,8 @@ class TransX(nn.Module):
         if shard_embeddings:
             raise NotImplementedError(
                 "shard_embeddings=True partitions the entity table over a "
-                "mesh, which waits for the sharded store (ROADMAP Queue A "
-                "item 9)")
+                "mesh, which waits for training over the mesh (ROADMAP "
+                "Queue A item 11b)")
         if corrupt not in ("front", "tail", "both"):
             raise ValueError(f"corrupt {corrupt!r} not in front, tail, both")
         dev = resolve_device(device)

@@ -7,8 +7,9 @@ tf_euler/python/utils/layers.py:119-270). The embedding tables are
 rows, the gradient an ``index_add_``), but for ``ShardedEmbedding``, the
 single-device table of the reference's non-mesh branch, which reads as a
 jnp index does; its mesh branch (a table split over the graph axis)
-waits for the sharded store and raises. Weights come from ``generator``, a CPU torch.Generator; the
-module is then moved to ``device``.
+raises: it waits for training over the mesh (ROADMAP Queue A item 11b).
+Weights come from ``generator``, a CPU torch.Generator; the module is
+then moved to ``device``.
 """
 from __future__ import annotations
 
@@ -73,7 +74,9 @@ class ShardedEmbedding(nn.Module):
     def forward(self, g, ids: torch.Tensor) -> torch.Tensor:
         if getattr(g, "num_shards", None) is not None:
             raise NotImplementedError(
-                "ShardedEmbedding over a mesh waits for the sharded store")
+                "ShardedEmbedding over a mesh (a table split over the "
+                "sharded store's graph axis) waits for ROADMAP Queue A item "
+                "11b")
         ids = ids.to(torch.int64)
         rows = _Lookup.apply(self.embedding,
                              ids.clamp(0, self.num - 1), False)

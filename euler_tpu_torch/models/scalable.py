@@ -13,7 +13,7 @@ repeats in the batch, its last occurrence wins (a scatter-max of the
 positions picks it; ``index_put_`` alone leaves the winner open). In
 evaluation (``model.eval()``) nothing is written, as the reference's
 evaluate discards its store updates. The graph-axis-sharded stores of the
-reference's mesh branch wait for the sharded store.
+reference's mesh branch wait for ROADMAP Queue A item 11b.
 """
 from __future__ import annotations
 
@@ -83,7 +83,9 @@ class ScalableGNNNet(nn.Module):
                 uniforms: Optional[Sequence] = None) -> torch.Tensor:
         if getattr(g, "num_shards", None) is not None:
             raise NotImplementedError(
-                "ScalableGNNNet over a mesh waits for the sharded store")
+                "ScalableGNNNet over a mesh (a store split over the "
+                "sharded store's graph axis) waits for ROADMAP Queue A item "
+                "11b")
         roots = roots.reshape(-1).to(torch.int32)
         B = roots.shape[0]
         u = uniforms if uniforms is not None else \

@@ -32,7 +32,7 @@ def _no_sharding(shard_embeddings: bool) -> None:
     if shard_embeddings:
         raise NotImplementedError(
             "shard_embeddings=True partitions the tables over a mesh, which "
-            "waits for the sharded store (ROADMAP Queue A item 9)")
+            "waits for training over the mesh (ROADMAP Queue A item 11b)")
 
 
 def skipgram(s: torch.Tensor, context: Embed, src: torch.Tensor,

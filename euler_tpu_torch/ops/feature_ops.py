@@ -1,8 +1,10 @@
 """Node and edge feature lookup.
 
 Counterpart of euler_tpu/ops/feature_ops.py (reference: tf_euler
-feature_ops.py:57-188) on one device; the sharded branches wait for the
-sharded store. Row i belongs to ``nodes[i]`` (or ``eids[i]``).
+feature_ops.py:57-188). Handed a ``parallel.sharded.ShardView``, each
+lookup routes to its owner-served counterpart, as the reference's do
+(:38, :48, :62, :70, :90). Row i belongs to ``nodes[i]`` (or
+``eids[i]``).
 
 - Dense features (``get_dense_feature``, ``get_edge_dense_feature``):
   zeros for ids < 0 (padding) and NaN for ids >= N, as the reference's
@@ -24,7 +26,13 @@ from typing import List, Sequence, Tuple
 import torch
 
 from euler_tpu_torch.graph.store import GraphTensors
+from euler_tpu_torch.ops.dispatch import is_shard_view as _is_shard_view
 from euler_tpu_torch.ops.gather_rows import gather_rows
+
+
+def _sharded():
+    from euler_tpu_torch.parallel import sharded
+    return sharded
 
 
 def _take_rows(table: torch.Tensor, ids: torch.Tensor) -> torch.Tensor:
@@ -57,6 +65,8 @@ def _sparse(tables, ids, names) -> List[Tuple[torch.Tensor, torch.Tensor]]:
 def get_dense_feature(g: GraphTensors, nodes: torch.Tensor,
                       names: Sequence[str]) -> List[torch.Tensor]:
     """Dense (float) node features; [*, dim] per name."""
+    if _is_shard_view(g):
+        return _sharded().get_dense_feature_sharded(g, nodes, names)
     return [_take_rows(g.dense_nf[n], nodes) for n in names]
 
 
@@ -65,6 +75,8 @@ def get_sparse_feature(g: GraphTensors, nodes: torch.Tensor,
                        ) -> List[Tuple[torch.Tensor, torch.Tensor]]:
     """Sparse (id-list) node features: (ids [*, L] padded -1, mask) per
     name (reference: feature_ops.py:44-54)."""
+    if _is_shard_view(g):
+        return _sharded().get_sparse_feature_sharded(g, nodes, names)
     return _sparse(g.sparse_nf, nodes, names)
 
 
@@ -72,6 +84,8 @@ def get_edge_dense_feature(g: GraphTensors, eids: torch.Tensor,
                            names: Sequence[str]) -> List[torch.Tensor]:
     """Dense edge features by original edge row; [*, dim] per name
     (reference: feature_ops.py:57-63)."""
+    if _is_shard_view(g):
+        return _sharded().get_edge_feature_sharded(g, eids, names, "dense")
     return [_take_rows(g.dense_ef[n], eids) for n in names]
 
 
@@ -80,6 +94,8 @@ def get_edge_sparse_feature(g: GraphTensors, eids: torch.Tensor,
                             ) -> List[Tuple[torch.Tensor, torch.Tensor]]:
     """Sparse edge features: (ids [*, L] padded -1, mask) per name
     (reference: feature_ops.py:66-76)."""
+    if _is_shard_view(g):
+        return _sharded().get_edge_feature_sharded(g, eids, names, "sparse")
     return _sparse(g.sparse_ef, eids, names)
 
 
@@ -88,6 +104,8 @@ def get_edge_type(g: GraphTensors, eids: torch.Tensor) -> torch.Tensor:
     (reference: feature_ops.py:79-94). ``eid_type`` is ordered by edge
     row; the CSR's ``adj_type`` is ordered by slot and would permute
     relations."""
+    if _is_shard_view(g):
+        return _sharded().get_edge_type_sharded(g, eids)
     e = eids.long()
     ty = g.eid_type[e.clamp(0, g.eid_type.shape[0] - 1)]
     return torch.where(e >= 0, ty, -1).to(torch.int32)

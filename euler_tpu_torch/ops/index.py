@@ -28,8 +28,9 @@ sums at draw time add in XLA's CPU order (``sampling.row_cdf`` on a
 [1, L] view, on the device), never with torch.cumsum; the index's own
 prefix sums are taken once on the host in float64, as the reference's.
 
-The reference's branches for a sharded graph view are not here: the
-port has no sharded store yet (ROADMAP.md, Queue A item 11).
+Handed a ``parallel.sharded.ShardView``, the conditional node draw and
+``query_index_ids`` route to their sharded counterparts, as the
+reference's do (index.py:350, :371).
 """
 from __future__ import annotations
 
@@ -40,6 +41,7 @@ import numpy as np
 import torch
 
 from euler_tpu_torch.graph.store import GraphTensors, string_hash32
+from euler_tpu_torch.ops.dispatch import is_shard_view as _is_shard_view
 from euler_tpu_torch.ops.sampling import row_cdf
 
 _OPS = ("eq", "ne", "gt", "ge", "lt", "le", "in", "not_in")
@@ -327,7 +329,12 @@ def draw_condition_uniforms(g: GraphTensors, count: int, dnf, type_=-1,
                             generator: Optional[torch.Generator] = None):
     """The uniforms of ``count`` conditional draws over nodes or edges:
     ``draw_indexed_uniforms``'s pair where the draw goes through a
-    prebuilt index, else ``draw_masked_uniforms``'s tensor."""
+    prebuilt index, else ``draw_masked_uniforms``'s tensor. Over a
+    ShardView (nodes): (u_shard, u), member 0's shard choice and this
+    shard's masked draw."""
+    if _is_shard_view(g) and target == "node":
+        return (draw_masked_uniforms(generator, count, g.device),
+                draw_masked_uniforms(generator, count, g.device))
     if target == "edge":
         type_ = _edge_type_id(g, type_)
     if _indexed_pred(g, dnf, type_, target) is not None:
@@ -423,7 +430,13 @@ def select_node_with_condition(g: GraphTensors, dnf, node_type, uniforms
     uniforms ``draw_condition_uniforms`` gives (reference:
     index.py:345-367): through a prebuilt index for a single predicate
     over an indexed attribute and no node type, else the masked running
-    sum over every node. int32 [count], -1 where nothing matches."""
+    sum over every node. int32 [count], -1 where nothing matches. Over a
+    ShardView, a shard chosen in proportion to the shards' matching
+    weight, then its masked draw (index.py:350)."""
+    if _is_shard_view(g):
+        from euler_tpu_torch.parallel import sharded
+        return sharded.select_node_with_condition_sharded(g, dnf, node_type,
+                                                          *uniforms)
     p = _indexed_pred(g, dnf, node_type, "node")
     if p is not None:
         return select_indexed(g, p, uniforms, target="node")
@@ -450,7 +463,11 @@ def sample_node_with_condition(g: GraphTensors, count: int,
 def query_index_ids(g: GraphTensors, dnf, cap: int):
     """The matching node ids in id order, padded to ``cap`` with -1, and
     their mask (the reference's QueryIndex kernel,
-    core/kernels/common.cc:79)."""
+    core/kernels/common.cc:79); over a ShardView, gathered from every
+    shard (index.py:371)."""
+    if _is_shard_view(g):
+        from euler_tpu_torch.parallel import sharded
+        return sharded.query_index_ids_sharded(g, dnf, cap)
     mask = dnf_mask(g, dnf)
     order = torch.argsort((~mask).to(torch.uint8), stable=True)
     ids = torch.where(mask[order], order, -1)[:cap].to(torch.int32)

@@ -14,7 +14,12 @@ branches, with ``return_types``), ``refresh_fan_rows``/
 over the in-CSR (:551-657), ``sample_fanout`` and
 ``get_multi_hop_neighbor`` (:660-700), ``sample_layer`` (:703-726),
 ``sparse_get_adj`` (:729-772), ``sample_graph_label`` and
-``get_graph_by_label`` (:775-809) and ``get_node_type`` (:812-818). The
+``get_graph_by_label`` (:775-809) and ``get_node_type`` (:812-818).
+Handed a ``parallel.sharded.ShardView`` in place of a ``GraphTensors``,
+each verb routes to its sharded implementation where the reference's
+does (:53, :80, :98, :178, :250-262, :498, :582, :613, :741, :814), and
+each draw step gives the uniforms of the owner's answer (see
+``neighbor_rows`` and ``draw_node_uniforms``). The
 reference derives its uniforms from a jax PRNG key inside each verb;
 here each random verb is split in two so that both packages can be fed
 the same numbers: a step that draws the uniforms from a torch.Generator
@@ -59,7 +64,25 @@ from euler_tpu_torch.graph.store import (XLA_CUMSUM_BLOCK, AliasTables,
 from euler_tpu_torch.ops.alias import (FAN_ALIAS_OFF, FAN_D, FAN_KEPT_OFF,
                                        FAN_PROB_OFF, alias_select,
                                        draw_alias_uniforms)
+from euler_tpu_torch.ops.dispatch import is_shard_view as _is_shard_view
 from euler_tpu_torch.ops.fan_draw import fan_draw
+
+
+def _sharded():
+    from euler_tpu_torch.parallel import sharded
+    return sharded
+
+
+def neighbor_rows(g, B: int, spread: bool = False) -> int:
+    """The leading dim of a neighbor draw's uniforms over B query rows:
+    B on one device; over a ShardView the rows the owner answers
+    (``sharded.sampler_rows``), or S*B for a verb that always spreads
+    (``spread``: the in-neighbor draw and the same-type negatives)."""
+    if not _is_shard_view(g):
+        return B
+    if spread:
+        return g.num_shards * B
+    return _sharded().sampler_rows(g, B)
 
 
 def as_etypes(g: GraphTensors, edge_types) -> Tuple[int, ...]:
@@ -120,12 +143,19 @@ def _pick_types(w: torch.Tensor, ut: torch.Tensor):
 # ---------------------------------------------------------------------------
 
 def draw_node_uniforms(generator: Optional[torch.Generator], count: int,
-                       device) -> Tuple[torch.Tensor, torch.Tensor,
-                                        torch.Tensor]:
+                       device, g=None) -> Tuple[torch.Tensor, ...]:
     """(u_type, u1, u2), each f32 [count] in [0, 1): the type pick of
-    ``node_type=-1`` and the alias draw's two uniforms."""
+    ``node_type=-1`` and the alias draw's two uniforms. For a ShardView
+    ``g``: (u_type, u_shard, u1, u2), where member 0's type pick and
+    shard choice win (the select shares them) and each shard's u1, u2
+    draw inside it."""
     u_type = torch.rand((count,), generator=generator, device=device)
-    return (u_type,) + draw_alias_uniforms(generator, (count,), device)
+    if _is_shard_view(g):
+        u_type = (u_type, torch.rand((count,), generator=generator,
+                                     device=device))
+    else:
+        u_type = (u_type,)
+    return u_type + draw_alias_uniforms(generator, (count,), device)
 
 
 #: (u_type, u1, u2) of ``count`` edge draws, as for nodes
@@ -153,11 +183,17 @@ def _select_typed(at: AliasTables, t: int, u_type: torch.Tensor,
 
 
 def select_nodes(g: GraphTensors, node_type, u_type: torch.Tensor,
-                 u1: torch.Tensor, u2: torch.Tensor) -> torch.Tensor:
+                 u1: torch.Tensor, u2: torch.Tensor, *more) -> torch.Tensor:
     """Deterministic weighted node draws from given uniforms; int32
     [count] node ids, -1 where the drawn type has no node.
     ``node_type`` is a type id, a name, or -1 for a draw over every type
     in proportion to the per-type weight sums."""
+    if _is_shard_view(g):
+        return _sharded().select_nodes_sharded(g, node_type, u_type, u1,
+                                               u2, *more)
+    if more:
+        raise ValueError("select_nodes on one device reads (u_type, u1, "
+                         "u2)")
     if isinstance(node_type, str):
         node_type = g.meta.node_type_id(node_type)
     return _select_typed(g.node_alias, node_type, u_type, u1, u2)
@@ -168,16 +204,22 @@ def sample_node(g: GraphTensors, count: int, node_type=-1,
     """Weighted global node sampling (reference: API_SAMPLE_NODE via
     per-type alias tables); int32 [count]."""
     return select_nodes(g, node_type,
-                        *draw_node_uniforms(generator, count, g.device))
+                        *draw_node_uniforms(generator, count, g.device, g))
 
 
 def select_edges(g: GraphTensors, edge_type, u_type: torch.Tensor,
-                 u1: torch.Tensor, u2: torch.Tensor):
+                 u1: torch.Tensor, u2: torch.Tensor, *more):
     """Deterministic weighted edge draws from given uniforms over the
     per-edge-type alias tables of the CSR slots (``g.edge_alias``).
     ``edge_type`` is a type id, a name, or -1 for a draw over every type.
     Returns (src, dst, etype, eid), each int32 [count], -1 where the
     drawn type has no edge."""
+    if _is_shard_view(g):
+        return _sharded().select_edges_sharded(g, edge_type, u_type, u1, u2,
+                                               *more)
+    if more:
+        raise ValueError("select_edges on one device reads (u_type, u1, "
+                         "u2)")
     if isinstance(edge_type, str):
         edge_type = g.meta.edge_type_id(edge_type)
     slot = _select_typed(g.edge_alias, edge_type, u_type, u1, u2)
@@ -192,7 +234,7 @@ def sample_edge(g: GraphTensors, count: int, edge_type=-1,
     """Weighted global edge sampling (reference: API_SAMPLE_EDGE);
     (src, dst, etype, eid), each int32 [count]."""
     return select_edges(g, edge_type,
-                        *draw_edge_uniforms(generator, count, g.device))
+                        *draw_edge_uniforms(generator, count, g.device, g))
 
 
 # ---------------------------------------------------------------------------
@@ -315,7 +357,9 @@ def draw_neighbor_uniforms(g: GraphTensors, edge_types,
                            count: int, device) -> Tuple[torch.Tensor, ...]:
     """The uniforms one hop over ``edge_types`` reads: (u1, u2) for a
     "fan" or "union" hop, (ut, u1, u2) for a "typed" hop and for a
-    "sampled" one (``hop_kind``; ``draw_sample_uniforms``)."""
+    "sampled" one (``hop_kind``; ``draw_sample_uniforms``). Over a
+    ShardView, of the rows the owner answers (``neighbor_rows``)."""
+    B = neighbor_rows(g, B)
     if hop_kind(g, as_etypes(g, edge_types)) in ("fan", "union"):
         return draw_fan_uniforms(generator, B, count, device)
     return draw_typed_uniforms(generator, B, count, device)
@@ -334,6 +378,13 @@ def select_neighbors(g: GraphTensors, nodes: torch.Tensor, edge_types,
     if len(uniforms) != want:
         raise ValueError(f"a hop over edge types {ets} reads {want} uniform "
                          f"tensors, got {len(uniforms)}")
+    if _is_shard_view(g):
+        if kind == "sampled":
+            nbr, _, ty, _ = _sharded().sample_neighbor_sharded(
+                g, nodes, ets, uniforms, default_id)
+            return (nbr, ty >= 0, ty) if return_types else (nbr, ty >= 0)
+        return _sharded().sample_neighbor_fast_sharded(
+            g, nodes, ets, uniforms, default_id, return_types)
     if kind == "sampled":
         nbr, _, ty, _ = select_sampled_neighbors(g, nodes, ets, *uniforms,
                                                  default_id=default_id)
@@ -458,10 +509,13 @@ def select_sampled_neighbors(g: GraphTensors, nodes: torch.Tensor,
     [B, count]; default_id, 0, -1 and -1 where the node is < 0, its
     weight sum 0 or the picked group empty. (The reference's third
     branch, a search over a weight cumsum for a graph without group alias
-    tables, is left out: every graph that either package builds on one
-    device has them.)
+    tables, is left out: every graph that either package builds has them,
+    and so does every shard of ``parallel.sharded.build_sharded``.)
     """
     ets = as_etypes(g, edge_types)
+    if _is_shard_view(g):
+        return _sharded().sample_neighbor_sharded(
+            g, nodes, ets, (u_type, u1, u2), default_id)
     nodes = nodes.to(torch.int32)
     rows = nodes.clamp_min(0)
     et = etype_tensor(ets, torch.int64, nodes.device)
@@ -497,15 +551,25 @@ def sample_neighbor(g: GraphTensors, nodes: torch.Tensor, edge_types,
     """Sample ``count`` weighted neighbors per node from the union of the
     given edge-type groups, with replacement (reference: API_SAMPLE_NB,
     Node::SampleNeighbor): (nbr, w, type, eid), each [B, count]."""
-    u = draw_sample_uniforms(generator, nodes.shape[0], count, nodes.device)
+    u = draw_sample_uniforms(generator, neighbor_rows(g, nodes.shape[0]),
+                             count, nodes.device)
     return select_sampled_neighbors(g, nodes, edge_types, *u, default_id)
 
 
 def select_nodes_with_src(g: GraphTensors, src_nodes: torch.Tensor,
-                          u1: torch.Tensor, u2: torch.Tensor) -> torch.Tensor:
+                          u1: torch.Tensor, u2: torch.Tensor,
+                          *more) -> torch.Tensor:
     """For each src node, ``count`` weighted draws of nodes of its node
     type from given uniforms u1, u2 (f32 [B, count]); int32 [B, count],
-    -1 in rows of src < 0 (reference: sampling.py:75-91)."""
+    -1 in rows of src < 0 (reference: sampling.py:75-91). Over a
+    ShardView: (u_shard, u1, u2), each [S*B, count] (member 0's u_shard
+    chooses the shard)."""
+    if _is_shard_view(g):
+        return _sharded().select_nodes_with_src_sharded(g, src_nodes, u1,
+                                                        u2, *more)
+    if more:
+        raise ValueError("select_nodes_with_src on one device reads (u1, "
+                         "u2)")
     na = g.node_alias
     src = src_nodes.to(torch.int32)
     n = g.node_type.shape[0]
@@ -523,9 +587,12 @@ def sample_node_with_src(g: GraphTensors, src_nodes: torch.Tensor,
                          ) -> torch.Tensor:
     """For each src node, ``count`` nodes of the same node type (negative
     sampling; reference: API_SAMPLE_N_WITH_TYPES)."""
-    u1, u2 = draw_alias_uniforms(generator, (src_nodes.shape[0], count),
-                                 src_nodes.device)
-    return select_nodes_with_src(g, src_nodes, u1, u2)
+    rows = neighbor_rows(g, src_nodes.reshape(-1).shape[0], spread=True)
+    u = draw_alias_uniforms(generator, (rows, count), src_nodes.device)
+    if _is_shard_view(g):
+        u = (torch.rand((rows, count), generator=generator,
+                        device=src_nodes.device),) + u
+    return select_nodes_with_src(g, src_nodes, *u)
 
 
 # ---------------------------------------------------------------------------
@@ -547,6 +614,9 @@ def get_full_neighbor(g: GraphTensors, nodes: torch.Tensor, edge_types,
     row by neighbor id, invalid cells last (a stable sort).
     """
     ets = as_etypes(g, edge_types)
+    if _is_shard_view(g):
+        return _sharded().get_full_neighbor_sharded(
+            g, nodes, ets, cap, default_id, sorted_by_id, offset)
     nodes = nodes.to(torch.int32)
     dev = nodes.device
     B, K = nodes.shape[0], len(ets)
@@ -635,6 +705,9 @@ def select_in_neighbors(g: GraphTensors, nodes: torch.Tensor, edge_types,
     draw. Returns (src, w, type, eid), each [B, count]."""
     _require_in_csr(g, "sample_in_neighbor")
     ets = as_etypes(g, edge_types)
+    if _is_shard_view(g):
+        return _sharded().sample_in_neighbor_sharded(
+            g, nodes, ets, (u_type, u1, u2), default_id)
     nodes = nodes.to(torch.int32)
     rows = nodes.clamp_min(0)
     et = etype_tensor(ets, torch.int64, nodes.device)
@@ -655,7 +728,9 @@ def sample_in_neighbor(g: GraphTensors, nodes: torch.Tensor, edge_types,
     """Weighted in-neighbor sampling (reference: Node::SampleInNeighbor,
     the in-edge mirror of SampleNeighbor)."""
     _require_in_csr(g, "sample_in_neighbor")
-    u = draw_sample_uniforms(generator, nodes.shape[0], count, nodes.device)
+    u = draw_sample_uniforms(generator,
+                             neighbor_rows(g, nodes.shape[0], spread=True),
+                             count, nodes.device)
     return select_in_neighbors(g, nodes, edge_types, *u, default_id)
 
 
@@ -667,6 +742,9 @@ def get_full_in_neighbor(g: GraphTensors, nodes: torch.Tensor, edge_types,
     [B, cap]."""
     _require_in_csr(g, "get_full_in_neighbor")
     ets = as_etypes(g, edge_types)
+    if _is_shard_view(g):
+        return _sharded().get_full_in_neighbor_sharded(
+            g, nodes, ets, cap, default_id, sorted_by_id)
     nodes = nodes.to(torch.int32)
     dev = nodes.device
     B, K = nodes.shape[0], len(ets)
@@ -707,12 +785,14 @@ def get_top_k_in_neighbor(g: GraphTensors, nodes: torch.Tensor, edge_types,
 # ---------------------------------------------------------------------------
 
 def draw_fanout_uniforms(generator: Optional[torch.Generator], B: int,
-                         counts: Sequence[int], device) -> list:
+                         counts: Sequence[int], device, g=None) -> list:
     """One ``draw_sample_uniforms`` tuple per hop of a fanout from B
-    nodes: hop i draws counts[i] for each of B * prod(counts[:i])."""
+    nodes: hop i draws counts[i] for each of B * prod(counts[:i]) (over a
+    ShardView ``g``, for the rows the owner answers)."""
     out, n = [], B
     for c in counts:
-        out.append(draw_sample_uniforms(generator, n, c, device))
+        out.append(draw_sample_uniforms(generator, neighbor_rows(g, n), c,
+                                        device))
         n *= c
     return out
 
@@ -743,7 +823,7 @@ def sample_fanout(g: GraphTensors, nodes: torch.Tensor, edge_types_per_hop,
     """Multi-hop fanout sampling (reference: SampleFanout,
     tf_euler/kernels/sample_fanout_op.cc:30-148)."""
     u = draw_fanout_uniforms(generator, nodes.reshape(-1).shape[0], counts,
-                             nodes.device)
+                             nodes.device, g)
     return select_fanout(g, nodes, edge_types_per_hop, counts, u,
                          default_id)
 
@@ -757,7 +837,7 @@ def get_multi_hop_neighbor(g: GraphTensors, nodes: torch.Tensor,
     ``uniforms`` replays ``draw_fanout_uniforms``."""
     if uniforms is None:
         uniforms = draw_fanout_uniforms(generator, nodes.reshape(-1).shape[0],
-                                        counts, nodes.device)
+                                        counts, nodes.device, g)
     hop_nodes, *_ = select_fanout(g, nodes, edge_types_per_hop, counts,
                                   uniforms)
     out = []
@@ -795,10 +875,12 @@ _WEIGHT_FUNCS = {"sqrt": torch.sqrt, "id": lambda x: x,
 
 
 def draw_layer_uniforms(generator: Optional[torch.Generator], n: int,
-                        candidates_per_node: int, device):
+                        candidates_per_node: int, device, g=None):
     """(the candidates' ``draw_sample_uniforms`` [n, c], the Gumbel keys
-    [n * c]) of ``sample_layer`` over n frontier nodes."""
-    u = draw_sample_uniforms(generator, n, candidates_per_node, device)
+    [n * c]) of ``sample_layer`` over n frontier nodes (over a ShardView
+    ``g``, the candidates' for the rows the owner answers)."""
+    u = draw_sample_uniforms(generator, neighbor_rows(g, n),
+                             candidates_per_node, device)
     return u, draw_gumbel_uniforms(generator, (n * candidates_per_node,),
                                    device)
 
@@ -844,7 +926,7 @@ def sample_layer(g: GraphTensors, frontier: torch.Tensor, edge_types,
     """One shared layer sampled from the union of frontier neighborhoods
     (the op behind ``sampleLNB``); see ``select_layer``."""
     u = draw_layer_uniforms(generator, frontier.reshape(-1).shape[0],
-                            candidates_per_node, frontier.device)
+                            candidates_per_node, frontier.device, g)
     return select_layer(g, frontier, edge_types, candidates_per_node,
                         n_layer_nodes, u, weight_func)
 
@@ -866,6 +948,8 @@ def sparse_get_adj(g: GraphTensors, nodes: torch.Tensor,
     membership test is the reference's 32 halving steps over the
     dst-sorted CSR group; a later type's hit overwrites the weight."""
     ets = as_etypes(g, edge_types)
+    if _is_shard_view(g):
+        return _sharded().sparse_get_adj_sharded(g, nodes, nb_nodes, ets)
     nodes = nodes.to(torch.int32).reshape(-1)
     nb = nb_nodes.to(torch.int32).reshape(-1)
     rows = nodes.clamp_min(0)
@@ -927,6 +1011,8 @@ def get_graph_by_label(g: GraphTensors, graph_idx: torch.Tensor):
 
 def get_node_type(g: GraphTensors, nodes: torch.Tensor) -> torch.Tensor:
     """Each node's type id, -1 for nodes < 0 (reference: API_GET_NODE_T)."""
+    if _is_shard_view(g):
+        return _sharded().get_node_type_sharded(g, nodes)
     nodes = nodes.to(torch.int32)
     n = g.node_type.shape[0]
     return torch.where(nodes >= 0,

@@ -5,7 +5,8 @@ random_walk_op.cc:34-140 and gen_pair_op.cc:28-96): ``random_walk`` with
 its three step kinds (the unbiased weighted draw, node2vec's exact
 reweighting by Gumbel-max over windows of the neighborhood, and
 node2vec's rejection sampling), per-step edge types, the membership
-test ``_is_neighbor``, ``check_bias_cap`` and ``gen_pair``. As every
+test ``_is_neighbor`` (from the owner over a ShardView),
+``check_bias_cap`` and ``gen_pair``. As every
 random verb of the port, the walk is split in two: ``draw_walk_uniforms``
 draws every step's uniforms from a torch.Generator in the order the
 reference's key chain consumes them, and ``select_walk`` walks from given
@@ -22,6 +23,7 @@ import torch
 
 from euler_tpu_torch.graph.store import GraphTensors
 from euler_tpu_torch.ops import sampling
+from euler_tpu_torch.ops.dispatch import is_shard_view as _is_shard_view
 from euler_tpu_torch.ops.sampling import (SEARCH_STEPS, as_etypes,
                                           draw_gumbel_uniforms,
                                           draw_sample_uniforms, gumbel)
@@ -34,7 +36,11 @@ def _is_neighbor(g: GraphTensors, src: torch.Tensor, etypes,
                  cand: torch.Tensor) -> torch.Tensor:
     """Whether ``cand`` is a neighbor of ``src`` under any of ``etypes``
     (same shapes): the reference's 32 halving steps over each (src,
-    type) group, whose neighbors are sorted by id (walk.py:31-59)."""
+    type) group, whose neighbors are sorted by id (walk.py:31-59); over
+    a ShardView, from src's owner (walk.py:38)."""
+    if _is_shard_view(g):
+        from euler_tpu_torch.parallel import sharded
+        return sharded.is_neighbor_sharded(g, src, etypes, cand)
     E = g.adj_dst.shape[0]
     found = torch.zeros(src.shape, dtype=torch.bool, device=src.device)
     for t in etypes:
@@ -70,9 +76,12 @@ def _biased(p: float, q: float) -> bool:
 def draw_walk_uniforms(generator: Optional[torch.Generator], B: int,
                        walk_len: int, p: float = 1.0, q: float = 1.0,
                        exact: bool = True, bias_cap: int = 64,
-                       bias_windows: int = 1, device=None) -> list:
+                       bias_windows: int = 1, device=None,
+                       g=None) -> list:
     """One entry per step of a walk from B nodes, in the order the
-    reference's key chain draws them (each step's key ``sub``):
+    reference's key chain draws them (each step's key ``sub``); over a
+    ShardView ``g`` each neighbor draw's for the rows the owner answers
+    (``sampling.neighbor_rows``):
 
     - unbiased (p = q = 1): ``draw_sample_uniforms`` of one draw a node,
       (u_type, u1, u2) each [B, 1];
@@ -81,17 +90,17 @@ def draw_walk_uniforms(generator: Optional[torch.Generator], B: int,
     - rejection node2vec: per try, (u_type, u1, u2) [B, 1] and the
       acceptance uniform [B], a tuple of REJECT_TRIES such tuples.
     """
-    out = []
+    out, R = [], sampling.neighbor_rows(g, B)
     for _ in range(walk_len):
         if not _biased(p, q):
-            out.append(draw_sample_uniforms(generator, B, 1, device))
+            out.append(draw_sample_uniforms(generator, R, 1, device))
         elif exact:
             out.append(tuple(draw_gumbel_uniforms(generator, (B, bias_cap),
                                                   device)
                              for _ in range(bias_windows)))
         else:
             out.append(tuple(
-                draw_sample_uniforms(generator, B, 1, device)
+                draw_sample_uniforms(generator, R, 1, device)
                 + (torch.rand((B,), generator=generator, device=device),)
                 for _ in range(REJECT_TRIES)))
     return out
@@ -211,7 +220,7 @@ def random_walk(g: GraphTensors, nodes: torch.Tensor, edge_types,
     tf_euler/python/euler_ops/walk_ops.py:30-43)."""
     nodes = nodes.reshape(-1)
     u = draw_walk_uniforms(generator, nodes.shape[0], walk_len, p, q, exact,
-                           bias_cap, bias_windows, nodes.device)
+                           bias_cap, bias_windows, nodes.device, g)
     return select_walk(g, nodes, edge_types, walk_len, u, p, q, default_id,
                        exact, bias_cap)
 

@@ -178,7 +178,7 @@ class Query:
             if bound["dnf"]:
                 return index_ops.draw_condition_uniforms(
                     g, count, bound["dnf"], node_type, "node", gen)
-            return sampling.draw_node_uniforms(gen, count, g.device)
+            return sampling.draw_node_uniforms(gen, count, g.device, g)
 
         def step(g, st, u):
             if bound["dnf"]:
@@ -201,7 +201,7 @@ class Query:
             if bound["dnf"]:
                 return index_ops.draw_condition_uniforms(
                     g, count, bound["dnf"], edge_type, "edge", gen)
-            return sampling.draw_edge_uniforms(gen, count, g.device)
+            return sampling.draw_edge_uniforms(gen, count, g.device, g)
 
         def step(g, st, u):
             if bound["dnf"]:
@@ -296,7 +296,8 @@ class Query:
         ``sampling.sample_neighbor``)."""
         def draw(g, st, gen):
             B = _node_ids(st).reshape(-1).shape[0]
-            return sampling.draw_sample_uniforms(gen, B, count, g.device)
+            return sampling.draw_sample_uniforms(
+                gen, sampling.neighbor_rows(g, B), count, g.device)
 
         def step(g, st, u):
             cur = _node_ids(st).reshape(-1)
@@ -313,7 +314,7 @@ class Query:
         (reference: sampleLNB, local_sample_layer_op.cc)."""
         def draw(g, st, gen):
             n = _node_ids(st).reshape(-1).shape[0]
-            return sampling.draw_layer_uniforms(gen, n, count, g.device)
+            return sampling.draw_layer_uniforms(gen, n, count, g.device, g)
 
         def step(g, st, u):
             cur = _node_ids(st).reshape(-1)

@@ -1041,3 +1041,45 @@ def test_ivf_on_card_matches_cpu(dev):
     np.testing.assert_allclose(d, dc, rtol=1e-4, atol=1e-3)
     with pytest.raises(ValueError, match="k argument to top_k"):
         knn.KnnIndex(emb[:5], device=dev).search(q, k=8)
+
+
+# ---------------------------------------------------------------------------
+# the sharded apply: ranks on the card (tests/test_torch_mesh_ranks.py)
+# ---------------------------------------------------------------------------
+
+MESH_OPTS = dict(feat_dim=16, label_dim=4, fanouts=[5, 3], dims=[16, 8],
+                 seed=3)
+
+
+def mesh_on_card(tmp_path, dev, graph: int, backend: str):
+    """``graph`` ranks of one graph group on the card over ``backend``,
+    each serving 64 roots of a small random graph through
+    ``make_sharded_apply`` from its group's U_all; returns each rank's
+    outputs and the one-card forward of every rank's roots."""
+    from euler_tpu_torch.parallel import sharded
+    from tests import test_torch_mesh_ranks
+    g = random_graph(2000, 10, feat_dim=16, n_classes=4, seed=7, device=dev)
+    arrays, want = test_torch_mesh_ranks.apply_inputs(
+        g.tensors, 1, graph, 64, MESH_OPTS, seed=4)
+    test_torch_mesh_ranks.write_work(
+        str(tmp_path), 1, graph, dict(apply=sharded.build_sharded(g, graph)),
+        {f"apply/{k}": v for k, v in arrays.items()},
+        [dict(name="apply", verb="apply", graph="apply", opts=MESH_OPTS)],
+        120, device="cuda", backend=backend)
+    return test_torch_mesh_ranks.launch(str(tmp_path), graph, 240), want
+
+
+def check_mesh(outs, want):
+    emb = torch.cat([w["embedding"] for w in want]).cpu().numpy()
+    logit = torch.cat([w["logit"] for w in want]).cpu().numpy()
+    for got in outs:
+        np.testing.assert_array_equal(got["apply/0"], emb)
+        np.testing.assert_array_equal(got["apply/1"], logit)
+
+
+def test_mesh_two_gloo_ranks_on_card_equal_one_card_forward(dev, tmp_path):
+    check_mesh(*mesh_on_card(tmp_path, dev, 2, "gloo"))
+
+
+def test_mesh_one_nccl_rank_equals_one_card_forward(dev, tmp_path):
+    check_mesh(*mesh_on_card(tmp_path, dev, 1, "nccl"))

@@ -2,8 +2,9 @@
 JAX package.
 
 A fresh interpreter imports every module of ``euler_tpu_torch`` (and the
-repository's ``chip_smoke.py``) and then checks ``sys.modules``. The name
-check matches ``euler_tpu`` and ``euler_tpu.*`` only, never
+repository's ``chip_smoke.py`` and the sharded tests' rank module,
+``tests/test_torch_mesh_ranks.py``) and then checks ``sys.modules``. The
+name check matches ``euler_tpu`` and ``euler_tpu.*`` only, never
 ``euler_tpu_torch``.
 """
 import os
@@ -26,6 +27,7 @@ names = [m.name for m in pkgutil.walk_packages(euler_tpu_torch.__path__,
 for name in names:
     importlib.import_module(name)
 importlib.import_module("chip_smoke")
+importlib.import_module("tests.test_torch_mesh_ranks")
 bad = sorted(m for m in sys.modules
              if m in ("jax", "flax", "optax", "orbax", "euler_tpu")
              or m.startswith(("jax.", "jaxlib", "flax.", "optax.", "orbax.",
@@ -65,7 +67,9 @@ def test_port_modules_import_without_jax():
                  "examples.geniepath.run_geniepath", "examples.lgcn.run_lgcn",
                  "examples.scalable_sage.run_scalable_sage",
                  "examples.solution.run_solution",
-                 "examples.sample_solution.run_sample_solution"):
+                 "examples.sample_solution.run_sample_solution",
+                 "ops.dispatch", "parallel", "parallel.mesh",
+                 "parallel.comms", "parallel.sharded", "parallel.train"):
         assert f"euler_tpu_torch.{name}" in names
     env = dict(os.environ, PYTHONPATH=REPO)
     out = subprocess.run([sys.executable, "-c", _CHECK], cwd=REPO, env=env,

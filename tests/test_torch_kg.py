@@ -387,7 +387,7 @@ def test_ids_past_the_table_give_nan_rows(graphs):
 
 
 def test_shard_embeddings_is_not_ported():
-    with pytest.raises(NotImplementedError, match="item 9"):
+    with pytest.raises(NotImplementedError, match="item 11b"):
         kg.TransE(10, 2, 4, 4, shard_embeddings=True, device="cpu")
 
 
