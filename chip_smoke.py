@@ -330,15 +330,48 @@ Phases, in order; any failure propagates and the exit code is not 0:
               graph=1) in this process over the one shard, held the
               same way against the one-card forward of rank 0's roots.
               A rank that fails or outlives the timeout fails the phase
- 15. report   one JSON line of kernels (the gather's f32 and bf16 times,
+ 15. mesh train  training over the mesh on phase 14's shard files (f32,
+              Adam 1e-3): the one-card sage step (a fresh model from seed
+              15) over 4 x 1024 roots, 3 steps from per-hop uniforms drawn
+              for the concatenated batch, on the 4 shards' reservoir rows,
+              and over rank 0's 1024 roots on the one shard's; then 4 gloo
+              ranks spawned on the one card (data=1, graph=4), each
+              loading only its shard: 3 steps of make_sharded_train_step
+              from the group's ids and each owner's uniforms (its group's
+              rows of the one-card draws), each step's loss and the final
+              parameters equal to the one-card steps' within 1e-4, the
+              replicated parameters bit-equal across ranks, 2 + 2 launches
+              a step, each equal to its plain version; one step's bytes by
+              collective, forward and backward, gloo's host copies apart
+              (comms.account()); ms per step (CUDA-event median of 10,
+              20 + 20 launches); rank 0 profiles one step (idle share) and
+              times each kernel at the shape it launched;
+              SpmdNodeEstimator.train of 4 steps with a reservoir redraw
+              (finite loss, 8 + 8 launches). In the same ranks, TransE
+              (shard_embeddings) at phase 12c's width on its graph split
+              in 4, 1024 triples a rank: one step's loss equal to the
+              one-card dense model's over the 4096 triples with the
+              negatives the ranks drew, the relation gradients equal and
+              each entity block's gradient 4 times the one-card table's
+              rows of it (the graph group's sum), each within 1e-4 of its
+              largest, no kernel launch, and ms per step; gcn over psum
+              blocks (WholeDataFlow, edge list) on random_graph(10_000,
+              25), 256 roots a rank: one step's loss and gradients equal
+              to the one-card step's over the 1024 roots within 1e-4 of
+              their largest, 2 gather_rows launches, each equal to its
+              plain version. Then a one-rank NCCL group in this process over the
+              one shard, held the same way against the one-card steps of
+              rank 0's roots
+ 16. report   one JSON line of kernels (the gather's f32 and bf16 times,
               also at gcn's shape, fan_draw's launch floor, its paths'
               crossover and its union shapes, each kernel's launches on
-              every path, the mesh's shapes and ptxas figures), then the
-              last line {"ok": true, "device": {...}}
+              every path, the mesh's shapes in serving and in a train
+              step and ptxas figures), then the last line {"ok": true,
+              "device": {...}}
 
-Phases 12c, 12d, 12e, 12f, 12h, the dedup part of 12i, 12l and 14 run
-after 12 in that order, then the walk part of 12i, 12j, 12b, 12g, 12k
-and 12m.
+Phases 12c, 12d, 12e, 12f, 12h, the dedup part of 12i, 12l, 14 and 15
+run after 12 in that order, then the walk part of 12i, 12j, 12b, 12g,
+12k and 12m.
 
 It exits non-zero, with no result line, where torch.cuda.is_available()
 is false or the euler_tpu_torch package is missing.
@@ -380,7 +413,8 @@ from euler_tpu_torch.datasets.synthetic import (MOTIF_CLASSES,
                                                 MOTIF_FEATURE_DIM)
 from euler_tpu_torch.estimator import (EdgeEstimator, GaeEstimator,
                                        GraphEstimator, NodeEstimator,
-                                       RunConfig, SampleEstimator, TrainLoop,
+                                       RunConfig, SampleEstimator,
+                                       SpmdNodeEstimator, TrainLoop,
                                        get_optimizer, make_graph_batch)
 from euler_tpu_torch.examples.gcn import run_gcn
 from euler_tpu_torch.examples.graphsage import run_graphsage
@@ -4207,13 +4241,14 @@ def mesh_kernel_times(calls, dev) -> list:
 
 
 def run_ranks(tag: str, world: int, data: int, graph: int, backend: str,
-              shards: str) -> list:
-    """Spawn ``world`` ranks of ``mesh_rank`` (the spawn start method: this
-    process holds CUDA), join each within MESH_TIMEOUT_S and fail if any
-    failed or timed out; the ranks' results."""
+              shards: str, target=None, work: str = MESH_DIR) -> list:
+    """Spawn ``world`` ranks of ``target`` (``mesh_rank`` by default; the
+    spawn start method: this process holds CUDA), join each within
+    MESH_TIMEOUT_S and fail if any failed or timed out; the ranks'
+    results, each read from ``work``."""
     ctx = multiprocessing.get_context("spawn")
-    procs = [ctx.Process(target=mesh_rank, args=(
-        MESH_DIR, tag, r, data, graph, backend, shards, time.time()))
+    procs = [ctx.Process(target=target or mesh_rank, args=(
+        work, tag, r, data, graph, backend, shards, time.time()))
         for r in range(world)]
     for p in procs:
         p.start()
@@ -4231,7 +4266,7 @@ def run_ranks(tag: str, world: int, data: int, graph: int, backend: str,
     check(codes == [0] * world, f"mesh {tag}: rank exit codes {codes}")
     out = []
     for r in range(world):
-        with open(os.path.join(MESH_DIR, f"result_{tag}_{r}.json")) as f:
+        with open(os.path.join(work, f"result_{tag}_{r}.json")) as f:
             out.append(json.load(f))
     return out
 
@@ -4272,8 +4307,10 @@ def adopt_shard_reservoirs(g, sg) -> int:
     return written
 
 
-def phase_mesh(graph, model, dev, smi: str) -> dict:
-    """Phase 14: sharded sage serving over torch.distributed."""
+def phase_mesh(graph, model, dev, smi: str) -> tuple:
+    """Phase 14: sharded sage serving over torch.distributed. Returns its
+    results and the host's shards (4 and 1), whose files under MESH_DIR
+    phase 15 reads; the caller removes them."""
     t_phase = time.perf_counter()
     shutil.rmtree(MESH_DIR, ignore_errors=True)
     os.makedirs(MESH_DIR)
@@ -4336,12 +4373,10 @@ def phase_mesh(graph, model, dev, smi: str) -> dict:
                    sharded.take_shard(sgs[1], 0, mesh.device, mesh), t0)
     finally:
         mesh_lib.close()
-    del sgs
     with open(os.path.join(MESH_DIR, "result_nccl_0.json")) as f:
         out["nccl"] = [json.load(f)]
     out["nccl_s"] = time.perf_counter() - t0
     out["seconds"] = time.perf_counter() - t_phase
-    shutil.rmtree(MESH_DIR, ignore_errors=True)
     for tag in ("gloo", "nccl"):
         for res in out[tag]:
             log(f"mesh {tag} rank {res['rank']}: "
@@ -4361,6 +4396,550 @@ def phase_mesh(graph, model, dev, smi: str) -> dict:
     log(f"mesh phase: {out['seconds']:.1f} s (shards on the host "
         f"{out['shard_host_s']:.1f} s, gloo ranks {out['gloo_s']:.1f} s, "
         f"the nccl group {out['nccl_s']:.1f} s); {smi}")
+    return out, sgs
+
+
+# phase 15: training over the mesh. Sage steps at 1024 roots a rank on the
+# shards of phase 14 (4 gloo ranks, then one NCCL rank), a few steps of
+# SpmdNodeEstimator.train, TransE with its entity table split over 4 gloo
+# ranks at the transe graph's width (1024 triples a rank) and gcn over
+# psum blocks on a 10,000-node graph
+MESH_TRAIN_STEPS, MESH_TRAIN_TIMED, MESH_EST_STEPS = 3, 10, 4
+MESH_TRAIN_LR = 1e-3
+MESH_TRAIN_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                              "build", "mesh15")
+MESH_TRANSE_BATCH, MESH_GCN_NODES, MESH_GCN_ROOTS = 1024, 10_000, 256
+
+
+class GradRecorder(torch.optim.Optimizer):
+    """An optimizer whose step keeps each parameter's (synced) gradient by
+    name and changes nothing."""
+
+    def __init__(self, named):
+        named = list(named)
+        super().__init__([p for _, p in named], {})
+        self.names, self.grads = [n for n, _ in named], {}
+
+    def step(self, closure=None):
+        params = [p for grp in self.param_groups for p in grp["params"]]
+        self.grads = {n: p.grad.detach().clone()
+                      for n, p in zip(self.names, params)}
+
+
+def hop_owners(flow, roots_per_rank: int, world: int) -> list:
+    """Per hop, the rank each row of the one-card draw over the
+    concatenated roots belongs to (a hop's rows are the previous hop's,
+    then each row's draws in its order)."""
+    owner = [np.arange(world * roots_per_rank) // roots_per_rank]
+    for c in flow.fanouts[:-1]:
+        owner.append(np.concatenate([owner[-1], np.repeat(owner[-1], c)]))
+    return owner
+
+
+def owner_uniforms(U, owners, members) -> list:
+    """Each hop's uniforms for an owner of the graph group ``members``:
+    the members' rows of the one-card draw ``U``, in member order."""
+    return [tuple(torch.cat([u[torch.from_numpy(own == m).to(u.device)]
+                             for m in members]) for u in hop)
+            for hop, own in zip(U, owners)]
+
+
+def onecard_sage_steps(state, graph, dev, roots, U) -> tuple:
+    """MESH_TRAIN_STEPS Adam steps of sage on one card over ``roots[t]``
+    with the hop uniforms ``U[t]``: (losses, final state on the host, the
+    CUDA-event median ms of MESH_TRAIN_TIMED more eager steps of rank 0's
+    1024 roots from a generator, on a copy)."""
+    model = bench.make_model("sage", dev,
+                             generator=torch.Generator().manual_seed(0))
+    model.load_state_dict(state)
+    est = NodeEstimator(model, graph, RunConfig(batch_size=len(roots[0])),
+                        device=dev)
+    opt = get_optimizer("adam", MESH_TRAIN_LR, model.parameters())
+    losses = [float(est.step(opt, r, uniforms=u)) for r, u in zip(roots, U)]
+    final = {k: v.cpu() for k, v in model.state_dict().items()}
+    gen = torch.Generator(device=dev).manual_seed(7)
+    ms = [cuda_ms(lambda: est.step(opt, roots[0][:BATCH], generator=gen))
+          for _ in range(MESH_TRAIN_TIMED)]
+    return losses, final, statistics.median(ms)
+
+
+def cuda_ms(fn) -> float:
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end)
+
+
+def account_step(fn, link_bytes_per_s=None, step_s=None) -> dict:
+    """One call's bytes by collective and direction, gloo's host copies
+    apart, and its collective calls, from ``comms.account()``; with a
+    measured link rate and the one-card step time, the efficiency the
+    cost model predicts (no overlap)."""
+    with comms.account() as acc:
+        fn()
+    torch.cuda.synchronize()
+    calls = {}
+    for kind, _size, _b, direction in acc.events:
+        key = f"{kind}_{direction}"
+        calls[key] = calls.get(key, 0) + 1
+    out = dict(forward=acc.totals(comms.FORWARD),
+               backward=acc.totals(comms.BACKWARD), calls=calls,
+               table=acc.table())
+    if link_bytes_per_s:
+        out["predicted_efficiency"] = acc.predicted_efficiency(
+            step_s, link_bytes_per_s)
+    return out
+
+
+def link_rate(mesh, dev, mib: int = 64) -> float:
+    """Bytes a second of one psum of ``mib`` MiB over every rank, by the
+    cost model's count (2 (S-1)/S of the tensor), gloo's host copies
+    included; CUDA events around it. 0 for a group of one."""
+    x = torch.ones(mib << 18, device=dev)
+    comms.psum(x, mesh.world_group)                 # warm the transport
+    ms = cuda_ms(lambda: comms.psum(x, mesh.world_group))
+    S = mesh.size
+    return 2 * (S - 1) / S * x.numel() * 4 / (ms / 1e3)
+
+
+def mesh_train_rank(work: str, tag: str, rank: int, data: int, graph: int,
+                    backend: str, shards: str, spawned: float) -> None:
+    """One gloo rank of phase 15, in a spawned process: join the mesh,
+    load this rank's shards onto the card, ``mesh_train_serve``, then the
+    TransE and gcn parts; only rank 0 prints."""
+    if rank:
+        sys.stdout = open(os.devnull, "w")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    t0 = time.perf_counter()
+    start_s = time.time() - spawned
+    dev = torch.device("cuda", 0)
+    torch.cuda.set_device(dev)
+    mesh = mesh_lib.make_mesh(
+        data, graph, backend=backend, device=dev,
+        init_method="file://" + os.path.join(work, f"rendezvous_{tag}"),
+        rank=rank, timeout_s=MESH_TIMEOUT_S)
+    view = sharded.load_shard(shards, mesh.graph_index, dev, mesh)
+    res = mesh_train_serve(work, tag, mesh, view, t0, start_s)
+    res["transe"] = mesh_transe_rank(work, mesh, dev)
+    res["gcn"] = mesh_gcn_rank(work, mesh, dev)
+    dist.barrier(group=mesh.world_group)
+    with open(os.path.join(work, f"result_{tag}_{rank}.json"), "w") as f:
+        json.dump(res, f)
+    mesh_lib.close()
+
+
+def mesh_train_serve(work: str, tag: str, mesh, view, t0: float,
+                     start_s: float = 0.0) -> dict:
+    """One rank's sage training over its ``view``: MESH_TRAIN_STEPS steps
+    of ``make_sharded_train_step`` from the parent's ids and each owner's
+    uniforms (its group members' rows of the one-card draws), each with
+    2 + 2 launches held against their plain versions and its loss equal
+    to the one-card step's over the concatenated batch within 1e-4, the
+    final parameters too; the state written for the parent's check that
+    replicated parameters are bit-equal across ranks; one step's bytes by
+    collective forward and backward; MESH_TRAIN_TIMED steps timed (CUDA
+    events); rank 0 profiles one step and times each kernel at the shape
+    it launched; then SpmdNodeEstimator.train of MESH_EST_STEPS steps (a
+    reservoir redraw) with its launches."""
+    rank, backend, dev = mesh.rank, mesh.backend, view.device
+    model = bench.make_model("sage", dev,
+                             generator=torch.Generator().manual_seed(0))
+    model.load_state_dict(torch.load(os.path.join(work, "model.pt"),
+                                     map_location=dev))
+    sharded_train.init_sharded_params(model, mesh)
+    opt = get_optimizer("adam", MESH_TRAIN_LR, model.parameters())
+    step = sharded_train.make_sharded_train_step(model, opt, mesh, BATCH)
+    with np.load(os.path.join(work, f"inputs_{tag}.npz")) as z:
+        ids = [torch.from_numpy(z[f"t{t}_ids"]).to(dev)
+               for t in range(MESH_TRAIN_STEPS)]
+        U = [[tuple(torch.from_numpy(z[f"t{t}_h{h}_u{i}"]).to(dev)
+                    for i in range(2)) for h in range(len(FANOUTS))]
+             for t in range(MESH_TRAIN_STEPS)]
+        want_losses, want_step_ms = z["losses"], z["step_ms"]
+    want = torch.load(os.path.join(work, f"want_{tag}.pt"))
+    res = dict(rank=rank, backend=backend, ready_s=time.perf_counter() - t0,
+               start_s=start_s)
+    rec = KernelRecorder(eager=True)
+    losses, launches = [], []
+    for t in range(MESH_TRAIN_STEPS):
+        reset_counts()
+        with rec:
+            loss = step(view, ids=ids[t], uniforms=U[t])
+        torch.cuda.synchronize()
+        launches.append(read_counts())
+        check(launches[-1] == {"fan_draw": 2, "gather_rows": 2},
+              f"mesh train rank {rank}: launches {launches[-1]}")
+        losses.append(float(loss))
+    res["launches"] = launches[0]
+    res["checked_plain"] = rec.check_plain(f"mesh train rank {rank}")
+    res["loss_abs_err"] = float(np.abs(np.array(losses)
+                                       - want_losses).max())
+    check(np.allclose(losses, want_losses, **PARITY_TOL),
+          f"mesh train rank {rank}: losses {losses} != one card "
+          f"{want_losses.tolist()}")
+    state = {k: v.cpu() for k, v in model.state_dict().items()}
+    res["param_abs_err"] = max(float((state[k] - want[k]).abs().max())
+                               for k in want)
+    for k in want:
+        check(torch.allclose(state[k], want[k], **PARITY_TOL),
+              f"mesh train rank {rank}: {k} != the one-card step's")
+    torch.save(state, os.path.join(work, f"state_{tag}_{rank}.pt"))
+    res["link_bytes_per_s"] = link_rate(mesh, dev)
+    res["bytes_per_step"] = account_step(
+        lambda: step(view, seed=100), res["link_bytes_per_s"],
+        float(want_step_ms) / 1e3)
+    reset_counts()
+    ms = [cuda_ms(lambda i=i: step(view, seed=200 + i))
+          for i in range(MESH_TRAIN_TIMED)]
+    res["step_ms"], res["step_ms_median"] = ms, statistics.median(ms)
+    res["timed_launches"] = read_counts()
+    check(res["timed_launches"] == {"fan_draw": 2 * MESH_TRAIN_TIMED,
+                                    "gather_rows": 2 * MESH_TRAIN_TIMED},
+          f"mesh train rank {rank}: {res['timed_launches']}")
+    if rank == 0:
+        prof = profile(lambda: step(view, seed=300),
+                       f"one sharded train step ({backend})", attempts=1)
+        res["profile"] = {k: prof[k] for k in (
+            "host_ms", "device_busy_ms", "device_idle_share",
+            "kernel_events_complete", "traced", "launched")}
+        check(prof["kernel_events_complete"],
+              f"mesh train rank 0: the trace holds {prof['traced']} of "
+              f"{prof['launched']}")
+        res["kernels"] = mesh_kernel_times(rec.calls[:4], dev)
+    else:
+        step(view, seed=300)
+    torch.cuda.synchronize()
+    est = SpmdNodeEstimator(model, view, RunConfig(
+        batch_size=BATCH * mesh.size, total_steps=MESH_EST_STEPS,
+        learning_rate=MESH_TRAIN_LR, log_steps=0, reservoir_refresh=2),
+        mesh=mesh)
+    reset_counts()
+    t_est = time.perf_counter()
+    out = est.train()
+    torch.cuda.synchronize()
+    res["estimator"] = dict(loss=out["loss"], launches=read_counts(),
+                            seconds=time.perf_counter() - t_est)
+    check(np.isfinite(out["loss"]) and res["estimator"]["launches"] == {
+        "fan_draw": 2 * MESH_EST_STEPS, "gather_rows": 2 * MESH_EST_STEPS},
+        f"mesh train rank {rank}: estimator {res['estimator']}")
+    return res
+
+
+def mesh_transe_rank(work: str, mesh, dev) -> dict:
+    """TransE (shard_embeddings) over this rank's shard of the transe
+    graph: its entity block from the parent's dense table (row r on shard
+    r % S), one step of 1024 triples a rank (the parent's, each owner's
+    negative uniforms its own) whose synced gradients and negatives are
+    written for the parent, with its launches (none: the entity rows
+    move by the owner exchange, not by ``gather_rows``); a few steps
+    timed."""
+    view = sharded.load_shard(os.path.join(work, "transe"),
+                              mesh.graph_index, dev, mesh)
+    model = kg.TransE(n_entities=TRANSE_NODES,
+                      n_relations=bench.TRANSE_RELATIONS,
+                      ent_dim=bench.TRANSE_DIM, rel_dim=bench.TRANSE_DIM,
+                      num_negs=bench.TRANSE_NEGS, shard_embeddings=True,
+                      device=dev, generator=torch.Generator().manual_seed(0))
+    sharded_train.init_sharded_params(model, mesh)
+    dense = torch.load(os.path.join(work, "transe_model.pt"),
+                       map_location=dev)
+    S, gi = mesh.graph, mesh.graph_index
+    block = model.entity_encoder.embedding
+    with torch.no_grad():
+        rows = dense.pop("entity_encoder.weight")[gi::S]
+        block.zero_()
+        block[:rows.shape[0]] = rows
+        for name, p in model.named_parameters():
+            if name in dense:
+                p.copy_(dense[name])
+    with np.load(os.path.join(work, "transe_inputs.npz")) as z:
+        triples = torch.from_numpy(z["triples"]).to(dev)
+        u = [torch.from_numpy(z[f"u{i}"][mesh.rank]).to(dev)
+             for i in range(4)]
+    rec = GradRecorder(model.named_parameters())
+    step = sharded_train.make_sharded_train_step(
+        model, rec, mesh, MESH_TRANSE_BATCH,
+        ids_fn=sharded_train.edge_ids_fn())
+    kr = KernelRecorder(eager=True)
+    reset_counts()
+    with kr:
+        loss = float(step(view, ids=triples, uniforms=u))
+    launches = read_counts()
+    check(launches == {"fan_draw": 0, "gather_rows": 0},
+          f"mesh transe rank {mesh.rank}: launches {launches}, want none")
+    kr.check_plain(f"mesh transe rank {mesh.rank}")
+    with torch.no_grad():
+        negs = sampling.select_nodes(view, -1, *u)
+    torch.save(dict(loss=loss, negs=negs.cpu(),
+                    grads={k: v.cpu() for k, v in rec.grads.items()}),
+               os.path.join(work, f"transe_{mesh.rank}.pt"))
+    out = dict(loss=loss, launches=launches,
+               bytes_per_step=account_step(lambda: step(view, seed=5)))
+    ms = [cuda_ms(lambda i=i: step(view, seed=10 + i)) for i in range(5)]
+    out.update(step_ms=ms, step_ms_median=statistics.median(ms))
+    return out
+
+
+def mesh_gcn_rank(work: str, mesh, dev) -> dict:
+    """gcn over psum blocks: this rank's shard of the 10,000-node graph,
+    one step of MESH_GCN_ROOTS roots a rank (the parent's) whose loss and
+    synced gradients are written for the parent, with its 2
+    ``gather_rows`` launches each held against its plain version; a few
+    steps timed."""
+    view = sharded.load_shard(os.path.join(work, "gcn"), mesh.graph_index,
+                              dev, mesh)
+    model = whole_model("gcn", dev, layout="edge_list")
+    model.load_state_dict(torch.load(os.path.join(work, "gcn_model.pt"),
+                                     map_location=dev))
+    rec = GradRecorder(model.named_parameters())
+    step = sharded_train.make_sharded_train_step(model, rec, mesh,
+                                                 MESH_GCN_ROOTS)
+    with np.load(os.path.join(work, "gcn_inputs.npz")) as z:
+        roots = torch.from_numpy(z["roots"]).to(dev)
+    kr = KernelRecorder(eager=True)
+    reset_counts()
+    with kr:
+        loss = float(step(view, ids=roots))
+    launches = read_counts()
+    check(launches == {"fan_draw": 0, "gather_rows": 2},
+          f"mesh gcn rank {mesh.rank}: launches {launches}, want 0 + 2")
+    checked = kr.check_plain(f"mesh gcn rank {mesh.rank}")
+    check(checked == launches,
+          f"mesh gcn rank {mesh.rank}: {checked} held against their plain "
+          f"versions of {launches}")
+    torch.save(dict(loss=loss, grads={k: v.cpu()
+                                      for k, v in rec.grads.items()}),
+               os.path.join(work, f"gcn_{mesh.rank}.pt"))
+    out = dict(loss=loss, launches=launches,
+               bytes_per_step=account_step(lambda: step(view, seed=5)))
+    ms = [cuda_ms(lambda i=i: step(view, seed=10 + i)) for i in range(3)]
+    out.update(step_ms=ms, step_ms_median=statistics.median(ms))
+    return out
+
+
+def close_rel(got: torch.Tensor, want: torch.Tensor) -> float:
+    """max |got - want| over max |want| (0 where both are 0)."""
+    scale = float(want.abs().max())
+    err = float((got - want).abs().max())
+    return err / scale if scale else err
+
+
+def transe_reference(work: str, dev) -> tuple:
+    """The transe part's host side: the graph of phase 12c, its 4 shards,
+    the dense model's weights, 4 x 1024 triples and each rank's negative
+    uniforms; returns (graph, model)."""
+    g = random_graph(TRANSE_NODES, AVG_DEGREE, seed=0,
+                     num_edge_types=bench.TRANSE_RELATIONS, packs=(),
+                     device=dev)
+    sharded.write_shards(sharded.build_sharded(g, MESH_SHARDS),
+                         os.path.join(work, "transe"))
+    model = kg_model(kg.TransE, dev)
+    torch.save(model.state_dict(), os.path.join(work, "transe_model.pt"))
+    gen = torch.Generator(device=dev).manual_seed(15)
+    triples = edge_triples(g.tensors, MESH_SHARDS * MESH_TRANSE_BATCH, gen)
+    rng = np.random.default_rng(15)
+    n = MESH_TRANSE_BATCH * bench.TRANSE_NEGS
+    np.savez(os.path.join(work, "transe_inputs.npz"),
+             triples=triples.cpu().numpy(),
+             **{f"u{i}": rng.random((MESH_SHARDS, n), dtype=np.float32)
+                for i in range(4)})
+    return g, model, triples
+
+
+def transe_check(work: str, g, model, triples) -> dict:
+    """The one-card step of the dense TransE over the 4 x 1024 triples
+    with the negatives the ranks drew: its loss equals the mean of the
+    ranks' losses, the relation tables' gradients the ranks' (replicated:
+    the mean of the ranks' gradients) and each rank's entity block
+    gradient S times the one-card table's rows of that block (the
+    reference's scale: the graph group's sum), each within 1e-4 of the
+    largest."""
+    ranks_out = [torch.load(os.path.join(work, f"transe_{r}.pt"))
+                 for r in range(MESH_SHARDS)]
+    negs = torch.cat([o["negs"] for o in ranks_out]).to(g.tensors.device)
+    real = sampling.select_nodes
+    sampling.select_nodes = lambda *a, **k: negs
+    try:
+        model.train()
+        model.zero_grad(set_to_none=True)
+        out = model(g.tensors, triples, uniforms=(None,) * 3)
+        out["loss"].backward()
+    finally:
+        sampling.select_nodes = real
+    loss = out["loss"].item()
+    mean = float(np.mean([o["loss"] for o in ranks_out]))
+    res = dict(loss=loss, loss_abs_err=abs(loss - mean), rel_err={})
+    check(abs(loss - mean) <= 1e-4 * max(1.0, abs(loss)),
+          f"mesh transe: loss {mean} != one card {loss}")
+    full = model.entity_encoder.weight.grad.cpu()
+    for name, p in model.named_parameters():
+        if name == "entity_encoder.weight":
+            continue
+        errs = [close_rel(o["grads"][name], p.grad.cpu()) for o in ranks_out]
+        res["rel_err"][name] = max(errs)
+    for r, o in enumerate(ranks_out):
+        want = MESH_SHARDS * full[r::MESH_SHARDS]
+        got = o["grads"]["entity_encoder.embedding"][:want.shape[0]]
+        res["rel_err"].setdefault("entity_block", 0.0)
+        res["rel_err"]["entity_block"] = max(res["rel_err"]["entity_block"],
+                                             close_rel(got, want))
+    for name, err in res["rel_err"].items():
+        check(err <= 1e-4, f"mesh transe: {name} gradient off by {err} of "
+                           f"its largest")
+    return res
+
+
+def gcn_reference(work: str, dev) -> tuple:
+    g = random_graph(MESH_GCN_NODES, AVG_DEGREE, feat_dim=FEAT_DIM,
+                     n_classes=N_CLASSES, seed=0, packs=(), device=dev)
+    sharded.write_shards(sharded.build_sharded(g, MESH_SHARDS),
+                         os.path.join(work, "gcn"))
+    model = whole_model("gcn", dev, layout="edge_list")
+    torch.save(model.state_dict(), os.path.join(work, "gcn_model.pt"))
+    roots = np.random.default_rng(16).integers(
+        0, MESH_GCN_NODES, MESH_SHARDS * MESH_GCN_ROOTS).astype(np.int32)
+    np.savez(os.path.join(work, "gcn_inputs.npz"), roots=roots)
+    return g, model, torch.from_numpy(roots).to(dev)
+
+
+def gcn_check(work: str, g, model, roots) -> dict:
+    """The one-card gcn step over every rank's roots: its loss equals
+    the mean of the ranks' and every gradient the ranks' synced one
+    within 1e-4 of its largest."""
+    ranks_out = [torch.load(os.path.join(work, f"gcn_{r}.pt"))
+                 for r in range(MESH_SHARDS)]
+    model.train()
+    model.zero_grad(set_to_none=True)
+    out = model(g.tensors, roots)
+    out["loss"].backward()
+    loss = out["loss"].item()
+    mean = float(np.mean([o["loss"] for o in ranks_out]))
+    res = dict(loss=loss, loss_abs_err=abs(loss - mean), rel_err={})
+    check(abs(loss - mean) <= 1e-4 * max(1.0, abs(loss)),
+          f"mesh gcn: loss {mean} != one card {loss}")
+    for name, p in model.named_parameters():
+        res["rel_err"][name] = max(close_rel(o["grads"][name], p.grad.cpu())
+                                   for o in ranks_out)
+        check(res["rel_err"][name] <= 1e-4,
+              f"mesh gcn: {name} gradient off by {res['rel_err'][name]}")
+    return res
+
+
+def phase_mesh_train(graph, dev, smi: str, sgs: dict) -> dict:
+    """Phase 15: training over the mesh (see the module docstring)."""
+    t_phase = time.perf_counter()
+    work = MESH_TRAIN_DIR
+    shutil.rmtree(work, ignore_errors=True)
+    os.makedirs(work)
+    out = {}
+    g = graph.tensors
+    model = bench.make_model("sage", dev,
+                             generator=torch.Generator().manual_seed(15))
+    state0 = {k: v.clone() for k, v in model.state_dict().items()}
+    torch.save(state0, os.path.join(work, "model.pt"))
+    flow = model.embedder.flow
+    rng = np.random.default_rng(15)
+    gen = torch.Generator(device=dev).manual_seed(15)
+    W = MESH_SHARDS
+    roots = [torch.from_numpy(rng.integers(0, N_NODES, W * BATCH).astype(
+        np.int32)).to(dev) for _ in range(MESH_TRAIN_STEPS)]
+    U = [hop_uniforms(flow, g, r, gen) for r in roots]
+    owners = hop_owners(flow, BATCH, W)
+    # the NCCL rank's one-card steps over rank 0's roots on the one
+    # shard's reservoir rows, then the 4 ranks' on the 4 shards'
+    t0 = time.perf_counter()
+    adopt_shard_reservoirs(g, sgs[1])
+    u0 = [owner_uniforms(u, owners, [0]) for u in U]
+    losses1, want1, _ = onecard_sage_steps(state0, graph, dev,
+                                           [r[:BATCH] for r in roots], u0)
+    adopt_shard_reservoirs(g, sgs[MESH_SHARDS])
+    losses4, want4, step_ms = onecard_sage_steps(state0, graph, dev, roots,
+                                                 U)
+    out["onecard_step_ms"] = step_ms
+    out["onecard_s"] = time.perf_counter() - t0
+    for tag, ids, u_of, losses, want in (
+            ("gloo", roots, lambda t: owner_uniforms(U[t], owners,
+                                                     range(W)), losses4,
+             want4),
+            ("nccl", [r[:BATCH] for r in roots], lambda t: u0[t], losses1,
+             want1)):
+        arrays = dict(losses=np.array(losses), step_ms=np.array(step_ms))
+        for t in range(MESH_TRAIN_STEPS):
+            arrays[f"t{t}_ids"] = ids[t].cpu().numpy()
+            for h, hop in enumerate(u_of(t)):
+                for i, x in enumerate(hop):
+                    arrays[f"t{t}_h{h}_u{i}"] = x.cpu().numpy()
+        np.savez(os.path.join(work, f"inputs_{tag}.npz"), **arrays)
+        torch.save(want, os.path.join(work, f"want_{tag}.pt"))
+    out["onecard_losses"] = losses4
+    t0 = time.perf_counter()
+    tg, tmodel, triples = transe_reference(work, dev)
+    gg, gmodel, groots = gcn_reference(work, dev)
+    out["host_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    out["gloo"] = run_ranks("gloo", W, 1, W, "gloo",
+                            os.path.join(MESH_DIR, f"shards{W}"),
+                            target=mesh_train_rank, work=work)
+    out["gloo_s"] = time.perf_counter() - t0
+    states = [torch.load(os.path.join(work, f"state_gloo_{r}.pt"))
+              for r in range(W)]
+    for r in range(1, W):
+        for k, v in states[0].items():
+            check(torch.equal(states[r][k], v),
+                  f"mesh train: replicated {k} differs on rank {r}")
+    out["replicated_bit_equal"] = True
+    out["transe"] = transe_check(work, tg, tmodel, triples)
+    out["gcn"] = gcn_check(work, gg, gmodel, groots)
+    del tg, tmodel, gg, gmodel
+    t0 = time.perf_counter()
+    mesh = mesh_lib.make_mesh(
+        1, 1, backend="nccl", device=torch.device("cuda", 0),
+        init_method="file://" + os.path.join(work, "rendezvous_nccl"),
+        rank=0, timeout_s=MESH_TIMEOUT_S)
+    try:
+        out["nccl"] = [mesh_train_serve(
+            work, "nccl", mesh, sharded.take_shard(sgs[1], 0, mesh.device,
+                                                   mesh), t0)]
+    finally:
+        mesh_lib.close()
+    out["nccl_s"] = time.perf_counter() - t0
+    out["seconds"] = time.perf_counter() - t_phase
+    shutil.rmtree(work, ignore_errors=True)
+    for tag in ("gloo", "nccl"):
+        for res in out[tag]:
+            log(f"mesh train {tag} rank {res['rank']}: "
+                f"{res['step_ms_median']:.4f} ms per step (CUDA-event "
+                f"median of {MESH_TRAIN_TIMED}, {BATCH} roots a rank); "
+                f"{smi}")
+        acct = out[tag][0]["bytes_per_step"]
+        log(f"mesh train {tag} rank 0 bytes per step: "
+            f"{json.dumps({k: v for k, v in acct.items() if k != 'table'})}"
+            f"; link {out[tag][0]['link_bytes_per_s']:.4g} B/s (one psum "
+            f"of 64 MiB); {smi}")
+        log(f"mesh train {tag} rank 0 comms.account() table:\n"
+            f"{acct['table']}")
+        if "profile" in out[tag][0]:
+            log(f"mesh train {tag} rank 0 profile: "
+                f"{json.dumps(out[tag][0]['profile'])}; {smi}")
+    for part in ("transe", "gcn"):
+        r0 = out["gloo"][0][part]
+        acct = {k: v for k, v in r0["bytes_per_step"].items()
+                if k != "table"}
+        log(f"mesh {part} (4 gloo ranks): {r0['step_ms_median']:.4f} ms "
+            f"per step on rank 0; bytes per step {json.dumps(acct)}; vs "
+            f"one card "
+            f"{json.dumps(out[part])}; {smi}")
+    log(f"mesh train single card: {out['onecard_step_ms']:.4f} ms per "
+        f"eager train step of {BATCH} roots (CUDA-event median of "
+        f"{MESH_TRAIN_TIMED}); {smi}")
+    log(f"mesh train phase: {out['seconds']:.1f} s (one-card steps "
+        f"{out['onecard_s']:.1f} s, transe and gcn on the host "
+        f"{out['host_s']:.1f} s, gloo ranks {out['gloo_s']:.1f} s, the nccl "
+        f"rank {out['nccl_s']:.1f} s); {smi}")
     return out
 
 
@@ -4480,9 +5059,14 @@ def main() -> int:
     # 12l. the query path and the IVF index on the graph of phase 5
     queried = phase_query(graph, dev)
     allocated_after("query")
-    # 14. sharded sage serving over 4 gloo ranks and one NCCL rank
-    meshed = phase_mesh(graph, model, dev, smi)
+    # 14. sharded sage serving over 4 gloo ranks and one NCCL rank; 15.
+    # training over the mesh on the same shards
+    meshed, mesh_shards = phase_mesh(graph, model, dev, smi)
     allocated_after("mesh")
+    mesh_trained = phase_mesh_train(graph, dev, smi, mesh_shards)
+    del mesh_shards
+    shutil.rmtree(MESH_DIR, ignore_errors=True)
+    allocated_after("mesh train")
     del graph
     allocated_after("del graph")
     walks = phase_walk(dev)
@@ -4553,14 +5137,23 @@ def main() -> int:
     path_launches.update({f"mesh_{tag}_rank{res['rank']}": res["launches"]
                           for tag in ("gloo", "nccl")
                           for res in meshed[tag]})
+    # phase 15: a checked train step a rank, and the estimator's steps
+    path_launches.update({
+        f"mesh_train_{tag}_rank{res['rank']}": res["launches"]
+        for tag in ("gloo", "nccl") for res in mesh_trained[tag]})
+    path_launches.update({
+        f"mesh_train_estimator_{tag}_rank{res['rank']}":
+            res["estimator"]["launches"]
+        for tag in ("gloo", "nccl") for res in mesh_trained[tag]})
 
-    def mesh_shapes(name):
-        """One sharded batch's launches of ``name`` on rank 0 of each
-        mesh, at their shapes."""
+    def mesh_shapes(name, run=None):
+        """One sharded batch's (or train step's) launches of ``name`` on
+        rank 0 of each mesh, at their shapes."""
+        run = meshed if run is None else run
         return [dict(backend=tag, **{k: v for k, v in row.items()
                                       if k != "name"})
                 for tag in ("gloo", "nccl")
-                for row in meshed[tag][0]["kernels"] if row["name"] == name]
+                for row in run[tag][0]["kernels"] if row["name"] == name]
 
     def by_path(name):
         return {path: n[name] for path, n in path_launches.items()}
@@ -4604,6 +5197,8 @@ def main() -> int:
         # (local rows, -1 where another shard owns the id), and the NCCL
         # rank's over the whole graph as one shard
         "mesh_shapes": mesh_shapes("fan_draw"),
+        # the same in a train step at 1024 roots a rank (phase 15)
+        "mesh_train_shapes": mesh_shapes("fan_draw", mesh_trained),
     }, {
         "name": "gather_rows", "route": "cuda",
         "source": "euler_tpu_torch/csrc/gather_rows.cu",
@@ -4637,6 +5232,7 @@ def main() -> int:
         # each owner's feature and label answers (request-routed over 4
         # gloo ranks; spread on the NCCL rank's one shard)
         "mesh_shapes": mesh_shapes("gather_rows"),
+        "mesh_train_shapes": mesh_shapes("gather_rows", mesh_trained),
     }]
     log(json.dumps({"smoke": dict(
         build_s=build_s, graph_s=graph_s,
@@ -4645,7 +5241,7 @@ def main() -> int:
         train=train, grads=grads, families=families, gcn=gcn,
         convs=conv_runs, whole=whole, encoder=encoder, transe=transe,
         dedup=dedup, walk=walks, rest=rest, data=data, query=queried,
-        examples=examples, mesh=meshed,
+        examples=examples, mesh=meshed, mesh_train=mesh_trained,
         unsup={k: v for k, v in unsup.items() if k != "kernels"}, loop=loop,
         bench=benched, allocated_gb_after=allocated)}))
     log(smi)                # nvidia-smi's name and power limit, as given

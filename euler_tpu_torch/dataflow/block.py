@@ -21,8 +21,14 @@ positions and never a scatter. A shared-source block (the layerwise
 flows') is a fanout block whose ``fanout`` sources are one layer shared
 by every target: edge t*fanout+j has dst=t and src=T+j, so the per-edge
 views broadcast the layer and the source-side sums reduce over the
-targets. The reference's distributed (``psum_axis``) blocks, which
-train over the mesh, are left to ROADMAP Queue A item 11b.
+targets. A distributed whole-graph block (``psum_axis``, the graph
+group of a ShardView; ``flows.full_graph_block_sharded``) holds one
+shard's edges over the global node set: its segment reductions are
+partial, and ``scatter``, ``aggregate_neighbors``, ``softmax`` and
+``scatter_src_add`` complete them over the group with ``comms.psum``
+(the max with ``comms.pmax``, which has no derivative: the max
+aggregate cannot be differentiated there, as in the reference; the
+softmax's max shift stops its gradient before the pmax).
 """
 from __future__ import annotations
 
@@ -34,6 +40,7 @@ import torch
 
 from euler_tpu_torch.ops import mp_ops
 from euler_tpu_torch.ops.sampling import as_etypes, etype_tensor
+from euler_tpu_torch.parallel import comms
 
 
 @dataclasses.dataclass
@@ -63,6 +70,9 @@ class Block:
     # (GraphTensors.ell_tpos): expand and aggregate from the compact table
     # with a scatter-free backward (ell_expand, _ell_agg below)
     ell_tpos: Optional[torch.Tensor] = None
+    # the process group over which a distributed whole-graph block's
+    # partial per-node results complete (a ShardView's graph group)
+    psum_axis: Optional[object] = None
 
     @functools.cached_property
     def _edges64(self) -> torch.Tensor:
@@ -157,10 +167,44 @@ class Block:
             return None, None
         return self._split(mask.to(dtype).reshape((-1,) + (1,) * tail_nd))
 
+    def _raw_max(self, vals: torch.Tensor, idx: torch.Tensor,
+                 size: int) -> torch.Tensor:
+        """Segment max with -inf in empty segments (jax's segment_max)."""
+        full = idx.reshape((-1,) + (1,) * (vals.dim() - 1)).expand_as(vals)
+        out = vals.new_full((size,) + tuple(vals.shape[1:]), float("-inf"))
+        return out.scatter_reduce(0, full, vals, "amax")
+
+    def _psum_scatter(self, op: str, updates: torch.Tensor,
+                      mask: Optional[torch.Tensor]) -> torch.Tensor:
+        """``scatter`` of a distributed block (block.py:176-209): the
+        partial reductions of this shard's edges, completed over
+        ``psum_axis``."""
+        ax, dst, T = self.psum_axis, self._edges64[0], self.size[0]
+        tail = (1,) * (updates.dim() - 1)
+        if op == "add":
+            return comms.psum(mp_ops.masked_scatter_(
+                "add", updates, dst, T, mask), ax)
+        if op == "mean":
+            m = (updates.new_ones((updates.shape[0],)) if mask is None
+                 else mask.to(updates.dtype))
+            tot = comms.psum(mp_ops.scatter_add(
+                updates * m.reshape((-1,) + tail), dst, T), ax)
+            cnt = comms.psum(mp_ops.scatter_add(m[:, None], dst, T), ax)
+            return tot / cnt.reshape((T,) + tail).clamp_min(1e-7)
+        if op == "max":
+            neg = torch.finfo(updates.dtype).min
+            up = updates if mask is None else torch.where(
+                mask.reshape((-1,) + tail) > 0, updates, neg)
+            glob = comms.pmax(self._raw_max(up, dst, T), ax)
+            return torch.where(glob <= neg * 0.5, 0.0, glob)
+        raise ValueError(f"aggregation {op!r} (add, mean, max)")
+
     def scatter(self, op: str, updates: torch.Tensor,
                 mask: Optional[torch.Tensor] = None) -> torch.Tensor:
         """Aggregate per-edge updates into targets (a segment reduction
         over edge_index[0] into size[0] rows); mask drops padded edges."""
+        if self.psum_axis is not None:
+            return self._psum_scatter(op, updates, mask)
         if self.fanout is None:
             return mp_ops.masked_scatter_(op, updates, self._edges64[0],
                                           self.size[0], mask)
@@ -190,6 +234,8 @@ class Block:
             xj = mp_ops.gather(x_src, self._edges64[1])
             if scale is not None:
                 xj = xj * scale.to(xj.dtype)
+            if self.psum_axis is not None:
+                return self._psum_scatter(op, xj, mask)
             return mp_ops.masked_scatter_(op, xj, self._edges64[0],
                                           self.size[0], mask)
         if self.shared_src and op in ("add", "mean") and x_src.dim() == 2:
@@ -278,7 +324,24 @@ class Block:
         softmax; masked edges get probability 0, and a target whose edges
         are all masked gets 0 on every edge, not NaN (its max is reset to
         0 and the denominator clamped at 1e-16, as the reference does).
-        Irregular blocks run ``mp_ops.masked_scatter_softmax``."""
+        Irregular blocks run ``mp_ops.masked_scatter_softmax``; a
+        distributed one completes its max and its sums over
+        ``psum_axis`` (block.py:286-306)."""
+        if self.psum_axis is not None:
+            ax, dst, T = self.psum_axis, self._edges64[0], self.size[0]
+            neg = -1e30
+            tail = (1,) * (scores.dim() - 1)
+            z = scores if mask is None else torch.where(
+                mask.reshape((-1,) + tail) > 0, scores, neg)
+            # the max shift only steadies the exponent: its gradient
+            # cancels, and pmax has none, so it stops before the pmax
+            mx = comms.pmax(self._raw_max(z.detach(), dst, T), ax)
+            mx = torch.where(mx <= neg * 0.5, 0.0, mx)
+            e = torch.exp(z - mp_ops.gather(mx, dst))
+            if mask is not None:
+                e = torch.where(mask.reshape((-1,) + tail) > 0, e, 0.0)
+            denom = comms.psum(mp_ops.scatter_add(e, dst, T), ax)
+            return e / mp_ops.gather(denom, dst).clamp_min(1e-16)
         if self.fanout is None:
             return mp_ops.masked_scatter_softmax(scores, self._edges64[0],
                                                  self.size[0], mask)
@@ -309,8 +372,11 @@ class Block:
             updates = updates * mask.reshape(
                 (-1,) + (1,) * (updates.dim() - 1)).to(updates.dtype)
         if self.fanout is None:
-            return mp_ops.scatter_add(updates, self._edges64[1],
-                                      self.size[1])
+            out = mp_ops.scatter_add(updates, self._edges64[1],
+                                     self.size[1])
+            if self.psum_axis is not None:
+                out = comms.psum(out, self.psum_axis)
+            return out
         T, C = self.size[0], self.fanout
         tail = tuple(updates.shape[1:])
         if self.shared_src:

@@ -2,8 +2,9 @@
 
 Counterpart of euler_tpu/dataflow/flows.py: ``SageDataFlow`` (the
 fan-row draws, with or without ``typed``, and ``payload=True``),
-``GCNDataFlow``, ``WholeDataFlow``,
-``LayerwiseDataFlow`` and ``FastDataFlow`` on one device, and the
+``GCNDataFlow``, ``WholeDataFlow`` (and its sharded whole-graph block,
+``full_graph_block_sharded``), ``LayerwiseDataFlow`` and
+``FastDataFlow``, and the
 registry ``get_flow_class``. Every flow is called as ``flow(g, roots,
 generator=None, uniforms=None)`` and returns its blocks deepest first;
 ``num_layers`` is the number of blocks, one conv each. Flows that draw
@@ -20,6 +21,7 @@ import torch
 from euler_tpu_torch.dataflow.block import (Block, fanout_block,
                                             full_graph_block)
 from euler_tpu_torch.ops import mp_ops, sampling
+from euler_tpu_torch.ops.dispatch import is_shard_view
 
 
 class SageDataFlow:
@@ -149,9 +151,10 @@ class WholeDataFlow:
     degree for the exact graph), the same regular rows assembled per call
     by ``get_full_neighbor`` (no transpose table: GNNNet expands each
     layer's output through ``n_id``); else the edge-list block
-    ``full_graph_block``, whose reductions scatter. The distributed
-    branch (the reference's ``full_graph_block_sharded``) is left to
-    ROADMAP Queue A item 11b.
+    ``full_graph_block``, whose reductions scatter. Over a ShardView,
+    each shard's block holds its own edges over the global node set
+    (``full_graph_block_sharded``) and its reductions complete over the
+    graph group (``Block.psum_axis``).
     """
 
     def __init__(self, num_layers: int, metapath,
@@ -175,6 +178,10 @@ class WholeDataFlow:
     def __call__(self, g, roots: torch.Tensor,
                  generator: Optional[torch.Generator] = None,
                  uniforms: Optional[Sequence] = None):
+        if is_shard_view(g):
+            blk = full_graph_block_sharded(g, self.metapath[0],
+                                           self.add_self_loops)
+            return [blk] * self.num_layers
         have_pack = g.ell_nbr is not None
         use_ell = self.layout == "ell" or (
             self.layout == "auto" and (have_pack or self.cap is not None))
@@ -204,6 +211,52 @@ class WholeDataFlow:
         else:
             blk = full_graph_block(g, self.metapath[0], self.add_self_loops)
         return [blk] * self.num_layers
+
+
+def full_graph_block_sharded(view, edge_types,
+                             add_self_loops: bool = True) -> Block:
+    """One shard's whole-graph block (flows.py:199-242): its local CSR
+    edges addressed in GLOBAL node ids (target the edge's source, which
+    this shard owns; source slot its destination), self loops only for
+    the nodes it owns (the psum would count a loop on every shard
+    otherwise); over every node, completed over the view's graph group
+    (``psum_axis``)."""
+    ets = sampling.etype_tensor(sampling.as_etypes(view, edge_types),
+                                torch.int32, view.device)
+    N, S = view.meta.n_nodes, view.num_shards
+    ET = view.meta.num_edge_types
+    me = view.my_shard
+    dev = view.device
+    gp = view.group_ptr
+    E = view.adj_dst.shape[0]                      # padded e_max
+    slots = torch.arange(E, dtype=gp.dtype, device=dev)
+    real = slots < gp[-1]
+    gidx = (torch.searchsorted(gp, slots, right=True) - 1).clamp(
+        0, gp.shape[0] - 2)
+    row = gidx // ET                               # local target row
+    dst = torch.where(real, row * S + me, 0).to(torch.int32)
+    ok_dst = view.adj_dst >= 0
+    src = torch.where(real & ok_dst, view.adj_dst, 0).to(torch.int32)
+    sel = real & torch.isin(view.adj_type, ets) & ok_dst & (dst < N)
+    mask = sel.to(torch.float32)
+    w = torch.where(sel, view.adj_w, 0.0)
+    e_id = torch.where(sel, view.adj_eid, -1)
+    if add_self_loops:
+        n_local = view.node_type.shape[0]
+        loop = torch.arange(n_local, dtype=torch.int32, device=dev) * S + me
+        ok = loop < N
+        loop = torch.where(ok, loop, 0)
+        dst = torch.cat([dst, loop])
+        src = torch.cat([src, loop])
+        mask = torch.cat([mask, ok.to(torch.float32)])
+        w = torch.cat([w, torch.ones((n_local,), dtype=w.dtype, device=dev)])
+        e_id = torch.cat([e_id, torch.full((n_local,), -1,
+                                           dtype=torch.int32, device=dev)])
+    all_nodes = torch.arange(N, dtype=torch.int32, device=dev)
+    return Block(n_id=all_nodes, res_n_id=all_nodes,
+                 edge_index=torch.stack([dst, src]), e_id=e_id,
+                 edge_weight=w, mask=mask, size=(N, N),
+                 psum_axis=view.group)
 
 
 class LayerwiseDataFlow:

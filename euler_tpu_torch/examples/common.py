@@ -6,24 +6,39 @@ evaluate, infer or train_and_evaluate (reference: examples/common.py;
 examples/gcn/run_gcn.py:45-89 of tf_euler). Every example script builds
 its model from the port's pieces and hands it to ``run_node_model``,
 ``run_edge_model`` or ``run_graph_model``. ``--device`` picks the card
-(default ``cuda``, which must exist) or ``cpu``; ``--mesh`` raises, since
-the sharded estimators are not ported yet (ROADMAP.md, Queue A item 11b).
-Model weights come from a CPU generator seeded with 0.
+(default ``cuda``, which must exist) or ``cpu``. ``--mesh`` trains over
+a (data, graph) mesh of ranks with ``SpmdNode/Edge/GraphEstimator``, as
+the reference's ``_make_mesh`` does (examples/common.py:28-100): each
+rank runs the script, joined by a launcher's ``env://`` variables
+(``torchrun --nproc-per-node 4 -m ... --mesh 1x4``); ``auto`` (1 x the
+rank count) and ``1x1`` without a launcher run in this process as a
+one-rank group, which the runner leaves at its end. The graph loads on
+the host and each rank places its own shard on its device. Model
+weights come from a CPU generator seeded with 0.
 """
 from __future__ import annotations
 
+import os
+import shutil
+import tempfile
+
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from euler_tpu_torch._device import resolve_device
 from euler_tpu_torch.dataflow import flows
 from euler_tpu_torch.datasets import get_dataset
 from euler_tpu_torch.estimator import (EdgeEstimator, GraphEstimator,
-                                       NodeEstimator, RunConfig)
+                                       NodeEstimator, RunConfig,
+                                       SpmdEdgeEstimator, SpmdGraphEstimator,
+                                       SpmdNodeEstimator)
 from euler_tpu_torch.models import (AttentionPool, GNNNet, GraphModel,
                                     JKGNNNet, SegmentPool, Set2SetPool,
                                     ShallowEncoder, SuperviseModel)
-from euler_tpu_torch.utils.config import apply_defaults, define_run_flags
+from euler_tpu_torch.parallel import distributed, mesh as mesh_lib
+from euler_tpu_torch.utils.config import (apply_defaults, define_run_flags,
+                                          parse_mesh_flag)
 
 __all__ = ["build_gnn", "edge_type_ids", "feature_dim", "get_dataset",
            "kg_test_triples", "kg_test_triples_meta", "load_dataset",
@@ -43,19 +58,48 @@ def parse_flags(argv=None, **defaults):
     return args
 
 
+def mesh_of(args):
+    """None without ``--mesh``; else this rank's ``Mesh``, made once a run
+    (and its process group, where none exists: a launcher's ``env://``
+    for more than one rank, a one-rank group in this process for one)."""
+    if getattr(args, "mesh", None) is None:
+        return None
+    if getattr(args, "_mesh", None) is None:
+        dev = resolve_device(args.device)
+        d, g = parse_mesh_flag(args.mesh)
+        if not dist.is_initialized():
+            if d * g == 1:
+                args._rendezvous = tempfile.mkdtemp(prefix="mesh_")
+                distributed.initialize(
+                    "file://" + os.path.join(args._rendezvous, "store"),
+                    world_size=1, rank=0, device=dev)
+            else:
+                distributed.initialize(device=dev)
+        args._mesh = mesh_lib.make_mesh(d, g, device=dev)
+    return args._mesh
+
+
+def close_mesh(args) -> None:
+    """Leave the one-rank group that ``mesh_of`` made, if it made one."""
+    where = getattr(args, "_rendezvous", None)
+    if where is not None:
+        mesh_lib.close()
+        shutil.rmtree(where, ignore_errors=True)
+        args._rendezvous = args._mesh = None
+
+
 def device_of(args) -> torch.device:
-    """``--device``; ``--mesh`` raises."""
-    if getattr(args, "mesh", None) is not None:
-        raise NotImplementedError(
-            "--mesh: the sharded estimators are not ported yet (ROADMAP.md, "
-            "Queue A item 11b); run on one device without --mesh")
-    return resolve_device(args.device)
+    """``--device``; under ``--mesh``, this rank's device."""
+    mesh = mesh_of(args)
+    return resolve_device(args.device) if mesh is None else mesh.device
 
 
 def load_dataset(args):
     """(dataset, graph): ``args.dataset`` under ``args.data_dir``, loaded
-    onto ``--device``."""
-    dev = device_of(args)
+    onto ``--device`` (on the host under ``--mesh``: each rank then
+    places its own shard)."""
+    dev = torch.device("cpu") if mesh_of(args) is not None \
+        else device_of(args)
     ds = get_dataset(args.dataset, args.data_dir)
     return ds, ds.load_graph(device=dev)
 
@@ -92,24 +136,41 @@ def run_node_model(args, ds, graph, model, metric="f1",
         else ds.train_node_type
     if isinstance(tnt, str):
         tnt = graph.meta.node_type_id(tnt)
-    est = NodeEstimator(model, graph, cfg, train_node_type=tnt,
-                        device=device_of(args))
+    mesh = mesh_of(args)
+    if mesh is not None:
+        est = SpmdNodeEstimator(model, graph, cfg, train_node_type=tnt,
+                                mesh=mesh)
+    else:
+        est = NodeEstimator(model, graph, cfg, train_node_type=tnt,
+                            device=device_of(args))
     return _dispatch(args, ds, est)
 
 
 def run_edge_model(args, ds, graph, model, metric="mrr",
                    train_edge_type=-1):
     cfg = make_config(args, ds, metric)
-    est = EdgeEstimator(model, graph, cfg, train_edge_type=train_edge_type,
-                        device=device_of(args))
+    mesh = mesh_of(args)
+    if mesh is not None:
+        est = SpmdEdgeEstimator(model, graph, cfg,
+                                train_edge_type=train_edge_type, mesh=mesh)
+    else:
+        est = EdgeEstimator(model, graph, cfg,
+                            train_edge_type=train_edge_type,
+                            device=device_of(args))
     return _dispatch(args, ds, est)
 
 
 def run_graph_model(args, ds, graph, model, label_name="label",
                     num_classes=2):
     cfg = make_config(args, ds, "accuracy")
-    est = GraphEstimator(model, graph, cfg, label_name=label_name,
-                         num_classes=num_classes, device=device_of(args))
+    mesh = mesh_of(args)
+    if mesh is not None:
+        est = SpmdGraphEstimator(model, graph, cfg, label_name=label_name,
+                                 num_classes=num_classes, mesh=mesh)
+    else:
+        est = GraphEstimator(model, graph, cfg, label_name=label_name,
+                             num_classes=num_classes,
+                             device=device_of(args))
     return _dispatch(args, ds, est)
 
 
@@ -130,12 +191,20 @@ def kg_test_triples_meta(ds, meta) -> np.ndarray:
 def _eval_ids(ds, est):
     """The evaluation input: test triples for edge models with a KG
     dataset, node or graph ids otherwise."""
-    if isinstance(est, EdgeEstimator) and hasattr(ds, "test_triples"):
+    if isinstance(est, (EdgeEstimator, SpmdEdgeEstimator)) and \
+            hasattr(ds, "test_triples"):
         return kg_test_triples(ds, est.graph)
     return ds.test_ids
 
 
 def _dispatch(args, ds, est):
+    try:
+        return _run_mode(args, ds, est)
+    finally:
+        close_mesh(args)
+
+
+def _run_mode(args, ds, est):
     if args.run_mode == "train":
         out = est.train()
     elif args.run_mode == "evaluate":
@@ -147,7 +216,8 @@ def _dispatch(args, ds, est):
     else:
         out = est.train_and_evaluate(_eval_ids(ds, est))
     if args.run_mode in ("evaluate", "train_and_evaluate") and \
-            isinstance(est, EdgeEstimator) and hasattr(ds, "test_triples"):
+            isinstance(est, (EdgeEstimator, SpmdEdgeEstimator)) and \
+            hasattr(ds, "test_triples"):
         # full-entity ranking: the protocol behind the reference's FB15k
         # MeanRank/Hit@10 table (examples/TransX/README.md)
         out.update(est.evaluate_ranking(kg_test_triples(ds, est.graph)))
@@ -230,12 +300,16 @@ def run_graph_conv_example(conv: str, pool_name: str = "mean", argv=None,
                  ShallowEncoder(dense_names=(ds.feature_idx,)),
                  feature_dim(graph, ds.feature_idx), device=dev,
                  generator=gen)
+    # the pool's segments are the graphs of one rank's batch: under
+    # --mesh each rank pools its own slice
+    mesh = mesh_of(args)
+    pool_graphs = args.batch_size // (1 if mesh is None else mesh.size)
     if pool_name == "set2set":
-        pool = Set2SetPool(h, args.batch_size, h, generator=gen)
+        pool = Set2SetPool(h, pool_graphs, h, generator=gen)
     elif pool_name == "attention":
-        pool = AttentionPool(h, args.batch_size, generator=gen)
+        pool = AttentionPool(h, pool_graphs, generator=gen)
     else:
-        pool = SegmentPool(h, args.batch_size, pool_name)
+        pool = SegmentPool(h, pool_graphs, pool_name)
     model = GraphModel(net, pool, ds.num_classes, device=dev, generator=gen)
     return run_graph_model(args, ds, graph, model, label_name=ds.label_idx,
                            num_classes=ds.num_classes)

@@ -36,7 +36,8 @@ class GAE(nn.Module):
     ``node_type`` (reference: autoencoders.py:24-60).
 
     ``uniforms``: [the positive draw (``draw_sample_uniforms`` of B
-    nodes, 1 draw), the negative draw (``draw_node_uniforms`` of
+    nodes, over a ShardView of ``sampling.neighbor_rows(g, B)``, 1
+    draw), the negative draw (``draw_node_uniforms`` of
     B * num_negs), then the per-hop uniforms of the three embedder calls
     (roots, positives, negatives)]."""
 
@@ -67,9 +68,11 @@ class GAE(nn.Module):
         roots = roots.to(torch.int32)
         B, dev = roots.shape[0], roots.device
         if uniforms is None:
-            uniforms = (sampling.draw_sample_uniforms(generator, B, 1, dev),
+            uniforms = (sampling.draw_sample_uniforms(
+                            generator, sampling.neighbor_rows(g, B), 1, dev),
                         sampling.draw_node_uniforms(generator,
-                                                    B * self.num_negs, dev))
+                                                    B * self.num_negs, dev,
+                                                    g))
         u_pos, u_neg, *rest = uniforms
         towers = (list(rest[:3]) + [None] * 3)[:3]
         eps = rest[3:] or [None] * 3
@@ -142,7 +145,7 @@ class DGI(nn.Module):
         B = roots.shape[0]
         if uniforms is None:
             uniforms = (sampling.draw_node_uniforms(
-                generator, B * self.num_negs, roots.device), None, None)
+                generator, B * self.num_negs, roots.device, g), None, None)
         u_neg, t_roots, t_neg = uniforms
         corrupt = sampling.select_nodes(g, self.node_type, *u_neg)
         emb = self.embedder(g, roots, generator=generator, uniforms=t_roots)

@@ -61,6 +61,12 @@ A flax kernel is [in, out] and loads as ``Linear.weight = kernel.T``; any
 other parameter, an embedding [rows, features] included, loads as it is.
 A bare net, layer, aggregator or pool takes its own tree, without the
 ``embedder`` level. A shape that does not fit raises.
+
+A mesh model's tree (unboxed: ``flax.linen.meta.unbox``) loads into each
+rank's modules after ``parallel.train.init_sharded_params``: replicated
+leaves as they are, and a P('graph') table, assembled [S * n_local, d],
+gives graph index ``g``'s block its rows [g * n_local, (g + 1) *
+n_local).
 """
 from __future__ import annotations
 
@@ -94,6 +100,7 @@ from euler_tpu_torch.models.scalable import ScalableGNNNet
 from euler_tpu_torch.models.solution import (SampleSolutionModel,
                                              SolutionModel)
 from euler_tpu_torch.models.walk_models import LINE, DeepWalk
+from euler_tpu_torch.parallel.mesh import graph_shard_of
 
 #: flax name inside conv_i -> attribute of the port's conv
 _CONV_TREES = {
@@ -133,6 +140,12 @@ def _conv_tree(conv: nn.Module) -> dict:
 
 def _set(param: torch.Tensor, value, name: str) -> None:
     value = torch.from_numpy(np.array(value, np.float32))
+    shard = graph_shard_of(param)
+    if shard is not None and value.shape[0] == shard[1] * param.shape[0]:
+        # a P('graph') table assembled [S * n_local, ...]: this rank's
+        # block is rows [g * n_local, (g + 1) * n_local)
+        n = param.shape[0]
+        value = value[shard[0] * n:(shard[0] + 1) * n]
     if tuple(value.shape) != tuple(param.shape):
         raise ValueError(f"{name}: flax shape {tuple(value.shape)} does not "
                          f"fit {tuple(param.shape)}")
@@ -309,7 +322,10 @@ def load_flax_params(model: nn.Module, params: Mapping) -> nn.Module:
         _load_net(model.group, tree["group"], "group/")
     elif isinstance(model, (TransX, DeepWalk, LINE)):
         for name, table in model.named_children():
-            _load_embed(table, tree[name], name)
+            if isinstance(table, ShardedEmbedding):
+                _load_layer(table, tree[name], name)
+            else:
+                _load_embed(table, tree[name], name)
     elif isinstance(model, (GCNAggregator, _BaseAggregator)):
         _load_aggregator(model, tree, "")
     elif isinstance(model, (SegmentPool, AttentionPool, Set2SetPool)):

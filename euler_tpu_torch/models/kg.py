@@ -11,7 +11,10 @@ from the ``generator`` or the replayed ``uniforms`` the caller passes.
 ``corrupt`` in {'front', 'tail', 'both'} and the margin over the mean of
 the negative scores match transX.py. Tables are ``Embed`` (flax's
 ``nn.Embed``, with its NaN rows past the table), dense, updated whole by
-the optimizer as optax updates them.
+the optimizer as optax updates them; with ``shard_embeddings`` the
+entity table is a ``layers.ShardedEmbedding``, split over the mesh's
+graph axis once ``parallel.train.init_sharded_params`` lays the model
+out (the relation tables stay replicated; kg.py:46-63).
 """
 from __future__ import annotations
 
@@ -26,6 +29,7 @@ from euler_tpu_torch._device import resolve_device
 from euler_tpu_torch.graph.store import GraphTensors
 from euler_tpu_torch.models.encoders import Embed
 from euler_tpu_torch.models.gnn import xla_abs
+from euler_tpu_torch.models.layers import ShardedEmbedding
 from euler_tpu_torch.ops import sampling
 
 
@@ -47,11 +51,6 @@ class TransX(nn.Module):
                  shard_embeddings: bool = False, device=None,
                  generator: Optional[torch.Generator] = None):
         super().__init__()
-        if shard_embeddings:
-            raise NotImplementedError(
-                "shard_embeddings=True partitions the entity table over a "
-                "mesh, which waits for training over the mesh (ROADMAP "
-                "Queue A item 11b)")
         if corrupt not in ("front", "tail", "both"):
             raise ValueError(f"corrupt {corrupt!r} not in front, tail, both")
         dev = resolve_device(device)
@@ -59,7 +58,12 @@ class TransX(nn.Module):
         self.ent_dim, self.rel_dim = ent_dim, rel_dim
         self.num_negs, self.margin, self.l1 = num_negs, margin, l1
         self.corrupt, self.node_type = corrupt, node_type
-        self.entity_encoder = Embed(n_entities + 1, ent_dim, generator)
+        self.shard_embeddings = shard_embeddings
+        self.entity_encoder = (
+            ShardedEmbedding(n_entities + 1, ent_dim, device="cpu",
+                             generator=generator)
+            if shard_embeddings else Embed(n_entities + 1, ent_dim,
+                                           generator))
         self.relation_encoder = Embed(n_relations + 1, rel_dim, generator)
         self._setup_extra(generator)
         self.to(dev)
@@ -79,9 +83,12 @@ class TransX(nn.Module):
             return -xla_abs(diff).sum(-1)
         return -(diff * diff).sum(-1).clamp_min(1e-12).sqrt()
 
-    def _entity(self, ids):
+    def _entity(self, g, ids):
         """The entity rows of ``ids``; ids below 0 read row 0, as the
-        reference's ``maximum(ids, 0)``."""
+        reference's ``maximum(ids, 0)``. The sharded table reads ``g``,
+        the mesh's view (kg.py ``_ent``)."""
+        if self.shard_embeddings:
+            return self.entity_encoder(g, ids.clamp_min(0))
         return self.entity_encoder(ids.clamp_min(0))
 
     def forward(self, g: GraphTensors, batch: torch.Tensor,
@@ -93,15 +100,15 @@ class TransX(nn.Module):
         B = src.shape[0]
         if uniforms is None:
             uniforms = sampling.draw_node_uniforms(
-                generator, B * self.num_negs, batch.device)
+                generator, B * self.num_negs, batch.device, g)
         neg = sampling.select_nodes(g, self.node_type, *uniforms).reshape(
             B, self.num_negs)
 
         rel_e = _l2norm(self.relation_encoder(rel.clamp_min(0)))
-        src_e = self.project(self._entity(src), src, rel)
-        dst_e = self.project(self._entity(dst), dst, rel)
+        src_e = self.project(self._entity(g, src), src, rel)
+        dst_e = self.project(self._entity(g, dst), dst, rel)
         rel_b = rel[:, None].expand(B, self.num_negs)
-        neg_e = self.project(self._entity(neg), neg, rel_b)
+        neg_e = self.project(self._entity(g, neg), neg, rel_b)
 
         pos_scores = self.score(src_e, rel_e, dst_e)[:, None]      # [B, 1]
         rel_x = rel_e[:, None, :]
@@ -128,13 +135,13 @@ class TransX(nn.Module):
                             device=batch.device)
         rel_e = _l2norm(self.relation_encoder(rel.clamp_min(0)))[:, None, :]
         # candidates projected under each row's relation: [B or 1, E, d]
-        cand = self.project(self.entity_encoder(ents)[None], ents[None],
+        cand = self.project(self._entity(g, ents)[None], ents[None],
                             rel[:, None])
         if direction == "tail":
-            h = self.project(self._entity(src), src, rel)
+            h = self.project(self._entity(g, src), src, rel)
             return self.score(h[:, None, :], rel_e, cand)
         if direction == "head":
-            t = self.project(self._entity(dst), dst, rel)
+            t = self.project(self._entity(g, dst), dst, rel)
             return self.score(cand, rel_e, t[:, None, :])
         raise ValueError(direction)
 
@@ -200,6 +207,11 @@ class DistMult(TransX):
         out = super().forward(g, batch, generator=generator,
                               uniforms=uniforms)
         if self.l2_regular:
+            if self.shard_embeddings:
+                raise NotImplementedError(
+                    "DistMult l2_regular reads the full entity table; "
+                    "disable it (or regularize per-batch) with "
+                    "shard_embeddings=True")
             reg = (self.entity_encoder.weight.square().sum()
                    + self.relation_encoder.weight.square().sum())
             out["loss"] = out["loss"] + self.regular_param * reg

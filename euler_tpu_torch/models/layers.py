@@ -1,15 +1,15 @@
-"""Building-block layers: embeddings (plain, sparse, hashed, one-device
-sharded), additive attention, and flax's LSTM cell with a layer over it.
+"""Building-block layers: embeddings (plain, sparse, hashed, and
+sharded over the mesh's graph axis), additive attention, and flax's LSTM
+cell with a layer over it.
 
 Counterpart of euler_tpu/models/layers.py (reference:
 tf_euler/python/utils/layers.py:119-270). The embedding tables are
 ``encoders.Embed`` (flax's ``nn.Embed``: ids past the table read NaN
-rows, the gradient an ``index_add_``), but for ``ShardedEmbedding``, the
-single-device table of the reference's non-mesh branch, which reads as a
-jnp index does; its mesh branch (a table split over the graph axis)
-raises: it waits for training over the mesh (ROADMAP Queue A item 11b).
-Weights come from ``generator``, a CPU torch.Generator; the module is
-then moved to ``device``.
+rows, the gradient an ``index_add_``), but for ``ShardedEmbedding``,
+which reads as a jnp index does: one table on one device, and over the
+mesh (after ``shard_over``) one block of it a rank, read through the
+shard owners. Weights come from ``generator``, a CPU torch.Generator;
+the module is then moved to ``device``.
 """
 from __future__ import annotations
 
@@ -22,6 +22,9 @@ from torch import nn
 from euler_tpu_torch._device import resolve_device
 from euler_tpu_torch.models.convs import dense
 from euler_tpu_torch.models.encoders import Embed, _Lookup
+from euler_tpu_torch.ops.dispatch import is_shard_view
+from euler_tpu_torch.parallel.mesh import mark_graph_sharded
+from euler_tpu_torch.parallel.sharded import fold_seed, owner_rows
 
 
 def _combine(emb: torch.Tensor, mask: torch.Tensor,
@@ -54,29 +57,55 @@ class Embedding(nn.Module):
 
 
 class ShardedEmbedding(nn.Module):
-    """The reference's graph-axis-sharded table (layers.py:62-124) on one
-    device: its non-mesh branch, a [num, dim] table ``embedding`` read
-    as a jnp index reads it: an id past the table reads the last row and
-    sends it no gradient (XLA clamps the gather and drops the scatter of
-    its transpose); rows of ids < 0 are zeroed. Called with a sharded
-    view of the graph it raises: the mesh branch waits for the sharded
-    store."""
+    """The reference's graph-axis-sharded table (layers.py:62-124).
+
+    On one device it is the reference's non-mesh branch: a [num, dim]
+    table ``embedding`` read as a jnp index reads it: an id past the
+    table reads the last row and sends it no gradient (XLA clamps the
+    gather and drops the scatter of its transpose); rows of ids < 0 are
+    zeroed.
+
+    Over the mesh, ``shard_over(mesh, seed)`` (which
+    ``parallel.train.init_sharded_params`` calls) replaces the table by
+    this rank's block [ceil(num / S), dim], drawn from ``seed`` folded by
+    the graph index (the reference's ``shard_init``) and marked
+    graph-sharded: row r lives on shard r % S at local row r // S. It is
+    then read over a ``ShardView`` of that mesh through the owners
+    (``sharded.owner_rows``: all_gather, a local take, a tiled
+    all_to_all and a sum over S), so its gradient is the sum of the
+    graph group's contributions to each owned row. A mesh checkpoint's
+    table layout differs from a one-device one (layers.py:79)."""
 
     def __init__(self, num: int, dim: int, device=None,
                  generator: Optional[torch.Generator] = None):
         super().__init__()
         self.num, self.dim = num, dim
+        self.num_shards = None          # the graph axis after shard_over
         # nn.Embed's default init, variance_scaling(1, fan_in, normal)
         self.embedding = nn.Parameter(torch.randn(
             (num, dim), generator=generator) / math.sqrt(dim))
         self.to(resolve_device(device))
 
+    def shard_over(self, mesh, seed: int = 0) -> None:
+        """Hold this rank's block of the table over ``mesh``'s graph axis."""
+        S = mesh.graph
+        gen = torch.Generator().manual_seed(fold_seed(seed,
+                                                      mesh.graph_index))
+        block = torch.randn((-(-self.num // S), self.dim),
+                            generator=gen) / math.sqrt(self.dim)
+        self.embedding = mark_graph_sharded(
+            nn.Parameter(block.to(self.embedding.device)), mesh)
+        self.num_shards = S
+
     def forward(self, g, ids: torch.Tensor) -> torch.Tensor:
-        if getattr(g, "num_shards", None) is not None:
-            raise NotImplementedError(
-                "ShardedEmbedding over a mesh (a table split over the "
-                "sharded store's graph axis) waits for ROADMAP Queue A item "
-                "11b")
+        if self.num_shards is not None or is_shard_view(g):
+            if not is_shard_view(g) or g.num_shards != self.num_shards:
+                raise ValueError(
+                    "a ShardedEmbedding over the mesh reads a ShardView of "
+                    "its mesh, after parallel.train.init_sharded_params "
+                    f"(its graph axis: {self.num_shards}; the graph's: "
+                    f"{getattr(g, 'num_shards', None)})")
+            return owner_rows(g, self.embedding, ids)
         ids = ids.to(torch.int64)
         rows = _Lookup.apply(self.embedding,
                              ids.clamp(0, self.num - 1), False)

@@ -12,8 +12,15 @@ parameters. The write is deterministic on every device: where a root
 repeats in the batch, its last occurrence wins (a scatter-max of the
 positions picks it; ``index_put_`` alone leaves the winner open). In
 evaluation (``model.eval()``) nothing is written, as the reference's
-evaluate discards its store updates. The graph-axis-sharded stores of the
-reference's mesh branch wait for ROADMAP Queue A item 11b.
+evaluate discards its store updates.
+
+Over the mesh (scalable.py:40-75, :104-166), ``shard_over`` (which
+``parallel.train.init_sharded_params`` calls) splits each store over the
+graph axis: row r on shard r % S at local row r // S, marked
+graph-sharded. A read goes through the owners (``sharded.owner_rows``);
+a write gathers the roots and their embeddings over the WHOLE mesh, so
+that every data replica of a shard applies the same writes, and each
+owner writes its rows (the last occurrence in rank order wins).
 """
 from __future__ import annotations
 
@@ -26,6 +33,10 @@ from euler_tpu_torch._device import resolve_device
 from euler_tpu_torch.graph.store import GraphTensors
 from euler_tpu_torch.models import aggregators as aggr_lib
 from euler_tpu_torch.ops import sampling
+from euler_tpu_torch.ops.dispatch import is_shard_view
+from euler_tpu_torch.parallel import comms
+from euler_tpu_torch.parallel.mesh import mark_graph_sharded
+from euler_tpu_torch.parallel.sharded import fold_seed, owner_rows
 
 
 def last_write_rows(rows: torch.Tensor, ok: torch.Tensor, pad: int
@@ -69,6 +80,8 @@ class ScalableGNNNet(nn.Module):
         self.aggs = nn.ModuleList(
             agg(in_dim if i == 0 else dim, dim, generator=generator)
             for i in range(num_layers))
+        self.store_init_maxval = store_init_maxval
+        self.num_shards = None          # the graph axis after shard_over
         for i in range(1, num_layers):
             self.register_buffer(f"store_layer_{i}", torch.rand(
                 (n_nodes + 1, dim), generator=generator) * store_init_maxval)
@@ -78,19 +91,52 @@ class ScalableGNNNet(nn.Module):
         return [getattr(self, f"store_layer_{i}")
                 for i in range(1, self.num_layers)]
 
+    def shard_over(self, mesh, seed: int = 0) -> None:
+        """Hold this rank's block [ceil((n_nodes + 1) / S), dim] of each
+        store, uniform in [0, store_init_maxval) from ``seed`` folded by
+        the layer and the graph index."""
+        S = mesh.graph
+        for i in range(1, self.num_layers):
+            gen = torch.Generator().manual_seed(
+                fold_seed(fold_seed(seed, i), mesh.graph_index))
+            block = torch.rand((-(-(self.n_nodes + 1) // S), self.dim),
+                               generator=gen) * self.store_init_maxval
+            setattr(self, f"store_layer_{i}", mark_graph_sharded(
+                block.to(getattr(self, f"store_layer_{i}").device), mesh))
+        self.num_shards = S
+
+    def _write_sharded(self, g, roots: torch.Tensor, embs) -> None:
+        """Every rank's roots and embeddings, gathered over the whole
+        mesh in rank order; each owner writes the rows it holds."""
+        S, world = g.num_shards, g.mesh.world_group
+        ids = comms.all_gather(roots, world).reshape(-1)
+        mine = (ids >= 0) & (ids % S == g.my_shard)
+        for store, emb in zip(self.stores(), embs):
+            vals = comms.all_gather(emb.detach(), world).reshape(
+                -1, emb.shape[-1])
+            n_local = store.shape[0]
+            dst = last_write_rows(torch.where(mine, ids // S, 0), mine,
+                                  n_local)
+            hit = dst < n_local
+            store[dst[hit]] = vals[hit]
+
     def forward(self, g: GraphTensors, roots: torch.Tensor,
                 generator: Optional[torch.Generator] = None,
                 uniforms: Optional[Sequence] = None) -> torch.Tensor:
-        if getattr(g, "num_shards", None) is not None:
-            raise NotImplementedError(
-                "ScalableGNNNet over a mesh (a store split over the "
-                "sharded store's graph axis) waits for ROADMAP Queue A item "
-                "11b")
+        sharded = is_shard_view(g)
+        if sharded != (self.num_shards is not None) or (
+                sharded and g.num_shards != self.num_shards):
+            raise ValueError(
+                "a ScalableGNNNet over the mesh reads a ShardView of its "
+                "mesh, after parallel.train.init_sharded_params (its graph "
+                f"axis: {self.num_shards}; the graph's: "
+                f"{getattr(g, 'num_shards', None)})")
         roots = roots.reshape(-1).to(torch.int32)
         B = roots.shape[0]
         u = uniforms if uniforms is not None else \
-            sampling.draw_sample_uniforms(generator, B, self.fanout,
-                                          roots.device)
+            sampling.draw_sample_uniforms(
+                generator, sampling.neighbor_rows(g, B), self.fanout,
+                roots.device)
         nbr = sampling.select_sampled_neighbors(g, roots, self.edge_types,
                                                 *u)[0]
         nmask = nbr >= 0
@@ -107,8 +153,12 @@ class ScalableGNNNet(nn.Module):
                 node_emb = out
             embs.append(node_emb)
             if layer < self.num_layers - 1:
-                neigh_emb = stores[layer][rows]
-        if self.training:
+                neigh_emb = (owner_rows(g, stores[layer], rows) if sharded
+                             else stores[layer][rows])
+        if self.training and sharded:
+            with torch.no_grad():
+                self._write_sharded(g, roots, embs)
+        elif self.training:
             ok = roots >= 0
             dst = last_write_rows(roots, ok, self.n_nodes)
             with torch.no_grad():

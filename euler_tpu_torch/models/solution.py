@@ -6,7 +6,8 @@ tf_euler/python/solution/ — losses.py, logits.py, samplers.py,
 base_supervise.py:25-49, base_unsupervise.py). The samplers are split as
 every draw of the port is: ``select_pos_with_types`` and
 ``select_neg_with_types`` take the uniforms that ``draw_sample_uniforms``
-and ``draw_node_uniforms`` give. ``SolutionModel`` and
+(over a ShardView, of the owner's rows: ``sampling.neighbor_rows``) and
+``draw_node_uniforms`` give. ``SolutionModel`` and
 ``SampleSolutionModel`` are the models of examples/solution and
 examples/sample_solution (defined there inside ``main``).
 """
@@ -83,7 +84,8 @@ class CosineLogits(nn.Module):
 
 def select_pos_with_types(g: GraphTensors, roots, edge_types, uniforms):
     """(positives int32 [B, count], their validity) from the uniforms of
-    ``sampling.draw_sample_uniforms(generator, B, count, device)``."""
+    ``sampling.draw_sample_uniforms(generator, B, count, device)`` (over a
+    ShardView, of ``sampling.neighbor_rows(g, B)`` rows)."""
     pos = sampling.select_sampled_neighbors(g, roots, edge_types,
                                             *uniforms)[0]
     return pos, pos >= 0
@@ -94,7 +96,8 @@ def sample_pos_with_types(g: GraphTensors, roots, edge_types,
                           generator: Optional[torch.Generator] = None):
     return select_pos_with_types(g, roots, edge_types,
                                  sampling.draw_sample_uniforms(
-                                     generator, roots.shape[0], count,
+                                     generator, sampling.neighbor_rows(
+                                         g, roots.shape[0]), count,
                                      roots.device))
 
 
@@ -111,7 +114,7 @@ def sample_neg_with_types(g: GraphTensors, roots, node_type, num_negs: int,
     return select_neg_with_types(g, roots, node_type, num_negs,
                                  sampling.draw_node_uniforms(
                                      generator, roots.shape[0] * num_negs,
-                                     roots.device))
+                                     roots.device, g))
 
 
 # ---- the examples' models --------------------------------------------------
@@ -163,9 +166,11 @@ class SampleSolutionModel(nn.Module):
         roots = roots.to(torch.int32)
         B, dev = roots.shape[0], roots.device
         if uniforms is None:
-            uniforms = (sampling.draw_sample_uniforms(generator, B, 1, dev),
+            uniforms = (sampling.draw_sample_uniforms(
+                            generator, sampling.neighbor_rows(g, B), 1, dev),
                         sampling.draw_node_uniforms(generator,
-                                                    B * self.num_negs, dev),
+                                                    B * self.num_negs, dev,
+                                                    g),
                         None)
         u_pos, u_neg, towers = uniforms
         pos, pos_ok = select_pos_with_types(g, roots, self.edge_types, u_pos)

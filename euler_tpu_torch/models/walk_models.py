@@ -7,12 +7,17 @@ proximity). A step's randomness comes from the ``generator`` or the
 replayed ``uniforms`` the caller passes: the walk's per-step draws
 (``walk.draw_walk_uniforms``) or LINE's positive draw
 (``sampling.draw_sample_uniforms`` of one draw a root), then the
-negatives' ``sampling.draw_node_uniforms``. Tables are ``Embed``
-(flax's ``nn.Embed``) of ``n_nodes + 1`` rows named ``target_emb`` and
-``context_emb``; ids clamp at 0 as the reference's do. A batch's ids are
-walk nodes and weighted draws over the whole graph, and few repeat, so
-the tables' backward sums them in a fixed order (``Embed(fixed_order=
-True)``): two runs of a step, eager or replayed, agree bit for bit.
+negatives' ``sampling.draw_node_uniforms``; over a ShardView the
+neighbor draws' uniforms are of the rows their owner answers
+(``sampling.neighbor_rows``). Tables are ``Embed`` (flax's ``nn.Embed``)
+of ``n_nodes + 1`` rows named ``target_emb`` and ``context_emb``; ids
+clamp at 0 as the reference's do. A batch's ids are walk nodes and
+weighted draws over the whole graph, and few repeat, so the tables'
+backward sums them in a fixed order (``Embed(fixed_order=True)``): two
+runs of a step, eager or replayed, agree bit for bit. With
+``shard_embeddings`` both tables are ``layers.ShardedEmbedding``s, split
+over the mesh's graph axis once ``parallel.train.init_sharded_params``
+lays the model out (walk_models.py:41-48, :101-105).
 """
 from __future__ import annotations
 
@@ -25,21 +30,36 @@ from euler_tpu_torch._device import resolve_device
 from euler_tpu_torch.graph.store import GraphTensors
 from euler_tpu_torch.models.encoders import Embed
 from euler_tpu_torch.models.gnn import _sigmoid_xent
+from euler_tpu_torch.models.layers import ShardedEmbedding
 from euler_tpu_torch.ops import sampling, walk
 
 
-def _no_sharding(shard_embeddings: bool) -> None:
-    if shard_embeddings:
-        raise NotImplementedError(
-            "shard_embeddings=True partitions the tables over a mesh, which "
-            "waits for training over the mesh (ROADMAP Queue A item 11b)")
+class _Table:
+    """A walk model's table as a lookup of ids >= 0: an ``Embed``, or a
+    ``ShardedEmbedding`` read over ``g``."""
+
+    def __init__(self, module: nn.Module, g):
+        self.module, self.g = module, g
+
+    def __call__(self, ids: torch.Tensor) -> torch.Tensor:
+        if isinstance(self.module, ShardedEmbedding):
+            return self.module(self.g, ids)
+        return self.module(ids)
 
 
-def skipgram(s: torch.Tensor, context: Embed, src: torch.Tensor,
+def _table(n: int, dim: int, sharded: bool,
+           generator: Optional[torch.Generator]) -> nn.Module:
+    if sharded:
+        return ShardedEmbedding(n, dim, device="cpu", generator=generator)
+    return Embed(n, dim, generator, fixed_order=True)
+
+
+def skipgram(s: torch.Tensor, context, src: torch.Tensor,
              ctx: torch.Tensor, negs: torch.Tensor) -> dict:
     """The skip-gram loss of the center rows ``s`` [M, D] (of ids ``src``
     [M]) against contexts ``ctx`` [M] and negatives ``negs`` [M,
-    num_negs], looked up in ``context``: sigmoid cross-entropy of each
+    num_negs], looked up in ``context`` (a lookup of ids >= 0):
+    sigmoid cross-entropy of each
     positive and negative dot product over the pairs whose center and
     context are >= 0, divided by their count times (1 + num_negs), at
     least 1 (walk_models.py:384-393). Returns loss, logits [M, 1],
@@ -75,32 +95,34 @@ class DeepWalk(nn.Module):
                  device=None,
                  generator: Optional[torch.Generator] = None):
         super().__init__()
-        _no_sharding(shard_embeddings)
         self.n_nodes, self.dim = n_nodes, dim
+        self.shard_embeddings = shard_embeddings
         self.edge_types = edge_types
         self.walk_len, self.left_win, self.right_win = (walk_len, left_win,
                                                         right_win)
         self.num_negs, self.node_type = num_negs, node_type
         self.walk_p, self.walk_q = walk_p, walk_q
         self.bias_cap, self.bias_windows = bias_cap, bias_windows
-        self.target_emb = Embed(n_nodes + 1, dim, generator,
-                                fixed_order=True)
-        self.context_emb = Embed(n_nodes + 1, dim, generator,
-                                fixed_order=True)
+        self.target_emb = _table(n_nodes + 1, dim, shard_embeddings,
+                                 generator)
+        self.context_emb = _table(n_nodes + 1, dim, shard_embeddings,
+                                  generator)
         self.to(resolve_device(device))
 
     def draw_uniforms(self, roots: torch.Tensor,
-                      generator: Optional[torch.Generator]) -> list:
-        """[the walk's per-step uniforms, the negatives'] of a batch."""
+                      generator: Optional[torch.Generator],
+                      g=None) -> list:
+        """[the walk's per-step uniforms, the negatives'] of a batch (over
+        a ShardView ``g``, the walk's of the owners' rows)."""
         B, dev = roots.shape[0], roots.device
         u_walk = walk.draw_walk_uniforms(
             generator, B, self.walk_len, self.walk_p, self.walk_q,
             bias_cap=self.bias_cap, bias_windows=self.bias_windows,
-            device=dev)
+            device=dev, g=g)
         M = B * walk.pair_count(self.walk_len + 1, self.left_win,
                                 self.right_win)
         return [u_walk, sampling.draw_node_uniforms(
-            generator, M * self.num_negs, dev)]
+            generator, M * self.num_negs, dev, g)]
 
     def walk(self, g: GraphTensors, roots: torch.Tensor,
              u_walk: Sequence) -> torch.Tensor:
@@ -117,9 +139,10 @@ class DeepWalk(nn.Module):
         ctx = pairs[..., 1].reshape(-1)
         negs = sampling.select_nodes(g, self.node_type, *u_neg).reshape(
             src.shape[0], self.num_negs)
-        out = skipgram(self.target_emb(src.clamp_min(0)), self.context_emb,
-                       src, ctx, negs)
-        out["embedding"] = self.target_emb(roots.clamp_min(0))
+        target = _Table(self.target_emb, g)
+        out = skipgram(target(src.clamp_min(0)),
+                       _Table(self.context_emb, g), src, ctx, negs)
+        out["embedding"] = target(roots.clamp_min(0))
         return out
 
     def forward(self, g: GraphTensors, roots: torch.Tensor,
@@ -127,7 +150,7 @@ class DeepWalk(nn.Module):
                 uniforms: Optional[Sequence] = None) -> dict:
         roots = roots.to(torch.int32)
         u_walk, u_neg = (uniforms if uniforms is not None
-                         else self.draw_uniforms(roots, generator))
+                         else self.draw_uniforms(roots, generator, g))
         return self.score(g, roots, self.walk(g, roots, u_walk), u_neg)
 
 
@@ -147,37 +170,41 @@ class LINE(nn.Module):
                  shard_embeddings: bool = False, device=None,
                  generator: Optional[torch.Generator] = None):
         super().__init__()
-        _no_sharding(shard_embeddings)
         if order not in (1, 2):
             raise ValueError(f"LINE order {order} not in 1, 2")
         self.n_nodes, self.dim, self.order = n_nodes, dim, order
+        self.shard_embeddings = shard_embeddings
         self.edge_types = edge_types
         self.num_negs, self.node_type = num_negs, node_type
-        self.target_emb = Embed(n_nodes + 1, dim, generator,
-                                fixed_order=True)
+        self.target_emb = _table(n_nodes + 1, dim, shard_embeddings,
+                                 generator)
         if order == 2:
-            self.context_emb = Embed(n_nodes + 1, dim, generator,
-                                     fixed_order=True)
+            self.context_emb = _table(n_nodes + 1, dim, shard_embeddings,
+                                      generator)
         self.to(resolve_device(device))
 
     def draw_uniforms(self, roots: torch.Tensor,
-                      generator: Optional[torch.Generator]) -> list:
-        """[the positive draw's uniforms, the negatives'] of a batch."""
+                      generator: Optional[torch.Generator],
+                      g=None) -> list:
+        """[the positive draw's uniforms (over a ShardView ``g``, of the
+        owner's rows), the negatives'] of a batch."""
         B, dev = roots.shape[0], roots.device
-        return [sampling.draw_sample_uniforms(generator, B, 1, dev),
+        return [sampling.draw_sample_uniforms(
+                    generator, sampling.neighbor_rows(g, B), 1, dev),
                 sampling.draw_node_uniforms(generator, B * self.num_negs,
-                                            dev)]
+                                            dev, g)]
 
     def forward(self, g: GraphTensors, roots: torch.Tensor,
                 generator: Optional[torch.Generator] = None,
                 uniforms: Optional[Sequence] = None) -> dict:
         roots = roots.to(torch.int32)
         u_pos, u_neg = (uniforms if uniforms is not None
-                        else self.draw_uniforms(roots, generator))
+                        else self.draw_uniforms(roots, generator, g))
         pos = sampling.select_sampled_neighbors(g, roots, self.edge_types,
                                                 *u_pos)[0][:, 0]
         negs = sampling.select_nodes(g, self.node_type, *u_neg).reshape(
             roots.shape[0], self.num_negs)
-        s = self.target_emb(roots.clamp_min(0))
-        context = self.target_emb if self.order == 1 else self.context_emb
+        target = _Table(self.target_emb, g)
+        s = target(roots.clamp_min(0))
+        context = target if self.order == 1 else _Table(self.context_emb, g)
         return dict(skipgram(s, context, roots, pos, negs), embedding=s)

@@ -6,7 +6,10 @@ device of that mesh. Rank ``r`` sits at data index ``r // graph`` and
 graph index ``r % graph`` (row order, as the reference's device array
 ``reshape(data, graph)``). Its graph group is the ``graph`` ranks that
 share its data index: they hold the shards of one graph, and the sharded
-verbs run their collectives over it.
+verbs run their collectives over it. Its data group is the ``data``
+ranks that share its graph index (the reference's "data" axis): they
+hold the same shard, and a graph-sharded parameter's gradient is
+averaged over it.
 
 The transport follows the backend: NCCL moves device tensors, one card
 a rank; gloo is the CPU backend, and ``comms`` stages every tensor of a
@@ -39,6 +42,7 @@ class Mesh:
     device: torch.device
     graph_group: object        # the ranks that share this data index
     world_group: object        # every rank
+    data_group: object = None  # the ranks that share this graph index
 
     @property
     def size(self) -> int:
@@ -47,6 +51,10 @@ class Mesh:
     @property
     def graph_index(self) -> int:
         return self.rank % self.graph
+
+    @property
+    def data_index(self) -> int:
+        return self.rank // self.graph
 
 
 def make_mesh(data: int = 1, graph: int = 1, backend: Optional[str] = None,
@@ -88,14 +96,42 @@ def make_mesh(data: int = 1, graph: int = 1, backend: Optional[str] = None,
     def group(ranks):
         # a group of every rank is the world's (no second communicator);
         # every rank creates every other group, in one order (new_group's
-        # rule)
+        # rule): the graph groups, then the data groups
         if len(ranks) == need:
             return world
         return dist.new_group(ranks, timeout=timeout, backend=backend)
     graph_groups = [group([d * graph + g for g in range(graph)])
                     for d in range(data)]
+    data_groups = [group([d * graph + g for d in range(data)])
+                   for g in range(graph)]
     return Mesh(data=data, graph=graph, rank=me, backend=backend, device=dev,
-                graph_group=graph_groups[me // graph], world_group=world)
+                graph_group=graph_groups[me // graph],
+                data_group=data_groups[me % graph], world_group=world)
+
+
+#: the attribute that marks a parameter or buffer split over the graph
+#: axis (the reference's ``nn.with_partitioning(("graph", None))`` box):
+#: (graph index, graph axis size) of the block it holds
+GRAPH_SHARDED = "graph_sharded"
+
+
+def mark_graph_sharded(t: torch.Tensor, mesh: "Mesh") -> torch.Tensor:
+    """Mark ``t`` (a parameter or buffer) as this rank's block of a table
+    split over the graph axis: ``train._sync_grads`` averages its
+    gradient over the data group only, checkpoints save it per shard and
+    ``models.load_flax_params`` loads its rows of an assembled table.
+    Returns ``t``."""
+    setattr(t, GRAPH_SHARDED, (mesh.graph_index, mesh.graph))
+    return t
+
+
+def graph_shard_of(t: torch.Tensor):
+    """(graph index, graph axis size) of a marked block, else None."""
+    return getattr(t, GRAPH_SHARDED, None)
+
+
+def is_graph_sharded(t: torch.Tensor) -> bool:
+    return graph_shard_of(t) is not None
 
 
 def rank_rows(n: int, mesh: Mesh) -> slice:

@@ -559,6 +559,28 @@ def _spread(view: ShardView, nodes: torch.Tensor) -> torch.Tensor:
     return g.reshape((-1,) + tuple(nodes.shape[1:]))
 
 
+def owner_rows(view: ShardView, table: torch.Tensor,
+               ids: torch.Tensor) -> torch.Tensor:
+    """Rows ``ids`` [...] of a table split over the graph axis (row r on
+    shard r % S at local row r // S; ``table`` is this rank's block):
+    every member's ids are gathered, each owner takes its rows (ids
+    past the table clamp to its last local row) and one tiled all_to_all
+    sends them back, summed over owners; rows of ids < 0 are 0. The
+    owner exchange of layers.py:108-124 and scalable.py:40-56, with
+    autograd through the collectives: the gradient of a block's row is
+    the sum of its graph group's contributions."""
+    S, n_local, d = view.num_shards, table.shape[0], table.shape[-1]
+    flat = ids.reshape(-1).to(torch.int32)
+    b = flat.shape[0]
+    alln = _spread(view, flat)
+    owned = (alln >= 0) & (alln % S == view.my_shard)
+    rows = (torch.where(owned, alln, 0) // S).clamp(0, n_local - 1).long()
+    v = torch.where(owned[:, None], table[rows], 0.0)
+    out = comms.all_to_all(v, view.group).reshape(S, b, d).sum(0)
+    out = torch.where((flat >= 0)[:, None], out, 0.0)
+    return out.reshape(tuple(ids.shape) + (d,))
+
+
 def _owner_to_mine(view: ShardView, vals: torch.Tensor,
                    b: int) -> torch.Tensor:
     """[S*b, ...] per-owner partial answers (0 where not owned) -> this

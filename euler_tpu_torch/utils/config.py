@@ -5,9 +5,9 @@ euler/client/graph_config.{h,cc} — "k=v;k=v" string or dict with typed
 getters, parsed on the python side at
 tf_euler/python/euler_ops/base.py:50-60; tf_euler/python/utils/flags.py
 ``set_defaults``); stdlib only but for ``parse_mesh_flag``, which counts
-the CUDA devices where the reference counts jax's. The example runners
-refuse ``--mesh`` until the sharded estimators exist; ``--device`` (the
-port's own) picks the card or the CPU.
+the ranks of the process group (one a device) where the reference
+counts jax's devices. ``--device`` (the port's own) picks the card or
+the CPU.
 """
 from __future__ import annotations
 
@@ -84,11 +84,12 @@ def define_run_flags(parser: Optional[argparse.ArgumentParser] = None
     p.add_argument("--profile", action="store_true",
                    help="capture a torch.profiler trace of training")
     p.add_argument("--mesh", default=None,
-                   help="train multi-chip over a (data, graph) device "
-                        "mesh: 'data=D,graph=G', 'DxG', or 'auto' "
-                        "(graph axis = all devices). Requires D*G == the "
-                        "CUDA device count; the reference's equivalent "
-                        "is dist_tf_euler.sh PS/worker launch")
+                   help="train over a (data, graph) mesh of ranks, one "
+                        "process a rank: 'data=D,graph=G', 'DxG', or "
+                        "'auto' (graph axis = every rank). Requires D*G "
+                        "== the rank count (a launcher's WORLD_SIZE; 1 "
+                        "runs in this process); the reference's "
+                        "equivalent is dist_tf_euler.sh PS/worker launch")
     p.add_argument("--device", default="cuda",
                    help="the device to run on: cuda (default; it must "
                         "exist) or cpu")
@@ -97,9 +98,14 @@ def define_run_flags(parser: Optional[argparse.ArgumentParser] = None
 
 def parse_mesh_flag(spec):
     """'data=D,graph=G' | 'DxG' | 'auto' -> (data, graph) axis sizes,
-    whose product must be the number of CUDA devices."""
-    import torch
-    n = torch.cuda.device_count()
+    whose product must be the rank count (one rank a device): the
+    process group's size, else the launcher's ``WORLD_SIZE``, else 1.
+    'auto' is 1 x the rank count."""
+    import os
+
+    import torch.distributed as dist
+    n = (dist.get_world_size() if dist.is_initialized()
+         else int(os.environ.get("WORLD_SIZE", 1)))
     if spec in ("auto", ""):
         return 1, n
     if "=" in spec:
@@ -108,7 +114,7 @@ def parse_mesh_flag(spec):
     else:
         d, g = (int(x) for x in spec.lower().split("x"))
     if d * g != n:
-        raise ValueError(f"--mesh {spec}: {d}x{g} != device count {n}")
+        raise ValueError(f"--mesh {spec}: {d}x{g} != rank count {n}")
     return d, g
 
 

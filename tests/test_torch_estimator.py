@@ -299,7 +299,8 @@ def test_run_flags_match_reference(argv, monkeypatch):
 
 
 def test_parse_mesh_flag_counts_the_cuda_devices(monkeypatch):
-    monkeypatch.setattr(torch.cuda, "device_count", lambda: 4)
+    # the port counts ranks, one a card: a launcher's WORLD_SIZE of 4
+    monkeypatch.setenv("WORLD_SIZE", "4")
     monkeypatch.setattr(jax, "device_count", lambda: 4)
     for spec in ("auto", "2x2", "data=1,graph=4", "data=4"):
         assert config.parse_mesh_flag(spec) == jax_config.parse_mesh_flag(

@@ -3,7 +3,10 @@ run_graphsage (supervised and ``--unsupervised``), run_gcn and run_rgcn,
 the same flags build the same flow (class, fanouts, metapath, payload
 and typed), the same model widths and convs, and the same estimator and
 run config as the reference script; each runs ``train_and_evaluate`` on
-the SBM stand-in on the CPU at small width; ``--mesh`` raises.
+the SBM stand-in on the CPU at small width, on one device and with
+``--mesh auto`` (a one-rank group in this process, through the Spmd
+estimators; ``mesh_train``), and ``--mesh 2x2`` without a launcher's
+four ranks raises.
 """
 import importlib.util
 import os
@@ -11,6 +14,7 @@ import sys
 
 import numpy as np
 import pytest
+import torch.distributed as dist
 
 from euler_tpu.models import convs as jax_convs
 from euler_tpu_torch.examples import common
@@ -132,8 +136,24 @@ def test_graph_conv_example_runs(tmp_path):
     assert set(out) == {"loss", "steps", "accuracy"}
 
 
-def test_mesh_raises(tmp_path):
-    for name, script in SCRIPTS.items():
-        with pytest.raises(NotImplementedError, match="item 11"):
-            script.main(FLAGS + ["--data_dir", str(tmp_path), "--device",
-                                 "cpu", "--mesh", "auto"])
+def mesh_train(tmp_path, script, extra=(), metric=None):
+    """``script`` with ``--mesh auto``: train_and_evaluate as a one-rank
+    group in this process through the Spmd estimator, a mesh checkpoint
+    (``ckpt/<step>/mesh.json``), and the group left at the end; then
+    ``--mesh 2x2``, which needs four ranks, raises."""
+    flags = FLAGS + list(extra) + ["--data_dir", str(tmp_path), "--device",
+                                   "cpu", "--model_dir", str(tmp_path / "m")]
+    out = script.main(argv=flags + ["--mesh", "auto", "--run_mode",
+                                    "train_and_evaluate"])
+    assert out["steps"] == 3 and (metric is None or metric in out)
+    assert all(np.isfinite(v) for v in out.values())
+    assert os.path.exists(tmp_path / "m" / "ckpt" / "3" / "mesh.json")
+    assert not dist.is_initialized()
+    with pytest.raises(ValueError, match="rank count"):
+        script.main(argv=flags + ["--mesh", "2x2"])
+    return out
+
+
+@pytest.mark.parametrize("name", sorted(SCRIPTS))
+def test_mesh_trains_as_one_rank_group(tmp_path, name):
+    mesh_train(tmp_path, SCRIPTS[name], metric="f1")

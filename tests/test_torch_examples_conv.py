@@ -4,9 +4,10 @@ neighborhoods, the layerwise flows (adaptivegcn, fastgcn) and the graph
 classifiers (gin, graphgcn, set2set, gated_graph). For each, the same
 flags build the same estimator, run config, model, widths and flow as
 the reference script (``assert_same_build``); each runs
-``train_and_evaluate`` on its stand-in on the CPU at small width;
-``--mesh`` raises. ``assert_same_build`` serves the other example files
-too, and ``one_thread`` all three files.
+``train_and_evaluate`` on its stand-in on the CPU at small width, on
+one device and as a one-rank mesh (``--mesh auto``).
+``assert_same_build`` serves the other example files too, and
+``one_thread`` all three files.
 """
 import importlib
 import os
@@ -18,7 +19,8 @@ import torch
 
 from euler_tpu.models import convs as jax_convs
 from euler_tpu_torch.examples import common
-from tests.test_torch_examples import FLAGS, built, reference_script
+from tests.test_torch_examples import (FLAGS, built, mesh_train,
+                                      reference_script)
 
 #: scalar and tuple fields held equal wherever the reference model has
 #: them
@@ -143,8 +145,6 @@ def test_train_and_evaluate_runs_on_the_stand_in(tmp_path, name):
 
 
 @pytest.mark.parametrize("name", CONVS + GRAPHS)
-def test_mesh_raises(tmp_path, name):
-    with pytest.raises(NotImplementedError, match="item 11"):
-        port_script(name, name).main(argv=FLAGS + [
-            "--data_dir", str(tmp_path), "--device", "cpu", "--mesh",
-            "auto"])
+def test_mesh_trains_as_one_rank_group(tmp_path, name):
+    mesh_train(tmp_path, port_script(name, name),
+               metric="accuracy" if name in GRAPHS else "f1")

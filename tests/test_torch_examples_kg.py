@@ -3,11 +3,12 @@ examples/: TransX (run_transX and its four model scripts), distmult,
 deepwalk and line (both orders). The same flags build the same estimator,
 run config and model as the reference script; each runs
 ``train_and_evaluate`` (with full-entity ranking for the KG models) on
-its stand-in on the CPU at small width; ``--mesh`` raises.
+its stand-in on the CPU at small width, on one device and as a one-rank
+mesh (``--mesh auto``).
 """
 import pytest
 
-from tests.test_torch_examples import FLAGS, reference_script
+from tests.test_torch_examples import FLAGS, mesh_train, reference_script
 from tests.test_torch_examples_conv import (  # noqa: F401
     assert_same_build, build_both, one_thread, port_script,
     train_and_evaluate)
@@ -55,8 +56,7 @@ def test_train_and_evaluate_runs_on_the_stand_in(tmp_path, dir_name, script,
                                              ("distmult", "distmult"),
                                              ("deepwalk", "deepwalk"),
                                              ("line", "line")])
-def test_mesh_raises(tmp_path, dir_name, script):
-    with pytest.raises(NotImplementedError, match="item 11"):
-        port_script(dir_name, script).main(argv=FLAGS + [
-            "--data_dir", str(tmp_path), "--device", "cpu", "--mesh",
-            "auto"])
+def test_mesh_trains_as_one_rank_group(tmp_path, dir_name, script):
+    out = mesh_train(tmp_path, port_script(dir_name, script), metric="mrr")
+    if dir_name in ("TransX", "distmult"):
+        assert {"mr", "hit1", "hit3", "hit10"} <= set(out)

@@ -2,12 +2,12 @@
 (and ``--variational``), geniepath, lgcn, scalable_sage, solution and
 sample_solution. The same flags build the same estimator, run config,
 model, towers, widths and flows as the reference script; each runs
-``train_and_evaluate`` on the SBM stand-in on the CPU at small width;
-``--mesh`` raises.
+``train_and_evaluate`` on the SBM stand-in on the CPU at small width, on
+one device and as a one-rank mesh (``--mesh auto``).
 """
 import pytest
 
-from tests.test_torch_examples import FLAGS
+from tests.test_torch_examples import FLAGS, mesh_train
 from tests.test_torch_examples_conv import (  # noqa: F401
     assert_same_build, build_both, one_thread, port_script,
     train_and_evaluate)
@@ -38,8 +38,5 @@ def test_train_and_evaluate_runs_on_the_stand_in(tmp_path, name, extra,
 @pytest.mark.parametrize("name", ["dgi", "gae", "geniepath", "lgcn",
                                   "scalable_sage", "solution",
                                   "sample_solution"])
-def test_mesh_raises(tmp_path, name):
-    with pytest.raises(NotImplementedError, match="item 11"):
-        port_script(name, name).main(argv=FLAGS + [
-            "--data_dir", str(tmp_path), "--device", "cpu", "--mesh",
-            "auto"])
+def test_mesh_trains_as_one_rank_group(tmp_path, name):
+    mesh_train(tmp_path, port_script(name, name))

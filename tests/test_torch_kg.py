@@ -22,6 +22,7 @@ ranking, the ranking metrics and ``EdgeEstimator``.
 import copy
 import functools
 import json
+import types
 
 import jax
 import jax.numpy as jnp
@@ -38,8 +39,9 @@ from euler_tpu_torch.datasets import random_graph
 from euler_tpu_torch.estimator import EdgeEstimator, RunConfig, get_optimizer
 from euler_tpu_torch.graph import load_graph
 from euler_tpu_torch.graph.store import xla_cumsum
-from euler_tpu_torch.models import kg, load_flax_params
+from euler_tpu_torch.models import ShardedEmbedding, kg, load_flax_params
 from euler_tpu_torch.ops import sampling
+from euler_tpu_torch.parallel import train
 from euler_tpu_torch.utils import metrics
 from tests.test_torch_graph import native_off, random_pair
 
@@ -268,8 +270,12 @@ def as_port(mt, tree):
 
 @pytest.mark.parametrize("name", list(MODELS))
 def test_forward_and_gradients_match(graphs, name):
+    check_forward_and_gradients(graphs, name)
+
+
+def check_forward_and_gradients(graphs, name, **over):
     gj, gt = graphs
-    _, variables, mt, reference_step = build(name, gj)
+    _, variables, mt, reference_step = build(name, gj, **over)
     batch = triples_of(gj, B, 7)
     batch[3, 0] = -1                          # clamped to entity 0
     want, grads_j, u = reference_step(variables, gj, batch,
@@ -386,9 +392,20 @@ def test_ids_past_the_table_give_nan_rows(graphs):
     assert (grad[others] == 0).all()
 
 
-def test_shard_embeddings_is_not_ported():
-    with pytest.raises(NotImplementedError, match="item 11b"):
-        kg.TransE(10, 2, 4, 4, shard_embeddings=True, device="cpu")
+def test_shard_embeddings_on_one_device_matches(graphs):
+    """``shard_embeddings=True`` (which raised before the mesh path):
+    the entity table is a ``ShardedEmbedding``; on one device its
+    forward and gradients are the reference's non-mesh branch's, and
+    over the mesh it lays out one block a shard (the mesh's steps:
+    tests/test_torch_sharded_models.py)."""
+    check_forward_and_gradients(graphs, "TransE", shard_embeddings=True)
+    m = kg.TransE(10, 2, 4, 4, shard_embeddings=True, device="cpu")
+    assert isinstance(m.entity_encoder, ShardedEmbedding)
+    specs = train.init_sharded_params(
+        m, types.SimpleNamespace(graph=4, graph_index=1))
+    assert m.entity_encoder.embedding.shape == (3, 4)     # ceil(11 / 4)
+    assert {k for k, v in specs.items() if v == "graph"} == {
+        "entity_encoder.embedding"}
 
 
 # ------------------------------------------------------------- ranking --

@@ -1,7 +1,8 @@
 """One rank of the sharded tests' CPU mesh: a process over gloo.
 
-The tests of tests/test_torch_sharded.py and tests/test_torch_cuda.py
-write a work directory (``spec.json``, ``inputs.npz``, one directory of
+The tests of tests/test_torch_sharded.py, tests/test_torch_sharded_*.py,
+tests/test_torch_spmd.py and tests/test_torch_cuda.py write a work
+directory (``spec.json``, ``inputs.npz``, one directory of
 shard files a graph, made by ``sharded.write_shards``) and start every
 rank with ``launch``; each rank joins the mesh through a file store,
 loads only its own shards, runs every case of the spec in order (the
@@ -10,6 +11,7 @@ collectives need one order on every rank) and writes its outputs to
 
     python -m tests.test_torch_mesh_ranks WORK_DIR RANK
 """
+import contextlib
 import json
 import os
 import subprocess
@@ -20,11 +22,18 @@ from typing import Dict, List
 import numpy as np
 import torch
 
-from euler_tpu_torch.dataflow import SageDataFlow
-from euler_tpu_torch.models import GNNNet, ShallowEncoder, SuperviseModel
+from euler_tpu_torch.dataflow import SageDataFlow, WholeDataFlow
+from euler_tpu_torch.estimator import (RunConfig, SpmdEdgeEstimator,
+                                       SpmdGraphEstimator, SpmdNodeEstimator,
+                                       get_optimizer, make_graph_batch)
+from euler_tpu_torch.models import (DeepWalk, GNNNet, GraphModel,
+                                    ScalableGNNNet, SegmentPool,
+                                    ShallowEncoder, ShardedEmbedding,
+                                    SuperviseModel, TransE, load_flax_params)
 from euler_tpu_torch.ops import feature_ops, index as index_ops, sampling
 from euler_tpu_torch.ops import walk as walk_ops
-from euler_tpu_torch.parallel import comms, mesh as mesh_lib, sharded, train
+from euler_tpu_torch.parallel import (comms, distributed, mesh as mesh_lib,
+                                      sharded, train)
 from euler_tpu_torch.query import Query
 
 
@@ -38,6 +47,221 @@ def sage_model(feat_dim: int, label_dim: int, fanouts, dims, seed: int,
                  in_dim=feat_dim, device=device, generator=gen)
     return SuperviseModel(net, "label", label_dim, device=device,
                           generator=gen)
+
+
+def build_model(o: dict, device="cpu") -> torch.nn.Module:
+    """The model of a train case, by ``o["model"]``, its weights from
+    ``o["seed"]`` (a case carries the reference's in ``p/<name>``)."""
+    kind = o.get("model", "sage")
+    if kind == "sage":
+        return sage_model(o["feat_dim"], o["label_dim"], o["fanouts"],
+                          o["dims"], o["seed"], device)
+    gen = torch.Generator().manual_seed(o["seed"])
+    feat = ShallowEncoder(("feature",))
+    if kind == "transe":
+        return TransE(o["n"], o["r"], o["dim"], o["dim"],
+                      num_negs=o["num_negs"], shard_embeddings=True,
+                      device=device, generator=gen)
+    if kind == "deepwalk":
+        return DeepWalk(o["n"], o["dim"], (0,), walk_len=o["walk_len"],
+                        num_negs=o["num_negs"], shard_embeddings=True,
+                        device=device, generator=gen)
+    if kind == "scalable":
+        net = ScalableGNNNet((0,), 2, o["dim"], feat, o["feat_dim"], o["n"],
+                             fanout=o["fanout"], device=device,
+                             generator=gen)
+        return SuperviseModel(net, "label", o["label_dim"], device=device,
+                              generator=gen)
+    if kind == "gcn":
+        net = GNNNet("gcn", WholeDataFlow(2, [(0,)] * 2), (o["dim"],) * 3,
+                     feat, o["feat_dim"], device=device, generator=gen)
+        return SuperviseModel(net, "label", o["label_dim"], device=device,
+                              generator=gen)
+    if kind == "graph":
+        net = GNNNet("gin", SageDataFlow(o["fanouts"], [(0,)]),
+                     (o["dim"],) * 2, feat, o["feat_dim"], device=device,
+                     generator=gen)
+        return GraphModel(net, SegmentPool(o["dim"], o["b"], "mean"),
+                          o["n_classes"], device=device, generator=gen)
+    raise ValueError(kind)
+
+
+def nest(a: dict, spec, prefix: str = ""):
+    """The nested uniforms that ``spec`` (lists of array names) names."""
+    if spec is None:
+        return None
+    if isinstance(spec, str):
+        return a[prefix + spec]
+    return [nest(a, x, prefix) for x in spec]
+
+
+def _expand(o):
+    if o.get("model") != "graph":
+        return None
+    return lambda v, gidx: make_graph_batch(v, gidx, "label",
+                                            o["n_classes"])
+
+
+class GradRecorder(torch.optim.Optimizer):
+    """An optimizer whose step keeps each parameter's gradient (after
+    the sync) and changes nothing."""
+
+    def __init__(self, params):
+        super().__init__(params, {})
+        self.grads = []
+
+    def step(self, closure=None):
+        self.grads = [p.grad.detach().clone()
+                      for grp in self.param_groups for p in grp["params"]]
+
+
+def _model_for(view, a, o, mesh):
+    model = build_model(o, view.device)
+    train.init_sharded_params(model, mesh, seed=o["seed"])
+    state = {k[2:]: v for k, v in a.items() if k.startswith("p/")}
+    if state:
+        model.load_state_dict(state)
+    return model
+
+
+def _state_out(model) -> List[torch.Tensor]:
+    """A copy of the state dict's tensors, in sorted names."""
+    state = model.state_dict()
+    return [state[k].clone() for k in sorted(state)]
+
+
+def _train(view, a, o, mesh):
+    """``o["steps"]`` Adam steps of ``make_sharded_train_step`` from the
+    given ids (``t<i>/ids``, the graph group's draw) and uniforms (the
+    owner's, named by ``o["u_spec"]``): each step's loss, then the
+    state dict in sorted names."""
+    model = _model_for(view, a, o, mesh)
+    opt = get_optimizer("adam", o["lr"], model.parameters())
+    step = train.make_sharded_train_step(model, opt, mesh, o["b"],
+                                         expand_fn=_expand(o))
+    losses = [step(view, ids=a[f"t{t}/ids"],
+                   uniforms=nest(a, o["u_spec"], f"t{t}/"))
+              for t in range(o["steps"])]
+    return losses + _state_out(model)
+
+
+def _grads(view, a, o, mesh):
+    """One step's synced gradients (``GradRecorder``), in parameter
+    order, and the loss."""
+    model = _model_for(view, a, o, mesh)
+    opt = GradRecorder(model.parameters())
+    step = train.make_sharded_train_step(model, opt, mesh, o["b"],
+                                         expand_fn=_expand(o))
+    loss = step(view, ids=a["t0/ids"], uniforms=nest(a, o["u_spec"], "t0/"))
+    return [loss] + opt.grads
+
+
+def _emb_grad(view, a, o, mesh):
+    """A ShardedEmbedding over the mesh: its lookup of ``ids`` and the
+    synced gradient of its block under sum(w * rows), pmean'd."""
+    mod = ShardedEmbedding(o["num"], o["dim"], device=view.device)
+    train.init_sharded_params(mod, mesh)
+    load_flax_params(mod, {"embedding": a["table"].numpy()})
+    out = mod(view, a["ids"])
+    loss = comms.pmean((out * a["w"]).sum(), mesh.world_group)
+    loss.backward()
+    train._sync_grads(mod, mesh)
+    return out, mod.embedding.grad
+
+
+def _comms_grad(view, a, o, mesh):
+    """Each differentiable collective's backward: the gradient of
+    sum(c * f(x)) for f in all_gather, all_to_all, psum and pmean over
+    the graph group; then whether pmax refuses a tensor that needs a
+    gradient."""
+    g = view.group
+    fns = [(comms.all_gather, a["c_ag"]), (comms.all_to_all, a["c"]),
+           (comms.psum, a["c"]), (comms.pmean, a["c"])]
+    out = []
+    with comms.account() as acc:
+        for f, c in fns:
+            x = a["x"].clone().requires_grad_(True)
+            (f(x, g) * c).sum().backward()
+            out.append(x.grad)
+    out.append(torch.tensor([acc.totals("forward")["total"],
+                             acc.totals("backward")["total"]]))
+    try:
+        comms.pmax(a["x"].clone().requires_grad_(True), g)
+        refused = 0
+    except RuntimeError:
+        refused = 1
+    out.append(comms.pmax(a["x"], g))
+    return out + [torch.tensor([refused])]
+
+
+def _psum_block(view, a, o, mesh):
+    """The shard's whole-graph block over node features ``x`` [N, d]:
+    its max aggregate and a softmax-weighted sum (scores x . w), each
+    completed over the graph group, without autograd; then whether the
+    max aggregate refuses ``x`` that needs a gradient (pmax has no
+    derivative)."""
+    from euler_tpu_torch.dataflow.flows import full_graph_block_sharded
+    blk = full_graph_block_sharded(view, (0,), True)
+    x = a["x"]
+    with torch.no_grad():
+        mx = blk.aggregate_neighbors("max", x, blk.mask)
+        xj = blk.gather_src(x)
+        p = blk.softmax((xj * a["w"]).sum(-1), blk.mask)
+        att = blk.scatter("add", p[:, None] * xj, blk.mask)
+    try:
+        blk.aggregate_neighbors("max", x.clone().requires_grad_(True),
+                                blk.mask)
+        refused = 0
+    except RuntimeError:
+        refused = 1
+    return mx, att, torch.tensor([refused])
+
+
+def _estimator(view, a, o, mesh):
+    """The Spmd estimator surface: train (loops, a refresh, saves),
+    evaluate with pad rows, infer, then a second estimator that restores
+    the checkpoint."""
+    model = build_model(o, view.device)
+    cls = {"node": SpmdNodeEstimator, "edge": SpmdEdgeEstimator,
+           "graph": SpmdGraphEstimator}[o["kind"]]
+    kw = dict(num_classes=o["n_classes"]) if o["kind"] == "graph" else {}
+    cfg = RunConfig(batch_size=o["batch"], total_steps=o["total"],
+                    learning_rate=0.05, log_steps=0, metric=o["metric"],
+                    steps_per_loop=o.get("spl", 1),
+                    reservoir_refresh=o.get("refresh", 0),
+                    save_steps=o.get("save", 0), model_dir=o["model_dir"])
+    est = cls(model, view, cfg, mesh=mesh, **kw)
+    before = _state_out(model)
+    res = est.train()
+    after = _state_out(model)
+    ev = est.evaluate(a["eval_ids"])
+    few = est.evaluate(a["eval_ids"][:o["few"]])
+    emb = est.infer(a["infer_ids"], out_dir=o.get("infer_dir"))
+    ranking = (est.evaluate_ranking(a["eval_ids"])["mr"]
+               if o["kind"] == "edge" else 0.0)
+    est2 = cls(build_model(o, view.device), view, cfg, mesh=mesh, **kw)
+    est2._restore()
+    restored = _state_out(est2.model)
+    keys = sorted(est.model.state_dict())
+    specs = est.pspecs
+    sharded_names = [k for k in keys if specs.get(k) == "graph"]
+    return ([torch.tensor([res["loss"], ev["loss"], few["loss"],
+                           ev[o["metric"]], len(sharded_names), ranking],
+                          dtype=torch.float64), torch.from_numpy(emb)]
+            + before + after + restored)
+
+
+def _load(view, a, o, mesh):
+    """``load_graph_sharded`` of the partition files under
+    ``o["path"]`` (this rank's shard only) and a health check."""
+    got = distributed.load_graph_sharded(o["path"], mesh)
+    hc = distributed.health_check(mesh, timeout_s=60)
+    loc = got.local
+    return [loc.node_type, loc.group_ptr, loc.adj_dst, loc.adj_w,
+            got.eid_sorted, got.shard_node_w, got.shard_edge_w,
+            torch.tensor([hc["ok"], hc["devices"],
+                          hc["latency_s"] is not None])] + [
+        loc.dense_nf[k] for k in sorted(loc.dense_nf)]
 
 
 def apply_inputs(g, data: int, graph: int, roots_per_rank: int, opts: dict,
@@ -175,6 +399,13 @@ VERBS = {
     "query": _query,
     "comms": _comms,
     "apply": _apply,
+    "train": _train,
+    "grads": _grads,
+    "emb_grad": _emb_grad,
+    "comms_grad": _comms_grad,
+    "psum_block": _psum_block,
+    "estimator": _estimator,
+    "load": _load,
 }
 
 
@@ -199,6 +430,7 @@ def run(work: str, rank: int) -> None:
     views = {name: sharded.load_shard(os.path.join(work, name),
                                       mesh.graph_index, mesh.device, mesh)
              for name in spec["graphs"]}
+    views[None] = next(iter(views.values()), None)
     out: Dict[str, np.ndarray] = {}
     with np.load(os.path.join(work, "inputs.npz")) as inputs:
         for case in spec["cases"]:
@@ -207,14 +439,27 @@ def run(work: str, rank: int) -> None:
                 mesh.device) for k in inputs.files if k.startswith(pre)}
             sharded.set_owner_compute(case.get("owner_compute"))
             try:
-                res = VERBS[case["verb"]](views[case["graph"]], arrays,
+                res = VERBS[case["verb"]](views[case.get("graph")], arrays,
                                           case.get("opts", {}), mesh)
             finally:
                 sharded.set_owner_compute(None)
             for i, t in enumerate(flatten(res)):
-                out[f"{pre}{i}"] = t.cpu().numpy()
+                out[f"{pre}{i}"] = t.detach().cpu().numpy()
     np.savez(os.path.join(work, f"out_{rank}.npz"), **out)
     mesh_lib.close()
+
+
+@contextlib.contextmanager
+def one_rank_mesh(work: str):
+    """A one-rank gloo mesh in this process (a file rendezvous under
+    ``work``), left at the end."""
+    mesh = mesh_lib.make_mesh(
+        1, 1, device="cpu", init_method="file://" + os.path.join(
+            work, "rendezvous"), rank=0, timeout_s=60)
+    try:
+        yield mesh
+    finally:
+        mesh_lib.close()
 
 
 def launch(work: str, world: int, timeout_s: float) -> List[dict]:

@@ -35,7 +35,10 @@ from euler_tpu_torch.models import (AttentionPool, AttLayer, CosineLogits,
                                     ShardedEmbedding, SharedGroupGNNNet,
                                     SparseEmbedding, SuperviseModel,
                                     load_flax_params)
+from euler_tpu_torch.datasets import random_graph
 from euler_tpu_torch.models import aggregators, solution
+from euler_tpu_torch.parallel import sharded, train
+from tests import test_torch_mesh_ranks
 from tests.test_torch_models_rest import (FANOUTS, FEAT, CLASSES, TOL,
                                           Recording, check_model, close,
                                           grads_match, init_tree,
@@ -92,9 +95,36 @@ def test_lstm_layer_matches():
     grads_match(port, grads)
 
 
+def mesh_branch(port, tree, ids, weight, tmp_path):
+    """The table laid out over a one-rank mesh and read over its view
+    (the owner exchange of the mesh branch) gives the one-device rows;
+    its gradient is the clipped rows' (the mesh branch clips ids past
+    the table, layers.py:116, so their rows take a gradient); unlaid, a
+    view raises, and laid out, a plain graph does."""
+    g = random_graph(12, 2, device="cpu")
+    with pytest.raises(ValueError, match="ShardView"):
+        port(sharded.take_shard(sharded.build_sharded(g, 2), 0, "cpu"),
+             t(ids))
+    want = port(None, t(ids)).detach()
+    with test_torch_mesh_ranks.one_rank_mesh(str(tmp_path)) as mesh:
+        view = train.place_sharded_graph(sharded.build_sharded(g, 1), mesh)
+        train.init_sharded_params(port, mesh)
+        load_flax_params(port, jax.tree.map(np.asarray, tree))
+        got = port(view, t(ids))
+        torch.nansum(got * t(weight)).backward()
+        with pytest.raises(ValueError, match="ShardView"):
+            port(g.tensors, t(ids))
+    np.testing.assert_array_equal(got.detach().numpy(), want.numpy())
+    expect = np.zeros((port.num, port.dim), np.float32)
+    ok = ids >= 0
+    np.add.at(expect, np.minimum(ids[ok], port.num - 1), weight[ok])
+    np.testing.assert_allclose(port.embedding.grad.numpy(), expect,
+                               rtol=1e-6)
+
+
 @pytest.mark.parametrize("kind", ["embedding", "sparse_sum", "sparse_mean",
                                   "hash", "hash_sparse_mean", "sharded"])
-def test_embedding_layers_match(kind):
+def test_embedding_layers_match(kind, tmp_path):
     rng = np.random.default_rng(4)
     if kind == "embedding":
         mj, ids = jax_layers.Embedding(max_id=9, dim=4), [3, -1, 9, 0, 11]
@@ -132,10 +162,7 @@ def test_embedding_layers_match(kind):
     torch.nansum(got * t(weight)).backward()
     grads_match(port, grads)
     if kind == "sharded":
-        class View:
-            num_shards = 2
-        with pytest.raises(NotImplementedError, match="sharded store"):
-            port(View(), t(ids))
+        mesh_branch(port, tree, ids, weight, tmp_path)
 
 
 @pytest.mark.parametrize("masked", [True, False])

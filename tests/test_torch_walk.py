@@ -18,6 +18,7 @@ their walks and negatives bit for bit (but for those near ties).
 Generator-driven draws are tested by their distribution.
 """
 import functools
+import types
 import warnings
 
 import jax
@@ -35,6 +36,7 @@ from euler_tpu_torch.estimator import NodeEstimator, RunConfig
 from euler_tpu_torch.graph import load_graph
 from euler_tpu_torch.models import LINE, DeepWalk, Node2Vec, load_flax_params
 from euler_tpu_torch.ops import walk
+from euler_tpu_torch.parallel import train
 from tests.test_torch_verbs import graph_pair, uniforms
 
 PACKS = ("group", "adj", "sample", "fan")
@@ -425,9 +427,18 @@ def test_evaluate_is_the_reference_metric(toy_pair):
         jnp.asarray(pos), jnp.asarray(neg))), rtol=1e-6)
 
 
-def test_sharded_tables_wait_for_the_mesh():
-    for cls, kw in ((DeepWalk, {}), (LINE, {"order": 1})):
-        with pytest.raises(NotImplementedError, match="item 11b"):
-            cls(10, 4, (0,), shard_embeddings=True, device="cpu", **kw)
+def test_sharded_tables_split_over_the_mesh():
+    """``shard_embeddings=True`` (which raised before the mesh path):
+    the tables are ``ShardedEmbedding``s, one block a shard once laid out
+    over the mesh (the mesh's steps: tests/test_torch_sharded_models.py);
+    LINE of order 1 has the one table."""
+    for cls, kw, names in ((DeepWalk, {}, {"target_emb", "context_emb"}),
+                           (LINE, {"order": 1}, {"target_emb"})):
+        m = cls(10, 4, (0,), shard_embeddings=True, device="cpu", **kw)
+        specs = train.init_sharded_params(
+            m, types.SimpleNamespace(graph=2, graph_index=1), seed=1)
+        assert {k for k, v in specs.items() if v == "graph"} == {
+            f"{n}.embedding" for n in names}
+        assert all(getattr(m, n).embedding.shape == (6, 4) for n in names)
     with pytest.raises(ValueError, match="order"):
         LINE(10, 4, (0,), order=3, device="cpu")
