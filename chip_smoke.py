@@ -362,16 +362,46 @@ Phases, in order; any failure propagates and the exit code is not 0:
               plain version. Then a one-rank NCCL group in this process over the
               one shard, held the same way against the one-card steps of
               rank 0's roots
- 16. report   one JSON line of kernels (the gather's f32 and bf16 times,
+ 16. tools    the repo's tools on the port (euler_tpu_torch/tools/):
+              16a bench.run(model="sage", nodes=1_000_000) at bench.py's
+              width, without and with dedup=True (bench.py's
+              EULER_BENCH_NODES and EULER_BENCH_DEDUP): 2 + 2 launches a
+              step (600 + 600 in its 300 steps), the captured step's four
+              launches equal to their plain versions (fan_draw over the
+              [1M, 128] fan pack, gather_rows from the [1M, 128] bf16
+              table) and timed at their shapes (CUDA events, L2 flushed,
+              with bounds and index_select); ms a step and edges/s; then
+              gather_rows of 292,864 ids from [1M, 128] f32 and bf16
+              tables, bit for bit, timed beside its bound, its plain
+              version and index_select. 16b python -m
+              euler_tpu_torch.tools.bench_suite --modes sage into
+              build/tools16/: every mode a result, no error, the table.
+              16c the scaling bench at 5,000 SBM nodes, 5 timed steps:
+              1x1 over NCCL, then 1x2 and 1x4 over gloo ranks sharing the
+              card with the 1x1 step as --chip-step-ms and phase 15's
+              measured link as --link-gbs; on every rank its record, 2 +
+              2 launches a step, one probed step's launches equal to
+              their plain versions, and the forward bytes equal on the
+              ranks of a shape. 16d the ingest drill at 10M edges, 1M
+              nodes, 4 partitions, 4 gloo shards sharing the card, 3
+              steps: every stage recorded, a finite DeepWalk loss, each
+              rank's probed payload sage step with its gather_rows
+              launches equal to their plain versions. 16e the parity
+              harness on tests/test_datasets_raw.py's miniature cora
+              fixture (--only _cora --steps 30: 15 rows ran, each with a
+              delta) and gin_mutag, transe_fb15k (stand-ins,
+              --allow-synthetic) and deepwalk_cora (--steps 5) on the
+              card; no row an error
+ 17. report   one JSON line of kernels (the gather's f32 and bf16 times,
               also at gcn's shape, fan_draw's launch floor, its paths'
               crossover and its union shapes, each kernel's launches on
               every path, the mesh's shapes in serving and in a train
-              step and ptxas figures), then the last line {"ok": true,
-              "device": {...}}
+              step, the 1M-node bench's shapes and ptxas figures), then
+              the last line {"ok": true, "device": {...}}
 
 Phases 12c, 12d, 12e, 12f, 12h, the dedup part of 12i, 12l, 14 and 15
 run after 12 in that order, then the walk part of 12i, 12j, 12b, 12g,
-12k and 12m.
+12k, 12m, 13 and 16.
 
 It exits non-zero, with no result line, where torch.cuda.is_available()
 is false or the euler_tpu_torch package is missing.
@@ -385,7 +415,7 @@ import ctypes
 import dataclasses
 import importlib
 import json
-import multiprocessing
+import math
 import os
 import re
 import shutil
@@ -442,10 +472,12 @@ from euler_tpu_torch.ops.alias import (FAN_ALIAS_OFF, FAN_D, FAN_KEPT_OFF,
                                        FAN_PROB_OFF, FANU_MASK,
                                        FANU_MAX_TYPES, FANU_SHIFT)
 from euler_tpu_torch.parallel import comms, sharded
+from euler_tpu_torch.parallel import launch as launcher
 from euler_tpu_torch.parallel import mesh as mesh_lib
 from euler_tpu_torch.parallel import train as sharded_train
 from euler_tpu_torch.query import EdgeResult, Query, udf_max, udf_mean
 from euler_tpu_torch.serving import serve_embeddings
+from euler_tpu_torch.tools import ingest_drill, parity_run, scaling_bench
 
 # H100 SXM device-memory rate (NVIDIA data sheet), the bytes bound's divisor
 HBM_BYTES_PER_S = 3.35e12
@@ -4035,6 +4067,276 @@ def phase_bench(dev):
     return out
 
 
+# --------------------------------------------------------------- phase 16 --
+
+# the tools: bench.py's graph-size config at the README's 1M nodes, the
+# bench suite, the scaling bench, the ingest drill and the parity harness
+TOOLS_NODES = 1_000_000
+TOOLS_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build",
+                         "tools16")
+SUITE_MODES = "sage"
+SCALING_NODES, SCALING_STEPS = 5_000, 5
+DRILL_ARGS = ["--edges", "10000000", "--nodes", "1000000", "--partitions",
+              "4", "--shards", "4", "--steps", "3", "--backend", "gloo"]
+PARITY_OTHER_ROWS = ("gin_mutag", "transe_fb15k", "deepwalk_cora")
+
+
+def tools_probe(run_step) -> dict:
+    """One step of a tool in a rank (``run_step``), each kernel launch
+    recorded and held against its plain version: the launches counted in
+    that step and the launches checked, by kernel."""
+    before = read_counts()
+    with KernelRecorder(eager=True) as rec:
+        run_step()
+    torch.cuda.synchronize()
+    launches = {k: n - before[k] for k, n in read_counts().items()}
+    return dict(launches=launches, checked=rec.check_plain("tool step"))
+
+
+def time_gather(table, ids, flush) -> dict:
+    """gather_rows of ``ids`` from ``table`` against its plain version,
+    bit for bit, then its time, the plain version's and
+    torch.index_select's (CUDA events, L2 flushed) beside the bytes
+    bound."""
+    N, D = table.shape
+    out = torch.empty((ids.shape[0], D), dtype=table.dtype,
+                      device=table.device)
+    check(torch.equal(int_view(gr.gather_rows(table, ids, out)),
+                      int_view(gr.gather_rows_plain(table, ids))),
+          f"gather_rows != plain from [{N}, {D}] {table.dtype}")
+    clamped = ids.long().clamp(0, N - 1)
+    row = dict(N=N, D=D, M=ids.shape[0],
+               dtype=str(table.dtype).replace("torch.", ""),
+               bytes=gather_bytes(table, ids))
+    row["ms"] = time_launches(lambda: gr.gather_rows(table, ids, out), 200,
+                              flush)
+    row["plain_ms"] = time_launches(
+        lambda: gr.gather_rows_plain(table, ids), 50, flush)
+    row["library_ms"] = time_launches(
+        lambda: torch.index_select(table, 0, clamped), 200, flush)
+    row["bound_ms"] = row["bytes"] / HBM_BYTES_PER_S * 1e3
+    return row
+
+
+def tools_bench(dev, smi: str) -> dict:
+    """16a: the port's bench at the README's 1M-node config, without and
+    with dedup: 2 + 2 launches a step, the captured step's launches equal
+    to their plain versions, those launches timed at their shapes; then
+    gather_rows at the deepest hop's shape from a [1M, 128] table."""
+    out = {}
+    _, batch, spl, outer = bench.SIZES["cuda"]
+    steps = spl * (2 + outer)
+    for dedup in (False, True):
+        key = "dedup" if dedup else "plain"
+        t0 = time.perf_counter()
+        torch.cuda.synchronize()
+        reset_counts()
+        with KernelRecorder() as rec:
+            records = bench.run(dev, log=log, model="sage",
+                                nodes=TOOLS_NODES, dedup=dedup)
+        launches = read_counts()
+        check(launches == dict(fan_draw=2 * steps, gather_rows=2 * steps),
+              f"launches in the 1M-node bench ({key}) {launches}")
+        checked_n = rec.check_plain(f"the 1M-node bench ({key})")
+        check(checked_n == dict(fan_draw=2, gather_rows=2),
+              f"the 1M-node bench's captured launches {checked_n}")
+        config = f"b{batch}_f25x10_n{TOOLS_NODES}"
+        check(len(records) == 3 and all(
+            r["platform"] == "cuda" and r["config"] == config
+            for r in records), f"1M-node bench lines ({key})")
+        res = dict(launches=launches, checked=checked_n,
+                   seconds=time.perf_counter() - t0,
+                   **{f"{r['phase']}_ms_per_step": r["ms_per_step"]
+                      for r in records},
+                   **{f"{r['phase']}_edges_per_sec": r["value"]
+                      for r in records})
+        if not dedup:
+            res["kernels"] = mesh_kernel_times(rec.calls, dev, "bench 1M")
+        del rec
+        out[key] = res
+        log(f"tools bench 1M ({key}): "
+            f"{json.dumps({k: v for k, v in res.items() if k != 'kernels'})}"
+            f"; {smi}")
+    rng = np.random.default_rng(16)
+    gen = torch.Generator(device=dev).manual_seed(16)
+    flush = torch.empty(64 << 20, dtype=torch.uint8, device=dev)
+    ids = gather_ids(rng, GATHER_ROWS, TOOLS_NODES, dev)
+    out["gather_1m"] = []
+    for dtype in (torch.float32, torch.bfloat16):
+        table = torch.randn((TOOLS_NODES, FEAT_DIM), generator=gen,
+                            device=dev, dtype=dtype)
+        row = time_gather(table, ids, flush)
+        del table
+        out["gather_1m"].append(row)
+        log(f"tools gather 1M: {json.dumps(row)}; {smi}")
+    return out
+
+
+def tools_suite(smi: str) -> dict:
+    """16b: the bench suite as a user runs it, into TOOLS_DIR: every mode
+    a result and no error, the table printed."""
+    path = os.path.join(TOOLS_DIR, "bench_suite.json")
+    t0 = time.perf_counter()
+    p = subprocess.run(
+        [sys.executable, "-m", "euler_tpu_torch.tools.bench_suite",
+         "--modes", SUITE_MODES, "--deadline", "300", "--out", path],
+        capture_output=True, text=True, timeout=700,
+        cwd=os.path.dirname(os.path.abspath(__file__)))
+    log(p.stdout)
+    check(p.returncode == 0, f"bench_suite exit {p.returncode}: "
+          f"{p.stderr[-2000:]}")
+    with open(path) as f:
+        rec = json.load(f)
+    modes = SUITE_MODES.split(",")
+    check(sorted(rec["results"]) == sorted(modes) and all(
+        "error" not in r and r["platform"] == "cuda"
+        for r in rec["results"].values()), f"bench_suite record {rec}")
+    check("| family | metric |" in p.stdout, "bench_suite's table")
+    out = dict(seconds=time.perf_counter() - t0, results=rec["results"])
+    log(f"tools suite: {json.dumps(out)}; {smi}")
+    return out
+
+
+def tools_scaling(link_bytes_per_s: float, smi: str) -> dict:
+    """16c: the scaling bench, 1x1 over NCCL, then 1x2 and 1x4 over gloo
+    ranks sharing the card with the 1x1 step as --chip-step-ms and phase
+    15's measured link rate as --link-gbs: on every rank its record, 2 +
+    2 launches a step and each launch of a probed step equal to its plain
+    version; the forward bytes equal on the ranks of a shape."""
+    common = ["--nodes", str(SCALING_NODES), "--steps", str(SCALING_STEPS)]
+    t0 = time.perf_counter()
+    runs = scaling_bench.sweep(scaling_bench.parse(
+        common + ["--shapes", "1x1", "--backend", "nccl"]), probe=tools_probe)
+    one = runs[0]["ranks"][0]
+    chip_step_ms = one["seconds"] / SCALING_STEPS * 1e3
+    runs += scaling_bench.sweep(scaling_bench.parse(
+        common + ["--shapes", "1x2,1x4", "--backend", "gloo",
+                  "--chip-step-ms", repr(chip_step_ms), "--link-gbs",
+                  repr(link_bytes_per_s / 1e9)]), probe=tools_probe)
+    base = runs[0]["record"]["edges_per_sec"]
+    out = dict(chip_step_ms=chip_step_ms,
+               link_gbs=link_bytes_per_s / 1e9, shapes=[])
+    for run in runs:
+        rec, ranks = run["record"], run["ranks"]
+        check(len(ranks) == rec["devices"], f"scaling {rec['mesh']} ranks")
+        for r in ranks:
+            check(r["launches"] == dict(fan_draw=2 * SCALING_STEPS,
+                                        gather_rows=2 * SCALING_STEPS),
+                  f"scaling {rec['mesh']} rank {r['rank']} launches "
+                  f"{r['launches']}")
+            check(r["probe"]["checked"] == dict(fan_draw=2, gather_rows=2)
+                  and r["probe"]["launches"] == dict(fan_draw=2,
+                                                     gather_rows=2),
+                  f"scaling {rec['mesh']} rank {r['rank']} probe "
+                  f"{r['probe']}")
+            check(r["forward"] == ranks[0]["forward"],
+                  f"scaling {rec['mesh']}: rank {r['rank']}'s forward bytes "
+                  f"{r['forward']} != rank 0's {ranks[0]['forward']}")
+        check(rec["edges_per_sec"] > 0 and (
+            rec["devices"] == 1 or "predicted_chip_efficiency" in rec),
+            f"scaling record {rec}")
+        out["shapes"].append(dict(
+            rec, efficiency_vs_1x1=rec["edges_per_sec"] / (
+                base * rec["devices"]),
+            step_ms=[r["seconds"] / SCALING_STEPS * 1e3 for r in ranks],
+            launches=[r["launches"] for r in ranks]))
+    out["seconds"] = time.perf_counter() - t0
+    log(f"tools scaling: {json.dumps(out)}; {smi}")
+    return out
+
+
+def tools_drill(smi: str) -> dict:
+    """16d: the ingest drill at a reduced scale over 4 gloo ranks sharing
+    the card: every stage recorded, a finite DeepWalk loss, each rank's
+    probed payload sage step with its gather_rows launches equal to
+    their plain version."""
+    t0 = time.perf_counter()
+    rec = ingest_drill.run(ingest_drill.parse(DRILL_ARGS + [
+        "--dir", os.path.join(TOOLS_DIR, "drill")]), probe=tools_probe,
+        log=log)
+    want = ("generate", "stream_convert", "load_store", "shard_and_place",
+            "load_shard", "deepwalk_compile+first_step", "deepwalk_steps",
+            "sage_compile+first_step", "sage_steps")
+    check(all(s in rec["stages"] for s in want), f"drill stages "
+          f"{sorted(rec['stages'])}")
+    check(math.isfinite(rec["deepwalk_loss"]), "drill DeepWalk loss")
+    for r in rec["ranks"]:
+        p = r["probe"]
+        check(p["launches"]["gather_rows"] > 0 and p["checked"] ==
+              p["launches"], f"drill rank {r['rank']} probe {p}")
+        check(math.isfinite(r["sage_loss"]), f"drill rank {r['rank']} "
+              f"sage loss")
+    out = dict(record=rec, seconds=time.perf_counter() - t0)
+    log(f"tools drill: {json.dumps(out)}; {smi}")
+    return out
+
+
+def tools_parity(smi: str) -> dict:
+    """16e: the parity harness on the miniature cora fixture (every
+    _cora row ran with a delta) and one row of each other family on its
+    stand-in; no row an error."""
+    t0 = time.perf_counter()
+    root = os.path.join(TOOLS_DIR, "parity")
+    shutil.rmtree(root, ignore_errors=True)
+    raw = os.path.join(root, "data", "cora")
+    os.makedirs(raw)
+    # tests/test_datasets_raw.py:194-207's fixture: 30 papers, 8 features
+    rng = np.random.default_rng(0)
+    n = 30
+    lines = ["\t".join([f"p{i}"] + [str(v) for v in rng.integers(0, 2, 8)]
+                       + [f"class{i % 3}"]) for i in range(n)]
+    with open(os.path.join(raw, "cora.content"), "w") as f:
+        f.write("\n".join(lines) + "\n")
+    cites = [f"p{rng.integers(0, n)}\tp{rng.integers(0, n)}"
+             for _ in range(80)]
+    with open(os.path.join(raw, "cora.cites"), "w") as f:
+        f.write("\n".join(cites) + "\n")
+    out = {}
+    for key, argv in [("cora", ["--only", "_cora", "--steps", "30"])] + [
+            (name, ["--only", name, "--steps", "5", "--allow-synthetic"])
+            for name in PARITY_OTHER_ROWS]:
+        summary = parity_run.main(argv + [
+            "--data_dir", os.path.join(root, "data"), "--model_dir",
+            os.path.join(root, "models"), "--json",
+            os.path.join(root, f"parity_{key}.json")])
+        check(summary["errors"] == 0 and summary["skipped"] == 0
+              and summary["ran"] == (15 if key == "cora" else 1),
+              f"parity {key}: {summary}")
+        if key == "cora":
+            check(all(r["status"] == "ran" and r["delta"] is not None
+                      and math.isfinite(r["value"])
+                      for r in summary["results"]),
+                  f"parity cora rows {summary}")
+        out[key] = summary
+    out["seconds"] = time.perf_counter() - t0
+    shutil.rmtree(root, ignore_errors=True)
+    log(f"tools parity: {json.dumps(out)}; {smi}")
+    return out
+
+
+def phase_tools(dev, smi: str, link_bytes_per_s: float) -> dict:
+    """Phase 16: the tools (see the module docstring)."""
+    t0 = time.perf_counter()
+    shutil.rmtree(TOOLS_DIR, ignore_errors=True)
+    os.makedirs(TOOLS_DIR)
+    out = dict(bench=tools_bench(dev, smi))
+    torch.cuda.empty_cache()
+    out["suite"] = tools_suite(smi)
+    out["scaling"] = tools_scaling(link_bytes_per_s, smi)
+    out["drill"] = tools_drill(smi)
+    out["parity"] = tools_parity(smi)
+    shutil.rmtree(TOOLS_DIR, ignore_errors=True)
+    out["seconds"] = time.perf_counter() - t0
+    log(f"tools phase: {out['seconds']:.1f} s (bench "
+        f"{out['bench']['plain']['seconds']:.1f} + "
+        f"{out['bench']['dedup']['seconds']:.1f}, suite "
+        f"{out['suite']['seconds']:.1f}, scaling "
+        f"{out['scaling']['seconds']:.1f}, drill "
+        f"{out['drill']['seconds']:.1f}, parity "
+        f"{out['parity']['seconds']:.1f}); {smi}")
+    return out
+
+
 # ------------------------------------------------------------------- main --
 
 def ptxas_report(name: str) -> dict:
@@ -4077,13 +4379,12 @@ MESH_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build",
                         "mesh14")
 
 
-def mesh_rank(work: str, tag: str, rank: int, data: int, graph: int,
-              backend: str, shards: str, spawned: float) -> None:
-    """One gloo rank of phase 14, in a spawned process: join the mesh,
-    load this rank's shard onto the card and ``mesh_serve``; only rank 0
-    prints. ``spawned``: the parent's wall clock when it started the
-    rank."""
-    if rank:
+def rank_mesh(data: int, graph: int, backend: str, spawned: float):
+    """A rank's start under ``launch`` (the process group joined): only
+    rank 0 prints, TF32 off, the mesh on card 0. Returns (mesh, the
+    perf_counter at the start, the seconds since ``spawned``: the
+    parent's wall clock when it started the ranks)."""
+    if dist.get_rank():
         sys.stdout = open(os.devnull, "w")
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -4091,17 +4392,23 @@ def mesh_rank(work: str, tag: str, rank: int, data: int, graph: int,
     start_s = time.time() - spawned
     dev = torch.device("cuda", 0)
     torch.cuda.set_device(dev)
-    mesh = mesh_lib.make_mesh(
-        data, graph, backend=backend, device=dev,
-        init_method="file://" + os.path.join(work, f"rendezvous_{tag}"),
-        rank=rank, timeout_s=MESH_TIMEOUT_S)
-    view = sharded.load_shard(shards, mesh.graph_index, dev, mesh)
-    mesh_serve(work, tag, mesh, view, t0, start_s)
-    mesh_lib.close()
+    mesh = mesh_lib.make_mesh(data, graph, backend=backend, device=dev,
+                              timeout_s=MESH_TIMEOUT_S)
+    return mesh, t0, start_s
+
+
+def mesh_rank(work: str, tag: str, data: int, graph: int, backend: str,
+              shards: str, spawned: float) -> dict:
+    """One gloo rank of phase 14, started by ``launch``: load this rank's
+    shard onto the card and ``mesh_serve``; only rank 0 prints.
+    ``spawned``: the parent's wall clock when it started the ranks."""
+    mesh, t0, start_s = rank_mesh(data, graph, backend, spawned)
+    view = sharded.load_shard(shards, mesh.graph_index, mesh.device, mesh)
+    return mesh_serve(work, tag, mesh, view, t0, start_s)
 
 
 def mesh_serve(work: str, tag: str, mesh, view, t0: float,
-               start_s: float = 0.0) -> None:
+               start_s: float = 0.0) -> dict:
     """One rank's part of phase 14 over its ``view``: hold one sharded
     apply of the parent's U_all against the parent's one-card forward
     (embeddings and logits equal) with each kernel launch against its
@@ -4110,8 +4417,8 @@ def mesh_serve(work: str, tag: str, mesh, view, t0: float,
     one and list the host ops of another; rank 0 then times each kernel
     at the shapes it launched while the others wait. ``stages_s``: the
     seconds from the spawn to the rank's start (``start_s``, 0 in the
-    parent), to the shard on the card, and of each part after. Writes
-    ``result_<tag>_<rank>.json``."""
+    parent), to the shard on the card, and of each part after. Returns
+    the rank's results."""
     rank, backend, dev = mesh.rank, mesh.backend, view.device
     model = bench.make_model("sage", dev,
                              generator=torch.Generator().manual_seed(0))
@@ -4201,14 +4508,14 @@ def mesh_serve(work: str, tag: str, mesh, view, t0: float,
     dist.barrier(group=mesh.world_group)
     stage("barrier")
     res["stages_s"] = stages
-    with open(os.path.join(work, f"result_{tag}_{rank}.json"), "w") as f:
-        json.dump(res, f)
+    return res
 
 
-def mesh_kernel_times(calls, dev) -> list:
-    """Each kernel launch of one sharded batch on rank 0, timed at its
-    shape (CUDA-event medians, L2 flushed) beside its plain version, its
-    bytes bound and, for the gather, torch.index_select."""
+def mesh_kernel_times(calls, dev, what: str = "mesh") -> list:
+    """Each kernel launch of one sharded batch on rank 0 (or of one
+    recorded step), timed at its shape (CUDA-event medians, L2 flushed)
+    beside its plain version, its bytes bound and, for the gather,
+    torch.index_select."""
     flush = torch.empty(64 << 20, dtype=torch.uint8, device=dev)
     rows = []
     for name, args, kwargs, _ in calls:
@@ -4236,39 +4543,8 @@ def mesh_kernel_times(calls, dev) -> list:
                 lambda: torch.index_select(table, 0, clamped), 200, flush)
         row["bound_ms"] = row["bytes"] / HBM_BYTES_PER_S * 1e3
         rows.append(row)
-        log(f"mesh kernel: {json.dumps(row)}")
+        log(f"{what} kernel: {json.dumps(row)}")
     return rows
-
-
-def run_ranks(tag: str, world: int, data: int, graph: int, backend: str,
-              shards: str, target=None, work: str = MESH_DIR) -> list:
-    """Spawn ``world`` ranks of ``target`` (``mesh_rank`` by default; the
-    spawn start method: this process holds CUDA), join each within
-    MESH_TIMEOUT_S and fail if any failed or timed out; the ranks'
-    results, each read from ``work``."""
-    ctx = multiprocessing.get_context("spawn")
-    procs = [ctx.Process(target=target or mesh_rank, args=(
-        work, tag, r, data, graph, backend, shards, time.time()))
-        for r in range(world)]
-    for p in procs:
-        p.start()
-    deadline = time.monotonic() + MESH_TIMEOUT_S
-    try:
-        for p in procs:
-            p.join(max(1.0, deadline - time.monotonic()))
-    finally:
-        alive = [p for p in procs if p.is_alive()]
-        for p in alive:
-            p.kill()
-            p.join()
-    check(not alive, f"mesh {tag}: {len(alive)} ranks timed out")
-    codes = [p.exitcode for p in procs]
-    check(codes == [0] * world, f"mesh {tag}: rank exit codes {codes}")
-    out = []
-    for r in range(world):
-        with open(os.path.join(work, f"result_{tag}_{r}.json")) as f:
-            out.append(json.load(f))
-    return out
 
 
 def mesh_inputs(tag: str, batch: np.ndarray, per_rank: list, embs, logits,
@@ -4359,8 +4635,10 @@ def phase_mesh(graph, model, dev, smi: str) -> tuple:
     mesh_inputs("nccl", batch[:BATCH], per_rank[:1], [one["embedding"]],
                 [one["logit"]], range(1))
     t0 = time.perf_counter()
-    out["gloo"] = run_ranks("gloo", MESH_SHARDS, 1, MESH_SHARDS, "gloo",
-                            os.path.join(MESH_DIR, f"shards{MESH_SHARDS}"))
+    out["gloo"] = launcher.launch(
+        mesh_rank, MESH_SHARDS, "gloo", MESH_TIMEOUT_S,
+        args=(MESH_DIR, "gloo", 1, MESH_SHARDS, "gloo",
+              os.path.join(MESH_DIR, f"shards{MESH_SHARDS}"), time.time()))
     out["gloo_s"] = time.perf_counter() - t0
     # the one-rank NCCL group in this process, over the one shard
     t0 = time.perf_counter()
@@ -4369,12 +4647,11 @@ def phase_mesh(graph, model, dev, smi: str) -> tuple:
         init_method="file://" + os.path.join(MESH_DIR, "rendezvous_nccl"),
         rank=0, timeout_s=MESH_TIMEOUT_S)
     try:
-        mesh_serve(MESH_DIR, "nccl", mesh,
-                   sharded.take_shard(sgs[1], 0, mesh.device, mesh), t0)
+        out["nccl"] = [mesh_serve(
+            MESH_DIR, "nccl", mesh,
+            sharded.take_shard(sgs[1], 0, mesh.device, mesh), t0)]
     finally:
         mesh_lib.close()
-    with open(os.path.join(MESH_DIR, "result_nccl_0.json")) as f:
-        out["nccl"] = [json.load(f)]
     out["nccl_s"] = time.perf_counter() - t0
     out["seconds"] = time.perf_counter() - t_phase
     for tag in ("gloo", "nccl"):
@@ -4505,31 +4782,19 @@ def link_rate(mesh, dev, mib: int = 64) -> float:
     return 2 * (S - 1) / S * x.numel() * 4 / (ms / 1e3)
 
 
-def mesh_train_rank(work: str, tag: str, rank: int, data: int, graph: int,
-                    backend: str, shards: str, spawned: float) -> None:
-    """One gloo rank of phase 15, in a spawned process: join the mesh,
-    load this rank's shards onto the card, ``mesh_train_serve``, then the
-    TransE and gcn parts; only rank 0 prints."""
-    if rank:
-        sys.stdout = open(os.devnull, "w")
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
-    t0 = time.perf_counter()
-    start_s = time.time() - spawned
-    dev = torch.device("cuda", 0)
-    torch.cuda.set_device(dev)
-    mesh = mesh_lib.make_mesh(
-        data, graph, backend=backend, device=dev,
-        init_method="file://" + os.path.join(work, f"rendezvous_{tag}"),
-        rank=rank, timeout_s=MESH_TIMEOUT_S)
+def mesh_train_rank(work: str, tag: str, data: int, graph: int,
+                    backend: str, shards: str, spawned: float) -> dict:
+    """One gloo rank of phase 15, started by ``launch``: load this rank's
+    shards onto the card, ``mesh_train_serve``, then the TransE and gcn
+    parts; only rank 0 prints. Returns the rank's results."""
+    mesh, t0, start_s = rank_mesh(data, graph, backend, spawned)
+    dev = mesh.device
     view = sharded.load_shard(shards, mesh.graph_index, dev, mesh)
     res = mesh_train_serve(work, tag, mesh, view, t0, start_s)
     res["transe"] = mesh_transe_rank(work, mesh, dev)
     res["gcn"] = mesh_gcn_rank(work, mesh, dev)
     dist.barrier(group=mesh.world_group)
-    with open(os.path.join(work, f"result_{tag}_{rank}.json"), "w") as f:
-        json.dump(res, f)
-    mesh_lib.close()
+    return res
 
 
 def mesh_train_serve(work: str, tag: str, mesh, view, t0: float,
@@ -4881,9 +5146,10 @@ def phase_mesh_train(graph, dev, smi: str, sgs: dict) -> dict:
     gg, gmodel, groots = gcn_reference(work, dev)
     out["host_s"] = time.perf_counter() - t0
     t0 = time.perf_counter()
-    out["gloo"] = run_ranks("gloo", W, 1, W, "gloo",
-                            os.path.join(MESH_DIR, f"shards{W}"),
-                            target=mesh_train_rank, work=work)
+    out["gloo"] = launcher.launch(
+        mesh_train_rank, W, "gloo", MESH_TIMEOUT_S,
+        args=(work, "gloo", 1, W, "gloo",
+              os.path.join(MESH_DIR, f"shards{W}"), time.time()))
     out["gloo_s"] = time.perf_counter() - t0
     states = [torch.load(os.path.join(work, f"state_gloo_{r}.pt"))
               for r in range(W)]
@@ -5090,6 +5356,10 @@ def main() -> int:
     # 13. the port's bench, every mode
     benched = phase_bench(dev)
     allocated_after("bench")
+    # 16. the tools: bench.py's size and dedup knobs at 1M nodes, the
+    # bench suite, the scaling bench, the ingest drill, the parity harness
+    tools = phase_tools(dev, smi, mesh_trained["gloo"][0]["link_bytes_per_s"])
+    allocated_after("tools")
 
     # each path's launches, its counts set to 0 just before it
     path_launches = {"infer": infer["launches"], "train": train["launches"],
@@ -5145,6 +5415,17 @@ def main() -> int:
         f"mesh_train_estimator_{tag}_rank{res['rank']}":
             res["estimator"]["launches"]
         for tag in ("gloo", "nccl") for res in mesh_trained[tag]})
+    # phase 16: the 1M-node bench, the scaling bench's timed steps on each
+    # rank, the drill's probed payload sage step on each rank
+    path_launches.update({f"bench_1m_{k}": tools["bench"][k]["launches"]
+                          for k in ("plain", "dedup")})
+    path_launches.update({
+        f"scaling_{shape['mesh']}_rank{r}": n
+        for shape in tools["scaling"]["shapes"]
+        for r, n in enumerate(shape["launches"])})
+    path_launches.update({
+        f"drill_sage_step_rank{r['rank']}": r["probe"]["launches"]
+        for r in tools["drill"]["record"]["ranks"]})
 
     def mesh_shapes(name, run=None):
         """One sharded batch's (or train step's) launches of ``name`` on
@@ -5154,6 +5435,11 @@ def main() -> int:
                                       if k != "name"})
                 for tag in ("gloo", "nccl")
                 for row in run[tag][0]["kernels"] if row["name"] == name]
+
+    def tools_shapes(name):
+        return [{k: v for k, v in row.items() if k != "name"}
+                for row in tools["bench"]["plain"]["kernels"]
+                if row["name"] == name]
 
     def by_path(name):
         return {path: n[name] for path, n in path_launches.items()}
@@ -5199,6 +5485,8 @@ def main() -> int:
         "mesh_shapes": mesh_shapes("fan_draw"),
         # the same in a train step at 1024 roots a rank (phase 15)
         "mesh_train_shapes": mesh_shapes("fan_draw", mesh_trained),
+        # the bench's captured step over the [1M, 128] fan pack (phase 16)
+        "bench_1m_shapes": tools_shapes("fan_draw"),
     }, {
         "name": "gather_rows", "route": "cuda",
         "source": "euler_tpu_torch/csrc/gather_rows.cu",
@@ -5233,6 +5521,10 @@ def main() -> int:
         # gloo ranks; spread on the NCCL rank's one shard)
         "mesh_shapes": mesh_shapes("gather_rows"),
         "mesh_train_shapes": mesh_shapes("gather_rows", mesh_trained),
+        # the bench's captured step from the [1M, 128] bf16 table, and the
+        # deepest hop's gather from [1M, 128] f32 and bf16 tables
+        "bench_1m_shapes": tools_shapes("gather_rows"),
+        "gather_1m": tools["bench"]["gather_1m"],
     }]
     log(json.dumps({"smoke": dict(
         build_s=build_s, graph_s=graph_s,
@@ -5242,6 +5534,7 @@ def main() -> int:
         convs=conv_runs, whole=whole, encoder=encoder, transe=transe,
         dedup=dedup, walk=walks, rest=rest, data=data, query=queried,
         examples=examples, mesh=meshed, mesh_train=mesh_trained,
+        tools=tools,
         unsup={k: v for k, v in unsup.items() if k != "kernels"}, loop=loop,
         bench=benched, allocated_gb_after=allocated)}))
     log(smi)                # nvidia-smi's name and power limit, as given

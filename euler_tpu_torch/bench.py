@@ -5,6 +5,7 @@ whole-graph gcn mode and its transe mode.
                                      agnn|appnp|graph|arma|dna|gated|gcn|
                                      transe] [--gcn-layout ell|edge_list]
     python -m euler_tpu_torch.bench --device cpu    # off-chip sizes
+    python -m euler_tpu_torch.bench --nodes 1000000 [--batch B] [--dedup]
 
 Counterpart of bench.py:260-454 for ``EULER_BENCH_MODEL=sage`` (the
 default), ``gin``, ``gat`` and ``rgcn``: ``random_graph(200_000, 25,
@@ -23,6 +24,15 @@ alpha 0.1, ARMA K=2 and T=1, DNA one head, Gated two steps), as
 bench.py's sampled branch builds ``GNNNet(conv=mode)`` for any registry
 name. ``--device cpu`` takes bench.py's off-chip sizes
 (5,000 nodes, batch 256, 5 steps per loop, f32) and exists for tests.
+
+``--nodes`` and ``--batch`` are bench.py's ``EULER_BENCH_NODES`` and
+``EULER_BENCH_BATCH`` (bench.py:262-270, :490-491, :599-606): the graph's
+node count in every mode, the roots a step in the sampled modes and the
+triples a step in transe (gcn's batch is every node). ``--dedup`` is
+``EULER_BENCH_DEDUP=1`` (bench.py:352-353), sampled modes only:
+``GNNNet(dedup_features=True)``. Left unset they take the mode's size in
+``SIZES``, ``GCN_SIZES`` or ``TRANSE_SIZES``; the ``config`` string and
+the count a step follow the sizes run.
 
 ``gcn`` is bench.py's ``_gcn_child`` (bench.py:478-588): full-batch GCN
 on ``random_graph(100_000, 25, seed=0, packs=("ell",))``, the same
@@ -118,13 +128,15 @@ def gcn_edges_per_step(n_nodes: int) -> int:
 
 
 def make_model(model: str, dev, dtype=None,
-               generator: Optional[torch.Generator] = None) -> SuperviseModel:
+               generator: Optional[torch.Generator] = None,
+               dedup: bool = False) -> SuperviseModel:
     """The ``SuperviseModel`` of the bench's ``model`` mode: GNNNet at
     DIMS on the 128-wide ``feature``, 16 labels. The sampled modes run
     SageDataFlow(FANOUT); rgcn samples every hop over its RGCN_TYPES edge
     types with types (``typed=True``) and feeds them to ``RelationConv``
     as relations; gcn runs ``WholeDataFlow(GCN_LAYERS, [(0,)])``, on the
-    ELL pack where the graph has one and on the edge list elsewhere."""
+    ELL pack where the graph has one and on the edge list elsewhere.
+    ``dedup``: the sampled modes' ``dedup_features``."""
     if model not in GNN_MODELS:
         raise ValueError(f"bench GNN model {model!r} not in {GNN_MODELS}")
     rgcn = model == "rgcn"
@@ -137,17 +149,17 @@ def make_model(model: str, dev, dtype=None,
                  DIMS, ShallowEncoder(("feature",)), in_dim=FEAT_DIM,
                  dtype=dtype, device=dev, generator=generator,
                  conv_kwargs={"num_relations": n_et} if rgcn else None,
-                 relation_from_etype=rgcn)
+                 relation_from_etype=rgcn, dedup_features=dedup)
     return SuperviseModel(net, "label", N_CLASSES, device=dev,
                           generator=generator)
 
 
 def build(dev: torch.device, n_nodes: int, batch: int,
           steps_per_loop: int, model: str = "sage",
-          gcn_layout: str = "ell") -> NodeEstimator:
+          gcn_layout: str = "ell", dedup: bool = False) -> NodeEstimator:
     """The graph, features, model and estimator of the bench's GNN
     ``model`` mode on ``dev``; activations are bf16 on CUDA and f32
-    elsewhere."""
+    elsewhere; ``dedup`` as ``make_model``'s."""
     if model not in GNN_MODELS:
         raise ValueError(f"bench GNN model {model!r} not in {GNN_MODELS}")
     if gcn_layout not in GCN_LAYOUTS:
@@ -172,7 +184,8 @@ def build(dev: torch.device, n_nodes: int, batch: int,
     graph.meta = meta
     graph.tensors = dataclasses.replace(
         graph.tensors, meta=meta, dense_nf={"feature": feat, "label": lab})
-    sup = make_model(model, dev, act, torch.Generator().manual_seed(0))
+    sup = make_model(model, dev, act, torch.Generator().manual_seed(0),
+                     dedup)
     cfg = RunConfig(batch_size=batch, optimizer="adam", learning_rate=LR,
                     log_steps=0, reservoir_refresh=steps_per_loop,
                     steps_per_loop=steps_per_loop)
@@ -228,33 +241,42 @@ def train_loop(est: BaseEstimator, model: str,
 
 
 def run(device=None, log: Callable = print, model: str = "sage",
-        gcn_layout: str = "ell") -> List[dict]:
+        gcn_layout: str = "ell", nodes: Optional[int] = None,
+        batch: Optional[int] = None, dedup: bool = False) -> List[dict]:
     """Run the three phases of the ``model`` mode; ``log`` gets each
-    output line. Returns the JSON records, each with its ``ms_per_step``
-    added."""
+    output line. ``nodes``, ``batch`` and ``dedup`` are bench.py's
+    ``EULER_BENCH_NODES``/``BATCH``/``DEDUP`` (None: the mode's size).
+    Returns the JSON records, each with its ``ms_per_step`` added."""
     if model not in MODELS:
         raise ValueError(f"bench model {model!r} not in {MODELS}")
+    if batch is not None and model == "gcn":
+        raise ValueError("gcn's batch is every node: set nodes")
+    if dedup and model not in SAMPLED:
+        raise ValueError(f"dedup is a knob of the sampled modes {SAMPLED}")
     dev = resolve_device(device)
     where = "cuda" if dev.type == "cuda" else "cpu"
     # per step: the count the metric reads, and its unit
     if model == "gcn":
         n_nodes, spl, outer = GCN_SIZES[where]
+        n_nodes = nodes or n_nodes
         batch = n_nodes
         count, metric = gcn_edges_per_step(n_nodes), GCN_METRIC
         unit = "edges/s"
         config = f"full_n{n_nodes}_e{n_nodes * AVG_DEGREE}_l{GCN_LAYERS}"
     elif model == "transe":
-        n_nodes, batch, spl, outer = TRANSE_SIZES[where]
+        n_nodes, size_batch, spl, outer = TRANSE_SIZES[where]
+        n_nodes, batch = nodes or n_nodes, batch or size_batch
         count, metric, unit = batch, TRANSE_METRIC, "triples/s"
         config = (f"b{batch}_negs{TRANSE_NEGS}_n{n_nodes}"
                   f"_r{TRANSE_RELATIONS}")
     else:
-        n_nodes, batch, spl, outer = SIZES[where]
+        n_nodes, size_batch, spl, outer = SIZES[where]
+        n_nodes, batch = nodes or n_nodes, batch or size_batch
         count, metric = edges_per_step(batch), METRIC
         unit = "edges/s"
         config = f"b{batch}_f{FANOUT[0]}x{FANOUT[1]}_n{n_nodes}"
     est = (build_transe(dev, n_nodes, batch, spl) if model == "transe"
-           else build(dev, n_nodes, batch, spl, model, gcn_layout))
+           else build(dev, n_nodes, batch, spl, model, gcn_layout, dedup))
     run_loop = train_loop(est, model,
                           torch.Generator(device=dev).manual_seed(2))
 
@@ -291,8 +313,19 @@ def main(argv=None) -> int:
     ap.add_argument("--gcn-layout", default="ell", choices=GCN_LAYOUTS,
                     help="gcn only: the ELL pack (default) or the edge "
                          "list, bench.py's EULER_BENCH_GCN_ELL=0")
+    ap.add_argument("--nodes", type=int, default=None,
+                    help="graph nodes, bench.py's EULER_BENCH_NODES "
+                         "(default: the mode's size)")
+    ap.add_argument("--batch", type=int, default=None,
+                    help="roots (sampled modes) or triples (transe) a "
+                         "step, bench.py's EULER_BENCH_BATCH")
+    ap.add_argument("--dedup", action="store_true",
+                    help="sampled modes: unique-before-gather "
+                         "(GNNNet(dedup_features=True)), bench.py's "
+                         "EULER_BENCH_DEDUP=1")
     args = ap.parse_args(argv)
-    run(args.device, model=args.model, gcn_layout=args.gcn_layout)
+    run(args.device, model=args.model, gcn_layout=args.gcn_layout,
+        nodes=args.nodes, batch=args.batch, dedup=args.dedup)
     return 0
 
 

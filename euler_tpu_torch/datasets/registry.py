@@ -122,6 +122,18 @@ class _ContentCitesDataset(NamedDataset):
     content_file = None
     cites_file = None
 
+    def load_graph(self, device=None, **kw) -> Graph:
+        """As ``NamedDataset.load_graph``; the feature and label widths
+        are the converted directory's. ``raw_to_json`` sets them from
+        the raw files at the first conversion; a fresh object over the
+        directory would keep the class's declared ones, which the
+        reference does, so that a raw set of other widths (a miniature
+        fixture) fails the model of every later run."""
+        graph = super().load_graph(device=device, **kw)
+        self.feature_dim = graph.meta.node_feature(self.feature_idx).dim
+        self.label_dim = graph.meta.node_feature(self.label_idx).dim
+        return graph
+
     def has_raw(self):
         return (os.path.exists(os.path.join(self.raw_dir,
                                             self.content_file)) and
