@@ -392,16 +392,35 @@ Phases, in order; any failure propagates and the exit code is not 0:
               delta) and gin_mutag, transe_fb15k (stand-ins,
               --allow-synthetic) and deepwalk_cora (--steps 5) on the
               card; no row an error
- 17. report   one JSON line of kernels (the gather's f32 and bf16 times,
+ 17. entry    the driver's entry points (euler_tpu_torch/graft_entry.py,
+              the counterpart of __graft_entry__.py) on the reference's
+              small model (SBM, 256 nodes, feature 16, sage [5, 5], dims
+              (32, 32)): entry()'s forward on the card, 2 + 2 launches,
+              each equal to its plain version and timed at its shape,
+              the loss and logit equal to the same forward on the CPU
+              (the same weights, the card's uniforms) within 1e-4, ms a
+              forward; then dryrun_multichip(1) on one NCCL rank and
+              dryrun_multichip(4) on 4 gloo ranks sharing the card (mesh
+              (1, 4)): on every rank the first sharded step's 2 + 2
+              launches (4 + 4 in the loop of 2 steps, none in the
+              DeepWalk step), one more probed step's launches equal to
+              their plain versions, finite losses, the first step's
+              bytes by collective equal on every rank, and
+              comms.ppermute on the card (a cycle and, on 4 ranks, a
+              partial permutation), forward and backward, equal bit for
+              bit to the same permutation of the rows on the host; the
+              losses, ms a step and bytes by collective logged
+ 18. report   one JSON line of kernels (the gather's f32 and bf16 times,
               also at gcn's shape, fan_draw's launch floor, its paths'
               crossover and its union shapes, each kernel's launches on
               every path, the mesh's shapes in serving and in a train
-              step, the 1M-node bench's shapes and ptxas figures), then
-              the last line {"ok": true, "device": {...}}
+              step, the 1M-node bench's shapes, the entry forward's and
+              ptxas figures), then the last line {"ok": true, "device":
+              {...}}
 
 Phases 12c, 12d, 12e, 12f, 12h, the dedup part of 12i, 12l, 14 and 15
 run after 12 in that order, then the walk part of 12i, 12j, 12b, 12g,
-12k, 12m, 13 and 16.
+12k, 12m, 13, 16 and 17.
 
 It exits non-zero, with no result line, where torch.cuda.is_available()
 is false or the euler_tpu_torch package is missing.
@@ -432,7 +451,7 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
-from euler_tpu_torch import bench, knn
+from euler_tpu_torch import bench, graft_entry, knn
 from euler_tpu_torch._build import (NVCC_FLAGS, PACKAGE_DIR,
                                     build_shared_library, nvcc)
 from euler_tpu_torch.dataflow import (FastDataFlow, LayerwiseDataFlow,
@@ -1150,12 +1169,8 @@ def phase_profile(model, graph, dev):
 
 def hop_uniforms(flow, g, roots, gen) -> list:
     """One uniforms tuple per hop of ``flow`` from ``roots``, as the flow
-    draws them (the frontier grows by 1 + fanout a hop)."""
-    out, n = [], roots.shape[0]
-    for ets, c in zip(flow.metapath, flow.fanouts):
-        out.append(flow.draw_hop(g, ets, gen, n, c, roots.device))
-        n *= 1 + c
-    return out
+    draws them."""
+    return flow.draw_uniforms(g, roots, gen)
 
 
 def same_blocks(flow, g, roots, uniforms, g_cpu, u_cpu) -> list:
@@ -4337,6 +4352,164 @@ def phase_tools(dev, smi: str, link_bytes_per_s: float) -> dict:
     return out
 
 
+# --------------------------------------------------------------- phase 17 --
+
+GRAFT_WORLD, GRAFT_TIMED, GRAFT_WIDTH = 4, 20, 1000
+
+
+def graft_perms(S: int) -> dict:
+    """The probe's ppermute cases, (src, dst) pairs of the world's ranks:
+    a cycle, and on 4 ranks one where rank 3 sends and gets nothing and
+    rank 2 only receives."""
+    perms = {"cycle": [(i, (i + 1) % S) for i in range(S)]}
+    if S == 4:
+        perms["partial"] = [(0, 2), (3, 1), (1, 0)]
+    return perms
+
+
+def graft_probe(run_step) -> dict:
+    """Phase 17's probe in each rank of ``dryrun_multichip``: one more
+    sage step with each launch held against its plain version
+    (``tools_probe``), then ``comms.ppermute`` of a row a rank on the card
+    over the world's ranks (``graft_perms``), forward and backward, its
+    bytes counted."""
+    out = tools_probe(run_step)
+    S, r = dist.get_world_size(), dist.get_rank()
+    dev = torch.device("cuda", torch.cuda.current_device())
+    out["ppermute"] = {}
+    for name, perm in graft_perms(S).items():
+        x = (torch.arange(GRAFT_WIDTH, dtype=torch.float32, device=dev)
+             + 1e4 * (r + 1)).requires_grad_(True)
+        c = torch.full((GRAFT_WIDTH,), float(r + 1), device=dev)
+        with comms.account() as acc:
+            y = comms.ppermute(x, dist.group.WORLD, perm)
+            (y * c).sum().backward()
+        torch.cuda.synchronize()
+        out["ppermute"][name] = dict(
+            y=y.detach().cpu().numpy(), grad=x.grad.cpu().numpy(),
+            forward=acc.totals(comms.FORWARD)["ppermute"],
+            backward=acc.totals(comms.BACKWARD)["ppermute"])
+    return out
+
+
+def graft_check_ppermute(ranks: list, tag: str) -> dict:
+    """Each rank's ppermute results against the same permutation of the
+    rows on the host: y[dst] = x[src] and grad[src] = c[dst], zeros where
+    no pair reads or writes, bit for bit; n bytes each way."""
+    S = len(ranks)
+    x = [np.arange(GRAFT_WIDTH, dtype=np.float32) + np.float32(1e4 * (r + 1))
+         for r in range(S)]
+    out = {}
+    for name, perm in graft_perms(S).items():
+        y = [np.zeros(GRAFT_WIDTH, np.float32) for _ in range(S)]
+        grad = [np.zeros(GRAFT_WIDTH, np.float32) for _ in range(S)]
+        for src, dst in perm:
+            y[dst] = x[src]
+            grad[src] = np.full(GRAFT_WIDTH, dst + 1, np.float32)
+        for r, res in enumerate(ranks):
+            got = res["probe"]["ppermute"][name]
+            check(np.array_equal(got["y"], y[r])
+                  and np.array_equal(got["grad"], grad[r]),
+                  f"graft {tag} rank {r}: ppermute {name} != the host's")
+            check(got["forward"] == got["backward"] == 4 * GRAFT_WIDTH,
+                  f"graft {tag} rank {r}: ppermute bytes {got}")
+        out[name] = dict(pairs=len(perm), bytes=4 * GRAFT_WIDTH,
+                         ranks=S)
+    return out
+
+
+def graft_entry_forward(dev) -> dict:
+    """entry()'s forward on the card: 2 + 2 launches, each equal to its
+    plain version, and timed at its shape; the loss and logit against the
+    same forward on the CPU (the same weights, the card's uniforms)
+    within 1e-4; ms a forward (CUDA-event median of GRAFT_TIMED)."""
+    fn, (model, g, roots, uniforms) = graft_entry.entry()
+    fn_cpu, (model_cpu, g_cpu, roots_cpu, _) = graft_entry.entry("cpu")
+    state, state_cpu = model.state_dict(), model_cpu.state_dict()
+    check(all(torch.equal(state[k].cpu(), state_cpu[k]) for k in state),
+          "entry: the card's weights != the CPU's")
+    reset_counts()
+    with torch.no_grad(), KernelRecorder(eager=True) as rec:
+        loss, logit = fn(model, g, roots, uniforms)
+    torch.cuda.synchronize()
+    launches = read_counts()
+    check(launches == {"fan_draw": 2, "gather_rows": 2},
+          f"entry: launches {launches}")
+    checked = rec.check_plain("entry forward")
+    u_cpu = [tuple(u.cpu() for u in hop) for hop in uniforms]
+    with torch.no_grad():
+        loss_cpu, logit_cpu = fn_cpu(model_cpu, g_cpu, roots_cpu, u_cpu)
+    check(logit.shape == (graft_entry.ROOTS, 4)
+          and torch.isfinite(logit).all().item(), "entry: logit")
+    err = max(float((logit.cpu() - logit_cpu).abs().max()),
+              abs(float(loss) - float(loss_cpu)))
+    check(torch.allclose(logit.cpu(), logit_cpu, **PARITY_TOL)
+          and math.isclose(float(loss), float(loss_cpu),
+                           rel_tol=1e-4, abs_tol=1e-4),
+          f"entry: card != CPU by {err}")
+    with torch.no_grad():
+        ms = [cuda_ms(lambda: fn(model, g, roots, uniforms))
+              for _ in range(GRAFT_TIMED)]
+    out = dict(loss=float(loss), loss_cpu=float(loss_cpu), max_abs_err=err,
+               launches=launches, checked_plain=checked,
+               forward_ms=statistics.median(ms),
+               kernels=mesh_kernel_times(rec.calls, dev, "entry"))
+    log(f"entry forward: {json.dumps(out)}")
+    return out
+
+
+def graft_dryrun(n: int, backend: str, smi: str) -> dict:
+    """dryrun_multichip(n) over ``backend`` with ``graft_probe``: on
+    every rank the first step's 2 + 2 launches, the probed step's held
+    against their plain versions, none in the DeepWalk step, finite
+    losses, the forward bytes equal on every rank; ppermute checked."""
+    t0 = time.perf_counter()
+    res = graft_entry.dryrun_multichip(n, backend=backend,
+                                       probe=graft_probe)
+    seconds = time.perf_counter() - t0
+    tag = f"{backend}{n}"
+    ranks = res["ranks"]
+    for r in ranks:
+        want = {"fan_draw": 2, "gather_rows": 2}
+        check(r["launches"] == want and r["probe"]["launches"] == want
+              and r["probe"]["checked"] == want
+              and r["loop_launches"] == {"fan_draw": 4, "gather_rows": 4}
+              and r["walk_launches"] == {"fan_draw": 0, "gather_rows": 0},
+              f"graft {tag} rank {r['rank']}: launches {r['launches']}, "
+              f"{r['loop_launches']}, {r['walk_launches']}, probe "
+              f"{r['probe']['launches']}")
+        check(all(math.isfinite(r[k]) for k in ("first_loss", "loss",
+                                                   "walk_loss")),
+              f"graft {tag} rank {r['rank']}: losses")
+        check(r["forward"] == ranks[0]["forward"],
+              f"graft {tag} rank {r['rank']}: bytes {r['forward']} != rank "
+              f"0's {ranks[0]['forward']}")
+    out = dict(mesh=res["mesh"], loss=res["loss"],
+               first_loss=ranks[0]["first_loss"], walk_loss=res["walk_loss"],
+               seconds=seconds, forward=ranks[0]["forward"],
+               backward=ranks[0]["backward"],
+               step_ms=[r["step_ms"] for r in ranks],
+               rank_seconds=[r["seconds"] for r in ranks],
+               launches=[r["launches"] for r in ranks],
+               probe_launches=[r["probe"]["launches"] for r in ranks],
+               ppermute=graft_check_ppermute(ranks, tag))
+    log(f"graft dryrun {tag}: {json.dumps(out)}; {smi}")
+    return out
+
+
+def phase_graft(dev, smi: str) -> dict:
+    """Phase 17: the driver's entry points (see the module docstring)."""
+    t0 = time.perf_counter()
+    out = dict(entry=graft_entry_forward(dev))
+    out["nccl"] = graft_dryrun(1, "nccl", smi)
+    out["gloo"] = graft_dryrun(GRAFT_WORLD, "gloo", smi)
+    check(out["gloo"]["mesh"] == graft_entry.pick_mesh(GRAFT_WORLD),
+          f"graft: mesh {out['gloo']['mesh']}")
+    out["seconds"] = time.perf_counter() - t0
+    log(f"graft phase: {out['seconds']:.1f} s; {smi}")
+    return out
+
+
 # ------------------------------------------------------------------- main --
 
 def ptxas_report(name: str) -> dict:
@@ -5360,6 +5533,10 @@ def main() -> int:
     # bench suite, the scaling bench, the ingest drill, the parity harness
     tools = phase_tools(dev, smi, mesh_trained["gloo"][0]["link_bytes_per_s"])
     allocated_after("tools")
+    # 17. the driver's entry points: entry()'s forward, dryrun_multichip on
+    # one NCCL rank and on 4 gloo ranks, ppermute on those ranks
+    graft = phase_graft(dev, smi)
+    allocated_after("graft")
 
     # each path's launches, its counts set to 0 just before it
     path_launches = {"infer": infer["launches"], "train": train["launches"],
@@ -5426,6 +5603,11 @@ def main() -> int:
     path_launches.update({
         f"drill_sage_step_rank{r['rank']}": r["probe"]["launches"]
         for r in tools["drill"]["record"]["ranks"]})
+    # phase 17: entry()'s forward, each dryrun rank's first sharded step
+    path_launches["entry_forward"] = graft["entry"]["launches"]
+    path_launches.update({f"dryrun_{tag}_rank{r}": n
+                          for tag in ("nccl", "gloo")
+                          for r, n in enumerate(graft[tag]["launches"])})
 
     def mesh_shapes(name, run=None):
         """One sharded batch's (or train step's) launches of ``name`` on
@@ -5440,6 +5622,10 @@ def main() -> int:
         return [{k: v for k, v in row.items() if k != "name"}
                 for row in tools["bench"]["plain"]["kernels"]
                 if row["name"] == name]
+
+    def entry_shapes(name):
+        return [{k: v for k, v in row.items() if k != "name"}
+                for row in graft["entry"]["kernels"] if row["name"] == name]
 
     def by_path(name):
         return {path: n[name] for path, n in path_launches.items()}
@@ -5487,6 +5673,8 @@ def main() -> int:
         "mesh_train_shapes": mesh_shapes("fan_draw", mesh_trained),
         # the bench's captured step over the [1M, 128] fan pack (phase 16)
         "bench_1m_shapes": tools_shapes("fan_draw"),
+        # entry()'s forward: (B, C) = (32, 5), then (192, 5) (phase 17)
+        "entry_shapes": entry_shapes("fan_draw"),
     }, {
         "name": "gather_rows", "route": "cuda",
         "source": "euler_tpu_torch/csrc/gather_rows.cu",
@@ -5525,6 +5713,8 @@ def main() -> int:
         # deepest hop's gather from [1M, 128] f32 and bf16 tables
         "bench_1m_shapes": tools_shapes("gather_rows"),
         "gather_1m": tools["bench"]["gather_1m"],
+        # entry()'s forward: 1,152 feature rows from [256, 16], 32 labels
+        "entry_shapes": entry_shapes("gather_rows"),
     }]
     log(json.dumps({"smoke": dict(
         build_s=build_s, graph_s=graph_s,
@@ -5534,7 +5724,7 @@ def main() -> int:
         convs=conv_runs, whole=whole, encoder=encoder, transe=transe,
         dedup=dedup, walk=walks, rest=rest, data=data, query=queried,
         examples=examples, mesh=meshed, mesh_train=mesh_trained,
-        tools=tools,
+        tools=tools, graft=graft,
         unsup={k: v for k, v in unsup.items() if k != "kernels"}, loop=loop,
         bench=benched, allocated_gb_after=allocated)}))
     log(smi)                # nvidia-smi's name and power limit, as given

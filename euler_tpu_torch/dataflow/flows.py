@@ -74,6 +74,16 @@ class SageDataFlow:
         return sampling.draw_neighbor_uniforms(g, ets, generator, B, count,
                                                device)
 
+    def draw_uniforms(self, g, roots: torch.Tensor,
+                      generator: Optional[torch.Generator]) -> list:
+        """The ``uniforms`` a call over ``roots`` reads, one tuple per hop
+        (the frontier grows by 1 + fanout a hop)."""
+        out, n = [], roots.shape[0]
+        for ets, c in zip(self.metapath, self.fanouts):
+            out.append(self.draw_hop(g, ets, generator, n, c, roots.device))
+            n *= 1 + c
+        return out
+
     def __call__(self, g, roots: torch.Tensor,
                  generator: Optional[torch.Generator] = None,
                  uniforms: Optional[Sequence] = None):

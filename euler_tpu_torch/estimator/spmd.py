@@ -64,13 +64,40 @@ def _as_view(graph, mesh) -> sharded_lib.ShardView:
     return graph
 
 
+def default_mesh(model: torch.nn.Module,
+                 graph_shards: int = 0) -> mesh_lib.Mesh:
+    """The mesh an estimator builds when it is given none (the
+    reference's rule, euler_tpu/estimator/spmd.py:51-55): over the
+    process group this rank has joined, ``graph_shards`` graph shards
+    (every rank where 0) and the rest of the ranks on the data axis, on
+    the model's device and the group's backend. Raises outside a process
+    group, and where ``graph_shards`` does not divide the ranks."""
+    if not dist.is_initialized():
+        raise ValueError(
+            "mesh=None builds the mesh over the process group, and this "
+            "process has joined none: call parallel.distributed.initialize "
+            "first (or start the ranks with parallel.launch), or pass mesh=")
+    world = dist.get_world_size()
+    gs = graph_shards or world
+    if gs < 1 or world % gs:
+        raise ValueError(f"graph_shards={gs} does not divide the {world} "
+                         f"ranks of the process group")
+    return mesh_lib.make_mesh(data=world // gs, graph=gs,
+                              backend=dist.get_backend(),
+                              device=next(model.parameters()).device)
+
+
 class SpmdEstimator(BaseEstimator):
     """The mesh estimators' shared machinery; subclasses give the batch
     hooks (``_ids_fn``, ``_expand_fn``). ``mesh`` is this rank's
-    ``parallel.mesh.Mesh`` (``parallel.mesh.make_mesh``)."""
+    ``parallel.mesh.Mesh`` (``parallel.mesh.make_mesh``); without one the
+    estimator builds ``default_mesh(model, graph_shards)``."""
 
     def __init__(self, model: torch.nn.Module, graph, config: RunConfig,
-                 *, mesh: mesh_lib.Mesh):
+                 mesh: Optional[mesh_lib.Mesh] = None,
+                 graph_shards: int = 0):
+        if mesh is None:
+            mesh = default_mesh(model, graph_shards)
         self.mesh, self.device = mesh, mesh.device
         self.model, self.config = model, config
         dev = next(model.parameters()).device
@@ -281,8 +308,9 @@ class SpmdEstimator(BaseEstimator):
 class SpmdNodeEstimator(SpmdEstimator):
     """Train source: the sharded ``sample_node`` (node_estimator.py:31-51)."""
 
-    def __init__(self, model, graph, config, train_node_type=-1, *, mesh):
-        super().__init__(model, graph, config, mesh=mesh)
+    def __init__(self, model, graph, config, train_node_type=-1,
+                 mesh=None, graph_shards: int = 0):
+        super().__init__(model, graph, config, mesh, graph_shards)
         self.train_node_type = train_node_type
 
     def _ids_fn(self):
@@ -293,8 +321,9 @@ class SpmdEdgeEstimator(SpmdEstimator):
     """Train source: the sharded ``sample_edge`` triples
     (edge_estimator.py:32-72); KG training over the mesh."""
 
-    def __init__(self, model, graph, config, train_edge_type=-1, *, mesh):
-        super().__init__(model, graph, config, mesh=mesh)
+    def __init__(self, model, graph, config, train_edge_type=-1,
+                 mesh=None, graph_shards: int = 0):
+        super().__init__(model, graph, config, mesh, graph_shards)
         self.train_edge_type = train_edge_type
 
     def _ids_fn(self):
@@ -327,9 +356,9 @@ class SpmdGraphEstimator(SpmdEstimator):
     hook."""
 
     def __init__(self, model, graph, config, label_name: str = "label",
-                 num_classes: int = 2, *, mesh):
+                 num_classes: int = 2, mesh=None, graph_shards: int = 0):
         self.label_name, self.num_classes = label_name, num_classes
-        super().__init__(model, graph, config, mesh=mesh)
+        super().__init__(model, graph, config, mesh, graph_shards)
 
     def _ids_fn(self):
         return train_lib.graph_ids_fn()

@@ -8,6 +8,7 @@ the reference's cost model (comms.py:1-20, unchanged):
   all_gather  of n local bytes over S ranks : rx (S-1) * n
   all_to_all  of n total bytes              : tx (S-1)/S * n
   psum/pmean  (ring all-reduce) of n bytes  : 2 (S-1)/S * n
+  ppermute    of n bytes                    : n
 
 The reference counts at trace time, once per compiled step; here each
 call counts when it runs, and a call made by a backward pass counts
@@ -18,7 +19,8 @@ before a gloo collective and its result copied back, every time. Those
 copies are counted apart, under "host_staged" (both directions), which
 is not a collective and stays out of "total".
 
-``all_gather``, ``all_to_all``, ``psum`` and ``pmean`` are differentiable.
+``all_gather``, ``all_to_all``, ``psum``, ``pmean`` and ``ppermute`` are
+differentiable.
 Each backward is the reference's transpose under
 ``shard_map(check_vma=False)``, which treats every cotangent as varying
 over the ranks:
@@ -30,6 +32,7 @@ over the ranks:
                  transpose)
   psum        -> psum of the cotangent
   pmean       -> psum of the cotangent over S
+  ppermute    -> ppermute of the cotangent over the inverted pairs
 
 so that d/dw of ``pmean(w * x_g)`` is ``x_g`` on rank g, not ``x_g / S``.
 ``pmax`` has no derivative: it raises where autograd would record it, as
@@ -187,6 +190,31 @@ def _all_reduce(x: torch.Tensor, group, kind: str, op,
     return _from_wire(w, x, direction)
 
 
+def _ppermute(x: torch.Tensor, group, perm, direction: str) -> torch.Tensor:
+    """Rank ``src`` of each (src, dst) pair of ``perm`` (group-local
+    indices) sends its ``x`` to rank ``dst``; a rank that no pair sends to
+    gets zeros. One ``batch_isend_irecv`` of this rank's sends and
+    receives; a rank in no pair posts nothing."""
+    S, me = group_size(group), dist.get_rank(group)
+    w = _to_wire(x, group, direction)
+    out = torch.zeros_like(w)
+    ops = []
+    for src, dst in perm:
+        if src == dst == me:
+            out.copy_(w)
+        elif src == me:
+            ops.append(dist.P2POp(dist.isend, w,
+                                  dist.get_global_rank(group, dst), group))
+        elif dst == me:
+            ops.append(dist.P2POp(dist.irecv, out,
+                                  dist.get_global_rank(group, src), group))
+    if ops:
+        for req in dist.batch_isend_irecv(ops):
+            req.wait()
+    _log("ppermute", S, _nbytes(x), direction)
+    return _from_wire(out, x, direction)
+
+
 def _sum_scatter(g: torch.Tensor, group, direction: str) -> torch.Tensor:
     """[S, *shape] on every rank -> this rank's [*shape]: the sum over
     ranks j of row (this rank) of j's ``g``."""
@@ -238,6 +266,19 @@ class _PSum(torch.autograd.Function):
         return (y / S if ctx.mean else y), None, None
 
 
+class _PPermute(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group, perm):
+        ctx.group, ctx.perm = group, perm
+        return _ppermute(x, group, perm, FORWARD)
+
+    @staticmethod
+    def backward(ctx, g):
+        back = [(dst, src) for src, dst in ctx.perm]
+        return (_ppermute(g.contiguous(), ctx.group, back, BACKWARD), None,
+                None)
+
+
 def all_gather(x: torch.Tensor, group) -> torch.Tensor:
     """[S, *x.shape]: row i is rank i's ``x`` (the reference's
     ``jax.lax.all_gather(x, axis)``)."""
@@ -259,6 +300,22 @@ def psum(x: torch.Tensor, group) -> torch.Tensor:
 def pmean(x: torch.Tensor, group) -> torch.Tensor:
     """The mean of every rank's ``x``."""
     return _PSum.apply(x, group, True)
+
+
+def ppermute(x: torch.Tensor, group, perm) -> torch.Tensor:
+    """Rank ``dst`` gets rank ``src``'s ``x`` for each ``(src, dst)`` pair
+    of ``perm`` (indices within ``group``), and zeros where no pair sends
+    to it (the reference's ``jax.lax.ppermute(x, axis, perm)``). Every
+    rank of the group passes the same ``perm``; no index may be a source,
+    or a destination, twice."""
+    S = group_size(group)
+    perm = [(int(s), int(d)) for s, d in perm]
+    for end in (0, 1):
+        seen = [p[end] for p in perm]
+        if len(set(seen)) != len(seen) or any(not 0 <= i < S for i in seen):
+            raise ValueError(f"ppermute: {perm} is not a permutation of "
+                             f"the group's {S} ranks")
+    return _PPermute.apply(x, group, tuple(perm))
 
 
 def pmax(x: torch.Tensor, group) -> torch.Tensor:
