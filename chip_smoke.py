@@ -8,12 +8,15 @@ Phases, in order; any failure propagates and the exit code is not 0:
   1. device   card name, count and nvidia-smi's name and power limit;
               TF32 off for matmuls and cuDNN
   2. build    nvcc builds euler_tpu_torch/csrc/fan_draw.cu and
-              gather_rows.cu, and g++ the native host core, all from this
-              checkout and all at once; beside them one more nvcc build of
-              each .cu with -Xptxas -v logs every kernel's registers,
-              shared memory and spills, by mangled name. With --parent DIR (a copy of the
-              parent commit's tree, e.g. from git archive), the parent's
-              two kernels are built from DIR too
+              gather_rows.cu, and g++ the native host core
+              (euler_tpu_torch/csrc/euler_core.cc), all from this
+              checkout and all at once; the run fails unless the core
+              loaded from the package's own source, and the build: line
+              names that source and its library; beside them one more
+              nvcc build of each .cu with -Xptxas -v logs every kernel's
+              registers, shared memory and spills, by mangled name. With
+              --parent DIR (a copy of the parent commit's tree, e.g. from
+              git archive), the parent's two kernels are built from DIR too
   3. kernel   fan_draw against its plain PyTorch version at the two hop
               shapes of the path (B=1024, C=25) and (B=26,624, C=10), a
               ragged B, one draw (1, 1), more draws than lanes (333, 50),
@@ -5419,8 +5422,13 @@ def main() -> int:
             b.result()
         ptxas = {n: r.result() for n, r in reports.items()}
     build_s = time.perf_counter() - t0
+    check(native.available(), f"native host core built from {native.SRC}")
+    check(os.path.commonpath([native.SRC, PACKAGE_DIR]) == PACKAGE_DIR,
+          f"native host core source {native.SRC} lies in {PACKAGE_DIR}")
     log(f"build: {build_s:.1f} s (fan_draw.cu and gather_rows.cu by nvcc, "
-        f"sm_90a); native host core loaded: {native.available()}")
+        f"sm_90a); native host core loaded: {native.available()}, from "
+        f"{os.path.relpath(native.SRC)} into "
+        f"{os.path.relpath(native.get_lib()._name)}")
     log(f"ptxas: {json.dumps(ptxas)}")
     parent = load_parent(args.parent) if args.parent else None
 

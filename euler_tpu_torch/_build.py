@@ -1,7 +1,10 @@
 """Build a native source into a shared library under build/euler_tpu_torch/.
 
-The library's file name carries a hash of the source and the compile
-command, so a changed source builds anew and an unchanged one is reused.
+The library's file name carries a hash of the source, the compile command
+and each file the source names in a quoted ``#include "..."`` found
+beside it (one level deep: the includes of those files are not followed),
+so a changed source or header builds anew and an unchanged one is reused.
+
 Each build writes a private temporary file and ``os.replace``s it into
 place, so processes that race on a first build (pytest-xdist workers)
 never load a half-written library.
@@ -10,6 +13,7 @@ from __future__ import annotations
 
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import threading
@@ -22,6 +26,23 @@ BUILD_DIR = os.path.join(REPO_ROOT, "build", "euler_tpu_torch")
 #: C interface (no PyTorch headers), position-independent
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC"]
+_QUOTED_INCLUDE = re.compile(rb'^\s*#\s*include\s*"([^"]+)"', re.MULTILINE)
+
+
+def source_digest(src: str, cmd: Sequence[str]) -> str:
+    """16 hex digits over the source, the command and the quoted includes
+    found beside the source; a source without such includes hashes as its
+    text and the command alone."""
+    with open(src, "rb") as f:
+        text = f.read()
+    h = hashlib.sha256(text + "\0".join(cmd).encode())
+    here = os.path.dirname(os.path.abspath(src))
+    for name in _QUOTED_INCLUDE.findall(text):
+        path = os.path.join(here, name.decode())
+        if os.path.isfile(path):
+            with open(path, "rb") as f:
+                h.update(b"\0" + name + b"\0" + f.read())
+    return h.hexdigest()[:16]
 
 
 def build_shared_library(src: str, stem: str, cmd: Sequence[str],
@@ -31,10 +52,7 @@ def build_shared_library(src: str, stem: str, cmd: Sequence[str],
     Raises ``subprocess.CalledProcessError`` (with the compiler's output
     in ``stderr``) or ``OSError`` when the build fails.
     """
-    with open(src, "rb") as f:
-        digest = hashlib.sha256(
-            f.read() + "\0".join(cmd).encode()).hexdigest()[:16]
-    out = os.path.join(BUILD_DIR, f"lib{stem}-{digest}.so")
+    out = os.path.join(BUILD_DIR, f"lib{stem}-{source_digest(src, cmd)}.so")
     if os.path.exists(out):
         return out
     os.makedirs(BUILD_DIR, exist_ok=True)

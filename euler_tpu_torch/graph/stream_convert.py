@@ -380,9 +380,10 @@ def convert_edge_list(path: str, out_dir: str, n_partitions: int = 1,
     weight 1) — the ogbn edge-list shape.
 
     The line loop parses through the native core when available
-    (csrc/euler_core.cc etpu_parse_edge_list, two-pass parallel scan:
-    a Python loop tops out ~1M lines/s, hours at papers100M scale);
-    Python fallback otherwise, same skip/comment contract."""
+    (euler_tpu_torch/csrc/euler_core.cc etpu_parse_edge_list, two-pass
+    parallel scan: a Python loop tops out ~1M lines/s, hours at
+    papers100M scale); Python fallback otherwise, same skip/comment
+    contract."""
     w = StreamWriter(out_dir, n_partitions, **kw)
 
     if _native.get_lib() is not None and delimiter in (None, "\t", " ",

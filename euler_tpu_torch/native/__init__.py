@@ -1,1 +1,2 @@
-"""Native host core of the port (ctypes over csrc/euler_core.cc)."""
+"""Native host core of the port (ctypes over the package's own
+csrc/euler_core.cc)."""

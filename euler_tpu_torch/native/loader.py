@@ -1,12 +1,14 @@
-"""ctypes binding for the native host core (csrc/euler_core.cc, unchanged).
+"""ctypes binding for the port's native host core (csrc/euler_core.cc).
 
-The port's own loader: it compiles the repository's ``csrc/euler_core.cc``
-with g++ into ``build/euler_tpu_torch/`` (never into the JAX package) on
-first use, and binds the three host builders the graph store needs (the
-CSR build and the two alias-table builders) and the edge-list parser of
-the streaming converter. When g++ or the source is
-missing, ``get_lib()`` returns None and the callers fall back to their
-numpy implementations; ``available()`` says which path is in use.
+The port's own loader over its own source: it compiles
+``euler_tpu_torch/csrc/euler_core.cc`` with g++ into
+``build/euler_tpu_torch/`` beside the package on first use, and binds the
+three host builders the graph store needs (the CSR build and the two
+alias-table builders) and the edge-list parser of the streaming
+converter. The source ships inside the package, so a missing one is a
+broken install and ``get_lib()`` raises ``FileNotFoundError``. When g++
+fails, ``get_lib()`` returns None and the callers fall back to their numpy
+implementations; ``available()`` says which path is in use.
 """
 from __future__ import annotations
 
@@ -17,9 +19,9 @@ import threading
 
 import numpy as np
 
-from euler_tpu_torch._build import REPO_ROOT, build_shared_library
+from euler_tpu_torch._build import PACKAGE_DIR, build_shared_library
 
-SRC = os.path.join(REPO_ROOT, "csrc", "euler_core.cc")
+SRC = os.path.join(PACKAGE_DIR, "csrc", "euler_core.cc")
 _CMD = ["g++", "-O3", "-shared", "-fPIC", "-pthread", "-std=c++17"]
 
 _lock = threading.Lock()
@@ -28,14 +30,18 @@ _tried = False
 
 
 def get_lib():
-    """Load (compiling if needed) the native core; None if unavailable."""
+    """Load (compiling if needed) the native core; None when g++ fails.
+
+    Raises ``FileNotFoundError`` when the package's source is missing.
+    """
     global _lib, _tried
     with _lock:
         if _lib is not None or _tried:
             return _lib
-        _tried = True
         if not os.path.exists(SRC):
-            return None
+            raise FileNotFoundError(
+                f"the port's native core source is missing: {SRC}")
+        _tried = True
         try:
             lib = ctypes.CDLL(build_shared_library(SRC, "euler_core", _CMD))
         except (OSError, subprocess.SubprocessError):
@@ -59,7 +65,8 @@ def get_lib():
 
 
 def available() -> bool:
-    """True when the native core compiled and loaded."""
+    """True when the native core compiled and loaded, False when g++
+    failed (the numpy path is in use)."""
     return get_lib() is not None
 
 
