@@ -39,6 +39,7 @@ from euler_tpu_torch.models.kg import rank_all_entities
 from euler_tpu_torch.ops import COUNTED, feature_ops, sampling
 from euler_tpu_torch.utils import metrics as metrics_lib
 from euler_tpu_torch.utils.hooks import LoggingHook, ProfilerHook
+from euler_tpu_torch.utils.trace import span
 
 
 #: a model input: node ids, [B, 3] triples, or a dict of tensors
@@ -167,26 +168,31 @@ class TrainLoop:
         self.graph = graph
 
     def __call__(self) -> torch.Tensor:
-        if not self.graphed:
-            for _ in range(self.steps):
-                loss = self._step()
-            return loss
-        replays = self.steps
-        if self.graph is None:
-            self._capture()            # its warm-up is this loop's first
-            replays -= 1
-        for _ in range(replays):
-            self.graph.replay()
-        for k in COUNTED:
-            k.launches += self.held[k.__name__] * replays
-        return self.loss.clone()
+        with span("loop"):
+            if not self.graphed:
+                for _ in range(self.steps):
+                    loss = self._step()
+                return loss
+            replays = self.steps
+            if self.graph is None:
+                with span("loop.capture"):
+                    self._capture()    # its warm-up is this loop's first
+                replays -= 1
+            for _ in range(replays):
+                with span("loop.replay"):
+                    self.graph.replay()
+            for k in COUNTED:
+                k.launches += self.held[k.__name__] * replays
+            return self.loss.clone()
 
 
 class BaseEstimator:
     """Generic run loops; subclasses provide the batch source.
 
     The model is an ``nn.Module`` whose ``forward(g, batch, generator=,
-    uniforms=)`` returns a dict with at least ``loss``.
+    uniforms=)`` returns a dict with at least ``loss``. ``requests``
+    counts the calls of ``infer``; each call's spans carry its count as
+    their request id (``utils.trace``).
     """
 
     def __init__(self, model: torch.nn.Module, graph: Graph,
@@ -195,6 +201,7 @@ class BaseEstimator:
         self.model = model
         self.graph = graph
         self.config = config
+        self.requests = 0
         self._restore_checked = False
         for what, dev in (("graph", graph.tensors.device),
                           ("model", next(model.parameters()).device)):
@@ -214,13 +221,17 @@ class BaseEstimator:
         """One optimizer step on ``batch`` (a tensor, or a dict of tensors
         for the models that take one); returns the loss as a 0-d tensor
         on the device (reading it waits for the card)."""
-        self.model.train()
-        optimizer.zero_grad(set_to_none=True)
-        out = self.model(self.graph.tensors, batch, generator=generator,
-                         uniforms=uniforms)
-        out["loss"].backward()
-        optimizer.step()
-        return out["loss"].detach()
+        with span("step"):
+            self.model.train()
+            optimizer.zero_grad(set_to_none=True)
+            with span("forward"):
+                out = self.model(self.graph.tensors, batch,
+                                 generator=generator, uniforms=uniforms)
+            with span("backward"):
+                out["loss"].backward()
+            with span("optimizer"):
+                optimizer.step()
+            return out["loss"].detach()
 
     def train(self, total_steps: Optional[int] = None,
               log_fn: Callable = print) -> Dict[str, float]:
@@ -330,16 +341,19 @@ class BaseEstimator:
         with the returned count."""
         B = self.config.batch_size
         n = len(ids)
-        pad = (-n) % B
-        padded = np.concatenate(
-            [ids, np.full((pad,) + ids.shape[1:], -1, ids.dtype)])
-        gen = torch.Generator(device=self.device)
-        gen.manual_seed(self.config.seed + 2)
+        with span("infer.pad"):
+            pad = (-n) % B
+            padded = np.concatenate(
+                [ids, np.full((pad,) + ids.shape[1:], -1, ids.dtype)])
+            gen = torch.Generator(device=self.device)
+            gen.manual_seed(self.config.seed + 2)
         g = self.graph.tensors
         outs = []
         for i in range(0, len(padded), B):
-            batch = torch.from_numpy(padded[i:i + B]).to(self.device)
-            outs.append(fn(g, batch, gen))
+            with span("infer.h2d"):
+                batch = torch.from_numpy(padded[i:i + B]).to(self.device)
+            with span("forward"):
+                outs.append(fn(g, batch, gen))
         return outs, n
 
     def _check_ids(self, ids: np.ndarray) -> None:
@@ -382,21 +396,25 @@ class BaseEstimator:
         """Embeddings for ids (for an ``EdgeEstimator``, [T, 3] triples,
         whose node columns are checked); optionally written as
         embedding_{worker}.npy + ids_{worker}.npy."""
-        ids = np.asarray(ids, np.int32)
-        self._check_ids(ids)
-        nodes = ids[:, :2] if ids.ndim == 2 else ids
-        n_nodes = self.graph.meta.n_nodes
-        if nodes.size and (nodes.min() < -1 or nodes.max() >= n_nodes):
-            raise ValueError(f"ids must lie in [0, {n_nodes}) (or be -1)")
-        self._restore()
+        self.requests += 1
+        with span("infer", request=self.requests):
+            ids = np.asarray(ids, np.int32)
+            self._check_ids(ids)
+            nodes = ids[:, :2] if ids.ndim == 2 else ids
+            n_nodes = self.graph.meta.n_nodes
+            if nodes.size and (nodes.min() < -1 or nodes.max() >= n_nodes):
+                raise ValueError(
+                    f"ids must lie in [0, {n_nodes}) (or be -1)")
+            self._restore()
 
-        def embed(g, batch, gen):
-            return self.model(g, batch, generator=gen)["embedding"]
+            def embed(g, batch, gen):
+                return self.model(g, batch, generator=gen)["embedding"]
 
-        self.model.eval()
-        with torch.no_grad():
-            outs, n = self._batched_apply(ids, embed)
-            emb = torch.cat(outs)[:n].cpu().numpy()
+            self.model.eval()
+            with torch.no_grad():
+                outs, n = self._batched_apply(ids, embed)
+                with span("infer.d2h"):
+                    emb = torch.cat(outs)[:n].cpu().numpy()
         if out_dir:
             os.makedirs(out_dir, exist_ok=True)
             np.save(os.path.join(out_dir, f"embedding_{worker}.npy"), emb)
@@ -578,8 +596,11 @@ class GraphEstimator(BaseEstimator):
 
     def infer(self, graph_ids: Sequence[int], out_dir: Optional[str] = None,
               worker: int = 0) -> np.ndarray:
-        outs, n = self._run(graph_ids, lambda o: o["embedding"])
-        emb = torch.cat(outs)[:n].cpu().numpy()
+        self.requests += 1
+        with span("infer", request=self.requests):
+            outs, n = self._run(graph_ids, lambda o: o["embedding"])
+            with span("infer.d2h"):
+                emb = torch.cat(outs)[:n].cpu().numpy()
         if out_dir:
             os.makedirs(out_dir, exist_ok=True)
             np.save(os.path.join(out_dir, f"embedding_{worker}.npy"), emb)

@@ -17,6 +17,7 @@ from euler_tpu_torch.graph.store import GraphTensors
 from euler_tpu_torch.ops import feature_ops, mp_ops
 from euler_tpu_torch.ops.dispatch import is_shard_view
 from euler_tpu_torch.ops.gather_rows import gather_rows
+from euler_tpu_torch.utils.trace import span
 
 
 class ShallowEncoder(nn.Module):
@@ -73,19 +74,22 @@ class ShallowEncoder(nn.Module):
             # each owner answers its rows through gather_rows
             parts = feature_ops.get_dense_feature(g, n_id, self.dense_names)
             return torch.cat(parts, dim=-1)
-        tables = [g.dense_nf[n] for n in self.dense_names]
-        flat = n_id.reshape(-1).to(torch.int32).contiguous()
-        dtypes = {t.dtype for t in tables}
-        if len(dtypes) == 1:
-            out = torch.empty((flat.shape[0], sum(t.shape[1] for t in tables)),
-                              dtype=tables[0].dtype, device=flat.device)
-            off = 0
-            for t in tables:
-                gather_rows(t, flat, out, off)
-                off += t.shape[1]
-        else:
-            out = torch.cat([gather_rows(t, flat) for t in tables], dim=-1)
-        return out.reshape(tuple(n_id.shape) + (out.shape[1],))
+        with span("gather"):
+            tables = [g.dense_nf[n] for n in self.dense_names]
+            flat = n_id.reshape(-1).to(torch.int32).contiguous()
+            dtypes = {t.dtype for t in tables}
+            if len(dtypes) == 1:
+                out = torch.empty(
+                    (flat.shape[0], sum(t.shape[1] for t in tables)),
+                    dtype=tables[0].dtype, device=flat.device)
+                off = 0
+                for t in tables:
+                    gather_rows(t, flat, out, off)
+                    off += t.shape[1]
+            else:
+                out = torch.cat([gather_rows(t, flat) for t in tables],
+                                dim=-1)
+            return out.reshape(tuple(n_id.shape) + (out.shape[1],))
 
     def _sparse(self, g: GraphTensors, n_id: torch.Tensor, name: str,
                 table: Embed) -> torch.Tensor:

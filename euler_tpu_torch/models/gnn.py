@@ -22,6 +22,7 @@ from euler_tpu_torch.graph.store import GraphTensors
 from euler_tpu_torch.models import convs as convs_lib
 from euler_tpu_torch.models.encoders import Embed
 from euler_tpu_torch.ops import feature_ops, sampling, util_ops
+from euler_tpu_torch.utils.trace import span
 
 
 class GNNNet(nn.Module):
@@ -79,7 +80,9 @@ class GNNNet(nn.Module):
     def forward(self, g: GraphTensors, roots: torch.Tensor,
                 generator: Optional[torch.Generator] = None,
                 uniforms: Optional[Sequence] = None) -> torch.Tensor:
-        blocks = self.flow(g, roots, generator=generator, uniforms=uniforms)
+        with span("dataflow"):
+            blocks = self.flow(g, roots, generator=generator,
+                               uniforms=uniforms)
         if self.dedup_features and blocks[0].ell_tpos is None:
             x = util_ops.unique_gather(lambda ids: self.feature(g, ids),
                                        blocks[0].n_id)
@@ -93,7 +96,9 @@ class GNNNet(nn.Module):
             kw = {}
             if self.relation_from_etype:
                 kw["edge_attr"] = block.e_type.clamp_min(0)
-            x = torch.relu(conv((x[: block.size[0]], x), block, **kw))
+            with span("conv"):
+                h = conv((x[: block.size[0]], x), block, **kw)
+            x = torch.relu(h)
             if self.dtype is not None:
                 x = x.to(self.dtype)
         x = _pick_roots(x, roots)
@@ -238,10 +243,11 @@ class SuperviseModel(nn.Module):
         (label,) = feature_ops.get_dense_feature(g, roots, [self.label_name])
         label = label[:, : self.label_dim]
         emb = self.embedder(g, roots, generator=generator, uniforms=uniforms)
-        logit = self.head_fc(emb)
-        valid = (roots >= 0).to(torch.float32)[:, None]
-        xent = _sigmoid_xent(logit, label) * valid
-        loss = xent.sum() / (valid.sum() * self.label_dim).clamp_min(1.0)
+        with span("head"):
+            logit = self.head_fc(emb)
+            valid = (roots >= 0).to(torch.float32)[:, None]
+            xent = _sigmoid_xent(logit, label) * valid
+            loss = xent.sum() / (valid.sum() * self.label_dim).clamp_min(1.0)
         return dict(embedding=emb, logit=logit, label=label, loss=loss,
                     valid=valid)
 

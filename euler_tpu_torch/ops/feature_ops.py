@@ -28,6 +28,7 @@ import torch
 from euler_tpu_torch.graph.store import GraphTensors
 from euler_tpu_torch.ops.dispatch import is_shard_view as _is_shard_view
 from euler_tpu_torch.ops.gather_rows import gather_rows
+from euler_tpu_torch.utils.trace import span
 
 
 def _sharded():
@@ -65,9 +66,10 @@ def _sparse(tables, ids, names) -> List[Tuple[torch.Tensor, torch.Tensor]]:
 def get_dense_feature(g: GraphTensors, nodes: torch.Tensor,
                       names: Sequence[str]) -> List[torch.Tensor]:
     """Dense (float) node features; [*, dim] per name."""
-    if _is_shard_view(g):
-        return _sharded().get_dense_feature_sharded(g, nodes, names)
-    return [_take_rows(g.dense_nf[n], nodes) for n in names]
+    with span("gather"):
+        if _is_shard_view(g):
+            return _sharded().get_dense_feature_sharded(g, nodes, names)
+        return [_take_rows(g.dense_nf[n], nodes) for n in names]
 
 
 def get_sparse_feature(g: GraphTensors, nodes: torch.Tensor,

@@ -9,11 +9,14 @@ torch.distributed's.
 """
 from __future__ import annotations
 
+import contextlib
 import os
 import time
 from typing import Callable, Optional
 
 import torch
+
+from euler_tpu_torch.utils import trace
 
 
 class LoggingHook:
@@ -59,6 +62,13 @@ class ProfilerHook:
     at or past ``start + steps``, so under ``steps_per_loop`` the window
     rounds to loop boundaries. (The reference starts at ``start``
     exactly.)
+
+    Tracing (``utils.trace``) is on while it records, so the trace shows
+    the port's spans (``loop``, ``step``, ``forward``, ``conv``, ...) as
+    host annotations beside the kernels they launched: the operator's
+    view of which layer a kernel or an idle stretch of the card belongs
+    to (``RunConfig.profile``). The hook drops its list of spans when it
+    closes.
     """
 
     def __init__(self, out_dir: str = "prof_dir", start: int = 10,
@@ -67,6 +77,7 @@ class ProfilerHook:
         self.start = start
         self.stop = start + steps
         self._prof = None
+        self._tracing = contextlib.ExitStack()
         self._done = False
 
     def __call__(self, step: int, *_):
@@ -76,6 +87,7 @@ class ProfilerHook:
                 acts.append(torch.profiler.ProfilerActivity.CUDA)
             self._prof = torch.profiler.profile(activities=acts)
             self._prof.start()
+            self._tracing.enter_context(trace.recording())
         elif self._prof is not None and step >= self.stop:
             self.close()
 
@@ -84,6 +96,7 @@ class ProfilerHook:
         if self._prof is None:
             return
         prof, self._prof, self._done = self._prof, None, True
+        self._tracing.close()
         if torch.cuda.is_available():
             torch.cuda.synchronize()
         prof.stop()
