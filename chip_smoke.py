@@ -7,8 +7,8 @@ Phases, in order; any failure propagates and the exit code is not 0:
 
   1. device   card name, count and nvidia-smi's name and power limit;
               TF32 off for matmuls and cuDNN
-  2. build    nvcc builds euler_tpu_torch/csrc/fan_draw.cu and
-              gather_rows.cu, and g++ the native host core
+  2. build    nvcc builds euler_tpu_torch/csrc/fan_draw.cu,
+              gather_rows.cu and ell_agg.cu, and g++ the native host core
               (euler_tpu_torch/csrc/euler_core.cc), all from this
               checkout and all at once; the run fails unless the core
               loaded from the package's own source, and the build: line
@@ -99,15 +99,20 @@ Phases, in order; any failure propagates and the exit code is not 0:
               f32) on random_graph(100_000, 25, feat_dim=128,
               n_classes=16, seed=0, packs=("ell",)), whose ELL pack must be
               53 wide with a 49-wide transpose: infer of 8192 ids (16
-              gather_rows launches, no fan_draw) and two batches
-              profiled; one step on the card and on the CPU (blocks
+              gather_rows and 16 ell_agg launches, no fan_draw) and two
+              batches profiled; one step on the card and on the CPU (blocks
               equal, loss and every gradient within 1e-4); the forward on
               the ELL pack against the edge list on the card (within
-              1e-4); 8 train steps over every node (2 gather_rows launches
-              a step, losses finite, peak memory) and two profiled;
-              _ell_agg alone (forward, and the backward to x) in bf16 and
-              f32 beside its bytes bound and, in f32, torch.sparse.mm; two
-              steps of the bench's bf16 model profiled, with peak memory
+              1e-4); 8 train steps over every node (2 gather_rows and 3
+              ell_agg launches a step, losses finite, peak memory) and two
+              profiled; ops.ell_agg alone in both modes (forward, and the
+              transpose that is the gradient to x) at D = 128 and 256 in
+              bf16 and f32, held to its plain version, beside its bytes
+              bound, the plain version's time and, in f32, torch.sparse.mm,
+              on this graph's block and on the gcn-train cell's (the
+              benchmark's own graph, benchmark/configs/gcn.json: 169,343
+              nodes, C = C_in = 36); two steps of the bench's bf16 model
+              profiled, with peak memory
  12c. transe bench.py's transe mode (f32) on random_graph(100_000, 25,
               seed=0, num_edge_types=16, packs=()), whose edge alias
               tables (17 type offsets) must be on the card: sample_edge
@@ -190,8 +195,9 @@ Phases, in order; any failure propagates and the exit code is not 0:
               (128, 128), f32, on phase 12b's graph, each: the forward on
               the ELL pack against the edge list on the card (within
               1e-4); 2 train steps over every node (0 + 2 launches a
-              step) with their time and peak memory, two more profiled, a
-              loop of 2 steps replayed and timed; one step card vs CPU
+              step, and WHOLE_ELL_AGG ell_agg launches) with their time
+              and peak memory, two more profiled, a loop of 2 steps
+              replayed and timed; one step card vs CPU
               (loss and every gradient within 1e-4) on a 10,000-node
               graph of the same kind
  12i. walk    sage with dedup_features=True on the graph of phase 5: its
@@ -417,9 +423,9 @@ Phases, in order; any failure propagates and the exit code is not 0:
               also at gcn's shape, fan_draw's launch floor, its paths'
               crossover and its union shapes, each kernel's launches on
               every path, the mesh's shapes in serving and in a train
-              step, the 1M-node bench's shapes, the entry forward's and
-              ptxas figures), then the last line {"ok": true, "device":
-              {...}}
+              step, the 1M-node bench's shapes, the entry forward's,
+              ell_agg's times of 12b and ptxas figures), then the last
+              line {"ok": true, "device": {...}}
 
 Phases 12c, 12d, 12e, 12f, 12h, the dedup part of 12i, 12l, 14 and 15
 run after 12 in that order, then the walk part of 12i, 12j, 12b, 12g,
@@ -485,6 +491,7 @@ from euler_tpu_torch.models import (DGI, GAE, LINE, VGAE, DeepWalk,
                                     encoders, kg)
 from euler_tpu_torch.native import loader as native
 from euler_tpu_torch.ops import COUNTED
+from euler_tpu_torch.ops import ell_agg as ell_ops
 from euler_tpu_torch.ops import fan_draw as fd
 from euler_tpu_torch.ops import feature_ops
 from euler_tpu_torch.ops import index as index_ops
@@ -517,12 +524,46 @@ TRAIN_STEPS, TRAIN_REFRESH = 8, 3
 # the widths of random_graph(100_000, 25, seed=0)'s ELL pack
 GCN_NODES = bench.GCN_SIZES["cuda"][0]
 GCN_C, GCN_C_IN = 53, 49
+# the ELL widths of the benchmark's gcn-train graph (C and C_in alike)
+GCN_CELL_C = 36
+# ell_agg launches a step of the bench's gcn (GCN_LAYERS convs): a forward
+# aggregate a layer (all an inference batch makes), and a gradient to x in
+# every layer but the first, whose x is the feature table
+GCN_ELL_STEP = 2 * bench.GCN_LAYERS - 1
 # bench.py's transe mode: its graph and batch, the ranking's triples and
 # batch (trap: [batch, N, 100] f32 scores), the known triples of the
 # filtered setting, the triples served
 TRANSE_NODES, TRANSE_BATCH = bench.TRANSE_SIZES["cuda"][:2]
 RANK_TRIPLES, RANK_BATCH, FILTER_TRIPLES = 64, 64, 100_000
 KG_FAMILY = (kg.TransH, kg.TransR, kg.TransD, kg.DistMult)
+
+
+def kernel_counts(fan_draw: int = 0, gather_rows: int = 0,
+                  ell_agg: int = 0) -> dict:
+    """Launches of each kernel wrapper in ``ops.COUNTED``, by name, as
+    ``read_counts`` gives them; a kernel not named launches none."""
+    return dict(fan_draw=fan_draw, gather_rows=gather_rows, ell_agg=ell_agg)
+
+
+# an ell_agg result against its plain version on the same inputs: the
+# largest distance as a share of the sum of magnitudes (``ell_agg_gap``).
+# f32: the order of the sums alone; bf16: the plain version rounds three
+# times (its batched product, x * w_l, their sum), the kernel once
+ELL_AGG_TOL = {torch.float32: 1e-5, torch.bfloat16: 2.0 ** -6}
+
+
+def ell_agg_gap(out: torch.Tensor, args: tuple) -> float:
+    """``out`` of ``ell_agg(*args)`` against ``ell_agg_plain(*args)``: the
+    largest |out - plain| over the plain aggregate of |x| and |w|, which
+    bounds every partial sum of the row."""
+    x, index, w_s, w_l, C, transpose = args
+    plain = ell_ops.ell_agg_plain(*args).float()
+    mag = ell_ops.ell_agg_plain(x.abs(), index, w_s.abs(), w_l.abs(), C,
+                                transpose).float()
+    return float(((out.float() - plain).abs()
+                  / mag.clamp_min(1e-30)).max())
+
+
 # unsupervised GraphSAGE (examples/graphsage/run_graphsage.py's fanouts):
 # a step embeds B roots, B positives and B * 20 negatives; it launches
 # fan_draw for the positive hop and 2 hops in each of 3 tower calls, and
@@ -531,7 +572,7 @@ UNSUP_FANOUTS, UNSUP_NEGS = [10, 10], 20
 UNSUP_ROOTS = BATCH * (2 + UNSUP_NEGS)
 UNSUP_EDGES_PER_BATCH = UNSUP_ROOTS * (
     UNSUP_FANOUTS[0] * (2 + UNSUP_FANOUTS[1]) + 1)
-UNSUP_LAUNCHES = dict(fan_draw=1 + 2 * 3, gather_rows=3)
+UNSUP_LAUNCHES = kernel_counts(fan_draw=1 + 2 * 3, gather_rows=3)
 
 
 def reset_counts() -> None:
@@ -1047,7 +1088,7 @@ def phase_infer(model, graph, out_dir, dev, want=None,
     torch.cuda.synchronize()
     infer_s = time.perf_counter() - t0
     launches = read_counts()
-    want = want or dict(fan_draw=2 * N_INFER // BATCH,
+    want = want or kernel_counts(fan_draw=2 * N_INFER // BATCH,
                         gather_rows=2 * N_INFER // BATCH)
     check(launches == want, f"launches in infer {launches}, want {want}")
     check(emb.shape == (N_INFER, DIMS[-1]), f"embedding shape {emb.shape}")
@@ -1317,7 +1358,7 @@ def phase_train(model, graph, dev, seed: int = 0, per_step=None):
     torch.cuda.synchronize()
     train_s = time.perf_counter() - t0
     launches = read_counts()
-    per_step = per_step or dict(fan_draw=2, gather_rows=2)
+    per_step = per_step or kernel_counts(fan_draw=2, gather_rows=2)
     want = {k: n * TRAIN_STEPS for k, n in per_step.items()}
     check(launches == want, f"launches in train {launches}, want {want}")
     check(bool(np.isfinite(res["loss"])), f"train loss {res['loss']}")
@@ -1450,81 +1491,112 @@ def gcn_step(model, g, roots) -> tuple:
                                  for k, p in m.named_parameters()}
 
 
-def ell_agg_inputs(model, g, roots):
-    """The first gcn layer's ``_ell_agg`` arguments at full width, as
-    ``GCNConv`` hands them over: (C, w_s, w_l, nbr, tpos) with the
-    sym-norm scale and the mask folded into the weights."""
-    blk = model.embedder.flow(g, roots)[0]
-    norm_i, norm_j = convs._deg_inv_sqrt(blk)
-    scale = convs._edge_scale(blk.gather_tgt(norm_i),
-                              blk.gather_src(norm_j), blk.mask)
+def ell_agg_inputs(blk):
+    """A gcn layer's ``_ell_agg`` arguments over the whole-graph block
+    ``blk``, as ``GCNConv`` hands them over: (C, w_s, w_l, nbr, tpos)
+    with the sym-norm scale and the mask folded into the weights."""
+    scale = convs._sym_scale(blk)
     return (blk.fanout, *blk.ell_weights(None, scale), blk.ell_tpos)
 
 
-def time_ell_agg(model, g, roots, dev) -> list:
-    """``_ell_agg`` alone at the first gcn layer's shapes, bf16 and f32:
-    the forward and the backward that gcn's second layer runs (grad_x
-    only), CUDA events with L2 flushed, each beside its bytes bound (each
-    input read once, each output written once). In f32 also the forward
-    of one library call computing the same product, torch.sparse.mm of
-    the weighted CSR adjacency (self loops on its diagonal) by x, held
-    against the forward within 1e-4."""
+def gcn_cell_block(dev):
+    """The gcn-train cell's whole-graph ELL block on the card: the
+    benchmark's own graph (benchmark/configs/gcn.json: ogbn-arxiv's
+    169,343 nodes and 2,332,486 directed edges from graph seed 0), built
+    by its harness as a run builds it, one block over every node."""
+    from benchmark.harness.supervised import build_graph
+    with open(os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                           "benchmark", "configs", "gcn.json")) as f:
+        cfg = json.load(f)
+    _, graph = build_graph(cfg, dev)
+    roots = torch.arange(cfg["graph"]["nodes"], dtype=torch.int32,
+                         device=dev)
+    flow = WholeDataFlow(cfg["model"]["layers"], [(0,)])
+    return flow(graph.tensors, roots)[0]
+
+
+def ell_library_adjacency(C, w_s, w_l, nbr, transpose: bool):
+    """The weighted adjacency that ``ell_agg`` applies, as a CSR matrix
+    (self loops on its diagonal), transposed for the transpose mode: the
+    operand of the library yardstick torch.sparse.mm."""
+    N = nbr.shape[0]
+    live = nbr >= 0
+    rows = torch.arange(N, device=nbr.device)[:, None].expand(N, C)
+    src = torch.stack([rows[live], nbr[live].long()])
+    if transpose:
+        src = src.flip(0)
+    idx = torch.cat([src, torch.arange(N, device=nbr.device).repeat(2, 1)],
+                    1)
+    return torch.sparse_coo_tensor(idx, torch.cat([w_s[live], w_l]),
+                                   (N, N)).coalesce().to_sparse_csr()
+
+
+def time_ell_agg(C, w_s, w_l, nbr, tpos, dev, dims=(FEAT_DIM, 256),
+                 what: str = "gcn") -> list:
+    """``ops.ell_agg`` alone on one whole-graph block's index and weights
+    (the first gcn layer's, as GCNConv hands them over), in both modes
+    (forward over nbr; transpose over tpos, the gradient to x), at each
+    width of ``dims``, bf16 and f32: CUDA-event medians with L2 flushed,
+    each beside its bytes bound (each input read once, each output
+    written once), the plain version's time and the library yardstick,
+    torch.sparse.mm of the weighted CSR adjacency (its transpose for the
+    transpose mode) by x in f32, which the port never calls. The kernel
+    is held to the plain version within ELL_AGG_TOL, and sparse.mm to the
+    kernel within 1e-4 in f32."""
     flush = torch.empty(64 << 20, dtype=torch.uint8, device=dev)
     gen = torch.Generator(device=dev).manual_seed(12)
-    C, w_s, w_l, nbr, tpos = ell_agg_inputs(model, g, roots)
     N, C_in = nbr.shape[0], tpos.shape[1]
+    adj = {tr: ell_library_adjacency(C, w_s, w_l, nbr, tr)
+           for tr in (False, True)}
     out_rows = []
-    for dtype in (torch.bfloat16, torch.float32):
-        x = torch.randn((N, FEAT_DIM), generator=gen, device=dev,
-                        dtype=dtype)
-        elt = x.element_size()
-        row = dict(dtype=str(dtype).replace("torch.", ""), N=N, C=C,
-                   C_in=C_in, D=FEAT_DIM)
-        row["fwd_ms"] = time_launches(
-            lambda: block_lib._ell_agg(C, x, w_s, w_l, nbr, tpos), 20, flush)
-        # nbr and w_s [N, C], w_l [N], x and out [N, D]
-        row["fwd_bytes"] = 8 * N * C + 4 * N + 2 * N * FEAT_DIM * elt
-        xg = x.clone().requires_grad_(True)
-        out = block_lib._ell_agg(C, xg, w_s, w_l, nbr, tpos)
-        gout = torch.randn_like(out)
-        row["bwd_x_ms"] = time_launches(
-            lambda: torch.autograd.grad(out, xg, gout, retain_graph=True),
-            20, flush)
-        # tpos [N, C_in], w_s [N, C], w_l [N], g and grad_x [N, D]
-        row["bwd_x_bytes"] = (4 * N * C_in + 4 * N * C + 4 * N
-                              + 2 * N * FEAT_DIM * elt)
-        for k in ("fwd", "bwd_x"):
-            row[f"{k}_bound_ms"] = row[f"{k}_bytes"] / HBM_BYTES_PER_S * 1e3
-        if dtype == torch.float32:
-            live = nbr >= 0
-            rows_t = torch.arange(N, device=dev)[:, None].expand(N, C)
-            idx = torch.cat([torch.stack([rows_t[live], nbr[live].long()]),
-                             torch.arange(N, device=dev).repeat(2, 1)], 1)
-            adj = torch.sparse_coo_tensor(
-                idx, torch.cat([w_s[live], w_l]), (N, N)).coalesce(
-            ).to_sparse_csr()
-            want = block_lib._ell_agg(C, x, w_s, w_l, nbr, tpos)
-            got = torch.sparse.mm(adj, x)
-            diff = float((got - want).abs().max())
-            check(torch.allclose(got, want, **PARITY_TOL),
-                  f"sparse.mm vs _ell_agg: max abs diff {diff}")
-            row["library_ms"] = time_launches(lambda: torch.sparse.mm(adj, x),
-                                              20, flush)
-            row["library_max_abs_diff"] = diff
-        out_rows.append(row)
-        log(f"gcn: ell_agg {json.dumps(row)}")
+    for D in dims:
+        for dtype in (torch.bfloat16, torch.float32):
+            x = torch.randn((N, D), generator=gen, device=dev, dtype=dtype)
+            elt = x.element_size()
+            for tr in (False, True):
+                args = (x, tpos if tr else nbr, w_s, w_l, C, tr)
+                row = dict(mode="transpose" if tr else "forward",
+                           dtype=str(dtype).replace("torch.", ""), N=N, C=C,
+                           C_in=C_in, D=D)
+                # index [N, C] or [N, C_in] and w_s [N, C] int32/f32, w_l
+                # [N], x and out [N, D]
+                row["bytes"] = (4 * N * (C_in if tr else C) + 4 * N * C
+                                + 4 * N + 2 * N * D * elt)
+                row["bound_ms"] = row["bytes"] / HBM_BYTES_PER_S * 1e3
+                got = ell_ops.ell_agg(*args)
+                row["plain_gap"] = ell_agg_gap(got, args)
+                check(row["plain_gap"] <= ELL_AGG_TOL[dtype],
+                      f"{what} ell_agg {row}: kernel vs plain")
+                row["ms"] = time_launches(lambda: ell_ops.ell_agg(*args),
+                                          20, flush)
+                row["plain_ms"] = time_launches(
+                    lambda: ell_ops.ell_agg_plain(*args), 5, flush)
+                if dtype == torch.float32:
+                    lib = torch.sparse.mm(adj[tr], x)
+                    diff = float((lib - got).abs().max())
+                    check(torch.allclose(lib, got, **PARITY_TOL),
+                          f"{what} sparse.mm vs ell_agg ({row['mode']}, "
+                          f"D {D}): max abs diff {diff}")
+                    row["library_ms"] = time_launches(
+                        lambda: torch.sparse.mm(adj[tr], x), 20, flush)
+                    row["library_max_abs_diff"] = diff
+                out_rows.append(row)
+                log(f"{what}: ell_agg {json.dumps(row)}")
+            del x
     return out_rows
 
 
 def phase_gcn(dev):
     """bench.py's gcn mode in f32 at its published width: the ELL pack's
-    widths, serving (infer of 8192 ids: 16 gather_rows launches, no
-    fan_draw) and two batches profiled, one step card vs CPU (blocks
-    equal, loss and gradients within 1e-4), the ELL layout against the
-    edge list on the card (forward within 1e-4), 8 train steps over every
-    node (2 gather_rows launches a step) with their peak memory, two
-    steps profiled, ``_ell_agg`` timed alone, and two steps of the bench's
-    own bf16 model profiled with their peak memory."""
+    widths, serving (infer of 8192 ids: 16 gather_rows and 16 ell_agg
+    launches, no fan_draw) and two batches profiled, one step card vs CPU
+    (blocks equal, loss and gradients within 1e-4), the ELL layout
+    against the edge list on the card (forward within 1e-4), 8 train
+    steps over every node (2 gather_rows and 3 ell_agg launches a step)
+    with their peak memory, two steps profiled, ``ops.ell_agg`` timed
+    alone (``time_ell_agg``), and two steps of the bench's own bf16 model
+    profiled with their peak memory; then ``ops.ell_agg`` alone on the
+    gcn-train cell's block (``gcn_cell_block``) at D = 128 and 256."""
     t0 = time.perf_counter()
     graph = random_graph(GCN_NODES, AVG_DEGREE, feat_dim=FEAT_DIM,
                          n_classes=N_CLASSES, seed=0, packs=("ell",))
@@ -1548,7 +1620,8 @@ def phase_gcn(dev):
     with tempfile.TemporaryDirectory() as out_dir:
         emb, infer = phase_infer(
             model, graph, out_dir, dev,
-            want=dict(fan_draw=0, gather_rows=2 * N_INFER // BATCH),
+            want=kernel_counts(fan_draw=0, gather_rows=2 * N_INFER // BATCH,
+                               ell_agg=bench.GCN_LAYERS * N_INFER // BATCH),
             edges_per_batch=edges)
     prof = phase_profile(model, graph, dev)
     infer.update(profile_host_ms=prof["host_ms"],
@@ -1611,7 +1684,8 @@ def phase_gcn(dev):
     torch.cuda.synchronize()
     train_s = time.perf_counter() - t0
     launches = read_counts()
-    want = dict(fan_draw=0, gather_rows=2 * TRAIN_STEPS)
+    want = kernel_counts(fan_draw=0, gather_rows=2 * TRAIN_STEPS,
+                         ell_agg=GCN_ELL_STEP * TRAIN_STEPS)
     check(launches == want, f"launches in gcn train {launches}, want {want}")
     losses = [float(x) for x in losses]
     check(bool(np.isfinite(losses).all()), f"gcn train losses {losses}")
@@ -1626,8 +1700,20 @@ def phase_gcn(dev):
                  profile_complete=prof["kernel_events_complete"])
     out["train"] = train
     log(f"gcn: train {json.dumps(train)}")
-    out["ell_agg"] = time_ell_agg(model, g, roots, dev)
+    out["ell_agg"] = time_ell_agg(
+        *ell_agg_inputs(model.embedder.flow(g, roots)[0]), dev)
     del est, opt, graph, g
+
+    # the gcn-train cell's own shapes: its graph's block, D = 128 (layer
+    # 1's features) and 256 (layers 2 and 3, and their gradients to x)
+    blk = gcn_cell_block(dev)
+    widths = (int(blk.fanout), int(blk.ell_tpos.shape[1]))
+    check(widths == (GCN_CELL_C, GCN_CELL_C),
+          f"gcn-train cell's ELL widths C, C_in = {widths}")
+    out["ell_agg_cell"] = time_ell_agg(*ell_agg_inputs(blk), dev,
+                                       dims=(FEAT_DIM, 256),
+                                       what="gcn-train")
+    del blk
 
     # the bench's own bf16 model: two steps profiled after two warm ones
     est = bench.build(dev, GCN_NODES, GCN_NODES, bench.GCN_SIZES["cuda"][1],
@@ -1644,7 +1730,9 @@ def phase_gcn(dev):
         device_idle_share=prof["device_idle_share"],
         kernels=prof["kernels"][:6],
         peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9)
-    log(f"gcn: {json.dumps({'gcn': {k: v for k, v in out.items() if k != 'ell_agg'}})}")
+    log("gcn: " + json.dumps({"gcn": {
+        k: v for k, v in out.items()
+        if k not in ("ell_agg", "ell_agg_cell")}}))
     return out
 
 
@@ -1860,7 +1948,7 @@ def phase_transe(dev):
         kernels=prof["kernels"][:6],
         peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9)
     launches = read_counts()
-    check(launches == dict(fan_draw=0, gather_rows=0),
+    check(launches == kernel_counts(fan_draw=0, gather_rows=0),
           f"launches in the transe phase {launches}, want none")
     out["launches"] = launches
     log(f"transe: {json.dumps(out)}")
@@ -2045,7 +2133,7 @@ LOOP_BENCH_MODES = ("sage", "gin", "gat", "rgcn", "gcn")
 
 
 class KernelRecorder:
-    """While active, every call of the two kernel wrappers made during a
+    """While active, every call of the kernel wrappers made during a
     CUDA graph capture (with ``eager``, every call) is recorded with its
     arguments and result. Holding them keeps the capture's tensors alive,
     so that the graph's pool gives their memory to no other tensor of the
@@ -2053,7 +2141,7 @@ class KernelRecorder:
 
     SITES = ((sampling, "fan_draw"), (encoders, "gather_rows"),
              (feature_ops, "gather_rows"), (knn, "gather_rows"),
-             (sharded, "gather_rows"))
+             (sharded, "gather_rows"), (block_lib, "ell_agg"))
 
     def __init__(self, eager: bool = False):
         self.calls, self.eager = [], eager
@@ -2080,12 +2168,15 @@ class KernelRecorder:
     def check_plain(self, what: str) -> dict:
         """Each recorded launch against its plain version on what it read
         (in a capture: in the last replay), bit for bit (gathered rows as
-        integers); the number of launches checked per kernel."""
+        integers; ell_agg within ELL_AGG_TOL); the number of launches
+        checked per kernel."""
         n = {k.__name__: 0 for k in COUNTED}
         for name, args, kwargs, out in self.calls:
             if name == "fan_draw":
                 want = fd.fan_draw_plain(*args, **kwargs)
                 ok = all(torch.equal(a, b) for a, b in zip(out, want))
+            elif name == "ell_agg":
+                ok = ell_agg_gap(out, args) <= ELL_AGG_TOL[out.dtype]
             else:
                 table, ids = args[:2]
                 off = args[3] if len(args) > 3 else kwargs.get(
@@ -2269,10 +2360,11 @@ def loop_bench(mode: str, dev, built=None) -> dict:
     if mode == "gcn":
         n_nodes, spl, _ = bench.GCN_SIZES["cuda"]
         batch = n_nodes
-        per_step = dict(fan_draw=0, gather_rows=2)
+        per_step = kernel_counts(fan_draw=0, gather_rows=2,
+                                 ell_agg=GCN_ELL_STEP)
     else:
         n_nodes, batch, spl, _ = bench.SIZES["cuda"]
-        per_step = dict(fan_draw=2, gather_rows=2)
+        per_step = kernel_counts(fan_draw=2, gather_rows=2)
     if built is None:
         graphed = bench.build(dev, n_nodes, batch, spl, mode)
     else:
@@ -2380,7 +2472,7 @@ def phase_loop(graph, dev) -> dict:
     def gnn(family):
         return lambda: bench.make_model(
             family, dev, generator=torch.Generator().manual_seed(0))
-    two = dict(fan_draw=2, gather_rows=2)
+    two = kernel_counts(fan_draw=2, gather_rows=2)
     for i, family in enumerate(("sage", "gin", "gat")):
         out[family] = loop_family(family, node_est(gnn(family), graph),
                                   graph, dev, two, BATCH, 40 + i)
@@ -2397,14 +2489,15 @@ def phase_loop(graph, dev) -> dict:
     whole = random_graph(GCN_NODES, AVG_DEGREE, feat_dim=FEAT_DIM,
                          n_classes=N_CLASSES, seed=0, packs=("ell",))
     out["gcn"] = loop_family("gcn", node_est(gnn("gcn"), whole), whole, dev,
-                             dict(fan_draw=0, gather_rows=2), BATCH, 45)
+                             kernel_counts(fan_draw=0, gather_rows=2,
+                                           ell_agg=GCN_ELL_STEP), BATCH, 45)
     del whole
     kg_graph = random_graph(TRANSE_NODES, AVG_DEGREE, seed=0,
                             num_edge_types=bench.TRANSE_RELATIONS, packs=())
     out["transe"] = loop_family(
         "transe", lambda cfg: EdgeEstimator(kg_model(kg.TransE, dev),
                                             kg_graph, cfg, device=dev),
-        kg_graph, dev, dict(fan_draw=0, gather_rows=0), TRANSE_BATCH, 46)
+        kg_graph, dev, kernel_counts(), TRANSE_BATCH, 46)
     del kg_graph
     out["bench"], sage_bench = {}, None
     for mode in LOOP_BENCH_MODES:
@@ -2448,7 +2541,8 @@ def phase_convs(graph, dev) -> dict:
         del model
         loop = loop_family(
             conv, lambda cfg: NodeEstimator(make(), graph, cfg, device=dev),
-            graph, dev, dict(fan_draw=2, gather_rows=2), BATCH, 50 + i)
+            graph, dev, kernel_counts(fan_draw=2, gather_rows=2), BATCH,
+            50 + i)
         out[conv] = dict(infer=infer, grads=grads, loop=loop,
                          seconds=time.perf_counter() - t1)
         log(f"conv {conv}: {json.dumps(dict(infer=infer, grads=grads))}")
@@ -2465,6 +2559,10 @@ def phase_convs(graph, dev) -> dict:
 WHOLE_CONVS = ("tag", "sgcn", "agnn", "appnp", "arma")
 WHOLE_CHECK_NODES = 10_000
 WHOLE_STEPS = 2
+# each conv's ell_agg launches a step over WholeDataFlow(GCN_LAYERS): its
+# forward aggregates (tag 3 hops a layer, appnp 10) and the gradients to
+# x of those whose x takes one
+WHOLE_ELL_AGG = dict(tag=9, sgcn=3, agnn=3, appnp=20, arma=4)
 
 
 def whole_model(conv: str, dev, layout: str = "auto") -> SuperviseModel:
@@ -2525,7 +2623,8 @@ def phase_whole(dev) -> dict:
         torch.cuda.synchronize()
         step_ms = (time.perf_counter() - t2) / WHOLE_STEPS * 1e3
         launches = read_counts()
-        want = dict(fan_draw=0, gather_rows=2 * WHOLE_STEPS)
+        want = kernel_counts(fan_draw=0, gather_rows=2 * WHOLE_STEPS,
+                             ell_agg=WHOLE_ELL_AGG[conv] * WHOLE_STEPS)
         check(launches == want,
               f"whole {conv}: launches {launches}, want {want}")
         check(bool(np.isfinite(losses).all()), f"whole {conv}: {losses}")
@@ -2543,7 +2642,8 @@ def phase_whole(dev) -> dict:
         torch.cuda.synchronize()
         replay_ms = (time.perf_counter() - t2) / 4 * 1e3
         held = dict(loop.held)
-        check(held == dict(fan_draw=0, gather_rows=2),
+        check(held == kernel_counts(fan_draw=0, gather_rows=2,
+                                    ell_agg=WHOLE_ELL_AGG[conv]),
               f"whole {conv}: a replay holds {held}")
         del loop, est, opt
 
@@ -2643,7 +2743,8 @@ def phase_encoder(graph, dev) -> dict:
             f"encoder_{comb}",
             lambda cfg, comb=comb: NodeEstimator(encoder_model(dev, comb),
                                                  tagged, cfg, device=dev),
-            tagged, dev, dict(fan_draw=2, gather_rows=2), BATCH, 70 + i,
+            tagged, dev, kernel_counts(fan_draw=2, gather_rows=2), BATCH,
+            70 + i,
             optimizer="sgd")
         out[comb] = dict(grads=grads, loop=loop)
         log(f"encoder {comb}: grads {json.dumps(grads)}")
@@ -2667,7 +2768,7 @@ WALK_DIM, WALK_LEN, WALK_NEGS, WALK_CAP = 64, 5, 8, 64
 WALK_P, WALK_Q = 0.5, 2.0
 WALK_MODELS = ("deepwalk", "node2vec", "line1", "line2")
 WALK_SPL, WALK_EVAL = 10, 4096
-NO_LAUNCHES = dict(fan_draw=0, gather_rows=0)
+NO_LAUNCHES = kernel_counts(fan_draw=0, gather_rows=0)
 # draws of one step from the hub, and the most rows of a near tie
 HUB_DRAWS, NEAR_TIE_SHARE = 200_000, 1e-3
 
@@ -3045,7 +3146,8 @@ def phase_dedup(graph, dev) -> dict:
     loop = loop_family("sage_dedup",
                        lambda cfg: NodeEstimator(make(), graph, cfg,
                                                  device=dev),
-                       graph, dev, dict(fan_draw=2, gather_rows=2), BATCH,
+                       graph, dev,
+                       kernel_counts(fan_draw=2, gather_rows=2), BATCH,
                        90)
     out = dict(embedding_equal=True, loop=loop,
                seconds=time.perf_counter() - t0)
@@ -3303,7 +3405,7 @@ def rest_loop(name: str, graph, dev, seed: int) -> dict:
     t_start = time.perf_counter()
     g = graph.tensors
     fan, gat = REST_LAUNCHES[name]
-    per_step = dict(fan_draw=fan, gather_rows=gat)
+    per_step = kernel_counts(fan_draw=fan, gather_rows=gat)
     bs = MOTIF_BATCH if name.startswith("gin_") else BATCH
     cfg = RunConfig(batch_size=bs, total_steps=REST_SPL,
                     learning_rate=bench.LR, log_steps=0,
@@ -3661,8 +3763,8 @@ def phase_data(dev) -> dict:
     scripts."""
     t_start = time.perf_counter()
     out = {}
-    fan_step = dict(fan_draw=2, gather_rows=2)
-    no_fan = dict(fan_draw=0, gather_rows=2)
+    fan_step = kernel_counts(fan_draw=2, gather_rows=2)
+    no_fan = kernel_counts(fan_draw=0, gather_rows=2)
     with tempfile.TemporaryDirectory() as root:
         gdir = os.path.join(root, "graph")
         d = data_input()
@@ -3823,7 +3925,7 @@ def query_phase(graph, dev) -> dict:
             torch.cuda.synchronize()
             launches = read_counts()
         checked = rec.check_plain(f"query {name}")
-        check(launches == dict(fan_draw=0, gather_rows=gathers)
+        check(launches == kernel_counts(fan_draw=0, gather_rows=gathers)
               and checked["gather_rows"] == gathers,
               f"query {name}: launches {launches}, want {gathers} "
               f"gather_rows and no fan_draw")
@@ -3846,7 +3948,7 @@ def query_phase(graph, dev) -> dict:
         layer = q.run(generator=gen)["_frontier"]
         torch.cuda.synchronize()
         launches = read_counts()
-    check(launches == dict(fan_draw=0, gather_rows=0),
+    check(launches == kernel_counts(fan_draw=0, gather_rows=0),
           f"query sampleLNB launches {launches}")
     near = rep.check_layers(on["plain"][1])
     out["sampleLNB"] = dict(launches=launches, ms=time_query(q, gen),
@@ -3961,8 +4063,8 @@ def ivf_phase(graph, dev) -> dict:
                   "ivf search: one gather_rows launch a batch")
             del rec
     out["launches"] = read_counts()
-    check(out["launches"] == dict(fan_draw=0,
-                                  gather_rows=IVF_QUERIES // IVF_BATCH),
+    check(out["launches"] == kernel_counts(
+              gather_rows=IVF_QUERIES // IVF_BATCH),
           f"ivf launches {out['launches']}")
     out["ms_per_256_queries"] = statistics.median(ms)
     out[f"nprobe_{IVF_NPROBE}"] = ivf_recall(queries, emb,
@@ -4049,17 +4151,18 @@ def phase_bench(dev):
         f"first mode")
     for mode in bench.MODELS:
         if mode == "transe":
-            want = dict(fan_draw=0, gather_rows=0)
+            want = kernel_counts(fan_draw=0, gather_rows=0)
             metric = bench.TRANSE_METRIC
         elif mode == "gcn":
             _, spl, outer = bench.GCN_SIZES["cuda"]
             steps = spl * (2 + outer)
-            want = dict(fan_draw=0, gather_rows=2 * steps)
+            want = kernel_counts(fan_draw=0, gather_rows=2 * steps,
+                                 ell_agg=GCN_ELL_STEP * steps)
             metric = bench.GCN_METRIC
         else:
             _, _, spl, outer = bench.SIZES["cuda"]
             steps = spl * (2 + outer)
-            want = dict(fan_draw=2 * steps, gather_rows=2 * steps)
+            want = kernel_counts(fan_draw=2 * steps, gather_rows=2 * steps)
             metric = bench.METRIC
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
@@ -4153,10 +4256,11 @@ def tools_bench(dev, smi: str) -> dict:
             records = bench.run(dev, log=log, model="sage",
                                 nodes=TOOLS_NODES, dedup=dedup)
         launches = read_counts()
-        check(launches == dict(fan_draw=2 * steps, gather_rows=2 * steps),
+        check(launches == kernel_counts(fan_draw=2 * steps,
+                                        gather_rows=2 * steps),
               f"launches in the 1M-node bench ({key}) {launches}")
         checked_n = rec.check_plain(f"the 1M-node bench ({key})")
-        check(checked_n == dict(fan_draw=2, gather_rows=2),
+        check(checked_n == kernel_counts(fan_draw=2, gather_rows=2),
               f"the 1M-node bench's captured launches {checked_n}")
         config = f"b{batch}_f25x10_n{TOOLS_NODES}"
         check(len(records) == 3 and all(
@@ -4238,13 +4342,14 @@ def tools_scaling(link_bytes_per_s: float, smi: str) -> dict:
         rec, ranks = run["record"], run["ranks"]
         check(len(ranks) == rec["devices"], f"scaling {rec['mesh']} ranks")
         for r in ranks:
-            check(r["launches"] == dict(fan_draw=2 * SCALING_STEPS,
-                                        gather_rows=2 * SCALING_STEPS),
+            check(r["launches"] == kernel_counts(
+                      fan_draw=2 * SCALING_STEPS,
+                      gather_rows=2 * SCALING_STEPS),
                   f"scaling {rec['mesh']} rank {r['rank']} launches "
                   f"{r['launches']}")
-            check(r["probe"]["checked"] == dict(fan_draw=2, gather_rows=2)
-                  and r["probe"]["launches"] == dict(fan_draw=2,
-                                                     gather_rows=2),
+            two = kernel_counts(fan_draw=2, gather_rows=2)
+            check(r["probe"]["checked"] == two
+                  and r["probe"]["launches"] == two,
                   f"scaling {rec['mesh']} rank {r['rank']} probe "
                   f"{r['probe']}")
             check(r["forward"] == ranks[0]["forward"],
@@ -4436,7 +4541,7 @@ def graft_entry_forward(dev) -> dict:
         loss, logit = fn(model, g, roots, uniforms)
     torch.cuda.synchronize()
     launches = read_counts()
-    check(launches == {"fan_draw": 2, "gather_rows": 2},
+    check(launches == kernel_counts(fan_draw=2, gather_rows=2),
           f"entry: launches {launches}")
     checked = rec.check_plain("entry forward")
     u_cpu = [tuple(u.cpu() for u in hop) for hop in uniforms]
@@ -4473,11 +4578,12 @@ def graft_dryrun(n: int, backend: str, smi: str) -> dict:
     tag = f"{backend}{n}"
     ranks = res["ranks"]
     for r in ranks:
-        want = {"fan_draw": 2, "gather_rows": 2}
+        want = kernel_counts(fan_draw=2, gather_rows=2)
         check(r["launches"] == want and r["probe"]["launches"] == want
               and r["probe"]["checked"] == want
-              and r["loop_launches"] == {"fan_draw": 4, "gather_rows": 4}
-              and r["walk_launches"] == {"fan_draw": 0, "gather_rows": 0},
+              and r["loop_launches"] == kernel_counts(fan_draw=4,
+                                                      gather_rows=4)
+              and r["walk_launches"] == kernel_counts(),
               f"graft {tag} rank {r['rank']}: launches {r['launches']}, "
               f"{r['loop_launches']}, {r['walk_launches']}, probe "
               f"{r['probe']['launches']}")
@@ -4621,7 +4727,7 @@ def mesh_serve(work: str, tag: str, mesh, view, t0: float,
         out = apply(view, batch, uniforms=u_all)
     torch.cuda.synchronize()
     res["launches"] = read_counts()
-    check(res["launches"] == {"fan_draw": 2, "gather_rows": 2},
+    check(res["launches"] == kernel_counts(fan_draw=2, gather_rows=2),
           f"mesh rank {rank}: launches {res['launches']}, want 2 + 2")
     res["checked_plain"] = rec.check_plain(f"mesh rank {rank}")
     res["max_abs_err"] = {k: float((out[k] - want[k]).abs().max())
@@ -4654,8 +4760,8 @@ def mesh_serve(work: str, tag: str, mesh, view, t0: float,
     res["batch_ms"] = ms
     res["batch_ms_median"] = statistics.median(ms)
     res["timed_launches"] = read_counts()
-    check(res["timed_launches"] == {"fan_draw": 2 * MESH_BATCHES,
-                                    "gather_rows": 2 * MESH_BATCHES},
+    check(res["timed_launches"] == kernel_counts(
+              fan_draw=2 * MESH_BATCHES, gather_rows=2 * MESH_BATCHES),
           f"mesh rank {rank}: {res['timed_launches']} in {MESH_BATCHES} "
           f"batches")
     stage("timed")
@@ -5012,7 +5118,7 @@ def mesh_train_serve(work: str, tag: str, mesh, view, t0: float,
             loss = step(view, ids=ids[t], uniforms=U[t])
         torch.cuda.synchronize()
         launches.append(read_counts())
-        check(launches[-1] == {"fan_draw": 2, "gather_rows": 2},
+        check(launches[-1] == kernel_counts(fan_draw=2, gather_rows=2),
               f"mesh train rank {rank}: launches {launches[-1]}")
         losses.append(float(loss))
     res["launches"] = launches[0]
@@ -5038,8 +5144,9 @@ def mesh_train_serve(work: str, tag: str, mesh, view, t0: float,
           for i in range(MESH_TRAIN_TIMED)]
     res["step_ms"], res["step_ms_median"] = ms, statistics.median(ms)
     res["timed_launches"] = read_counts()
-    check(res["timed_launches"] == {"fan_draw": 2 * MESH_TRAIN_TIMED,
-                                    "gather_rows": 2 * MESH_TRAIN_TIMED},
+    check(res["timed_launches"] == kernel_counts(
+              fan_draw=2 * MESH_TRAIN_TIMED,
+              gather_rows=2 * MESH_TRAIN_TIMED),
           f"mesh train rank {rank}: {res['timed_launches']}")
     if rank == 0:
         prof = profile(lambda: step(view, seed=300),
@@ -5064,8 +5171,9 @@ def mesh_train_serve(work: str, tag: str, mesh, view, t0: float,
     torch.cuda.synchronize()
     res["estimator"] = dict(loss=out["loss"], launches=read_counts(),
                             seconds=time.perf_counter() - t_est)
-    check(np.isfinite(out["loss"]) and res["estimator"]["launches"] == {
-        "fan_draw": 2 * MESH_EST_STEPS, "gather_rows": 2 * MESH_EST_STEPS},
+    check(np.isfinite(out["loss"])
+          and res["estimator"]["launches"] == kernel_counts(
+              fan_draw=2 * MESH_EST_STEPS, gather_rows=2 * MESH_EST_STEPS),
         f"mesh train rank {rank}: estimator {res['estimator']}")
     return res
 
@@ -5110,7 +5218,7 @@ def mesh_transe_rank(work: str, mesh, dev) -> dict:
     with kr:
         loss = float(step(view, ids=triples, uniforms=u))
     launches = read_counts()
-    check(launches == {"fan_draw": 0, "gather_rows": 0},
+    check(launches == kernel_counts(fan_draw=0, gather_rows=0),
           f"mesh transe rank {mesh.rank}: launches {launches}, want none")
     kr.check_plain(f"mesh transe rank {mesh.rank}")
     with torch.no_grad():
@@ -5146,7 +5254,7 @@ def mesh_gcn_rank(work: str, mesh, dev) -> dict:
     with kr:
         loss = float(step(view, ids=roots))
     launches = read_counts()
-    check(launches == {"fan_draw": 0, "gather_rows": 2},
+    check(launches == kernel_counts(fan_draw=0, gather_rows=2),
           f"mesh gcn rank {mesh.rank}: launches {launches}, want 0 + 2")
     checked = kr.check_plain(f"mesh gcn rank {mesh.rank}")
     check(checked == launches,
@@ -5414,10 +5522,11 @@ def main() -> int:
     # 2. build: the nvcc builds, their -Xptxas -v twins and g++, all
     # started together
     t0 = time.perf_counter()
-    with concurrent.futures.ThreadPoolExecutor(5) as ex:
-        builds = [ex.submit(f) for f in (fd.build, gr.build, native.get_lib)]
+    with concurrent.futures.ThreadPoolExecutor(7) as ex:
+        builds = [ex.submit(f) for f in (fd.build, gr.build, ell_ops.build,
+                                         native.get_lib)]
         reports = {n: ex.submit(ptxas_report, n)
-                   for n in ("fan_draw", "gather_rows")}
+                   for n in ("fan_draw", "gather_rows", "ell_agg")}
         for b in builds:
             b.result()
         ptxas = {n: r.result() for n, r in reports.items()}
@@ -5425,7 +5534,8 @@ def main() -> int:
     check(native.available(), f"native host core built from {native.SRC}")
     check(os.path.commonpath([native.SRC, PACKAGE_DIR]) == PACKAGE_DIR,
           f"native host core source {native.SRC} lies in {PACKAGE_DIR}")
-    log(f"build: {build_s:.1f} s (fan_draw.cu and gather_rows.cu by nvcc, "
+    log(f"build: {build_s:.1f} s (fan_draw.cu, gather_rows.cu and "
+        f"ell_agg.cu by nvcc, "
         f"sm_90a); native host core loaded: {native.available()}, from "
         f"{os.path.relpath(native.SRC)} into "
         f"{os.path.relpath(native.get_lib()._name)}")
@@ -5723,6 +5833,23 @@ def main() -> int:
         "gather_1m": tools["bench"]["gather_1m"],
         # entry()'s forward: 1,152 feature rows from [256, 16], 32 labels
         "entry_shapes": entry_shapes("gather_rows"),
+    }, {
+        "name": "ell_agg", "route": "cuda",
+        "source": "euler_tpu_torch/csrc/ell_agg.cu",
+        # no TPU kernel: the reference's _ell_agg is jnp left to XLA
+        "replaces": None,
+        # phase 12b's 8 f32 gcn steps: 3 a step
+        "launches": gcn["train"]["launches"]["ell_agg"],
+        "launches_by_path": by_path("ell_agg"),
+        "bit_exact": False,
+        "max_plain_gap": max(r["plain_gap"] for r in
+                             gcn["ell_agg"] + gcn["ell_agg_cell"]),
+        "bound_by": "bytes",
+        "ptxas": ptxas["ell_agg"],
+        # both modes at D = 128 and 256, bf16 and f32 (time_ell_agg), on
+        # bench.py's gcn graph (N 100,000) and the gcn-train cell's
+        # (N 169,343)
+        "shapes": gcn["ell_agg"] + gcn["ell_agg_cell"],
     }]
     log(json.dumps({"smoke": dict(
         build_s=build_s, graph_s=graph_s,

@@ -11,13 +11,14 @@ never load a half-written library.
 """
 from __future__ import annotations
 
+import ctypes
 import hashlib
 import os
 import re
 import shutil
 import subprocess
 import threading
-from typing import Sequence
+from typing import Dict, List, Sequence
 
 PACKAGE_DIR = os.path.dirname(os.path.abspath(__file__))
 REPO_ROOT = os.path.dirname(PACKAGE_DIR)
@@ -80,3 +81,23 @@ def build_cuda_library(name: str) -> str:
     """Build ``csrc/<name>.cu`` of the package with nvcc; return the path."""
     src = os.path.join(PACKAGE_DIR, "csrc", f"{name}.cu")
     return build_shared_library(src, name, [nvcc()] + NVCC_FLAGS)
+
+
+_loaded: Dict[str, ctypes.CDLL] = {}
+_load_lock = threading.Lock()
+
+
+def load_cuda_library(name: str, functions: Dict[str, List]) -> ctypes.CDLL:
+    """``csrc/<name>.cu`` built (first call, or after the source changed)
+    and loaded with ctypes, each C function named in ``functions`` given
+    those argument types and an int result; later calls return the same
+    handle. Raises if nvcc fails."""
+    with _load_lock:
+        lib = _loaded.get(name)
+        if lib is None:
+            lib = ctypes.CDLL(build_cuda_library(name))
+            for fn, argtypes in functions.items():
+                getattr(lib, fn).argtypes = argtypes
+                getattr(lib, fn).restype = ctypes.c_int
+            _loaded[name] = lib
+        return lib

@@ -40,17 +40,17 @@
 //
 // Byte offsets are int64: row * D * elt passes 2^31 on a
 // papers100M-sized table.
-#include <atomic>
 #include <cstdint>
 
 #include <cuda_runtime.h>
+
+#include "resident_blocks.cuh"
 
 namespace {
 
 constexpr int kTile = 32;       // ids per tile
 constexpr int kUnroll = 8;      // loads in flight per lane
 constexpr int kThreads = 256;   // threads per block
-constexpr int kMaxDevices = 64;  // devices whose occupancy is remembered
 constexpr unsigned kAll = 0xffffffffu;
 
 // V is the word one lane moves: uint4 (16 bytes) on the aligned path,
@@ -118,34 +118,6 @@ gather_rows_kernel(const V* __restrict__ table, int64_t n_rows,
   }
 }
 
-// Blocks of gather_rows_kernel<V> that the current device runs at once:
-// asked of the runtime on the first launch on each device, then
-// remembered, so that a launch makes no query beyond cudaGetDevice.
-template <typename V>
-int64_t resident_blocks() {
-  static std::atomic<int64_t> known[kMaxDevices];
-  int dev = 0;
-  if (cudaGetDevice(&dev) != cudaSuccess) dev = -1;
-  const bool keep = dev >= 0 && dev < kMaxDevices;
-  if (keep) {
-    const int64_t got = known[dev].load(std::memory_order_relaxed);
-    if (got > 0) return got;
-  }
-  int sms = 0, per_sm = 0;
-  if (cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev) !=
-          cudaSuccess || sms <= 0) {
-    sms = 132;  // H100 SXM; only sizes the grid
-  }
-  if (cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-          &per_sm, gather_rows_kernel<V>, kThreads, 0) != cudaSuccess ||
-      per_sm <= 0) {
-    per_sm = 1;
-  }
-  const int64_t n = static_cast<int64_t>(sms) * per_sm;
-  if (keep) known[dev].store(n, std::memory_order_relaxed);
-  return n;
-}
-
 // A grid for `tiles` tiles of kThreads / 32 warps a block: as many blocks
 // as there are tiles for a warp each, up to what the device runs at once,
 // and then as many as give every block the same number of rounds.
@@ -153,7 +125,8 @@ template <typename V>
 unsigned balanced_blocks(int64_t tiles) {
   constexpr int64_t per_block = kThreads / 32;
   const int64_t want = (tiles + per_block - 1) / per_block;
-  const int64_t cap = resident_blocks<V>();
+  const int64_t cap =
+      etpu::resident_blocks<gather_rows_kernel<V>, kThreads>();
   if (want <= cap) return static_cast<unsigned>(want);
   const int64_t rounds = (want + cap - 1) / cap;
   return static_cast<unsigned>((want + rounds - 1) / rounds);

@@ -39,6 +39,7 @@ from typing import Optional, Tuple
 import torch
 
 from euler_tpu_torch.ops import mp_ops
+from euler_tpu_torch.ops.ell_agg import ell_agg, ell_rows
 from euler_tpu_torch.ops.sampling import as_etypes, etype_tensor
 from euler_tpu_torch.parallel import comms
 
@@ -424,27 +425,20 @@ def ell_expand(x: torch.Tensor, n_id: torch.Tensor,
     return _EllExpand.apply(x, n_id, tpos)
 
 
-def _ell_rows(x: torch.Tensor, nbr: torch.Tensor) -> torch.Tensor:
-    """x[nbr] [N, C, D], rows of pads (-1) exactly 0: a gather from x with
-    a zero row appended, in one pass over the output."""
-    xz = torch.cat([x, x.new_zeros((1,) + tuple(x.shape[1:]))])
-    return xz[torch.where(nbr >= 0, nbr, x.shape[0]).long()]
-
-
 class _EllAgg(torch.autograd.Function):
     """euler_tpu/dataflow/block.py ``_ell_agg`` (:399-443) and its VJP.
-    Each weighted sum over cells is a batched product ([1, C] by
-    [C, D] a row) over the gathered rows, so no weighted copy of them is
-    made. Saves x, not the [N, C, D] rows: the backward gathers them
-    again where it needs them. Each gradient is computed only where its
-    input asks for one (``needs_input_grad``)."""
+    The forward and the gradient to x are ``ops.ell_agg`` (the CUDA
+    kernel on the card, its plain version on the CPU), forward and
+    transpose, which never build the [N, C, D] rows on the card. Saves x,
+    not the rows: only ``grad_w_s`` gathers them again, in f32. Each
+    gradient is computed only where its input asks for one
+    (``needs_input_grad``)."""
 
     @staticmethod
     def forward(ctx, C, x, w_s, w_l, nbr, tpos):
         ctx.save_for_backward(x, w_s, w_l, nbr, tpos)
         ctx.C = C
-        out = torch.einsum("tc,tcd->td", w_s.to(x.dtype), _ell_rows(x, nbr))
-        return out + x * w_l[:, None].to(x.dtype)
+        return ell_agg(x.contiguous(), nbr, w_s, w_l, C, False)
 
     @staticmethod
     def backward(ctx, g):
@@ -452,18 +446,11 @@ class _EllAgg(torch.autograd.Function):
         need_x, need_ws, need_wl = ctx.needs_input_grad[1:4]
         grad_x = grad_ws = grad_wl = None
         if need_x:
-            n = g.shape[0]
-            tp = tpos.long()
-            gv = g[torch.div(tp, ctx.C, rounding_mode="floor").clamp(
-                0, n - 1)]                                    # [N, C_in, D]
-            wv = torch.where(tpos >= 0,
-                             w_s.reshape(-1)[tp.clamp(0, w_s.numel() - 1)],
-                             0.0)
-            grad_x = (torch.einsum("tc,tcd->td", wv.to(g.dtype), gv)
-                      + g * w_l[:, None].to(g.dtype)).to(x.dtype)
+            grad_x = ell_agg(g.contiguous(), tpos, w_s, w_l, ctx.C,
+                             True).to(x.dtype)
         if need_ws:
             grad_ws = torch.einsum("td,tcd->tc", g.float(),
-                                   _ell_rows(x, nbr).float()).to(w_s.dtype)
+                                   ell_rows(x, nbr).float()).to(w_s.dtype)
         if need_wl:
             grad_wl = torch.einsum("td,td->t", g.float(),
                                    x.float()).to(w_l.dtype)

@@ -18,36 +18,23 @@ no fallback from the kernel to the plain version.
 from __future__ import annotations
 
 import ctypes
-import threading
 
 import torch
 
-from euler_tpu_torch._build import build_cuda_library
+from euler_tpu_torch._build import load_cuda_library
 from euler_tpu_torch.ops.alias import (FAN_ALIAS_OFF, FAN_D, FAN_KEPT_OFF,
                                        FAN_LANES, FAN_PROB_OFF, FANU_MASK,
                                        FANU_SHIFT)
 
-_lock = threading.Lock()
-_lib = None
-
-
 def build():
-    """Build (first call, or after the source changed) and load the
-    kernel library; returns the ctypes handle. Raises if nvcc fails."""
-    global _lib
-    with _lock:
-        if _lib is None:
-            lib = ctypes.CDLL(build_cuda_library("fan_draw"))
-            vp, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
-            args = [vp, i64, vp, i64, i32, i32, i32, vp, vp, i32, vp, vp, vp,
-                    i32, vp]
-            lib.etpu_fan_draw.argtypes = args
-            lib.etpu_fan_draw.restype = ctypes.c_int
-            # the same draw with its path named (chip_smoke.py times both)
-            lib.etpu_fan_draw_path.argtypes = args + [i32]
-            lib.etpu_fan_draw_path.restype = ctypes.c_int
-            _lib = lib
-        return _lib
+    """The kernel library's ctypes handle (``load_cuda_library``);
+    ``etpu_fan_draw_path`` is the same draw with its path named
+    (chip_smoke.py times both)."""
+    vp, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
+    args = [vp, i64, vp, i64, i32, i32, i32, vp, vp, i32, vp, vp, vp, i32,
+            vp]
+    return load_cuda_library("fan_draw", {"etpu_fan_draw": args,
+                                          "etpu_fan_draw_path": args + [i32]})
 
 
 def _check(fan_pack, nodes, et, num_edge_types, u1, u2, union):

@@ -19,32 +19,19 @@ wrapper raises for a table that requires grad.
 from __future__ import annotations
 
 import ctypes
-import threading
 from typing import Optional
 
 import torch
 
-from euler_tpu_torch._build import build_cuda_library
+from euler_tpu_torch._build import load_cuda_library
 
 DTYPES = (torch.float32, torch.bfloat16)
 
-_lock = threading.Lock()
-_lib = None
-
-
 def build():
-    """Build (first call, or after the source changed) and load the
-    kernel library; returns the ctypes handle. Raises if nvcc fails."""
-    global _lib
-    with _lock:
-        if _lib is None:
-            lib = ctypes.CDLL(build_cuda_library("gather_rows"))
-            vp, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
-            lib.etpu_gather_rows.argtypes = [vp, i64, i64, i32, vp, i64, vp,
-                                             i64, i64, vp]
-            lib.etpu_gather_rows.restype = ctypes.c_int
-            _lib = lib
-        return _lib
+    """The kernel library's ctypes handle (``load_cuda_library``)."""
+    vp, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
+    return load_cuda_library("gather_rows", {"etpu_gather_rows": [
+        vp, i64, i64, i32, vp, i64, vp, i64, i64, vp]})
 
 
 def _check(table, ids, out, col_offset):

@@ -78,6 +78,7 @@ from euler_tpu_torch.estimator import (EdgeEstimator, NodeEstimator,
 from euler_tpu_torch.models import (LINE, DeepWalk, GNNNet, Node2Vec,
                                     ShallowEncoder, SuperviseModel, TransE,
                                     UnsuperviseModel)
+from euler_tpu_torch.ops import ell_agg as ell
 from euler_tpu_torch.ops import fan_draw as fd
 from euler_tpu_torch.ops import gather_rows as gr
 from euler_tpu_torch.ops import mp_ops, sampling
@@ -409,6 +410,113 @@ def test_ell_agg_on_card_matches_cpu(dev):
                                    atol=1e-4)
 
 
+def ell_case(dev, N, C, D, dtype, seed):
+    """Inputs of both modes of ``ops.ell_agg``: x and a cotangent g [N, D];
+    nbr [N, C] about 40% live with the pads interleaved; tpos [N, C_in]
+    the transpose positions of every live cell, pads interleaved too and
+    C_in past 32 where C is; then a tenth of the live cells dropped from
+    nbr (weight 0) but kept in tpos, as an edge-type filter of the pack
+    leaves them. Row 0 is all pads; row 1 is all pads, no cell reads
+    node 1 and its w_l is 0, so its result is 0 in both modes; row 2 has
+    every cell live."""
+    rng = np.random.default_rng(seed)
+    nbr = rng.integers(2, N, (N, C)).astype(np.int32)
+    nbr[rng.random((N, C)) < 0.6] = -1
+    nbr[:2] = -1
+    nbr[2] = rng.integers(2, N, C)
+    into = [[] for _ in range(N)]
+    for p in np.flatnonzero(nbr.reshape(-1) >= 0):
+        into[nbr.flat[p]].append(p)
+    C_in = max(len(c) for c in into) + 3
+    tpos = np.full((N, C_in), -1, np.int32)
+    for u, cells in enumerate(into):
+        tpos[u, np.sort(rng.choice(C_in, len(cells), replace=False))] = cells
+    drop = (nbr >= 0) & (rng.random((N, C)) < 0.1)
+    drop[2] = False
+    nbr[drop] = -1
+    w_s = (rng.random((N, C)) * (nbr >= 0)).astype(np.float32)
+    w_l = rng.random(N).astype(np.float32)
+    w_l[1] = 0.0
+    x, g = (torch.from_numpy(rng.normal(size=(N, D)).astype(np.float32))
+            .to(dev, dtype) for _ in range(2))
+    return dict(x=x, g=g, nbr=torch.from_numpy(nbr).to(dev),
+                tpos=torch.from_numpy(tpos).to(dev),
+                w_s=torch.from_numpy(w_s).to(dev),
+                w_l=torch.from_numpy(w_l).to(dev))
+
+
+def ell_exact(x, index, w_s, w_l, C, transpose):
+    """The exact aggregate (f64 on the CPU) of x and the weights rounded
+    to x's type, and the same over their magnitudes, which bounds every
+    partial sum."""
+    r = [w.to(x.dtype).double().cpu() for w in (w_s, w_l)]
+    x64, idx = x.double().cpu(), index.cpu()
+    return (ell.ell_agg_plain(x64, idx, *r, C, transpose),
+            ell.ell_agg_plain(x64.abs(), idx, *(w.abs() for w in r), C,
+                              transpose))
+
+
+@pytest.mark.parametrize("transpose", [False, True])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("D", [1, 20, 40, 128, 256])
+@pytest.mark.parametrize("C", [5, 36, 70])
+def test_ell_agg_kernel_matches_plain(dev, C, D, dtype, transpose):
+    """The kernel within one rounding of the exact sum (f32 sums in
+    another order: 1e-5 of the sum of magnitudes; bf16 adds half an ulp
+    of the result, its one rounding), and within a stated tolerance of
+    the plain version on the card: f32 1e-5 of the magnitudes (summation
+    order alone); bf16 2^-6 of them, since the plain version rounds to
+    bf16 three times (its batched product, x * w_l, their sum), each
+    within half an ulp of a partial sum, where the kernel rounds once."""
+    a = ell_case(dev, 500, C, D, dtype, seed=C * 1000 + D)
+    x, index = (a["g"], a["tpos"]) if transpose else (a["x"], a["nbr"])
+    args = (x, index, a["w_s"], a["w_l"], C, transpose)
+    before = ell.ell_agg.launches
+    got = ell.ell_agg(*args)
+    torch.cuda.synchronize()
+    assert ell.ell_agg.launches == before + 1
+    assert got.dtype == dtype and got.shape == x.shape
+    plain = ell.ell_agg_plain(*args).double().cpu()
+    exact, mag = ell_exact(*args)
+    got = got.double().cpu()
+    half_ulp = 2.0 ** -8 if dtype == torch.bfloat16 else 2.0 ** -24
+    assert bool(((got - exact).abs()
+                 <= half_ulp * exact.abs() + 1e-5 * mag).all())
+    tol = 2.0 ** -6 if dtype == torch.bfloat16 else 1e-5
+    assert bool(((got - plain).abs() <= tol * mag + 1e-30).all())
+    assert bool((got[1] == 0).all())                    # no cell, w_l 0
+
+
+def test_ell_agg_kernel_edges(dev, monkeypatch):
+    """Rows without cells (width 0, forward and transpose), a table whose
+    address is not 16-byte aligned (the element path at D = 128), and no
+    plain version on a CUDA tensor."""
+    def boom(*a, **k):
+        raise AssertionError("the plain ell_agg ran on a CUDA tensor")
+    a = ell_case(dev, 300, 36, 128, torch.float32, seed=9)
+    want = {tr: ell.ell_agg_plain(a["g"] if tr else a["x"],
+                                  a["tpos"] if tr else a["nbr"], a["w_s"],
+                                  a["w_l"], 36, tr).cpu()
+            for tr in (False, True)}
+    monkeypatch.setattr(ell, "ell_agg_plain", boom)
+    x, w_l = a["x"], a["w_l"]
+    none = torch.empty((300, 0), dtype=torch.int32, device=dev)
+    got = ell.ell_agg(x, none, torch.empty((300, 0), device=dev), w_l, 0,
+                      False)
+    assert torch.equal(got, x * w_l[:, None])
+    got = ell.ell_agg(x, none, a["w_s"], w_l, 36, True)
+    assert torch.equal(got, x * w_l[:, None])
+    buf = torch.empty(300 * 128 + 1, device=dev)
+    for tr in (False, True):
+        xu = buf[1:].view(300, 128)
+        xu.copy_(a["g"] if tr else a["x"])
+        assert xu.data_ptr() % 16 != 0
+        got = ell.ell_agg(xu, a["tpos"] if tr else a["nbr"], a["w_s"], w_l,
+                          36, tr)
+        np.testing.assert_allclose(got.cpu().numpy(), want[tr].numpy(),
+                                   rtol=1e-5, atol=1e-5)
+
+
 def test_ell_expand_on_card_matches_cpu(dev):
     _, blk = ell_block(dev)
     gen = torch.Generator(device=dev).manual_seed(6)
@@ -656,7 +764,7 @@ def test_replays_advance_the_generator_as_eager_steps(dev):
         draws.append((roots[LOOP_SPL // spl - 1::LOOP_SPL // spl],
                       torch.rand(8, generator=gen, device=dev)))
         if spl > 1:
-            assert loop.held == dict(fan_draw=2, gather_rows=2)
+            assert loop.held == dict(fan_draw=2, gather_rows=2, ell_agg=0)
     (roots_g, after_g), (roots_e, after_e) = draws
     assert not torch.equal(roots_g[1], roots_g[2])       # replays draw anew
     assert all(torch.equal(a, b) for a, b in zip(roots_g, roots_e))
@@ -676,6 +784,40 @@ def test_launch_counts_through_replays(dev):
         counts.append((fd.fan_draw.launches - before[0],
                        gr.gather_rows.launches - before[1]))
     assert counts == [(2 * LOOP_SPL, 2 * LOOP_SPL)] * 3
+
+
+def test_gcn_replayed_loop_equals_eager_steps(dev):
+    """gcn over every node as the gcn-train cell runs it, at 3 layers
+    and bf16 activations, at a small size: a loop of replays equals the
+    eager steps bit for bit (the ELL kernel sums in a fixed order), and a
+    replay holds 5 ell_agg launches (3 forward, 2 gradients to x: the
+    first layer's x is the feature table) beside the 2 feature and label
+    gathers."""
+    graph = random_graph(3000, 25, feat_dim=16, n_classes=4, seed=0,
+                         packs=("ell",), device=dev)
+    every = torch.arange(3000, dtype=torch.int32, device=dev)
+    runs = []
+    for spl in (1, LOOP_SPL):
+        gen = torch.Generator().manual_seed(0)
+        net = GNNNet("gcn", WholeDataFlow(3, [(0,)]), (16, 16, 16),
+                     ShallowEncoder(("feature",)), in_dim=16,
+                     dtype=torch.bfloat16, device=dev, generator=gen)
+        est = NodeEstimator(SuperviseModel(net, "label", 4, device=dev,
+                                           generator=gen),
+                            graph, RunConfig(batch_size=3000), device=dev)
+        opt = get_optimizer("adam", 1e-3, est.model.parameters())
+        loop = TrainLoop(est, opt, torch.Generator(device=dev).manual_seed(5),
+                         spl, lambda: every)
+        before = ell.ell_agg.launches
+        loss = [loop() for _ in range(2 * LOOP_SPL // spl)][-1]
+        torch.cuda.synchronize()
+        runs.append((est, float(loss), ell.ell_agg.launches - before, loop))
+    (eager, loss_e, n_e, _), (graphed, loss_g, n_g, loop) = runs
+    assert loop.held == dict(fan_draw=0, gather_rows=2, ell_agg=5)
+    assert n_e == n_g == 5 * 2 * LOOP_SPL
+    assert loss_e == loss_g
+    assert all(torch.equal(a, b) for a, b in zip(
+        graphed.model.parameters(), eager.model.parameters()))
 
 
 def test_adagrad_is_refused_under_a_loop_on_the_card(dev):

@@ -285,13 +285,27 @@ def old_digest(src, cmd):
             f.read() + "\0".join(cmd).encode()).hexdigest()[:16]
 
 
-@pytest.mark.parametrize("name", ["fan_draw.cu", "gather_rows.cu",
-                                  "euler_core.cc"])
+@pytest.mark.parametrize("name", ["fan_draw.cu", "euler_core.cc"])
 def test_sources_without_quoted_includes_keep_their_name(name):
     src = os.path.join(PACKAGE_DIR, "csrc", name)
     cmd = _CMD if name.endswith(".cc") else [_build.nvcc()] + \
         _build.NVCC_FLAGS
     assert _build.source_digest(src, cmd) == old_digest(src, cmd)
+
+
+@pytest.mark.parametrize("name", ["gather_rows.cu", "ell_agg.cu"])
+def test_kernels_hash_their_shared_header(name):
+    # both size their grids with csrc/resident_blocks.cuh: a change of the
+    # header renames (rebuilds) both libraries
+    src = os.path.join(PACKAGE_DIR, "csrc", name)
+    cmd = [_build.nvcc()] + _build.NVCC_FLAGS
+    with open(src, "rb") as f:
+        h = hashlib.sha256(f.read() + "\0".join(cmd).encode())
+    with open(os.path.join(PACKAGE_DIR, "csrc", "resident_blocks.cuh"),
+              "rb") as f:
+        h.update(b"\0resident_blocks.cuh\0" + f.read())
+    assert _build.source_digest(src, cmd) == h.hexdigest()[:16]
+    assert _build.source_digest(src, cmd) != old_digest(src, cmd)
 
 
 def test_quoted_include_changes_library_name(tmp_path, monkeypatch):

@@ -41,6 +41,7 @@ from euler_tpu_torch.graph import load_graph
 from euler_tpu_torch.models import (GCNConv, GNNNet, RelationConv,
                                     ShallowEncoder, load_flax_params)
 from euler_tpu_torch.models.from_flax import load_conv
+from euler_tpu_torch.ops import ell_agg as ell_agg_ops
 from euler_tpu_torch.ops import sampling
 from tests.test_torch_graph import native_off
 from tests.test_torch_train import _as_port
@@ -281,9 +282,10 @@ def test_ell_agg_backward_computes_only_the_gradients_asked_for(
     _, bt = ell_blocks
     a = _ell_args(bt)
     calls = []
-    real = block_lib._ell_rows
-    monkeypatch.setattr(block_lib, "_ell_rows",
-                        lambda *z: calls.append(1) or real(*z))
+    real = ell_agg_ops.ell_rows
+    for mod in (ell_agg_ops, block_lib):   # the plain forward, grad_w_s
+        monkeypatch.setattr(mod, "ell_rows",
+                            lambda *z: calls.append(1) or real(*z))
     x = t(a["x"]).requires_grad_(True)
     w_s = t(a["w_s"])
     out = block_lib._ell_agg(bt.fanout, x, w_s, t(a["w_l"]), t(a["nbr"]),
@@ -296,6 +298,94 @@ def test_ell_agg_backward_computes_only_the_gradients_asked_for(
                              t(a["nbr"]), bt.ell_tpos)
     torch.autograd.grad(out, w_s, t(a["g"]))
     assert len(calls) == 3                          # forward + grad_w_s
+
+
+def _old_ell_agg(x, w_s, w_l, nbr, tpos, C, g):
+    """The forward and the x-gradient as ``_EllAgg`` computed them before
+    ``ops.ell_agg``: the padded rows and batched products, written out."""
+    xz = torch.cat([x, x.new_zeros((1,) + tuple(x.shape[1:]))])
+    rows = xz[torch.where(nbr >= 0, nbr, x.shape[0]).long()]
+    out = torch.einsum("tc,tcd->td", w_s.to(x.dtype), rows)
+    out = out + x * w_l[:, None].to(x.dtype)
+    n = g.shape[0]
+    tp = tpos.long()
+    gv = g[torch.div(tp, C, rounding_mode="floor").clamp(0, n - 1)]
+    wv = torch.where(tpos >= 0,
+                     w_s.reshape(-1)[tp.clamp(0, w_s.numel() - 1)], 0.0)
+    grad_x = (torch.einsum("tc,tcd->td", wv.to(g.dtype), gv)
+              + g * w_l[:, None].to(g.dtype)).to(x.dtype)
+    return out, grad_x
+
+
+ELL_WRAPPER_CASES = ("forward_f32", "transpose_f32", "forward_bf16",
+                     "transpose_bf16", "function_bf16", "x_dtype", "x_rank",
+                     "index_dtype", "index_rows", "weight_dtype",
+                     "weight_shape", "device", "contiguous", "no_kernel")
+
+
+@pytest.mark.parametrize("case", ELL_WRAPPER_CASES)
+def test_ell_agg_wrapper(ell_blocks, case):
+    # ops.ell_agg on the CPU is the plain version, which must equal the
+    # formulas _EllAgg used before it bit for bit (the CUDA kernel is held
+    # to it on the card); its checks raise on what the kernel does not
+    # take, on every device
+    _, bt = ell_blocks
+    a = _ell_args(bt, seed=4, D=6)
+    C, tpos = bt.fanout, bt.ell_tpos
+    dt = torch.bfloat16 if case.endswith("bf16") else torch.float32
+    x, g = t(a["x"]).to(dt), t(a["g"]).to(dt)
+    w_s, w_l, nbr = t(a["w_s"]), t(a["w_l"]), t(a["nbr"])
+    want_out, want_gx = _old_ell_agg(x, w_s, w_l, nbr, tpos, C, g)
+    ell_agg = ell_agg_ops.ell_agg
+    if case.startswith("forward"):
+        got = ell_agg(x, nbr, w_s, w_l, C, False)
+        assert got.dtype == dt and torch.equal(got, want_out)
+        assert torch.equal(ell_agg_ops.ell_agg_plain(x, nbr, w_s, w_l, C,
+                                                     False), want_out)
+    elif case.startswith("transpose"):
+        got = ell_agg(g, tpos, w_s, w_l, C, True)
+        assert got.dtype == dt and torch.equal(got, want_gx)
+    elif case == "function_bf16":
+        xg = x.clone().requires_grad_(True)
+        out = block_lib._ell_agg(C, xg, w_s, w_l, nbr, tpos)
+        (gx,) = torch.autograd.grad(out, xg, g)
+        assert torch.equal(out.detach(), want_out)
+        assert gx.dtype == dt and torch.equal(gx, want_gx)
+    elif case == "x_dtype":
+        with pytest.raises(TypeError, match="f32 or bf16"):
+            ell_agg(x.double(), nbr, w_s, w_l, C, False)
+    elif case == "x_rank":
+        with pytest.raises(TypeError, match="2-D"):
+            ell_agg(x[:, :, None], nbr, w_s, w_l, C, False)
+    elif case == "index_dtype":
+        with pytest.raises(TypeError, match="int32"):
+            ell_agg(x, nbr.long(), w_s, w_l, C, False)
+    elif case == "index_rows":
+        with pytest.raises(TypeError, match="int32"):
+            ell_agg(x, nbr[:-1], w_s, w_l, C, False)
+    elif case == "weight_dtype":
+        with pytest.raises(TypeError, match="f32"):
+            ell_agg(x, nbr, w_s.to(torch.bfloat16), w_l, C, False)
+    elif case == "weight_shape":
+        with pytest.raises(ValueError, match="do not fit"):
+            ell_agg(x, nbr[:, :-1].contiguous(), w_s, w_l, C, False)
+        with pytest.raises(ValueError, match="do not fit"):
+            ell_agg(x, nbr, w_s, w_l[:-1], C, False)
+    elif case == "device":
+        with pytest.raises(ValueError, match="is on meta"):
+            ell_agg(x, nbr.to("meta"), w_s, w_l, C, False)
+    elif case == "contiguous":
+        with pytest.raises(ValueError, match="x must be contiguous"):
+            ell_agg(x.t().contiguous().t(), nbr, w_s, w_l, C, False)
+        with pytest.raises(ValueError, match="index must be contiguous"):
+            ell_agg(g, torch.cat([tpos, tpos], 1)[:, ::2], w_s, w_l, C,
+                    True)
+    else:
+        # no kernel and no plain fallback for a device other than cpu or
+        # cuda
+        meta = [z.to("meta") for z in (x, nbr, w_s, w_l)]
+        with pytest.raises(ValueError, match="no kernel"):
+            ell_agg(*meta, C, False)
 
 
 # ------------------------------------------------- irregular blocks --
