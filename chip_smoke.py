@@ -8,7 +8,8 @@ Phases, in order; any failure propagates and the exit code is not 0:
   1. device   card name, count and nvidia-smi's name and power limit;
               TF32 off for matmuls and cuDNN
   2. build    nvcc builds euler_tpu_torch/csrc/fan_draw.cu,
-              gather_rows.cu and ell_agg.cu, and g++ the native host core
+              gather_rows.cu, ell_agg.cu and ell_attn.cu, and g++ the
+              native host core
               (euler_tpu_torch/csrc/euler_core.cc), all from this
               checkout and all at once; the run fails unless the core
               loaded from the package's own source, and the build: line
@@ -195,7 +196,8 @@ Phases, in order; any failure propagates and the exit code is not 0:
               (128, 128), f32, on phase 12b's graph, each: the forward on
               the ELL pack against the edge list on the card (within
               1e-4); 2 train steps over every node (0 + 2 launches a
-              step, and WHOLE_ELL_AGG ell_agg launches) with their time
+              step, WHOLE_ELL_AGG ell_agg and WHOLE_ELL_SDDMM ell_sddmm
+              launches) with their time
               and peak memory, two more profiled, a loop of 2 steps
               replayed and timed; one step card vs CPU
               (loss and every gradient within 1e-4) on a 10,000-node
@@ -306,6 +308,13 @@ Phases, in order; any failure propagates and the exit code is not 0:
               main(argv) on their stand-ins under a temporary --data_dir,
               each train_and_evaluate of EXAMPLE_12M_STEPS steps on the
               card, with each script's launches
+ 12n. gat     the gat-train cell's whole-graph block
+              (benchmark/configs/gat.json's graph, the gcn cell's) at its
+              widths, 3 heads of 250, bf16: ops.ell_attn forward and
+              transpose and ops.ell_sddmm held to their plain versions
+              (ATTN_TOL) and timed beside their bytes bound
+              (benchmark/harness/gat_arith.call_bytes) and the plain
+              versions' time
  13. bench    the port's bench (euler_tpu_torch/bench.py) in each mode,
               sage, gin, gat, rgcn, the eight of bench.CONV_MODES, gcn and
               transe, at bench.py's width,
@@ -429,7 +438,7 @@ Phases, in order; any failure propagates and the exit code is not 0:
 
 Phases 12c, 12d, 12e, 12f, 12h, the dedup part of 12i, 12l, 14 and 15
 run after 12 in that order, then the walk part of 12i, 12j, 12b, 12g,
-12k, 12m, 13, 16 and 17.
+12n, 12k, 12m, 13, 16 and 17.
 
 It exits non-zero, with no result line, where torch.cuda.is_available()
 is false or the euler_tpu_torch package is missing.
@@ -492,6 +501,7 @@ from euler_tpu_torch.models import (DGI, GAE, LINE, VGAE, DeepWalk,
 from euler_tpu_torch.native import loader as native
 from euler_tpu_torch.ops import COUNTED
 from euler_tpu_torch.ops import ell_agg as ell_ops
+from euler_tpu_torch.ops import ell_attn as attn_ops
 from euler_tpu_torch.ops import fan_draw as fd
 from euler_tpu_torch.ops import feature_ops
 from euler_tpu_torch.ops import index as index_ops
@@ -539,10 +549,12 @@ KG_FAMILY = (kg.TransH, kg.TransR, kg.TransD, kg.DistMult)
 
 
 def kernel_counts(fan_draw: int = 0, gather_rows: int = 0,
-                  ell_agg: int = 0) -> dict:
+                  ell_agg: int = 0, ell_attn: int = 0,
+                  ell_sddmm: int = 0) -> dict:
     """Launches of each kernel wrapper in ``ops.COUNTED``, by name, as
     ``read_counts`` gives them; a kernel not named launches none."""
-    return dict(fan_draw=fan_draw, gather_rows=gather_rows, ell_agg=ell_agg)
+    return dict(fan_draw=fan_draw, gather_rows=gather_rows, ell_agg=ell_agg,
+                ell_attn=ell_attn, ell_sddmm=ell_sddmm)
 
 
 # an ell_agg result against its plain version on the same inputs: the
@@ -1736,6 +1748,108 @@ def phase_gcn(dev):
     return out
 
 
+# -------------------------------------------------------------- phase 12n --
+
+# an attention kernel's result against its plain version on the same
+# inputs: the largest distance as a share of the plain version over the
+# magnitudes (``attn_gap``). Both sum in f32 in other orders (1e-5) and
+# round once to the result's type: bf16 results may differ by an ulp,
+# 2^-7 of the result, which the magnitudes bound
+ATTN_TOL = {torch.float32: 1e-5, torch.bfloat16: 2.0 ** -7 + 1e-5}
+
+
+def attn_gap(out: torch.Tensor, plain: torch.Tensor,
+             mag: torch.Tensor) -> float:
+    return float(((out.float() - plain.float()).abs()
+                  / mag.float().clamp_min(1e-30)).max())
+
+
+def gat_cell_block(dev):
+    """The gat-train cell's whole-graph ELL block on the card, built from
+    benchmark/configs/gat.json by the benchmark's harness (the gcn cell's
+    graph: N 169,343, C = C_in = 36), and the configuration."""
+    from benchmark.harness.supervised import build_graph
+    with open(os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                           "benchmark", "configs", "gat.json")) as f:
+        cfg = json.load(f)
+    _, graph = build_graph(cfg, dev)
+    roots = torch.arange(cfg["graph"]["nodes"], dtype=torch.int32,
+                         device=dev)
+    flow = WholeDataFlow(cfg["model"]["layers"], [(0,)])
+    return flow(graph.tensors, roots)[0], cfg
+
+
+def phase_gat(dev) -> list:
+    """``ops.ell_attn`` (forward, transpose) and ``ops.ell_sddmm`` at the
+    gat-train cell's shapes (``gat_cell_block``, H heads of F, bf16), on
+    per-head weights that are a softmax of random scores over the block
+    (``Block.softmax``, as ``GATConv`` makes them): each held to its plain
+    version within ATTN_TOL, then timed with CUDA events, L2 flushed,
+    beside its bytes bound (``gat_arith.call_bytes``, imported from the
+    benchmark) and its plain version's time. No PyTorch call computes a
+    per-head weighted sum: no library yardstick."""
+    from benchmark.harness.gat_arith import call_bytes
+    from benchmark.harness.supervised import edge_count
+    blk, cfg = gat_cell_block(dev)
+    m = cfg["model"]
+    H, D = m["heads"], m["dims"][0]
+    F, N, C = D // H, blk.size[0], blk.fanout
+    check((C, int(blk.ell_tpos.shape[1])) == (GCN_CELL_C, GCN_CELL_C),
+          f"gat-train cell's ELL widths C = {C}")
+    gen = torch.Generator(device=dev).manual_seed(22)
+    scores = torch.randn((blk.edge_index.shape[1], H), generator=gen,
+                         device=dev)
+    w_s, w_l, nbr = blk.ell_weights(None, blk.softmax(scores, blk.mask))
+    tpos = blk.ell_tpos
+    dtype = torch.bfloat16
+    x, g = (torch.randn((N, D), generator=gen, device=dev, dtype=dtype)
+            for _ in range(2))
+    xp, gp = attn_ops.pad_heads(x, H), attn_ops.pad_heads(g, H)
+    del x, g, scores, blk
+    nbytes = call_bytes(N, edge_count(cfg["graph"]), D, H,
+                        xp.element_size())
+    flush = torch.empty(64 << 20, dtype=torch.uint8, device=dev)
+    rows = []
+    for kernel, mode in (("ell_attn", "forward"), ("ell_attn", "transpose"),
+                         ("ell_sddmm", "sddmm")):
+        if kernel == "ell_attn":
+            tr = mode == "transpose"
+            args = (gp if tr else xp, tpos if tr else nbr, w_s, w_l, C, F,
+                    tr, tr)
+
+            def fn(args=args):
+                return attn_ops.ell_attn(*args)
+
+            def plain_fn(args=args):
+                return attn_ops.ell_attn_plain(*args)
+            mag = attn_ops.ell_attn_plain(args[0].abs(), *args[1:])
+            got, plain = fn(), plain_fn()
+            gap = attn_gap(got, plain, mag)
+        else:
+            def fn():
+                return attn_ops.ell_sddmm(gp, xp, nbr, True)
+
+            def plain_fn():
+                return attn_ops.ell_sddmm_plain(gp, xp, nbr, True)
+            mag = attn_ops.ell_sddmm_plain(gp.abs(), xp.abs(), nbr, True)
+            got, plain = fn(), plain_fn()
+            gap = max(attn_gap(a, b, c) for a, b, c in zip(got, plain, mag))
+        del got, plain, mag
+        torch.cuda.empty_cache()
+        row = dict(kernel=kernel, mode=mode, dtype="bfloat16", N=N, C=C,
+                   H=H, F=F, bytes=nbytes,
+                   bound_ms=nbytes / HBM_BYTES_PER_S * 1e3, plain_gap=gap)
+        check(gap <= ATTN_TOL[dtype], f"gat-train {kernel} {row}: kernel "
+                                      f"vs plain")
+        row["ms"] = time_launches(fn, 20, flush)
+        row["plain_ms"] = time_launches(plain_fn, 2, flush)
+        torch.cuda.empty_cache()
+        row["roofline"] = row["bound_ms"] / row["ms"]
+        rows.append(row)
+        log(f"gat: {json.dumps(row)}")
+    return rows
+
+
 # -------------------------------------------------------------- phase 12c --
 
 def kg_model(cls, dev):
@@ -2563,6 +2677,10 @@ WHOLE_STEPS = 2
 # forward aggregates (tag 3 hops a layer, appnp 10) and the gradients to
 # x of those whose x takes one
 WHOLE_ELL_AGG = dict(tag=9, sgcn=3, agnn=3, appnp=20, arma=4)
+# each conv's ell_sddmm launches a step: _ell_agg's gradient to its
+# weights (the one-head SDDMM) where they take one, agnn's attention in
+# each of its GCN_LAYERS layers
+WHOLE_ELL_SDDMM = dict(agnn=bench.GCN_LAYERS)
 
 
 def whole_model(conv: str, dev, layout: str = "auto") -> SuperviseModel:
@@ -2623,8 +2741,10 @@ def phase_whole(dev) -> dict:
         torch.cuda.synchronize()
         step_ms = (time.perf_counter() - t2) / WHOLE_STEPS * 1e3
         launches = read_counts()
-        want = kernel_counts(fan_draw=0, gather_rows=2 * WHOLE_STEPS,
-                             ell_agg=WHOLE_ELL_AGG[conv] * WHOLE_STEPS)
+        want = kernel_counts(
+            fan_draw=0, gather_rows=2 * WHOLE_STEPS,
+            ell_agg=WHOLE_ELL_AGG[conv] * WHOLE_STEPS,
+            ell_sddmm=WHOLE_ELL_SDDMM.get(conv, 0) * WHOLE_STEPS)
         check(launches == want,
               f"whole {conv}: launches {launches}, want {want}")
         check(bool(np.isfinite(losses).all()), f"whole {conv}: {losses}")
@@ -2642,8 +2762,9 @@ def phase_whole(dev) -> dict:
         torch.cuda.synchronize()
         replay_ms = (time.perf_counter() - t2) / 4 * 1e3
         held = dict(loop.held)
-        check(held == kernel_counts(fan_draw=0, gather_rows=2,
-                                    ell_agg=WHOLE_ELL_AGG[conv]),
+        check(held == kernel_counts(
+            fan_draw=0, gather_rows=2, ell_agg=WHOLE_ELL_AGG[conv],
+            ell_sddmm=WHOLE_ELL_SDDMM.get(conv, 0)),
               f"whole {conv}: a replay holds {held}")
         del loop, est, opt
 
@@ -5522,11 +5643,12 @@ def main() -> int:
     # 2. build: the nvcc builds, their -Xptxas -v twins and g++, all
     # started together
     t0 = time.perf_counter()
-    with concurrent.futures.ThreadPoolExecutor(7) as ex:
+    with concurrent.futures.ThreadPoolExecutor(9) as ex:
         builds = [ex.submit(f) for f in (fd.build, gr.build, ell_ops.build,
-                                         native.get_lib)]
+                                         attn_ops.build, native.get_lib)]
         reports = {n: ex.submit(ptxas_report, n)
-                   for n in ("fan_draw", "gather_rows", "ell_agg")}
+                   for n in ("fan_draw", "gather_rows", "ell_agg",
+                             "ell_attn")}
         for b in builds:
             b.result()
         ptxas = {n: r.result() for n, r in reports.items()}
@@ -5534,8 +5656,8 @@ def main() -> int:
     check(native.available(), f"native host core built from {native.SRC}")
     check(os.path.commonpath([native.SRC, PACKAGE_DIR]) == PACKAGE_DIR,
           f"native host core source {native.SRC} lies in {PACKAGE_DIR}")
-    log(f"build: {build_s:.1f} s (fan_draw.cu, gather_rows.cu and "
-        f"ell_agg.cu by nvcc, "
+    log(f"build: {build_s:.1f} s (fan_draw.cu, gather_rows.cu, "
+        f"ell_agg.cu and ell_attn.cu by nvcc, "
         f"sm_90a); native host core loaded: {native.available()}, from "
         f"{os.path.relpath(native.SRC)} into "
         f"{os.path.relpath(native.get_lib()._name)}")
@@ -5637,6 +5759,9 @@ def main() -> int:
     allocated_after("gcn")
     whole = phase_whole(dev)
     allocated_after("whole")
+    # 12n. the gat-train cell's attention kernels at its shapes
+    gat = phase_gat(dev)
+    allocated_after("gat")
     # 12k. the data plane: convert, load, the fan-less and payload paths,
     # the example scripts
     data = phase_data(dev)
@@ -5850,12 +5975,26 @@ def main() -> int:
         # bench.py's gcn graph (N 100,000) and the gcn-train cell's
         # (N 169,343)
         "shapes": gcn["ell_agg"] + gcn["ell_agg_cell"],
-    }]
+    }] + [{
+        "name": name, "route": "cuda",
+        "source": "euler_tpu_torch/csrc/ell_attn.cu",
+        # no TPU kernel: the reference's GAT is single-head, its ELL
+        # aggregate jnp left to XLA
+        "replaces": None,
+        "launches_by_path": by_path(name),
+        "bit_exact": False,
+        "max_plain_gap": max(r["plain_gap"] for r in gat
+                             if r["kernel"] == name),
+        "bound_by": "bytes",
+        "ptxas": ptxas["ell_attn"],
+        # the gat-train cell's block, 3 heads of 250, bf16 (phase_gat)
+        "shapes": [r for r in gat if r["kernel"] == name],
+    } for name in ("ell_attn", "ell_sddmm")]
     log(json.dumps({"smoke": dict(
         build_s=build_s, graph_s=graph_s,
         total_s=time.perf_counter() - t_start,
         native_core=native.available(), infer=infer, parity=parity,
-        train=train, grads=grads, families=families, gcn=gcn,
+        train=train, grads=grads, families=families, gcn=gcn, gat=gat,
         convs=conv_runs, whole=whole, encoder=encoder, transe=transe,
         dedup=dedup, walk=walks, rest=rest, data=data, query=queried,
         examples=examples, mesh=meshed, mesh_train=mesh_trained,

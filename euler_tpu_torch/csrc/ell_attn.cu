@@ -1,0 +1,526 @@
+// Multi-head whole-graph ELL attention, for Hopper (sm_90a): the per-head
+// weighted aggregate, its transpose, and the per-edge dot products of the
+// weights' gradient (an SDDMM).
+//
+// Replaces no Pallas kernel: the JAX package's GAT is single-head and its
+// ELL aggregate (euler_tpu/dataflow/block.py::_ell_agg, :397-443) is jnp
+// code left to XLA. Added for multi-head GAT over the whole graph
+// (models/convs.py GATConv(heads=H), ogbn-arxiv's sizes in PERF.md),
+// whose plain versions (ops/ell_attn.py) write the padded [N, C, D] row
+// tensor: 18 GB a call at D = 750 in f32.
+//
+// The row layout is "padded heads": x [n, H, Fp], each head's F values
+// padded with zeros to Fp, so that a head is a whole number wph of 16-byte
+// words and every 16-byte word belongs to one head (wph a power of two up
+// to 32, or a multiple of 32; ops/ell_attn.py::head_words). A warp takes a
+// row t; its lanes take words of the row, 32 at a time or, for rows of
+// fewer words, in groups that take different cells, as ell_agg.cu does.
+//
+//   ell_attn_fwd_kernel: out[t, h] = sum over c of x[nbr[t, c], h] w_s[t, c, h]
+//                                    + x[t, h] w_l[t, h]
+//   ell_attn_tr_kernel:  the same over p = tpos[t, c], idx = p / C,
+//                        weight w_s.flat[p * H + h] (the gradient to x)
+//   ell_sddmm_kernel:    gw_s[t, c, h] = g[t, h] . x[nbr[t, c], h]
+//                        gw_l[t, h]    = g[t, h] . x[t, h]
+//
+// A pad (index < 0) adds 0 and gets a gradient of 0. Ids past the table
+// are clamped to its last row (the transpose's p to the last cell), as in
+// ell_agg.cu. The weights stay f32 (they are not rounded to x's type);
+// products and sums are f32 in registers in a fixed order, so replays equal
+// eager steps bit for bit; the aggregate rounds once, at the store, to x's
+// type. The forward writes out unpadded, [n, H * F] (f < F only); the
+// transpose writes the padded layout, pads included (0 where g's pads are).
+//
+// Bound: device-memory bytes, as ell_agg.cu: each live cell's neighbour
+// row once, the index and weights once, the table and the output once, at
+// 2 flops a byte. The rows are random 1-2 kB reads; each lane holds
+// kUnroll of them in flight. The per-cell weights of a chunk of 32 cells
+// go through shared memory, since lanes of one warp read different heads.
+// The SDDMM keeps its lane's word of g[t] in registers, multiplies it with
+// each live neighbour's word and sums each head's words by shuffles within
+// the head's lanes.
+//
+// Byte offsets are int64.
+#include <cstdint>
+
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+
+#include "resident_blocks.cuh"
+
+namespace {
+
+constexpr int kCells = 32;       // cells a chunk: one a lane
+constexpr int kUnroll = 4;       // row loads in flight per lane
+constexpr int kThreads = 256;    // threads per block
+constexpr int kWarps = kThreads / 32;
+constexpr int kMinBlocks = 4;    // blocks an SM holds: 64 registers a thread
+constexpr unsigned kAll = 0xffffffffu;
+
+__device__ __forceinline__ float lo_bf16(uint32_t w) {
+  return __uint_as_float(w << 16);
+}
+__device__ __forceinline__ float hi_bf16(uint32_t w) {
+  return __uint_as_float(w & 0xffff0000u);
+}
+__device__ __forceinline__ uint32_t bf16_bits(float f) {
+  return __bfloat16_as_ushort(__float2bfloat16_rn(f));
+}
+
+// One 16-byte word: 4 f32 or 8 bf16. add() accumulates w times the word's
+// elements into acc, dot() sums the word's products with another word in
+// a fixed order, pack() rounds acc to the element type.
+template <bool kBf16> struct Word;
+
+template <> struct Word<false> {
+  static constexpr int kElts = 4;
+  static __device__ __forceinline__ void add(float* acc, uint4 v, float w) {
+    acc[0] = fmaf(__uint_as_float(v.x), w, acc[0]);
+    acc[1] = fmaf(__uint_as_float(v.y), w, acc[1]);
+    acc[2] = fmaf(__uint_as_float(v.z), w, acc[2]);
+    acc[3] = fmaf(__uint_as_float(v.w), w, acc[3]);
+  }
+  static __device__ __forceinline__ float dot(uint4 a, uint4 b) {
+    float s = __uint_as_float(a.x) * __uint_as_float(b.x);
+    s = fmaf(__uint_as_float(a.y), __uint_as_float(b.y), s);
+    s = fmaf(__uint_as_float(a.z), __uint_as_float(b.z), s);
+    return fmaf(__uint_as_float(a.w), __uint_as_float(b.w), s);
+  }
+  static __device__ __forceinline__ uint4 pack(const float* acc) {
+    return make_uint4(__float_as_uint(acc[0]), __float_as_uint(acc[1]),
+                      __float_as_uint(acc[2]), __float_as_uint(acc[3]));
+  }
+};
+
+template <> struct Word<true> {
+  static constexpr int kElts = 8;
+  static __device__ __forceinline__ void add(float* acc, uint4 v, float w) {
+    const uint32_t u[4] = {v.x, v.y, v.z, v.w};
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      acc[2 * i] = fmaf(lo_bf16(u[i]), w, acc[2 * i]);
+      acc[2 * i + 1] = fmaf(hi_bf16(u[i]), w, acc[2 * i + 1]);
+    }
+  }
+  static __device__ __forceinline__ float dot(uint4 a, uint4 b) {
+    const uint32_t p[4] = {a.x, a.y, a.z, a.w};
+    const uint32_t q[4] = {b.x, b.y, b.z, b.w};
+    float s = 0.0f;
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      s = fmaf(lo_bf16(p[i]), lo_bf16(q[i]), s);
+      s = fmaf(hi_bf16(p[i]), hi_bf16(q[i]), s);
+    }
+    return s;
+  }
+  static __device__ __forceinline__ uint4 pack(const float* acc) {
+    uint32_t u[4];
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      u[i] = bf16_bits(acc[2 * i]) | (bf16_bits(acc[2 * i + 1]) << 16);
+    }
+    return make_uint4(u[0], u[1], u[2], u[3]);
+  }
+};
+
+// Stores elements f0 .. f0 + kElts - 1 of acc that lie below f_real, at
+// out + base (element offsets), in x's type: bf16 two at a time where the
+// row, the head, f_real and the address allow (``pairs``), else one at a
+// time.
+template <bool kBf16>
+__device__ __forceinline__ void store_elements(void* out, int64_t base,
+                                               int f0, int f_real,
+                                               bool pairs, const float* acc) {
+  constexpr int kElts = Word<kBf16>::kElts;
+  if (kBf16) {
+    if (pairs) {
+      uint32_t* o = reinterpret_cast<uint32_t*>(
+          static_cast<uint16_t*>(out) + base);
+#pragma unroll
+      for (int i = 0; i < kElts / 2; ++i) {
+        if (f0 + 2 * i < f_real) {
+          o[i] = bf16_bits(acc[2 * i]) | (bf16_bits(acc[2 * i + 1]) << 16);
+        }
+      }
+    } else {
+      uint16_t* o = static_cast<uint16_t*>(out) + base;
+#pragma unroll
+      for (int e = 0; e < kElts; ++e) {
+        if (f0 + e < f_real) o[e] = static_cast<uint16_t>(bf16_bits(acc[e]));
+      }
+    }
+  } else {
+    float* o = static_cast<float*>(out) + base;
+#pragma unroll
+    for (int e = 0; e < kElts; ++e) {
+      if (f0 + e < f_real) o[e] = acc[e];
+    }
+  }
+}
+
+// The lane layout of a row of row_words words (ell_agg.cu's): a row is
+// read by 2^col_log2 lanes; the warp's 32 >> col_log2 groups take
+// different cells.
+struct Lanes {
+  int lane, lanes_per_col, groups_log2, groups, group, col;
+  unsigned below;
+  __device__ __forceinline__ explicit Lanes(int col_log2) {
+    lane = threadIdx.x & 31;
+    lanes_per_col = 1 << col_log2;
+    groups_log2 = 5 - col_log2;
+    groups = 1 << groups_log2;
+    group = lane >> col_log2;
+    col = lane & (lanes_per_col - 1);
+    below = (1u << lane) - 1;
+  }
+  // the live cells (ballot ``live``) that this lane's group takes: those
+  // whose rank among the live ones is the group's number modulo groups
+  __device__ __forceinline__ unsigned mine(unsigned live, bool is_live)
+      const {
+    if (groups == 1) return live;
+    const int rank = __popc(live & below);
+    unsigned out = live;
+    for (int g = 0; g < groups; ++g) {
+      const unsigned b =
+          __ballot_sync(kAll, is_live && (rank & (groups - 1)) == g);
+      if (g == group) out = b;
+    }
+    return out;
+  }
+};
+
+// x [n, heads * wph] words; index [n, width]; w_s [n, c, heads] f32 (the
+// forward: width == c); w_l [n, heads] f32. out: the padded layout of x
+// where out_padded, else element (t, h, f) at t * out_ld + h * out_hs + f
+// for f < f_real. sw: this warp's kCells * heads floats of shared memory.
+template <bool kBf16, bool kTranspose>
+__device__ __forceinline__ void attn_agg(
+    const uint4* __restrict__ x, int64_t n, int heads, int wph,
+    const int32_t* __restrict__ index, int width,
+    const float* __restrict__ w_s, int c, const float* __restrict__ w_l,
+    void* __restrict__ out, int64_t out_ld, int64_t out_hs, int f_real,
+    bool out_padded, bool pairs, int col_log2, float* sw) {
+  using W = Word<kBf16>;
+  const Lanes L(col_log2);
+  const int row_words = heads * wph;
+  const int64_t warp =
+      (static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x) >> 5;
+  const int64_t n_warps =
+      (static_cast<int64_t>(gridDim.x) * blockDim.x) >> 5;
+  const int64_t last_cell = n * c - 1;
+
+  for (int64_t t = warp; t < n; t += n_warps) {
+    const int32_t* irow = index + t * width;
+    for (int j0 = 0; j0 < row_words; j0 += L.lanes_per_col) {
+      const int j = j0 + L.col;
+      const bool col_ok = j < row_words;
+      const int h = col_ok ? j / wph : 0;
+      float acc[W::kElts];
+#pragma unroll
+      for (int e = 0; e < W::kElts; ++e) acc[e] = 0.0f;
+      for (int c0 = 0; c0 < width; c0 += kCells) {
+        int32_t id = -1;
+        if (c0 + L.lane < width) {
+          const int32_t v = __ldg(irow + c0 + L.lane);
+          if (v >= 0 && c > 0) {
+            int64_t cell;
+            if (kTranspose) {
+              cell = v < last_cell ? v : last_cell;
+              id = static_cast<int32_t>(cell / c);
+            } else {
+              cell = t * c + c0 + L.lane;
+              id = v < n ? v : static_cast<int32_t>(n - 1);
+            }
+            for (int k = 0; k < heads; ++k) {
+              sw[L.lane * heads + k] = __ldg(w_s + cell * heads + k);
+            }
+          }
+        }
+        __syncwarp();
+        const unsigned live = __ballot_sync(kAll, id >= 0);
+        unsigned mine = L.mine(live, id >= 0);
+        const int steps = (__popc(live) + L.groups - 1) >> L.groups_log2;
+        for (int s0 = 0; s0 < steps; s0 += kUnroll) {
+          int32_t rid[kUnroll];
+          float rw[kUnroll];
+#pragma unroll
+          for (int u = 0; u < kUnroll; ++u) {
+            const int src = mine ? __ffs(mine) - 1 : 0;
+            const int32_t got = __shfl_sync(kAll, id, src);
+            rid[u] = mine ? got : -1;
+            rw[u] = mine ? sw[src * heads + h] : 0.0f;
+            mine &= mine - 1;
+          }
+          if (col_ok) {
+            uint4 v[kUnroll];
+#pragma unroll
+            for (int u = 0; u < kUnroll; ++u) {
+              if (rid[u] >= 0) {
+                v[u] = __ldg(x + static_cast<int64_t>(rid[u]) * row_words
+                             + j);
+              }
+            }
+#pragma unroll
+            for (int u = 0; u < kUnroll; ++u) {
+              if (rid[u] >= 0) W::add(acc, v[u], rw[u]);
+            }
+          }
+        }
+        __syncwarp();   // every lane has read sw before the next chunk
+      }
+      for (int off = L.lanes_per_col; off < 32; off <<= 1) {
+#pragma unroll
+        for (int e = 0; e < W::kElts; ++e) {
+          acc[e] += __shfl_xor_sync(kAll, acc[e], off);
+        }
+      }
+      if (L.group == 0 && col_ok) {
+        W::add(acc, __ldg(x + t * row_words + j), __ldg(w_l + t * heads + h));
+        if (out_padded) {
+          static_cast<uint4*>(out)[t * row_words + j] = W::pack(acc);
+        } else {
+          const int f0 = (j - h * wph) * W::kElts;
+          store_elements<kBf16>(out, t * out_ld + h * out_hs + f0, f0,
+                                f_real, pairs, acc);
+        }
+      }
+    }
+  }
+}
+
+template <bool kBf16>
+__global__ void __launch_bounds__(kThreads, kMinBlocks)
+ell_attn_fwd_kernel(const uint4* __restrict__ x, int64_t n, int heads,
+                    int wph, const int32_t* __restrict__ index, int width,
+                    const float* __restrict__ w_s, int c,
+                    const float* __restrict__ w_l, void* __restrict__ out,
+                    int64_t out_ld, int64_t out_hs, int f_real,
+                    bool out_padded, bool pairs, int col_log2) {
+  extern __shared__ float smem[];
+  attn_agg<kBf16, false>(x, n, heads, wph, index, width, w_s, c, w_l, out,
+                         out_ld, out_hs, f_real, out_padded, pairs, col_log2,
+                         smem + (threadIdx.x >> 5) * kCells * heads);
+}
+
+template <bool kBf16>
+__global__ void __launch_bounds__(kThreads, kMinBlocks)
+ell_attn_tr_kernel(const uint4* __restrict__ x, int64_t n, int heads,
+                   int wph, const int32_t* __restrict__ index, int width,
+                   const float* __restrict__ w_s, int c,
+                   const float* __restrict__ w_l, void* __restrict__ out,
+                   int64_t out_ld, int64_t out_hs, int f_real,
+                   bool out_padded, bool pairs, int col_log2) {
+  extern __shared__ float smem[];
+  attn_agg<kBf16, true>(x, n, heads, wph, index, width, w_s, c, w_l, out,
+                        out_ld, out_hs, f_real, out_padded, pairs, col_log2,
+                        smem + (threadIdx.x >> 5) * kCells * heads);
+}
+
+// g and x [n, heads * wph] words, pads zero; nbr [n, c]; gw_s [n, c, heads]
+// f32; gw_l [n, heads] f32 or null. A head's words are summed by shuffles
+// over seg = min(wph, lanes a column) lanes; a head wider than 32 words
+// adds its passes of 32 in order, written by the pass's lane 0.
+template <bool kBf16>
+__global__ void __launch_bounds__(kThreads, kMinBlocks)
+ell_sddmm_kernel(const uint4* __restrict__ g, const uint4* __restrict__ x,
+                 int64_t n, int heads, int wph,
+                 const int32_t* __restrict__ nbr, int c,
+                 float* __restrict__ gw_s, float* __restrict__ gw_l,
+                 int col_log2) {
+  using W = Word<kBf16>;
+  const Lanes L(col_log2);
+  const int row_words = heads * wph;
+  const int seg = wph < L.lanes_per_col ? wph : L.lanes_per_col;
+  const int64_t warp =
+      (static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x) >> 5;
+  const int64_t n_warps =
+      (static_cast<int64_t>(gridDim.x) * blockDim.x) >> 5;
+  const uint4 zero = make_uint4(0u, 0u, 0u, 0u);
+
+  for (int64_t t = warp; t < n; t += n_warps) {
+    const int32_t* irow = nbr + t * c;
+    for (int j0 = 0; j0 < row_words; j0 += L.lanes_per_col) {
+      const int j = j0 + L.col;
+      const bool col_ok = j < row_words;
+      const int h = col_ok ? j / wph : 0;
+      // the first pass over head h's words writes, a later one adds
+      const bool first = (j0 % wph) == 0 || wph < L.lanes_per_col;
+      const bool writer = col_ok && (L.col & (seg - 1)) == 0;
+      const uint4 gw = col_ok ? __ldg(g + t * row_words + j) : zero;
+      if (gw_l != nullptr) {
+        float p = col_ok ? W::dot(gw, __ldg(x + t * row_words + j)) : 0.0f;
+        for (int off = 1; off < seg; off <<= 1) {
+          p += __shfl_xor_sync(kAll, p, off);
+        }
+        if (writer && L.group == 0) {
+          float* o = gw_l + t * heads + h;
+          *o = first ? p : *o + p;
+        }
+      }
+      for (int c0 = 0; c0 < c; c0 += kCells) {
+        int32_t id = -1;
+        const bool in_row = c0 + L.lane < c;
+        if (in_row) {
+          const int32_t v = __ldg(irow + c0 + L.lane);
+          if (v >= 0) id = v < n ? v : static_cast<int32_t>(n - 1);
+        }
+        if (j0 == 0 && in_row && id < 0) {   // pads: a gradient of 0
+          for (int k = 0; k < heads; ++k) {
+            gw_s[(t * c + c0 + L.lane) * heads + k] = 0.0f;
+          }
+        }
+        const unsigned live = __ballot_sync(kAll, id >= 0);
+        unsigned mine = L.mine(live, id >= 0);
+        const int steps = (__popc(live) + L.groups - 1) >> L.groups_log2;
+        for (int s0 = 0; s0 < steps; s0 += kUnroll) {
+          int32_t rid[kUnroll], rcell[kUnroll];
+#pragma unroll
+          for (int u = 0; u < kUnroll; ++u) {
+            const int src = mine ? __ffs(mine) - 1 : 0;
+            const int32_t got = __shfl_sync(kAll, id, src);
+            rid[u] = mine ? got : -1;
+            rcell[u] = c0 + src;
+            mine &= mine - 1;
+          }
+          uint4 v[kUnroll];
+#pragma unroll
+          for (int u = 0; u < kUnroll; ++u) {
+            v[u] = (col_ok && rid[u] >= 0)
+                ? __ldg(x + static_cast<int64_t>(rid[u]) * row_words + j)
+                : zero;
+          }
+#pragma unroll
+          for (int u = 0; u < kUnroll; ++u) {
+            float p = W::dot(gw, v[u]);
+            for (int off = 1; off < seg; off <<= 1) {
+              p += __shfl_xor_sync(kAll, p, off);
+            }
+            if (writer && rid[u] >= 0) {
+              float* o = gw_s + (t * c + rcell[u]) * heads + h;
+              *o = first ? p : *o + p;
+            }
+          }
+        }
+      }
+    }
+  }
+}
+
+int col_log2_of(int row_words) {
+  int col_log2 = 0;
+  while ((1 << col_log2) < row_words && col_log2 < 5) ++col_log2;
+  return col_log2;
+}
+
+unsigned grid_for(int64_t n, int64_t cap) {
+  // a warp a row, as many blocks as the device holds at once at most
+  constexpr int64_t per_block = kWarps;
+  const int64_t want = (n + per_block - 1) / per_block;
+  return static_cast<unsigned>(want < cap ? want : cap);
+}
+
+template <bool kBf16>
+int launch_agg(const void* x, int64_t n, int heads, int wph,
+               const int32_t* index, int width, const float* w_s, int c,
+               const float* w_l, void* out, int64_t out_ld, int64_t out_hs,
+               int f_real, bool out_padded, bool pairs, bool transpose,
+               cudaStream_t stream) {
+  const int col_log2 = col_log2_of(heads * wph);
+  const size_t smem = sizeof(float) * kWarps * kCells * heads;
+  const uint4* xv = static_cast<const uint4*>(x);
+  if (transpose) {
+    const int64_t cap =
+        etpu::resident_blocks<ell_attn_tr_kernel<kBf16>, kThreads>();
+    ell_attn_tr_kernel<kBf16><<<grid_for(n, cap), kThreads, smem, stream>>>(
+        xv, n, heads, wph, index, width, w_s, c, w_l, out, out_ld, out_hs,
+        f_real, out_padded, pairs, col_log2);
+  } else {
+    const int64_t cap =
+        etpu::resident_blocks<ell_attn_fwd_kernel<kBf16>, kThreads>();
+    ell_attn_fwd_kernel<kBf16><<<grid_for(n, cap), kThreads, smem,
+                                 stream>>>(
+        xv, n, heads, wph, index, width, w_s, c, w_l, out, out_ld, out_hs,
+        f_real, out_padded, pairs, col_log2);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <bool kBf16>
+int launch_sddmm(const void* g, const void* x, int64_t n, int heads, int wph,
+                 const int32_t* nbr, int c, float* gw_s, float* gw_l,
+                 cudaStream_t stream) {
+  const int64_t cap =
+      etpu::resident_blocks<ell_sddmm_kernel<kBf16>, kThreads>();
+  ell_sddmm_kernel<kBf16><<<grid_for(n, cap), kThreads, 0, stream>>>(
+      static_cast<const uint4*>(g), static_cast<const uint4*>(x), n, heads,
+      wph, nbr, c, gw_s, gw_l, col_log2_of(heads * wph));
+  return static_cast<int>(cudaGetLastError());
+}
+
+// A head of wph words: a power of two up to 32, or a multiple of 32.
+bool head_words_ok(int64_t wph) {
+  return wph > 0 && ((wph <= 32 && (wph & (wph - 1)) == 0) || wph % 32 == 0);
+}
+
+}  // namespace
+
+// x [n, heads, wph * 16 bytes] (16-byte aligned) of elt_size-byte elements
+// (4: f32, 2: bf16); index int32 [n, width]; w_s f32 [n, c, heads]; w_l
+// f32 [n, heads]. transpose 0 reads index as nbr (width == c), 1 as tpos.
+// out: x's padded layout where out_padded, else element (t, h, f) at
+// t * out_ld + h * out_hs + f for f < f_real. Launches on `stream` and
+// returns cudaGetLastError() (0 = launched); cudaErrorInvalidValue for an
+// elt_size other than 2 or 4 or a head width the layout does not allow.
+extern "C" int etpu_ell_attn(const void* x, int64_t n, int64_t heads,
+                             int64_t wph, int elt_size, const void* index,
+                             int64_t width, const void* w_s, int64_t c,
+                             const void* w_l, void* out, int64_t out_ld,
+                             int64_t out_hs, int64_t f_real, int out_padded,
+                             int transpose, void* stream) {
+  if ((elt_size != 2 && elt_size != 4) || !head_words_ok(wph) ||
+      heads <= 0 || reinterpret_cast<uintptr_t>(x) % 16 != 0) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  if (n == 0) return 0;
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const int32_t* idx = static_cast<const int32_t*>(index);
+  const float* ws = static_cast<const float*>(w_s);
+  const float* wl = static_cast<const float*>(w_l);
+  const bool padded = out_padded != 0, tr = transpose != 0;
+  const bool pairs = out_ld % 2 == 0 && out_hs % 2 == 0 &&
+                     f_real % 2 == 0 &&
+                     reinterpret_cast<uintptr_t>(out) % 4 == 0;
+  const int h = static_cast<int>(heads), w = static_cast<int>(wph);
+  return elt_size == 4
+      ? launch_agg<false>(x, n, h, w, idx, static_cast<int>(width), ws,
+                          static_cast<int>(c), wl, out, out_ld, out_hs,
+                          static_cast<int>(f_real), padded, pairs, tr, s)
+      : launch_agg<true>(x, n, h, w, idx, static_cast<int>(width), ws,
+                         static_cast<int>(c), wl, out, out_ld, out_hs,
+                         static_cast<int>(f_real), padded, pairs, tr, s);
+}
+
+// g and x [n, heads, wph * 16 bytes] (16-byte aligned, pads zero); nbr
+// int32 [n, c]; gw_s f32 [n, c, heads]; gw_l f32 [n, heads] or null (not
+// computed). Launches on `stream` and returns cudaGetLastError().
+extern "C" int etpu_ell_sddmm(const void* g, const void* x, int64_t n,
+                              int64_t heads, int64_t wph, int elt_size,
+                              const void* nbr, int64_t c, void* gw_s,
+                              void* gw_l, void* stream) {
+  if ((elt_size != 2 && elt_size != 4) || !head_words_ok(wph) ||
+      heads <= 0 || reinterpret_cast<uintptr_t>(g) % 16 != 0 ||
+      reinterpret_cast<uintptr_t>(x) % 16 != 0) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  if (n == 0) return 0;
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const int32_t* idx = static_cast<const int32_t*>(nbr);
+  float* ws = static_cast<float*>(gw_s);
+  float* wl = static_cast<float*>(gw_l);
+  const int h = static_cast<int>(heads), w = static_cast<int>(wph);
+  return elt_size == 4
+      ? launch_sddmm<false>(g, x, n, h, w, idx, static_cast<int>(c), ws, wl,
+                            s)
+      : launch_sddmm<true>(g, x, n, h, w, idx, static_cast<int>(c), ws, wl,
+                           s);
+}

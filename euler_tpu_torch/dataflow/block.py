@@ -39,9 +39,11 @@ from typing import Optional, Tuple
 import torch
 
 from euler_tpu_torch.ops import mp_ops
-from euler_tpu_torch.ops.ell_agg import ell_agg, ell_rows
+from euler_tpu_torch.ops.ell_agg import ell_agg
+from euler_tpu_torch.ops.ell_attn import ell_attn, ell_sddmm, pad_heads
 from euler_tpu_torch.ops.sampling import as_etypes, etype_tensor
 from euler_tpu_torch.parallel import comms
+from euler_tpu_torch.utils.trace import span
 
 
 @dataclasses.dataclass
@@ -224,9 +226,12 @@ class Block:
         a whole-graph ELL block goes through ``_ell_agg`` for add and
         mean. ``scale`` is an optional per-edge multiplier ([E] or [E, 1],
         e.g. GCN's sym-norm or GAT's attention), taken in the dtype of
-        ``x_src`` as the reference does."""
+        ``x_src`` as the reference does. A scale [E, H] with H > 1 is one a
+        head: it multiplies the H equal segments of each row (multi-head
+        attention), in f32 through ``_ell_attn`` on a compact ELL table."""
         if scale is not None and scale.dim() == 1:
             scale = scale[:, None]
+        heads = 1 if scale is None else scale.shape[1]
         if self._is_compact(x_src):
             if op in ("add", "mean") and x_src.dim() == 2:
                 return self._ell_aggregate(op, x_src, mask, scale)
@@ -234,12 +239,13 @@ class Block:
         if self.fanout is None:
             xj = mp_ops.gather(x_src, self._edges64[1])
             if scale is not None:
-                xj = xj * scale.to(xj.dtype)
+                xj = _scaled(xj, scale.to(xj.dtype))
             if self.psum_axis is not None:
                 return self._psum_scatter(op, xj, mask)
             return mp_ops.masked_scatter_(op, xj, self._edges64[0],
                                           self.size[0], mask)
-        if self.shared_src and op in ("add", "mean") and x_src.dim() == 2:
+        if self.shared_src and op in ("add", "mean") and x_src.dim() == 2 \
+                and heads == 1:
             return self._shared_aggregate(op, x_src, mask, scale)
         T, C = self.size[0], self.fanout
         tail = tuple(x_src.shape[1:])
@@ -250,9 +256,9 @@ class Block:
         up_l = x_src[:T] if self.self_loops else None
         if scale is not None:
             s_s, s_l = self._split(scale.to(x_src.dtype))
-            up_s = up_s * s_s
+            up_s = _scaled(up_s, s_s)
             if up_l is not None:
-                up_l = up_l * s_l
+                up_l = _scaled(up_l, s_l)
         m_s, m_l = self._split_mask(mask, x_src.dtype, x_src.dim() - 1)
         return self._reduce(op, up_s, up_l, m_s, m_l)
 
@@ -288,26 +294,35 @@ class Block:
         """The arguments ``_ell_agg`` takes from this whole-graph ELL
         block besides the table: (w_s f32 [T, C], w_l f32 [T], nbr
         [T, C]), the mask and the per-edge scale folded into the
-        weights (w_l is 0 without self loops)."""
+        weights (w_l is 0 without self loops). A scale [E, H] with H > 1
+        gives ``_ell_attn``'s w_s [T, C, H] and w_l [T, H]."""
         T, C = self.size[0], self.fanout
-        eff = torch.ones((self.edge_index.shape[1],), dtype=torch.float32,
-                         device=self.n_id.device)
+        heads = 1 if scale is None or scale.dim() == 1 else scale.shape[1]
+        tail = (heads,) if heads > 1 else ()
+        eff = torch.ones((self.edge_index.shape[1],) + tail,
+                         dtype=torch.float32, device=self.n_id.device)
         if scale is not None:
-            eff = eff * scale.reshape(-1).to(torch.float32)
+            eff = eff * scale.reshape((-1,) + tail).to(torch.float32)
         if mask is not None:
-            eff = eff * mask.to(torch.float32)
+            eff = eff * mask.to(torch.float32).reshape((-1,) + (1,) * len(
+                tail))
         w_l = eff[T * C:] if self.self_loops else torch.zeros(
-            (T,), dtype=torch.float32, device=eff.device)
-        return eff[:T * C].reshape(T, C), w_l, self.n_id[T:].reshape(T, C)
+            (T,) + tail, dtype=torch.float32, device=eff.device)
+        return (eff[:T * C].reshape((T, C) + tail), w_l,
+                self.n_id[T:].reshape(T, C))
 
     def _ell_aggregate(self, op: str, x: torch.Tensor, mask, scale
                        ) -> torch.Tensor:
         """add or mean straight from the compact [N, D] table through
-        ``_ell_agg``. The mean divides by C (+1) + 1e-7 without a mask
-        and by the valid count (at least 1e-7) with one, as the other
-        layouts do."""
+        ``_ell_agg`` (``_ell_attn`` for a scale a head). The mean divides
+        by C (+1) + 1e-7 without a mask and by the valid count (at least
+        1e-7) with one, as the other layouts do."""
         T, C = self.size[0], self.fanout
-        out = _ell_agg(C, x, *self.ell_weights(mask, scale), self.ell_tpos)
+        weights = self.ell_weights(mask, scale)
+        if weights[0].dim() == 3:
+            out = _ell_attn(C, x, *weights, self.ell_tpos)
+        else:
+            out = _ell_agg(C, x, *weights, self.ell_tpos)
         if op == "add":
             return out
         if mask is None:
@@ -392,6 +407,16 @@ class Block:
         return torch.cat([head, sampled])
 
 
+def _scaled(x: torch.Tensor, s: torch.Tensor) -> torch.Tensor:
+    """x [..., D] times s [..., H]: the whole row where H is 1, else each of
+    the row's H equal segments by its own column of s."""
+    H = s.shape[-1]
+    if H == 1:
+        return x * s
+    lead = tuple(x.shape[:-1])
+    return (x.reshape(lead + (H, -1)) * s[..., None]).reshape(x.shape)
+
+
 class _EllExpand(torch.autograd.Function):
     """euler_tpu/dataflow/block.py ``ell_expand`` (:367-393)."""
 
@@ -429,9 +454,9 @@ class _EllAgg(torch.autograd.Function):
     """euler_tpu/dataflow/block.py ``_ell_agg`` (:399-443) and its VJP.
     The forward and the gradient to x are ``ops.ell_agg`` (the CUDA
     kernel on the card, its plain version on the CPU), forward and
-    transpose, which never build the [N, C, D] rows on the card. Saves x,
-    not the rows: only ``grad_w_s`` gathers them again, in f32. Each
-    gradient is computed only where its input asks for one
+    transpose; ``grad_w_s`` is ``ops.ell_sddmm`` with one head. None of
+    them builds the [N, C, D] rows on the card. Saves x, not the rows.
+    Each gradient is computed only where its input asks for one
     (``needs_input_grad``)."""
 
     @staticmethod
@@ -449,8 +474,9 @@ class _EllAgg(torch.autograd.Function):
             grad_x = ell_agg(g.contiguous(), tpos, w_s, w_l, ctx.C,
                              True).to(x.dtype)
         if need_ws:
-            grad_ws = torch.einsum("td,tcd->tc", g.float(),
-                                   ell_rows(x, nbr).float()).to(w_s.dtype)
+            grad_ws = ell_sddmm(pad_heads(g.contiguous(), 1, x.dtype),
+                                pad_heads(x, 1), nbr, False)[0]
+            grad_ws = grad_ws.reshape(w_s.shape).to(w_s.dtype)
         if need_wl:
             grad_wl = torch.einsum("td,td->t", g.float(),
                                    x.float()).to(w_l.dtype)
@@ -472,6 +498,53 @@ def _ell_agg(C: int, x: torch.Tensor, w_s: torch.Tensor, w_l: torch.Tensor,
         grad_w_l    = g[t] . x[t]           (f32)
     """
     return _EllAgg.apply(C, x, w_s, w_l, nbr, tpos)
+
+
+class _EllAttn(torch.autograd.Function):
+    """``_ell_attn``'s aggregate and its VJP over the padded-heads rows
+    (``ops.ell_attn``): the forward is ``ell_attn``'s forward mode, the
+    gradient to the rows its transpose mode and the weights' gradients
+    ``ell_sddmm``, each computed only where asked; the backward runs in
+    the span ``attention.backward``. Saves the padded rows, never the
+    [N, C, D] rows."""
+
+    @staticmethod
+    def forward(ctx, C, F, xp, w_s, w_l, nbr, tpos):
+        ctx.save_for_backward(xp, w_s, w_l, nbr, tpos)
+        ctx.C, ctx.F = C, F
+        return ell_attn(xp, nbr, w_s, w_l, C, F, False, False)
+
+    @staticmethod
+    def backward(ctx, g):
+        with span("attention.backward"):
+            xp, w_s, w_l, nbr, tpos = ctx.saved_tensors
+            need_x, need_ws, need_wl = ctx.needs_input_grad[2:5]
+            grad_x = grad_ws = grad_wl = None
+            gp = pad_heads(g.contiguous(), xp.shape[1], xp.dtype)
+            if need_x:
+                grad_x = ell_attn(gp, tpos, w_s, w_l, ctx.C, ctx.F, True,
+                                  True)
+            if need_ws or need_wl:
+                grad_ws, grad_wl = ell_sddmm(gp, xp, nbr, need_wl)
+        return None, None, grad_x, grad_ws, grad_wl, None, None
+
+
+def _ell_attn(C: int, x: torch.Tensor, w_s: torch.Tensor, w_l: torch.Tensor,
+              nbr: torch.Tensor, tpos: torch.Tensor) -> torch.Tensor:
+    """Multi-head whole-graph ELL aggregate from the compact [N, H * F]
+    table, weights w_s f32 [N, C, H] and w_l f32 [N, H] (one a head):
+
+        out[t, h] = sum over c of x[nbr[t, c], h] * w_s[t, c, h]
+                    + x[t, h] * w_l[t, h]
+
+    over the H segments of F values of each row (pads nbr = -1 add 0),
+    [N, H * F] in x's type, summed in f32 with unrounded weights. The
+    table goes to the padded-heads layout (``ops.ell_attn.pad_heads``)
+    first. Its backward gathers only: the transpose over ``tpos`` and the
+    per-cell dot products (``_EllAttn``)."""
+    H = w_s.shape[2]
+    return _EllAttn.apply(C, x.shape[1] // H, pad_heads(x, H), w_s, w_l,
+                          nbr, tpos)
 
 
 def fanout_block(targets: torch.Tensor, sampled: torch.Tensor,

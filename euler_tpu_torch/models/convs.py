@@ -26,6 +26,7 @@ import torch
 from torch import nn
 
 from euler_tpu_torch.dataflow.block import Block
+from euler_tpu_torch.utils.trace import span
 
 
 def dense(in_dim: int, out_dim: int, bias: bool = True,
@@ -136,26 +137,61 @@ def _trunc_normal(shape, std: float,
 
 class GATConv(nn.Module):
     """reference: gat_conv.py:41-75, in the JAX package's
-    project-after-aggregation form (convs.py:83-116).
+    project-after-aggregation form (convs.py:83-116), and with ``heads``
+    H > 1 the multi-head layer of Velickovic et al., "Graph Attention
+    Networks" (arXiv:1710.10903, section 2.1, eqs. 1-5).
 
-    ``fc`` is flax's ``Dense_0``, ``a1``/``a2`` its ``Dense_1``/
-    ``Dense_2``. The two attention projections compose with ``fc`` into
-    one [D_in, 1] vector each, so the source set is never projected:
-    scores are ``gather_tgt(x_tgt @ w1) + gather_src(x_src @ w2)``,
-    leaky_relu with tf's slope 0.2 (not 0.01), the block softmax, and
-    ``fc`` applied to the attention-weighted sum of raw features.
+    ``heads=1`` (Euler's form): ``fc`` is flax's ``Dense_0``, ``a1``/
+    ``a2`` its ``Dense_1``/``Dense_2``. The two attention projections
+    compose with ``fc`` into one [D_in, 1] vector each, so the source set
+    is never projected: scores are ``gather_tgt(x_tgt @ w1) +
+    gather_src(x_src @ w2)``, leaky_relu with tf's slope 0.2 (not 0.01),
+    the block softmax, and ``fc`` applied to the attention-weighted sum of
+    raw features.
+
+    ``heads=H > 1`` (the paper's form): ``dim`` is the concatenated width,
+    H heads of F = dim / H. ``fc`` holds every head's W^k, [H * F, D_in]
+    (head k's rows k*F to k*F + F), and ``attn_l``/``attn_r`` [H, F] the
+    a_l^k (target side) and a_r^k (source side). Per head k: z^k = W^k x
+    (f32, the activations promoted to the f32 weights); el = z^k . a_l^k
+    of the targets and er = z^k . a_r^k of the sources, in f32, each
+    computed as x . (W^k^T a^k); scores ``leaky_relu_0.2(el[t] +
+    er[src])`` over each target's edges and its self loop; the block's
+    masked softmax a head, in f32; then the per-head weighted sum of the
+    z rows, read in the activation type (x_src's) and summed in f32
+    (``Block.aggregate_neighbors`` with a scale a head: ``_ell_attn`` on
+    a whole-graph ELL table), the heads concatenated, [T, dim] in the
+    activation type. The targets are the first ``size[0]`` rows of the
+    source set, as every block of the port lays them out. The scores,
+    softmax and aggregate run in the span ``attention``.
     """
 
     def __init__(self, in_dim: int, dim: int, improved: bool = False,
+                 heads: int = 1,
                  generator: Optional[torch.Generator] = None):
         super().__init__()
+        if heads < 1 or dim % heads:
+            raise ValueError(f"GATConv: dim {dim} is no multiple of heads "
+                             f"{heads}")
+        if heads > 1 and improved:
+            raise ValueError("GATConv: improved is Euler's single-head "
+                             "form (heads=1)")
         self.out_dim = dim
         self.improved = improved
+        self.heads = heads
         self.fc = dense(in_dim, dim, bias=False, generator=generator)
-        self.a1 = dense(dim, 1, bias=False, generator=generator)
-        self.a2 = dense(dim, 1, bias=False, generator=generator)
+        if heads == 1:
+            self.a1 = dense(dim, 1, bias=False, generator=generator)
+            self.a2 = dense(dim, 1, bias=False, generator=generator)
+            return
+        F = dim // heads
+        std = math.sqrt(1.0 / F) / 0.87962566103423978
+        self.attn_l = nn.Parameter(_trunc_normal((heads, F), std, generator))
+        self.attn_r = nn.Parameter(_trunc_normal((heads, F), std, generator))
 
     def forward(self, x, block: Block) -> torch.Tensor:
+        if self.heads > 1:
+            return self._multi_head(x, block)
         x_tgt, x_src = x
         f32 = self.fc.weight.dtype
         w1 = self.fc.weight.T @ self.a1.weight.T            # [D_in, 1]
@@ -169,6 +205,23 @@ class GATConv(nn.Module):
         if self.improved:
             out = self.fc(x_tgt.to(f32)) + out
         return out
+
+    def _multi_head(self, x, block: Block) -> torch.Tensor:
+        _, x_src = x
+        H = self.heads
+        xs = x_src.to(self.fc.weight.dtype)
+        z = self.fc(xs)                                     # [S, H * F]
+        w = self.fc.weight.reshape(H, -1, xs.shape[1])      # [H, F, D_in]
+        al = torch.einsum("hfd,hf->dh", w, self.attn_l)     # [D_in, H]
+        ar = torch.einsum("hfd,hf->dh", w, self.attn_r)
+        with span("attention"):
+            scores = (block.gather_tgt(xs[:block.size[0]] @ al)
+                      + block.gather_src(xs @ ar))          # [E, H]
+            scores = torch.nn.functional.leaky_relu(scores,
+                                                    negative_slope=0.2)
+            alpha = block.softmax(scores, block.mask)
+            return block.aggregate_neighbors("add", z.to(x_src.dtype),
+                                             scale=alpha)
 
 
 class GINConv(nn.Module):

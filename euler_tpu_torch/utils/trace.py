@@ -32,10 +32,16 @@ The spans (name: where):
   blocks), ``gather`` (``feature_ops.get_dense_feature`` and
   ``ShallowEncoder``'s dense fetch: the labels' and the features' rows),
   ``conv`` (each conv call of ``GNNNet.forward``) and ``head``
-  (``SuperviseModel``'s ``head_fc`` and loss), inside ``forward``.
+  (``SuperviseModel``'s ``head_fc`` and loss), inside ``forward``;
+- ``attention`` (each multi-head ``GATConv``'s scores, softmax and
+  per-head weighted sum), inside its ``conv``; ``attention.backward``
+  (the multi-head ELL aggregate's backward, ``dataflow.block._EllAttn``:
+  the transpose and the weights' gradient), opened on autograd's thread.
 
 The counters beside them: the kernel wrappers' ``launches``
-(``ops.COUNTED``), ``TrainLoop.held`` and ``BaseEstimator.requests``.
+(``ops.COUNTED``: ``fan_draw``, ``gather_rows``, ``ell_agg``,
+``ell_attn``, ``ell_sddmm``), ``TrainLoop.held`` and
+``BaseEstimator.requests``.
 """
 from __future__ import annotations
 

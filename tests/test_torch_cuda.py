@@ -79,6 +79,7 @@ from euler_tpu_torch.models import (LINE, DeepWalk, GNNNet, Node2Vec,
                                     ShallowEncoder, SuperviseModel, TransE,
                                     UnsuperviseModel)
 from euler_tpu_torch.ops import ell_agg as ell
+from euler_tpu_torch.ops import ell_attn as attn
 from euler_tpu_torch.ops import fan_draw as fd
 from euler_tpu_torch.ops import gather_rows as gr
 from euler_tpu_torch.ops import mp_ops, sampling
@@ -517,6 +518,135 @@ def test_ell_agg_kernel_edges(dev, monkeypatch):
                                    rtol=1e-5, atol=1e-5)
 
 
+def attn_case(dev, N, C, H, F, dtype, seed):
+    """``ell_case``'s index, pads and dropped cells with H heads: padded
+    rows x and g [N, H, Fp] (``pad_heads``), weights w_s [N, C, H] (0 at
+    pads) and w_l [N, H] (0 on row 1)."""
+    a = ell_case(dev, N, C, H * F, dtype, seed)
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    live = (a["nbr"] >= 0)[..., None]
+    w_s = torch.rand((N, C, H), generator=gen, device=dev) * live
+    w_l = torch.rand((N, H), generator=gen, device=dev)
+    w_l[1] = 0.0
+    return dict(a, xp=attn.pad_heads(a["x"], H), gp=attn.pad_heads(a["g"], H),
+                w_s=w_s.contiguous(), w_l=w_l)
+
+
+def attn_bound(plain, mag, dtype):
+    """|kernel - plain| allowed: both sum in f32 in other orders (1e-5 of
+    the sum of magnitudes) and round once to the result's type (an ulp of
+    it in bf16, where the two roundings may fall on either side)."""
+    ulp = 2.0 ** -7 if dtype == torch.bfloat16 else 0.0
+    return ulp * plain.abs() + 1e-5 * mag + 1e-30
+
+
+@pytest.mark.parametrize("transpose", [False, True])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("F", [8, 64, 250, 256])
+@pytest.mark.parametrize("H", [1, 2, 3, 8])
+def test_ell_attn_kernel_matches_plain(dev, H, F, dtype, transpose):
+    """The multi-head aggregate (forward unpadded, transpose padded, as
+    ``_EllAttn`` calls them) within ``attn_bound`` of its plain version on
+    the card; the padded output's pads 0; row 1 (no cell, w_l 0) 0."""
+    a = attn_case(dev, 400, 36, H, F, dtype, seed=H * 1000 + F)
+    x, index = (a["gp"], a["tpos"]) if transpose else (a["xp"], a["nbr"])
+    args = (x, index, a["w_s"], a["w_l"], 36, F, transpose, transpose)
+    before = attn.ell_attn.launches
+    got = attn.ell_attn(*args)
+    torch.cuda.synchronize()
+    assert attn.ell_attn.launches == before + 1
+    plain = attn.ell_attn_plain(*args).double()
+    mag = attn.ell_attn_plain(x.abs(), index, a["w_s"], a["w_l"], 36, F,
+                              transpose, transpose).double()
+    assert got.dtype == dtype and got.shape == plain.shape
+    assert bool(((got.double() - plain).abs()
+                 <= attn_bound(plain, mag, dtype)).all())
+    if transpose:
+        assert bool((got[..., F:] == 0).all())
+    assert bool((got[1] == 0).all())
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("F", [8, 64, 250, 256])
+@pytest.mark.parametrize("H", [1, 2, 3, 8])
+def test_ell_sddmm_kernel_matches_plain(dev, H, F, dtype):
+    """The weights' gradient within 1e-5 of the sum of the products'
+    magnitudes of its plain version (f32 sums in other orders); pads
+    exactly 0."""
+    a = attn_case(dev, 400, 36, H, F, dtype, seed=H * 100 + F)
+    before = attn.ell_sddmm.launches
+    gw_s, gw_l = attn.ell_sddmm(a["gp"], a["xp"], a["nbr"], True)
+    torch.cuda.synchronize()
+    assert attn.ell_sddmm.launches == before + 1
+    want_s, want_l = attn.ell_sddmm_plain(a["gp"], a["xp"], a["nbr"], True)
+    mag_s, mag_l = attn.ell_sddmm_plain(a["gp"].abs(), a["xp"].abs(),
+                                        a["nbr"], True)
+    for got, want, mag in ((gw_s, want_s, mag_s), (gw_l, want_l, mag_l)):
+        assert got.dtype == torch.float32 and got.shape == want.shape
+        assert bool(((got - want).abs() <= 1e-5 * mag + 1e-30).all())
+    assert bool((gw_s[a["nbr"] < 0] == 0).all())
+    assert attn.ell_sddmm(a["gp"], a["xp"], a["nbr"], False)[1] is None
+
+
+def test_ell_attn_plain_never_runs_on_the_card(dev, monkeypatch):
+    """No plain version and no [N, C, D] rows (``ell_rows``) on a CUDA
+    tensor: the multi-head Function's forward and backward, and
+    ``_ell_agg``'s gradient to the weights (the one-head SDDMM)."""
+    def boom(*a, **k):
+        raise AssertionError("a plain version ran on a CUDA tensor")
+    for mod, name in ((attn, "ell_attn_plain"), (attn, "ell_sddmm_plain"),
+                      (ell, "ell_agg_plain"), (ell, "ell_rows")):
+        monkeypatch.setattr(mod, name, boom)
+    a = attn_case(dev, 300, 36, 3, 250, torch.bfloat16, seed=3)
+    x = a["x"].clone().requires_grad_(True)
+    w_s, w_l = (a[k].clone().requires_grad_(True) for k in ("w_s", "w_l"))
+    out = block_lib._ell_attn(36, x, w_s, w_l, a["nbr"], a["tpos"])
+    assert out.shape == (300, 750) and out.dtype == torch.bfloat16
+    grads = torch.autograd.grad(out, (x, w_s, w_l), torch.ones_like(out))
+    assert [g.shape for g in grads] == [x.shape, w_s.shape, w_l.shape]
+    b = ell_case(dev, 300, 36, 128, torch.bfloat16, seed=4)
+    ws = b["w_s"].clone().requires_grad_(True)
+    out = block_lib._ell_agg(36, b["x"], ws, b["w_l"], b["nbr"], b["tpos"])
+    (gws,) = torch.autograd.grad(out, ws, b["g"])
+    torch.cuda.synchronize()
+    assert gws.shape == ws.shape
+
+
+def gat_model(dev, dtype, generator_seed=0, n=3000, heads=3, layers=3):
+    graph = random_graph(n, 25, feat_dim=16, n_classes=4, seed=0,
+                         packs=("ell",), device=dev)
+    gen = torch.Generator().manual_seed(generator_seed)
+    net = GNNNet("gat", WholeDataFlow(layers, [(0,)]), (24,) * layers,
+                 ShallowEncoder(("feature",)), in_dim=16, dtype=dtype,
+                 device=dev, generator=gen, conv_kwargs={"heads": heads})
+    return graph, SuperviseModel(net, "label", 4, device=dev, generator=gen)
+
+
+def test_gat_step_on_card_matches_cpu(dev):
+    """A multi-head GAT step over every node in f32: loss and gradients
+    on the card (the kernels) within 1e-4 of the CPU's (the plain
+    versions), with 2 ell_attn and 1 ell_sddmm launches a layer."""
+    graph, model = gat_model(dev, None, layers=2)
+    roots = torch.arange(3000, dtype=torch.int32, device=dev)
+    cpu = torch.device("cpu")
+    before = (attn.ell_attn.launches, attn.ell_sddmm.launches)
+    runs = []
+    for m, g, r in ((model, graph.tensors, roots),
+                    (copy.deepcopy(model).to(cpu), graph.tensors.to(cpu),
+                     roots.cpu())):
+        loss = m(g, r)["loss"]
+        loss.backward()
+        runs.append((loss.detach().cpu(),
+                     {k: p.grad.cpu() for k, p in m.named_parameters()}))
+    assert (attn.ell_attn.launches - before[0],
+            attn.ell_sddmm.launches - before[1]) == (4, 2)
+    (lk, gk), (lc, gc) = runs
+    np.testing.assert_allclose(lk.numpy(), lc.numpy(), rtol=1e-4, atol=1e-4)
+    for k in gk:
+        np.testing.assert_allclose(gk[k].numpy(), gc[k].numpy(), rtol=1e-4,
+                                   atol=1e-4, err_msg=k)
+
+
 def test_ell_expand_on_card_matches_cpu(dev):
     _, blk = ell_block(dev)
     gen = torch.Generator(device=dev).manual_seed(6)
@@ -764,7 +894,8 @@ def test_replays_advance_the_generator_as_eager_steps(dev):
         draws.append((roots[LOOP_SPL // spl - 1::LOOP_SPL // spl],
                       torch.rand(8, generator=gen, device=dev)))
         if spl > 1:
-            assert loop.held == dict(fan_draw=2, gather_rows=2, ell_agg=0)
+            assert loop.held == dict(fan_draw=2, gather_rows=2, ell_agg=0,
+                                     ell_attn=0, ell_sddmm=0)
     (roots_g, after_g), (roots_e, after_e) = draws
     assert not torch.equal(roots_g[1], roots_g[2])       # replays draw anew
     assert all(torch.equal(a, b) for a, b in zip(roots_g, roots_e))
@@ -813,8 +944,40 @@ def test_gcn_replayed_loop_equals_eager_steps(dev):
         torch.cuda.synchronize()
         runs.append((est, float(loss), ell.ell_agg.launches - before, loop))
     (eager, loss_e, n_e, _), (graphed, loss_g, n_g, loop) = runs
-    assert loop.held == dict(fan_draw=0, gather_rows=2, ell_agg=5)
+    assert loop.held == dict(fan_draw=0, gather_rows=2, ell_agg=5,
+                             ell_attn=0, ell_sddmm=0)
     assert n_e == n_g == 5 * 2 * LOOP_SPL
+    assert loss_e == loss_g
+    assert all(torch.equal(a, b) for a, b in zip(
+        graphed.model.parameters(), eager.model.parameters()))
+
+
+def test_gat_replayed_loop_equals_eager_steps(dev):
+    """Multi-head GAT (3 layers of 3 heads) over every node at bf16
+    activations, as the gat-train cell runs it, at a small size: a loop of
+    replays equals the eager steps bit for bit (the kernels sum in a fixed
+    order), and a replay holds 6 ell_attn launches (3 forward, 3
+    transposes: the first layer's rows are z, which takes a gradient) and
+    3 ell_sddmm beside the 2 gathers."""
+    every = torch.arange(3000, dtype=torch.int32, device=dev)
+    runs = []
+    for spl in (1, LOOP_SPL):
+        graph, model = gat_model(dev, torch.bfloat16)
+        est = NodeEstimator(model, graph, RunConfig(batch_size=3000),
+                            device=dev)
+        opt = get_optimizer("adam", 1e-3, est.model.parameters())
+        loop = TrainLoop(est, opt, torch.Generator(device=dev).manual_seed(5),
+                         spl, lambda: every)
+        before = (attn.ell_attn.launches, attn.ell_sddmm.launches)
+        loss = [loop() for _ in range(2 * LOOP_SPL // spl)][-1]
+        torch.cuda.synchronize()
+        runs.append((est, float(loss),
+                     (attn.ell_attn.launches - before[0],
+                      attn.ell_sddmm.launches - before[1]), loop))
+    (eager, loss_e, n_e, _), (graphed, loss_g, n_g, loop) = runs
+    assert loop.held == dict(fan_draw=0, gather_rows=2, ell_agg=0,
+                             ell_attn=6, ell_sddmm=3)
+    assert n_e == n_g == (6 * 2 * LOOP_SPL, 3 * 2 * LOOP_SPL)
     assert loss_e == loss_g
     assert all(torch.equal(a, b) for a, b in zip(
         graphed.model.parameters(), eager.model.parameters()))

@@ -1,0 +1,390 @@
+"""Multi-head GAT of the PyTorch port on the CPU: ``GATConv(heads=H)``
+over the whole-graph ELL block (the plain versions of the attention
+kernels) against the benchmark's plain reference
+(benchmark/reference/gat.py: the paper's layer over the edge list with
+self loops), the block layouts against each other for heads 1, 2 and 3,
+the plain versions of ``ops.ell_attn`` against their definitions written
+out, ``_ell_attn``'s and ``_ell_agg``'s gradients, the wrappers' checks
+and the ``attention`` spans. The kernels themselves are held to these
+plain versions on the card (tests/test_torch_cuda.py).
+
+Tolerances: f32 throughout; rtol = atol = 1e-5 between two sums of the
+same terms in other orders (layouts, definitions), and the forward within
+2e-5 / gradients within 2e-4 of the reference (another order of the whole
+model, as tests/test_torch_whole.py holds whole models).
+"""
+import dataclasses
+
+import numpy as np
+import pytest
+import torch
+
+from benchmark.reference import gat as ref_gat
+from benchmark.reference.gnn import sigmoid_xent_loss
+from euler_tpu_torch.dataflow import WholeDataFlow
+from euler_tpu_torch.dataflow import block as block_lib
+from euler_tpu_torch.dataflow.block import fanout_block
+from euler_tpu_torch.datasets import random_graph
+from euler_tpu_torch.models import (GATConv, GNNNet, ShallowEncoder,
+                                    SuperviseModel)
+from euler_tpu_torch.ops import ell_agg as ell_agg_ops
+from euler_tpu_torch.ops import ell_attn as attn
+from euler_tpu_torch.utils import trace
+
+TOL = dict(rtol=1e-5, atol=1e-5)
+ELL_FIELDS = ("ell_nbr", "ell_w", "ell_eid", "ell_ty", "ell_tpos",
+              "ell_in_deg")
+
+
+@pytest.fixture(scope="module")
+def graph():
+    """300 nodes, one edge type, 16-wide features and 4 labels."""
+    return random_graph(300, 6, feat_dim=16, n_classes=4, seed=3,
+                        packs=("ell",), device="cpu")
+
+
+def model(heads: int, dims=(24, 24), **flow_kw):
+    net = GNNNet("gat", WholeDataFlow(len(dims), [(0,)], **flow_kw), dims,
+                 ShallowEncoder(("feature",)), in_dim=16,
+                 generator=torch.Generator().manual_seed(0), device="cpu",
+                 conv_kwargs={"heads": heads})
+    return SuperviseModel(net, "label", 4, device="cpu",
+                          generator=torch.Generator().manual_seed(1))
+
+
+def reference_weights(m) -> dict:
+    """The reference's weights (benchmark/configs/gat.py's names) from
+    the port model's parameters, as leaves of their own."""
+    net = m.embedder
+    w = {"out.w": net.out_fc.weight, "out.b": net.out_fc.bias,
+         "head.w": m.head_fc.weight}
+    for i, conv in enumerate(net.convs):
+        w[f"l{i}.fc"] = conv.fc.weight
+        w[f"l{i}.attn_l"], w[f"l{i}.attn_r"] = conv.attn_l, conv.attn_r
+    return {k: v.detach().clone().requires_grad_(True) for k, v in w.items()}
+
+
+@pytest.mark.parametrize("heads", [2, 3])
+def test_multi_head_gat_matches_the_plain_reference(graph, heads):
+    """The port's GNNNet and SuperviseModel over the ELL pack (the plain
+    ``ell_attn`` and ``ell_sddmm``) against ``reference/gat.py`` on the
+    same weights: embeddings of every node, the loss over 100 roots and
+    every parameter's gradient."""
+    g = graph.tensors
+    m = model(heads)
+    roots = torch.arange(100, dtype=torch.int32)
+    out = m(g, roots)
+    out["loss"].backward()
+    w = reference_weights(m)
+    ok = g.adj_type == 0
+    src, dst = g.adj_src[ok].long(), g.adj_dst[ok].long()
+    emb = ref_gat.gat_embed(w, g.dense_nf["feature"], src, dst, 2, heads)
+    label = g.dense_nf["label"][:100].to(torch.float32)
+    loss = sigmoid_xent_loss(emb[:100] @ w["head.w"].T, label,
+                             torch.ones(100, dtype=torch.bool))
+    loss.backward()
+    np.testing.assert_allclose(out["embedding"].detach().numpy(),
+                               emb[:100].detach().numpy(), rtol=2e-5,
+                               atol=2e-6)
+    np.testing.assert_allclose(float(out["loss"].detach()),
+                               float(loss.detach()), rtol=2e-5)
+    params = dict(m.named_parameters())
+    names = {"out.w": "embedder.out_fc.weight",
+             "out.b": "embedder.out_fc.bias", "head.w": "head_fc.weight"}
+    for i in range(2):
+        names.update({f"l{i}.fc": f"embedder.convs.{i}.fc.weight",
+                      f"l{i}.attn_l": f"embedder.convs.{i}.attn_l",
+                      f"l{i}.attn_r": f"embedder.convs.{i}.attn_r"})
+    assert set(names.values()) == set(params)
+    for k, name in names.items():
+        np.testing.assert_allclose(params[name].grad.numpy(),
+                                   w[k].grad.numpy(), rtol=2e-4, atol=2e-5,
+                                   err_msg=k)
+
+
+def _run(m, g, roots):
+    out = m(g, roots)["loss"]
+    out.backward()
+    return float(out.detach()), {k: p.grad.clone()
+                                 for k, p in m.named_parameters()}
+
+
+@pytest.mark.parametrize("heads", [1, 2, 3])
+def test_whole_graph_layouts_agree(graph, heads):
+    """The ELL pack (the compact table through ``_ell_attn``, or
+    ``_ell_agg`` at one head), the dynamic layout (a regular fanout block
+    over the expanded source set) and the edge list (an irregular block)
+    give one loss and one gradient from the same weights."""
+    g = graph.tensors
+    roots = torch.arange(300, dtype=torch.int32)
+    deg = int(torch.bincount(g.adj_src.long(), minlength=300).max())
+    no_pack = dataclasses.replace(g, **{n: None for n in ELL_FIELDS})
+    runs = {"pack": _run(model(heads), g, roots),
+            "dynamic": _run(model(heads, cap=deg), no_pack, roots),
+            "edge_list": _run(model(heads, layout="edge_list"), g, roots)}
+    loss, grads = runs["pack"]
+    for name in ("dynamic", "edge_list"):
+        np.testing.assert_allclose(runs[name][0], loss, **TOL)
+        for k, v in grads.items():
+            np.testing.assert_allclose(runs[name][1][k].numpy(), v.numpy(),
+                                       err_msg=f"{name} {k}", **TOL)
+
+
+@pytest.mark.parametrize("heads", [1, 2, 3])
+def test_sampled_block_equals_its_irregular_twin(heads):
+    """A sampled hop's fanout block (some draws -1) and the same edges as
+    an irregular block (``fanout`` None: ``mp_ops`` gathers, scatters and
+    the masked scatter softmax) give one output and one gradient."""
+    rng = np.random.default_rng(heads)
+    T, count = 40, 5
+    targets = torch.arange(T, dtype=torch.int32)
+    sampled = torch.from_numpy(rng.integers(0, 200, (T, count))
+                               .astype(np.int32))
+    sampled[rng.random((T, count)) < 0.3] = -1
+    sampled[0] = -1                             # a row of its self loop
+    blk = fanout_block(targets, sampled, torch.ones((T, count)),
+                       torch.zeros((T, count), dtype=torch.int32), count)
+    twin = dataclasses.replace(blk, fanout=None)
+    x = torch.from_numpy(rng.normal(size=(blk.size[1], 12))
+                         .astype(np.float32))
+    outs = []
+    for b in (blk, twin):
+        conv = GATConv(12, 6 * heads, heads=heads,
+                       generator=torch.Generator().manual_seed(0))
+        xs = x.clone().requires_grad_(True)
+        out = conv((xs[:T], xs), b)
+        (out * out).sum().backward()
+        outs.append((out.detach(), xs.grad,
+                     {k: p.grad for k, p in conv.named_parameters()}))
+    (o1, gx1, gp1), (o2, gx2, gp2) = outs
+    np.testing.assert_allclose(o2.numpy(), o1.numpy(), **TOL)
+    np.testing.assert_allclose(gx2.numpy(), gx1.numpy(), **TOL)
+    for k in gp1:
+        np.testing.assert_allclose(gp2[k].numpy(), gp1[k].numpy(),
+                                   err_msg=k, **TOL)
+
+
+def test_gat_conv_arguments():
+    conv = GATConv(8, 12, heads=3)
+    assert conv.out_dim == 12 and tuple(conv.attn_l.shape) == (3, 4)
+    assert {n for n, _ in conv.named_parameters()} == {
+        "fc.weight", "attn_l", "attn_r"}
+    assert {n for n, _ in GATConv(8, 12).named_parameters()} == {
+        "fc.weight", "a1.weight", "a2.weight"}
+    with pytest.raises(ValueError, match="multiple of heads"):
+        GATConv(8, 10, heads=3)
+    with pytest.raises(ValueError, match="single-head"):
+        GATConv(8, 12, improved=True, heads=3)
+
+
+# ---------------------------------------------- ops.ell_attn's plain --
+
+def attn_case(N=8, C=4, H=2, F=3, seed=0):
+    """Rows x and a cotangent g [N, H * F]; nbr [N, C] with row 0 all pads
+    (its self loop alone), row 1's live cells weighted 0 (a masked row),
+    pads interleaved elsewhere; tpos [N, C_in] the transpose positions of
+    every live cell, pads interleaved; weights w_s [N, C, H] (0 at pads)
+    and w_l [N, H]."""
+    rng = np.random.default_rng(seed)
+    nbr = rng.integers(0, N, (N, C)).astype(np.int32)
+    nbr[rng.random((N, C)) < 0.35] = -1
+    nbr[0] = -1
+    nbr[1, :2] = (2, 3)
+    into = [[] for _ in range(N)]
+    for p in np.flatnonzero(nbr.reshape(-1) >= 0):
+        into[nbr.flat[p]].append(p)
+    C_in = max(len(c) for c in into) + 2
+    tpos = np.full((N, C_in), -1, np.int32)
+    for u, cells in enumerate(into):
+        tpos[u, np.sort(rng.choice(C_in, len(cells), replace=False))] = cells
+    w_s = (rng.random((N, C, H)) * (nbr >= 0)[..., None]).astype(np.float32)
+    w_s[1] = 0.0
+    w_l = rng.random((N, H)).astype(np.float32)
+    x, g = (torch.from_numpy(rng.normal(size=(N, H * F)).astype(np.float32))
+            for _ in range(2))
+    return dict(x=x, g=g, nbr=torch.from_numpy(nbr),
+                tpos=torch.from_numpy(tpos), w_s=torch.from_numpy(w_s),
+                w_l=torch.from_numpy(w_l), N=N, C=C, H=H, F=F)
+
+
+def definition(a, x, transpose):
+    """The aggregate written out cell by cell in f64: [N, H, F]."""
+    N, C, H, F = a["N"], a["C"], a["H"], a["F"]
+    xv = x.double().reshape(N, H, F)
+    out = xv * a["w_l"].double()[..., None]
+    index = a["tpos"] if transpose else a["nbr"]
+    for t in range(N):
+        for c in range(index.shape[1]):
+            v = int(index[t, c])
+            if v < 0:
+                continue
+            if transpose:
+                u, w = v // C, a["w_s"].reshape(-1, H)[v]
+            else:
+                u, w = v, a["w_s"][t, c]
+            out[t] += xv[u] * w.double()[:, None]
+    return out
+
+
+@pytest.mark.parametrize("transpose", [False, True])
+def test_ell_attn_plain_matches_its_definition(transpose):
+    a = attn_case()
+    x = a["g"] if transpose else a["x"]
+    index = a["tpos"] if transpose else a["nbr"]
+    xp = attn.pad_heads(x, a["H"])
+    assert tuple(xp.shape) == (8, 2, 4) and bool((xp[..., 3:] == 0).all())
+    want = definition(a, x, transpose)
+    for padded in (False, True):
+        got = attn.ell_attn(xp, index, a["w_s"], a["w_l"], a["C"], a["F"],
+                            transpose, padded)
+        if padded:
+            assert bool((got[..., 3:] == 0).all())
+            got = got[..., :3]
+        np.testing.assert_allclose(got.reshape(8, 2, 3).numpy(),
+                                   want.numpy(), **TOL)
+    if not transpose:
+        # row 0 reads its self loop alone, row 1 live cells weighted 0
+        got = attn.ell_attn(xp, index, a["w_s"], a["w_l"], a["C"], a["F"],
+                            False, False)
+        for t in (0, 1):
+            np.testing.assert_allclose(
+                got[t].numpy(), (x[t].reshape(2, 3) * a["w_l"][t][:, None])
+                .reshape(-1).numpy(), **TOL)
+
+
+def test_ell_sddmm_plain_matches_its_definition():
+    a = attn_case(seed=2)
+    N, C, H, F = a["N"], a["C"], a["H"], a["F"]
+    gp, xp = attn.pad_heads(a["g"], H), attn.pad_heads(a["x"], H)
+    gw_s, gw_l = attn.ell_sddmm(gp, xp, a["nbr"], True)
+    gv, xv = (v.double().reshape(N, H, F) for v in (a["g"], a["x"]))
+    want = torch.zeros((N, C, H), dtype=torch.float64)
+    for t in range(N):
+        for c in range(C):
+            if a["nbr"][t, c] >= 0:
+                want[t, c] = (gv[t] * xv[int(a["nbr"][t, c])]).sum(-1)
+    np.testing.assert_allclose(gw_s.numpy(), want.numpy(), **TOL)
+    np.testing.assert_allclose(gw_l.numpy(), (gv * xv).sum(-1).numpy(),
+                               **TOL)
+    assert bool((gw_s[0] == 0).all())                  # pads: 0
+    assert attn.ell_sddmm(gp, xp, a["nbr"], False)[1] is None
+
+
+def test_ell_attn_function_gradients_match_the_definition():
+    """``_ell_attn``'s backward (the transpose and the SDDMM) against
+    autograd through the aggregate written out."""
+    a = attn_case(seed=3)
+    N, C, H, F = a["N"], a["C"], a["H"], a["F"]
+    ins = [a[k].clone().requires_grad_(True) for k in ("x", "w_s", "w_l")]
+    out = block_lib._ell_attn(C, *ins, a["nbr"], a["tpos"])
+    got = torch.autograd.grad(out, ins, a["g"])
+    ref = [a[k].clone().requires_grad_(True) for k in ("x", "w_s", "w_l")]
+    xv = ref[0].reshape(N, H, F)
+    rows = torch.where((a["nbr"] >= 0)[..., None, None],
+                       xv[a["nbr"].long().clamp_min(0)], 0.0)
+    want_out = ((ref[1][..., None] * rows).sum(1)
+                + xv * ref[2][..., None]).reshape(N, H * F)
+    want = torch.autograd.grad(want_out, ref, a["g"])
+    np.testing.assert_allclose(out.detach().numpy(),
+                               want_out.detach().numpy(), **TOL)
+    for k, u, v in zip(("x", "w_s", "w_l"), got, want):
+        np.testing.assert_allclose(u.numpy(), v.numpy(), err_msg=k, **TOL)
+
+
+def test_pad_heads():
+    x = torch.arange(12, dtype=torch.float32).reshape(2, 6)
+    p = attn.pad_heads(x, 2)                         # F 3 -> 4 f32
+    assert tuple(p.shape) == (2, 2, 4)
+    assert torch.equal(p[..., :3].reshape(2, 6), x)
+    assert bool((p[..., 3:] == 0).all())
+    assert attn.pad_heads(p[..., :4].reshape(2, 8), 2).data_ptr() \
+        == p.data_ptr()                              # nothing to pad: a view
+    b = attn.pad_heads(x, 2, torch.bfloat16)
+    assert b.dtype == torch.bfloat16 and tuple(b.shape) == (2, 2, 8)
+    xg = x.clone().requires_grad_(True)
+    (attn.pad_heads(xg, 2) * 2).sum().backward()
+    assert torch.equal(xg.grad, torch.full_like(x, 2.0))
+    assert [attn.padded_width(f, torch.bfloat16) for f in (8, 64, 250, 256,
+                                                           300)] \
+        == [8, 64, 256, 256, 512]
+    assert [attn.padded_width(f, torch.float32) for f in (8, 64, 250, 3)] \
+        == [8, 64, 256, 4]
+
+
+WRAPPER_CASES = ("rows_dtype", "rows_rank", "rows_width", "index_dtype",
+                 "index_rows", "weight_dtype", "weight_shape", "f_width",
+                 "nbr_width", "sddmm_pair", "device")
+
+
+@pytest.mark.parametrize("case", WRAPPER_CASES)
+def test_ell_attn_wrappers_refuse_what_the_kernels_do_not_take(case):
+    a = attn_case()
+    xp = attn.pad_heads(a["x"], 2)
+    args = dict(x=xp, index=a["nbr"], w_s=a["w_s"], w_l=a["w_l"], C=4, F=3,
+                transpose=False, out_padded=False)
+
+    def call(**kw):
+        return attn.ell_attn(**dict(args, **kw))
+    if case == "rows_dtype":
+        with pytest.raises(TypeError, match="f32 or bf16"):
+            call(x=xp.double())
+    elif case == "rows_rank":
+        with pytest.raises(TypeError, match=r"\[N, H, Fp\]"):
+            call(x=a["x"])
+    elif case == "rows_width":
+        with pytest.raises(ValueError, match="no padded head width"):
+            call(x=xp[..., :3].contiguous())
+    elif case == "index_dtype":
+        with pytest.raises(TypeError, match="int32"):
+            call(index=a["nbr"].long())
+    elif case == "index_rows":
+        with pytest.raises(TypeError, match="int32"):
+            call(index=a["nbr"][:-1])
+    elif case == "weight_dtype":
+        with pytest.raises(TypeError, match="f32"):
+            call(w_s=a["w_s"].double())
+    elif case == "weight_shape":
+        with pytest.raises(ValueError, match="does not fit"):
+            call(w_l=a["w_l"][:, :1].contiguous())
+    elif case == "f_width":
+        with pytest.raises(ValueError, match="does not pad"):
+            call(F=5)
+    elif case == "nbr_width":
+        with pytest.raises(ValueError, match="does not fit"):
+            call(index=a["nbr"][:, :3].contiguous())
+    elif case == "sddmm_pair":
+        with pytest.raises(ValueError, match="differ"):
+            attn.ell_sddmm(xp[:-1], xp, a["nbr"])
+    else:
+        meta = {k: args[k].to("meta") for k in ("x", "index", "w_s", "w_l")}
+        with pytest.raises(ValueError, match="no kernel"):
+            call(**meta)
+
+
+def test_ell_agg_weight_gradient_is_the_one_head_sddmm():
+    """``_ell_agg``'s gradient to w_s (now ``ops.ell_sddmm`` with one
+    head) equals the f32 row-dot formula it had, g[t] . x[nbr[t, c]]."""
+    a = attn_case(H=1, F=5, seed=5)
+    x, nbr, C = a["x"], a["nbr"], a["C"]
+    w_s = a["w_s"][..., 0].clone().requires_grad_(True)
+    out = block_lib._ell_agg(C, x, w_s, a["w_l"][:, 0], nbr, a["tpos"])
+    (got,) = torch.autograd.grad(out, w_s, a["g"])
+    want = torch.einsum("td,tcd->tc", a["g"], ell_agg_ops.ell_rows(x, nbr))
+    np.testing.assert_allclose(got.numpy(), want.numpy(), **TOL)
+
+
+def test_attention_spans_in_a_train_step(graph):
+    """``attention`` inside each multi-head conv's ``conv`` span, and
+    ``attention.backward`` in the Function's backward; neither in a
+    one-head model."""
+    g = graph.tensors
+    roots = torch.arange(50, dtype=torch.int32)
+    for heads, want in ((3, 2), (1, 0)):
+        m = model(heads)
+        with trace.recording() as spans:
+            m(g, roots)["loss"].backward()
+        att = [s for s in spans if s.name == "attention"]
+        back = [s for s in spans if s.name == "attention.backward"]
+        assert len(att) == len(back) == want
+        assert all(s.parent is not None and s.parent.name == "conv"
+                   for s in att)

@@ -293,10 +293,11 @@ def test_sources_without_quoted_includes_keep_their_name(name):
     assert _build.source_digest(src, cmd) == old_digest(src, cmd)
 
 
-@pytest.mark.parametrize("name", ["gather_rows.cu", "ell_agg.cu"])
+@pytest.mark.parametrize("name", ["gather_rows.cu", "ell_agg.cu",
+                                  "ell_attn.cu"])
 def test_kernels_hash_their_shared_header(name):
-    # both size their grids with csrc/resident_blocks.cuh: a change of the
-    # header renames (rebuilds) both libraries
+    # each sizes its grids with csrc/resident_blocks.cuh: a change of the
+    # header renames (rebuilds) every one of their libraries
     src = os.path.join(PACKAGE_DIR, "csrc", name)
     cmd = [_build.nvcc()] + _build.NVCC_FLAGS
     with open(src, "rb") as f:
