@@ -311,10 +311,15 @@ Phases, in order; any failure propagates and the exit code is not 0:
  12n. gat     the gat-train cell's whole-graph block
               (benchmark/configs/gat.json's graph, the gcn cell's) at its
               widths, 3 heads of 250, bf16: ops.ell_attn forward and
-              transpose and ops.ell_sddmm held to their plain versions
-              (ATTN_TOL) and timed beside their bytes bound
+              transpose, ops.ell_sddmm and GAT's fused ell_gat,
+              ell_gat_sddmm and ell_gat_tr held to their plain versions
+              (ATTN_TOL, GAT_TOL) and timed beside their bytes bound
               (benchmark/harness/gat_arith.call_bytes) and the plain
-              versions' time
+              versions' time; the unfused chain's forward and backward
+              from the same score terms beside the fused kernels; a
+              3-layer multi-head GAT loop at 3,000 nodes, its replays
+              equal to its eager steps bit for bit, 9 ell_gat launches a
+              step held by a replay
  13. bench    the port's bench (euler_tpu_torch/bench.py) in each mode,
               sage, gin, gat, rgcn, the eight of bench.CONV_MODES, gcn and
               transe, at bench.py's width,
@@ -550,11 +555,11 @@ KG_FAMILY = (kg.TransH, kg.TransR, kg.TransD, kg.DistMult)
 
 def kernel_counts(fan_draw: int = 0, gather_rows: int = 0,
                   ell_agg: int = 0, ell_attn: int = 0,
-                  ell_sddmm: int = 0) -> dict:
+                  ell_sddmm: int = 0, ell_gat: int = 0) -> dict:
     """Launches of each kernel wrapper in ``ops.COUNTED``, by name, as
     ``read_counts`` gives them; a kernel not named launches none."""
     return dict(fan_draw=fan_draw, gather_rows=gather_rows, ell_agg=ell_agg,
-                ell_attn=ell_attn, ell_sddmm=ell_sddmm)
+                ell_attn=ell_attn, ell_sddmm=ell_sddmm, ell_gat=ell_gat)
 
 
 # an ell_agg result against its plain version on the same inputs: the
@@ -1779,15 +1784,37 @@ def gat_cell_block(dev):
     return flow(graph.tensors, roots)[0], cfg
 
 
-def phase_gat(dev) -> list:
-    """``ops.ell_attn`` (forward, transpose) and ``ops.ell_sddmm`` at the
-    gat-train cell's shapes (``gat_cell_block``, H heads of F, bf16), on
+def gat_gap(out: torch.Tensor, plain: torch.Tensor) -> float:
+    """A fused GAT kernel's result against its plain version: the largest
+    distance over the plain version's largest value (the scores'
+    gradients subtract, so no sum of magnitudes bounds them)."""
+    plain = plain.float()
+    return float((out.float() - plain).abs().max()
+                 / plain.abs().max().clamp_min(1e-30))
+
+
+# fused GAT kernels against their plain versions (``gat_gap``): f32 sums
+# of the same terms in other orders, expf and logf against torch's; the
+# forward's bf16 output also an ulp of its largest value
+GAT_TOL = 1e-4
+
+
+def phase_gat(dev) -> dict:
+    """At the gat-train cell's shapes (``gat_cell_block``, H heads of F,
+    bf16): ``ops.ell_attn`` (forward, transpose) and ``ops.ell_sddmm`` on
     per-head weights that are a softmax of random scores over the block
-    (``Block.softmax``, as ``GATConv`` makes them): each held to its plain
-    version within ATTN_TOL, then timed with CUDA events, L2 flushed,
-    beside its bytes bound (``gat_arith.call_bytes``, imported from the
-    benchmark) and its plain version's time. No PyTorch call computes a
-    per-head weighted sum: no library yardstick."""
+    (``Block.softmax``, as the unfused chain makes them), and GAT's fused
+    modes (``ell_gat``, ``ell_gat_sddmm``, ``ell_gat_tr``) on random score
+    terms el and er: each held to its plain version (ATTN_TOL, GAT_TOL),
+    then timed with CUDA events, L2 flushed, beside its bytes bound
+    (``gat_arith.call_bytes``, imported from the benchmark) and its plain
+    version's time (``rows``). Beside the fused kernels, the unfused chain
+    they replace, from el and er (``chain``): the forward (the [E, H]
+    scores, ``Block.softmax``, ``ell_weights`` and the weighted forward
+    kernel) and its backward through autograd (the transpose, the SDDMM
+    and the softmax's and scores' gradients). Then ``gat_loop_check``. No
+    PyTorch call computes a per-head weighted sum: no library
+    yardstick."""
     from benchmark.harness.gat_arith import call_bytes
     from benchmark.harness.supervised import edge_count
     blk, cfg = gat_cell_block(dev)
@@ -1805,49 +1832,134 @@ def phase_gat(dev) -> list:
     x, g = (torch.randn((N, D), generator=gen, device=dev, dtype=dtype)
             for _ in range(2))
     xp, gp = attn_ops.pad_heads(x, H), attn_ops.pad_heads(g, H)
-    del x, g, scores, blk
+    el, er = (2 * torch.randn((N, H), generator=gen, device=dev)
+              for _ in range(2))
+    a_l, a_r = (torch.randn((H, F), generator=gen, device=dev) / F ** 0.5
+                for _ in range(2))
+    del scores
+    lse = attn_ops.gat_lse(el, er, nbr)
+    grads = attn_ops.ell_gat_sddmm_plain(gp, xp, nbr, el, er, lse)
     nbytes = call_bytes(N, edge_count(cfg["graph"]), D, H,
                         xp.element_size())
     flush = torch.empty(64 << 20, dtype=torch.uint8, device=dev)
+    calls = {
+        ("ell_attn", "forward"): (attn_ops.ell_attn, attn_ops.ell_attn_plain,
+                                  (xp, nbr, w_s, w_l, C, F, False, False)),
+        ("ell_attn", "transpose"): (attn_ops.ell_attn,
+                                    attn_ops.ell_attn_plain,
+                                    (gp, tpos, w_s, w_l, C, F, True, True)),
+        ("ell_sddmm", "sddmm"): (attn_ops.ell_sddmm, attn_ops.ell_sddmm_plain,
+                                 (gp, xp, nbr, True)),
+        ("ell_gat", "forward"): (attn_ops.ell_gat, attn_ops.ell_gat_plain,
+                                 (xp, nbr, el, er, F)),
+        ("ell_gat", "sddmm"): (attn_ops.ell_gat_sddmm,
+                               attn_ops.ell_gat_sddmm_plain,
+                               (gp, xp, nbr, el, er, lse)),
+        ("ell_gat", "transpose"): (attn_ops.ell_gat_tr,
+                                   attn_ops.ell_gat_tr_plain,
+                                   (gp, attn_ops.live_tpos(tpos, nbr), nbr,
+                                    el, er, lse, *grads, a_l, a_r, F))}
     rows = []
-    for kernel, mode in (("ell_attn", "forward"), ("ell_attn", "transpose"),
-                         ("ell_sddmm", "sddmm")):
-        if kernel == "ell_attn":
-            tr = mode == "transpose"
-            args = (gp if tr else xp, tpos if tr else nbr, w_s, w_l, C, F,
-                    tr, tr)
-
-            def fn(args=args):
-                return attn_ops.ell_attn(*args)
-
-            def plain_fn(args=args):
-                return attn_ops.ell_attn_plain(*args)
-            mag = attn_ops.ell_attn_plain(args[0].abs(), *args[1:])
-            got, plain = fn(), plain_fn()
-            gap = attn_gap(got, plain, mag)
+    for (kernel, mode), (fn, plain_fn, args) in calls.items():
+        got, plain = fn(*args), plain_fn(*args)
+        if kernel == "ell_gat":
+            gap = max(gat_gap(a, b) for a, b in zip(got, plain))
+            tol = GAT_TOL + (2.0 ** -7 if mode == "forward" else 0.0)
+        elif kernel == "ell_attn":
+            gap = attn_gap(got, plain, plain_fn(args[0].abs(), *args[1:]))
+            tol = ATTN_TOL[dtype]
         else:
-            def fn():
-                return attn_ops.ell_sddmm(gp, xp, nbr, True)
-
-            def plain_fn():
-                return attn_ops.ell_sddmm_plain(gp, xp, nbr, True)
-            mag = attn_ops.ell_sddmm_plain(gp.abs(), xp.abs(), nbr, True)
-            got, plain = fn(), plain_fn()
+            mag = plain_fn(gp.abs(), xp.abs(), nbr, True)
             gap = max(attn_gap(a, b, c) for a, b, c in zip(got, plain, mag))
-        del got, plain, mag
+            tol = ATTN_TOL[dtype]
+        del got, plain
         torch.cuda.empty_cache()
         row = dict(kernel=kernel, mode=mode, dtype="bfloat16", N=N, C=C,
                    H=H, F=F, bytes=nbytes,
                    bound_ms=nbytes / HBM_BYTES_PER_S * 1e3, plain_gap=gap)
-        check(gap <= ATTN_TOL[dtype], f"gat-train {kernel} {row}: kernel "
-                                      f"vs plain")
-        row["ms"] = time_launches(fn, 20, flush)
-        row["plain_ms"] = time_launches(plain_fn, 2, flush)
+        check(gap <= tol, f"gat-train {kernel} {row}: kernel vs plain")
+        row["ms"] = time_launches(lambda: fn(*args), 20, flush)
+        row["plain_ms"] = time_launches(lambda: plain_fn(*args), 2, flush)
         torch.cuda.empty_cache()
         row["roofline"] = row["bound_ms"] / row["ms"]
         rows.append(row)
         log(f"gat: {json.dumps(row)}")
-    return rows
+    del grads, w_s, w_l, gp
+    torch.cuda.empty_cache()
+    chain = gat_chain_ms(blk, x, el, er, flush)
+    chain["fused_forward_ms"] = rows[3]["ms"]
+    chain["fused_backward_ms"] = rows[4]["ms"] + rows[5]["ms"]
+    log(f"gat chain: {json.dumps(chain)}")
+    del blk, x, xp, flush
+    torch.cuda.empty_cache()
+    return dict(rows=rows, chain=chain, loop=gat_loop_check(dev))
+
+
+def gat_chain_ms(blk, x, el, er, flush) -> dict:
+    """The unfused chain that GAT's fused kernels replace, from the score
+    terms el and er over the block and the rows x [N, H * F]: the
+    forward's median ms (leaky_relu of the [E, H] scores, ``Block.softmax``,
+    ``ell_weights``, ``_ell_attn``'s forward) and, through autograd, the
+    backward's (forward and backward less the forward)."""
+    H = el.shape[1]
+    C = blk.fanout
+
+    def forward(x, el, er):
+        s = torch.nn.functional.leaky_relu(
+            blk.gather_tgt(el) + blk.gather_src(er), 0.2)
+        w_s, w_l, nbr = blk.ell_weights(None, blk.softmax(s, blk.mask))
+        return block_lib._ell_attn(C, x, w_s, w_l, nbr, blk.ell_tpos)
+    leaves = [t.detach().requires_grad_(True) for t in (x, el, er)]
+    cot = torch.ones_like(x)
+
+    def both():
+        torch.autograd.grad(forward(*leaves), leaves, cot)
+    with torch.no_grad():
+        fwd = time_launches(lambda: forward(x, el, er), 10, flush)
+    total = time_launches(both, 10, flush)
+    return dict(heads=H, forward_ms=fwd, backward_ms=total - fwd)
+
+
+def gat_loop_check(dev) -> dict:
+    """Multi-head GAT (3 layers of 3 heads of 8) over every node of a
+    3,000-node graph at bf16 activations, as the gat-train cell runs it: a
+    TrainLoop of LOOP_SPL steps (one captured step replayed) against as
+    many eager steps from the same state, loss and weights bit for bit;
+    9 ell_gat launches a step (3 forward, 3 SDDMM, 3 transposes) and the 2
+    gathers, held so by a replay, and none of the weighted ell_attn or
+    ell_sddmm."""
+    graph = random_graph(3000, 25, feat_dim=16, n_classes=4, seed=0,
+                         packs=("ell",), device=dev)
+    every = torch.arange(3000, dtype=torch.int32, device=dev)
+    runs = []
+    for spl in (1, LOOP_SPL):
+        gen = torch.Generator().manual_seed(0)
+        net = GNNNet("gat", WholeDataFlow(3, [(0,)]), (24,) * 3,
+                     ShallowEncoder(("feature",)), in_dim=16,
+                     dtype=torch.bfloat16, device=dev, generator=gen,
+                     conv_kwargs={"heads": 3})
+        est = NodeEstimator(SuperviseModel(net, "label", 4, device=dev,
+                                           generator=gen),
+                            graph, RunConfig(batch_size=3000), device=dev)
+        opt = get_optimizer("adam", 1e-3, est.model.parameters())
+        loop = TrainLoop(est, opt, torch.Generator(device=dev).manual_seed(5),
+                         spl, lambda: every)
+        reset_counts()
+        loss = [loop() for _ in range(2 * LOOP_SPL // spl)][-1]
+        torch.cuda.synchronize()
+        runs.append((est, float(loss), read_counts(), dict(loop.held)))
+    (eager, loss_e, n_e, _), (graphed, loss_g, n_g, held) = runs
+    steps = 2 * LOOP_SPL
+    check(held == kernel_counts(gather_rows=2, ell_gat=9),
+          f"gat loop: a replay holds {held}")
+    check(n_e == n_g == kernel_counts(gather_rows=2 * steps,
+                                      ell_gat=9 * steps),
+          f"gat loop: launches eager {n_e}, replayed {n_g}")
+    same = loss_e == loss_g and all(torch.equal(a, b) for a, b in zip(
+        graphed.model.parameters(), eager.model.parameters()))
+    check(same, f"gat loop: replays {loss_g} vs eager steps {loss_e}")
+    return dict(steps=steps, loss=loss_g, held=held, launches=n_g,
+                bit_exact=same)
 
 
 # -------------------------------------------------------------- phase 12c --
@@ -5807,6 +5919,7 @@ def main() -> int:
     path_launches.update({f"loop_encoder_{c}": encoder[c]["loop"]["launches"]
                           for c in ("sum", "mean")})
     path_launches["loop_sage_dedup"] = dedup["loop"]["launches"]
+    path_launches["loop_gat_heads"] = gat["loop"]["launches"]
     for model in WALK_MODELS:
         path_launches.update({
             f"{model}_evaluate_infer": walks[model]["serve"]["launches"],
@@ -5983,13 +6096,13 @@ def main() -> int:
         "replaces": None,
         "launches_by_path": by_path(name),
         "bit_exact": False,
-        "max_plain_gap": max(r["plain_gap"] for r in gat
+        "max_plain_gap": max(r["plain_gap"] for r in gat["rows"]
                              if r["kernel"] == name),
         "bound_by": "bytes",
         "ptxas": ptxas["ell_attn"],
         # the gat-train cell's block, 3 heads of 250, bf16 (phase_gat)
-        "shapes": [r for r in gat if r["kernel"] == name],
-    } for name in ("ell_attn", "ell_sddmm")]
+        "shapes": [r for r in gat["rows"] if r["kernel"] == name],
+    } for name in ("ell_attn", "ell_sddmm", "ell_gat")]
     log(json.dumps({"smoke": dict(
         build_s=build_s, graph_s=graph_s,
         total_s=time.perf_counter() - t_start,

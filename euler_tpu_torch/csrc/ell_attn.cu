@@ -23,13 +23,35 @@
 //   ell_sddmm_kernel:    gw_s[t, c, h] = g[t, h] . x[nbr[t, c], h]
 //                        gw_l[t, h]    = g[t, h] . x[t, h]
 //
+// GAT's modes (ops/ell_attn.py ell_gat, ell_gat_sddmm, ell_gat_tr) take
+// no weights: each kernel computes them from the per-head score terms el
+// and er [n, H] (f32), as GAT's attention over each row's live cells and
+// its self loop, with s = leaky_relu_0.2(el[t, h] + er[nbr[t, c], h]):
+//
+//   ell_attn_fwd_kernel<., kGat>: lse[t, h] = log of the sum of exp(s) over
+//       the row (a max shift first), then the aggregate with the weights
+//       p = exp(s - lse); writes lse [n, H]
+//   ell_sddmm_kernel<., kGat>: dp as above, then in place the scores'
+//       gradients de = p (dp - sum of p dp over the row) leaky_relu'(.)
+//       ([n, C, H], the self loop's [n, H]) and d_el, their row sums
+//   ell_attn_tr_kernel<., kGat>: the aggregate's gradient to the rows with
+//       the weights p recomputed (its tpos names live cells only), plus
+//       d_el[u, h] a_l[h] + d_er[u, h] a_r[h], in f32, [n, H * F]; writes
+//       d_er, the sum of de over u's transpose cells and its self loop
+//
+// so that no [n, C, H] score, probability or mask is built, and the
+// gradients of el and er reach the rows' gradient here and not through
+// an [n, D] product of their own. A row's sums over its cells run over
+// lanes and end in shuffles, in a fixed order.
+//
 // A pad (index < 0) adds 0 and gets a gradient of 0. Ids past the table
 // are clamped to its last row (the transpose's p to the last cell), as in
 // ell_agg.cu. The weights stay f32 (they are not rounded to x's type);
 // products and sums are f32 in registers in a fixed order, so replays equal
 // eager steps bit for bit; the aggregate rounds once, at the store, to x's
 // type. The forward writes out unpadded, [n, H * F] (f < F only); the
-// transpose writes the padded layout, pads included (0 where g's pads are).
+// transpose writes the padded layout, pads included (0 where g's pads are),
+// and GAT's transpose f32 [n, H * F].
 //
 // Bound: device-memory bytes, as ell_agg.cu: each live cell's neighbour
 // row once, the index and weights once, the table and the output once, at
@@ -56,6 +78,12 @@ constexpr int kThreads = 256;    // threads per block
 constexpr int kWarps = kThreads / 32;
 constexpr int kMinBlocks = 4;    // blocks an SM holds: 64 registers a thread
 constexpr unsigned kAll = 0xffffffffu;
+
+// floats of shared memory a warp: a chunk's weights, then in GAT's modes
+// each lane's partial sums a head (sp) and the row's terms (rs)
+__host__ __device__ constexpr int warp_floats(int heads, bool gat) {
+  return gat ? (2 * kCells + 2) * heads : kCells * heads;
+}
 
 __device__ __forceinline__ float lo_bf16(uint32_t w) {
   return __uint_as_float(w << 16);
@@ -189,17 +217,140 @@ struct Lanes {
   }
 };
 
+// GAT's per-head terms and results (the header's modes); unused and null
+// in the weighted modes.
+struct Gat {
+  const float* el;       // [n, heads]
+  const float* er;       // [n, heads]
+  float* lse;            // [n, heads]: the forward writes, the others read
+  const float* de;       // [n, c, heads]: the SDDMM's gw_s, for the transpose
+  const float* de_self;  // [n, heads]: the SDDMM's gw_l, for the transpose
+  float* d_el;           // [n, heads]: the SDDMM writes, the transpose reads
+  float* d_er;           // [n, heads]: the transpose writes
+  const float* a_l;      // [heads, f_real]
+  const float* a_r;      // [heads, f_real]
+};
+
+// leaky_relu with GAT's slope 0.2, and its derivative as torch takes it
+// (the slope at 0)
+__device__ __forceinline__ float lrelu(float v) {
+  return v > 0.0f ? v : 0.2f * v;
+}
+__device__ __forceinline__ float lrelu_grad(float v) {
+  return v > 0.0f ? 1.0f : 0.2f;
+}
+
+__device__ __forceinline__ float warp_sum(float v) {
+  for (int off = 16; off > 0; off >>= 1) v += __shfl_xor_sync(kAll, v, off);
+  return v;
+}
+__device__ __forceinline__ float warp_max(float v) {
+  for (int off = 16; off > 0; off >>= 1) {
+    v = fmaxf(v, __shfl_xor_sync(kAll, v, off));
+  }
+  return v;
+}
+
+// the neighbour id of cell i of a forward row (clamped into the table), or
+// -1 for a pad or past the row
+__device__ __forceinline__ int32_t live_id(const int32_t* irow, int i, int c,
+                                           int64_t n) {
+  if (i >= c) return -1;
+  const int32_t v = __ldg(irow + i);
+  if (v < 0) return -1;
+  return v < n ? v : static_cast<int32_t>(n - 1);
+}
+
+
+// The forward's terms of row t, into this warp's rs: rs[k] = el[t, k] and
+// rs[heads + k] = lse[t, k] (also written to gat.lse), the log of the sum
+// of exp(s) over the row's live cells and its self loop, shifted by their
+// max (reset to 0 for a row of no score; the sum at least 1e-16).
+__device__ __forceinline__ void gat_fwd_row(const Gat& gat, int64_t t,
+                                            int64_t n, int heads,
+                                            const int32_t* irow, int c,
+                                            int lane, float* rs) {
+  __syncwarp();   // every lane has read the previous row's rs
+  for (int k = 0; k < heads; ++k) {
+    const float el = __ldg(gat.el + t * heads + k);
+    const float self = lrelu(el + __ldg(gat.er + t * heads + k));
+    float m = self;
+    for (int c0 = 0; c0 < c; c0 += kCells) {
+      const int32_t id = live_id(irow, c0 + lane, c, n);
+      if (id >= 0) {
+        m = fmaxf(m, lrelu(el + __ldg(gat.er +
+                                      static_cast<int64_t>(id) * heads + k)));
+      }
+    }
+    m = warp_max(m);
+    if (!(m > -1e30f)) m = 0.0f;
+    float den = 0.0f;
+    for (int c0 = 0; c0 < c; c0 += kCells) {
+      const int32_t id = live_id(irow, c0 + lane, c, n);
+      if (id >= 0) {
+        den += expf(lrelu(el + __ldg(gat.er +
+                                     static_cast<int64_t>(id) * heads + k))
+                    - m);
+      }
+    }
+    den = warp_sum(den) + expf(self - m);
+    if (lane == 0) {
+      const float lse = m + logf(fmaxf(den, 1e-16f));
+      rs[k] = el;
+      rs[heads + k] = lse;
+      gat.lse[t * heads + k] = lse;
+    }
+  }
+  __syncwarp();
+}
+
+// The transpose's terms of row u, into this warp's rs: rs[k] = er[u, k]
+// and rs[heads + k] = d_er[u, k] (also written to gat.d_er), de_self[u, k]
+// and the sum of de over u's transpose cells: each lane sums its cells a
+// head in sp, then the warp once a head. Kept out of the row loop, whose
+// registers it would spill.
+__device__ __forceinline__ void gat_tr_row(const Gat& gat, int64_t u,
+                                           int heads, const int32_t* irow,
+                                           int width, int c,
+                                           int64_t last_cell, int lane,
+                                           float* sp, float* rs) {
+  float* mine = sp + lane * heads;
+  __syncwarp();   // every lane has read the previous row's rs
+  for (int k = 0; k < heads; ++k) mine[k] = 0.0f;
+  for (int c0 = 0; c0 < width; c0 += kCells) {
+    if (c0 + lane < width && c > 0) {
+      const int32_t v = __ldg(irow + c0 + lane);
+      if (v >= 0) {
+        const float* d = gat.de + (v < last_cell ? v : last_cell) * heads;
+#pragma unroll 4
+        for (int k = 0; k < heads; ++k) mine[k] += __ldg(d + k);
+      }
+    }
+  }
+  for (int k = 0; k < heads; ++k) {
+    const float d =
+        warp_sum(mine[k]) + __ldg(gat.de_self + u * heads + k);
+    if (lane == 0) {
+      rs[k] = __ldg(gat.er + u * heads + k);
+      rs[heads + k] = d;
+      gat.d_er[u * heads + k] = d;
+    }
+  }
+  __syncwarp();
+}
+
 // x [n, heads * wph] words; index [n, width]; w_s [n, c, heads] f32 (the
 // forward: width == c); w_l [n, heads] f32. out: the padded layout of x
 // where out_padded, else element (t, h, f) at t * out_ld + h * out_hs + f
-// for f < f_real. sw: this warp's kCells * heads floats of shared memory.
-template <bool kBf16, bool kTranspose>
+// for f < f_real, in x's type, or in f32 with GAT's terms of el and er in
+// GAT's transpose. sw: this warp's warp_floats of shared memory.
+template <bool kBf16, bool kTranspose, bool kGat>
 __device__ __forceinline__ void attn_agg(
     const uint4* __restrict__ x, int64_t n, int heads, int wph,
     const int32_t* __restrict__ index, int width,
     const float* __restrict__ w_s, int c, const float* __restrict__ w_l,
     void* __restrict__ out, int64_t out_ld, int64_t out_hs, int f_real,
-    bool out_padded, bool pairs, int col_log2, float* sw) {
+    bool out_padded, bool pairs, int col_log2, float* sw, const Gat& gat) {
   using W = Word<kBf16>;
   const Lanes L(col_log2);
   const int row_words = heads * wph;
@@ -208,22 +359,32 @@ __device__ __forceinline__ void attn_agg(
   const int64_t n_warps =
       (static_cast<int64_t>(gridDim.x) * blockDim.x) >> 5;
   const int64_t last_cell = n * c - 1;
+  float* sp = sw + kCells * heads;
+  float* rs = sp + kCells * heads;
 
   for (int64_t t = warp; t < n; t += n_warps) {
     const int32_t* irow = index + t * width;
+    if (kGat && kTranspose) {
+      gat_tr_row(gat, t, heads, irow, width, c, last_cell, L.lane, sp, rs);
+    } else if (kGat) {
+      gat_fwd_row(gat, t, n, heads, irow, c, L.lane, rs);
+    }
     for (int j0 = 0; j0 < row_words; j0 += L.lanes_per_col) {
       const int j = j0 + L.col;
       const bool col_ok = j < row_words;
       const int h = col_ok ? j / wph : 0;
+      // the heads whose words this pass reads
+      const int k_lo = j0 / wph;
+      const int k_hi = min(heads - 1, (j0 + L.lanes_per_col - 1) / wph);
       float acc[W::kElts];
 #pragma unroll
       for (int e = 0; e < W::kElts; ++e) acc[e] = 0.0f;
       for (int c0 = 0; c0 < width; c0 += kCells) {
         int32_t id = -1;
-        if (c0 + L.lane < width) {
+        int64_t cell = -1;
+        if (c0 + L.lane < width && c > 0) {
           const int32_t v = __ldg(irow + c0 + L.lane);
-          if (v >= 0 && c > 0) {
-            int64_t cell;
+          if (v >= 0) {
             if (kTranspose) {
               cell = v < last_cell ? v : last_cell;
               id = static_cast<int32_t>(cell / c);
@@ -231,9 +392,23 @@ __device__ __forceinline__ void attn_agg(
               cell = t * c + c0 + L.lane;
               id = v < n ? v : static_cast<int32_t>(n - 1);
             }
-            for (int k = 0; k < heads; ++k) {
-              sw[L.lane * heads + k] = __ldg(w_s + cell * heads + k);
+          }
+        }
+        if (id >= 0) {
+          for (int k = k_lo; k <= k_hi; ++k) {
+            float w;
+            if (kGat && kTranspose) {   // p of cell (id, .): el[id], er[t]
+              const int64_t at = static_cast<int64_t>(id) * heads + k;
+              w = expf(lrelu(__ldg(gat.el + at) + rs[k]) -
+                       __ldg(gat.lse + at));
+            } else if (kGat) {
+              w = expf(lrelu(rs[k] + __ldg(gat.er +
+                                           static_cast<int64_t>(id) * heads
+                                           + k)) - rs[heads + k]);
+            } else {
+              w = __ldg(w_s + cell * heads + k);
             }
+            sw[L.lane * heads + k] = w;
           }
         }
         __syncwarp();
@@ -275,58 +450,156 @@ __device__ __forceinline__ void attn_agg(
         }
       }
       if (L.group == 0 && col_ok) {
-        W::add(acc, __ldg(x + t * row_words + j), __ldg(w_l + t * heads + h));
-        if (out_padded) {
+        const int64_t th = t * heads + h;
+        float wl;
+        if (kGat && kTranspose) {   // the self loop's p of row t
+          wl = expf(lrelu(__ldg(gat.el + th) + rs[h]) - __ldg(gat.lse + th));
+        } else if (kGat) {
+          wl = expf(lrelu(rs[h] + __ldg(gat.er + th)) - rs[heads + h]);
+        } else {
+          wl = __ldg(w_l + th);
+        }
+        W::add(acc, __ldg(x + t * row_words + j), wl);
+        const int f0 = (j - h * wph) * W::kElts;
+        if (kGat && kTranspose) {
+          // the rows' gradient in f32, with el's and er's terms
+          const float dl = __ldg(gat.d_el + th), dr = rs[heads + h];
+          float* o = static_cast<float*>(out) + t * out_ld + h * out_hs;
+          const float* al = gat.a_l + static_cast<int64_t>(h) * f_real;
+          const float* ar = gat.a_r + static_cast<int64_t>(h) * f_real;
+#pragma unroll
+          for (int e = 0; e < W::kElts; ++e) {
+            const int f = f0 + e;
+            if (f < f_real) {
+              o[f] = acc[e] + dl * __ldg(al + f) + dr * __ldg(ar + f);
+            }
+          }
+        } else if (out_padded) {
           static_cast<uint4*>(out)[t * row_words + j] = W::pack(acc);
         } else {
-          const int f0 = (j - h * wph) * W::kElts;
           store_elements<kBf16>(out, t * out_ld + h * out_hs + f0, f0,
                                 f_real, pairs, acc);
         }
       }
     }
+    if (kGat && kTranspose) {
+      __syncwarp();
+      for (int k = L.lane; k < heads; k += 32) {
+        gat.d_er[t * heads + k] = rs[heads + k];
+      }
+    }
   }
 }
 
-template <bool kBf16>
+template <bool kBf16, bool kGat>
 __global__ void __launch_bounds__(kThreads, kMinBlocks)
 ell_attn_fwd_kernel(const uint4* __restrict__ x, int64_t n, int heads,
                     int wph, const int32_t* __restrict__ index, int width,
                     const float* __restrict__ w_s, int c,
                     const float* __restrict__ w_l, void* __restrict__ out,
                     int64_t out_ld, int64_t out_hs, int f_real,
-                    bool out_padded, bool pairs, int col_log2) {
+                    bool out_padded, bool pairs, int col_log2, Gat gat) {
   extern __shared__ float smem[];
-  attn_agg<kBf16, false>(x, n, heads, wph, index, width, w_s, c, w_l, out,
-                         out_ld, out_hs, f_real, out_padded, pairs, col_log2,
-                         smem + (threadIdx.x >> 5) * kCells * heads);
+  attn_agg<kBf16, false, kGat>(
+      x, n, heads, wph, index, width, w_s, c, w_l, out, out_ld, out_hs,
+      f_real, out_padded, pairs, col_log2,
+      smem + (threadIdx.x >> 5) * warp_floats(heads, kGat), gat);
 }
 
-template <bool kBf16>
+template <bool kBf16, bool kGat>
 __global__ void __launch_bounds__(kThreads, kMinBlocks)
 ell_attn_tr_kernel(const uint4* __restrict__ x, int64_t n, int heads,
                    int wph, const int32_t* __restrict__ index, int width,
                    const float* __restrict__ w_s, int c,
                    const float* __restrict__ w_l, void* __restrict__ out,
                    int64_t out_ld, int64_t out_hs, int f_real,
-                   bool out_padded, bool pairs, int col_log2) {
+                   bool out_padded, bool pairs, int col_log2, Gat gat) {
   extern __shared__ float smem[];
-  attn_agg<kBf16, true>(x, n, heads, wph, index, width, w_s, c, w_l, out,
-                        out_ld, out_hs, f_real, out_padded, pairs, col_log2,
-                        smem + (threadIdx.x >> 5) * kCells * heads);
+  attn_agg<kBf16, true, kGat>(
+      x, n, heads, wph, index, width, w_s, c, w_l, out, out_ld, out_hs,
+      f_real, out_padded, pairs, col_log2,
+      smem + (threadIdx.x >> 5) * warp_floats(heads, kGat), gat);
+}
+
+// GAT's SDDMM epilogue of row t, once gw_s and gw_l hold its dot products
+// dp: in place, de = p (dp - D) leaky_relu'(el + er) with p = exp(s - lse)
+// and D the sum of p dp over the row's live cells and its self loop; and
+// d_el[t] the sum of de over them. Each lane sums its cells a head in sp
+// ([kCells, heads] of this warp's shared memory) and the warp once a head;
+// rs holds D a head.
+__device__ __forceinline__ void gat_sddmm_row(const Gat& gat, int64_t t,
+                                              int64_t n, int heads,
+                                              const int32_t* irow, int c,
+                                              int lane, float* gw_s,
+                                              float* gw_l, float* sp,
+                                              float* rs) {
+  const float* el = gat.el + t * heads;
+  const float* er = gat.er + t * heads;
+  const float* lse = gat.lse + t * heads;
+  float* mine = sp + lane * heads;
+  __syncwarp();   // every lane's dot products are in memory, rs is free
+  for (int k = 0; k < heads; ++k) mine[k] = 0.0f;
+  for (int c0 = 0; c0 < c; c0 += kCells) {
+    const int32_t id = live_id(irow, c0 + lane, c, n);
+    if (id >= 0) {
+      const float* o = gw_s + (t * c + c0 + lane) * heads;
+      const float* er_id = gat.er + static_cast<int64_t>(id) * heads;
+      for (int k = 0; k < heads; ++k) {
+        const float pre = __ldg(el + k) + __ldg(er_id + k);
+        mine[k] += expf(lrelu(pre) - __ldg(lse + k)) * o[k];
+      }
+    }
+  }
+  for (int k = 0; k < heads; ++k) {
+    const float p_self =
+        expf(lrelu(__ldg(el + k) + __ldg(er + k)) - __ldg(lse + k));
+    const float D = warp_sum(mine[k]) + p_self * gw_l[t * heads + k];
+    if (lane == 0) rs[k] = D;
+    mine[k] = 0.0f;
+  }
+  __syncwarp();   // rs holds D
+  for (int c0 = 0; c0 < c; c0 += kCells) {
+    const int32_t id = live_id(irow, c0 + lane, c, n);
+    if (id >= 0) {
+      float* o = gw_s + (t * c + c0 + lane) * heads;
+      const float* er_id = gat.er + static_cast<int64_t>(id) * heads;
+      for (int k = 0; k < heads; ++k) {
+        const float pre = __ldg(el + k) + __ldg(er_id + k);
+        const float de = expf(lrelu(pre) - __ldg(lse + k)) * (o[k] - rs[k])
+                         * lrelu_grad(pre);
+        o[k] = de;
+        mine[k] += de;
+      }
+    }
+  }
+  for (int k = 0; k < heads; ++k) {
+    const float pre_self = __ldg(el + k) + __ldg(er + k);
+    const float p_self = expf(lrelu(pre_self) - __ldg(lse + k));
+    const float de_self =
+        p_self * (gw_l[t * heads + k] - rs[k]) * lrelu_grad(pre_self);
+    const float esum = warp_sum(mine[k]) + de_self;
+    __syncwarp();   // every lane has read gw_l[t, k]
+    if (lane == 0) {
+      gw_l[t * heads + k] = de_self;
+      gat.d_el[t * heads + k] = esum;
+    }
+  }
 }
 
 // g and x [n, heads * wph] words, pads zero; nbr [n, c]; gw_s [n, c, heads]
-// f32; gw_l [n, heads] f32 or null. A head's words are summed by shuffles
-// over seg = min(wph, lanes a column) lanes; a head wider than 32 words
-// adds its passes of 32 in order, written by the pass's lane 0.
-template <bool kBf16>
+// f32; gw_l [n, heads] f32 or null (never in GAT's mode). A head's words
+// are summed by shuffles over seg = min(wph, lanes a column) lanes; a head
+// wider than 32 words adds its passes of 32 in order, written by the
+// pass's lane 0. GAT's mode then turns the row's dot products into the
+// scores' gradients (gat_sddmm_row).
+template <bool kBf16, bool kGat>
 __global__ void __launch_bounds__(kThreads, kMinBlocks)
 ell_sddmm_kernel(const uint4* __restrict__ g, const uint4* __restrict__ x,
                  int64_t n, int heads, int wph,
                  const int32_t* __restrict__ nbr, int c,
                  float* __restrict__ gw_s, float* __restrict__ gw_l,
-                 int col_log2) {
+                 int col_log2, Gat gat) {
+  extern __shared__ float smem[];
   using W = Word<kBf16>;
   const Lanes L(col_log2);
   const int row_words = heads * wph;
@@ -403,6 +676,11 @@ ell_sddmm_kernel(const uint4* __restrict__ g, const uint4* __restrict__ x,
         }
       }
     }
+    if (kGat) {
+      float* sp = smem + (threadIdx.x >> 5) * warp_floats(heads, true);
+      gat_sddmm_row(gat, t, n, heads, irow, c, L.lane, gw_s, gw_l, sp,
+                    sp + kCells * heads);
+    }
   }
 }
 
@@ -419,41 +697,46 @@ unsigned grid_for(int64_t n, int64_t cap) {
   return static_cast<unsigned>(want < cap ? want : cap);
 }
 
-template <bool kBf16>
+template <bool kBf16, bool kGat>
 int launch_agg(const void* x, int64_t n, int heads, int wph,
                const int32_t* index, int width, const float* w_s, int c,
                const float* w_l, void* out, int64_t out_ld, int64_t out_hs,
                int f_real, bool out_padded, bool pairs, bool transpose,
-               cudaStream_t stream) {
+               const Gat& gat, cudaStream_t stream) {
   const int col_log2 = col_log2_of(heads * wph);
-  const size_t smem = sizeof(float) * kWarps * kCells * heads;
+  const size_t smem =
+      sizeof(float) * kWarps * warp_floats(heads, kGat);
   const uint4* xv = static_cast<const uint4*>(x);
   if (transpose) {
     const int64_t cap =
-        etpu::resident_blocks<ell_attn_tr_kernel<kBf16>, kThreads>();
-    ell_attn_tr_kernel<kBf16><<<grid_for(n, cap), kThreads, smem, stream>>>(
+        etpu::resident_blocks<ell_attn_tr_kernel<kBf16, kGat>, kThreads>();
+    ell_attn_tr_kernel<kBf16, kGat><<<grid_for(n, cap), kThreads, smem,
+                                      stream>>>(
         xv, n, heads, wph, index, width, w_s, c, w_l, out, out_ld, out_hs,
-        f_real, out_padded, pairs, col_log2);
+        f_real, out_padded, pairs, col_log2, gat);
   } else {
     const int64_t cap =
-        etpu::resident_blocks<ell_attn_fwd_kernel<kBf16>, kThreads>();
-    ell_attn_fwd_kernel<kBf16><<<grid_for(n, cap), kThreads, smem,
-                                 stream>>>(
+        etpu::resident_blocks<ell_attn_fwd_kernel<kBf16, kGat>, kThreads>();
+    ell_attn_fwd_kernel<kBf16, kGat><<<grid_for(n, cap), kThreads, smem,
+                                       stream>>>(
         xv, n, heads, wph, index, width, w_s, c, w_l, out, out_ld, out_hs,
-        f_real, out_padded, pairs, col_log2);
+        f_real, out_padded, pairs, col_log2, gat);
   }
   return static_cast<int>(cudaGetLastError());
 }
 
-template <bool kBf16>
+template <bool kBf16, bool kGat>
 int launch_sddmm(const void* g, const void* x, int64_t n, int heads, int wph,
                  const int32_t* nbr, int c, float* gw_s, float* gw_l,
-                 cudaStream_t stream) {
+                 const Gat& gat, cudaStream_t stream) {
   const int64_t cap =
-      etpu::resident_blocks<ell_sddmm_kernel<kBf16>, kThreads>();
-  ell_sddmm_kernel<kBf16><<<grid_for(n, cap), kThreads, 0, stream>>>(
+      etpu::resident_blocks<ell_sddmm_kernel<kBf16, kGat>, kThreads>();
+  const size_t smem =
+      kGat ? sizeof(float) * kWarps * warp_floats(heads, true) : 0;
+  ell_sddmm_kernel<kBf16, kGat><<<grid_for(n, cap), kThreads, smem,
+                                  stream>>>(
       static_cast<const uint4*>(g), static_cast<const uint4*>(x), n, heads,
-      wph, nbr, c, gw_s, gw_l, col_log2_of(heads * wph));
+      wph, nbr, c, gw_s, gw_l, col_log2_of(heads * wph), gat);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -461,6 +744,15 @@ int launch_sddmm(const void* g, const void* x, int64_t n, int heads, int wph,
 bool head_words_ok(int64_t wph) {
   return wph > 0 && ((wph <= 32 && (wph & (wph - 1)) == 0) || wph % 32 == 0);
 }
+
+bool rows_ok(const void* x, int64_t heads, int64_t wph, int elt_size) {
+  return (elt_size == 2 || elt_size == 4) && head_words_ok(wph) &&
+         heads > 0 && reinterpret_cast<uintptr_t>(x) % 16 == 0;
+}
+
+const float* f32(const void* p) { return static_cast<const float*>(p); }
+float* f32(void* p) { return static_cast<float*>(p); }
+const int32_t* i32(const void* p) { return static_cast<const int32_t*>(p); }
 
 }  // namespace
 
@@ -477,27 +769,28 @@ extern "C" int etpu_ell_attn(const void* x, int64_t n, int64_t heads,
                              const void* w_l, void* out, int64_t out_ld,
                              int64_t out_hs, int64_t f_real, int out_padded,
                              int transpose, void* stream) {
-  if ((elt_size != 2 && elt_size != 4) || !head_words_ok(wph) ||
-      heads <= 0 || reinterpret_cast<uintptr_t>(x) % 16 != 0) {
+  if (!rows_ok(x, heads, wph, elt_size)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   if (n == 0) return 0;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const int32_t* idx = static_cast<const int32_t*>(index);
-  const float* ws = static_cast<const float*>(w_s);
-  const float* wl = static_cast<const float*>(w_l);
   const bool padded = out_padded != 0, tr = transpose != 0;
   const bool pairs = out_ld % 2 == 0 && out_hs % 2 == 0 &&
                      f_real % 2 == 0 &&
                      reinterpret_cast<uintptr_t>(out) % 4 == 0;
   const int h = static_cast<int>(heads), w = static_cast<int>(wph);
+  const Gat none{};
   return elt_size == 4
-      ? launch_agg<false>(x, n, h, w, idx, static_cast<int>(width), ws,
-                          static_cast<int>(c), wl, out, out_ld, out_hs,
-                          static_cast<int>(f_real), padded, pairs, tr, s)
-      : launch_agg<true>(x, n, h, w, idx, static_cast<int>(width), ws,
-                         static_cast<int>(c), wl, out, out_ld, out_hs,
-                         static_cast<int>(f_real), padded, pairs, tr, s);
+      ? launch_agg<false, false>(x, n, h, w, i32(index),
+                                 static_cast<int>(width), f32(w_s),
+                                 static_cast<int>(c), f32(w_l), out, out_ld,
+                                 out_hs, static_cast<int>(f_real), padded,
+                                 pairs, tr, none, s)
+      : launch_agg<true, false>(x, n, h, w, i32(index),
+                                static_cast<int>(width), f32(w_s),
+                                static_cast<int>(c), f32(w_l), out, out_ld,
+                                out_hs, static_cast<int>(f_real), padded,
+                                pairs, tr, none, s);
 }
 
 // g and x [n, heads, wph * 16 bytes] (16-byte aligned, pads zero); nbr
@@ -507,20 +800,121 @@ extern "C" int etpu_ell_sddmm(const void* g, const void* x, int64_t n,
                               int64_t heads, int64_t wph, int elt_size,
                               const void* nbr, int64_t c, void* gw_s,
                               void* gw_l, void* stream) {
-  if ((elt_size != 2 && elt_size != 4) || !head_words_ok(wph) ||
-      heads <= 0 || reinterpret_cast<uintptr_t>(g) % 16 != 0 ||
-      reinterpret_cast<uintptr_t>(x) % 16 != 0) {
+  if (!rows_ok(x, heads, wph, elt_size) ||
+      reinterpret_cast<uintptr_t>(g) % 16 != 0) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   if (n == 0) return 0;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const int32_t* idx = static_cast<const int32_t*>(nbr);
-  float* ws = static_cast<float*>(gw_s);
-  float* wl = static_cast<float*>(gw_l);
+  const int h = static_cast<int>(heads), w = static_cast<int>(wph);
+  const Gat none{};
+  return elt_size == 4
+      ? launch_sddmm<false, false>(g, x, n, h, w, i32(nbr),
+                                   static_cast<int>(c), f32(gw_s),
+                                   f32(gw_l), none, s)
+      : launch_sddmm<true, false>(g, x, n, h, w, i32(nbr),
+                                  static_cast<int>(c), f32(gw_s), f32(gw_l),
+                                  none, s);
+}
+
+// GAT's forward: x [n, heads, wph * 16 bytes] (16-byte aligned, pads zero)
+// of elt_size-byte elements; nbr int32 [n, c]; el, er f32 [n, heads].
+// Writes lse f32 [n, heads] and out [n, heads * f_real] in x's type.
+// Launches on `stream` and returns cudaGetLastError().
+extern "C" int etpu_ell_gat(const void* x, int64_t n, int64_t heads,
+                            int64_t wph, int elt_size, const void* nbr,
+                            int64_t c, const void* el, const void* er,
+                            void* lse, void* out, int64_t f_real,
+                            void* stream) {
+  if (!rows_ok(x, heads, wph, elt_size)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  if (n == 0) return 0;
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  Gat gat{};
+  gat.el = f32(el);
+  gat.er = f32(er);
+  gat.lse = f32(lse);
+  const bool pairs = f_real % 2 == 0 &&
+                     reinterpret_cast<uintptr_t>(out) % 4 == 0;
+  const int h = static_cast<int>(heads), w = static_cast<int>(wph);
+  const int ci = static_cast<int>(c), f = static_cast<int>(f_real);
+  return elt_size == 4
+      ? launch_agg<false, true>(x, n, h, w, i32(nbr), ci, nullptr, ci,
+                                nullptr, out, heads * f_real, f_real, f,
+                                false, pairs, false, gat, s)
+      : launch_agg<true, true>(x, n, h, w, i32(nbr), ci, nullptr, ci,
+                               nullptr, out, heads * f_real, f_real, f,
+                               false, pairs, false, gat, s);
+}
+
+// GAT's SDDMM: g and x as etpu_ell_sddmm's; nbr int32 [n, c]; el, er and
+// the forward's lse f32 [n, heads]. Writes the scores' gradients de f32
+// [n, c, heads] (pads 0) and de_self f32 [n, heads], and d_el f32 [n,
+// heads]. Launches on `stream` and returns cudaGetLastError().
+extern "C" int etpu_ell_gat_sddmm(const void* g, const void* x, int64_t n,
+                                  int64_t heads, int64_t wph, int elt_size,
+                                  const void* nbr, int64_t c, const void* el,
+                                  const void* er, const void* lse, void* de,
+                                  void* de_self, void* d_el, void* stream) {
+  if (!rows_ok(x, heads, wph, elt_size) ||
+      reinterpret_cast<uintptr_t>(g) % 16 != 0) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  if (n == 0) return 0;
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  Gat gat{};
+  gat.el = f32(el);
+  gat.er = f32(er);
+  gat.lse = const_cast<float*>(f32(lse));
+  gat.d_el = f32(d_el);
   const int h = static_cast<int>(heads), w = static_cast<int>(wph);
   return elt_size == 4
-      ? launch_sddmm<false>(g, x, n, h, w, idx, static_cast<int>(c), ws, wl,
-                            s)
-      : launch_sddmm<true>(g, x, n, h, w, idx, static_cast<int>(c), ws, wl,
-                           s);
+      ? launch_sddmm<false, true>(g, x, n, h, w, i32(nbr),
+                                  static_cast<int>(c), f32(de),
+                                  f32(de_self), gat, s)
+      : launch_sddmm<true, true>(g, x, n, h, w, i32(nbr),
+                                 static_cast<int>(c), f32(de), f32(de_self),
+                                 gat, s);
+}
+
+// GAT's transpose: g [n, heads, wph * 16 bytes] (16-byte aligned, pads
+// zero); tpos int32 [n, width], naming live cells of the forward's [n, c]
+// grid only (pads -1); el, er, lse, de_self and
+// d_el f32 [n, heads]; de f32 [n, c, heads]; a_l, a_r f32 [heads, f_real].
+// Writes the rows' gradient f32 [n, heads * f_real] and d_er f32 [n,
+// heads]. Launches on `stream` and returns cudaGetLastError().
+extern "C" int etpu_ell_gat_tr(const void* g, int64_t n, int64_t heads,
+                               int64_t wph, int elt_size, const void* tpos,
+                               int64_t width, int64_t c,
+                               const void* el, const void* er,
+                               const void* lse, const void* de,
+                               const void* de_self, const void* d_el,
+                               const void* a_l, const void* a_r, void* out,
+                               void* d_er, int64_t f_real, void* stream) {
+  if (!rows_ok(g, heads, wph, elt_size)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  if (n == 0) return 0;
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  Gat gat{};
+  gat.el = f32(el);
+  gat.er = f32(er);
+  gat.lse = const_cast<float*>(f32(lse));
+  gat.de = f32(de);
+  gat.de_self = f32(de_self);
+  gat.d_el = const_cast<float*>(f32(d_el));
+  gat.d_er = f32(d_er);
+  gat.a_l = f32(a_l);
+  gat.a_r = f32(a_r);
+  const int h = static_cast<int>(heads), w = static_cast<int>(wph);
+  const int ci = static_cast<int>(c), f = static_cast<int>(f_real);
+  const int wi = static_cast<int>(width);
+  return elt_size == 4
+      ? launch_agg<false, true>(g, n, h, w, i32(tpos), wi, nullptr, ci,
+                                nullptr, out, heads * f_real, f_real, f,
+                                false, false, true, gat, s)
+      : launch_agg<true, true>(g, n, h, w, i32(tpos), wi, nullptr, ci,
+                               nullptr, out, heads * f_real, f_real, f,
+                               false, false, true, gat, s);
 }

@@ -40,7 +40,9 @@ import torch
 
 from euler_tpu_torch.ops import mp_ops
 from euler_tpu_torch.ops.ell_agg import ell_agg
-from euler_tpu_torch.ops.ell_attn import ell_attn, ell_sddmm, pad_heads
+from euler_tpu_torch.ops.ell_attn import (ell_attn, ell_gat, ell_gat_sddmm,
+                                          ell_gat_tr, ell_sddmm, live_tpos,
+                                          pad_heads)
 from euler_tpu_torch.ops.sampling import as_etypes, etype_tensor
 from euler_tpu_torch.parallel import comms
 from euler_tpu_torch.utils.trace import span
@@ -82,6 +84,14 @@ class Block:
         """edge_index as int64, converted once per block for the scatters
         of the irregular layout."""
         return self.edge_index.long()
+
+    @functools.cached_property
+    def _live_tpos(self) -> torch.Tensor:
+        """ell_tpos naming this block's live cells only
+        (``ops.ell_attn.live_tpos``), made once a block for the layers
+        that share it."""
+        T = self.size[0]
+        return live_tpos(self.ell_tpos, self.n_id[T:].reshape(T, -1))
 
     def _is_compact(self, x_src: torch.Tensor) -> bool:
         """True when x_src is the per-node [N, ...] table of a whole-graph
@@ -333,6 +343,42 @@ class Block:
             cnt = cnt + mask[T * C:]
         return out / cnt.clamp_min(1e-7)[:, None].to(out.dtype)
 
+    def fuses_gat(self, x_src: torch.Tensor) -> bool:
+        """True where ``gat_attention`` takes GAT's attention over this
+        block: x_src the compact f32 or bf16 [N, D] table of a whole-graph
+        ELL block with self loops, whose mask is its live cells (as
+        ``fanout_block`` builds it)."""
+        return (self._is_compact(x_src) and self.self_loops
+                and x_src.dim() == 2
+                and x_src.dtype in (torch.float32, torch.bfloat16))
+
+    def gat_attention(self, z: torch.Tensor, xs: torch.Tensor,
+                      w: torch.Tensor, attn_l: torch.Tensor,
+                      attn_r: torch.Tensor, dtype: torch.dtype
+                      ) -> torch.Tensor:
+        """Multi-head GAT's attention over this block (only where
+        ``fuses_gat``), fused into the attention kernels (``_EllGat``),
+        from fc's input xs [N, D_in], its weight w [H * F, D_in] and output
+        z = xs w^T [N, H * F], and a_l, a_r [H, F]:
+
+            el = xs (W_h^T a_l[h]), er = xs (W_h^T a_r[h])    [N, H], f32
+            s  = leaky_relu_0.2(el[t] + er[nbr[t, c]])  (el[t] + er[t]:
+                 the self loop), p its softmax over the row's live cells
+                 and the self loop, a head at a time
+            out[t, h] = sum over c of z[nbr[t, c], h] p + z[t, h] p_self
+
+        with z read in ``dtype`` and summed in f32, [N, H * F] in
+        ``dtype``; no [E, H] tensor is built. The backward gives z's
+        gradient in f32 with el's and er's terms routed into it (d_el[u,
+        h] a_l[h] + d_er[u, h] a_r[h]), so that fc's backward carries them
+        to w and xs; a_l's and a_r's gradients are W_h (xs^T d_el[:, h])
+        and W_h (xs^T d_er[:, h]). xs and w take no gradient here beyond
+        z's."""
+        T, C = self.size[0], self.fanout
+        return _EllGat.apply(z, xs, w, attn_l, attn_r,
+                             self.n_id[T:].reshape(T, C), self._live_tpos,
+                             dtype)
+
     def softmax(self, scores: torch.Tensor,
                 mask: Optional[torch.Tensor] = None) -> torch.Tensor:
         """Per-target softmax of per-edge scores [E, ...]: each target's
@@ -545,6 +591,48 @@ def _ell_attn(C: int, x: torch.Tensor, w_s: torch.Tensor, w_l: torch.Tensor,
     H = w_s.shape[2]
     return _EllAttn.apply(C, x.shape[1] // H, pad_heads(x, H), w_s, w_l,
                           nbr, tpos)
+
+
+class _EllGat(torch.autograd.Function):
+    """``Block.gat_attention``: GAT's attention fused into the ELL
+    attention kernels (``ops.ell_attn.ell_gat``, ``ell_gat_sddmm``,
+    ``ell_gat_tr``; tpos of the live cells). Saves the padded rows, el,
+    er and lse [N, H], never an [E, H] tensor; the backward runs in the
+    span ``attention.backward``."""
+
+    @staticmethod
+    def forward(ctx, z, xs, w, attn_l, attn_r, nbr, tpos, dtype):
+        H, F = attn_l.shape
+        wh = w.reshape(H, F, -1)
+        a = torch.cat([torch.einsum("hfd,hf->dh", wh, attn_l),
+                       torch.einsum("hfd,hf->dh", wh, attn_r)], 1)
+        e = xs @ a                                          # [N, 2H]
+        el, er = e[:, :H].contiguous(), e[:, H:].contiguous()
+        xp = pad_heads(z, H, dtype)
+        out, lse = ell_gat(xp, nbr, el, er, F)
+        ctx.save_for_backward(xp, el, er, lse, nbr, tpos, attn_l, attn_r,
+                              xs, w)
+        ctx.z_dtype = z.dtype
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        with span("attention.backward"):
+            xp, el, er, lse, nbr, tpos, a_l, a_r, xs, w = ctx.saved_tensors
+            H, F = a_l.shape
+            gp = pad_heads(g.contiguous(), H, xp.dtype)
+            de, de_self, d_el = ell_gat_sddmm(gp, xp, nbr, el, er, lse)
+            d_z, d_er = ell_gat_tr(gp, tpos, nbr, el, er, lse, de, de_self,
+                                   d_el, a_l, a_r, F)
+            d_al = d_ar = None
+            if ctx.needs_input_grad[3] or ctx.needs_input_grad[4]:
+                # a . z's gradient to a over the z rows that fc makes from xs
+                v = xs.T @ torch.cat([d_el, d_er], 1)       # [D_in, 2H]
+                wh = w.reshape(H, F, -1)
+                d_al = torch.einsum("hfd,dh->hf", wh, v[:, :H])
+                d_ar = torch.einsum("hfd,dh->hf", wh, v[:, H:])
+        return (d_z.to(ctx.z_dtype), None, None, d_al, d_ar, None, None,
+                None)
 
 
 def fanout_block(targets: torch.Tensor, sampled: torch.Tensor,

@@ -162,8 +162,12 @@ class GATConv(nn.Module):
     (``Block.aggregate_neighbors`` with a scale a head: ``_ell_attn`` on
     a whole-graph ELL table), the heads concatenated, [T, dim] in the
     activation type. The targets are the first ``size[0]`` rows of the
-    source set, as every block of the port lays them out. The scores,
-    softmax and aggregate run in the span ``attention``.
+    source set, as every block of the port lays them out. On the compact
+    table of a whole-graph ELL block with self loops (``Block.fuses_gat``)
+    the scores, softmax and sum run fused in the attention kernels
+    (``Block.gat_attention``), which build no [E, H] tensor and route
+    el's and er's gradients into z's. The scores, softmax and aggregate
+    run in the span ``attention``.
     """
 
     def __init__(self, in_dim: int, dim: int, improved: bool = False,
@@ -211,6 +215,11 @@ class GATConv(nn.Module):
         H = self.heads
         xs = x_src.to(self.fc.weight.dtype)
         z = self.fc(xs)                                     # [S, H * F]
+        if block.fuses_gat(x_src):
+            with span("attention"):
+                return block.gat_attention(z, xs, self.fc.weight,
+                                           self.attn_l, self.attn_r,
+                                           x_src.dtype)
         w = self.fc.weight.reshape(H, -1, xs.shape[1])      # [H, F, D_in]
         al = torch.einsum("hfd,hf->dh", w, self.attn_l)     # [D_in, H]
         ar = torch.einsum("hfd,hf->dh", w, self.attn_r)

@@ -8,4 +8,4 @@ from euler_tpu_torch.ops import gather_rows as _gather_rows
 #: the kernel wrappers; each adds one to its ``.launches`` where it
 #: launches its kernel, and nowhere else
 COUNTED = (_fan_draw.fan_draw, _gather_rows.gather_rows, _ell_agg.ell_agg,
-           _ell_attn.ell_attn, _ell_attn.ell_sddmm)
+           _ell_attn.ell_attn, _ell_attn.ell_sddmm, _ell_attn.ell_gat)

@@ -15,6 +15,10 @@ and a training step's loss and gradients, within rtol = atol = 1e-4 (f32
 on both, different summation order). The whole-graph autograd Functions
 (``_ell_agg``, ``ell_expand``) and ``scatter_max`` on the card must match
 themselves on the CPU within the same tolerance (exactly for the max).
+GAT's fused modes of the attention kernels (``ell_gat``,
+``ell_gat_sddmm``, ``ell_gat_tr``) must match their plain versions
+within 1e-4 of each result's largest value (and an ulp of a bf16
+output), and a multi-head GAT loop must launch 9 of them a step.
 The edge draw on the card must equal the CPU's bit for bit from the same
 uniforms; a TransE step and an unsupervised GraphSAGE step must match the
 CPU within 1e-4, the latter with 7 ``fan_draw`` and 3 ``gather_rows``
@@ -588,14 +592,77 @@ def test_ell_sddmm_kernel_matches_plain(dev, H, F, dtype):
     assert attn.ell_sddmm(a["gp"], a["xp"], a["nbr"], False)[1] is None
 
 
+def gat_case(dev, H, F, dtype, seed):
+    """``attn_case``'s rows, cotangent and index (pads, a row of no cell,
+    cells dropped from nbr), tpos of the live cells (``live_tpos``), with
+    GAT's score terms el and er [N, H] (normal, scale 2) and a_l, a_r [H,
+    F]."""
+    a = attn_case(dev, 400, 36, H, F, dtype, seed)
+    a["tpos"] = attn.live_tpos(a["tpos"], a["nbr"])
+    gen = torch.Generator(device=dev).manual_seed(seed + 1)
+    el, er = (2 * torch.randn((400, H), generator=gen, device=dev)
+              for _ in range(2))
+    a_l, a_r = (torch.randn((H, F), generator=gen, device=dev)
+                for _ in range(2))
+    return dict(a, el=el, er=er, a_l=a_l, a_r=a_r)
+
+
+def gat_close(got, want, dtype=torch.float32) -> bool:
+    """Within 1e-4 of the plain version's largest value (f32 sums of the
+    same terms in other orders, expf and logf against torch's), and an
+    ulp of the result's type where it rounds to bf16."""
+    ulp = 2.0 ** -7 if dtype == torch.bfloat16 else 0.0
+    want = want.double()
+    tol = ulp * want.abs() + 1e-4 * float(want.abs().max())
+    return got.shape == want.shape and bool(
+        ((got.double() - want).abs() <= tol).all())
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("F", [8, 64, 250, 256])
+@pytest.mark.parametrize("H", [1, 2, 3, 8])
+def test_ell_gat_kernels_match_plain(dev, H, F, dtype):
+    """GAT's fused modes of the three kernels, each on the plain
+    versions' inputs, against their plain versions on the card
+    (``gat_close``): the forward's output and lse, the SDDMM's scores'
+    gradients (pads 0) and d_el, the transpose's f32 gradient to the rows
+    and d_er; three ell_gat launches. Row 1, no cell, reads its own row
+    at weight 1."""
+    a = gat_case(dev, H, F, dtype, seed=H * 1000 + F)
+    xp, gp, nbr, tpos = a["xp"], a["gp"], a["nbr"], a["tpos"]
+    el, er = a["el"], a["er"]
+    before = attn.ell_gat.launches
+    out, lse = attn.ell_gat(xp, nbr, el, er, F)
+    want_out, want_lse = attn.ell_gat_plain(xp, nbr, el, er, F)
+    assert out.dtype == dtype and gat_close(out, want_out, dtype)
+    assert gat_close(lse, want_lse)
+    assert torch.equal(out[1], a["x"][1])
+    de, de_self, d_el = attn.ell_gat_sddmm(gp, xp, nbr, el, er, want_lse)
+    want = attn.ell_gat_sddmm_plain(gp, xp, nbr, el, er, want_lse)
+    assert all(gat_close(u, v) for u, v in zip((de, de_self, d_el), want))
+    assert bool((de[nbr < 0] == 0).all())
+    d_z, d_er = attn.ell_gat_tr(gp, tpos, nbr, el, er, want_lse, *want,
+                                a["a_l"], a["a_r"], F)
+    want_z, want_er = attn.ell_gat_tr_plain(gp, tpos, nbr, el, er, want_lse,
+                                            *want, a["a_l"], a["a_r"], F)
+    torch.cuda.synchronize()
+    assert d_z.dtype == torch.float32 and gat_close(d_z, want_z)
+    assert gat_close(d_er, want_er)
+    assert attn.ell_gat.launches == before + 3
+
+
 def test_ell_attn_plain_never_runs_on_the_card(dev, monkeypatch):
     """No plain version and no [N, C, D] rows (``ell_rows``) on a CUDA
-    tensor: the multi-head Function's forward and backward, and
-    ``_ell_agg``'s gradient to the weights (the one-head SDDMM)."""
+    tensor: the multi-head Function's forward and backward, GAT's fused
+    Function's, and ``_ell_agg``'s gradient to the weights (the one-head
+    SDDMM)."""
     def boom(*a, **k):
         raise AssertionError("a plain version ran on a CUDA tensor")
     for mod, name in ((attn, "ell_attn_plain"), (attn, "ell_sddmm_plain"),
-                      (ell, "ell_agg_plain"), (ell, "ell_rows")):
+                      (attn, "ell_gat_plain"), (attn, "ell_gat_sddmm_plain"),
+                      (attn, "ell_gat_tr_plain"), (attn, "gat_weights"),
+                      (attn, "gat_lse"), (ell, "ell_agg_plain"),
+                      (ell, "ell_rows")):
         monkeypatch.setattr(mod, name, boom)
     a = attn_case(dev, 300, 36, 3, 250, torch.bfloat16, seed=3)
     x = a["x"].clone().requires_grad_(True)
@@ -604,6 +671,18 @@ def test_ell_attn_plain_never_runs_on_the_card(dev, monkeypatch):
     assert out.shape == (300, 750) and out.dtype == torch.bfloat16
     grads = torch.autograd.grad(out, (x, w_s, w_l), torch.ones_like(out))
     assert [g.shape for g in grads] == [x.shape, w_s.shape, w_l.shape]
+    _, blk = ell_block(dev)
+    N = blk.size[0]
+    gen = torch.Generator(device=dev).manual_seed(7)
+    xs = torch.randn((N, 16), generator=gen, device=dev)
+    leaves = [t.requires_grad_(True) for t in (
+        torch.randn((750, 16), generator=gen, device=dev) / 4,
+        torch.randn((3, 250), generator=gen, device=dev) / 16,
+        torch.randn((3, 250), generator=gen, device=dev) / 16)]
+    out = blk.gat_attention(xs @ leaves[0].T, xs, *leaves, torch.bfloat16)
+    assert out.shape == (N, 750) and out.dtype == torch.bfloat16
+    grads = torch.autograd.grad(out, leaves, torch.ones_like(out))
+    assert [g.shape for g in grads] == [v.shape for v in leaves]
     b = ell_case(dev, 300, 36, 128, torch.bfloat16, seed=4)
     ws = b["w_s"].clone().requires_grad_(True)
     out = block_lib._ell_agg(36, b["x"], ws, b["w_l"], b["nbr"], b["tpos"])
@@ -622,14 +701,22 @@ def gat_model(dev, dtype, generator_seed=0, n=3000, heads=3, layers=3):
     return graph, SuperviseModel(net, "label", 4, device=dev, generator=gen)
 
 
+def attn_counts(before=(0, 0, 0)) -> tuple:
+    """The launches of ell_attn, ell_sddmm and ell_gat since ``before``."""
+    now = (attn.ell_attn.launches, attn.ell_sddmm.launches,
+           attn.ell_gat.launches)
+    return tuple(a - b for a, b in zip(now, before))
+
+
 def test_gat_step_on_card_matches_cpu(dev):
     """A multi-head GAT step over every node in f32: loss and gradients
     on the card (the kernels) within 1e-4 of the CPU's (the plain
-    versions), with 2 ell_attn and 1 ell_sddmm launches a layer."""
+    versions), with 3 ell_gat launches a layer (forward, SDDMM,
+    transpose) and none of the weighted ell_attn and ell_sddmm."""
     graph, model = gat_model(dev, None, layers=2)
     roots = torch.arange(3000, dtype=torch.int32, device=dev)
     cpu = torch.device("cpu")
-    before = (attn.ell_attn.launches, attn.ell_sddmm.launches)
+    before = attn_counts()
     runs = []
     for m, g, r in ((model, graph.tensors, roots),
                     (copy.deepcopy(model).to(cpu), graph.tensors.to(cpu),
@@ -638,8 +725,7 @@ def test_gat_step_on_card_matches_cpu(dev):
         loss.backward()
         runs.append((loss.detach().cpu(),
                      {k: p.grad.cpu() for k, p in m.named_parameters()}))
-    assert (attn.ell_attn.launches - before[0],
-            attn.ell_sddmm.launches - before[1]) == (4, 2)
+    assert attn_counts(before) == (0, 0, 6)
     (lk, gk), (lc, gc) = runs
     np.testing.assert_allclose(lk.numpy(), lc.numpy(), rtol=1e-4, atol=1e-4)
     for k in gk:
@@ -895,7 +981,7 @@ def test_replays_advance_the_generator_as_eager_steps(dev):
                       torch.rand(8, generator=gen, device=dev)))
         if spl > 1:
             assert loop.held == dict(fan_draw=2, gather_rows=2, ell_agg=0,
-                                     ell_attn=0, ell_sddmm=0)
+                                     ell_attn=0, ell_sddmm=0, ell_gat=0)
     (roots_g, after_g), (roots_e, after_e) = draws
     assert not torch.equal(roots_g[1], roots_g[2])       # replays draw anew
     assert all(torch.equal(a, b) for a, b in zip(roots_g, roots_e))
@@ -945,7 +1031,7 @@ def test_gcn_replayed_loop_equals_eager_steps(dev):
         runs.append((est, float(loss), ell.ell_agg.launches - before, loop))
     (eager, loss_e, n_e, _), (graphed, loss_g, n_g, loop) = runs
     assert loop.held == dict(fan_draw=0, gather_rows=2, ell_agg=5,
-                             ell_attn=0, ell_sddmm=0)
+                             ell_attn=0, ell_sddmm=0, ell_gat=0)
     assert n_e == n_g == 5 * 2 * LOOP_SPL
     assert loss_e == loss_g
     assert all(torch.equal(a, b) for a, b in zip(
@@ -956,9 +1042,10 @@ def test_gat_replayed_loop_equals_eager_steps(dev):
     """Multi-head GAT (3 layers of 3 heads) over every node at bf16
     activations, as the gat-train cell runs it, at a small size: a loop of
     replays equals the eager steps bit for bit (the kernels sum in a fixed
-    order), and a replay holds 6 ell_attn launches (3 forward, 3
-    transposes: the first layer's rows are z, which takes a gradient) and
-    3 ell_sddmm beside the 2 gathers."""
+    order), and a replay holds 9 ell_gat launches (3 forward, 3 SDDMM and
+    3 transposes: the first layer's rows are z, which takes a gradient)
+    beside the 2 gathers, and no launch of the weighted ell_attn or
+    ell_sddmm."""
     every = torch.arange(3000, dtype=torch.int32, device=dev)
     runs = []
     for spl in (1, LOOP_SPL):
@@ -968,16 +1055,14 @@ def test_gat_replayed_loop_equals_eager_steps(dev):
         opt = get_optimizer("adam", 1e-3, est.model.parameters())
         loop = TrainLoop(est, opt, torch.Generator(device=dev).manual_seed(5),
                          spl, lambda: every)
-        before = (attn.ell_attn.launches, attn.ell_sddmm.launches)
+        before = attn_counts()
         loss = [loop() for _ in range(2 * LOOP_SPL // spl)][-1]
         torch.cuda.synchronize()
-        runs.append((est, float(loss),
-                     (attn.ell_attn.launches - before[0],
-                      attn.ell_sddmm.launches - before[1]), loop))
+        runs.append((est, float(loss), attn_counts(before), loop))
     (eager, loss_e, n_e, _), (graphed, loss_g, n_g, loop) = runs
     assert loop.held == dict(fan_draw=0, gather_rows=2, ell_agg=0,
-                             ell_attn=6, ell_sddmm=3)
-    assert n_e == n_g == (6 * 2 * LOOP_SPL, 3 * 2 * LOOP_SPL)
+                             ell_attn=0, ell_sddmm=0, ell_gat=9)
+    assert n_e == n_g == (0, 0, 9 * 2 * LOOP_SPL)
     assert loss_e == loss_g
     assert all(torch.equal(a, b) for a, b in zip(
         graphed.model.parameters(), eager.model.parameters()))

@@ -5,15 +5,21 @@ kernels) against the benchmark's plain reference
 self loops), the block layouts against each other for heads 1, 2 and 3,
 the plain versions of ``ops.ell_attn`` against their definitions written
 out, ``_ell_attn``'s and ``_ell_agg``'s gradients, the wrappers' checks
-and the ``attention`` spans. The kernels themselves are held to these
+and the ``attention`` spans; and GAT's fused attention (``_EllGat``
+through the plain versions of ``ops.ell_attn.ell_gat``, ``ell_gat_sddmm``
+and ``ell_gat_tr``) against the unfused chain that multi-head
+``GATConv`` runs elsewhere (``Block.softmax`` and ``_ell_attn``), and
+where ``GATConv`` takes it. The kernels themselves are held to these
 plain versions on the card (tests/test_torch_cuda.py).
 
-Tolerances: f32 throughout; rtol = atol = 1e-5 between two sums of the
+Tolerances: f32 throughout (but the fused attention's bf16 cases, whose
+bounds their test states); rtol = atol = 1e-5 between two sums of the
 same terms in other orders (layouts, definitions), and the forward within
 2e-5 / gradients within 2e-4 of the reference (another order of the whole
 model, as tests/test_torch_whole.py holds whole models).
 """
 import dataclasses
+import functools
 
 import numpy as np
 import pytest
@@ -388,3 +394,197 @@ def test_attention_spans_in_a_train_step(graph):
         assert len(att) == len(back) == want
         assert all(s.parent is not None and s.parent.name == "conv"
                    for s in att)
+
+
+# ------------------------------------------------- GAT's fused attention --
+
+def gat_block(N: int, C: int, seed: int):
+    """A compact whole-graph ELL block of N nodes and C cells a row (pads
+    about half, interleaved): row 0 all pads (its self loop alone), row 1
+    all live (over 32 cells: two chunks); tpos the transpose positions of
+    every live cell, pads interleaved."""
+    rng = np.random.default_rng(seed)
+    nbr = rng.integers(0, N, (N, C)).astype(np.int32)
+    nbr[rng.random((N, C)) < 0.5] = -1
+    nbr[0] = -1
+    nbr[1] = rng.integers(0, N, C)
+    into = [[] for _ in range(N)]
+    for p in np.flatnonzero(nbr.reshape(-1) >= 0):
+        into[nbr.flat[p]].append(p)
+    C_in = max(len(c) for c in into) + 2
+    tpos = np.full((N, C_in), -1, np.int32)
+    for u, cells in enumerate(into):
+        tpos[u, np.sort(rng.choice(C_in, len(cells), replace=False))] = cells
+    blk = fanout_block(torch.arange(N, dtype=torch.int32),
+                       torch.from_numpy(nbr), torch.ones((N, C)),
+                       torch.zeros((N, C), dtype=torch.int32), C)
+    return dataclasses.replace(blk, ell_tpos=torch.from_numpy(tpos))
+
+
+def unfused_attention(blk, z, xs, w, a_l, a_r, dtype):
+    """The chain multi-head ``GATConv`` runs on other blocks, here over
+    the compact table at any H: el and er through W^T a, the [E, H]
+    scores, ``Block.softmax`` and ``_ell_attn`` on weights folded by
+    ``ell_weights``."""
+    H, F = a_l.shape
+    N, C = blk.size[0], blk.fanout
+    wh = w.reshape(H, F, -1)
+    scores = (blk.gather_tgt(xs @ torch.einsum("hfd,hf->dh", wh, a_l))
+              + blk.gather_src(xs @ torch.einsum("hfd,hf->dh", wh, a_r)))
+    alpha = blk.softmax(torch.nn.functional.leaky_relu(scores, 0.2),
+                        blk.mask)
+    w_s, w_l, nbr = blk.ell_weights(None, alpha)
+    return block_lib._ell_attn(C, z.to(dtype), w_s.reshape(N, C, H),
+                               w_l.reshape(N, H), nbr, blk.ell_tpos)
+
+
+def gat_run(blk, H, F, dtype, fused, seed):
+    """out, the gradients to x, W, a_l, a_r and z, and x and W, of one
+    attention call from weights drawn from ``seed`` (x the f32 rows that
+    fc reads), under a cotangent in ``dtype``."""
+    N, D_in = blk.size[0], 12
+    rng = np.random.default_rng(seed)
+
+    def draw(*shape, scale=1.0):
+        return torch.from_numpy((rng.normal(size=shape) * scale)
+                                .astype(np.float32)).requires_grad_(True)
+    leaves = [draw(N, D_in), draw(H * F, D_in, scale=D_in ** -0.5),
+              draw(H, F, scale=F ** -0.5), draw(H, F, scale=F ** -0.5)]
+    g = torch.from_numpy(rng.normal(size=(N, H * F)).astype(np.float32)
+                         ).to(dtype)
+    x, w, a_l, a_r = leaves
+    z = x @ w.T
+    fn = blk.gat_attention if fused else functools.partial(
+        unfused_attention, blk)
+    out = fn(z, x, w, a_l, a_r, dtype)
+    grads = torch.autograd.grad(out, leaves + [z], g)
+    return out.detach(), grads, z.detach(), x.detach(), w.detach()
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("F", [8, 64, 250])
+@pytest.mark.parametrize("heads", [1, 2, 3, 8])
+def test_fused_gat_attention_matches_the_unfused_chain(heads, F, dtype):
+    """``Block.gat_attention`` (``_EllGat``: the plain versions of the
+    fused kernels, z's gradient in f32 with el's and er's terms) against
+    the unfused chain, on a block with pads, a row of its self loop alone
+    and rows of two chunks: the output, and the gradients to x, W, a_l and
+    a_r. f32: within 1e-5 of each tensor's largest value (sums in other
+    orders; the softmax through its log-sum-exp). The activation type
+    rounds the output once on either side (an ulp of it) and, in the
+    unfused chain alone, z's gradient from the aggregate (half an ulp of
+    it, bounded by 2^-8 of the unfused one, dz), which reaches x's and W's
+    gradients through W and x: the bounds dz |W| and dz^T |x|. a_l's and
+    a_r's gradients pass no rounding."""
+    blk = gat_block(50, 40, seed=heads * 10 + F)
+    got, g_got, z, x, w = gat_run(blk, heads, F, dtype, True, seed=F)
+    want, g_want = gat_run(blk, heads, F, dtype, False, seed=F)[:2]
+    assert got.dtype == dtype and got.shape == (50, heads * F)
+    low = dtype == torch.bfloat16
+    dz = (2.0 ** -8 if low else 0.0) * g_want[4].abs()
+    checks = (("out", got.float(), want.float(),
+               (2.0 ** -7 if low else 0.0) * want.float().abs()),
+              ("x", g_got[0], g_want[0], dz @ w.abs()),
+              ("W", g_got[1], g_want[1], dz.T @ x.abs()),
+              ("a_l", g_got[2], g_want[2], 0.0),
+              ("a_r", g_got[3], g_want[3], 0.0))
+    for name, a, b, bound in checks:
+        gap = (a - b).abs() - bound - 1e-5 * float(b.abs().max())
+        assert float(gap.max()) <= 0.0, name
+    # row 0, its self loop alone, reads its own z row at weight 1
+    assert torch.equal(got[0], z[0].to(dtype))
+
+
+@pytest.mark.parametrize("heads", [1, 2, 3])
+def test_gat_conv_takes_the_fused_path_on_a_compact_table_only(
+        graph, heads, monkeypatch):
+    """Multi-head GAT on the ELL pack runs ``Block.gat_attention`` once a
+    layer; GAT at one head, the dynamic layout, the edge list and a pack
+    without self loops keep the unfused chain."""
+    calls = []
+    real = block_lib.Block.gat_attention
+
+    def spy(self, *args):
+        calls.append(self.size)
+        return real(self, *args)
+    monkeypatch.setattr(block_lib.Block, "gat_attention", spy)
+    g = graph.tensors
+    roots = torch.arange(50, dtype=torch.int32)
+    deg = int(torch.bincount(g.adj_src.long(), minlength=300).max())
+    no_pack = dataclasses.replace(g, **{n: None for n in ELL_FIELDS})
+    runs = (("pack", g, {}), ("dynamic", no_pack, dict(cap=deg)),
+            ("edge_list", g, dict(layout="edge_list")),
+            ("no_loops", g, dict(add_self_loops=False)))
+    for name, tensors, flow_kw in runs:
+        del calls[:]
+        model(heads, **flow_kw)(tensors, roots)["loss"].backward()
+        want = 2 if name == "pack" and heads > 1 else 0
+        assert len(calls) == want, name
+
+
+GAT_WRAPPER_CASES = ("terms_dtype", "terms_shape", "lse_shape", "de_shape",
+                     "a_shape", "f_width", "sddmm_pair", "device")
+
+
+@pytest.mark.parametrize("case", GAT_WRAPPER_CASES)
+def test_ell_gat_wrappers_refuse_what_the_kernels_do_not_take(case):
+    a = attn_case(C=4, H=2, F=3)
+    N, H, F = a["N"], a["H"], a["F"]
+    xp, gp = attn.pad_heads(a["x"], H), attn.pad_heads(a["g"], H)
+    el, er = a["w_l"], a["w_l"].flip(0).contiguous()
+    out, lse = attn.ell_gat(xp, a["nbr"], el, er, F)
+    de, de_self, d_el = attn.ell_gat_sddmm(gp, xp, a["nbr"], el, er, lse)
+    tr = dict(gp=gp, tpos=a["tpos"], nbr=a["nbr"], el=el, er=er, lse=lse,
+              de=de, de_self=de_self, d_el=d_el, a_l=torch.ones(H, F),
+              a_r=torch.ones(H, F), F=F)
+    if case == "terms_dtype":
+        with pytest.raises(TypeError, match=r"el must be f32"):
+            attn.ell_gat(xp, a["nbr"], el.double(), er, F)
+    elif case == "terms_shape":
+        with pytest.raises(TypeError, match=r"er must be f32"):
+            attn.ell_gat(xp, a["nbr"], el, er[:, :1].contiguous(), F)
+    elif case == "lse_shape":
+        with pytest.raises(TypeError, match=r"lse must be f32"):
+            attn.ell_gat_sddmm(gp, xp, a["nbr"], el, er, lse[:-1])
+    elif case == "de_shape":
+        with pytest.raises(TypeError, match=r"de must be f32"):
+            attn.ell_gat_tr(**dict(tr, de=de[:, :3].contiguous()))
+    elif case == "a_shape":
+        with pytest.raises(TypeError, match=r"a_l must be f32"):
+            attn.ell_gat_tr(**dict(tr, a_l=torch.ones(H, F + 1)))
+    elif case == "f_width":
+        with pytest.raises(ValueError, match="does not pad"):
+            attn.ell_gat(xp, a["nbr"], el, er, 5)
+    elif case == "sddmm_pair":
+        with pytest.raises(ValueError, match="differ"):
+            attn.ell_gat_sddmm(gp[:-1], xp, a["nbr"], el, er, lse)
+    else:
+        with pytest.raises(ValueError, match="no kernel"):
+            attn.ell_gat(xp.to("meta"), a["nbr"].to("meta"),
+                         el.to("meta"), er.to("meta"), F)
+    assert out.shape == (N, H * F) and lse.shape == (N, H)
+
+
+def test_live_tpos_drops_the_cells_that_nbr_drops():
+    """``live_tpos`` keeps the transpose positions of live cells and sets
+    those of cells that nbr drops (an edge-type filter) and pads to -1;
+    the fused transpose's plain version gives the same with either."""
+    a = attn_case(seed=7)
+    nbr = a["nbr"].clone()
+    nbr[3, :] = -1                             # row 3's cells dropped
+    got = attn.live_tpos(a["tpos"], nbr)
+    cells = nbr.reshape(-1)[a["tpos"].long().clamp_min(0)]
+    want = torch.where((a["tpos"] >= 0) & (cells >= 0), a["tpos"], -1)
+    assert torch.equal(got, want)
+    assert int((got // a["C"] == 3).sum()) == 0
+    assert int((a["tpos"] // a["C"] == 3).sum()) > 0
+    H, F = a["H"], a["F"]
+    xp, gp = attn.pad_heads(a["x"], H), attn.pad_heads(a["g"], H)
+    el, er = a["w_l"], a["w_l"].flip(0).contiguous()
+    lse = attn.gat_lse(el, er, nbr)
+    grads = attn.ell_gat_sddmm_plain(gp, xp, nbr, el, er, lse)
+    a_lr = (torch.ones(H, F), torch.full((H, F), 0.5))
+    runs = [attn.ell_gat_tr_plain(gp, tp, nbr, el, er, lse, *grads, *a_lr,
+                                  F) for tp in (a["tpos"], got)]
+    for u, v in zip(*runs):
+        assert torch.equal(u, v)
