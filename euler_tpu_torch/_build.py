@@ -1,4 +1,5 @@
-"""Build a native source into a shared library under build/euler_tpu_torch/.
+"""Build a native source into a shared library under build/euler_tpu_torch/,
+and launch the kernels of the CUDA ones.
 
 The library's file name carries a hash of the source, the compile command
 and each file the source names in a quoted ``#include "..."`` found
@@ -8,6 +9,11 @@ so a changed source or header builds anew and an unchanged one is reused.
 Each build writes a private temporary file and ``os.replace``s it into
 place, so processes that race on a first build (pytest-xdist workers)
 never load a half-written library.
+
+Every kernel wrapper of ``ops`` dispatches and launches the same way
+(``kernel_device``, ``launch``): a CPU tensor goes to its plain version,
+a CUDA tensor to its kernel, on the device's current stream, and any
+other device raises.
 """
 from __future__ import annotations
 
@@ -19,6 +25,8 @@ import shutil
 import subprocess
 import threading
 from typing import Dict, List, Sequence
+
+import torch
 
 PACKAGE_DIR = os.path.dirname(os.path.abspath(__file__))
 REPO_ROOT = os.path.dirname(PACKAGE_DIR)
@@ -101,3 +109,20 @@ def load_cuda_library(name: str, functions: Dict[str, List]) -> ctypes.CDLL:
                 getattr(lib, fn).restype = ctypes.c_int
             _loaded[name] = lib
         return lib
+
+
+def kernel_device(name: str, x: torch.Tensor) -> bool:
+    """True for a CUDA tensor (launch the kernel), False for a CPU one (run
+    the plain version); raises on any other device."""
+    if x.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"{name}: no kernel for {x.device}")
+    return x.device.type == "cuda"
+
+
+def launch(name: str, fn, device: torch.device, *args) -> None:
+    """Calls the library's ``fn`` with ``args`` and the device's current
+    stream; raises if the launch failed (a non-zero return code)."""
+    with torch.cuda.device(device):
+        rc = fn(*args, torch.cuda.current_stream().cuda_stream)
+    if rc != 0:
+        raise RuntimeError(f"{name}: kernel launch failed (CUDA error {rc})")

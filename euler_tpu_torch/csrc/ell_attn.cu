@@ -1,6 +1,7 @@
-// Multi-head whole-graph ELL attention, for Hopper (sm_90a): the per-head
-// weighted aggregate, its transpose, and the per-edge dot products of the
-// weights' gradient (an SDDMM).
+// Multi-head whole-graph ELL attention, for Hopper (sm_90a): GAT's
+// attention over each row's cells and its self loop, its backward, and
+// the per-edge dot products of a weighted aggregate's weight gradient (an
+// SDDMM).
 //
 // Replaces no Pallas kernel: the JAX package's GAT is single-head and its
 // ELL aggregate (euler_tpu/dataflow/block.py::_ell_agg, :397-443) is jnp
@@ -16,28 +17,26 @@
 // row t; its lanes take words of the row, 32 at a time or, for rows of
 // fewer words, in groups that take different cells, as ell_agg.cu does.
 //
-//   ell_attn_fwd_kernel: out[t, h] = sum over c of x[nbr[t, c], h] w_s[t, c, h]
-//                                    + x[t, h] w_l[t, h]
-//   ell_attn_tr_kernel:  the same over p = tpos[t, c], idx = p / C,
-//                        weight w_s.flat[p * H + h] (the gradient to x)
-//   ell_sddmm_kernel:    gw_s[t, c, h] = g[t, h] . x[nbr[t, c], h]
-//                        gw_l[t, h]    = g[t, h] . x[t, h]
+// The kernels take GAT's per-head score terms el and er [n, H] (f32) and
+// compute the attention weights from them, GAT's softmax over each row's
+// live cells and its self loop of s = leaky_relu_0.2(el[t, h] + er[nbr[t,
+// c], h]) (el[t, h] + er[t, h] for the self loop):
 //
-// GAT's modes (ops/ell_attn.py ell_gat, ell_gat_sddmm, ell_gat_tr) take
-// no weights: each kernel computes them from the per-head score terms el
-// and er [n, H] (f32), as GAT's attention over each row's live cells and
-// its self loop, with s = leaky_relu_0.2(el[t, h] + er[nbr[t, c], h]):
-//
-//   ell_attn_fwd_kernel<., kGat>: lse[t, h] = log of the sum of exp(s) over
-//       the row (a max shift first), then the aggregate with the weights
-//       p = exp(s - lse); writes lse [n, H]
-//   ell_sddmm_kernel<., kGat>: dp as above, then in place the scores'
-//       gradients de = p (dp - sum of p dp over the row) leaky_relu'(.)
-//       ([n, C, H], the self loop's [n, H]) and d_el, their row sums
-//   ell_attn_tr_kernel<., kGat>: the aggregate's gradient to the rows with
-//       the weights p recomputed (its tpos names live cells only), plus
-//       d_el[u, h] a_l[h] + d_er[u, h] a_r[h], in f32, [n, H * F]; writes
-//       d_er, the sum of de over u's transpose cells and its self loop
+//   ell_attn_fwd_kernel: lse[t, h] = log of the sum of exp(s) over the row
+//       (a max shift first), then out[t, h] = sum over c of x[nbr[t, c], h]
+//       p[t, c, h] + x[t, h] p_self[t, h] with p = exp(s - lse); writes
+//       lse [n, H]
+//   ell_sddmm_kernel: gw_s[t, c, h] = g[t, h] . x[nbr[t, c], h] and gw_l[t,
+//       h] = g[t, h] . x[t, h] (ell_sddmm's weighted mode: the weight
+//       gradient of ops.ell_agg's one-head aggregate); in GAT's mode
+//       (kGat) then in place the scores' gradients de = p (dp - sum of p
+//       dp over the row) leaky_relu'(.) ([n, C, H], the self loop's [n,
+//       H]) and d_el, their row sums
+//   ell_attn_tr_kernel: the aggregate's gradient to the rows, over p =
+//       tpos[t, c] (live cells only), idx = p / C, with the weights p
+//       recomputed, plus d_el[u, h] a_l[h] + d_er[u, h] a_r[h], in f32, [n,
+//       H * F]; writes d_er, the sum of de over u's transpose cells and its
+//       self loop
 //
 // so that no [n, C, H] score, probability or mask is built, and the
 // gradients of el and er reach the rows' gradient here and not through
@@ -48,14 +47,13 @@
 // are clamped to its last row (the transpose's p to the last cell), as in
 // ell_agg.cu. The weights stay f32 (they are not rounded to x's type);
 // products and sums are f32 in registers in a fixed order, so replays equal
-// eager steps bit for bit; the aggregate rounds once, at the store, to x's
-// type. The forward writes out unpadded, [n, H * F] (f < F only); the
-// transpose writes the padded layout, pads included (0 where g's pads are),
-// and GAT's transpose f32 [n, H * F].
+// eager steps bit for bit; the forward rounds once, at the store, to x's
+// type and writes out unpadded, [n, H * F] (f < F only); the transpose
+// writes f32 [n, H * F].
 //
 // Bound: device-memory bytes, as ell_agg.cu: each live cell's neighbour
-// row once, the index and weights once, the table and the output once, at
-// 2 flops a byte. The rows are random 1-2 kB reads; each lane holds
+// row once, the index and score terms once, the table and the output once,
+// at 2 flops a byte. The rows are random 1-2 kB reads; each lane holds
 // kUnroll of them in flight. The per-cell weights of a chunk of 32 cells
 // go through shared memory, since lanes of one warp read different heads.
 // The SDDMM keeps its lane's word of g[t] in registers, multiplies it with
@@ -79,10 +77,10 @@ constexpr int kWarps = kThreads / 32;
 constexpr int kMinBlocks = 4;    // blocks an SM holds: 64 registers a thread
 constexpr unsigned kAll = 0xffffffffu;
 
-// floats of shared memory a warp: a chunk's weights, then in GAT's modes
+// floats of shared memory a warp in GAT's modes: a chunk's weights (sw),
 // each lane's partial sums a head (sp) and the row's terms (rs)
-__host__ __device__ constexpr int warp_floats(int heads, bool gat) {
-  return gat ? (2 * kCells + 2) * heads : kCells * heads;
+__host__ __device__ constexpr int warp_floats(int heads) {
+  return (2 * kCells + 2) * heads;
 }
 
 __device__ __forceinline__ float lo_bf16(uint32_t w) {
@@ -97,7 +95,7 @@ __device__ __forceinline__ uint32_t bf16_bits(float f) {
 
 // One 16-byte word: 4 f32 or 8 bf16. add() accumulates w times the word's
 // elements into acc, dot() sums the word's products with another word in
-// a fixed order, pack() rounds acc to the element type.
+// a fixed order.
 template <bool kBf16> struct Word;
 
 template <> struct Word<false> {
@@ -113,10 +111,6 @@ template <> struct Word<false> {
     s = fmaf(__uint_as_float(a.y), __uint_as_float(b.y), s);
     s = fmaf(__uint_as_float(a.z), __uint_as_float(b.z), s);
     return fmaf(__uint_as_float(a.w), __uint_as_float(b.w), s);
-  }
-  static __device__ __forceinline__ uint4 pack(const float* acc) {
-    return make_uint4(__float_as_uint(acc[0]), __float_as_uint(acc[1]),
-                      __float_as_uint(acc[2]), __float_as_uint(acc[3]));
   }
 };
 
@@ -140,14 +134,6 @@ template <> struct Word<true> {
       s = fmaf(hi_bf16(p[i]), hi_bf16(q[i]), s);
     }
     return s;
-  }
-  static __device__ __forceinline__ uint4 pack(const float* acc) {
-    uint32_t u[4];
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      u[i] = bf16_bits(acc[2 * i]) | (bf16_bits(acc[2 * i + 1]) << 16);
-    }
-    return make_uint4(u[0], u[1], u[2], u[3]);
   }
 };
 
@@ -217,8 +203,8 @@ struct Lanes {
   }
 };
 
-// GAT's per-head terms and results (the header's modes); unused and null
-// in the weighted modes.
+// GAT's per-head terms and results (the header's kernels); null in the
+// SDDMM's weighted mode.
 struct Gat {
   const float* el;       // [n, heads]
   const float* er;       // [n, heads]
@@ -339,18 +325,17 @@ __device__ __forceinline__ void gat_tr_row(const Gat& gat, int64_t u,
   __syncwarp();
 }
 
-// x [n, heads * wph] words; index [n, width]; w_s [n, c, heads] f32 (the
-// forward: width == c); w_l [n, heads] f32. out: the padded layout of x
-// where out_padded, else element (t, h, f) at t * out_ld + h * out_hs + f
-// for f < f_real, in x's type, or in f32 with GAT's terms of el and er in
-// GAT's transpose. sw: this warp's warp_floats of shared memory.
-template <bool kBf16, bool kTranspose, bool kGat>
+// x [n, heads * wph] words; index [n, width]: nbr (the forward, width ==
+// c) or the tpos of live cells (the transpose). out, element (t, h, f) at
+// (t * heads + h) * f_real + f for f < f_real: the forward's in x's type
+// (bf16 two at a time where ``pairs``), the transpose's in f32 with el's
+// and er's terms. sw: this warp's warp_floats of shared memory.
+template <bool kBf16, bool kTranspose>
 __device__ __forceinline__ void attn_agg(
     const uint4* __restrict__ x, int64_t n, int heads, int wph,
-    const int32_t* __restrict__ index, int width,
-    const float* __restrict__ w_s, int c, const float* __restrict__ w_l,
-    void* __restrict__ out, int64_t out_ld, int64_t out_hs, int f_real,
-    bool out_padded, bool pairs, int col_log2, float* sw, const Gat& gat) {
+    const int32_t* __restrict__ index, int width, int c,
+    void* __restrict__ out, int f_real, bool pairs, int col_log2, float* sw,
+    const Gat& gat) {
   using W = Word<kBf16>;
   const Lanes L(col_log2);
   const int row_words = heads * wph;
@@ -359,14 +344,16 @@ __device__ __forceinline__ void attn_agg(
   const int64_t n_warps =
       (static_cast<int64_t>(gridDim.x) * blockDim.x) >> 5;
   const int64_t last_cell = n * c - 1;
+  const int64_t out_ld = static_cast<int64_t>(heads) * f_real;
+  const int64_t out_hs = f_real;
   float* sp = sw + kCells * heads;
   float* rs = sp + kCells * heads;
 
   for (int64_t t = warp; t < n; t += n_warps) {
     const int32_t* irow = index + t * width;
-    if (kGat && kTranspose) {
+    if (kTranspose) {
       gat_tr_row(gat, t, heads, irow, width, c, last_cell, L.lane, sp, rs);
-    } else if (kGat) {
+    } else {
       gat_fwd_row(gat, t, n, heads, irow, c, L.lane, rs);
     }
     for (int j0 = 0; j0 < row_words; j0 += L.lanes_per_col) {
@@ -381,34 +368,27 @@ __device__ __forceinline__ void attn_agg(
       for (int e = 0; e < W::kElts; ++e) acc[e] = 0.0f;
       for (int c0 = 0; c0 < width; c0 += kCells) {
         int32_t id = -1;
-        int64_t cell = -1;
         if (c0 + L.lane < width && c > 0) {
           const int32_t v = __ldg(irow + c0 + L.lane);
           if (v >= 0) {
             if (kTranspose) {
-              cell = v < last_cell ? v : last_cell;
+              const int64_t cell = v < last_cell ? v : last_cell;
               id = static_cast<int32_t>(cell / c);
             } else {
-              cell = t * c + c0 + L.lane;
               id = v < n ? v : static_cast<int32_t>(n - 1);
             }
           }
         }
         if (id >= 0) {
           for (int k = k_lo; k <= k_hi; ++k) {
-            float w;
-            if (kGat && kTranspose) {   // p of cell (id, .): el[id], er[t]
-              const int64_t at = static_cast<int64_t>(id) * heads + k;
-              w = expf(lrelu(__ldg(gat.el + at) + rs[k]) -
-                       __ldg(gat.lse + at));
-            } else if (kGat) {
-              w = expf(lrelu(rs[k] + __ldg(gat.er +
-                                           static_cast<int64_t>(id) * heads
-                                           + k)) - rs[heads + k]);
-            } else {
-              w = __ldg(w_s + cell * heads + k);
-            }
-            sw[L.lane * heads + k] = w;
+            const int64_t at = static_cast<int64_t>(id) * heads + k;
+            // p of the cell: the transpose's is cell (id, .) of el[id] and
+            // er[t], the forward's of el[t] and er[id]
+            sw[L.lane * heads + k] =
+                kTranspose ? expf(lrelu(__ldg(gat.el + at) + rs[k]) -
+                                  __ldg(gat.lse + at))
+                           : expf(lrelu(rs[k] + __ldg(gat.er + at)) -
+                                  rs[heads + k]);
           }
         }
         __syncwarp();
@@ -451,20 +431,19 @@ __device__ __forceinline__ void attn_agg(
       }
       if (L.group == 0 && col_ok) {
         const int64_t th = t * heads + h;
-        float wl;
-        if (kGat && kTranspose) {   // the self loop's p of row t
-          wl = expf(lrelu(__ldg(gat.el + th) + rs[h]) - __ldg(gat.lse + th));
-        } else if (kGat) {
-          wl = expf(lrelu(rs[h] + __ldg(gat.er + th)) - rs[heads + h]);
-        } else {
-          wl = __ldg(w_l + th);
-        }
+        // the self loop's p of row t
+        const float wl =
+            kTranspose ? expf(lrelu(__ldg(gat.el + th) + rs[h]) -
+                              __ldg(gat.lse + th))
+                       : expf(lrelu(rs[h] + __ldg(gat.er + th)) -
+                              rs[heads + h]);
         W::add(acc, __ldg(x + t * row_words + j), wl);
         const int f0 = (j - h * wph) * W::kElts;
-        if (kGat && kTranspose) {
+        const int64_t base = t * out_ld + h * out_hs;
+        if (kTranspose) {
           // the rows' gradient in f32, with el's and er's terms
           const float dl = __ldg(gat.d_el + th), dr = rs[heads + h];
-          float* o = static_cast<float*>(out) + t * out_ld + h * out_hs;
+          float* o = static_cast<float*>(out) + base;
           const float* al = gat.a_l + static_cast<int64_t>(h) * f_real;
           const float* ar = gat.a_r + static_cast<int64_t>(h) * f_real;
 #pragma unroll
@@ -474,15 +453,12 @@ __device__ __forceinline__ void attn_agg(
               o[f] = acc[e] + dl * __ldg(al + f) + dr * __ldg(ar + f);
             }
           }
-        } else if (out_padded) {
-          static_cast<uint4*>(out)[t * row_words + j] = W::pack(acc);
         } else {
-          store_elements<kBf16>(out, t * out_ld + h * out_hs + f0, f0,
-                                f_real, pairs, acc);
+          store_elements<kBf16>(out, base + f0, f0, f_real, pairs, acc);
         }
       }
     }
-    if (kGat && kTranspose) {
+    if (kTranspose) {
       __syncwarp();
       for (int k = L.lane; k < heads; k += 32) {
         gat.d_er[t * heads + k] = rs[heads + k];
@@ -491,34 +467,28 @@ __device__ __forceinline__ void attn_agg(
   }
 }
 
-template <bool kBf16, bool kGat>
+template <bool kBf16>
 __global__ void __launch_bounds__(kThreads, kMinBlocks)
 ell_attn_fwd_kernel(const uint4* __restrict__ x, int64_t n, int heads,
                     int wph, const int32_t* __restrict__ index, int width,
-                    const float* __restrict__ w_s, int c,
-                    const float* __restrict__ w_l, void* __restrict__ out,
-                    int64_t out_ld, int64_t out_hs, int f_real,
-                    bool out_padded, bool pairs, int col_log2, Gat gat) {
+                    int c, void* __restrict__ out, int f_real, bool pairs,
+                    int col_log2, Gat gat) {
   extern __shared__ float smem[];
-  attn_agg<kBf16, false, kGat>(
-      x, n, heads, wph, index, width, w_s, c, w_l, out, out_ld, out_hs,
-      f_real, out_padded, pairs, col_log2,
-      smem + (threadIdx.x >> 5) * warp_floats(heads, kGat), gat);
+  attn_agg<kBf16, false>(x, n, heads, wph, index, width, c, out, f_real,
+                         pairs, col_log2,
+                         smem + (threadIdx.x >> 5) * warp_floats(heads), gat);
 }
 
-template <bool kBf16, bool kGat>
+template <bool kBf16>
 __global__ void __launch_bounds__(kThreads, kMinBlocks)
 ell_attn_tr_kernel(const uint4* __restrict__ x, int64_t n, int heads,
                    int wph, const int32_t* __restrict__ index, int width,
-                   const float* __restrict__ w_s, int c,
-                   const float* __restrict__ w_l, void* __restrict__ out,
-                   int64_t out_ld, int64_t out_hs, int f_real,
-                   bool out_padded, bool pairs, int col_log2, Gat gat) {
+                   int c, void* __restrict__ out, int f_real, bool pairs,
+                   int col_log2, Gat gat) {
   extern __shared__ float smem[];
-  attn_agg<kBf16, true, kGat>(
-      x, n, heads, wph, index, width, w_s, c, w_l, out, out_ld, out_hs,
-      f_real, out_padded, pairs, col_log2,
-      smem + (threadIdx.x >> 5) * warp_floats(heads, kGat), gat);
+  attn_agg<kBf16, true>(x, n, heads, wph, index, width, c, out, f_real,
+                        pairs, col_log2,
+                        smem + (threadIdx.x >> 5) * warp_floats(heads), gat);
 }
 
 // GAT's SDDMM epilogue of row t, once gw_s and gw_l hold its dot products
@@ -677,7 +647,7 @@ ell_sddmm_kernel(const uint4* __restrict__ g, const uint4* __restrict__ x,
       }
     }
     if (kGat) {
-      float* sp = smem + (threadIdx.x >> 5) * warp_floats(heads, true);
+      float* sp = smem + (threadIdx.x >> 5) * warp_floats(heads);
       gat_sddmm_row(gat, t, n, heads, irow, c, L.lane, gw_s, gw_l, sp,
                     sp + kCells * heads);
     }
@@ -697,30 +667,26 @@ unsigned grid_for(int64_t n, int64_t cap) {
   return static_cast<unsigned>(want < cap ? want : cap);
 }
 
-template <bool kBf16, bool kGat>
+template <bool kBf16>
 int launch_agg(const void* x, int64_t n, int heads, int wph,
-               const int32_t* index, int width, const float* w_s, int c,
-               const float* w_l, void* out, int64_t out_ld, int64_t out_hs,
-               int f_real, bool out_padded, bool pairs, bool transpose,
-               const Gat& gat, cudaStream_t stream) {
+               const int32_t* index, int width, int c, void* out, int f_real,
+               bool pairs, bool transpose, const Gat& gat,
+               cudaStream_t stream) {
   const int col_log2 = col_log2_of(heads * wph);
-  const size_t smem =
-      sizeof(float) * kWarps * warp_floats(heads, kGat);
+  const size_t smem = sizeof(float) * kWarps * warp_floats(heads);
   const uint4* xv = static_cast<const uint4*>(x);
   if (transpose) {
     const int64_t cap =
-        etpu::resident_blocks<ell_attn_tr_kernel<kBf16, kGat>, kThreads>();
-    ell_attn_tr_kernel<kBf16, kGat><<<grid_for(n, cap), kThreads, smem,
-                                      stream>>>(
-        xv, n, heads, wph, index, width, w_s, c, w_l, out, out_ld, out_hs,
-        f_real, out_padded, pairs, col_log2, gat);
+        etpu::resident_blocks<ell_attn_tr_kernel<kBf16>, kThreads>();
+    ell_attn_tr_kernel<kBf16><<<grid_for(n, cap), kThreads, smem, stream>>>(
+        xv, n, heads, wph, index, width, c, out, f_real, pairs, col_log2,
+        gat);
   } else {
     const int64_t cap =
-        etpu::resident_blocks<ell_attn_fwd_kernel<kBf16, kGat>, kThreads>();
-    ell_attn_fwd_kernel<kBf16, kGat><<<grid_for(n, cap), kThreads, smem,
-                                       stream>>>(
-        xv, n, heads, wph, index, width, w_s, c, w_l, out, out_ld, out_hs,
-        f_real, out_padded, pairs, col_log2, gat);
+        etpu::resident_blocks<ell_attn_fwd_kernel<kBf16>, kThreads>();
+    ell_attn_fwd_kernel<kBf16><<<grid_for(n, cap), kThreads, smem, stream>>>(
+        xv, n, heads, wph, index, width, c, out, f_real, pairs, col_log2,
+        gat);
   }
   return static_cast<int>(cudaGetLastError());
 }
@@ -731,8 +697,7 @@ int launch_sddmm(const void* g, const void* x, int64_t n, int heads, int wph,
                  const Gat& gat, cudaStream_t stream) {
   const int64_t cap =
       etpu::resident_blocks<ell_sddmm_kernel<kBf16, kGat>, kThreads>();
-  const size_t smem =
-      kGat ? sizeof(float) * kWarps * warp_floats(heads, true) : 0;
+  const size_t smem = kGat ? sizeof(float) * kWarps * warp_floats(heads) : 0;
   ell_sddmm_kernel<kBf16, kGat><<<grid_for(n, cap), kThreads, smem,
                                   stream>>>(
       static_cast<const uint4*>(g), static_cast<const uint4*>(x), n, heads,
@@ -755,43 +720,6 @@ float* f32(void* p) { return static_cast<float*>(p); }
 const int32_t* i32(const void* p) { return static_cast<const int32_t*>(p); }
 
 }  // namespace
-
-// x [n, heads, wph * 16 bytes] (16-byte aligned) of elt_size-byte elements
-// (4: f32, 2: bf16); index int32 [n, width]; w_s f32 [n, c, heads]; w_l
-// f32 [n, heads]. transpose 0 reads index as nbr (width == c), 1 as tpos.
-// out: x's padded layout where out_padded, else element (t, h, f) at
-// t * out_ld + h * out_hs + f for f < f_real. Launches on `stream` and
-// returns cudaGetLastError() (0 = launched); cudaErrorInvalidValue for an
-// elt_size other than 2 or 4 or a head width the layout does not allow.
-extern "C" int etpu_ell_attn(const void* x, int64_t n, int64_t heads,
-                             int64_t wph, int elt_size, const void* index,
-                             int64_t width, const void* w_s, int64_t c,
-                             const void* w_l, void* out, int64_t out_ld,
-                             int64_t out_hs, int64_t f_real, int out_padded,
-                             int transpose, void* stream) {
-  if (!rows_ok(x, heads, wph, elt_size)) {
-    return static_cast<int>(cudaErrorInvalidValue);
-  }
-  if (n == 0) return 0;
-  const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const bool padded = out_padded != 0, tr = transpose != 0;
-  const bool pairs = out_ld % 2 == 0 && out_hs % 2 == 0 &&
-                     f_real % 2 == 0 &&
-                     reinterpret_cast<uintptr_t>(out) % 4 == 0;
-  const int h = static_cast<int>(heads), w = static_cast<int>(wph);
-  const Gat none{};
-  return elt_size == 4
-      ? launch_agg<false, false>(x, n, h, w, i32(index),
-                                 static_cast<int>(width), f32(w_s),
-                                 static_cast<int>(c), f32(w_l), out, out_ld,
-                                 out_hs, static_cast<int>(f_real), padded,
-                                 pairs, tr, none, s)
-      : launch_agg<true, false>(x, n, h, w, i32(index),
-                                static_cast<int>(width), f32(w_s),
-                                static_cast<int>(c), f32(w_l), out, out_ld,
-                                out_hs, static_cast<int>(f_real), padded,
-                                pairs, tr, none, s);
-}
 
 // g and x [n, heads, wph * 16 bytes] (16-byte aligned, pads zero); nbr
 // int32 [n, c]; gw_s f32 [n, c, heads]; gw_l f32 [n, heads] or null (not
@@ -840,12 +768,10 @@ extern "C" int etpu_ell_gat(const void* x, int64_t n, int64_t heads,
   const int h = static_cast<int>(heads), w = static_cast<int>(wph);
   const int ci = static_cast<int>(c), f = static_cast<int>(f_real);
   return elt_size == 4
-      ? launch_agg<false, true>(x, n, h, w, i32(nbr), ci, nullptr, ci,
-                                nullptr, out, heads * f_real, f_real, f,
-                                false, pairs, false, gat, s)
-      : launch_agg<true, true>(x, n, h, w, i32(nbr), ci, nullptr, ci,
-                               nullptr, out, heads * f_real, f_real, f,
-                               false, pairs, false, gat, s);
+      ? launch_agg<false>(x, n, h, w, i32(nbr), ci, ci, out, f, pairs, false,
+                          gat, s)
+      : launch_agg<true>(x, n, h, w, i32(nbr), ci, ci, out, f, pairs, false,
+                         gat, s);
 }
 
 // GAT's SDDMM: g and x as etpu_ell_sddmm's; nbr int32 [n, c]; el, er and
@@ -911,10 +837,8 @@ extern "C" int etpu_ell_gat_tr(const void* g, int64_t n, int64_t heads,
   const int ci = static_cast<int>(c), f = static_cast<int>(f_real);
   const int wi = static_cast<int>(width);
   return elt_size == 4
-      ? launch_agg<false, true>(g, n, h, w, i32(tpos), wi, nullptr, ci,
-                                nullptr, out, heads * f_real, f_real, f,
-                                false, false, true, gat, s)
-      : launch_agg<true, true>(g, n, h, w, i32(tpos), wi, nullptr, ci,
-                               nullptr, out, heads * f_real, f_real, f,
-                               false, false, true, gat, s);
+      ? launch_agg<false>(g, n, h, w, i32(tpos), wi, ci, out, f, false, true,
+                          gat, s)
+      : launch_agg<true>(g, n, h, w, i32(tpos), wi, ci, out, f, false, true,
+                         gat, s);
 }

@@ -40,9 +40,8 @@ import torch
 
 from euler_tpu_torch.ops import mp_ops
 from euler_tpu_torch.ops.ell_agg import ell_agg
-from euler_tpu_torch.ops.ell_attn import (ell_attn, ell_gat, ell_gat_sddmm,
-                                          ell_gat_tr, ell_sddmm, live_tpos,
-                                          pad_heads)
+from euler_tpu_torch.ops.ell_attn import (ell_gat, ell_gat_sddmm, ell_gat_tr,
+                                          ell_sddmm, live_tpos, pad_heads)
 from euler_tpu_torch.ops.sampling import as_etypes, etype_tensor
 from euler_tpu_torch.parallel import comms
 from euler_tpu_torch.utils.trace import span
@@ -234,16 +233,19 @@ class Block:
         a shared-source block sums add and mean of a 2-D ``x_src`` as one
         product with its layer (``_shared_aggregate``); a compact table of
         a whole-graph ELL block goes through ``_ell_agg`` for add and
-        mean. ``scale`` is an optional per-edge multiplier ([E] or [E, 1],
-        e.g. GCN's sym-norm or GAT's attention), taken in the dtype of
-        ``x_src`` as the reference does. A scale [E, H] with H > 1 is one a
-        head: it multiplies the H equal segments of each row (multi-head
-        attention), in f32 through ``_ell_attn`` on a compact ELL table."""
+        mean with no scale or a one-head scale. ``scale`` is an optional
+        per-edge multiplier ([E] or [E, 1], e.g. GCN's sym-norm or GAT's
+        attention), taken in the dtype of ``x_src`` as the reference does.
+        A scale [E, H] with H > 1 is one a head: it multiplies the H equal
+        segments of each row (multi-head attention); a compact table is
+        expanded for it and takes the path of the other blocks (multi-head
+        GAT over an ELL block with self loops runs fused instead,
+        ``gat_attention``)."""
         if scale is not None and scale.dim() == 1:
             scale = scale[:, None]
         heads = 1 if scale is None else scale.shape[1]
         if self._is_compact(x_src):
-            if op in ("add", "mean") and x_src.dim() == 2:
+            if op in ("add", "mean") and x_src.dim() == 2 and heads == 1:
                 return self._ell_aggregate(op, x_src, mask, scale)
             x_src = self._expand(x_src)
         if self.fanout is None:
@@ -303,36 +305,27 @@ class Block:
                     scale: Optional[torch.Tensor] = None):
         """The arguments ``_ell_agg`` takes from this whole-graph ELL
         block besides the table: (w_s f32 [T, C], w_l f32 [T], nbr
-        [T, C]), the mask and the per-edge scale folded into the
-        weights (w_l is 0 without self loops). A scale [E, H] with H > 1
-        gives ``_ell_attn``'s w_s [T, C, H] and w_l [T, H]."""
+        [T, C]), the mask and the per-edge scale ([E] or [E, 1], one
+        head) folded into the weights (w_l is 0 without self loops)."""
         T, C = self.size[0], self.fanout
-        heads = 1 if scale is None or scale.dim() == 1 else scale.shape[1]
-        tail = (heads,) if heads > 1 else ()
-        eff = torch.ones((self.edge_index.shape[1],) + tail,
-                         dtype=torch.float32, device=self.n_id.device)
+        eff = torch.ones((self.edge_index.shape[1],), dtype=torch.float32,
+                         device=self.n_id.device)
         if scale is not None:
-            eff = eff * scale.reshape((-1,) + tail).to(torch.float32)
+            eff = eff * scale.reshape(-1).to(torch.float32)
         if mask is not None:
-            eff = eff * mask.to(torch.float32).reshape((-1,) + (1,) * len(
-                tail))
+            eff = eff * mask.to(torch.float32)
         w_l = eff[T * C:] if self.self_loops else torch.zeros(
-            (T,) + tail, dtype=torch.float32, device=eff.device)
-        return (eff[:T * C].reshape((T, C) + tail), w_l,
-                self.n_id[T:].reshape(T, C))
+            (T,), dtype=torch.float32, device=eff.device)
+        return eff[:T * C].reshape(T, C), w_l, self.n_id[T:].reshape(T, C)
 
     def _ell_aggregate(self, op: str, x: torch.Tensor, mask, scale
                        ) -> torch.Tensor:
         """add or mean straight from the compact [N, D] table through
-        ``_ell_agg`` (``_ell_attn`` for a scale a head). The mean divides
-        by C (+1) + 1e-7 without a mask and by the valid count (at least
-        1e-7) with one, as the other layouts do."""
+        ``_ell_agg``. The mean divides by C (+1) + 1e-7 without a mask and
+        by the valid count (at least 1e-7) with one, as the other layouts
+        do."""
         T, C = self.size[0], self.fanout
-        weights = self.ell_weights(mask, scale)
-        if weights[0].dim() == 3:
-            out = _ell_attn(C, x, *weights, self.ell_tpos)
-        else:
-            out = _ell_agg(C, x, *weights, self.ell_tpos)
+        out = _ell_agg(C, x, *self.ell_weights(mask, scale), self.ell_tpos)
         if op == "add":
             return out
         if mask is None:
@@ -544,53 +537,6 @@ def _ell_agg(C: int, x: torch.Tensor, w_s: torch.Tensor, w_l: torch.Tensor,
         grad_w_l    = g[t] . x[t]           (f32)
     """
     return _EllAgg.apply(C, x, w_s, w_l, nbr, tpos)
-
-
-class _EllAttn(torch.autograd.Function):
-    """``_ell_attn``'s aggregate and its VJP over the padded-heads rows
-    (``ops.ell_attn``): the forward is ``ell_attn``'s forward mode, the
-    gradient to the rows its transpose mode and the weights' gradients
-    ``ell_sddmm``, each computed only where asked; the backward runs in
-    the span ``attention.backward``. Saves the padded rows, never the
-    [N, C, D] rows."""
-
-    @staticmethod
-    def forward(ctx, C, F, xp, w_s, w_l, nbr, tpos):
-        ctx.save_for_backward(xp, w_s, w_l, nbr, tpos)
-        ctx.C, ctx.F = C, F
-        return ell_attn(xp, nbr, w_s, w_l, C, F, False, False)
-
-    @staticmethod
-    def backward(ctx, g):
-        with span("attention.backward"):
-            xp, w_s, w_l, nbr, tpos = ctx.saved_tensors
-            need_x, need_ws, need_wl = ctx.needs_input_grad[2:5]
-            grad_x = grad_ws = grad_wl = None
-            gp = pad_heads(g.contiguous(), xp.shape[1], xp.dtype)
-            if need_x:
-                grad_x = ell_attn(gp, tpos, w_s, w_l, ctx.C, ctx.F, True,
-                                  True)
-            if need_ws or need_wl:
-                grad_ws, grad_wl = ell_sddmm(gp, xp, nbr, need_wl)
-        return None, None, grad_x, grad_ws, grad_wl, None, None
-
-
-def _ell_attn(C: int, x: torch.Tensor, w_s: torch.Tensor, w_l: torch.Tensor,
-              nbr: torch.Tensor, tpos: torch.Tensor) -> torch.Tensor:
-    """Multi-head whole-graph ELL aggregate from the compact [N, H * F]
-    table, weights w_s f32 [N, C, H] and w_l f32 [N, H] (one a head):
-
-        out[t, h] = sum over c of x[nbr[t, c], h] * w_s[t, c, h]
-                    + x[t, h] * w_l[t, h]
-
-    over the H segments of F values of each row (pads nbr = -1 add 0),
-    [N, H * F] in x's type, summed in f32 with unrounded weights. The
-    table goes to the padded-heads layout (``ops.ell_attn.pad_heads``)
-    first. Its backward gathers only: the transpose over ``tpos`` and the
-    per-cell dot products (``_EllAttn``)."""
-    H = w_s.shape[2]
-    return _EllAttn.apply(C, x.shape[1] // H, pad_heads(x, H), w_s, w_l,
-                          nbr, tpos)
 
 
 class _EllGat(torch.autograd.Function):

@@ -158,16 +158,17 @@ class GATConv(nn.Module):
     computed as x . (W^k^T a^k); scores ``leaky_relu_0.2(el[t] +
     er[src])`` over each target's edges and its self loop; the block's
     masked softmax a head, in f32; then the per-head weighted sum of the
-    z rows, read in the activation type (x_src's) and summed in f32
-    (``Block.aggregate_neighbors`` with a scale a head: ``_ell_attn`` on
-    a whole-graph ELL table), the heads concatenated, [T, dim] in the
-    activation type. The targets are the first ``size[0]`` rows of the
-    source set, as every block of the port lays them out. On the compact
-    table of a whole-graph ELL block with self loops (``Block.fuses_gat``)
-    the scores, softmax and sum run fused in the attention kernels
-    (``Block.gat_attention``), which build no [E, H] tensor and route
-    el's and er's gradients into z's. The scores, softmax and aggregate
-    run in the span ``attention``.
+    z rows, read in the activation type (x_src's), the heads
+    concatenated, [T, dim] in the activation type. The targets are the
+    first ``size[0]`` rows of the source set, as every block of the port
+    lays them out. On the compact table of a whole-graph ELL block with
+    self loops (``Block.fuses_gat``) the scores, softmax and sum run
+    fused in the attention kernels (``Block.gat_attention``), which
+    build no [E, H] tensor, sum in f32 and route el's and er's gradients
+    into z's; every other block (sampled, edge list, an ELL block without
+    self loops) runs them as torch ops, ``Block.softmax`` and
+    ``Block.aggregate_neighbors`` with a scale a head. The scores,
+    softmax and aggregate run in the span ``attention``.
     """
 
     def __init__(self, in_dim: int, dim: int, improved: bool = False,

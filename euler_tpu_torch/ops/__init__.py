@@ -6,6 +6,6 @@ from euler_tpu_torch.ops import fan_draw as _fan_draw
 from euler_tpu_torch.ops import gather_rows as _gather_rows
 
 #: the kernel wrappers; each adds one to its ``.launches`` where it
-#: launches its kernel, and nowhere else
+#: launches its kernel (``_build.launch``), and nowhere else
 COUNTED = (_fan_draw.fan_draw, _gather_rows.gather_rows, _ell_agg.ell_agg,
-           _ell_attn.ell_attn, _ell_attn.ell_sddmm, _ell_attn.ell_gat)
+           _ell_attn.ell_sddmm, _ell_attn.ell_gat)

@@ -27,7 +27,7 @@ import ctypes
 
 import torch
 
-from euler_tpu_torch._build import load_cuda_library
+from euler_tpu_torch._build import kernel_device, launch, load_cuda_library
 
 DTYPES = (torch.float32, torch.bfloat16)
 
@@ -102,22 +102,14 @@ def ell_agg(x: torch.Tensor, index: torch.Tensor, w_s: torch.Tensor,
     device. ``ell_agg.launches`` counts kernel launches.
     """
     _check(x, index, w_s, w_l, C, transpose)
-    if x.device.type == "cpu":
+    if not kernel_device("ell_agg", x):
         return ell_agg_plain(x, index, w_s, w_l, C, transpose)
-    if x.device.type != "cuda":
-        raise ValueError(f"ell_agg: no kernel for {x.device}")
     lib = build()
     N, D = x.shape
     out = torch.empty_like(x)
-    with torch.cuda.device(x.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        rc = lib.etpu_ell_agg(
-            x.data_ptr(), N, D, x.element_size(), index.data_ptr(),
-            index.shape[1], w_s.data_ptr(), C, w_l.data_ptr(),
-            out.data_ptr(), int(transpose), stream)
-    if rc != 0:
-        raise RuntimeError(f"ell_agg: kernel launch failed (CUDA error "
-                           f"{rc})")
+    launch("ell_agg", lib.etpu_ell_agg, x.device, x.data_ptr(), N, D,
+           x.element_size(), index.data_ptr(), index.shape[1],
+           w_s.data_ptr(), C, w_l.data_ptr(), out.data_ptr(), int(transpose))
     ell_agg.launches += 1
     return out
 

@@ -1,25 +1,29 @@
-"""Multi-head whole-graph ELL attention: the per-head aggregate, its
-transpose and the weights' gradient (an SDDMM), the CUDA kernels and
-their plain versions.
+"""Multi-head whole-graph ELL attention: GAT's fused attention, its
+backward, and the weights' gradient of a weighted aggregate (an SDDMM),
+the CUDA kernels and their plain versions.
 
 The rows are in the padded-heads layout, [N, H, Fp] (``pad_heads``): each
 head's F values padded with zeros to Fp, so that a head is a whole number
-of 16-byte words (``head_words``). For each row t and head h::
+of 16-byte words (``head_words``). For each row t and head h, the
+per-head aggregate ``ell_attn_plain`` computes::
 
-    ell_attn:  out[t, h] = sum over c of x[idx(t, c), h] * w(t, c, h)
-                           + x[t, h] * w_l[t, h]
-    ell_sddmm: gw_s[t, c, h] = g[t, h] . x[nbr[t, c], h]
-               gw_l[t, h]    = g[t, h] . x[t, h]
+    out[t, h] = sum over c of x[idx(t, c), h] * w(t, c, h)
+                + x[t, h] * w_l[t, h]
 
-``ell_attn``'s forward mode reads ``idx = nbr[t, c]`` and ``w = w_s[t, c,
-h]`` (a pad is ``nbr < 0``); its transpose mode ``p = tpos[t, c]``, ``idx =
-p // C`` and ``w = w_s.flat[p * H + h]`` (a pad is ``p < 0``), which is
-the forward's gradient to x with the cotangent as x. ``ell_sddmm`` is its
-gradient to the weights. The weights are f32 and are not rounded; products
-and sums are f32, and the aggregate rounds once to x's type. A pad adds 0
-and its weight's gradient is 0. With H = 1 the layout is the table itself
-wherever a row is a whole number of 16-byte words (``pad_heads`` then
-returns a view).
+reading ``idx = nbr[t, c]`` and ``w = w_s[t, c, h]`` (a pad is ``nbr <
+0``), or in its transpose ``p = tpos[t, c]``, ``idx = p // C`` and ``w =
+w_s.flat[p * H + h]`` (a pad is ``p < 0``), the forward's gradient to x
+with the cotangent as x. ``ell_sddmm`` is the forward's gradient to the
+weights::
+
+    gw_s[t, c, h] = g[t, h] . x[nbr[t, c], h]
+    gw_l[t, h]    = g[t, h] . x[t, h]
+
+(at one head, ``_ell_agg``'s gradient to its weights). The weights are
+f32 and are not rounded; products and sums are f32, and the aggregate
+rounds once to x's type. A pad adds 0 and its weight's gradient is 0.
+With H = 1 the layout is the table itself wherever a row is a whole
+number of 16-byte words (``pad_heads`` then returns a view).
 
 GAT's fused attention (``ell_gat``, ``ell_gat_sddmm``, ``ell_gat_tr``)
 takes no weights: the kernels compute them from the per-head score terms
@@ -28,12 +32,12 @@ its self loop of the scores ``s = leaky_relu_0.2(el[t] + er[nbr[t, c]])``
 (``el[t] + er[t]`` for the self loop)::
 
     ell_gat:       lse[t, h] = log(sum over the row of exp(s)), then
-                   ell_attn's forward with w = p = exp(s - lse)
+                   the aggregate with w = p = exp(s - lse)
     ell_gat_sddmm: dp as ell_sddmm's, then the scores' gradients
                    de = p (dp - sum over the row of p dp) leaky_relu'
                    ([N, C, H] and the self loop's [N, H]) and d_el, their
                    row sums
-    ell_gat_tr:    ell_attn's transpose with w = p, in f32, plus
+    ell_gat_tr:    the aggregate's transpose with w = p, in f32, plus
                    d_el[u, h] a_l[h] + d_er[u, h] a_r[h], [N, H * F]; and
                    d_er, the sum of de over u's cells and its self loop;
                    its tpos names live cells only (``live_tpos``)
@@ -57,7 +61,7 @@ from typing import Optional, Tuple
 
 import torch
 
-from euler_tpu_torch._build import load_cuda_library
+from euler_tpu_torch._build import kernel_device, launch, load_cuda_library
 from euler_tpu_torch.ops import ell_agg as _ell_agg
 
 DTYPES = (torch.float32, torch.bfloat16)
@@ -67,8 +71,6 @@ def build():
     """The kernel library's ctypes handle (``load_cuda_library``)."""
     vp, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
     return load_cuda_library("ell_attn", {
-        "etpu_ell_attn": [vp, i64, i64, i64, i32, vp, i64, vp, i64, vp, vp,
-                          i64, i64, i64, i32, i32, vp],
         "etpu_ell_sddmm": [vp, vp, i64, i64, i64, i32, vp, i64, vp, vp, vp],
         "etpu_ell_gat": [vp, i64, i64, i64, i32, vp, i64, vp, vp, vp, vp,
                          i64, vp],
@@ -139,20 +141,6 @@ def _check_index(name: str, index: torch.Tensor, N: int, device):
                          f"on {device}")
 
 
-def _check_weights(w_s, w_l, N, C, H, device):
-    for name, t, shape in (("w_s", w_s, (N, C, H)), ("w_l", w_l, (N, H))):
-        if t.dtype != torch.float32:
-            raise TypeError(f"ell_attn: {name} must be f32, got {t.dtype}")
-        if tuple(t.shape) != shape:
-            raise ValueError(f"ell_attn: {name} {tuple(t.shape)} does not "
-                             f"fit {shape}")
-        if not t.is_contiguous():
-            raise ValueError(f"ell_attn: {name} must be contiguous")
-        if t.device != device:
-            raise ValueError(f"ell_attn: {name} is on {t.device}, the rows "
-                             f"on {device}")
-
-
 def _check_terms(name: str, shape: tuple, device, **terms):
     """Each term an f32 tensor of ``shape``, contiguous, on ``device``."""
     for key, t in terms.items():
@@ -171,31 +159,16 @@ def _check_f(name: str, F: int, x: torch.Tensor):
         raise ValueError(f"{name}: F = {F} does not pad to {x.shape[2]}")
 
 
-def _kernel_device(name: str, x: torch.Tensor) -> bool:
-    """True for a CUDA tensor, False for a CPU one (the plain version);
-    raises on any other device."""
-    if x.device.type not in ("cpu", "cuda"):
-        raise ValueError(f"{name}: no kernel for {x.device}")
-    return x.device.type == "cuda"
-
-
-def _launch(name: str, fn, device, *args):
-    """Calls the library's ``fn`` with ``args`` and the device's current
-    stream; raises if the launch failed."""
-    with torch.cuda.device(device):
-        rc = fn(*args, torch.cuda.current_stream().cuda_stream)
-    if rc != 0:
-        raise RuntimeError(f"{name}: kernel launch failed (CUDA error {rc})")
-
-
 def ell_attn_plain(x: torch.Tensor, index: torch.Tensor, w_s: torch.Tensor,
                    w_l: torch.Tensor, C: int, F: int, transpose: bool,
                    out_padded: bool) -> torch.Tensor:
-    """Plain PyTorch version of ``ell_attn``, on any device: the padded
-    rows [N, C, H, Fp] (``ell_agg.ell_rows``, or the transpose's
-    ``x[tpos // C]`` clamped into the table with ``w_s.flat[tpos]``, 0 at
-    pads) summed in f32 against the weights, plus ``x * w_l``, rounded
-    once to x's type."""
+    """The per-head aggregate (module docstring) of the padded rows x [N,
+    H, Fp], in plain PyTorch, on any device: the padded rows [N, C, H, Fp]
+    (``ell_agg.ell_rows``, or the transpose's ``x[tpos // C]`` clamped
+    into the table with ``w_s.flat[tpos]``, 0 at pads) summed in f32
+    against the weights w_s f32 [N, C, H], plus ``x * w_l`` (w_l f32 [N,
+    H]), rounded once to x's type: [N, H, Fp] where ``out_padded``, else
+    [N, H * F]. The reference of GAT's fused kernels' plain versions."""
     N, H, _ = x.shape
     xf = x.float()
     if transpose:
@@ -208,44 +181,6 @@ def ell_attn_plain(x: torch.Tensor, index: torch.Tensor, w_s: torch.Tensor,
     out = (torch.einsum("tch,tchf->thf", w, rows)
            + xf * w_l[..., None]).to(x.dtype)
     return out if out_padded else out[..., :F].reshape(N, H * F)
-
-
-def ell_attn(x: torch.Tensor, index: torch.Tensor, w_s: torch.Tensor,
-             w_l: torch.Tensor, C: int, F: int, transpose: bool,
-             out_padded: bool) -> torch.Tensor:
-    """The per-head aggregate (module docstring) of the padded rows x [N,
-    H, Fp] (f32 or bf16): [N, H, Fp] where ``out_padded``, else [N, H * F],
-    in x's type. index int32 [N, C] (nbr) or [N, C_in] (tpos,
-    ``transpose``); w_s f32 [N, C, H]; w_l f32 [N, H]; all contiguous, on
-    one device. ``ell_attn.launches`` counts kernel launches."""
-    _check_rows("ell_attn", x)
-    N, H, Fp = x.shape
-    _check_index("ell_attn", index, N, x.device)
-    _check_weights(w_s, w_l, N, C, H, x.device)
-    if not transpose and index.shape[1] != C:
-        raise ValueError(f"ell_attn: nbr {tuple(index.shape)} does not fit "
-                         f"C = {C}")
-    _check_f("ell_attn", F, x)
-    if not _kernel_device("ell_attn", x):
-        return ell_attn_plain(x, index, w_s, w_l, C, F, transpose,
-                              out_padded)
-    lib = build()
-    if out_padded:
-        out = torch.empty_like(x)
-        out_ld, out_hs = H * Fp, Fp
-    else:
-        out = torch.empty((N, H * F), dtype=x.dtype, device=x.device)
-        out_ld, out_hs = H * F, F
-    _launch("ell_attn", lib.etpu_ell_attn, x.device, x.data_ptr(), N, H,
-            Fp * x.element_size() // 16, x.element_size(), index.data_ptr(),
-            index.shape[1], w_s.data_ptr(), C, w_l.data_ptr(),
-            out.data_ptr(), out_ld, out_hs, F, int(out_padded),
-            int(transpose))
-    ell_attn.launches += 1
-    return out
-
-
-ell_attn.launches = 0
 
 
 def ell_sddmm_plain(g: torch.Tensor, x: torch.Tensor, nbr: torch.Tensor,
@@ -263,7 +198,7 @@ def ell_sddmm_plain(g: torch.Tensor, x: torch.Tensor, nbr: torch.Tensor,
 def ell_sddmm(g: torch.Tensor, x: torch.Tensor, nbr: torch.Tensor,
               want_wl: bool = True
               ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
-    """The weights' gradient of ``ell_attn``'s forward (module docstring):
+    """The weights' gradient of the per-head aggregate (module docstring):
     (gw_s f32 [N, C, H], gw_l f32 [N, H] or None where not ``want_wl``)
     from the padded cotangent g and rows x [N, H, Fp] (one type, pads 0)
     and nbr int32 [N, C]. ``ell_sddmm.launches`` counts kernel
@@ -276,17 +211,17 @@ def ell_sddmm(g: torch.Tensor, x: torch.Tensor, nbr: torch.Tensor,
                          f"{x.device} differ")
     N, H, Fp = x.shape
     _check_index("ell_sddmm", nbr, N, x.device)
-    if not _kernel_device("ell_sddmm", x):
+    if not kernel_device("ell_sddmm", x):
         return ell_sddmm_plain(g, x, nbr, want_wl)
     lib = build()
     C = nbr.shape[1]
     gw_s = torch.empty((N, C, H), dtype=torch.float32, device=x.device)
     gw_l = (torch.empty((N, H), dtype=torch.float32, device=x.device)
             if want_wl else None)
-    _launch("ell_sddmm", lib.etpu_ell_sddmm, x.device, g.data_ptr(),
-            x.data_ptr(), N, H, Fp * x.element_size() // 16,
-            x.element_size(), nbr.data_ptr(), C, gw_s.data_ptr(),
-            None if gw_l is None else gw_l.data_ptr())
+    launch("ell_sddmm", lib.etpu_ell_sddmm, x.device, g.data_ptr(),
+           x.data_ptr(), N, H, Fp * x.element_size() // 16,
+           x.element_size(), nbr.data_ptr(), C, gw_s.data_ptr(),
+           None if gw_l is None else gw_l.data_ptr())
     ell_sddmm.launches += 1
     return gw_s, gw_l
 
@@ -359,15 +294,15 @@ def ell_gat(xp: torch.Tensor, nbr: torch.Tensor, el: torch.Tensor,
     _check_index("ell_gat", nbr, N, xp.device)
     _check_terms("ell_gat", (N, H), xp.device, el=el, er=er)
     _check_f("ell_gat", F, xp)
-    if not _kernel_device("ell_gat", xp):
+    if not kernel_device("ell_gat", xp):
         return ell_gat_plain(xp, nbr, el, er, F)
     lib = build()
     out = torch.empty((N, H * F), dtype=xp.dtype, device=xp.device)
     lse = torch.empty((N, H), dtype=torch.float32, device=xp.device)
-    _launch("ell_gat", lib.etpu_ell_gat, xp.device, xp.data_ptr(), N, H,
-            Fp * xp.element_size() // 16, xp.element_size(), nbr.data_ptr(),
-            nbr.shape[1], el.data_ptr(), er.data_ptr(), lse.data_ptr(),
-            out.data_ptr(), F)
+    launch("ell_gat", lib.etpu_ell_gat, xp.device, xp.data_ptr(), N, H,
+           Fp * xp.element_size() // 16, xp.element_size(), nbr.data_ptr(),
+           nbr.shape[1], el.data_ptr(), er.data_ptr(), lse.data_ptr(),
+           out.data_ptr(), F)
     ell_gat.launches += 1
     return out, lse
 
@@ -409,18 +344,18 @@ def ell_gat_sddmm(gp: torch.Tensor, xp: torch.Tensor, nbr: torch.Tensor,
     _check_index("ell_gat_sddmm", nbr, N, xp.device)
     _check_terms("ell_gat_sddmm", (N, H), xp.device, el=el, er=er,
                  lse=lse)
-    if not _kernel_device("ell_gat_sddmm", xp):
+    if not kernel_device("ell_gat_sddmm", xp):
         return ell_gat_sddmm_plain(gp, xp, nbr, el, er, lse)
     lib = build()
     C = nbr.shape[1]
     de = torch.empty((N, C, H), dtype=torch.float32, device=xp.device)
     de_self, d_el = (torch.empty((N, H), dtype=torch.float32,
                                  device=xp.device) for _ in range(2))
-    _launch("ell_gat_sddmm", lib.etpu_ell_gat_sddmm, xp.device,
-            gp.data_ptr(), xp.data_ptr(), N, H,
-            Fp * xp.element_size() // 16, xp.element_size(), nbr.data_ptr(),
-            C, el.data_ptr(), er.data_ptr(), lse.data_ptr(), de.data_ptr(),
-            de_self.data_ptr(), d_el.data_ptr())
+    launch("ell_gat_sddmm", lib.etpu_ell_gat_sddmm, xp.device,
+           gp.data_ptr(), xp.data_ptr(), N, H,
+           Fp * xp.element_size() // 16, xp.element_size(), nbr.data_ptr(),
+           C, el.data_ptr(), er.data_ptr(), lse.data_ptr(), de.data_ptr(),
+           de_self.data_ptr(), d_el.data_ptr())
     ell_gat.launches += 1
     return de, de_self, d_el
 
@@ -473,17 +408,17 @@ def ell_gat_tr(gp: torch.Tensor, tpos: torch.Tensor, nbr: torch.Tensor,
     _check_terms("ell_gat_tr", (N, C, H), gp.device, de=de)
     _check_terms("ell_gat_tr", (H, F), gp.device, a_l=a_l, a_r=a_r)
     _check_f("ell_gat_tr", F, gp)
-    if not _kernel_device("ell_gat_tr", gp):
+    if not kernel_device("ell_gat_tr", gp):
         return ell_gat_tr_plain(gp, tpos, nbr, el, er, lse, de, de_self,
                                 d_el, a_l, a_r, F)
     lib = build()
     d_z = torch.empty((N, H * F), dtype=torch.float32, device=gp.device)
     d_er = torch.empty((N, H), dtype=torch.float32, device=gp.device)
-    _launch("ell_gat_tr", lib.etpu_ell_gat_tr, gp.device, gp.data_ptr(), N,
-            H, Fp * gp.element_size() // 16, gp.element_size(),
-            tpos.data_ptr(), tpos.shape[1], C,
-            el.data_ptr(), er.data_ptr(), lse.data_ptr(), de.data_ptr(),
-            de_self.data_ptr(), d_el.data_ptr(), a_l.data_ptr(),
-            a_r.data_ptr(), d_z.data_ptr(), d_er.data_ptr(), F)
+    launch("ell_gat_tr", lib.etpu_ell_gat_tr, gp.device, gp.data_ptr(), N,
+           H, Fp * gp.element_size() // 16, gp.element_size(),
+           tpos.data_ptr(), tpos.shape[1], C,
+           el.data_ptr(), er.data_ptr(), lse.data_ptr(), de.data_ptr(),
+           de_self.data_ptr(), d_el.data_ptr(), a_l.data_ptr(),
+           a_r.data_ptr(), d_z.data_ptr(), d_er.data_ptr(), F)
     ell_gat.launches += 1
     return d_z, d_er

@@ -21,7 +21,7 @@ import ctypes
 
 import torch
 
-from euler_tpu_torch._build import load_cuda_library
+from euler_tpu_torch._build import kernel_device, launch, load_cuda_library
 from euler_tpu_torch.ops.alias import (FAN_ALIAS_OFF, FAN_D, FAN_KEPT_OFF,
                                        FAN_LANES, FAN_PROB_OFF, FANU_MASK,
                                        FANU_SHIFT)
@@ -111,11 +111,9 @@ def fan_draw(fan_pack, nodes, et: int, num_edge_types: int, u1, u2,
     launches.
     """
     _check(fan_pack, nodes, et, num_edge_types, u1, u2, union)
-    if fan_pack.device.type == "cpu":
+    if not kernel_device("fan_draw", fan_pack):
         return fan_draw_plain(fan_pack, nodes, et, num_edge_types, u1, u2,
                               default_id, union, return_types)
-    if fan_pack.device.type != "cuda":
-        raise ValueError(f"fan_draw: no kernel for {fan_pack.device}")
     lib = build()
     B, C = u1.shape
     dev = fan_pack.device
@@ -123,16 +121,11 @@ def fan_draw(fan_pack, nodes, et: int, num_edge_types: int, u1, u2,
     valid = torch.empty((B, C), dtype=torch.bool, device=dev)
     types = torch.empty((B, C), dtype=torch.int32, device=dev) \
         if return_types else None
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream().cuda_stream
-        rc = lib.etpu_fan_draw(
-            fan_pack.data_ptr(), fan_pack.shape[0], nodes.data_ptr(), B, C,
-            et, num_edge_types, u1.data_ptr(), u2.data_ptr(), default_id,
-            ids.data_ptr(), valid.data_ptr(),
-            None if types is None else types.data_ptr(), int(union), stream)
-    if rc != 0:
-        raise RuntimeError(f"fan_draw: kernel launch failed (CUDA error "
-                           f"{rc})")
+    launch("fan_draw", lib.etpu_fan_draw, dev, fan_pack.data_ptr(),
+           fan_pack.shape[0], nodes.data_ptr(), B, C, et, num_edge_types,
+           u1.data_ptr(), u2.data_ptr(), default_id, ids.data_ptr(),
+           valid.data_ptr(), None if types is None else types.data_ptr(),
+           int(union))
     fan_draw.launches += 1
     return (ids, valid, types) if return_types else (ids, valid)
 

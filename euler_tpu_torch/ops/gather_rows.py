@@ -23,7 +23,7 @@ from typing import Optional
 
 import torch
 
-from euler_tpu_torch._build import load_cuda_library
+from euler_tpu_torch._build import kernel_device, launch, load_cuda_library
 
 DTYPES = (torch.float32, torch.bfloat16)
 
@@ -90,22 +90,15 @@ def gather_rows(table: torch.Tensor, ids: torch.Tensor,
     new [M, D] tensor. ``gather_rows.launches`` counts kernel launches.
     """
     _check(table, ids, out, col_offset)
-    if table.device.type == "cpu":
+    if not kernel_device("gather_rows", table):
         return gather_rows_plain(table, ids, out, col_offset)
-    if table.device.type != "cuda":
-        raise ValueError(f"gather_rows: no kernel for {table.device}")
     lib = build()
     M, (N, D) = ids.shape[0], table.shape
     if out is None:
         out = torch.empty((M, D), dtype=table.dtype, device=table.device)
-    with torch.cuda.device(table.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        rc = lib.etpu_gather_rows(
-            table.data_ptr(), N, D, table.element_size(), ids.data_ptr(), M,
-            out.data_ptr(), out.shape[1], col_offset, stream)
-    if rc != 0:
-        raise RuntimeError(f"gather_rows: kernel launch failed (CUDA error "
-                           f"{rc})")
+    launch("gather_rows", lib.etpu_gather_rows, table.device,
+           table.data_ptr(), N, D, table.element_size(), ids.data_ptr(), M,
+           out.data_ptr(), out.shape[1], col_offset)
     gather_rows.launches += 1
     return out
 

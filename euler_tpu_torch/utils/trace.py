@@ -35,14 +35,13 @@ The spans (name: where):
   (``SuperviseModel``'s ``head_fc`` and loss), inside ``forward``;
 - ``attention`` (each multi-head ``GATConv``'s scores, softmax and
   per-head weighted sum), inside its ``conv``; ``attention.backward``
-  (the backward of the multi-head ELL aggregate, ``dataflow.block._EllAttn``:
-  the transpose and the weights' gradient; or of GAT's fused attention,
-  ``_EllGat``: the SDDMM with the softmax's gradient, the transpose, and
-  a_l's and a_r's gradients), opened on autograd's thread.
+  (the backward of GAT's fused attention, ``dataflow.block._EllGat``:
+  the SDDMM with the softmax's gradient, the transpose, and a_l's and
+  a_r's gradients), opened on autograd's thread.
 
 The counters beside them: the kernel wrappers' ``launches``
 (``ops.COUNTED``: ``fan_draw``, ``gather_rows``, ``ell_agg``,
-``ell_attn``, ``ell_sddmm``, ``ell_gat``), ``TrainLoop.held`` and
+``ell_sddmm``, ``ell_gat``), ``TrainLoop.held`` and
 ``BaseEstimator.requests``.
 """
 from __future__ import annotations

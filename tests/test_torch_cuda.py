@@ -524,50 +524,9 @@ def test_ell_agg_kernel_edges(dev, monkeypatch):
 
 def attn_case(dev, N, C, H, F, dtype, seed):
     """``ell_case``'s index, pads and dropped cells with H heads: padded
-    rows x and g [N, H, Fp] (``pad_heads``), weights w_s [N, C, H] (0 at
-    pads) and w_l [N, H] (0 on row 1)."""
+    rows x and g [N, H, Fp] (``pad_heads``)."""
     a = ell_case(dev, N, C, H * F, dtype, seed)
-    gen = torch.Generator(device=dev).manual_seed(seed)
-    live = (a["nbr"] >= 0)[..., None]
-    w_s = torch.rand((N, C, H), generator=gen, device=dev) * live
-    w_l = torch.rand((N, H), generator=gen, device=dev)
-    w_l[1] = 0.0
-    return dict(a, xp=attn.pad_heads(a["x"], H), gp=attn.pad_heads(a["g"], H),
-                w_s=w_s.contiguous(), w_l=w_l)
-
-
-def attn_bound(plain, mag, dtype):
-    """|kernel - plain| allowed: both sum in f32 in other orders (1e-5 of
-    the sum of magnitudes) and round once to the result's type (an ulp of
-    it in bf16, where the two roundings may fall on either side)."""
-    ulp = 2.0 ** -7 if dtype == torch.bfloat16 else 0.0
-    return ulp * plain.abs() + 1e-5 * mag + 1e-30
-
-
-@pytest.mark.parametrize("transpose", [False, True])
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("F", [8, 64, 250, 256])
-@pytest.mark.parametrize("H", [1, 2, 3, 8])
-def test_ell_attn_kernel_matches_plain(dev, H, F, dtype, transpose):
-    """The multi-head aggregate (forward unpadded, transpose padded, as
-    ``_EllAttn`` calls them) within ``attn_bound`` of its plain version on
-    the card; the padded output's pads 0; row 1 (no cell, w_l 0) 0."""
-    a = attn_case(dev, 400, 36, H, F, dtype, seed=H * 1000 + F)
-    x, index = (a["gp"], a["tpos"]) if transpose else (a["xp"], a["nbr"])
-    args = (x, index, a["w_s"], a["w_l"], 36, F, transpose, transpose)
-    before = attn.ell_attn.launches
-    got = attn.ell_attn(*args)
-    torch.cuda.synchronize()
-    assert attn.ell_attn.launches == before + 1
-    plain = attn.ell_attn_plain(*args).double()
-    mag = attn.ell_attn_plain(x.abs(), index, a["w_s"], a["w_l"], 36, F,
-                              transpose, transpose).double()
-    assert got.dtype == dtype and got.shape == plain.shape
-    assert bool(((got.double() - plain).abs()
-                 <= attn_bound(plain, mag, dtype)).all())
-    if transpose:
-        assert bool((got[..., F:] == 0).all())
-    assert bool((got[1] == 0).all())
+    return dict(a, xp=attn.pad_heads(a["x"], H), gp=attn.pad_heads(a["g"], H))
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
@@ -653,8 +612,8 @@ def test_ell_gat_kernels_match_plain(dev, H, F, dtype):
 
 def test_ell_attn_plain_never_runs_on_the_card(dev, monkeypatch):
     """No plain version and no [N, C, D] rows (``ell_rows``) on a CUDA
-    tensor: the multi-head Function's forward and backward, GAT's fused
-    Function's, and ``_ell_agg``'s gradient to the weights (the one-head
+    tensor: the multi-head SDDMM, GAT's fused Function's forward and
+    backward, and ``_ell_agg``'s gradient to the weights (the one-head
     SDDMM)."""
     def boom(*a, **k):
         raise AssertionError("a plain version ran on a CUDA tensor")
@@ -665,12 +624,8 @@ def test_ell_attn_plain_never_runs_on_the_card(dev, monkeypatch):
                       (ell, "ell_rows")):
         monkeypatch.setattr(mod, name, boom)
     a = attn_case(dev, 300, 36, 3, 250, torch.bfloat16, seed=3)
-    x = a["x"].clone().requires_grad_(True)
-    w_s, w_l = (a[k].clone().requires_grad_(True) for k in ("w_s", "w_l"))
-    out = block_lib._ell_attn(36, x, w_s, w_l, a["nbr"], a["tpos"])
-    assert out.shape == (300, 750) and out.dtype == torch.bfloat16
-    grads = torch.autograd.grad(out, (x, w_s, w_l), torch.ones_like(out))
-    assert [g.shape for g in grads] == [x.shape, w_s.shape, w_l.shape]
+    gw_s, gw_l = attn.ell_sddmm(a["gp"], a["xp"], a["nbr"], True)
+    assert gw_s.shape == (300, 36, 3) and gw_l.shape == (300, 3)
     _, blk = ell_block(dev)
     N = blk.size[0]
     gen = torch.Generator(device=dev).manual_seed(7)
@@ -701,10 +656,9 @@ def gat_model(dev, dtype, generator_seed=0, n=3000, heads=3, layers=3):
     return graph, SuperviseModel(net, "label", 4, device=dev, generator=gen)
 
 
-def attn_counts(before=(0, 0, 0)) -> tuple:
-    """The launches of ell_attn, ell_sddmm and ell_gat since ``before``."""
-    now = (attn.ell_attn.launches, attn.ell_sddmm.launches,
-           attn.ell_gat.launches)
+def attn_counts(before=(0, 0)) -> tuple:
+    """The launches of ell_sddmm and ell_gat since ``before``."""
+    now = (attn.ell_sddmm.launches, attn.ell_gat.launches)
     return tuple(a - b for a, b in zip(now, before))
 
 
@@ -712,7 +666,7 @@ def test_gat_step_on_card_matches_cpu(dev):
     """A multi-head GAT step over every node in f32: loss and gradients
     on the card (the kernels) within 1e-4 of the CPU's (the plain
     versions), with 3 ell_gat launches a layer (forward, SDDMM,
-    transpose) and none of the weighted ell_attn and ell_sddmm."""
+    transpose) and none of the weighted ell_sddmm."""
     graph, model = gat_model(dev, None, layers=2)
     roots = torch.arange(3000, dtype=torch.int32, device=dev)
     cpu = torch.device("cpu")
@@ -725,7 +679,7 @@ def test_gat_step_on_card_matches_cpu(dev):
         loss.backward()
         runs.append((loss.detach().cpu(),
                      {k: p.grad.cpu() for k, p in m.named_parameters()}))
-    assert attn_counts(before) == (0, 0, 6)
+    assert attn_counts(before) == (0, 6)
     (lk, gk), (lc, gc) = runs
     np.testing.assert_allclose(lk.numpy(), lc.numpy(), rtol=1e-4, atol=1e-4)
     for k in gk:
@@ -981,7 +935,7 @@ def test_replays_advance_the_generator_as_eager_steps(dev):
                       torch.rand(8, generator=gen, device=dev)))
         if spl > 1:
             assert loop.held == dict(fan_draw=2, gather_rows=2, ell_agg=0,
-                                     ell_attn=0, ell_sddmm=0, ell_gat=0)
+                                     ell_sddmm=0, ell_gat=0)
     (roots_g, after_g), (roots_e, after_e) = draws
     assert not torch.equal(roots_g[1], roots_g[2])       # replays draw anew
     assert all(torch.equal(a, b) for a, b in zip(roots_g, roots_e))
@@ -1031,7 +985,7 @@ def test_gcn_replayed_loop_equals_eager_steps(dev):
         runs.append((est, float(loss), ell.ell_agg.launches - before, loop))
     (eager, loss_e, n_e, _), (graphed, loss_g, n_g, loop) = runs
     assert loop.held == dict(fan_draw=0, gather_rows=2, ell_agg=5,
-                             ell_attn=0, ell_sddmm=0, ell_gat=0)
+                             ell_sddmm=0, ell_gat=0)
     assert n_e == n_g == 5 * 2 * LOOP_SPL
     assert loss_e == loss_g
     assert all(torch.equal(a, b) for a, b in zip(
@@ -1044,8 +998,7 @@ def test_gat_replayed_loop_equals_eager_steps(dev):
     replays equals the eager steps bit for bit (the kernels sum in a fixed
     order), and a replay holds 9 ell_gat launches (3 forward, 3 SDDMM and
     3 transposes: the first layer's rows are z, which takes a gradient)
-    beside the 2 gathers, and no launch of the weighted ell_attn or
-    ell_sddmm."""
+    beside the 2 gathers, and no launch of the weighted ell_sddmm."""
     every = torch.arange(3000, dtype=torch.int32, device=dev)
     runs = []
     for spl in (1, LOOP_SPL):
@@ -1061,8 +1014,8 @@ def test_gat_replayed_loop_equals_eager_steps(dev):
         runs.append((est, float(loss), attn_counts(before), loop))
     (eager, loss_e, n_e, _), (graphed, loss_g, n_g, loop) = runs
     assert loop.held == dict(fan_draw=0, gather_rows=2, ell_agg=0,
-                             ell_attn=0, ell_sddmm=0, ell_gat=9)
-    assert n_e == n_g == (0, 0, 9 * 2 * LOOP_SPL)
+                             ell_sddmm=0, ell_gat=9)
+    assert n_e == n_g == (0, 9 * 2 * LOOP_SPL)
     assert loss_e == loss_g
     assert all(torch.equal(a, b) for a, b in zip(
         graphed.model.parameters(), eager.model.parameters()))

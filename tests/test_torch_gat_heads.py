@@ -3,14 +3,15 @@ over the whole-graph ELL block (the plain versions of the attention
 kernels) against the benchmark's plain reference
 (benchmark/reference/gat.py: the paper's layer over the edge list with
 self loops), the block layouts against each other for heads 1, 2 and 3,
-the plain versions of ``ops.ell_attn`` against their definitions written
-out, ``_ell_attn``'s and ``_ell_agg``'s gradients, the wrappers' checks
-and the ``attention`` spans; and GAT's fused attention (``_EllGat``
-through the plain versions of ``ops.ell_attn.ell_gat``, ``ell_gat_sddmm``
-and ``ell_gat_tr``) against the unfused chain that multi-head
-``GATConv`` runs elsewhere (``Block.softmax`` and ``_ell_attn``), and
-where ``GATConv`` takes it. The kernels themselves are held to these
-plain versions on the card (tests/test_torch_cuda.py).
+with and without self loops, the plain versions of ``ops.ell_attn``
+against their definitions written out, ``_ell_agg``'s weight gradient,
+the wrappers' checks and the ``attention`` spans; and GAT's fused
+attention (``_EllGat`` through the plain versions of
+``ops.ell_attn.ell_gat``, ``ell_gat_sddmm`` and ``ell_gat_tr``) against
+the unfused chain (``Block.softmax`` and the per-head aggregate
+``ell_attn_plain`` under autograd), and where ``GATConv`` takes it. The
+kernels themselves are held to these plain versions on the card
+(tests/test_torch_cuda.py).
 
 Tolerances: f32 throughout (but the fused attention's bf16 cases, whose
 bounds their test states); rtol = atol = 1e-5 between two sums of the
@@ -73,7 +74,7 @@ def reference_weights(m) -> dict:
 @pytest.mark.parametrize("heads", [2, 3])
 def test_multi_head_gat_matches_the_plain_reference(graph, heads):
     """The port's GNNNet and SuperviseModel over the ELL pack (the plain
-    ``ell_attn`` and ``ell_sddmm``) against ``reference/gat.py`` on the
+    versions of GAT's fused kernels) against ``reference/gat.py`` on the
     same weights: embeddings of every node, the loss over 100 roots and
     every parameter's gradient."""
     g = graph.tensors
@@ -115,19 +116,25 @@ def _run(m, g, roots):
                                  for k, p in m.named_parameters()}
 
 
-@pytest.mark.parametrize("heads", [1, 2, 3])
-def test_whole_graph_layouts_agree(graph, heads):
-    """The ELL pack (the compact table through ``_ell_attn``, or
-    ``_ell_agg`` at one head), the dynamic layout (a regular fanout block
-    over the expanded source set) and the edge list (an irregular block)
-    give one loss and one gradient from the same weights."""
+@pytest.mark.parametrize(
+    "heads,add_self_loops",
+    [(1, True), (2, True), (3, True), (1, False), (2, False), (3, False)],
+    ids=["1", "2", "3", "1-no_loops", "2-no_loops", "3-no_loops"])
+def test_whole_graph_layouts_agree(graph, heads, add_self_loops):
+    """The ELL pack (the compact table: GAT's fused attention at H > 1
+    with self loops, ``_ell_agg`` at one head, the expanded source set at
+    H > 1 without), the dynamic layout (a regular fanout block over the
+    expanded source set) and the edge list (an irregular block) give one
+    loss and one gradient from the same weights."""
     g = graph.tensors
     roots = torch.arange(300, dtype=torch.int32)
     deg = int(torch.bincount(g.adj_src.long(), minlength=300).max())
     no_pack = dataclasses.replace(g, **{n: None for n in ELL_FIELDS})
-    runs = {"pack": _run(model(heads), g, roots),
-            "dynamic": _run(model(heads, cap=deg), no_pack, roots),
-            "edge_list": _run(model(heads, layout="edge_list"), g, roots)}
+    kw = dict(add_self_loops=add_self_loops)
+    runs = {"pack": _run(model(heads, **kw), g, roots),
+            "dynamic": _run(model(heads, cap=deg, **kw), no_pack, roots),
+            "edge_list": _run(model(heads, layout="edge_list", **kw), g,
+                              roots)}
     loss, grads = runs["pack"]
     for name in ("dynamic", "edge_list"):
         np.testing.assert_allclose(runs[name][0], loss, **TOL)
@@ -241,8 +248,8 @@ def test_ell_attn_plain_matches_its_definition(transpose):
     assert tuple(xp.shape) == (8, 2, 4) and bool((xp[..., 3:] == 0).all())
     want = definition(a, x, transpose)
     for padded in (False, True):
-        got = attn.ell_attn(xp, index, a["w_s"], a["w_l"], a["C"], a["F"],
-                            transpose, padded)
+        got = attn.ell_attn_plain(xp, index, a["w_s"], a["w_l"], a["C"],
+                                  a["F"], transpose, padded)
         if padded:
             assert bool((got[..., 3:] == 0).all())
             got = got[..., :3]
@@ -250,8 +257,8 @@ def test_ell_attn_plain_matches_its_definition(transpose):
                                    want.numpy(), **TOL)
     if not transpose:
         # row 0 reads its self loop alone, row 1 live cells weighted 0
-        got = attn.ell_attn(xp, index, a["w_s"], a["w_l"], a["C"], a["F"],
-                            False, False)
+        got = attn.ell_attn_plain(xp, index, a["w_s"], a["w_l"], a["C"],
+                                  a["F"], False, False)
         for t in (0, 1):
             np.testing.assert_allclose(
                 got[t].numpy(), (x[t].reshape(2, 3) * a["w_l"][t][:, None])
@@ -276,27 +283,6 @@ def test_ell_sddmm_plain_matches_its_definition():
     assert attn.ell_sddmm(gp, xp, a["nbr"], False)[1] is None
 
 
-def test_ell_attn_function_gradients_match_the_definition():
-    """``_ell_attn``'s backward (the transpose and the SDDMM) against
-    autograd through the aggregate written out."""
-    a = attn_case(seed=3)
-    N, C, H, F = a["N"], a["C"], a["H"], a["F"]
-    ins = [a[k].clone().requires_grad_(True) for k in ("x", "w_s", "w_l")]
-    out = block_lib._ell_attn(C, *ins, a["nbr"], a["tpos"])
-    got = torch.autograd.grad(out, ins, a["g"])
-    ref = [a[k].clone().requires_grad_(True) for k in ("x", "w_s", "w_l")]
-    xv = ref[0].reshape(N, H, F)
-    rows = torch.where((a["nbr"] >= 0)[..., None, None],
-                       xv[a["nbr"].long().clamp_min(0)], 0.0)
-    want_out = ((ref[1][..., None] * rows).sum(1)
-                + xv * ref[2][..., None]).reshape(N, H * F)
-    want = torch.autograd.grad(want_out, ref, a["g"])
-    np.testing.assert_allclose(out.detach().numpy(),
-                               want_out.detach().numpy(), **TOL)
-    for k, u, v in zip(("x", "w_s", "w_l"), got, want):
-        np.testing.assert_allclose(u.numpy(), v.numpy(), err_msg=k, **TOL)
-
-
 def test_pad_heads():
     x = torch.arange(12, dtype=torch.float32).reshape(2, 6)
     p = attn.pad_heads(x, 2)                         # F 3 -> 4 f32
@@ -318,51 +304,40 @@ def test_pad_heads():
 
 
 WRAPPER_CASES = ("rows_dtype", "rows_rank", "rows_width", "index_dtype",
-                 "index_rows", "weight_dtype", "weight_shape", "f_width",
-                 "nbr_width", "sddmm_pair", "device")
+                 "index_rows", "sddmm_pair", "device")
 
 
 @pytest.mark.parametrize("case", WRAPPER_CASES)
 def test_ell_attn_wrappers_refuse_what_the_kernels_do_not_take(case):
+    """The rows' and the index's checks that every wrapper of
+    ``ops.ell_attn`` shares, through ``ell_gat``; ``ell_sddmm``'s pair."""
     a = attn_case()
     xp = attn.pad_heads(a["x"], 2)
-    args = dict(x=xp, index=a["nbr"], w_s=a["w_s"], w_l=a["w_l"], C=4, F=3,
-                transpose=False, out_padded=False)
+    el, er = a["w_l"], a["w_l"].flip(0).contiguous()
+    args = dict(xp=xp, nbr=a["nbr"], el=el, er=er, F=3)
 
     def call(**kw):
-        return attn.ell_attn(**dict(args, **kw))
+        return attn.ell_gat(**dict(args, **kw))
     if case == "rows_dtype":
         with pytest.raises(TypeError, match="f32 or bf16"):
-            call(x=xp.double())
+            call(xp=xp.double())
     elif case == "rows_rank":
         with pytest.raises(TypeError, match=r"\[N, H, Fp\]"):
-            call(x=a["x"])
+            call(xp=a["x"])
     elif case == "rows_width":
         with pytest.raises(ValueError, match="no padded head width"):
-            call(x=xp[..., :3].contiguous())
+            call(xp=xp[..., :3].contiguous())
     elif case == "index_dtype":
         with pytest.raises(TypeError, match="int32"):
-            call(index=a["nbr"].long())
+            call(nbr=a["nbr"].long())
     elif case == "index_rows":
         with pytest.raises(TypeError, match="int32"):
-            call(index=a["nbr"][:-1])
-    elif case == "weight_dtype":
-        with pytest.raises(TypeError, match="f32"):
-            call(w_s=a["w_s"].double())
-    elif case == "weight_shape":
-        with pytest.raises(ValueError, match="does not fit"):
-            call(w_l=a["w_l"][:, :1].contiguous())
-    elif case == "f_width":
-        with pytest.raises(ValueError, match="does not pad"):
-            call(F=5)
-    elif case == "nbr_width":
-        with pytest.raises(ValueError, match="does not fit"):
-            call(index=a["nbr"][:, :3].contiguous())
+            call(nbr=a["nbr"][:-1])
     elif case == "sddmm_pair":
         with pytest.raises(ValueError, match="differ"):
             attn.ell_sddmm(xp[:-1], xp, a["nbr"])
     else:
-        meta = {k: args[k].to("meta") for k in ("x", "index", "w_s", "w_l")}
+        meta = {k: args[k].to("meta") for k in ("xp", "nbr", "el", "er")}
         with pytest.raises(ValueError, match="no kernel"):
             call(**meta)
 
@@ -422,10 +397,11 @@ def gat_block(N: int, C: int, seed: int):
 
 
 def unfused_attention(blk, z, xs, w, a_l, a_r, dtype):
-    """The chain multi-head ``GATConv`` runs on other blocks, here over
-    the compact table at any H: el and er through W^T a, the [E, H]
-    scores, ``Block.softmax`` and ``_ell_attn`` on weights folded by
-    ``ell_weights``."""
+    """GAT's attention over the compact table, unfused, at any H: el and
+    er through W^T a, the [E, H] scores, ``Block.softmax``, and the
+    per-head aggregate ``ell_attn_plain`` (f32 sums with f32 weights,
+    rounded once to ``dtype``) under autograd, over the sampled cells'
+    and the self loops' probabilities."""
     H, F = a_l.shape
     N, C = blk.size[0], blk.fanout
     wh = w.reshape(H, F, -1)
@@ -433,9 +409,10 @@ def unfused_attention(blk, z, xs, w, a_l, a_r, dtype):
               + blk.gather_src(xs @ torch.einsum("hfd,hf->dh", wh, a_r)))
     alpha = blk.softmax(torch.nn.functional.leaky_relu(scores, 0.2),
                         blk.mask)
-    w_s, w_l, nbr = blk.ell_weights(None, alpha)
-    return block_lib._ell_attn(C, z.to(dtype), w_s.reshape(N, C, H),
-                               w_l.reshape(N, H), nbr, blk.ell_tpos)
+    return attn.ell_attn_plain(attn.pad_heads(z, H, dtype),
+                               blk.n_id[N:].reshape(N, C),
+                               alpha[:N * C].reshape(N, C, H),
+                               alpha[N * C:], C, F, False, False)
 
 
 def gat_run(blk, H, F, dtype, fused, seed):
@@ -500,7 +477,7 @@ def test_gat_conv_takes_the_fused_path_on_a_compact_table_only(
         graph, heads, monkeypatch):
     """Multi-head GAT on the ELL pack runs ``Block.gat_attention`` once a
     layer; GAT at one head, the dynamic layout, the edge list and a pack
-    without self loops keep the unfused chain."""
+    without self loops run the unfused attention of the other blocks."""
     calls = []
     real = block_lib.Block.gat_attention
 
