@@ -67,12 +67,17 @@ Phases, in order; any failure propagates and the exit code is not 0:
               SageDataFlow([25, 10], ...), dims=(128, 128)), "label", 16),
               weights from a seeded generator
   7. infer    NodeEstimator.infer(arange(8192)), batch 1024: the serving
-              path. The launch counts are set to 0 before and must be 16
-              for fan_draw (2 hops x 8 batches) and 16 for gather_rows
-              (features and labels x 8 batches) after; embeddings finite
-              [8192, 128]. Then the steady forward time per batch, and a
-              torch.profiler table of CUDA time by kernel over two more
-              batches
+              path: the first batch eager, the second captured in a
+              CUDA graph, the second to the eighth served by replays of
+              it (7 ``infer_replays``). The launch counts are set to 0
+              before and must be 16 for fan_draw (2 hops x 8 batches)
+              and 16 for gather_rows (features and labels x 8 batches)
+              after; embeddings finite [8192, 128], within 1e-4 of the
+              largest of the eager forward's, its draws equal to the
+              eager forward's bit for bit (each family's and conv's
+              infer likewise). Then the steady forward time per batch,
+              and a torch.profiler table of CUDA time by kernel over two
+              more batches
   8. parity   one batch through the port on the card and on the CPU with
               the same weights and uniforms: equal sampled ids, embeddings
               within rtol = atol = 1e-4 (f32, different summation order)
@@ -1094,20 +1099,53 @@ def phase_gather(dev, parent=None):
 
 # ---------------------------------------------------------------- phase 7 --
 
+def eager_infer(est, ids) -> np.ndarray:
+    """``est.infer(ids)``'s answer from the eager forward: each padded
+    batch through the model with a fresh generator seeded as ``infer``
+    seeds its own, no batch captured or replayed."""
+    est.model.eval()
+    with torch.no_grad():
+        outs, n = est._batched_apply(
+            np.asarray(ids, np.int32),
+            lambda g, b, gen: est.model(g, b, generator=gen)["embedding"])
+        return torch.cat(outs)[:n].cpu().numpy()
+
+
+def record_draws(model) -> tuple:
+    """(list, remove): a forward hook on the first conv of ``model``'s
+    ``embedder`` appends a copy of its block's ``n_id`` (the deepest
+    hop's draws) at each call; no hook where the model has none."""
+    convs = getattr(getattr(model, "embedder", None), "convs", None)
+    draws = []
+    if not convs:
+        return draws, lambda: None
+
+    def hook(mod, args, out):
+        n_id = getattr(args[1], "n_id", None)
+        if n_id is not None:
+            draws.append(n_id.clone())
+    return draws, convs[0].register_forward_hook(hook).remove
+
+
 def phase_infer(model, graph, out_dir, dev, want=None,
                 edges_per_batch: int = EDGES_PER_BATCH):
     """``want``: the launch counts of infer (default: 2 of each kernel a
-    batch); ``edges_per_batch``: the edges one forward aggregates."""
+    batch); ``edges_per_batch``: the edges one forward aggregates. The
+    infer call's first batch is eager, its second captured and the rest
+    replayed (``infer_replays`` of 8); its answer and draws are held to
+    the eager forward's."""
     roots0 = torch.arange(BATCH, dtype=torch.int32, device=dev)
     with torch.no_grad():                         # warm-up, not counted
         model(graph.tensors, roots0,
               generator=torch.Generator(device=dev).manual_seed(9))
     torch.cuda.synchronize()
 
+    est = NodeEstimator(model, graph, RunConfig(batch_size=BATCH, seed=0),
+                        device=dev)
+    draws, remove = record_draws(model)
     reset_counts()
     t0 = time.perf_counter()
-    emb = NodeEstimator(model, graph, RunConfig(batch_size=BATCH, seed=0),
-                        device=dev).infer(np.arange(N_INFER), out_dir=out_dir)
+    emb = est.infer(np.arange(N_INFER), out_dir=out_dir)
     torch.cuda.synchronize()
     infer_s = time.perf_counter() - t0
     launches = read_counts()
@@ -1116,6 +1154,19 @@ def phase_infer(model, graph, out_dir, dev, want=None,
     check(launches == want, f"launches in infer {launches}, want {want}")
     check(emb.shape == (N_INFER, DIMS[-1]), f"embedding shape {emb.shape}")
     check(bool(np.isfinite(emb).all()), "embeddings finite")
+    check(est.infer_replays == N_INFER // BATCH - 1
+          and est.infer_captures == 1,
+          f"infer replayed {est.infer_replays} of {N_INFER // BATCH} "
+          f"batches, captured {est.infer_captures} times")
+    graphed_draws, draws[:] = list(draws), []
+    eager = eager_infer(est, np.arange(N_INFER))
+    remove()
+    check(len(graphed_draws) == len(draws)
+          and all(torch.equal(a, b) for a, b in zip(graphed_draws, draws)),
+          "the graphed infer's draws equal the eager forward's")
+    gap = float(np.abs(emb - eager).max() / max(np.abs(eager).max(), 1e-30))
+    check(gap <= 1e-4, f"the graphed infer's answer is {gap} from the "
+                       f"eager forward's")
 
     gen = torch.Generator(device=dev).manual_seed(3)
     batches = [torch.arange(i, i + BATCH, dtype=torch.int32, device=dev)
@@ -1129,6 +1180,7 @@ def phase_infer(model, graph, out_dir, dev, want=None,
         fwd_s = (time.perf_counter() - t0) / len(batches)
     return emb, dict(
         launches=launches, infer_ms_per_batch=infer_s / len(batches) * 1e3,
+        infer_replays=est.infer_replays, graphed_vs_eager=gap,
         forward_ms_per_batch=fwd_s * 1e3,
         infer_edges_per_sec=edges_per_batch / fwd_s)
 

@@ -13,7 +13,9 @@ becomes ``TrainLoop``: on the card, one train step captured as a CUDA
 graph and replayed. sgd, momentum and adam (``capturable=True`` on the
 card) capture; Adagrad reads its step count on the host and cannot, so
 ``steps_per_loop > 1`` with it raises on the card. On the CPU, which has
-no graphs, a loop is its steps run one by one.
+no graphs, a loop is its steps run one by one. Likewise ``infer`` on the
+card captures the forward of one padded batch and replays it for each
+batch (``InferGraph``); on the CPU it runs each batch eagerly.
 
 Intended differences from the reference: ``RunConfig.model_dir`` defaults
 to None, which writes and restores no checkpoint (the reference's
@@ -25,13 +27,16 @@ exactly and so never starts when the loop's steps skip it.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import functools
 import os
+import threading
 from typing import Callable, Dict, List, Optional, Sequence, Tuple, Union
 
 import numpy as np
 import torch
+from torch.nn.modules import module as _nn_module
 
 from euler_tpu_torch._device import resolve_device
 from euler_tpu_torch.graph.store import Graph
@@ -65,10 +70,10 @@ def get_optimizer(name: str, lr: float, params) -> torch.optim.Optimizer:
 
 @functools.lru_cache(maxsize=None)
 def capture_stream(device: torch.device) -> torch.cuda.Stream:
-    """The one side stream of ``device`` on which every ``TrainLoop``
-    warms up and captures. cuBLAS keeps a workspace (about 32 MiB) for
-    each stream it has run on, for the life of the process, so a new
-    stream per capture would leave one behind at every ``train``."""
+    """The one side stream of ``device`` on which every ``TrainLoop`` and
+    ``InferGraph`` warms up and captures. cuBLAS keeps a workspace (about
+    32 MiB) for each stream it has run on, for the life of the process, so
+    a new stream per capture would leave one behind at every ``train``."""
     return torch.cuda.Stream(device)
 
 
@@ -186,13 +191,237 @@ class TrainLoop:
             return self.loss.clone()
 
 
+def _fingerprint(model: torch.nn.Module, g, shape: tuple) -> tuple:
+    """What a captured forward reads beyond its ids' values: the model and
+    each of its modules, the graph's tensors, the padded batch's shape,
+    the address of every parameter and buffer, and every forward hook and
+    pre-hook in its order. Objects enter by ``id``; ``InferGraph`` holds
+    them while it keeps the fingerprint, so no id is reused meanwhile."""
+    parts = [id(g), shape]
+    stack = [model]         # a walk of its own: modules() takes twice as long
+    while stack:
+        m = stack.pop()
+        parts.append(id(m))
+        for t in m._parameters.values():
+            if t is not None:
+                parts.append(t.data_ptr())
+        for t in m._buffers.values():
+            if t is not None:
+                parts.append(t.data_ptr())
+        if m._forward_pre_hooks or m._forward_hooks:
+            parts.append((tuple(m._forward_pre_hooks.items()),
+                          tuple(m._forward_hooks.items())))
+        stack.extend(m._modules.values())
+    return tuple(parts)
+
+
+def _global_hooks() -> bool:
+    """Whether a forward hook or pre-hook is registered for every module
+    (``torch.nn.modules.module.register_module_forward_hook``)."""
+    return any(getattr(_nn_module, name, None) for name in (
+        "_global_forward_pre_hooks", "_global_forward_hooks"))
+
+
+@contextlib.contextmanager
+def _hooks_replaced(model: torch.nn.Module, wrap: Callable):
+    """Every forward hook and pre-hook of ``model``'s modules replaced by
+    ``wrap(hook)`` (torch calls it as it would the hook), and restored on
+    exit."""
+    saved = []
+    for m in model.modules():
+        for hooks in (m._forward_pre_hooks, m._forward_hooks):
+            if hooks:
+                saved.append((hooks, dict(hooks)))
+                for k, h in list(hooks.items()):
+                    hooks[k] = wrap(h)
+    try:
+        yield
+    finally:
+        for hooks, old in saved:
+            for k, h in old.items():
+                if k in hooks:
+                    hooks[k] = h
+
+
+class InferGraph:
+    """``BaseEstimator.infer``'s forward on the card, one padded batch of
+    ids captured in a ``torch.cuda.CUDAGraph`` and replayed for every
+    later batch, so that a batch launches one graph instead of each of
+    its kernels from the host.
+
+    ``start(seed, shape)`` begins a request: it seeds the estimator's one
+    infer generator (the graph registers it, so that each replay draws
+    anew; reseeded each request, it gives the draws of a fresh generator
+    with that seed bit for bit) and checks the fingerprint (``_fingerprint``)
+    that the graph was captured under. Where it differs (a model, module,
+    parameter, buffer, ``graph.tensors`` or hook rebound, added or
+    removed; another batch size), the graph is dropped, and the next batch
+    runs eagerly on ``capture_stream`` as the warm-up (the kernels'
+    libraries, cuBLAS's workspace, the cached constants); the batch after
+    is captured there, then replayed. In-place updates (training,
+    checkpoint restores, ``refresh_fan_pack``) keep the graph valid.
+
+    Hooks: the eager warm-up calls the hooks as an eager forward does,
+    and a hook that returns a value (a replaced input or output, which a
+    replay cannot honour) or a global module hook keeps the path eager
+    until the fingerprint changes. At capture each hook is recorded, not
+    called, with the module and the (static) args and outputs it is given;
+    after each replay the hooks are called in that order with them, which
+    then hold this batch's values. Holding them keeps the capture from
+    reusing their memory. A hook that returns a value after a replay
+    raises, and the path stays eager.
+
+    A forward that cannot be captured (it waits for the card, or copies
+    to the host) fails its capture; that batch then runs eagerly from the
+    generator state before the capture, on a fresh generator, and the
+    estimator stays eager. The launches a capture records are taken back
+    from the wrappers in ``ops.COUNTED``, and each replay adds the
+    graph's ``held``. The estimator counts ``infer_replays`` and
+    ``infer_captures``. The caller holds ``lock`` from ``start`` until it
+    has copied the last batch's output, which the next replay overwrites.
+    """
+
+    def __init__(self, estimator: "BaseEstimator"):
+        self.estimator = estimator
+        self.lock = threading.Lock()
+        self.generator = torch.Generator(device=estimator.device)
+        self.capturable = True
+        self.graph = self.key = self.owners = None
+        self.ids = self.out = None
+        self.calls: List[Tuple[Callable, tuple]] = []
+        self.held: Dict[str, int] = {}
+        self.warm = False          # the eager warm-up ran under ``key``
+        self.hooks_ok = True       # no hook returned a value under ``key``
+
+    def start(self, seed: int, shape: tuple) -> None:
+        est = self.estimator
+        g = est.graph.tensors
+        key = _fingerprint(est.model, g, shape)
+        if key != self.key:
+            self.graph = self.ids = self.out = None
+            self.calls, self.held = [], {}
+            self.key, self.warm, self.hooks_ok = key, False, True
+            self.owners = (est.model, g, list(est.model.modules()))
+        self.generator.manual_seed(seed)
+
+    def __call__(self, g, ids: np.ndarray, fn: Callable,
+                 last: bool) -> torch.Tensor:
+        """The output of ``fn(g, batch, generator)`` for one padded batch
+        of ``ids``: after a replay, its static output where ``last`` (the
+        caller copies it out before the next replay), else a clone."""
+        if not (self.capturable and self.hooks_ok) or _global_hooks():
+            return _eager_batch(self.estimator.device, g, ids, fn,
+                                self.generator)
+        if self.graph is not None:
+            with span("infer.h2d"):
+                self.ids.copy_(torch.from_numpy(ids))
+            with span("forward"):
+                self._replay()
+        elif not self.warm:
+            return self._warm_up(g, ids, fn)
+        else:
+            with span("infer.h2d"):
+                self.ids = torch.from_numpy(ids).to(self.estimator.device)
+            with span("forward"):
+                if not self._capture(g, fn):
+                    return _eager_batch(self.estimator.device, g, ids, fn,
+                                        self.generator)
+                self._replay()
+        return self.out if last else self.out.clone()
+
+    def _warm_up(self, g, ids: np.ndarray, fn: Callable) -> torch.Tensor:
+        dev = self.estimator.device
+        returned = []
+
+        def watch(hook):
+            def call(*a):
+                r = hook(*a)
+                if r is not None:
+                    returned.append(hook)
+                return r
+            return call
+        side = capture_stream(dev)
+        side.wait_stream(torch.cuda.current_stream(dev))
+        with torch.cuda.stream(side), _hooks_replaced(self.estimator.model,
+                                                      watch):
+            out = _eager_batch(dev, g, ids, fn, self.generator)
+        torch.cuda.current_stream(dev).wait_stream(side)
+        self.warm, self.hooks_ok = True, not returned
+        return out
+
+    def _capture(self, g, fn: Callable) -> bool:
+        """Capture ``fn`` over the static ids; False (and eager from now
+        on) where the forward cannot be captured."""
+        dev = self.estimator.device
+        side = capture_stream(dev)
+        graph = torch.cuda.CUDAGraph()
+        graph.register_generator_state(self.generator)
+        state = self.generator.get_state()
+        calls: List[Tuple[Callable, tuple]] = []
+
+        def record(hook):
+            def call(*a):
+                calls.append((hook, a))
+            return call
+        before = {k: k.launches for k in COUNTED}
+        ok = False
+        try:
+            # the outer stream context restores the caller's stream also
+            # where the capture's own exit raises
+            with torch.cuda.stream(side), \
+                    _hooks_replaced(self.estimator.model, record), \
+                    torch.cuda.graph(graph, stream=side):
+                out = fn(g, self.ids, self.generator)
+            ok = True
+        except RuntimeError:
+            self.capturable = False
+        finally:
+            self.held = {k.__name__: k.launches - n
+                         for k, n in before.items()}
+            for k, n in before.items():
+                k.launches = n
+            if not ok:
+                self.generator = torch.Generator(device=dev)
+                self.generator.set_state(state)
+        if not ok:
+            return False
+        self.graph, self.out, self.calls = graph, out, calls
+        self.estimator.infer_captures += 1
+        return True
+
+    def _replay(self) -> None:
+        self.graph.replay()
+        for k in COUNTED:
+            k.launches += self.held[k.__name__]
+        self.estimator.infer_replays += 1
+        for hook, a in self.calls:
+            if hook(*a) is not None:
+                self.graph, self.hooks_ok = None, False
+                raise RuntimeError(
+                    f"the forward hook {hook!r} returned a value after a "
+                    f"replay of infer's captured forward, which cannot "
+                    f"honour it; infer stays eager while it is registered")
+
+
+def _eager_batch(device, g, ids: np.ndarray, fn: Callable,
+                 gen: torch.Generator) -> torch.Tensor:
+    """One padded batch of ``ids`` to ``device`` and through ``fn``."""
+    with span("infer.h2d"):
+        batch = torch.from_numpy(ids).to(device)
+    with span("forward"):
+        return fn(g, batch, gen)
+
+
 class BaseEstimator:
     """Generic run loops; subclasses provide the batch source.
 
     The model is an ``nn.Module`` whose ``forward(g, batch, generator=,
     uniforms=)`` returns a dict with at least ``loss``. ``requests``
     counts the calls of ``infer``; each call's spans carry its count as
-    their request id (``utils.trace``).
+    their request id (``utils.trace``). ``infer_batches`` counts the
+    padded batches ``infer`` served, ``infer_replays`` those of them a
+    replay of ``InferGraph``'s captured forward served (on the card), and
+    ``infer_captures`` its captures.
     """
 
     def __init__(self, model: torch.nn.Module, graph: Graph,
@@ -202,12 +431,15 @@ class BaseEstimator:
         self.graph = graph
         self.config = config
         self.requests = 0
+        self.infer_batches = self.infer_replays = self.infer_captures = 0
         self._restore_checked = False
         for what, dev in (("graph", graph.tensors.device),
                           ("model", next(model.parameters()).device)):
             if dev.type != self.device.type:
                 raise ValueError(f"the {what} is on {dev}, the estimator "
                                  f"on {self.device}")
+        self._infer_graph = (InferGraph(self) if self.device.type == "cuda"
+                             else None)
 
     # ---- batch source (subclass hook) -------------------------------------
     def train_batch(self, g, generator: torch.Generator) -> Batch:
@@ -334,26 +566,33 @@ class BaseEstimator:
         self.model.load_state_dict(state)
 
     # ---- evaluation and inference -----------------------------------------
-    def _batched_apply(self, ids: np.ndarray, fn: Callable
+    def _batched_apply(self, ids: np.ndarray, fn: Callable,
+                       graphed: Optional[InferGraph] = None
                        ) -> Tuple[List, int]:
         """Pad ids with -1 to batch multiples, run fn per batch with one
-        generator seeded from ``seed + 2``; the caller strips the padding
-        with the returned count."""
+        generator seeded from ``seed + 2`` (a fresh one, or ``graphed``'s,
+        which then runs the batches); the caller strips the padding with
+        the returned count."""
         B = self.config.batch_size
         n = len(ids)
         with span("infer.pad"):
             pad = (-n) % B
             padded = np.concatenate(
                 [ids, np.full((pad,) + ids.shape[1:], -1, ids.dtype)])
-            gen = torch.Generator(device=self.device)
-            gen.manual_seed(self.config.seed + 2)
+            if graphed is None:
+                gen = torch.Generator(device=self.device)
+                gen.manual_seed(self.config.seed + 2)
+            else:
+                graphed.start(self.config.seed + 2, (B,) + ids.shape[1:])
         g = self.graph.tensors
         outs = []
         for i in range(0, len(padded), B):
-            with span("infer.h2d"):
-                batch = torch.from_numpy(padded[i:i + B]).to(self.device)
-            with span("forward"):
-                outs.append(fn(g, batch, gen))
+            if graphed is None:
+                outs.append(_eager_batch(self.device, g, padded[i:i + B], fn,
+                                         gen))
+            else:
+                outs.append(graphed(g, padded[i:i + B], fn,
+                                    last=i + B >= len(padded)))
         return outs, n
 
     def _check_ids(self, ids: np.ndarray) -> None:
@@ -411,8 +650,11 @@ class BaseEstimator:
                 return self.model(g, batch, generator=gen)["embedding"]
 
             self.model.eval()
-            with torch.no_grad():
-                outs, n = self._batched_apply(ids, embed)
+            graphed = self._infer_graph
+            with torch.no_grad(), (contextlib.nullcontext() if graphed is None
+                                   else graphed.lock):
+                outs, n = self._batched_apply(ids, embed, graphed)
+                self.infer_batches += len(outs)
                 with span("infer.d2h"):
                     emb = torch.cat(outs)[:n].cpu().numpy()
         if out_dir:
@@ -599,6 +841,7 @@ class GraphEstimator(BaseEstimator):
         self.requests += 1
         with span("infer", request=self.requests):
             outs, n = self._run(graph_ids, lambda o: o["embedding"])
+            self.infer_batches += len(outs)
             with span("infer.d2h"):
                 emb = torch.cat(outs)[:n].cpu().numpy()
         if out_dir:

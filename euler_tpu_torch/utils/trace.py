@@ -27,7 +27,10 @@ The spans (name: where):
 - ``infer`` (``BaseEstimator.infer``, carrying the estimator's
   ``requests`` count as its request id) around ``infer.pad`` (padding and
   the generator), then per batch ``infer.h2d`` and ``forward`` (the model
-  call), and ``infer.d2h`` (the answer to host memory);
+  call; on the card, after the warm-up batch and the capture, a replay of
+  ``InferGraph``'s captured forward and the hooks' calls, with no
+  ``dataflow``, ``gather``, ``conv`` or ``head`` span inside), and
+  ``infer.d2h`` (the answer to host memory);
 - ``dataflow`` (``GNNNet.forward``: the flow's sampling or whole-graph
   blocks), ``gather`` (``feature_ops.get_dense_feature`` and
   ``ShallowEncoder``'s dense fetch: the labels' and the features' rows),
@@ -41,8 +44,9 @@ The spans (name: where):
 
 The counters beside them: the kernel wrappers' ``launches``
 (``ops.COUNTED``: ``fan_draw``, ``gather_rows``, ``ell_agg``,
-``ell_sddmm``, ``ell_gat``), ``TrainLoop.held`` and
-``BaseEstimator.requests``.
+``ell_sddmm``, ``ell_gat``), ``TrainLoop.held``, ``InferGraph.held`` and
+``BaseEstimator.requests``, ``infer_batches``, ``infer_replays`` and
+``infer_captures``.
 """
 from __future__ import annotations
 

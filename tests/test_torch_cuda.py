@@ -26,7 +26,16 @@ launches. A loop of ``steps_per_loop`` steps, one captured step replayed
 (``TrainLoop``), must equal the eager steps from the same generator state
 bit for bit (transe within 1e-5: its ``Embed`` backward sums with
 atomics), advance the generator as they do, and count each replay's
-kernel launches; so must a loop of each of the eight other convs of the
+kernel launches. ``infer``'s captured forward (``InferGraph``: the first
+batch eager, the second captured, the rest replayed) must give the eager
+forward's answers within 1e-4 and its draws bit for bit (sage, and sage
+with ``dedup_features``), draw anew at each replay, fire a hook
+registered after the capture, stay eager under a hook that returns a
+value (a request whose hook starts returning one after the capture
+raises) and for a forward that reads a value on the host (the card then
+serving another estimator by replay), answer concurrent calls from six
+threads as the eager forward does, and count each replay's launches;
+so must a loop of each of the eight other convs of the
 registry (tag, sgcn, agnn, appnp, graph, arma, dna, gated; bit for bit)
 and of sage over the id and sparse-id encoder (within rtol 1e-4, atol
 1e-5, trained with SGD: its tables sum with atomics too). DeepWalk,
@@ -59,14 +68,17 @@ launch a search; ``k`` past the corpus raises on the card too.
 import copy
 import dataclasses
 import gc
+import sys
+import threading
 
 import numpy as np
 import pytest
 import torch
 
 from chip_smoke import (REST_FAMILIES, REST_LAUNCHES, REST_PACKS,
-                        WALK_PACKS, DrawReplay, KernelRecorder, int_view,
-                        rest_estimator, rest_model, rest_vs_cpu,
+                        WALK_PACKS, DrawReplay, KernelRecorder,
+                        eager_infer, int_view, record_draws, rest_estimator,
+                        rest_model, rest_vs_cpu,
                         same_query_results, smoke_queries,
                         synthetic_fan_pack, synthetic_union_pack,
                         to_device, walk_grads)
@@ -955,6 +967,201 @@ def test_launch_counts_through_replays(dev):
         counts.append((fd.fan_draw.launches - before[0],
                        gr.gather_rows.launches - before[1]))
     assert counts == [(2 * LOOP_SPL, 2 * LOOP_SPL)] * 3
+
+
+def infer_estimator(dev, dedup=False):
+    """A sage ``NodeEstimator`` of batch 256 over a graph with reservoir
+    rows, for ``infer``'s captured path (``InferGraph``)."""
+    graph = random_graph(3000, 50, feat_dim=16, n_classes=4, seed=0,
+                         device=dev)
+    net = GNNNet("sage", SageDataFlow([5, 3], [(0,), (0,)]), (16, 16),
+                 ShallowEncoder(("feature",)), in_dim=16, device=dev,
+                 generator=torch.Generator().manual_seed(0),
+                 dedup_features=dedup)
+    model = SuperviseModel(net, "label", 4, device=dev,
+                           generator=torch.Generator().manual_seed(0))
+    return NodeEstimator(model, graph, RunConfig(batch_size=256, seed=3),
+                         device=dev)
+
+
+def infer_counts(est) -> tuple:
+    return est.infer_batches, est.infer_replays, est.infer_captures
+
+
+@pytest.mark.parametrize("dedup", [False, True])
+def test_replayed_infer_equals_eager(dev, dedup):
+    """Request 1's first batch is eager, its second captured; every batch
+    after is a replay. The answers equal the eager forward's within 1e-4
+    and the draws (the first conv's n_id, as a forward hook copies it)
+    bit for bit. ``dedup_features``' forward captures too."""
+    est = infer_estimator(dev, dedup)
+    ids = np.arange(600)                      # 3 batches, the last padded
+    draws, remove = record_draws(est.model)
+    for _ in range(3):
+        draws.clear()
+        got = est.infer(ids)
+        graphed, draws[:] = list(draws), []
+        want = eager_infer(est, ids)
+        assert len(graphed) == len(draws) == 3
+        assert all(torch.equal(a, b) for a, b in zip(graphed, draws))
+        np.testing.assert_allclose(got, want, rtol=1e-4, atol=1e-4)
+    remove()
+    assert infer_counts(est) == (9, 8, 1)
+
+
+def test_infer_replays_draw_anew(dev):
+    """Three batches of the same ids: each replay draws anew, as the
+    eager batches do; two requests in a row are reseeded alike."""
+    est = infer_estimator(dev)
+    ids = np.tile(np.arange(256), 3)
+    draws, remove = record_draws(est.model)
+    first = est.infer(ids)
+    second = est.infer(ids)
+    graphed, draws[:] = draws[3:], []
+    eager_infer(est, ids)
+    remove()
+    assert infer_counts(est) == (6, 5, 1)
+    assert not torch.equal(graphed[1], graphed[2])
+    assert all(torch.equal(a, b) for a, b in zip(graphed, draws))
+    np.testing.assert_array_equal(first, second)
+
+
+def test_a_hook_registered_after_the_infer_capture_fires(dev):
+    est = infer_estimator(dev)
+    ids = np.arange(256)
+    est.infer(ids)
+    est.infer(ids)
+    seen = []
+    handle = est.model.register_forward_hook(
+        lambda m, a, out: seen.append(out["embedding"].clone()))
+    got = [est.infer(ids) for _ in range(3)]   # warm-up, capture, replay
+    handle.remove()
+    assert len(seen) == 3
+    assert all(np.array_equal(s.cpu().numpy(), e)
+               for s, e in zip(seen, got))
+    assert infer_counts(est) == (5, 3, 2)
+
+
+def test_a_hook_that_returns_a_value_keeps_infer_eager(dev):
+    est = infer_estimator(dev)
+    ids = np.arange(256)
+    want = eager_infer(est, ids)
+    handle = est.model.embedder.register_forward_hook(
+        lambda m, a, out: out * 2)
+    for _ in range(3):
+        np.testing.assert_array_equal(est.infer(ids), want * 2)
+    assert infer_counts(est) == (3, 0, 0)
+    handle.remove()
+    for _ in range(2):
+        np.testing.assert_allclose(est.infer(ids), want, rtol=1e-4,
+                                   atol=1e-4)
+    assert infer_counts(est) == (5, 1, 1)
+
+
+def test_a_hook_that_returns_a_value_after_the_infer_capture_raises(dev):
+    """No replay's answer is served past a hook that returns a value: the
+    request raises, and the next one runs eagerly, honouring it."""
+    est = infer_estimator(dev)
+    ids = np.arange(256)
+    want = eager_infer(est, ids)
+    double = []
+    handle = est.model.embedder.register_forward_hook(
+        lambda m, a, out: out * 2 if double else None)
+    est.infer(ids)
+    est.infer(ids)                              # warm-up, capture
+    double.append(True)
+    with pytest.raises(RuntimeError, match="returned a value"):
+        est.infer(ids)
+    np.testing.assert_array_equal(est.infer(ids), want * 2)
+    handle.remove()
+    assert infer_counts(est) == (3, 2, 1)
+
+
+def test_concurrent_infer_calls_on_one_estimator(dev):
+    """Six threads share one estimator's captured forward, each request
+    answered as an eager forward answers it: the lock keeps one thread's
+    replays from overwriting another's static output before its copy."""
+    est = infer_estimator(dev)
+    id_sets = [(np.arange(600) + 300 * k) % 3000 for k in range(6)]
+    wants = [eager_infer(est, ids) for ids in id_sets]
+    est.infer(id_sets[0])
+    est.infer(id_sets[0])                       # warm-up, capture
+    got, errors = {k: [] for k in range(6)}, []
+
+    def serve(k):
+        try:
+            for _ in range(4):
+                got[k].append(est.infer(id_sets[k]))
+        except Exception as e:                  # reported below
+            errors.append(e)
+    threads = [threading.Thread(target=serve, args=(k,)) for k in range(6)]
+    interval = sys.getswitchinterval()
+    sys.setswitchinterval(1e-5)
+    try:
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=300)
+    finally:
+        sys.setswitchinterval(interval)
+    assert not any(t.is_alive() for t in threads) and not errors
+    for k in range(6):
+        assert len(got[k]) == 4
+        for answer in got[k]:
+            np.testing.assert_allclose(answer, wants[k], rtol=1e-4,
+                                       atol=1e-4)
+    assert infer_counts(est) == (78, 77, 1)
+
+
+class HostRead(torch.nn.Module):
+    """A model whose forward copies a value to the host, which no CUDA
+    graph can capture."""
+
+    def __init__(self, inner):
+        super().__init__()
+        self.inner = inner
+
+    def forward(self, g, batch, generator=None, uniforms=None):
+        out = self.inner(g, batch, generator=generator, uniforms=uniforms)
+        return dict(out, host_sum=float(out["embedding"].sum()))
+
+
+def test_a_forward_that_reads_the_host_keeps_infer_eager(dev):
+    """The failed capture serves its batch eagerly from the generator
+    state before it, and the card then serves a sage request by replay."""
+    sage = infer_estimator(dev)
+    est = NodeEstimator(HostRead(sage.model), sage.graph, sage.config,
+                        device=dev)
+    ids = np.arange(600)
+    draws, remove = record_draws(sage.model)
+    for _ in range(2):
+        draws.clear()
+        got = est.infer(ids)
+        graphed, draws[:] = list(draws), []
+        want = eager_infer(est, ids)
+        assert len(graphed) == len(draws) == 3
+        assert all(torch.equal(a, b) for a, b in zip(graphed, draws))
+        np.testing.assert_allclose(got, want, rtol=1e-4, atol=1e-4)
+    remove()
+    assert infer_counts(est) == (6, 0, 0)
+    assert not est._infer_graph.capturable
+    np.testing.assert_allclose(sage.infer(ids), want, rtol=1e-4, atol=1e-4)
+    assert infer_counts(sage) == (3, 2, 1)
+
+
+def test_launch_counts_through_infer_replays(dev):
+    est = infer_estimator(dev)
+    ids = np.arange(256)
+    est.infer(ids)
+    est.infer(ids)
+    assert est._infer_graph.held == dict(fan_draw=2, gather_rows=2,
+                                         ell_agg=0, ell_sddmm=0, ell_gat=0)
+    before = (fd.fan_draw.launches, gr.gather_rows.launches)
+    for _ in range(5):
+        est.infer(ids)
+    assert (fd.fan_draw.launches - before[0],
+            gr.gather_rows.launches - before[1]) == (10, 10)
+    assert infer_counts(est) == (7, 6, 1)
 
 
 def test_gcn_replayed_loop_equals_eager_steps(dev):
