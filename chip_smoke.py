@@ -520,6 +520,7 @@ from euler_tpu_torch.ops import fan_draw as fd
 from euler_tpu_torch.ops import feature_ops
 from euler_tpu_torch.ops import index as index_ops
 from euler_tpu_torch.ops import gather_rows as gr
+from euler_tpu_torch.ops import rel_agg
 from euler_tpu_torch.ops import sampling, util_ops, walk
 from euler_tpu_torch.ops.alias import (FAN_ALIAS_OFF, FAN_D, FAN_KEPT_OFF,
                                        FAN_PROB_OFF, FANU_MASK,
@@ -564,12 +565,19 @@ KG_FAMILY = (kg.TransH, kg.TransR, kg.TransD, kg.DistMult)
 
 def kernel_counts(fan_draw: int = 0, gather_rows: int = 0,
                   ell_agg: int = 0, ell_sddmm: int = 0,
-                  ell_gat: int = 0) -> dict:
+                  ell_gat: int = 0, rel_mean: int = 0,
+                  rel_mean_tr: int = 0) -> dict:
     """Launches of each kernel wrapper in ``ops.COUNTED``, by name, as
     ``read_counts`` gives them; a kernel not named launches none."""
     return dict(fan_draw=fan_draw, gather_rows=gather_rows, ell_agg=ell_agg,
-                ell_sddmm=ell_sddmm, ell_gat=ell_gat)
+                ell_sddmm=ell_sddmm, ell_gat=ell_gat, rel_mean=rel_mean,
+                rel_mean_tr=rel_mean_tr)
 
+
+# a typed mean kernel's result against its plain version: the largest
+# distance over the plain version's largest magnitude (f32 sums in
+# another order)
+RGCN_TOL = 1e-5
 
 # an ell_agg result against its plain version on the same inputs: the
 # largest distance as a share of the sum of magnitudes (``ell_agg_gap``).
@@ -4924,6 +4932,139 @@ def ptxas_report(name: str, package_dir: str = PACKAGE_DIR) -> dict:
     return report
 
 
+# ------------------------------------------------------------ phase 12r --
+
+def rgcn_cell_layer(graph, F: int, dev, seed: int = 26):
+    """The first layer's operands at the rgcn-train cell's shapes, laid as
+    ``dataflow.block._RelConv`` lays them: per row range of the plan a
+    [rows, (k + 1) F] f32 GEMM output whose first k F columns, rounded to
+    bf16, are its edge types' message rows and whose last F the root's;
+    the cotangent [N, F] bf16; the transpose's f32 gradient tables."""
+    g, p = graph.tensors, graph.tensors.rel
+    R = len(p.row_lo)
+    blk = WholeDataFlow(1, [tuple(range(R))], add_self_loops=False,
+                        layout="rel")(g, torch.arange(1, device=dev))[0]
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    rows, roots, grads = [None] * R, [None] * (len(p.type_lo) - 1), [None] * R
+    for lo, hi, rels, k in blk.rel.plan(p.type_lo):
+        z = torch.randn((hi - lo, (len(rels) + 1) * F), generator=gen,
+                        device=dev)
+        m = z[:, :len(rels) * F].to(torch.bfloat16)
+        dz = torch.empty_like(z)
+        for q, r in enumerate(rels):
+            rows[r] = m[:, q * F:(q + 1) * F]
+            grads[r] = dz[:, q * F:(q + 1) * F]
+        if k >= 0:
+            roots[k] = z[:, len(rels) * F:]
+    cot = torch.randn((graph.meta.n_nodes, F), generator=gen,
+                      device=dev).to(torch.bfloat16)
+    return blk.rel.mask, rows, roots, grads, cot
+
+
+def phase_rgcn(dev) -> dict:
+    """At the rgcn-train cell's shapes (the graph of
+    benchmark/configs/rgcn.json, drawn and built by its configuration
+    module; F = 64 bf16 messages as the first layer lays them,
+    ``rgcn_cell_layer``): the typed mean kernel and its transpose each
+    held to its plain version on CPU copies (largest gap over the plain
+    version's largest magnitude), the same bits on a second call, then
+    timed with CUDA events, L2 flushed, beside its bytes bound
+    (``rgcn_arith.call_bytes``) and the library yardstick: one
+    ``torch.sparse.mm`` of the CSR [N, R N] of weights 1 / c(t, r) by the
+    messages stacked a relation at a time, f32 (forward only)."""
+    from benchmark.harness.arith import PEAKS
+    from benchmark.harness.rgcn_arith import call_bytes
+    from benchmark.harness.spec import Spec
+    spec = Spec()
+    cfg = spec.config("rgcn")
+    mod = spec.config_module("rgcn")
+    t0 = time.perf_counter()
+    arrays = mod.graph_arrays(cfg["graph"])
+    t1 = time.perf_counter()
+    graph = mod.program_graph(cfg, arrays, dev)
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    log(f"rgcn cell graph: edge arrays {t1 - t0:.1f} s, program graph "
+        f"{t2 - t1:.1f} s; " + mod.degree_report(cfg["graph"], arrays))
+    g, p = graph.tensors, graph.tensors.rel
+    F = cfg["model"]["dims"][0]
+    mask, rows, roots, grads, cot = rgcn_cell_layer(graph, F, dev)
+
+    def fwd():
+        return rel_agg.rel_mean(rows, p.row_lo, g.group_ptr, g.adj_dst, roots,
+                                p.type_lo, mask, p.hubs)
+
+    def tr():
+        rel_agg.rel_mean_tr(cot, p.tptr, p.tsrc, p.tw, grads, p.row_lo,
+                            mask, p.tr_hubs)
+    out = fwd()
+    check(torch.equal(out, fwd()), "rgcn forward: the same bits twice")
+    tr()
+    first = [v.clone() for v in grads if v is not None]
+    tr()
+    check(all(torch.equal(a, b) for a, b in
+              zip(first, [v for v in grads if v is not None])),
+          "rgcn transpose: the same bits twice")
+    cpu = [None if v is None else v.cpu() for v in rows]
+    plain = rel_agg.rel_mean_plain(
+        cpu, p.row_lo, g.group_ptr.cpu(), g.adj_dst.cpu(),
+        [None if v is None else v.cpu() for v in roots], p.type_lo, mask)
+    fwd_gap = float((out.cpu() - plain).abs().max() / plain.abs().max())
+    tr_plain = [None if v is None else torch.empty(v.shape) for v in grads]
+    rel_agg.rel_mean_tr_plain(cot.cpu(), p.tptr.cpu(), p.tsrc.cpu(),
+                              p.tw.cpu(), tr_plain, p.row_lo, mask)
+    tr_gap = max(float((a.cpu() - b).abs().max() / b.abs().max().clamp_min(
+        1e-30)) for a, b in zip(grads, tr_plain) if a is not None)
+    check(fwd_gap < RGCN_TOL and tr_gap < RGCN_TOL,
+          f"rgcn kernels against their plain versions: {fwd_gap:.3g}, "
+          f"{tr_gap:.3g}")
+    del plain, tr_plain, cpu
+    # the library yardstick: the weighted CSR [N, R N] by every relation's
+    # messages stacked [R N, F] (zero rows outside a relation's range)
+    n, R = graph.meta.n_nodes, len(p.row_lo)
+    cnt = (g.group_ptr[1:] - g.group_ptr[:-1]).float()
+    seg = torch.repeat_interleave(torch.arange(n * R, device=dev),
+                                  (g.group_ptr[1:] - g.group_ptr[:-1]).long())
+    col = (seg % R) * n + g.adj_dst.long()
+    a = torch.sparse_csr_tensor(
+        (g.group_ptr.long()[::R]).contiguous(), col,
+        1.0 / cnt[seg], size=(n, R * n))
+    stacked = torch.zeros((R * n, F), device=dev)
+    for r, v in enumerate(rows):
+        if v is not None:
+            stacked[r * n + p.row_lo[r]:r * n + p.row_hi[r]] = v.float()
+    lib_out = torch.sparse.mm(a, stacked)
+    flush = torch.empty(64 << 20, dtype=torch.uint8, device=dev)
+    res = dict(fwd_ms=time_launches(fwd, 50, flush),
+               tr_ms=time_launches(tr, 50, flush),
+               sparse_mm_ms=time_launches(lambda: torch.sparse.mm(a, stacked),
+                                          20, flush),
+               fwd_gap=fwd_gap, tr_gap=tr_gap,
+               bound_fwd_ms=call_bytes(cfg, False, 2)
+               / PEAKS["hbm_bytes_per_s"] * 1e3,
+               bound_tr_ms=call_bytes(cfg, True, 2)
+               / PEAKS["hbm_bytes_per_s"] * 1e3,
+               hub_chunks=[int(p.hubs.chunks.shape[0]),
+                           int(p.tr_hubs.chunks.shape[0])],
+               graph_s=[t1 - t0, t2 - t1])
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(5):
+            fwd()
+            tr()
+        torch.cuda.synchronize()
+    res["kernel_ms"] = {e.key[:60]: e.device_time_total / 5e3
+                        for e in prof.key_averages()
+                        if "rel_mean" in e.key}
+    for k, v in enumerate(roots):
+        if v is not None:
+            lib_out[p.type_lo[k]:p.type_lo[k + 1]] += v
+    res["sparse_mm_gap"] = float((lib_out - out).abs().max()
+                                 / out.abs().max())
+    log(f"rgcn kernels: {json.dumps(res)}")
+    return res
+
+
 # --------------------------------------------------------------- phase 14 --
 
 # the mesh phase: the sage graph over MESH_SHARDS graph shards, one gloo
@@ -5773,6 +5914,10 @@ def main() -> int:
         help="a copy of the parent commit's tree: its fan_draw, "
              "gather_rows and GAT kernels are built too and timed in "
              "turns with this checkout's, and its ptxas figures logged")
+    parser.add_argument(
+        "--only", choices=("rgcn",),
+        help="run the device checks, the builds and this phase alone "
+             "(rgcn: phase 12r, the rgcn-train cell's typed mean kernels)")
     args = parser.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false; this script "
@@ -5796,10 +5941,12 @@ def main() -> int:
     # 2. build: the nvcc builds, their -Xptxas -v twins and g++, all
     # started together
     t0 = time.perf_counter()
-    cuda_sources = ("fan_draw", "gather_rows", "ell_agg", "ell_attn")
-    with concurrent.futures.ThreadPoolExecutor(13) as ex:
+    cuda_sources = ("fan_draw", "gather_rows", "ell_agg", "ell_attn",
+                    "rel_agg")
+    with concurrent.futures.ThreadPoolExecutor(15) as ex:
         builds = [ex.submit(f) for f in (fd.build, gr.build, ell_ops.build,
-                                         attn_ops.build, native.get_lib)]
+                                         attn_ops.build, rel_agg.build,
+                                         native.get_lib)]
         reports = {n: ex.submit(ptxas_report, n) for n in cuda_sources}
         parent_reports = {n: ex.submit(
             ptxas_report, n, os.path.join(args.parent, "euler_tpu_torch"))
@@ -5813,7 +5960,7 @@ def main() -> int:
     check(os.path.commonpath([native.SRC, PACKAGE_DIR]) == PACKAGE_DIR,
           f"native host core source {native.SRC} lies in {PACKAGE_DIR}")
     log(f"build: {build_s:.1f} s (fan_draw.cu, gather_rows.cu, "
-        f"ell_agg.cu and ell_attn.cu by nvcc, "
+        f"ell_agg.cu, ell_attn.cu and rel_agg.cu by nvcc, "
         f"sm_90a); native host core loaded: {native.available()}, from "
         f"{os.path.relpath(native.SRC)} into "
         f"{os.path.relpath(native.get_lib()._name)}")
@@ -5821,6 +5968,11 @@ def main() -> int:
     if args.parent:
         log(f"ptxas parent: {json.dumps(parent_ptxas)}")
     parent = load_parent(args.parent) if args.parent else None
+    if args.only == "rgcn":
+        rgcn = phase_rgcn(dev)
+        log(json.dumps({"ok": True, "only": "rgcn", "rgcn": rgcn,
+                        "seconds": time.perf_counter() - t_start}))
+        return 0
 
     # 3. fan_draw vs plain; 4. gather_rows vs plain
     shapes, crossover, launch_floor_ms = phase_kernel(dev, parent)
@@ -5920,6 +6072,9 @@ def main() -> int:
     # 12n. the gat-train cell's attention kernels at its shapes
     gat = phase_gat(dev, parent)
     allocated_after("gat")
+    # 12r. the rgcn-train cell's typed mean kernels at its shapes
+    phase_rgcn(dev)
+    allocated_after("rgcn")
     # 12k. the data plane: convert, load, the fan-less and payload paths,
     # the example scripts
     data = phase_data(dev)

@@ -34,7 +34,7 @@ from __future__ import annotations
 
 import dataclasses
 import functools
-from typing import Optional, Tuple
+from typing import List, Optional, Sequence, Tuple
 
 import torch
 
@@ -42,6 +42,7 @@ from euler_tpu_torch.ops import mp_ops
 from euler_tpu_torch.ops.ell_agg import ell_agg
 from euler_tpu_torch.ops.ell_attn import (ell_gat, ell_gat_sddmm, ell_gat_tr,
                                           ell_sddmm, live_tpos, pad_heads)
+from euler_tpu_torch.ops.rel_agg import rel_mean, rel_mean_tr
 from euler_tpu_torch.ops.sampling import as_etypes, etype_tensor
 from euler_tpu_torch.parallel import comms
 from euler_tpu_torch.utils.trace import span
@@ -77,6 +78,9 @@ class Block:
     # the process group over which a distributed whole-graph block's
     # partial per-node results complete (a ShardView's graph group)
     psum_axis: Optional[object] = None
+    # a typed whole-graph block's CSR grouped by (node, edge type) and
+    # its pack (``RelBlock``): R-GCN's per-relation mean reads them
+    rel: Optional["RelBlock"] = None
 
     @functools.cached_property
     def _edges64(self) -> torch.Tensor:
@@ -106,10 +110,16 @@ class Block:
         ok = (self.n_id >= 0).reshape((-1,) + (1,) * (x.dim() - 1))
         return torch.where(ok, x[self.n_id.long().clamp_min(0)], 0)
 
+    def source_set(self, x_src: torch.Tensor) -> torch.Tensor:
+        """The block's source set [size[1], ...]: ``x_src`` itself, or
+        expanded from the compact [N, ...] table of a whole-graph ELL
+        block (through ``ell_expand``'s transpose-gather backward for 2-D
+        tables)."""
+        return self._expand(x_src) if self._is_compact(x_src) else x_src
+
     def gather_src(self, x_src: torch.Tensor) -> torch.Tensor:
         """Per-edge view of source values: x_src[edge_index[1]]."""
-        if self._is_compact(x_src):
-            x_src = self._expand(x_src)
+        x_src = self.source_set(x_src)
         if self.fanout is None:
             return mp_ops.gather(x_src, self._edges64[1])
         T = self.size[0]
@@ -372,6 +382,28 @@ class Block:
                              self.n_id[T:].reshape(T, C), self._live_tpos,
                              dtype)
 
+    def relation_mean(self, x: torch.Tensor, matrix: torch.Tensor,
+                      root_w: torch.Tensor, root_b: torch.Tensor,
+                      type_lo: Sequence[int], dtype: torch.dtype
+                      ) -> torch.Tensor:
+        """R-GCN's layer over a typed whole-graph block (``rel``), from the
+        node table x [N, D_in]: for node t of type k (ids [type_lo[k],
+        type_lo[k + 1])),
+
+            out[t] = root_w[k] x_t + root_b[k]
+                     + sum over edge types r taken, with c(t, r) > 0, of
+                       matrix[r] (1 / c(t, r) sum over t's out-neighbours
+                       j of type r of x_j)
+
+        [N, F] f32, through ``_RelConv``: W_r x_j is taken once a
+        neighbour (a GEMM over the ids its edge type's neighbours lie in,
+        one with the root's rows where those ids are a node type's), in
+        f32 with x cast up, the messages rounded to ``dtype``; then the
+        typed mean kernel (``ops.rel_agg``) sums them with the roots. No
+        [E, F] tensor is built."""
+        return _RelConv.apply(x, matrix, root_w, root_b, self.rel,
+                              tuple(type_lo), dtype)
+
     def softmax(self, scores: torch.Tensor,
                 mask: Optional[torch.Tensor] = None) -> torch.Tensor:
         """Per-target softmax of per-edge scores [E, ...]: each target's
@@ -579,6 +611,118 @@ class _EllGat(torch.autograd.Function):
                 d_ar = torch.einsum("hfd,dh->hf", wh, v[:, H:])
         return (d_z.to(ctx.z_dtype), None, None, d_al, d_ar, None, None,
                 None)
+
+
+@dataclasses.dataclass
+class RelBlock:
+    """What a typed whole-graph block carries for R-GCN's per-relation
+    mean: the graph's CSR grouped by (node, edge type), ``seg_ptr``
+    (``GraphTensors.group_ptr``) and ``cells`` (``adj_dst``, each cell's
+    neighbour), its ``graph.store.RelPack``, and ``mask``, bit r set for
+    each edge type r the flow's metapath takes."""
+
+    seg_ptr: torch.Tensor
+    cells: torch.Tensor
+    pack: object
+    mask: int
+
+    def plan(self, type_lo: Sequence[int]) -> List[tuple]:
+        """The GEMMs of a layer: (lo, hi, edge types, root type or -1), one
+        a row range [lo, hi): each taken edge type's neighbours' ids
+        (``RelPack.row_lo``/``row_hi``), edge types of one range together,
+        and node type k's root rows [type_lo[k], type_lo[k + 1]) with the
+        edge types of that range or alone."""
+        p = self.pack
+        groups: dict = {}
+        for r, (lo, hi) in enumerate(zip(p.row_lo, p.row_hi)):
+            if hi > lo and (self.mask >> r) & 1:
+                groups.setdefault((lo, hi), []).append(r)
+        roots = {(type_lo[k], type_lo[k + 1]): k
+                 for k in range(len(type_lo) - 1)}
+        out = [(lo, hi, tuple(rels), roots.pop((lo, hi), -1))
+               for (lo, hi), rels in groups.items()]
+        return out + [(lo, hi, (), k) for (lo, hi), k in roots.items()]
+
+
+class _RelConv(torch.autograd.Function):
+    """``Block.relation_mean``: one GEMM a row range of the plan
+    (``RelBlock.plan``) makes each edge type's messages W_r x_j and the
+    roots, the typed mean kernel sums them (``ops.rel_agg.rel_mean``).
+    Saves x and the weights, never the messages. The backward runs in the
+    span ``relation.backward``: the cotangent rounded to the messages'
+    type, the transposed kernel (``rel_mean_tr``) gives each range's
+    messages' f32 gradient, the root columns take the cotangent itself,
+    and one GEMM a range each gives the weights' and x's gradients."""
+
+    @staticmethod
+    def _weights(matrix, root_w, rels, k):
+        return torch.cat([matrix[r] for r in rels]
+                         + ([root_w[k]] if k >= 0 else []))
+
+    @staticmethod
+    def forward(ctx, x, matrix, root_w, root_b, rel, type_lo, dtype):
+        R, F = matrix.shape[0], matrix.shape[1]
+        plan = rel.plan(type_lo)
+        msgs: List[Optional[torch.Tensor]] = [None] * R
+        roots: List[Optional[torch.Tensor]] = [None] * (len(type_lo) - 1)
+        for lo, hi, rels, k in plan:
+            w = _RelConv._weights(matrix, root_w, rels, k)
+            xf = x[lo:hi].to(matrix.dtype)
+            if k >= 0:
+                b = torch.cat([root_b.new_zeros(len(rels) * F), root_b[k]])
+                z = torch.addmm(b, xf, w.T)
+            else:
+                z = xf @ w.T
+            m = z[:, :len(rels) * F].to(dtype)
+            for q, r in enumerate(rels):
+                msgs[r] = m[:, q * F:(q + 1) * F]
+            if k >= 0:
+                roots[k] = z[:, len(rels) * F:]
+        p = rel.pack
+        out = rel_mean(msgs, p.row_lo, rel.seg_ptr, rel.cells, roots,
+                       type_lo, rel.mask, p.hubs)
+        ctx.save_for_backward(x, matrix, root_w)
+        ctx.rel, ctx.plan, ctx.dtype = rel, plan, dtype
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        with span("relation.backward"):
+            x, matrix, root_w = ctx.saved_tensors
+            F = matrix.shape[1]
+            p = ctx.rel.pack
+            g = g.contiguous()
+            d_msgs: List[Optional[torch.Tensor]] = [None] * matrix.shape[0]
+            dzs = []
+            for lo, hi, rels, k in ctx.plan:
+                dz = torch.empty((hi - lo, (len(rels) + (k >= 0)) * F),
+                                 dtype=torch.float32, device=g.device)
+                for q, r in enumerate(rels):
+                    d_msgs[r] = dz[:, q * F:(q + 1) * F]
+                if k >= 0:
+                    dz[:, len(rels) * F:] = g[lo:hi]
+                dzs.append(dz)
+            rel_mean_tr(g.to(ctx.dtype).contiguous(), p.tptr, p.tsrc, p.tw,
+                        d_msgs, p.row_lo, ctx.rel.mask, p.tr_hubs)
+            d_matrix = torch.zeros_like(matrix)
+            d_root_w = torch.zeros_like(root_w)
+            d_root_b = root_w.new_zeros(root_w.shape[:2])
+            need_x = ctx.needs_input_grad[0]
+            dx = torch.zeros(x.shape, dtype=matrix.dtype,
+                             device=x.device) if need_x else None
+            for (lo, hi, rels, k), dz in zip(ctx.plan, dzs):
+                xf = x[lo:hi].to(matrix.dtype)
+                dw = dz.T @ xf
+                for q, r in enumerate(rels):
+                    d_matrix[r] = dw[q * F:(q + 1) * F]
+                if k >= 0:
+                    d_root_w[k] = dw[len(rels) * F:]
+                    d_root_b[k] = g[lo:hi].sum(0)
+                if need_x:
+                    dx[lo:hi].addmm_(dz, _RelConv._weights(matrix, root_w,
+                                                           rels, k))
+        return (None if dx is None else dx.to(x.dtype), d_matrix, d_root_w,
+                d_root_b, None, None, None)
 
 
 def fanout_block(targets: torch.Tensor, sampled: torch.Tensor,

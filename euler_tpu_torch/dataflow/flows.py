@@ -18,7 +18,7 @@ from typing import Optional, Sequence
 
 import torch
 
-from euler_tpu_torch.dataflow.block import (Block, fanout_block,
+from euler_tpu_torch.dataflow.block import (Block, RelBlock, fanout_block,
                                             full_graph_block)
 from euler_tpu_torch.ops import mp_ops, sampling
 from euler_tpu_torch.ops.dispatch import is_shard_view
@@ -165,14 +165,26 @@ class WholeDataFlow:
     each shard's block holds its own edges over the global node set
     (``full_graph_block_sharded``) and its reductions complete over the
     graph group (``Block.psum_axis``).
+
+    ``layout="rel"`` (never chosen by "auto") takes the graph's ``rel``
+    pack: the edge-list block over the metapath's types, each edge's type
+    in ``e_type`` (what ``relation_from_etype`` reads), with a
+    ``RelBlock`` (the CSR grouped by (node, edge type), the pack and the
+    taken types), on which R-GCN's per-relation mean runs
+    (``Block.relation_mean``). It carries no self loops: R-GCN's root
+    linear is its self term.
     """
 
     def __init__(self, num_layers: int, metapath,
                  add_self_loops: bool = True, cap: Optional[int] = None,
                  layout: str = "auto", **_):
-        if layout not in ("auto", "ell", "edge_list"):
+        if layout not in ("auto", "ell", "edge_list", "rel"):
             raise ValueError(f"layout {layout!r} not in auto, ell, "
-                             f"edge_list")
+                             f"edge_list, rel")
+        if layout == "rel" and add_self_loops:
+            raise ValueError("layout 'rel' carries no self loops (R-GCN's "
+                             "root linear is its self term): pass "
+                             "add_self_loops=False")
         self.num_layers = num_layers
         self.metapath = list(metapath)
         self.add_self_loops = add_self_loops
@@ -191,6 +203,16 @@ class WholeDataFlow:
         if is_shard_view(g):
             blk = full_graph_block_sharded(g, self.metapath[0],
                                            self.add_self_loops)
+            return [blk] * self.num_layers
+        if self.layout == "rel":
+            if g.rel is None:
+                raise ValueError("layout 'rel' needs the graph's 'rel' pack")
+            ets = sampling.as_etypes(g, self.metapath[0])
+            blk = dataclasses.replace(
+                full_graph_block(g, self.metapath[0], False),
+                e_type=g.adj_type,
+                rel=RelBlock(g.group_ptr, g.adj_dst, g.rel,
+                             sum(1 << t for t in set(ets))))
             return [blk] * self.num_layers
         have_pack = g.ell_nbr is not None
         use_ell = self.layout == "ell" or (

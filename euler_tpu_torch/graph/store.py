@@ -38,6 +38,7 @@ from euler_tpu_torch.graph.meta import BINARY, DENSE, SPARSE, GraphMeta
 from euler_tpu_torch.ops.alias import (FAN_D, FANU_MAX_TYPES, FANU_SHIFT,
                                        build_fan_pack, build_group_alias,
                                        build_typed_alias_tables)
+from euler_tpu_torch.ops.rel_agg import RelHubs
 from euler_tpu_torch.utils import io as _io
 
 #: packs the port builds by default: the fan rows that the sampled flows
@@ -49,12 +50,13 @@ from euler_tpu_torch.utils import io as _io
 #: row), "adj" (each CSR slot's payload in one row) and "sample" (the
 #: fused alias-draw row) for the general verbs; "fanu" (union fan rows,
 #: multi-type draws), which the reference leaves out of its ALL_PACKS;
-#: "ell" (whole-graph ELL rows and their transpose). Every verb draws
-#: without a pack it lacks (a hop without "fan" through the sample pack
-#: or the group alias tables).
+#: "ell" (whole-graph ELL rows and their transpose); "rel" (the typed
+#: whole-graph pack of R-GCN's per-relation mean, ``RelPack``), which the
+#: reference does not have. Every verb draws without a pack it lacks (a
+#: hop without "fan" through the sample pack or the group alias tables).
 PACKS = ("fan",)
 #: packs the port can build
-KNOWN_PACKS = ("group", "adj", "sample", "fan", "fanu", "ell")
+KNOWN_PACKS = ("group", "adj", "sample", "fan", "fanu", "ell", "rel")
 #: the block of XLA's CPU split of a cumsum's reduce_window; the cdf
 #: matches ``jnp.cumsum`` bit for bit only with this value
 XLA_CUMSUM_BLOCK = 16
@@ -169,6 +171,43 @@ class AliasTables:
 
 
 @dataclasses.dataclass
+class RelPack:
+    """The typed whole-graph pack ("rel"): what R-GCN's per-relation mean
+    reads beside the CSR (``group_ptr`` groups each node's out-edges by
+    edge type, ``adj_dst`` their neighbours), built once on the host.
+
+    ``tptr``/``tsrc`` are the transposed CSR, grouped by (neighbour u,
+    edge type r): segment u * R + r lists the nodes t whose segment (t, r)
+    reads u, and ``tw`` holds 1 / c(t, r), the length of that segment, so
+    that the mean's gradient to the neighbours' rows is a gather, never a
+    scatter (``ops.rel_agg.rel_mean_tr``). ``hubs``/``tr_hubs`` chunk the
+    two CSRs' segments longer than ``ops.rel_agg.HUB``.
+
+    Host fields: ``type_lo``, node type k's ids [type_lo[k], type_lo[k +
+    1]) where the node types run in contiguous id ranges (else empty);
+    ``row_lo``/``row_hi``, the ids each edge type's neighbours lie in: the
+    whole range of the one node type they all have where types run in
+    ranges, else [least, greatest + 1) ([0, 0) for an edge type with no
+    edge).
+    """
+
+    tptr: torch.Tensor        # int32 [N*R + 1]
+    tsrc: torch.Tensor        # int32 [E]
+    tw: torch.Tensor          # f32   [E]
+    hubs: RelHubs
+    tr_hubs: RelHubs
+    type_lo: Tuple[int, ...]
+    row_lo: Tuple[int, ...]
+    row_hi: Tuple[int, ...]
+
+    def to(self, device) -> "RelPack":
+        return dataclasses.replace(
+            self, tptr=self.tptr.to(device), tsrc=self.tsrc.to(device),
+            tw=self.tw.to(device), hubs=self.hubs.to(device),
+            tr_hubs=self.tr_hubs.to(device))
+
+
+@dataclasses.dataclass
 class GraphTensors:
     """The device graph. Every array field is a tensor on one device."""
 
@@ -221,6 +260,8 @@ class GraphTensors:
     ell_ty: Optional[torch.Tensor] = None       # int32 [N, C]
     ell_tpos: Optional[torch.Tensor] = None     # int32 [N, C_in] (-1 pad)
     ell_in_deg: Optional[torch.Tensor] = None   # f32   [N, ET]
+    # the typed whole-graph pack ("rel")
+    rel: Optional[RelPack] = None
     # sparse node features: name -> (ids int32 [N, L] padded with -1,
     # lengths int32 [N]); edge features and types by original edge row
     sparse_nf: Dict[str, Tuple[torch.Tensor, torch.Tensor]] = \
@@ -318,6 +359,48 @@ def _ell_pack_np(n, net, group_ptr, adj_dst, adj_w, adj_eid, adj_type):
     np.add.at(ell_in_deg, (adj_dst, adj_type), 1.0)
     return dict(ell_nbr=nbr, ell_w=w, ell_eid=eid, ell_ty=ty,
                 ell_tpos=tpos.astype(np.int32), ell_in_deg=ell_in_deg)
+
+
+def _rel_pack_np(n, net, group_ptr, adj_src, adj_dst, adj_type, node_type,
+                 num_node_types) -> dict:
+    """The typed whole-graph pack's arrays (``RelPack``), numpy, from the
+    CSR's slots (sorted by (source, type, destination))."""
+    m = len(adj_dst)
+    tptr, tsrc, _, _, _, perm = _convert.build_csr(
+        n, net, adj_dst, adj_src, adj_type, np.ones(m, np.float32),
+        np.arange(m, dtype=np.int32))
+    cnt = np.diff(np.asarray(group_ptr, np.int64))
+    seg = adj_src.astype(np.int64) * net + adj_type
+    tw = (1.0 / cnt[seg].astype(np.float64)).astype(np.float32)[perm]
+    node_type = np.asarray(node_type, np.int64)
+    ranged = bool(np.all(node_type[1:] >= node_type[:-1])) if n else True
+    type_lo = tuple(int(v) for v in np.searchsorted(
+        node_type, np.arange(num_node_types + 1))) if ranged else ()
+    # each edge type's neighbours: their node types, least and greatest id
+    T = max(num_node_types, 1)
+    per_type = np.bincount(adj_type.astype(np.int64) * T
+                           + node_type[adj_dst], minlength=net * T
+                           ).reshape(net, T)
+    kinds = [np.nonzero(row)[0] for row in per_type]
+    if any(len(k) > 1 or not ranged for k in kinds):
+        lows = np.full(net, n, np.int64)
+        highs = np.full(net, -1, np.int64)
+        np.minimum.at(lows, adj_type, adj_dst)
+        np.maximum.at(highs, adj_type, adj_dst)
+    row_lo, row_hi = [], []
+    for r in range(net):
+        one = int(kinds[r][0]) if len(kinds[r]) == 1 else -1
+        if one >= 0 and ranged:
+            lo, hi = type_lo[one], type_lo[one + 1]
+        elif len(kinds[r]):
+            lo, hi = int(lows[r]), int(highs[r]) + 1
+        else:
+            lo = hi = 0
+        row_lo.append(lo), row_hi.append(hi)
+    return dict(tptr=tptr.astype(np.int32), tsrc=tsrc.astype(np.int32),
+                tw=tw, hubs=RelHubs.build_np(group_ptr),
+                tr_hubs=RelHubs.build_np(tptr), type_lo=type_lo,
+                row_lo=tuple(row_lo), row_hi=tuple(row_hi))
 
 
 def _check_edge_ids(eid: np.ndarray) -> None:
@@ -487,6 +570,15 @@ class Graph:
                                adj_type)
             if ell is not None:            # degree-gated, as the reference
                 pack_fields.update({k: put(v) for k, v in ell.items()})
+        if "rel" in packs:
+            rel = _rel_pack_np(n, net, group_ptr, adj_src, adj_dst, adj_type,
+                               node_type, meta.num_node_types)
+            pack_fields["rel"] = RelPack(
+                tptr=put(rel["tptr"]), tsrc=put(rel["tsrc"]),
+                tw=put(rel["tw"]),
+                **{k: RelHubs(**{a: put(b) for a, b in rel[k].items()})
+                   for k in ("hubs", "tr_hubs")},
+                **{k: rel[k] for k in ("type_lo", "row_lo", "row_hi")})
         self.tensors = GraphTensors(
             meta=meta,
             node_type=put(node_type.astype(np.int32)),

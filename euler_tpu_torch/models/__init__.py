@@ -7,7 +7,8 @@ from euler_tpu_torch.models.convs import (AGNNConv, APPNPConv, ARMAConv,
                                          GCNConv, GINConv, GraphConv,
                                          GRUCell, RelationConv, SAGEConv,
                                          SGCNConv, TAGConv, get_conv_class)
-from euler_tpu_torch.models.encoders import Embed, ShallowEncoder
+from euler_tpu_torch.models.encoders import (Embed, ShallowEncoder,
+                                             TypedEncoder)
 from euler_tpu_torch.models.from_flax import load_flax_params
 from euler_tpu_torch.models.gnn import (EmbedOnly, GNNNet, JKGNNNet,
                                         SuperviseModel, UnsuperviseModel)
@@ -42,6 +43,6 @@ __all__ = ["AGNNConv", "APPNPConv", "ARMAConv", "AttLayer", "AttentionPool",
            "ScalableSageNet", "SegmentPool", "Set2SetPool",
            "ShallowEncoder", "ShardedEmbedding", "SharedGroupGNNNet",
            "SolutionModel", "SparseEmbedding", "SuperviseModel", "TAGConv",
-           "TransD", "TransE", "TransH", "TransR", "TransX",
+           "TransD", "TransE", "TransH", "TransR", "TransX", "TypedEncoder",
            "UnsuperviseModel", "VGAE", "entity_ranks", "get_conv_class",
            "get_pool_class", "load_flax_params", "rank_all_entities"]

@@ -536,9 +536,22 @@ class RelationConv(nn.Module):
     attr (``GNNNet`` feeds relation 0). The sum over valid edges is
     divided by their count (at least 1e-7), then ``self_fc(x_tgt)`` is
     added.
-    """
+
+    ``per_relation=True`` is R-GCN's layer instead (Schlichtkrull et al.,
+    arXiv:1703.06103, eq. 2, as OGB's full-batch R-GCN for ogbn-mag runs
+    it): each relation's sum divided by its own count (a relation with no
+    valid edge adds 0), and in place of ``self_fc`` a root linear with
+    bias for each of ``node_types`` node types, ``root_weight`` [T, dim,
+    D_in] and ``root_bias`` [T, dim]. It runs over a typed whole-graph
+    block (``Block.rel``, ``WholeDataFlow(layout="rel")``): the relation
+    of each edge is its edge type, node type k's nodes are ids
+    [type_lo[k], type_lo[k + 1]) of the graph's ``rel`` pack (one type:
+    every node), and the layer runs fused (``Block.relation_mean``, in the
+    span ``relation``), its messages rounded to x's type; ``edge_attr`` is
+    not read."""
 
     def __init__(self, in_dim: int, dim: int, num_relations: int = 1,
+                 per_relation: bool = False, node_types: int = 1,
                  generator: Optional[torch.Generator] = None):
         super().__init__()
         R = num_relations
@@ -546,16 +559,36 @@ class RelationConv(nn.Module):
         std = math.sqrt(1.0 / fan_avg) / 0.87962566103423978
         self.num_relations = R
         self.out_dim = dim
+        self.per_relation = per_relation
         self.matrix = nn.Parameter(_trunc_normal((R, dim, in_dim), std,
                                                  generator))
-        self.self_fc = dense(in_dim, dim, bias=False, generator=generator)
+        if per_relation:
+            std = math.sqrt(1.0 / in_dim) / 0.87962566103423978
+            self.root_weight = nn.Parameter(_trunc_normal(
+                (node_types, dim, in_dim), std, generator))
+            self.root_bias = nn.Parameter(torch.zeros(node_types, dim))
+        else:
+            self.self_fc = dense(in_dim, dim, bias=False,
+                                 generator=generator)
 
     def forward(self, x, block: Block,
                 edge_attr: Optional[torch.Tensor] = None) -> torch.Tensor:
         x_tgt, x_src = x
+        if self.per_relation:
+            if block.rel is None:
+                raise ValueError("per_relation needs a typed whole-graph "
+                                 "block (WholeDataFlow(layout='rel'))")
+            T = self.root_weight.shape[0]
+            type_lo = block.rel.pack.type_lo if T > 1 else (0, block.size[0])
+            if len(type_lo) != T + 1:
+                raise ValueError(f"{T} root linears, but the graph's rel "
+                                 f"pack has node type ranges {type_lo}")
+            with span("relation"):
+                return block.relation_mean(
+                    x_src, self.matrix, self.root_weight, self.root_bias,
+                    type_lo, x_src.dtype)
         R = self.num_relations
-        if block._is_compact(x_src):
-            x_src = block._expand(x_src)
+        x_src = block.source_set(x_src)
         dt = x_src.dtype
         if edge_attr is None:
             edge_attr = torch.zeros(block.edge_index.shape[1],

@@ -8,7 +8,7 @@ flax's ``nn.Embed`` as the encoder's tables, the KG tables and
 from __future__ import annotations
 
 import math
-from typing import Optional, Sequence
+from typing import Optional, Sequence, Tuple
 
 import torch
 from torch import nn
@@ -118,6 +118,79 @@ class ShallowEncoder(nn.Module):
             dt = torch.promote_types(dt, p.dtype)
         out = torch.cat([p.to(dt) for p in parts], dim=-1)
         return torch.where(ok[..., None], out, 0.0)
+
+
+class TypedEncoder(nn.Module):
+    """A heterogeneous graph's input rows, each node type's from its own
+    source (OGB's R-GCN for ogbn-mag: the papers' features, a learned
+    table for every other type, its ``emb_dict``). Node ids run by type
+    in contiguous ranges, in the order of ``types``: (name, count, dense
+    feature name or None). A type with a feature reads the graph's dense
+    table of that name, whose row k is the type's k-th node, through
+    ``gather_rows``; a type without one reads its ``emb[name]``, a
+    [count, dim] table initialised as OGB's example initialises it
+    (Glorot uniform over the table's shape), from ``generator``, a CPU
+    generator.
+
+    ``whole(g, dtype)`` gives every node's row in id order as one [N, dim]
+    table (a typed whole-graph block's sources; the tables enter it
+    whole, with no gather); ``forward(g, n_id)`` gives the rows of any
+    ids, 0 for ids < 0."""
+
+    def __init__(self, types: Sequence[Tuple[str, int, Optional[str]]],
+                 dim: int, generator: Optional[torch.Generator] = None):
+        super().__init__()
+        self.types = [(name, int(count), feat) for name, count, feat in types]
+        self.dim = dim
+        self.type_lo = [0]
+        for _, count, _ in self.types:
+            self.type_lo.append(self.type_lo[-1] + count)
+        self.emb = nn.ParameterDict()
+        for name, count, feat in self.types:
+            if feat is None:
+                bound = math.sqrt(6.0 / (count + dim))
+                self.emb[name] = nn.Parameter(
+                    (torch.rand((count, dim), generator=generator) * 2 - 1)
+                    * bound)
+
+    def whole(self, g: GraphTensors,
+              dtype: Optional[torch.dtype] = None) -> torch.Tensor:
+        if g.meta.n_nodes != self.type_lo[-1]:
+            raise ValueError(f"the encoder's types hold {self.type_lo[-1]} "
+                             f"nodes, the graph {g.meta.n_nodes}")
+        dev = g.node_type.device
+        feats = [g.dense_nf[f] for _, _, f in self.types if f is not None]
+        dt = dtype or (feats[0].dtype if feats else torch.float32)
+        out = torch.empty((self.type_lo[-1], self.dim), dtype=dt, device=dev)
+        for (name, count, feat), lo in zip(self.types, self.type_lo):
+            if feat is not None:
+                with span("gather"):
+                    ids = torch.arange(count, dtype=torch.int32, device=dev)
+                    table = g.dense_nf[feat]
+                    if table.dtype == dt:
+                        gather_rows(table, ids, out[lo:lo + count])
+                    else:
+                        out[lo:lo + count] = gather_rows(table, ids)
+        for (name, count, feat), lo in zip(self.types, self.type_lo):
+            if feat is None:
+                out[lo:lo + count] = self.emb[name]
+        return out
+
+    def forward(self, g: GraphTensors, n_id: torch.Tensor) -> torch.Tensor:
+        ids = n_id.reshape(-1).long()
+        out = None
+        for (name, count, feat), lo in zip(self.types, self.type_lo):
+            mine = (ids >= lo) & (ids < lo + count)
+            local = torch.where(mine, ids - lo, -1)
+            if feat is not None:
+                with span("gather"):
+                    rows = gather_rows(g.dense_nf[feat],
+                                       local.to(torch.int32).contiguous())
+            else:
+                rows = torch.where(mine[:, None],
+                                   self.emb[name][local.clamp_min(0)], 0.0)
+            out = rows.float() if out is None else out + rows.float()
+        return out.reshape(tuple(n_id.shape) + (self.dim,))
 
 
 class _Lookup(torch.autograd.Function):

@@ -87,7 +87,7 @@ class GNNNet(nn.Module):
             x = util_ops.unique_gather(lambda ids: self.feature(g, ids),
                                        blocks[0].n_id)
         else:
-            x = _input_features(self.feature, g, blocks)
+            x = _input_features(self.feature, g, blocks, self.dtype)
         # a half-width feature table (load_graph's feature_dtype) reaches
         # f32 parameters in f32, as flax's Dense promotes its input
         x = x.to(self.dtype if self.dtype is not None else torch.float32)
@@ -126,10 +126,14 @@ def _make_convs(conv: str, in_dim: int, dims: Sequence[int], flow: Any,
     return nn.ModuleList(convs), widths
 
 
-def _input_features(feature: nn.Module, g: GraphTensors,
-                    blocks) -> torch.Tensor:
+def _input_features(feature: nn.Module, g: GraphTensors, blocks,
+                    dtype: Optional[torch.dtype] = None) -> torch.Tensor:
     """The encoder's rows of the deepest block's sources; over ELL-pack
-    blocks the compact [N, D] table of their targets."""
+    blocks the compact [N, D] table of their targets; over a typed
+    whole-graph block, whose sources are every node in id order, the
+    encoder's ``whole`` table where it has one (in ``dtype``)."""
+    if blocks[0].rel is not None and hasattr(feature, "whole"):
+        return feature.whole(g, dtype)
     if blocks[0].ell_tpos is not None:
         return feature(g, blocks[0].n_id[: blocks[0].size[0]])
     return feature(g, blocks[0].n_id)

@@ -40,11 +40,18 @@ The spans (name: where):
   per-head weighted sum), inside its ``conv``; ``attention.backward``
   (the backward of GAT's fused attention, ``dataflow.block._EllGat``:
   the SDDMM with the softmax's gradient, the transpose, and a_l's and
-  a_r's gradients), opened on autograd's thread.
+  a_r's gradients), opened on autograd's thread;
+- ``relation`` (R-GCN's layer over a typed whole-graph block,
+  ``RelationConv`` with ``per_relation``: the W_r and root GEMMs and the
+  typed mean kernel), inside its ``conv``; ``relation.backward`` (its
+  backward, ``dataflow.block._RelConv``: the transposed kernel and the
+  weights' and input's GEMMs), opened on autograd's thread. The
+  ``TypedEncoder``'s feature fetch is a ``gather``.
 
 The counters beside them: the kernel wrappers' ``launches``
 (``ops.COUNTED``: ``fan_draw``, ``gather_rows``, ``ell_agg``,
-``ell_sddmm``, ``ell_gat``), ``TrainLoop.held``, ``InferGraph.held`` and
+``ell_sddmm``, ``ell_gat``, ``rel_mean``, ``rel_mean_tr``; the last two
+count their chunk kernels' launches too), ``TrainLoop.held``, ``InferGraph.held`` and
 ``BaseEstimator.requests``, ``infer_batches``, ``infer_replays`` and
 ``infer_captures``.
 """

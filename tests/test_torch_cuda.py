@@ -98,7 +98,7 @@ from euler_tpu_torch.ops import ell_agg as ell
 from euler_tpu_torch.ops import ell_attn as attn
 from euler_tpu_torch.ops import fan_draw as fd
 from euler_tpu_torch.ops import gather_rows as gr
-from euler_tpu_torch.ops import mp_ops, sampling
+from euler_tpu_torch.ops import mp_ops, rel_agg, sampling
 
 pytestmark = pytest.mark.cuda
 
@@ -947,7 +947,8 @@ def test_replays_advance_the_generator_as_eager_steps(dev):
                       torch.rand(8, generator=gen, device=dev)))
         if spl > 1:
             assert loop.held == dict(fan_draw=2, gather_rows=2, ell_agg=0,
-                                     ell_sddmm=0, ell_gat=0)
+                                     ell_sddmm=0, ell_gat=0, rel_mean=0,
+                                     rel_mean_tr=0)
     (roots_g, after_g), (roots_e, after_e) = draws
     assert not torch.equal(roots_g[1], roots_g[2])       # replays draw anew
     assert all(torch.equal(a, b) for a, b in zip(roots_g, roots_e))
@@ -1155,7 +1156,8 @@ def test_launch_counts_through_infer_replays(dev):
     est.infer(ids)
     est.infer(ids)
     assert est._infer_graph.held == dict(fan_draw=2, gather_rows=2,
-                                         ell_agg=0, ell_sddmm=0, ell_gat=0)
+                                         ell_agg=0, ell_sddmm=0, ell_gat=0,
+                                         rel_mean=0, rel_mean_tr=0)
     before = (fd.fan_draw.launches, gr.gather_rows.launches)
     for _ in range(5):
         est.infer(ids)
@@ -1192,7 +1194,8 @@ def test_gcn_replayed_loop_equals_eager_steps(dev):
         runs.append((est, float(loss), ell.ell_agg.launches - before, loop))
     (eager, loss_e, n_e, _), (graphed, loss_g, n_g, loop) = runs
     assert loop.held == dict(fan_draw=0, gather_rows=2, ell_agg=5,
-                             ell_sddmm=0, ell_gat=0)
+                             ell_sddmm=0, ell_gat=0, rel_mean=0,
+                             rel_mean_tr=0)
     assert n_e == n_g == 5 * 2 * LOOP_SPL
     assert loss_e == loss_g
     assert all(torch.equal(a, b) for a, b in zip(
@@ -1221,8 +1224,130 @@ def test_gat_replayed_loop_equals_eager_steps(dev):
         runs.append((est, float(loss), attn_counts(before), loop))
     (eager, loss_e, n_e, _), (graphed, loss_g, n_g, loop) = runs
     assert loop.held == dict(fan_draw=0, gather_rows=2, ell_agg=0,
-                             ell_sddmm=0, ell_gat=9)
+                             ell_sddmm=0, ell_gat=9, rel_mean=0,
+                             rel_mean_tr=0)
     assert n_e == n_g == (0, 9 * 2 * LOOP_SPL)
+    assert loss_e == loss_g
+    assert all(torch.equal(a, b) for a, b in zip(
+        graphed.model.parameters(), eager.model.parameters()))
+
+
+def rel_counts(before=(0, 0)) -> tuple:
+    """The launches of rel_mean and rel_mean_tr since ``before``."""
+    now = (rel_agg.rel_mean.launches, rel_agg.rel_mean_tr.launches)
+    return tuple(a - b for a, b in zip(now, before))
+
+
+@pytest.mark.parametrize("mask", [0b1111111, 0b1011011])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("F", [64, 128])
+def test_rel_mean_kernels_match_plain(dev, F, dtype, mask):
+    """The typed mean kernel and its transpose against their plain
+    versions on the typed test graph (hub segments past HUB both ways,
+    empty segments, a relation masked off), message rows as column blocks
+    of a wider table: within f32 round-off of the sums' order, every
+    gradient row written, the same bits on a second call, and a chunk
+    kernel launched before each main kernel."""
+    from tests.test_torch_rgcn import relation_views, typed_graph
+    (gc, _), (gd, _) = typed_graph(), typed_graph(dev)
+    pc, pd = gc.tensors.rel, gd.tensors.rel
+    rows_c, roots_c = relation_views(gc, F, dtype)
+    rows_d, roots_d = relation_views(gc, F, dtype, device=dev)
+    want = rel_agg.rel_mean(rows_c, pc.row_lo, gc.tensors.group_ptr,
+                            gc.tensors.adj_dst, roots_c, pc.type_lo, mask,
+                            pc.hubs)
+    before = rel_counts()
+    got = [rel_agg.rel_mean(rows_d, pd.row_lo, gd.tensors.group_ptr,
+                            gd.tensors.adj_dst, roots_d, pd.type_lo, mask,
+                            pd.hubs) for _ in range(2)]
+    assert rel_counts(before) == (4, 0)
+    assert torch.equal(got[0], got[1])
+    torch.testing.assert_close(got[0].cpu(), want, rtol=1e-5, atol=1e-5)
+    cot = torch.randn(gc.meta.n_nodes, F,
+                      generator=torch.Generator().manual_seed(7)).to(dtype)
+    outs = []
+    for g, p, c in ((gc, pc, cot), (gd, pd, cot.to(dev)),
+                    (gd, pd, cot.to(dev))):
+        out = [torch.full((hi - lo, F), float("nan"), device=c.device)
+               for lo, hi in zip(p.row_lo, p.row_hi)]
+        rel_agg.rel_mean_tr(c, p.tptr, p.tsrc, p.tw, out, p.row_lo, mask,
+                            p.tr_hubs)
+        outs.append(out)
+    assert rel_counts(before) == (4, 4)
+    for a, b, c in zip(*outs):
+        assert torch.equal(b, c) and not torch.isnan(b).any()
+        torch.testing.assert_close(b.cpu(), a, rtol=1e-5, atol=1e-5)
+
+
+def test_rel_mean_plain_never_runs_on_the_card(dev, monkeypatch):
+    from tests.test_torch_rgcn import relation_views, typed_graph
+    gd, _ = typed_graph(dev)
+    p = gd.tensors.rel
+
+    def boom(*a, **k):
+        raise AssertionError("the plain version ran on the card")
+    monkeypatch.setattr(rel_agg, "rel_mean_plain", boom)
+    monkeypatch.setattr(rel_agg, "rel_mean_tr_plain", boom)
+    rows, roots = relation_views(gd, 64, torch.bfloat16, device=dev)
+    out = rel_agg.rel_mean(rows, p.row_lo, gd.tensors.group_ptr,
+                           gd.tensors.adj_dst, roots, p.type_lo, 127, p.hubs)
+    grads = [torch.empty((hi - lo, 64), device=dev)
+             for lo, hi in zip(p.row_lo, p.row_hi)]
+    rel_agg.rel_mean_tr(out.to(torch.bfloat16), p.tptr, p.tsrc, p.tw, grads,
+                        p.row_lo, 127, p.tr_hubs)
+
+
+def test_rgcn_step_on_card_matches_cpu(dev):
+    """An R-GCN step over the typed whole graph in f32 (the rgcn
+    configuration's model at a small size): loss and every gradient on the
+    card (the kernels) within 1e-4 of the CPU's (the plain versions), with
+    a chunk and a main kernel a layer each way."""
+    from tests.test_torch_rgcn import rgcn_model, typed_graph
+    roots = torch.arange(500, dtype=torch.int32)
+    runs = []
+    for where in ("cpu", dev):
+        graph, _ = typed_graph(where)
+        model = rgcn_model(where)
+        before = rel_counts()
+        out = model(graph.tensors, roots.to(where))
+        out["loss"].backward()
+        runs.append((float(out["loss"].detach()), rel_counts(before),
+                     {k: v.grad.cpu() for k, v in model.named_parameters()}))
+    (loss_c, n_c, grads_c), (loss_d, n_d, grads_d) = runs
+    assert n_c == (0, 0) and n_d == (4, 4)
+    assert abs(loss_c - loss_d) <= 1e-5 * abs(loss_c)
+    for k in grads_c:
+        torch.testing.assert_close(grads_d[k], grads_c[k], rtol=1e-4,
+                                   atol=1e-6, msg=k)
+
+
+def test_rgcn_replayed_loop_equals_eager_steps(dev):
+    """R-GCN over every node of the typed graph at bf16 activations, as
+    the rgcn-train cell runs it, at a small size: a loop of replays equals
+    the eager steps bit for bit (the typed mean kernels sum in a fixed
+    order, with no atomics), and a replay holds 4 rel_mean and 4
+    rel_mean_tr launches (a chunk and a main kernel a layer each way: the
+    first layer's rows take a gradient, the tables') beside the 2 gathers
+    (the papers' features, the labels)."""
+    from tests.test_torch_rgcn import rgcn_model, typed_graph
+    every = torch.arange(500, dtype=torch.int32, device=dev)
+    runs = []
+    for spl in (1, LOOP_SPL):
+        graph, _ = typed_graph(dev, dtype=torch.bfloat16)
+        est = NodeEstimator(rgcn_model(dev, torch.bfloat16), graph,
+                            RunConfig(batch_size=500), device=dev)
+        opt = get_optimizer("adam", 1e-2, est.model.parameters())
+        loop = TrainLoop(est, opt, torch.Generator(device=dev).manual_seed(5),
+                         spl, lambda: every)
+        before = rel_counts()
+        loss = [loop() for _ in range(2 * LOOP_SPL // spl)][-1]
+        torch.cuda.synchronize()
+        runs.append((est, float(loss), rel_counts(before), loop))
+    (eager, loss_e, n_e, _), (graphed, loss_g, n_g, loop) = runs
+    assert loop.held == dict(fan_draw=0, gather_rows=2, ell_agg=0,
+                             ell_sddmm=0, ell_gat=0, rel_mean=4,
+                             rel_mean_tr=4)
+    assert n_e == n_g == (4 * 2 * LOOP_SPL, 4 * 2 * LOOP_SPL)
     assert loss_e == loss_g
     assert all(torch.equal(a, b) for a, b in zip(
         graphed.model.parameters(), eager.model.parameters()))

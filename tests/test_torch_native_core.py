@@ -293,18 +293,23 @@ def test_sources_without_quoted_includes_keep_their_name(name):
     assert _build.source_digest(src, cmd) == old_digest(src, cmd)
 
 
-@pytest.mark.parametrize("name", ["gather_rows.cu", "ell_agg.cu",
-                                  "ell_attn.cu"])
-def test_kernels_hash_their_shared_header(name):
-    # each sizes its grids with csrc/resident_blocks.cuh: a change of the
-    # header renames (rebuilds) every one of their libraries
+@pytest.mark.parametrize("name,headers", [
+    ("gather_rows.cu", ("resident_blocks.cuh",)),
+    ("ell_agg.cu", ("bf16_words.cuh", "resident_blocks.cuh")),
+    ("ell_attn.cu", ("resident_blocks.cuh",)),
+    ("rel_agg.cu", ("bf16_words.cuh", "resident_blocks.cuh"))],
+    ids=["gather_rows.cu", "ell_agg.cu", "ell_attn.cu", "rel_agg.cu"])
+def test_kernels_hash_their_shared_header(name, headers):
+    # each sizes its grids with csrc/resident_blocks.cuh (ell_agg.cu and
+    # rel_agg.cu share csrc/bf16_words.cuh too): a change of a header
+    # renames (rebuilds) every library whose source includes it
     src = os.path.join(PACKAGE_DIR, "csrc", name)
     cmd = [_build.nvcc()] + _build.NVCC_FLAGS
     with open(src, "rb") as f:
         h = hashlib.sha256(f.read() + "\0".join(cmd).encode())
-    with open(os.path.join(PACKAGE_DIR, "csrc", "resident_blocks.cuh"),
-              "rb") as f:
-        h.update(b"\0resident_blocks.cuh\0" + f.read())
+    for header in headers:
+        with open(os.path.join(PACKAGE_DIR, "csrc", header), "rb") as f:
+            h.update(b"\0" + header.encode() + b"\0" + f.read())
     assert _build.source_digest(src, cmd) == h.hexdigest()[:16]
     assert _build.source_digest(src, cmd) != old_digest(src, cmd)
 
