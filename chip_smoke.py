@@ -328,6 +328,12 @@ Phases, in order; any failure propagates and the exit code is not 0:
               multi-head GAT loop at 3,000 nodes, its replays equal to
               its eager steps bit for bit, 9 ell_gat launches a step held
               by a replay
+ 12s. xent    SuperviseModel's loss kernels (ops.sigmoid_xent) at the
+              rgcn-train cell's shape, [629,571, 349] f32 logits and
+              one-hot labels: held to the torch chain they replace and
+              to their plain versions (XENT_TOL), -g y at a logit of 0,
+              the same bits on a second call, then timed beside their
+              bytes bound and the chain's forward and backward
  13. bench    the port's bench (euler_tpu_torch/bench.py) in each mode,
               sage, gin, gat, rgcn, the eight of bench.CONV_MODES, gcn and
               transe, at bench.py's width,
@@ -512,6 +518,7 @@ from euler_tpu_torch.models import (DGI, GAE, LINE, VGAE, DeepWalk,
                                     SolutionModel, SuperviseModel,
                                     UnsuperviseModel, autoencoders, convs,
                                     encoders, kg)
+from euler_tpu_torch.models import gnn as gnn_models
 from euler_tpu_torch.native import loader as native
 from euler_tpu_torch.ops import COUNTED
 from euler_tpu_torch.ops import ell_agg as ell_ops
@@ -521,6 +528,7 @@ from euler_tpu_torch.ops import feature_ops
 from euler_tpu_torch.ops import index as index_ops
 from euler_tpu_torch.ops import gather_rows as gr
 from euler_tpu_torch.ops import rel_agg
+from euler_tpu_torch.ops import sigmoid_xent as xent_ops
 from euler_tpu_torch.ops import sampling, util_ops, walk
 from euler_tpu_torch.ops.alias import (FAN_ALIAS_OFF, FAN_D, FAN_KEPT_OFF,
                                        FAN_PROB_OFF, FANU_MASK,
@@ -566,12 +574,21 @@ KG_FAMILY = (kg.TransH, kg.TransR, kg.TransD, kg.DistMult)
 def kernel_counts(fan_draw: int = 0, gather_rows: int = 0,
                   ell_agg: int = 0, ell_sddmm: int = 0,
                   ell_gat: int = 0, rel_mean: int = 0,
-                  rel_mean_tr: int = 0) -> dict:
+                  rel_mean_tr: int = 0, sigmoid_xent: int = 0) -> dict:
     """Launches of each kernel wrapper in ``ops.COUNTED``, by name, as
     ``read_counts`` gives them; a kernel not named launches none."""
     return dict(fan_draw=fan_draw, gather_rows=gather_rows, ell_agg=ell_agg,
                 ell_sddmm=ell_sddmm, ell_gat=ell_gat, rel_mean=rel_mean,
-                rel_mean_tr=rel_mean_tr)
+                rel_mean_tr=rel_mean_tr, sigmoid_xent=sigmoid_xent)
+
+
+# SuperviseModel's loss (ops.sigmoid_xent): its launches a training step
+# (the forward and the backward) and a forward alone (a served batch)
+HEAD_STEP, HEAD_BATCH = 2, 1
+# a loss kernel against its plain version on the same inputs: the largest
+# distance over the plain result's largest magnitude (the loss's f32 sums
+# in another order; the card's expf and log1pf)
+XENT_TOL = 1e-5
 
 
 # a typed mean kernel's result against its plain version: the largest
@@ -596,6 +613,14 @@ def ell_agg_gap(out: torch.Tensor, args: tuple) -> float:
                                 transpose).float()
     return float(((out.float() - plain).abs()
                   / mag.clamp_min(1e-30)).max())
+
+
+def xent_gap(out: torch.Tensor, want: torch.Tensor) -> float:
+    """A loss kernel's result against its plain version's: the largest
+    |out - want| over the largest |want|."""
+    want = want.float()
+    return float((out.float().to(want.device) - want).abs().max()
+                 / want.abs().max().clamp_min(1e-30))
 
 
 # unsupervised GraphSAGE (examples/graphsage/run_graphsage.py's fanouts):
@@ -1137,8 +1162,9 @@ def record_draws(model) -> tuple:
 
 def phase_infer(model, graph, out_dir, dev, want=None,
                 edges_per_batch: int = EDGES_PER_BATCH):
-    """``want``: the launch counts of infer (default: 2 of each kernel a
-    batch); ``edges_per_batch``: the edges one forward aggregates. The
+    """``want``: the launch counts of infer (default: 2 fan_draw and 2
+    gather_rows a batch and the loss's one); ``edges_per_batch``: the
+    edges one forward aggregates. The
     infer call's first batch is eager, its second captured and the rest
     replayed (``infer_replays`` of 8); its answer and draws are held to
     the eager forward's."""
@@ -1158,7 +1184,8 @@ def phase_infer(model, graph, out_dir, dev, want=None,
     infer_s = time.perf_counter() - t0
     launches = read_counts()
     want = want or kernel_counts(fan_draw=2 * N_INFER // BATCH,
-                        gather_rows=2 * N_INFER // BATCH)
+                        gather_rows=2 * N_INFER // BATCH,
+                        sigmoid_xent=HEAD_BATCH * N_INFER // BATCH)
     check(launches == want, f"launches in infer {launches}, want {want}")
     check(emb.shape == (N_INFER, DIMS[-1]), f"embedding shape {emb.shape}")
     check(bool(np.isfinite(emb).all()), "embeddings finite")
@@ -1423,7 +1450,8 @@ def phase_train(model, graph, dev, seed: int = 0, per_step=None):
     """``seed`` seeds the run's draws: a run on a graph whose reservoir
     an earlier run redrew needs another, or its redraws repeat the
     earlier run's and change nothing. ``per_step``: each kernel's
-    launches a step (default: 2 of each)."""
+    launches a step (default: 2 fan_draw, 2 gather_rows and the loss's
+    2)."""
     cfg = RunConfig(batch_size=BATCH, total_steps=TRAIN_STEPS,
                     optimizer="adam", learning_rate=1e-3,
                     log_steps=TRAIN_STEPS, reservoir_refresh=TRAIN_REFRESH,
@@ -1441,7 +1469,8 @@ def phase_train(model, graph, dev, seed: int = 0, per_step=None):
     torch.cuda.synchronize()
     train_s = time.perf_counter() - t0
     launches = read_counts()
-    per_step = per_step or kernel_counts(fan_draw=2, gather_rows=2)
+    per_step = per_step or kernel_counts(fan_draw=2, gather_rows=2,
+                                         sigmoid_xent=HEAD_STEP)
     want = {k: n * TRAIN_STEPS for k, n in per_step.items()}
     check(launches == want, f"launches in train {launches}, want {want}")
     check(bool(np.isfinite(res["loss"])), f"train loss {res['loss']}")
@@ -1704,7 +1733,8 @@ def phase_gcn(dev):
         emb, infer = phase_infer(
             model, graph, out_dir, dev,
             want=kernel_counts(fan_draw=0, gather_rows=2 * N_INFER // BATCH,
-                               ell_agg=bench.GCN_LAYERS * N_INFER // BATCH),
+                               ell_agg=bench.GCN_LAYERS * N_INFER // BATCH,
+                               sigmoid_xent=HEAD_BATCH * N_INFER // BATCH),
             edges_per_batch=edges)
     prof = phase_profile(model, graph, dev)
     infer.update(profile_host_ms=prof["host_ms"],
@@ -1768,7 +1798,8 @@ def phase_gcn(dev):
     train_s = time.perf_counter() - t0
     launches = read_counts()
     want = kernel_counts(fan_draw=0, gather_rows=2 * TRAIN_STEPS,
-                         ell_agg=GCN_ELL_STEP * TRAIN_STEPS)
+                         ell_agg=GCN_ELL_STEP * TRAIN_STEPS,
+                         sigmoid_xent=HEAD_STEP * TRAIN_STEPS)
     check(launches == want, f"launches in gcn train {launches}, want {want}")
     losses = [float(x) for x in losses]
     check(bool(np.isfinite(losses).all()), f"gcn train losses {losses}")
@@ -1997,10 +2028,12 @@ def gat_loop_check(dev) -> dict:
         runs.append((est, float(loss), read_counts(), dict(loop.held)))
     (eager, loss_e, n_e, _), (graphed, loss_g, n_g, held) = runs
     steps = 2 * LOOP_SPL
-    check(held == kernel_counts(gather_rows=2, ell_gat=9),
+    check(held == kernel_counts(gather_rows=2, ell_gat=9,
+                                sigmoid_xent=HEAD_STEP),
           f"gat loop: a replay holds {held}")
     check(n_e == n_g == kernel_counts(gather_rows=2 * steps,
-                                      ell_gat=9 * steps),
+                                      ell_gat=9 * steps,
+                                      sigmoid_xent=HEAD_STEP * steps),
           f"gat loop: launches eager {n_e}, replayed {n_g}")
     same = loss_e == loss_g and all(torch.equal(a, b) for a, b in zip(
         graphed.model.parameters(), eager.model.parameters()))
@@ -2414,7 +2447,8 @@ class KernelRecorder:
 
     SITES = ((sampling, "fan_draw"), (encoders, "gather_rows"),
              (feature_ops, "gather_rows"), (knn, "gather_rows"),
-             (sharded, "gather_rows"), (block_lib, "ell_agg"))
+             (sharded, "gather_rows"), (block_lib, "ell_agg"),
+             (gnn_models, "sigmoid_xent"), (gnn_models, "sigmoid_xent_grad"))
 
     def __init__(self, eager: bool = False):
         self.calls, self.eager = [], eager
@@ -2441,8 +2475,8 @@ class KernelRecorder:
     def check_plain(self, what: str) -> dict:
         """Each recorded launch against its plain version on what it read
         (in a capture: in the last replay), bit for bit (gathered rows as
-        integers; ell_agg within ELL_AGG_TOL); the number of launches
-        checked per kernel."""
+        integers; ell_agg within ELL_AGG_TOL; the loss and its gradient
+        within XENT_TOL); the number of launches checked per kernel."""
         n = {k.__name__: 0 for k in COUNTED}
         for name, args, kwargs, out in self.calls:
             if name == "fan_draw":
@@ -2450,6 +2484,14 @@ class KernelRecorder:
                 ok = all(torch.equal(a, b) for a, b in zip(out, want))
             elif name == "ell_agg":
                 ok = ell_agg_gap(out, args) <= ELL_AGG_TOL[out.dtype]
+            elif name == "sigmoid_xent":
+                want, den = xent_ops.sigmoid_xent_plain(*args, **kwargs)
+                ok = bool(out[1] == den) and \
+                    xent_gap(out[0], want) <= XENT_TOL
+            elif name == "sigmoid_xent_grad":
+                want = xent_ops.sigmoid_xent_grad_plain(*args, **kwargs)
+                ok = xent_gap(out, want) <= XENT_TOL
+                name = "sigmoid_xent"
             else:
                 table, ids = args[:2]
                 off = args[3] if len(args) > 3 else kwargs.get(
@@ -2634,10 +2676,11 @@ def loop_bench(mode: str, dev, built=None) -> dict:
         n_nodes, spl, _ = bench.GCN_SIZES["cuda"]
         batch = n_nodes
         per_step = kernel_counts(fan_draw=0, gather_rows=2,
-                                 ell_agg=GCN_ELL_STEP)
+                                 ell_agg=GCN_ELL_STEP, sigmoid_xent=HEAD_STEP)
     else:
         n_nodes, batch, spl, _ = bench.SIZES["cuda"]
-        per_step = kernel_counts(fan_draw=2, gather_rows=2)
+        per_step = kernel_counts(fan_draw=2, gather_rows=2,
+                                 sigmoid_xent=HEAD_STEP)
     if built is None:
         graphed = bench.build(dev, n_nodes, batch, spl, mode)
     else:
@@ -2745,7 +2788,7 @@ def phase_loop(graph, dev) -> dict:
     def gnn(family):
         return lambda: bench.make_model(
             family, dev, generator=torch.Generator().manual_seed(0))
-    two = kernel_counts(fan_draw=2, gather_rows=2)
+    two = kernel_counts(fan_draw=2, gather_rows=2, sigmoid_xent=HEAD_STEP)
     for i, family in enumerate(("sage", "gin", "gat")):
         out[family] = loop_family(family, node_est(gnn(family), graph),
                                   graph, dev, two, BATCH, 40 + i)
@@ -2763,7 +2806,9 @@ def phase_loop(graph, dev) -> dict:
                          n_classes=N_CLASSES, seed=0, packs=("ell",))
     out["gcn"] = loop_family("gcn", node_est(gnn("gcn"), whole), whole, dev,
                              kernel_counts(fan_draw=0, gather_rows=2,
-                                           ell_agg=GCN_ELL_STEP), BATCH, 45)
+                                           ell_agg=GCN_ELL_STEP,
+                                           sigmoid_xent=HEAD_STEP), BATCH,
+                             45)
     del whole
     kg_graph = random_graph(TRANSE_NODES, AVG_DEGREE, seed=0,
                             num_edge_types=bench.TRANSE_RELATIONS, packs=())
@@ -2814,7 +2859,8 @@ def phase_convs(graph, dev) -> dict:
         del model
         loop = loop_family(
             conv, lambda cfg: NodeEstimator(make(), graph, cfg, device=dev),
-            graph, dev, kernel_counts(fan_draw=2, gather_rows=2), BATCH,
+            graph, dev, kernel_counts(fan_draw=2, gather_rows=2,
+                                      sigmoid_xent=HEAD_STEP), BATCH,
             50 + i)
         out[conv] = dict(infer=infer, grads=grads, loop=loop,
                          seconds=time.perf_counter() - t1)
@@ -2903,7 +2949,8 @@ def phase_whole(dev) -> dict:
         want = kernel_counts(
             fan_draw=0, gather_rows=2 * WHOLE_STEPS,
             ell_agg=WHOLE_ELL_AGG[conv] * WHOLE_STEPS,
-            ell_sddmm=WHOLE_ELL_SDDMM.get(conv, 0) * WHOLE_STEPS)
+            ell_sddmm=WHOLE_ELL_SDDMM.get(conv, 0) * WHOLE_STEPS,
+            sigmoid_xent=HEAD_STEP * WHOLE_STEPS)
         check(launches == want,
               f"whole {conv}: launches {launches}, want {want}")
         check(bool(np.isfinite(losses).all()), f"whole {conv}: {losses}")
@@ -2923,7 +2970,7 @@ def phase_whole(dev) -> dict:
         held = dict(loop.held)
         check(held == kernel_counts(
             fan_draw=0, gather_rows=2, ell_agg=WHOLE_ELL_AGG[conv],
-            ell_sddmm=WHOLE_ELL_SDDMM.get(conv, 0)),
+            ell_sddmm=WHOLE_ELL_SDDMM.get(conv, 0), sigmoid_xent=HEAD_STEP),
               f"whole {conv}: a replay holds {held}")
         del loop, est, opt
 
@@ -3023,7 +3070,8 @@ def phase_encoder(graph, dev) -> dict:
             f"encoder_{comb}",
             lambda cfg, comb=comb: NodeEstimator(encoder_model(dev, comb),
                                                  tagged, cfg, device=dev),
-            tagged, dev, kernel_counts(fan_draw=2, gather_rows=2), BATCH,
+            tagged, dev, kernel_counts(fan_draw=2, gather_rows=2,
+                                       sigmoid_xent=HEAD_STEP), BATCH,
             70 + i,
             optimizer="sgd")
         out[comb] = dict(grads=grads, loop=loop)
@@ -3427,7 +3475,8 @@ def phase_dedup(graph, dev) -> dict:
                        lambda cfg: NodeEstimator(make(), graph, cfg,
                                                  device=dev),
                        graph, dev,
-                       kernel_counts(fan_draw=2, gather_rows=2), BATCH,
+                       kernel_counts(fan_draw=2, gather_rows=2,
+                                     sigmoid_xent=HEAD_STEP), BATCH,
                        90)
     out = dict(embedding_equal=True, loop=loop,
                seconds=time.perf_counter() - t0)
@@ -3678,14 +3727,14 @@ def rest_loop(name: str, graph, dev, seed: int) -> dict:
     weights, seed and reservoir rows: loss and parameters (and the
     scalable store) equal bit for bit,
     each kernel launch inside the replays equal to its plain version,
-    both runs' counts REST_LAUNCHES a step. Then a TrainLoop of its own:
+    both runs' counts REST_LAUNCHES a step (and the loss's HEAD_STEP where
+    the model is a SuperviseModel). Then a TrainLoop of its own:
     a loop of replays timed (host clock) beside eager steps, one loop
     profiled (busy and idle time; ``check_held``), and the peak memory
     of the replayed run."""
     t_start = time.perf_counter()
     g = graph.tensors
     fan, gat = REST_LAUNCHES[name]
-    per_step = kernel_counts(fan_draw=fan, gather_rows=gat)
     bs = MOTIF_BATCH if name.startswith("gin_") else BATCH
     cfg = RunConfig(batch_size=bs, total_steps=REST_SPL,
                     learning_rate=bench.LR, log_steps=0,
@@ -3698,6 +3747,9 @@ def rest_loop(name: str, graph, dev, seed: int) -> dict:
     graphed = make(cfg)
     eager = make(dataclasses.replace(cfg, steps_per_loop=1))
     eager.model.load_state_dict(graphed.model.state_dict())
+    head = HEAD_STEP if isinstance(graphed.model, SuperviseModel) else 0
+    per_step = kernel_counts(fan_draw=fan, gather_rows=gat,
+                             sigmoid_xent=head)
     runs, rec = {}, KernelRecorder()
     for kind, est in (("eager", eager), ("graph", graphed)):
         torch.cuda.synchronize()
@@ -4043,8 +4095,9 @@ def phase_data(dev) -> dict:
     scripts."""
     t_start = time.perf_counter()
     out = {}
-    fan_step = kernel_counts(fan_draw=2, gather_rows=2)
-    no_fan = kernel_counts(fan_draw=0, gather_rows=2)
+    fan_step = kernel_counts(fan_draw=2, gather_rows=2,
+                             sigmoid_xent=HEAD_STEP)
+    no_fan = kernel_counts(fan_draw=0, gather_rows=2, sigmoid_xent=HEAD_STEP)
     with tempfile.TemporaryDirectory() as root:
         gdir = os.path.join(root, "graph")
         d = data_input()
@@ -4437,12 +4490,14 @@ def phase_bench(dev):
             _, spl, outer = bench.GCN_SIZES["cuda"]
             steps = spl * (2 + outer)
             want = kernel_counts(fan_draw=0, gather_rows=2 * steps,
-                                 ell_agg=GCN_ELL_STEP * steps)
+                                 ell_agg=GCN_ELL_STEP * steps,
+                                 sigmoid_xent=HEAD_STEP * steps)
             metric = bench.GCN_METRIC
         else:
             _, _, spl, outer = bench.SIZES["cuda"]
             steps = spl * (2 + outer)
-            want = kernel_counts(fan_draw=2 * steps, gather_rows=2 * steps)
+            want = kernel_counts(fan_draw=2 * steps, gather_rows=2 * steps,
+                                 sigmoid_xent=HEAD_STEP * steps)
             metric = bench.METRIC
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
@@ -4537,10 +4592,12 @@ def tools_bench(dev, smi: str) -> dict:
                                 nodes=TOOLS_NODES, dedup=dedup)
         launches = read_counts()
         check(launches == kernel_counts(fan_draw=2 * steps,
-                                        gather_rows=2 * steps),
+                                        gather_rows=2 * steps,
+                                        sigmoid_xent=HEAD_STEP * steps),
               f"launches in the 1M-node bench ({key}) {launches}")
         checked_n = rec.check_plain(f"the 1M-node bench ({key})")
-        check(checked_n == kernel_counts(fan_draw=2, gather_rows=2),
+        check(checked_n == kernel_counts(fan_draw=2, gather_rows=2,
+                                         sigmoid_xent=HEAD_STEP),
               f"the 1M-node bench's captured launches {checked_n}")
         config = f"b{batch}_f25x10_n{TOOLS_NODES}"
         check(len(records) == 3 and all(
@@ -4624,10 +4681,12 @@ def tools_scaling(link_bytes_per_s: float, smi: str) -> dict:
         for r in ranks:
             check(r["launches"] == kernel_counts(
                       fan_draw=2 * SCALING_STEPS,
-                      gather_rows=2 * SCALING_STEPS),
+                      gather_rows=2 * SCALING_STEPS,
+                      sigmoid_xent=HEAD_STEP * SCALING_STEPS),
                   f"scaling {rec['mesh']} rank {r['rank']} launches "
                   f"{r['launches']}")
-            two = kernel_counts(fan_draw=2, gather_rows=2)
+            two = kernel_counts(fan_draw=2, gather_rows=2,
+                                sigmoid_xent=HEAD_STEP)
             check(r["probe"]["checked"] == two
                   and r["probe"]["launches"] == two,
                   f"scaling {rec['mesh']} rank {r['rank']} probe "
@@ -4821,7 +4880,8 @@ def graft_entry_forward(dev) -> dict:
         loss, logit = fn(model, g, roots, uniforms)
     torch.cuda.synchronize()
     launches = read_counts()
-    check(launches == kernel_counts(fan_draw=2, gather_rows=2),
+    check(launches == kernel_counts(fan_draw=2, gather_rows=2,
+                                    sigmoid_xent=HEAD_BATCH),
           f"entry: launches {launches}")
     checked = rec.check_plain("entry forward")
     u_cpu = [tuple(u.cpu() for u in hop) for hop in uniforms]
@@ -4858,11 +4918,12 @@ def graft_dryrun(n: int, backend: str, smi: str) -> dict:
     tag = f"{backend}{n}"
     ranks = res["ranks"]
     for r in ranks:
-        want = kernel_counts(fan_draw=2, gather_rows=2)
+        want = kernel_counts(fan_draw=2, gather_rows=2,
+                             sigmoid_xent=HEAD_STEP)
         check(r["launches"] == want and r["probe"]["launches"] == want
               and r["probe"]["checked"] == want
-              and r["loop_launches"] == kernel_counts(fan_draw=4,
-                                                      gather_rows=4)
+              and r["loop_launches"] == kernel_counts(
+                  fan_draw=4, gather_rows=4, sigmoid_xent=2 * HEAD_STEP)
               and r["walk_launches"] == kernel_counts(),
               f"graft {tag} rank {r['rank']}: launches {r['launches']}, "
               f"{r['loop_launches']}, {r['walk_launches']}, probe "
@@ -5065,6 +5126,87 @@ def phase_rgcn(dev) -> dict:
     return res
 
 
+# ------------------------------------------------------------ phase 12s --
+
+def phase_xent(dev) -> dict:
+    """SuperviseModel's loss kernels (``ops.sigmoid_xent``) at the
+    rgcn-train cell's shape (benchmark/configs/rgcn.json: its roots by its
+    classes; f32 logits from a seed, every 97th row exactly 0, one-hot f32
+    labels, every root valid): the loss and the gradient held to the
+    torch chain they replace (``_sigmoid_xent(x, y) * valid`` summed,
+    under autograd: the forward's plain version) and the gradient to its
+    plain version on the card (XENT_TOL),
+    -g y where a logit is 0, the same bits on a second call; then each
+    timed with CUDA events, L2 flushed, beside its bytes bound (the
+    forward reads the logits and labels, the backward reads them and
+    writes the gradient) and beside the chain's forward and backward."""
+    from benchmark.harness.arith import PEAKS
+    from benchmark.harness.spec import Spec
+    cfg = Spec().config("rgcn")
+    R, C = cfg["train"]["batch"], cfg["data"]["classes"]
+    gen = torch.Generator(device=dev).manual_seed(27)
+    x = torch.randn((R, C), generator=gen, device=dev) * 2
+    x[::97] = 0.0
+    cls = torch.randint(0, C, (R,), generator=gen, device=dev)
+    y = torch.nn.functional.one_hot(cls, C).float()
+    v = torch.ones(R, device=dev)
+    up = torch.ones((), device=dev)
+
+    def fwd():
+        return xent_ops.sigmoid_xent(x, y, v)
+
+    def bwd():
+        return xent_ops.sigmoid_xent_grad(x, y, v, den, up)
+    loss, den = fwd()
+    again = fwd()
+    d = bwd()
+    check(torch.equal(loss, again[0]) and torch.equal(den, again[1])
+          and torch.equal(d, bwd()), "xent kernels: the same bits twice")
+    xr = x.clone().requires_grad_()
+
+    def chain():
+        return (gnn_models._sigmoid_xent(xr, y) * v[:, None]).sum() / (
+            v.sum() * C).clamp_min(1.0)
+    ref = chain()
+    (ref_grad,) = torch.autograd.grad(ref, xr, retain_graph=True)
+    _, plain_den = xent_ops.sigmoid_xent_plain(x, y, v)
+    plain_grad = xent_ops.sigmoid_xent_grad_plain(x, y, v, den, up)
+    tie = (-(up / den) * v[:, None] * y)[::97]
+    res = dict(R=R, C=C, loss=float(loss), chain_loss=float(ref),
+               loss_gap=xent_gap(loss, ref.detach()),
+               grad_gap=xent_gap(d, ref_grad),
+               plain_grad_gap=xent_gap(d, plain_grad),
+               grad_equals_plain=bool(torch.equal(d, plain_grad)),
+               tie_gap=xent_gap(d[::97], tie))
+    check(float(den) == float(plain_den), f"xent den {float(den)} against "
+          f"{float(plain_den)}")
+    check(max(res["loss_gap"], res["grad_gap"], res["plain_grad_gap"],
+              res["tie_gap"]) <= XENT_TOL,
+          f"xent kernels against the chain and their plain versions: {res}")
+    del ref_grad, plain_grad, tie
+    flush = torch.empty(64 << 20, dtype=torch.uint8, device=dev)
+    res.update(
+        fwd_ms=time_launches(fwd, 50, flush),
+        bwd_ms=time_launches(bwd, 50, flush),
+        chain_fwd_ms=time_launches(chain, 10, flush),
+        chain_bwd_ms=time_launches(lambda: torch.autograd.grad(
+            ref, xr, retain_graph=True), 10, flush),
+        bound_fwd_ms=2 * R * C * 4 / PEAKS["hbm_bytes_per_s"] * 1e3,
+        bound_bwd_ms=3 * R * C * 4 / PEAKS["hbm_bytes_per_s"] * 1e3)
+    res["fwd_roofline"] = 100 * res["bound_fwd_ms"] / res["fwd_ms"]
+    res["bwd_roofline"] = 100 * res["bound_bwd_ms"] / res["bwd_ms"]
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(5):
+            fwd()
+            bwd()
+        torch.cuda.synchronize()
+    res["kernel_ms"] = {e.key[:60]: e.device_time_total / 5e3
+                        for e in prof.key_averages() if "xent" in e.key}
+    log(f"xent kernels: {json.dumps(res)}")
+    return res
+
+
 # --------------------------------------------------------------- phase 14 --
 
 # the mesh phase: the sage graph over MESH_SHARDS graph shards, one gloo
@@ -5141,8 +5283,9 @@ def mesh_serve(work: str, tag: str, mesh, view, t0: float,
         out = apply(view, batch, uniforms=u_all)
     torch.cuda.synchronize()
     res["launches"] = read_counts()
-    check(res["launches"] == kernel_counts(fan_draw=2, gather_rows=2),
-          f"mesh rank {rank}: launches {res['launches']}, want 2 + 2")
+    check(res["launches"] == kernel_counts(fan_draw=2, gather_rows=2,
+                                           sigmoid_xent=HEAD_BATCH),
+          f"mesh rank {rank}: launches {res['launches']}, want 2 + 2 + 1")
     res["checked_plain"] = rec.check_plain(f"mesh rank {rank}")
     res["max_abs_err"] = {k: float((out[k] - want[k]).abs().max())
                           for k in want}
@@ -5175,7 +5318,8 @@ def mesh_serve(work: str, tag: str, mesh, view, t0: float,
     res["batch_ms_median"] = statistics.median(ms)
     res["timed_launches"] = read_counts()
     check(res["timed_launches"] == kernel_counts(
-              fan_draw=2 * MESH_BATCHES, gather_rows=2 * MESH_BATCHES),
+              fan_draw=2 * MESH_BATCHES, gather_rows=2 * MESH_BATCHES,
+              sigmoid_xent=HEAD_BATCH * MESH_BATCHES),
           f"mesh rank {rank}: {res['timed_launches']} in {MESH_BATCHES} "
           f"batches")
     stage("timed")
@@ -5215,6 +5359,8 @@ def mesh_kernel_times(calls, dev, what: str = "mesh") -> list:
     flush = torch.empty(64 << 20, dtype=torch.uint8, device=dev)
     rows = []
     for name, args, kwargs, _ in calls:
+        if name.startswith("sigmoid_xent"):
+            continue                          # the loss: phase 12s times it
         if name == "fan_draw":
             pack, nodes, u1, u2 = args[0], args[1], args[4], args[5]
             row = dict(name=name, B=u1.shape[0], C=u1.shape[1],
@@ -5532,7 +5678,8 @@ def mesh_train_serve(work: str, tag: str, mesh, view, t0: float,
             loss = step(view, ids=ids[t], uniforms=U[t])
         torch.cuda.synchronize()
         launches.append(read_counts())
-        check(launches[-1] == kernel_counts(fan_draw=2, gather_rows=2),
+        check(launches[-1] == kernel_counts(fan_draw=2, gather_rows=2,
+                                            sigmoid_xent=HEAD_STEP),
               f"mesh train rank {rank}: launches {launches[-1]}")
         losses.append(float(loss))
     res["launches"] = launches[0]
@@ -5560,7 +5707,8 @@ def mesh_train_serve(work: str, tag: str, mesh, view, t0: float,
     res["timed_launches"] = read_counts()
     check(res["timed_launches"] == kernel_counts(
               fan_draw=2 * MESH_TRAIN_TIMED,
-              gather_rows=2 * MESH_TRAIN_TIMED),
+              gather_rows=2 * MESH_TRAIN_TIMED,
+              sigmoid_xent=HEAD_STEP * MESH_TRAIN_TIMED),
           f"mesh train rank {rank}: {res['timed_launches']}")
     if rank == 0:
         prof = profile(lambda: step(view, seed=300),
@@ -5587,7 +5735,8 @@ def mesh_train_serve(work: str, tag: str, mesh, view, t0: float,
                             seconds=time.perf_counter() - t_est)
     check(np.isfinite(out["loss"])
           and res["estimator"]["launches"] == kernel_counts(
-              fan_draw=2 * MESH_EST_STEPS, gather_rows=2 * MESH_EST_STEPS),
+              fan_draw=2 * MESH_EST_STEPS, gather_rows=2 * MESH_EST_STEPS,
+              sigmoid_xent=HEAD_STEP * MESH_EST_STEPS),
         f"mesh train rank {rank}: estimator {res['estimator']}")
     return res
 
@@ -5668,8 +5817,10 @@ def mesh_gcn_rank(work: str, mesh, dev) -> dict:
     with kr:
         loss = float(step(view, ids=roots))
     launches = read_counts()
-    check(launches == kernel_counts(fan_draw=0, gather_rows=2),
-          f"mesh gcn rank {mesh.rank}: launches {launches}, want 0 + 2")
+    check(launches == kernel_counts(fan_draw=0, gather_rows=2,
+                                    sigmoid_xent=HEAD_STEP),
+          f"mesh gcn rank {mesh.rank}: launches {launches}, want 0 + 2 "
+          f"and the loss's 2")
     checked = kr.check_plain(f"mesh gcn rank {mesh.rank}")
     check(checked == launches,
           f"mesh gcn rank {mesh.rank}: {checked} held against their plain "
@@ -5915,9 +6066,10 @@ def main() -> int:
              "gather_rows and GAT kernels are built too and timed in "
              "turns with this checkout's, and its ptxas figures logged")
     parser.add_argument(
-        "--only", choices=("rgcn",),
+        "--only", choices=("rgcn", "xent"),
         help="run the device checks, the builds and this phase alone "
-             "(rgcn: phase 12r, the rgcn-train cell's typed mean kernels)")
+             "(rgcn: phase 12r, the rgcn-train cell's typed mean kernels; "
+             "xent: phase 12s, the supervised head's loss kernels)")
     args = parser.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false; this script "
@@ -5942,15 +6094,18 @@ def main() -> int:
     # started together
     t0 = time.perf_counter()
     cuda_sources = ("fan_draw", "gather_rows", "ell_agg", "ell_attn",
-                    "rel_agg")
+                    "rel_agg", "sigmoid_xent")
     with concurrent.futures.ThreadPoolExecutor(15) as ex:
         builds = [ex.submit(f) for f in (fd.build, gr.build, ell_ops.build,
                                          attn_ops.build, rel_agg.build,
-                                         native.get_lib)]
+                                         xent_ops.build, native.get_lib)]
         reports = {n: ex.submit(ptxas_report, n) for n in cuda_sources}
-        parent_reports = {n: ex.submit(
-            ptxas_report, n, os.path.join(args.parent, "euler_tpu_torch"))
-            for n in (cuda_sources if args.parent else ())}
+        # the parent's sources, but for kernels this checkout added
+        parent_pkg = os.path.join(args.parent or "", "euler_tpu_torch")
+        parent_reports = {n: ex.submit(ptxas_report, n, parent_pkg)
+                          for n in (cuda_sources if args.parent else ())
+                          if os.path.exists(os.path.join(
+                              parent_pkg, "csrc", f"{n}.cu"))}
         for b in builds:
             b.result()
         ptxas = {n: r.result() for n, r in reports.items()}
@@ -5960,7 +6115,7 @@ def main() -> int:
     check(os.path.commonpath([native.SRC, PACKAGE_DIR]) == PACKAGE_DIR,
           f"native host core source {native.SRC} lies in {PACKAGE_DIR}")
     log(f"build: {build_s:.1f} s (fan_draw.cu, gather_rows.cu, "
-        f"ell_agg.cu, ell_attn.cu and rel_agg.cu by nvcc, "
+        f"ell_agg.cu, ell_attn.cu, rel_agg.cu and sigmoid_xent.cu by nvcc, "
         f"sm_90a); native host core loaded: {native.available()}, from "
         f"{os.path.relpath(native.SRC)} into "
         f"{os.path.relpath(native.get_lib()._name)}")
@@ -5968,9 +6123,9 @@ def main() -> int:
     if args.parent:
         log(f"ptxas parent: {json.dumps(parent_ptxas)}")
     parent = load_parent(args.parent) if args.parent else None
-    if args.only == "rgcn":
-        rgcn = phase_rgcn(dev)
-        log(json.dumps({"ok": True, "only": "rgcn", "rgcn": rgcn,
+    if args.only:
+        res = {"rgcn": phase_rgcn, "xent": phase_xent}[args.only](dev)
+        log(json.dumps({"ok": True, "only": args.only, args.only: res,
                         "seconds": time.perf_counter() - t_start}))
         return 0
 
@@ -6075,6 +6230,9 @@ def main() -> int:
     # 12r. the rgcn-train cell's typed mean kernels at its shapes
     phase_rgcn(dev)
     allocated_after("rgcn")
+    # 12s. the supervised head's loss kernels at the rgcn-train cell's shape
+    phase_xent(dev)
+    allocated_after("xent")
     # 12k. the data plane: convert, load, the fan-less and payload paths,
     # the example scripts
     data = phase_data(dev)

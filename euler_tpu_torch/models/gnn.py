@@ -22,6 +22,8 @@ from euler_tpu_torch.graph.store import GraphTensors
 from euler_tpu_torch.models import convs as convs_lib
 from euler_tpu_torch.models.encoders import Embed
 from euler_tpu_torch.ops import feature_ops, sampling, util_ops
+from euler_tpu_torch.ops.sigmoid_xent import sigmoid_xent, sigmoid_xent_grad
+from euler_tpu_torch.ops.sigmoid_xent import xent_terms as _sigmoid_xent
 from euler_tpu_torch.utils.trace import span
 
 
@@ -249,11 +251,10 @@ class SuperviseModel(nn.Module):
         emb = self.embedder(g, roots, generator=generator, uniforms=uniforms)
         with span("head"):
             logit = self.head_fc(emb)
-            valid = (roots >= 0).to(torch.float32)[:, None]
-            xent = _sigmoid_xent(logit, label) * valid
-            loss = xent.sum() / (valid.sum() * self.label_dim).clamp_min(1.0)
+            valid = (roots >= 0).to(torch.float32)
+            loss = _SigmoidXent.apply(logit, label, valid)
         return dict(embedding=emb, logit=logit, label=label, loss=loss,
-                    valid=valid)
+                    valid=valid[:, None])
 
 
 class UnsuperviseModel(nn.Module):
@@ -313,13 +314,24 @@ class UnsuperviseModel(nn.Module):
                     loss=loss, pos_mask=pos_ok)
 
 
-def xla_abs(x: torch.Tensor) -> torch.Tensor:
-    """|x| with XLA's gradient: 1 at x = 0 (torch's ``abs`` gives 0)."""
-    return torch.where(x >= 0, x, -x)
+class _SigmoidXent(torch.autograd.Function):
+    """``SuperviseModel``'s loss: the masked mean sigmoid cross-entropy of
+    the logits, ``_sigmoid_xent(logit, label) * valid`` summed over
+    ``max(sum(valid) * C, 1)``, as one pass each way
+    (``ops.sigmoid_xent``). Saves the logits, labels and weights, which
+    the forward holds anyway, and the denominator. The backward runs in
+    the span ``head.backward``: one pass writes the logits' gradient
+    (autograd's gradient of the expression, a logit of 0 included); the
+    labels and weights get none."""
 
+    @staticmethod
+    def forward(ctx, logit, label, valid):
+        loss, den = sigmoid_xent(logit, label, valid)
+        ctx.save_for_backward(logit, label, valid, den)
+        return loss
 
-def _sigmoid_xent(logits, labels):
-    """tf.nn.sigmoid_cross_entropy_with_logits, with the reference's
-    gradient at a logit of 0 (``maximum`` splits its tie, ``xla_abs``)."""
-    return torch.maximum(logits, torch.zeros_like(logits)) - \
-        logits * labels + torch.log1p(torch.exp(-xla_abs(logits)))
+    @staticmethod
+    def backward(ctx, g):
+        with span("head.backward"):
+            logit, label, valid, den = ctx.saved_tensors
+            return sigmoid_xent_grad(logit, label, valid, den, g), None, None

@@ -28,9 +28,9 @@ from torch import nn
 from euler_tpu_torch._device import resolve_device
 from euler_tpu_torch.graph.store import GraphTensors
 from euler_tpu_torch.models.encoders import Embed
-from euler_tpu_torch.models.gnn import xla_abs
 from euler_tpu_torch.models.layers import ShardedEmbedding
 from euler_tpu_torch.ops import sampling
+from euler_tpu_torch.ops.sigmoid_xent import xla_abs
 
 
 def _l2norm(v: torch.Tensor) -> torch.Tensor:

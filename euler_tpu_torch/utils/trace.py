@@ -36,6 +36,8 @@ The spans (name: where):
   ``ShallowEncoder``'s dense fetch: the labels' and the features' rows),
   ``conv`` (each conv call of ``GNNNet.forward``) and ``head``
   (``SuperviseModel``'s ``head_fc`` and loss), inside ``forward``;
+  ``head.backward`` (the loss's backward, ``models.gnn._SigmoidXent``:
+  the logits' gradient), opened on autograd's thread;
 - ``attention`` (each multi-head ``GATConv``'s scores, softmax and
   per-head weighted sum), inside its ``conv``; ``attention.backward``
   (the backward of GAT's fused attention, ``dataflow.block._EllGat``:
@@ -50,10 +52,11 @@ The spans (name: where):
 
 The counters beside them: the kernel wrappers' ``launches``
 (``ops.COUNTED``: ``fan_draw``, ``gather_rows``, ``ell_agg``,
-``ell_sddmm``, ``ell_gat``, ``rel_mean``, ``rel_mean_tr``; the last two
-count their chunk kernels' launches too), ``TrainLoop.held``, ``InferGraph.held`` and
-``BaseEstimator.requests``, ``infer_batches``, ``infer_replays`` and
-``infer_captures``.
+``ell_sddmm``, ``ell_gat``, ``rel_mean``, ``rel_mean_tr``, the last two
+counting their chunk kernels' launches too, and ``sigmoid_xent``, one a
+call of the loss's forward or backward), ``TrainLoop.held``,
+``InferGraph.held`` and ``BaseEstimator.requests``, ``infer_batches``,
+``infer_replays`` and ``infer_captures``.
 """
 from __future__ import annotations
 

@@ -63,11 +63,17 @@ launch equal to its plain version) and no ``fan_draw``; the layer query
 equal but for near ties; the index's draws and the blocked running sum
 equal to the CPU's bit for bit; the IVF index's centroids within 1e-4 of
 the CPU's build, its members and search ids equal, one ``gather_rows``
-launch a search; ``k`` past the corpus raises on the card too.
+launch a search; ``k`` past the corpus raises on the card too. The
+supervised head's loss kernels (``ops.sigmoid_xent``) must match their
+plain versions within f32 round-off (the loss's sums in another order, the
+card's ``expf`` and ``log1pf``) at odd shapes and strided views, give the
+same bits on a second call, give -g y at a logit of 0, and run inside a
+replayed loop (two launches a step) and a replayed infer batch (one).
 """
 import copy
 import dataclasses
 import gc
+import math
 import sys
 import threading
 
@@ -81,7 +87,7 @@ from chip_smoke import (REST_FAMILIES, REST_LAUNCHES, REST_PACKS,
                         rest_model, rest_vs_cpu,
                         same_query_results, smoke_queries,
                         synthetic_fan_pack, synthetic_union_pack,
-                        to_device, walk_grads)
+                        to_device, walk_grads, xent_gap)
 from euler_tpu_torch import knn
 from euler_tpu_torch.ops import index as index_ops
 from euler_tpu_torch.query import Query
@@ -91,6 +97,7 @@ from euler_tpu_torch.dataflow import block as block_lib
 from euler_tpu_torch.datasets import SBMDataset, motif_graph, random_graph
 from euler_tpu_torch.estimator import (EdgeEstimator, NodeEstimator,
                                        RunConfig, TrainLoop, get_optimizer)
+from euler_tpu_torch.models import gnn as gnn_lib
 from euler_tpu_torch.models import (LINE, DeepWalk, GNNNet, Node2Vec,
                                     ShallowEncoder, SuperviseModel, TransE,
                                     UnsuperviseModel)
@@ -99,6 +106,7 @@ from euler_tpu_torch.ops import ell_attn as attn
 from euler_tpu_torch.ops import fan_draw as fd
 from euler_tpu_torch.ops import gather_rows as gr
 from euler_tpu_torch.ops import mp_ops, rel_agg, sampling
+from euler_tpu_torch.ops import sigmoid_xent as sx
 
 pytestmark = pytest.mark.cuda
 
@@ -948,7 +956,7 @@ def test_replays_advance_the_generator_as_eager_steps(dev):
         if spl > 1:
             assert loop.held == dict(fan_draw=2, gather_rows=2, ell_agg=0,
                                      ell_sddmm=0, ell_gat=0, rel_mean=0,
-                                     rel_mean_tr=0)
+                                     rel_mean_tr=0, sigmoid_xent=2)
     (roots_g, after_g), (roots_e, after_e) = draws
     assert not torch.equal(roots_g[1], roots_g[2])       # replays draw anew
     assert all(torch.equal(a, b) for a, b in zip(roots_g, roots_e))
@@ -1157,7 +1165,8 @@ def test_launch_counts_through_infer_replays(dev):
     est.infer(ids)
     assert est._infer_graph.held == dict(fan_draw=2, gather_rows=2,
                                          ell_agg=0, ell_sddmm=0, ell_gat=0,
-                                         rel_mean=0, rel_mean_tr=0)
+                                         rel_mean=0, rel_mean_tr=0,
+                                         sigmoid_xent=1)
     before = (fd.fan_draw.launches, gr.gather_rows.launches)
     for _ in range(5):
         est.infer(ids)
@@ -1195,7 +1204,7 @@ def test_gcn_replayed_loop_equals_eager_steps(dev):
     (eager, loss_e, n_e, _), (graphed, loss_g, n_g, loop) = runs
     assert loop.held == dict(fan_draw=0, gather_rows=2, ell_agg=5,
                              ell_sddmm=0, ell_gat=0, rel_mean=0,
-                             rel_mean_tr=0)
+                             rel_mean_tr=0, sigmoid_xent=2)
     assert n_e == n_g == 5 * 2 * LOOP_SPL
     assert loss_e == loss_g
     assert all(torch.equal(a, b) for a, b in zip(
@@ -1225,7 +1234,7 @@ def test_gat_replayed_loop_equals_eager_steps(dev):
     (eager, loss_e, n_e, _), (graphed, loss_g, n_g, loop) = runs
     assert loop.held == dict(fan_draw=0, gather_rows=2, ell_agg=0,
                              ell_sddmm=0, ell_gat=9, rel_mean=0,
-                             rel_mean_tr=0)
+                             rel_mean_tr=0, sigmoid_xent=2)
     assert n_e == n_g == (0, 9 * 2 * LOOP_SPL)
     assert loss_e == loss_g
     assert all(torch.equal(a, b) for a, b in zip(
@@ -1297,6 +1306,104 @@ def test_rel_mean_plain_never_runs_on_the_card(dev, monkeypatch):
                         p.row_lo, 127, p.tr_hubs)
 
 
+# ---- the supervised head's loss (ops.sigmoid_xent) ------------------------
+
+def xent_case(dev, R, C, layout, label_dtype, seed=0):
+    """Logits [R, C] (every seventh row's every third logit exactly 0, the
+    tie), 0/1 labels and row weights with padded rows, on the card.
+    ``layout``: "flat" (both contiguous), "label_view" (labels the first C
+    columns of a wider table), "logit_view" (logits a column block at an
+    offset of one element: no quad loads)."""
+    gen = torch.Generator().manual_seed(seed)
+    x = torch.randn(R, C + 1, generator=gen) * 4
+    x[::7, ::3] = 0.0
+    y = (torch.rand(R, C + 5, generator=gen) < 0.3).float()
+    v = (torch.rand(R, generator=gen) < 0.9).float()
+    x = x[:, 1:] if layout == "logit_view" else x[:, :C].contiguous()
+    y = y[:, :C] if layout == "label_view" else y[:, :C].contiguous()
+    return x.to(dev), y.to(label_dtype).to(dev), v.to(dev)
+
+
+@pytest.mark.parametrize("label_dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("layout", ["flat", "label_view", "logit_view"])
+@pytest.mark.parametrize("R,C", [(1027, 349), (4099, 40), (1024, 16),
+                                 (333, 1), (5, 3)])
+def test_sigmoid_xent_kernels_match_plain(dev, R, C, layout, label_dtype):
+    """The loss and the logits' gradient against the plain versions on
+    the same inputs (run on the CPU): the loss within f32 round-off of the
+    sums' order, the denominator exact, the gradient within a few ulps
+    (the card's expf and log1pf); the same bits on a second call; one
+    launch counted a call."""
+    x, y, v = xent_case(dev, R, C, layout, label_dtype)
+    up = torch.tensor(0.37, device=dev)
+    before = sx.sigmoid_xent.launches
+    got = [sx.sigmoid_xent(x, y, v) for _ in range(2)]
+    grads = [sx.sigmoid_xent_grad(x, y, v, got[0][1], up) for _ in range(2)]
+    torch.cuda.synchronize()
+    assert sx.sigmoid_xent.launches == before + 4
+    assert torch.equal(got[0][0], got[1][0])
+    assert torch.equal(grads[0], grads[1])
+    want, den = sx.sigmoid_xent_plain(x.cpu(), y.cpu(), v.cpu())
+    assert float(got[0][1]) == float(den)
+    assert xent_gap(got[0][0], want) <= 1e-6
+    d = sx.sigmoid_xent_grad_plain(x.cpu(), y.cpu(), v.cpu(), den, up.cpu())
+    assert grads[0].shape == (R, C) and grads[0].is_contiguous()
+    assert xent_gap(grads[0], d) <= 1e-6
+
+
+def test_sigmoid_xent_gradient_at_a_zero_logit(dev):
+    """At x == 0 the gradient is -g y (g the row's weight over den, times
+    the upstream), not (0.5 - y) g; a row of weight 0 gets 0."""
+    x, y, v = xent_case(dev, 1027, 349, "label_view", torch.float32)
+    x[:] = 0.0
+    loss, den = sx.sigmoid_xent(x, y, v)
+    d = sx.sigmoid_xent_grad(x, y, v, den, torch.tensor(1.0, device=dev))
+    g = v[:, None] / den
+    torch.testing.assert_close(d, -y * g, rtol=2 ** -22, atol=0)
+    assert not d[v == 0].any()
+    assert abs(float(loss) - math.log(2.0)) < 1e-6
+
+
+def test_sigmoid_xent_plain_never_runs_on_the_card(dev, monkeypatch):
+    def boom(*a, **k):
+        raise AssertionError("the plain version ran on the card")
+    monkeypatch.setattr(sx, "sigmoid_xent_plain", boom)
+    monkeypatch.setattr(sx, "sigmoid_xent_grad_plain", boom)
+    x, y, v = xent_case(dev, 64, 349, "flat", torch.float32)
+    x.requires_grad_()
+    gnn_lib._SigmoidXent.apply(x, y, v).backward()
+    torch.cuda.synchronize()
+    assert x.grad is not None
+
+
+def test_sigmoid_xent_inside_captured_steps_and_replayed_infer(dev):
+    """A replayed loop holds the loss's two launches a step (forward and
+    backward) and a replayed infer batch its one, counted as eager calls
+    are; the loop's replays equal its eager steps bit for bit
+    (test_replayed_loop_equals_eager_steps) through these kernels."""
+    graph, graphed, _ = loop_estimators(dev, "sage")
+    gen = torch.Generator(device=dev).manual_seed(6)
+    opt = get_optimizer("adam", 1e-3, graphed.model.parameters())
+    loop = TrainLoop(graphed, opt, gen, LOOP_SPL,
+                     lambda: graphed.train_batch(graph.tensors, gen))
+    counts = []
+    for _ in range(3):
+        before = sx.sigmoid_xent.launches
+        loop()
+        counts.append(sx.sigmoid_xent.launches - before)
+    assert loop.held["sigmoid_xent"] == 2
+    assert counts == [2 * LOOP_SPL] * 3
+    est = infer_estimator(dev)
+    ids = np.arange(256)
+    est.infer(ids)
+    est.infer(ids)
+    before = sx.sigmoid_xent.launches
+    for _ in range(3):
+        est.infer(ids)
+    assert sx.sigmoid_xent.launches - before == 3
+    assert est._infer_graph.held["sigmoid_xent"] == 1
+
+
 def test_rgcn_step_on_card_matches_cpu(dev):
     """An R-GCN step over the typed whole graph in f32 (the rgcn
     configuration's model at a small size): loss and every gradient on the
@@ -1346,7 +1453,7 @@ def test_rgcn_replayed_loop_equals_eager_steps(dev):
     (eager, loss_e, n_e, _), (graphed, loss_g, n_g, loop) = runs
     assert loop.held == dict(fan_draw=0, gather_rows=2, ell_agg=0,
                              ell_sddmm=0, ell_gat=0, rel_mean=4,
-                             rel_mean_tr=4)
+                             rel_mean_tr=4, sigmoid_xent=2)
     assert n_e == n_g == (4 * 2 * LOOP_SPL, 4 * 2 * LOOP_SPL)
     assert loss_e == loss_g
     assert all(torch.equal(a, b) for a, b in zip(

@@ -193,7 +193,7 @@ def test_dryrun_multichip_runs_the_reference_sequence(dryrun,
         for k in ("launches", "loop_launches", "walk_launches"):
             assert r[k] == {"fan_draw": 0, "gather_rows": 0, "ell_agg": 0,
                             "ell_sddmm": 0, "ell_gat": 0, "rel_mean": 0,
-                            "rel_mean_tr": 0}
+                            "rel_mean_tr": 0, "sigmoid_xent": 0}
     assert (dryrun["loss"], dryrun["walk_loss"]) == (ranks[0]["loss"],
                                                      ranks[0]["walk_loss"])
     report = ge.report_lines(ranks[0])

@@ -297,12 +297,15 @@ def test_sources_without_quoted_includes_keep_their_name(name):
     ("gather_rows.cu", ("resident_blocks.cuh",)),
     ("ell_agg.cu", ("bf16_words.cuh", "resident_blocks.cuh")),
     ("ell_attn.cu", ("resident_blocks.cuh",)),
-    ("rel_agg.cu", ("bf16_words.cuh", "resident_blocks.cuh"))],
-    ids=["gather_rows.cu", "ell_agg.cu", "ell_attn.cu", "rel_agg.cu"])
+    ("rel_agg.cu", ("bf16_words.cuh", "resident_blocks.cuh")),
+    ("sigmoid_xent.cu", ("bf16_words.cuh", "resident_blocks.cuh"))],
+    ids=["gather_rows.cu", "ell_agg.cu", "ell_attn.cu", "rel_agg.cu",
+         "sigmoid_xent.cu"])
 def test_kernels_hash_their_shared_header(name, headers):
-    # each sizes its grids with csrc/resident_blocks.cuh (ell_agg.cu and
-    # rel_agg.cu share csrc/bf16_words.cuh too): a change of a header
-    # renames (rebuilds) every library whose source includes it
+    # each sizes its grids with csrc/resident_blocks.cuh (ell_agg.cu,
+    # rel_agg.cu and sigmoid_xent.cu share csrc/bf16_words.cuh too): a
+    # change of a header renames (rebuilds) every library whose source
+    # includes it
     src = os.path.join(PACKAGE_DIR, "csrc", name)
     cmd = [_build.nvcc()] + _build.NVCC_FLAGS
     with open(src, "rb") as f:

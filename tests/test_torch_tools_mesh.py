@@ -120,7 +120,7 @@ def test_scaling_bench_forward_bytes_equal_the_reference(tmp_path,
         assert r["launches"] == {"fan_draw": 0, "gather_rows": 0,
                                   "ell_agg": 0, "ell_sddmm": 0,
                                   "ell_gat": 0, "rel_mean": 0,
-                                  "rel_mean_tr": 0}
+                                  "rel_mean_tr": 0, "sigmoid_xent": 0}
     assert rec["comm_MB_per_step_per_dev"]["total"] == round(
         sum(want.values()) / 1e6, 3)
     assert "predicted_chip_efficiency" not in rec
